@@ -1,0 +1,134 @@
+"""The PyTorch port's package rules: its copies of framework-free modules
+equal the JAX package's originals, it never imports jax, it refuses options
+it has not ported.  The kernels' own tests are in test_torch_cuda.py."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audio_tokens_tpu import config as jax_config
+from audio_tokens_tpu.ops import mel as jax_mel
+from audio_tokens_tpu_torch import config as port_config
+from audio_tokens_tpu_torch.ops import mel as port_mel
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_config_copy_equals_original():
+    """Same fields, annotations and defaults; same derived instance."""
+    jf = dataclasses.fields(jax_config.AudioTokensConfig)
+    pf = dataclasses.fields(port_config.AudioTokensConfig)
+    assert [f.name for f in pf] == [f.name for f in jf]
+    for a, b in zip(pf, jf):
+        assert a.type == b.type, a.name
+        assert a.default == b.default, a.name
+        if b.default_factory is not dataclasses.MISSING:
+            assert a.default_factory() == b.default_factory(), a.name
+    assert (port_config.AudioTokensConfig().to_dict()
+            == jax_config.AudioTokensConfig().to_dict())
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model_type", "lstm", "--normalize", "true", "--vocab_size", "48"],
+    ["--clip_seconds=1.5", "--audio_source_sets", "a,b",
+     "--max_points_per_centroid", "none"],
+])
+def test_config_cli_overlay_equals_original(argv):
+    p = port_config.AudioTokensConfig
+    j = jax_config.AudioTokensConfig
+    assert p.parse_overrides(argv) == j.parse_overrides(argv)
+    flat = [t for tok in argv for t in tok.split("=", 1)]
+    assert p.from_args(flat).to_dict() == j.from_args(flat).to_dict()
+
+
+@pytest.mark.parametrize("name,args", [
+    ("hann_window", (400,)),
+    ("mel_filterbank", (257, 64, 22050)),
+    ("mel_filterbank", (129, 32, 16000, 20.0, 7000.0)),
+    ("dft_filters", (512,)),
+    ("dft_filters", (256,)),
+    ("num_frames", (220500, 128)),
+])
+def test_numpy_filters_equal_originals(name, args):
+    np.testing.assert_array_equal(getattr(port_mel, name)(*args),
+                                  getattr(jax_mel, name)(*args))
+
+
+def test_reflect_pad_clip_equals_original(rng):
+    for n in (300, 1000, 2000):
+        w = rng.standard_normal(n).astype(np.float32)
+        np.testing.assert_array_equal(port_mel.reflect_pad_clip(w, 1500, 256),
+                                      jax_mel.reflect_pad_clip(w, 1500, 256))
+
+
+def test_port_never_imports_jax():
+    """Every module of the port, and chip_smoke.py, import without jax or
+    the JAX package (a fresh interpreter: this process has both)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import audio_tokens_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'audio_tokens_tpu' or m.startswith('audio_tokens_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules"
+        " if m.startswith('audio_tokens_tpu_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok ")
+    assert int(out.stdout.split()[1]) >= 15  # every module was imported
+
+
+@pytest.mark.parametrize("override,match", [
+    ({"use_convolution": True}, "use_convolution"),
+    ({"tokenizer_precision": "bf16x3"}, "tokenizer_precision"),
+    ({"tokenizer_vq_precision": "default"}, "tokenizer_vq_precision"),
+])
+def test_unported_tokenizer_options_refused(override, match):
+    from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
+
+    cfg = port_config.AudioTokensConfig(n_mels=8, n_fft=64, hop_length=32,
+                                        clip_seconds=0.1, **override)
+    with pytest.raises(NotImplementedError, match=match):
+        FusedTokenizer(cfg, np.zeros((4, 8), np.float32), "cpu")
+
+
+@pytest.mark.parametrize("model_type", ["simple", "bert", "cnn", "baseline"])
+def test_unported_families_refused(model_type):
+    from audio_tokens_tpu_torch.models import get_model
+
+    cfg = port_config.AudioTokensConfig(model_type=model_type)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(cfg, "cpu", torch.Generator().manual_seed(0))
+
+
+def test_unported_serving_entry_points_refused():
+    from audio_tokens_tpu_torch import export
+
+    cfg = port_config.AudioTokensConfig()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        export.ServingProgram(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        export.export_serving(cfg, "unused")
+
+
+def test_build_command_targets_hopper_without_fast_math():
+    from audio_tokens_tpu_torch.ops import _build
+
+    flags = _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert not any("fast_math" in f or "fast-math" in f for f in flags)
+    for name in _build.KERNELS:
+        assert (_build.CSRC / f"{name}.cu").exists()
+    # the build lands in a gitignored directory of the checkout
+    assert _build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
+    assert "build/" in (REPO / ".gitignore").read_text().split()
