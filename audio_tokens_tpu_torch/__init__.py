@@ -4,11 +4,13 @@ The JAX package beside this one is the reference; this package computes the
 same functions with PyTorch on the host and hand-written CUDA C++ kernels
 (``csrc/``, built for ``sm_90a`` at first use) on an NVIDIA Hopper card.
 
-The first slice is the serving path, waveforms -> (tokens, n_valid, probs):
+So far it covers the serving path, waveforms -> (tokens, n_valid, probs),
+and training of the lstm classifier on a tokenized corpus:
 
     from audio_tokens_tpu_torch.config import AudioTokensConfig
     from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
     from audio_tokens_tpu_torch.export import ServingProgram
+    from audio_tokens_tpu_torch.processors.model_trainer import ModelTrainer
 
 Importing the package imports nothing heavy: no jax, no compiler, no build.
 """

@@ -13,7 +13,10 @@ tree (nested dicts of arrays, as ``model.init(...)["params"]`` gives, after
 
 The LSTM weights keep the JAX layouts at the kernel boundary, so they are
 copies; only the ``nn.Linear`` head is transposed.  Takes numpy, not jax:
-this package never imports jax.
+this package never imports jax.  The same map carries a JAX gradient tree
+(``jax.grad`` of the classifier) to the port's parameter names: the
+transplanted model's gradients equal JAX's
+(``tests/test_torch_train_lstm.py``).
 """
 
 from __future__ import annotations

@@ -7,7 +7,12 @@ checkpoint transplants as a copy (``convert.py``): per direction ``w_ih``
 (E, 4H), ``w_hh`` (H, 4H) and one ``bias`` (4H,), gate order i, f, g, o.
 The input-gate product ``x @ w_ih + bias`` is one large matmul outside the
 recurrence (the JAX package leaves it to XLA as well); the recurrence is
-kernel B3 (``ops/cuda_lstm.py``).
+kernels B3 forward and B4 backward (``ops/cuda_lstm.py::LSTMSequence``).
+
+Dropout draws its keep-mask from a ``torch.Generator`` the caller passes
+(the trainer derives one per step from its seed, as the JAX trainer folds
+the step into its dropout key); training with dropout and no generator
+raises rather than touch a global random stream.
 
 Variable lengths are masked carries, not packing: past a sequence's end the
 state passes through, so the final forward carry is the state at len-1 and
@@ -71,7 +76,7 @@ class SimpleLSTMTokenClassifier(nn.Module):
                             LSTMLayer(in_dim, hidden_dim, False, generator))
             self.add_module(f"lstm_l{layer}_bwd",
                             LSTMLayer(in_dim, hidden_dim, True, generator))
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.fc = nn.Linear(2 * hidden_dim, num_classes)
         bound = 1.0 / math.sqrt(2 * hidden_dim)
         with torch.no_grad():
@@ -81,9 +86,12 @@ class SimpleLSTMTokenClassifier(nn.Module):
         self.to(device)
 
     def forward(self, x: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, T) int token ids, or (B, T, E) float frames (the
-        ``use_precomputed_embeddings`` path) -> (B, num_classes) logits."""
+        ``use_precomputed_embeddings`` path) -> (B, num_classes) logits.
+        ``generator`` (on x's device) draws the dropout mask in training
+        mode."""
         emb = x if x.is_floating_point() else self.embedding(x.long())
         b, t = emb.shape[:2]
         if lengths is None:
@@ -98,4 +106,11 @@ class SimpleLSTMTokenClassifier(nn.Module):
             bwd_hs, h_bwd = getattr(self, f"lstm_l{layer}_bwd")(inp, mask)
             inp = torch.cat([fwd_hs, bwd_hs], dim=-1)
         last = torch.relu(torch.cat([h_fwd, h_bwd], dim=-1))
-        return self.fc(self.dropout(last))
+        if self.training and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("dropout in training mode needs a generator")
+            keep = torch.rand(last.shape, generator=generator,
+                              device=last.device) >= self.dropout
+            last = torch.where(keep, last / (1.0 - self.dropout),
+                               torch.zeros_like(last))
+        return self.fc(last)

@@ -44,6 +44,10 @@ def get_model(config: AudioTokensConfig, device: torch.device,
     """The classifier for ``config.model_type``, randomly initialized from
     ``generator`` and placed on ``device``."""
     if config.model_type == "lstm":
+        if config.lstm_remat_chunk > 0:
+            raise NotImplementedError(
+                "lstm_remat_chunk > 0 (chunked recompute of the recurrence) "
+                "is not ported yet: ROADMAP A7")
         return SimpleLSTMTokenClassifier(
             vocab_size=config.vocab_size,
             embed_dim=config.lstm_embed_dim,

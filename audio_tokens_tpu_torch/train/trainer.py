@@ -1,0 +1,393 @@
+"""Training loop of the port (counterpart of
+``audio_tokens_tpu/train/trainer.py``, its streaming route).
+
+Behavioral equivalent of the reference's ModelTrainer (reference:
+processors/model_trainer.py:24-204): BCE-with-logits loss, AdamW (b1=0.9
+b2=0.999 eps=1e-8 wd=0.01), per-epoch train+val loops accumulating sigmoid
+predictions for macro mAP, best-val-mAP checkpointing, optional wandb,
+stdlib logging.  As in the JAX trainer:
+
+  * the device is explicit (``Trainer(config, device)``), never guessed;
+  * batches are the copied fixed-shape ``BatchLoader``'s: final partial
+    batches are padded and masked via per-row weights, so the loss and the
+    metrics match ragged-batch semantics;
+  * the step loop never waits for the card: losses accumulate on the device
+    and are read once per epoch, and predictions are stacked in windows of
+    8 steps whose copy to the host runs on a collector thread;
+  * checkpoints carry params, optimizer state, step, metric and epoch for
+    exact resume, and early stopping and ``max_train_steps`` are real.
+
+On the card the classifier's recurrence runs kernels B3 (forward, with the
+residuals) and B4 (backward), through ``ops/cuda_lstm.LSTMSequence``.  Not
+ported yet, and refused with ``NotImplementedError`` naming ROADMAP A7:
+device-resident epochs (``device_corpus='on'``; ``'auto'`` streams),
+multi-device meshes and multi-process runs, ``diagnostics_every``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import queue
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from audio_tokens_tpu_torch.config import AudioTokensConfig
+from audio_tokens_tpu_torch.data.datasets import BatchLoader, DataLoaderCreator
+from audio_tokens_tpu_torch.models import get_model
+from audio_tokens_tpu_torch.train import checkpoint as ckpt
+from audio_tokens_tpu_torch.train.objective import weighted_bce
+from audio_tokens_tpu_torch.utils.metrics import ExactMAP, StreamingMAP
+from audio_tokens_tpu_torch.utils.seeding import (generator_for, set_seed,
+                                                  stage_seed)
+
+logger = logging.getLogger(__name__)
+
+
+def _refuse_unported(config: AudioTokensConfig) -> None:
+    """Raise for the training options the port has not ported yet."""
+    if config.device_corpus not in ("auto", "on", "off"):
+        raise ValueError(f"device_corpus must be 'auto', 'on' or 'off', "
+                         f"got '{config.device_corpus}'")
+    refused = {
+        "device_corpus='on' (device-resident epochs)":
+            config.device_corpus == "on",
+        "model_parallel > 1": config.model_parallel > 1,
+        "sequence_parallel > 1": config.sequence_parallel > 1,
+        "data_parallel > 1": config.data_parallel > 1,
+        "distributed=True (multi-process training)": config.distributed,
+        "diagnostics_every > 0 (gradient-flow diagnostics)":
+            config.diagnostics_every > 0,
+    }
+    for what, asked in refused.items():
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not ported yet: ROADMAP A7")
+
+
+class _AsyncCollector:
+    """Single worker thread that copies stacked prediction windows to the
+    host and folds them into the mAP accumulator, so the step loop keeps
+    queueing work while a window's copy waits for the card."""
+
+    def __init__(self, acc):
+        self.acc = acc
+        self._q = queue.Queue(maxsize=2)
+        self._exc = None
+
+        def work():
+            while True:
+                item = self._q.get()
+                if item is None:
+                    return
+                try:
+                    stacked, metas = item
+                    arrs = stacked.cpu().numpy()
+                    for (labels, n), parr in zip(metas, arrs):
+                        self.acc.update(labels[:n], parr[:n])
+                except BaseException as e:  # surfaced at join()
+                    self._exc = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def submit(self, stacked, metas):
+        if self._exc is not None:
+            raise self._exc
+        self._q.put((stacked, metas))
+
+    def join(self):
+        self._q.put(None)
+        self._thread.join()
+        if self._exc is not None:
+            raise self._exc
+
+
+class _LossMean:
+    """Running mean of per-step loss scalars: accumulate ON THE DEVICE (one
+    small add per step), read ONCE at epoch end."""
+
+    def __init__(self):
+        self._sum = None
+        self._n = 0
+
+    def add(self, loss: torch.Tensor) -> None:
+        self._sum = loss if self._sum is None else self._sum + loss
+        self._n += 1
+
+    def result(self) -> float:
+        if self._n == 0:
+            return float("nan")
+        return float(self._sum) / self._n
+
+
+class Trainer:
+    _PENDING_FLUSH = 8  # prediction windows: one stack + copy per 8 steps
+
+    def __init__(self, config: AudioTokensConfig,
+                 device: torch.device | str):
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} asked for, but torch "
+                               "sees no CUDA device")
+        _refuse_unported(config)
+        set_seed(config.random_seed)
+        self.use_lengths = not config.reference_compat
+        self.run_name = self._initialize_wandb()
+        self.model, self.optimizer = self._init_state()
+        self._dropout_gen = (generator_for(config.random_seed, "dropout",
+                                           self.device)
+                             if config.dropout > 0 else None)
+
+    # ------------------------------------------------------------------
+    def run(self) -> Tuple[float, Dict[str, float]]:
+        cfg = self.config
+        train_loader, val_loader = DataLoaderCreator(cfg).get_dataloaders()
+        if len(train_loader.ds) == 0:
+            raise RuntimeError("no training data found — run the pipeline stages first")
+        if cfg.device_corpus == "auto":
+            logger.info("device_corpus='auto': streaming batches "
+                        "(device-resident epochs are ROADMAP A7)")
+
+        # seeded BELOW any real mAP so the first epoch always checkpoints
+        best_metric = -1.0
+        epochs_since_best = 0
+        step = 0
+        start_epoch = 0
+        if cfg.resume_from:
+            has_opt, step, best_metric, start_epoch = ckpt.load_checkpoint(
+                cfg.checkpoint_dir, cfg.resume_from, self.model,
+                self.optimizer)
+            if not has_opt:
+                logger.warning(
+                    "checkpoint %s has no optimizer state; starting the "
+                    "optimizer fresh", cfg.resume_from)
+            # the epoch counter resumes too: epoch drives the shuffle
+            # permutations (seed+epoch) and the remaining-epoch budget
+            logger.info("resumed from %s at step %d, epoch %d (best mAP %.4f)",
+                        cfg.resume_from, step, start_epoch, best_metric)
+            if start_epoch >= cfg.epochs:
+                logger.warning(
+                    "checkpoint is already at epoch %d >= epochs=%d — "
+                    "nothing to train (raise epochs to continue)",
+                    start_epoch, cfg.epochs)
+        val_loss, val_metrics = float("nan"), {"mAP": 0.0}
+
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.time()
+            step, train_loss, train_metrics = self._train_epoch(
+                train_loader, epoch, step)
+            val_loss, val_metrics = self._eval_epoch(val_loader)
+            self._log_epoch_results(epoch, train_loss, train_metrics,
+                                    val_loss, val_metrics, time.time() - t0)
+
+            if val_metrics["mAP"] > best_metric:
+                logger.info("val mAP of %.4f > %.4f. Saving model.",
+                            val_metrics["mAP"], best_metric)
+                best_metric = val_metrics["mAP"]
+                epochs_since_best = 0
+                if cfg.save_best_checkpoint:
+                    ckpt.save_checkpoint(
+                        cfg.checkpoint_dir, f"{self.run_name}-best",
+                        self.model, self.optimizer, step, best_metric,
+                        epoch=epoch + 1)  # resume continues AFTER this epoch
+            else:
+                epochs_since_best += 1
+
+            if (cfg.early_stopping_patience
+                    and epochs_since_best >= cfg.early_stopping_patience):
+                logger.info("early stopping at epoch %d", epoch)
+                break
+            if cfg.max_train_steps and step >= cfg.max_train_steps:
+                logger.info("reached max_train_steps=%d", cfg.max_train_steps)
+                break
+
+        if not math.isfinite(val_loss) and start_epoch >= cfg.epochs:
+            # resumed with an exhausted epoch budget: report the restored
+            # checkpoint's validation numbers instead of NaN
+            val_loss, val_metrics = self._eval_epoch(val_loader)
+        return val_loss, val_metrics
+
+    # ------------------------------------------------------------------
+    def evaluate(self, checkpoint_name: Optional[str] = None
+                 ) -> Tuple[float, Dict[str, float]]:
+        """Evaluate a saved checkpoint on the validation split (no
+        training)."""
+        cfg = self.config
+        if checkpoint_name is None:
+            if cfg.use_wandb:
+                raise ValueError(
+                    "with use_wandb=True each run gets a fresh name — pass the "
+                    "training run's checkpoint name to evaluate() explicitly")
+            checkpoint_name = f"{self.run_name}-best"
+        _, val_loader = DataLoaderCreator(cfg).get_dataloaders()
+        ckpt.load_params(cfg.checkpoint_dir, checkpoint_name, self.model)
+        val_loss, val_metrics = self._eval_epoch(val_loader)
+        logger.info("Eval: loss %.4f, mAP %.4f", val_loss, val_metrics["mAP"])
+        return val_loss, val_metrics
+
+    # ------------------------------------------------------------------
+    def _init_state(self) -> Tuple[torch.nn.Module, torch.optim.Optimizer]:
+        cfg = self.config
+        model = get_model(cfg, self.device,
+                          generator_for(cfg.random_seed, "model_init"))
+        n_params = sum(p.numel() for p in model.parameters())
+        logger.info("model %s: %.2fM params on %s", cfg.model_type,
+                    n_params / 1e6, self.device)
+        optimizer = torch.optim.AdamW(model.parameters(), lr=cfg.learning_rate,
+                                      betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=0.01)
+        return model, optimizer
+
+    def _put_batch(self, batch) -> Tuple[torch.Tensor, ...]:
+        """The batch on the device: inputs, lengths, labels (shipped as
+        uint8, multi-hot 0/1, exact) and row weights.  On a card the host
+        arrays are pinned first, so the copies are asynchronous and the
+        step loop does not wait for the previous step."""
+        row_w = (np.arange(len(batch["lengths"])) < batch["n_valid"]).astype(
+            np.float32)
+        host = (batch["inputs"], batch["lengths"],
+                np.asarray(batch["labels"], np.uint8), row_w)
+        out = []
+        for arr in host:
+            t = torch.from_numpy(arr)
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            out.append(t.to(self.device, non_blocking=True))
+        inputs, lengths, labels, row_w = out
+        return inputs, lengths, labels.float(), row_w
+
+    def _metric_accumulator(self):
+        """Exact mAP by default (reference semantics); constant-memory
+        histogram mAP when config.streaming_map_bins > 0 (corpus scale)."""
+        if self.config.streaming_map_bins > 0:
+            return StreamingMAP(self.config.num_classes,
+                                bins=self.config.streaming_map_bins)
+        return ExactMAP()
+
+    @staticmethod
+    def _flush_pending(pending, collector):
+        if not pending:
+            return
+        stacked = torch.stack([p for _, p, _ in pending])
+        metas = [(labels, n) for labels, _, n in pending]
+        pending.clear()
+        collector.submit(stacked, metas)
+
+    def _logits(self, inputs, lengths, step: Optional[int] = None):
+        gen = None
+        if step is not None and self._dropout_gen is not None:
+            # one stream per step, as the JAX trainer folds the step into
+            # its dropout key: a resumed run draws what a straight run does
+            gen = self._dropout_gen.manual_seed(
+                stage_seed(self.config.random_seed, "dropout") + step)
+        return self.model(inputs, lengths if self.use_lengths else None,
+                          generator=gen)
+
+    def _train_step(self, inputs, lengths, labels, row_w, step: int):
+        logits = self._logits(inputs, lengths, step)
+        loss = weighted_bce(logits, labels, row_w)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), torch.sigmoid(logits.detach())
+
+    def _train_epoch(self, loader: BatchLoader, epoch: int, step: int):
+        cfg = self.config
+        self.model.train()
+        losses = _LossMean()
+        pending = []
+        acc = self._metric_accumulator()
+        collector = _AsyncCollector(acc)
+        try:
+            for batch in loader.batches(epoch):
+                # budget check BEFORE the update: resuming a checkpoint
+                # saved exactly at the cap must not train one extra step
+                if cfg.max_train_steps and step >= cfg.max_train_steps:
+                    break
+                loss, p = self._train_step(*self._put_batch(batch), step)
+                losses.add(loss)  # device-resident running sum
+                pending.append((batch["labels"], p, batch["n_valid"]))
+                if len(pending) >= self._PENDING_FLUSH:
+                    self._flush_pending(pending, collector)
+                step += 1
+                if cfg.log_every_steps and step % cfg.log_every_steps == 0:
+                    # progress only — reading the loss here would wait for
+                    # the card every N steps
+                    logger.info("epoch %d: step %d", epoch, step)
+                if cfg.max_train_steps and step >= cfg.max_train_steps:
+                    break
+            self._flush_pending(pending, collector)
+        finally:
+            collector.join()
+        return step, losses.result(), acc.result()
+
+    def _eval_epoch(self, loader: BatchLoader):
+        self.model.eval()
+        losses = _LossMean()
+        pending = []
+        acc = self._metric_accumulator()
+        collector = _AsyncCollector(acc)
+        try:
+            with torch.inference_mode():  # B3 skips its residual stores
+                for batch in loader.batches(0):
+                    inputs, lengths, labels, row_w = self._put_batch(batch)
+                    logits = self._logits(inputs, lengths)
+                    losses.add(weighted_bce(logits, labels, row_w))
+                    pending.append((batch["labels"], torch.sigmoid(logits),
+                                    batch["n_valid"]))
+                    if len(pending) >= self._PENDING_FLUSH:
+                        self._flush_pending(pending, collector)
+                self._flush_pending(pending, collector)
+        finally:
+            collector.join()
+        return losses.result(), acc.result()
+
+    # ------------------------------------------------------------------
+    def _log_epoch_results(self, epoch, train_loss, train_metrics, val_loss,
+                           val_metrics, seconds):
+        logger.info("Epoch %d (%.1fs)", epoch, seconds)
+        logger.info("Train Loss: %.4f, Train mAP: %.4f", train_loss,
+                    train_metrics["mAP"])
+        logger.info("Val Loss: %.4f, Val mAP: %.4f", val_loss,
+                    val_metrics["mAP"])
+        record = {
+            "epoch": epoch,
+            "train_loss": train_loss,
+            "train_mAP": train_metrics["mAP"],
+            "val_loss": val_loss,
+            "val_mAP": val_metrics["mAP"],
+        }
+        # durable metrics history next to the checkpoints (wandb-independent)
+        try:
+            metrics_path = (Path(self.config.checkpoint_dir)
+                            / f"{self.run_name}-metrics.jsonl")
+            metrics_path.parent.mkdir(parents=True, exist_ok=True)
+            with metrics_path.open("a") as f:
+                f.write(json.dumps({**record,
+                                    "seconds": round(seconds, 2)}) + "\n")
+        except OSError as e:
+            logger.warning("could not append metrics history: %s", e)
+        if self._wandb is not None:
+            self._wandb.log(record)
+
+    def _initialize_wandb(self) -> str:
+        self._wandb = None
+        if self.config.use_wandb:
+            try:
+                import wandb
+
+                run = wandb.init(project=self.config.wandb_project,
+                                 config=self.config.to_dict())
+                self._wandb = wandb
+                return run.name
+            except Exception as e:
+                logger.warning("wandb unavailable (%s); continuing without", e)
+        return "no-wandb"

@@ -60,25 +60,105 @@ def test_cuda_tokenizer_kernel_matches_plain(cuda_device):
                     got, kern.plain(x))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("t,b,h", [
+LSTM_SHAPES = [
     (24, 8, 128),   # 4 threads share each dot product
     (50, 1, 512),   # the single-clip request's batch
     (20, 256, 64),  # 1024 (b, u) pairs: one thread each
-])
-def test_cuda_lstm_kernel_matches_plain(cuda_device, reverse, t, b, h):
-    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence,
-                                                      lstm_sequence_plain)
+    (17, 6, 36),    # a ragged batch tile, H not a multiple of the tiles
+]
 
+
+def _lstm_inputs(device, t, b, h):
     gen = torch.Generator().manual_seed(0)
-    xg = torch.randn((t, b, 4 * h), generator=gen).to(cuda_device)
-    w = (torch.rand((h, 4 * h), generator=gen) * 0.2 - 0.1).to(cuda_device)
+    xg = torch.randn((t, b, 4 * h), generator=gen).to(device)
+    w = (torch.rand((h, 4 * h), generator=gen) * 0.2 - 0.1).to(device)
     lens = torch.randint(3, t + 1, (b,), generator=gen)
-    mask = (torch.arange(t)[:, None] < lens[None, :]).float().to(cuda_device)
-    before = lstm_sequence.launches
-    hs, h_last = lstm_sequence(xg, mask, w, reverse)
-    assert lstm_sequence.launches == before + 1
-    hs_ref, h_ref = lstm_sequence_plain(xg, mask, w, reverse)
-    torch.testing.assert_close(hs, hs_ref, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(h_last, h_ref, atol=1e-5, rtol=1e-5)
+    mask = (torch.arange(t)[:, None] < lens[None, :]).float().to(device)
+    return gen, xg, mask, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,b,h", LSTM_SHAPES)
+def test_cuda_lstm_kernel_matches_plain(cuda_device, reverse, t, b, h):
+    """B3, with and without its residual stores."""
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_fwd,
+                                                      lstm_sequence_fwd_plain)
+
+    _, xg, mask, w = _lstm_inputs(cuda_device, t, b, h)
+    ref = lstm_sequence_fwd_plain(xg, mask, w, reverse)
+    for residuals in (False, True):
+        before = lstm_sequence_fwd.launches
+        got = lstm_sequence_fwd(xg, mask, w, reverse, residuals)
+        assert lstm_sequence_fwd.launches == before + 1
+        for name, g, r in zip(("hs", "gates", "c", "h_last"), got, ref):
+            if g is None:
+                assert not residuals and name in ("gates", "c")
+                continue
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,b,h", LSTM_SHAPES)
+def test_cuda_lstm_backward_kernel_matches_plain(cuda_device, reverse, t, b,
+                                                 h):
+    """B4 on the plain forward's residuals: dxg within 1e-5, dw_hh within
+    1e-5 of its largest entry (another summation order over T*B rows)."""
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (
+        lstm_sequence_bwd, lstm_sequence_bwd_plain, lstm_sequence_fwd_plain)
+
+    gen, xg, mask, w = _lstm_inputs(cuda_device, t, b, h)
+    hs, gates, c, _ = lstm_sequence_fwd_plain(xg, mask, w, reverse)
+    dhs = torch.randn((t, b, h), generator=gen).to(cuda_device)
+    dh_last = torch.randn((b, h), generator=gen).to(cuda_device)
+    before = lstm_sequence_bwd.launches
+    dxg, dw = lstm_sequence_bwd(dhs, dh_last, gates, c, hs, mask, w, reverse)
+    assert lstm_sequence_bwd.launches == before + 1
+    ref_dxg, ref_dw = lstm_sequence_bwd_plain(dhs, dh_last, gates, c, hs,
+                                              mask, w, reverse)
+    torch.testing.assert_close(dxg, ref_dxg, atol=1e-5, rtol=1e-5)
+    assert float((dw - ref_dw).abs().max()) <= 1e-5 * float(
+        ref_dw.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lengths", [False, True])
+def test_cuda_classifier_backward_reaches_every_parameter(cuda_device,
+                                                          with_lengths):
+    """The fault this pins: the CUDA recurrence once returned tensors with
+    no autograd history, so loss.backward() filled only the linear head.
+    Now every parameter gets the CPU model's gradient (atol 1e-5)."""
+    from audio_tokens_tpu_torch.models.lstm import SimpleLSTMTokenClassifier
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    def model(device):
+        return SimpleLSTMTokenClassifier(
+            50, 16, 64, 2, 7, device=device,
+            generator=torch.Generator().manual_seed(0))
+
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 50, (6, 30), generator=gen)
+    lens = torch.randint(5, 31, (6,), generator=gen)
+    labels = (torch.rand((6, 7), generator=gen) < 0.3).float()
+    row_w = torch.tensor([1.0, 1, 1, 1, 1, 0])
+    grads = {}
+    for device in ("cpu", cuda_device):
+        m = model(device)
+        fwd, bwd = lstm_sequence_fwd.launches, lstm_sequence_bwd.launches
+        loss = weighted_bce(
+            m(toks.to(device), lens.to(device) if with_lengths else None),
+            labels.to(device), row_w.to(device))
+        loss.backward()
+        if device != "cpu":  # 2 layers x 2 directions, each way
+            assert lstm_sequence_fwd.launches == fwd + 4
+            assert lstm_sequence_bwd.launches == bwd + 4
+        grads[str(device)] = {n: p.grad for n, p in m.named_parameters()}
+    cpu, card = grads["cpu"], grads[str(cuda_device)]
+    assert sorted(card) == sorted(cpu)
+    for name in cpu:
+        assert card[name] is not None, f"{name} got no gradient on the card"
+        torch.testing.assert_close(card[name].cpu(), cpu[name], atol=1e-5,
+                                   rtol=1e-4, msg=name)
