@@ -5,7 +5,7 @@ same functions with PyTorch on the host and hand-written CUDA C++ kernels
 (``csrc/``, built for ``sm_90a`` at first use) on an NVIDIA Hopper card.
 
 So far it covers the serving path, waveforms -> (tokens, n_valid, probs),
-and training of the lstm classifier on a tokenized corpus:
+and training on a tokenized corpus, for the lstm and bert classifiers:
 
     from audio_tokens_tpu_torch.config import AudioTokensConfig
     from audio_tokens_tpu_torch.tokenizer import FusedTokenizer

@@ -12,11 +12,25 @@ tree (nested dicts of arrays, as ``model.init(...)["params"]`` gives, after
     fc/bias                      -> fc.bias
 
 The LSTM weights keep the JAX layouts at the kernel boundary, so they are
-copies; only the ``nn.Linear`` head is transposed.  Takes numpy, not jax:
+copies; only the ``nn.Linear`` head is transposed.
+
+``bert_state_dict(params)`` does the same for a ``TransformerClassifier``
+tree.  Every dense layer is an ``nn.Linear`` in the port, weight (out, in):
+
+    tok_embed/embedding, pos_embed/embedding -> {tok,pos}_embed.weight
+    {embed_ln,layer_i/attn_ln,layer_i/mlp_ln}/{scale,bias} -> .weight, .bias
+    layer_i/attention/{query,key,value}/kernel (H, nh, dh) -> reshaped (H, H),
+                                                              transposed
+    layer_i/attention/{query,key,value}/bias (nh, dh)      -> reshaped (H,)
+    layer_i/attention/out/kernel (nh, dh, H)               -> reshaped (H, H),
+                                                              transposed
+    {layer_i/mlp_in,layer_i/mlp_out,classifier,frame_proj}/kernel -> transposed
+
+Takes numpy, not jax:
 this package never imports jax.  The same map carries a JAX gradient tree
 (``jax.grad`` of the classifier) to the port's parameter names: the
 transplanted model's gradients equal JAX's
-(``tests/test_torch_train_lstm.py``).
+(``tests/test_torch_train_lstm.py``, ``tests/test_torch_bert.py``).
 """
 
 from __future__ import annotations
@@ -55,3 +69,24 @@ def lstm_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected parameter {name}")
     return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def bert_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``TransformerClassifier`` params -> port ``state_dict``."""
+    out = {}
+    for name, arr in _flatten(params).items():
+        module, leaf = name.rsplit("/", 1)
+        dst = module.replace("/", ".")
+        if leaf == "embedding" and module in ("tok_embed", "pos_embed"):
+            out[f"{dst}.weight"] = arr
+        elif leaf == "scale":
+            out[f"{dst}.weight"] = arr
+        elif leaf == "kernel":  # (in..., out...) -> (in, out) -> (out, in)
+            if module.endswith("attention/out"):
+                arr = arr.reshape(-1, arr.shape[-1])
+            out[f"{dst}.weight"] = arr.reshape(arr.shape[0], -1).T
+        elif leaf == "bias":
+            out[f"{dst}.bias"] = arr.reshape(-1)
+        else:
+            raise KeyError(f"unexpected parameter {name}")
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}

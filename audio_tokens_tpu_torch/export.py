@@ -2,8 +2,11 @@
 
 Counterpart of ``audio_tokens_tpu/export.py::ServingProgram``.  On a CUDA
 device the call runs kernel B1 (or, with ``config.normalize``, the mel
-frontend and kernel B2), then the classifier with kernel B3 for each LSTM
-direction, with nothing fetched to the host in between.
+frontend and kernel B2), then the classifier: the lstm with kernel B3 for
+each direction, or bert with kernel B5 (flash attention) in every layer
+when ``transformer_attention="flash"``, with nothing fetched to the host in
+between.  ``serve`` runs the model in eval mode under ``inference_mode``,
+so neither kernel stores what only a backward would read.
 
 Semantics are the JAX program's: the token classifier sees each clip's
 valid tokens zero-padded (token 0, the reference's pad collision) to

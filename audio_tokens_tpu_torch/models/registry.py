@@ -1,7 +1,7 @@
 """Model factory (counterpart of ``audio_tokens_tpu/models/registry.py``).
 
-Only ``model_type="lstm"`` is ported so far; the other four families raise
-``NotImplementedError`` naming their ROADMAP item rather than building
+``model_type="lstm"`` and ``"bert"`` are ported; the other three families
+raise ``NotImplementedError`` naming their ROADMAP item rather than building
 something else.
 """
 
@@ -12,6 +12,7 @@ from torch import nn
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.models.lstm import SimpleLSTMTokenClassifier
+from audio_tokens_tpu_torch.models.transformer import TransformerClassifier
 
 # What each model consumes: 'tokens' (int IDs), 'spec' (B,T,M), 'flat' (B,D)
 _INPUT_KINDS = {
@@ -24,7 +25,6 @@ _INPUT_KINDS = {
 
 _NOT_PORTED = {
     "simple": "ROADMAP A, the other model families",
-    "bert": "ROADMAP A, the other model families (and B: flash attention)",
     "cnn": "ROADMAP A, the other model families",
     "baseline": "ROADMAP A, the other model families",
 }
@@ -37,6 +37,31 @@ def model_input_kind(config: AudioTokensConfig) -> str:
         return _INPUT_KINDS[config.model_type]
     except KeyError:
         raise ValueError(f"Unknown model type: {config.model_type}") from None
+
+
+def _resolve_transformer_attention(config: AudioTokensConfig) -> str:
+    """'auto' -> the plain ('xla') route; 'flash' (kernel B5, eval passes
+    only) and 'xla' pass through; anything else raises, so a typo cannot
+    silently run another route.  The JAX package's 'auto' rule was measured
+    on a TPU; which route 'auto' takes on the card is still to be decided
+    from the card's in-model times (PERF.md)."""
+    impl = getattr(config, "transformer_attention", "auto")
+    if impl in ("xla", "flash"):
+        return impl
+    if impl != "auto":
+        raise ValueError(
+            f"transformer_attention must be 'auto', 'xla' or 'flash', "
+            f"got '{impl}'")
+    return "xla"
+
+
+def _compute_dtype(config: AudioTokensConfig) -> torch.dtype:
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    try:
+        return dtypes[config.compute_dtype]
+    except KeyError:
+        raise ValueError(f"compute_dtype must be one of {sorted(dtypes)}, "
+                         f"got '{config.compute_dtype}'") from None
 
 
 def get_model(config: AudioTokensConfig, device: torch.device,
@@ -55,6 +80,25 @@ def get_model(config: AudioTokensConfig, device: torch.device,
             num_layers=config.num_layers,
             num_classes=config.num_classes,
             dropout=config.dropout,
+            device=device,
+            generator=generator,
+        )
+    if config.model_type == "bert":
+        if config.transformer_remat:
+            raise NotImplementedError(
+                "transformer_remat=True (recompute each encoder block in the "
+                "backward) is not ported yet: ROADMAP A7")
+        return TransformerClassifier(
+            vocab_size=config.vocab_size,
+            num_layers=config.num_layers,
+            num_classes=config.num_classes,
+            hidden_size=config.hidden_size,
+            max_position=config.transformer_max_position,
+            dropout=config.dropout,
+            compute_dtype=_compute_dtype(config),
+            attention_impl=_resolve_transformer_attention(config),
+            frame_dim=(config.n_mels if model_input_kind(config) == "spec"
+                       else None),
             device=device,
             generator=generator,
         )

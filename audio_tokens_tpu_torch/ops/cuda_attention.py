@@ -1,0 +1,268 @@
+"""Kernel B5 (``csrc/attention.cu``): non-causal flash attention with segment
+ids, forward and backward, and the ``torch.autograd.Function`` that joins
+them.
+
+B5 replaces the library kernels that ``audio_tokens_tpu/models/
+transformer.py::FlashSelfAttention`` calls
+(``jax.experimental.pallas.ops.tpu.flash_attention``): the forward
+``_flash_attention_kernel`` and the backward pair
+``_flash_attention_dkv_kernel`` / ``_flash_attention_dq_kernel``, joined
+there by a ``custom_vjp`` and here by ``FlashAttention``.  Every function
+takes the JAX layout: q, k, v (B, nh, T, dh) in float32 or bfloat16,
+segment ids (B, T) int32; a query attends to the keys of its own segment.
+The kernels take dh = 64 (the bert family's heads) and any T: they mask
+their own ragged edge, where the JAX module pads T to a multiple of 256 for
+the TPU's tiles.
+
+The numerics are the library's (its kernel source, lines 395-480): scores
+in f32 times ``sm_scale`` plus the finite ``MASK_VALUE`` where the segments
+differ, an online softmax, P rounded to v's dtype before P.v, the output
+cast to the input dtype.  The forward writes the row logsumexp the backward
+recomputes P from only when asked: ``flash_attention`` asks only when
+autograd will need it, so serving under ``inference_mode`` stores nothing
+extra.  On the H100 the kernels are bound by arithmetic (587 GFLOP a layer
+at the serving shape); the bf16 forward runs on the tensor cores
+(``mma.sync``), the f32 forward and the backward kernels in plain f32 FMA
+from shared-memory tiles.
+
+Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
+tensors it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from audio_tokens_tpu_torch.ops import _build
+from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
+
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # library DEFAULT_MASK_VALUE
+HEAD_DIM = 64  # csrc/attention.cu kD
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 ``x`` rounded to ``dtype`` and back (a no-op for float32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _logits(q: torch.Tensor, k: torch.Tensor, seg: torch.Tensor,
+            sm_scale: float) -> torch.Tensor:
+    """(B, nh, T, T) f32 scores q.k^T * sm_scale + the segment mask."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    return s + torch.where(same, 0.0, MASK_VALUE)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          segment_ids: torch.Tensor, sm_scale: float,
+                          return_lse: bool = False):
+    """B5's forward materialized: softmax over each query's own segment,
+    unnormalized P (relative to the row max) rounded to v's dtype before
+    P.v, then divided by the row sum.  Returns o (B, nh, T, dh) in q's
+    dtype, and with ``return_lse`` also the (B, nh, T) f32 logsumexp.
+    Out of place, so that autograd can differentiate it."""
+    s = _logits(q, k, segment_ids, sm_scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = (torch.matmul(_round(p, v.dtype), v.float()) / l).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l)).squeeze(-1)
+    return o
+
+
+def _probs_and_ds(q, k, v, seg, lse, do, di, sm_scale):
+    """The backward's P = exp(s - lse) and dS = (dO.V^T - di) * P * scale,
+    both f32 (B, nh, T, T)."""
+    p = _logits(q, k, seg, sm_scale).sub_(lse[..., None]).exp_()
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, dp.sub_(di[..., None]).mul_(p).mul_(sm_scale)
+
+
+def flash_attention_dkv_plain(q, k, v, segment_ids, lse, do, di,
+                              sm_scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk = dS^T.Q and dv = P^T.dO, P and dS rounded to the input dtype
+    first (as ``_flash_attention_dkv_kernel``); outputs in q's dtype."""
+    p, ds = _probs_and_ds(q, k, v, segment_ids, lse, do, di, sm_scale)
+    dt = q.dtype
+    dv = torch.matmul(_round(p, dt).transpose(-1, -2), do.float())
+    dk = torch.matmul(_round(ds, dt).transpose(-1, -2), q.float())
+    return dk.to(dt), dv.to(dt)
+
+
+def flash_attention_dq_plain(q, k, v, segment_ids, lse, do, di,
+                             sm_scale: float) -> torch.Tensor:
+    """dq = dS.K, dS rounded to the input dtype first (as
+    ``_flash_attention_dq_kernel``); output in q's dtype."""
+    _, ds = _probs_and_ds(q, k, v, segment_ids, lse, do, di, sm_scale)
+    return torch.matmul(_round(ds, q.dtype), k.float()).to(q.dtype)
+
+
+def _lib():
+    lib = _build.load("attention")
+    if lib.atk_flash_fwd.argtypes is None:
+        P, I, F = _build.P, _build.I, ctypes.c_float
+        lib.atk_flash_fwd.argtypes = [P, P, P, P, I, I, I, I, F, I, P, P, P]
+        lib.atk_flash_fwd.restype = I
+        lib.atk_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, I, I, I, I, F,
+                                          I, P, P, P]
+        lib.atk_flash_bwd_dkv.restype = I
+        lib.atk_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, I, I, I, I, F,
+                                         I, P, P]
+        lib.atk_flash_bwd_dq.restype = I
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           seg: torch.Tensor, **more: torch.Tensor) -> None:
+    """Raise unless the tensors are what the kernels take."""
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_tensor(name, t, q.dtype, 4)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, q "
+                             f"{tuple(q.shape)}")
+    b, nh, t_len, dh = q.shape
+    if dh != HEAD_DIM:
+        raise ValueError(f"kernel takes head dim {HEAD_DIM}, got {dh}")
+    check_cuda_tensor("segment_ids", seg, torch.int32, 2)
+    if tuple(seg.shape) != (b, t_len):
+        raise ValueError(f"segment_ids has shape {tuple(seg.shape)}, "
+                         f"expected {(b, t_len)}")
+    for name, t in more.items():
+        if name == "do":
+            check_cuda_tensor(name, t, q.dtype, 4)
+            shape = tuple(q.shape)
+        else:
+            check_cuda_tensor(name, t, torch.float32, 3)
+            shape = (b, nh, t_len)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if len({t.device for t in (q, k, v, seg, *more.values())}) != 1:
+        raise ValueError("the attention tensors must share one device")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        segment_ids: torch.Tensor, sm_scale: float,
+                        lse: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """B5 forward -> (o (B, nh, T, dh) in q's dtype, the (B, nh, T) f32 row
+    logsumexp when ``lse``, else None)."""
+    if q.device.type == "cpu":
+        if lse:
+            return flash_attention_plain(q, k, v, segment_ids, sm_scale, True)
+        return flash_attention_plain(q, k, v, segment_ids, sm_scale), None
+    _check(q, k, v, segment_ids)
+    b, nh, t_len, dh = q.shape
+    o = torch.empty_like(q)
+    row_lse = (torch.empty((b, nh, t_len), dtype=torch.float32,
+                           device=q.device) if lse else None)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.atk_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
+            b, nh, t_len, dh, sm_scale, int(q.dtype == torch.bfloat16),
+            o.data_ptr(), row_lse.data_ptr() if lse else None,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "flash_fwd")
+    flash_attention_fwd.launches += 1
+    return o, row_lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, do, di,
+                            sm_scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5 backward for dk and dv from the forward's inputs, its row
+    logsumexp ``lse``, the output gradient ``do`` and di = rowsum(o * do)
+    (f32)."""
+    if q.device.type == "cpu":
+        return flash_attention_dkv_plain(q, k, v, segment_ids, lse, do, di,
+                                         sm_scale)
+    _check(q, k, v, segment_ids, lse=lse, do=do, di=di)
+    b, nh, t_len, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.atk_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), di.data_ptr(), b, nh, t_len, dh,
+            sm_scale, int(q.dtype == torch.bfloat16), dk.data_ptr(),
+            dv.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "flash_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, segment_ids, lse, do, di,
+                           sm_scale: float) -> torch.Tensor:
+    """B5 backward for dq, from the same inputs as the dk/dv kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, segment_ids, lse, do, di,
+                                        sm_scale)
+    _check(q, k, v, segment_ids, lse=lse, do=do, di=di)
+    b, nh, t_len, dh = q.shape
+    dq = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.atk_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), di.data_ptr(), b, nh, t_len, dh,
+            sm_scale, int(q.dtype == torch.bfloat16), dq.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "flash_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """(q, k, v, segment_ids, sm_scale) -> o with the B5 forward and its two
+    backward kernels (their plain versions for CPU tensors); the counterpart
+    of the library's ``custom_vjp``, saving (q, k, v, seg, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, segment_ids, sm_scale, True)
+        ctx.sm_scale = sm_scale
+        ctx.save_for_backward(q, k, v, segment_ids, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, seg, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        di = (o.float() * do.float()).sum(-1)  # as the library, outside
+        dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, do, di,
+                                         ctx.sm_scale)
+        dq = flash_attention_bwd_dq(q, k, v, seg, lse, do, di, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    segment_ids: torch.Tensor, sm_scale: float
+                    ) -> torch.Tensor:
+    """softmax(q.k^T * sm_scale over each query's segment).v, (B, nh, T, dh),
+    differentiable in q, k and v through ``FlashAttention``.  Where autograd
+    will not need a gradient, B5 runs without its logsumexp store."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, segment_ids, sm_scale)
+    return flash_attention_fwd(q, k, v, segment_ids, sm_scale)[0]

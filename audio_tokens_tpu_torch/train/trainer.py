@@ -17,8 +17,11 @@ stdlib logging.  As in the JAX trainer:
   * checkpoints carry params, optimizer state, step, metric and epoch for
     exact resume, and early stopping and ``max_train_steps`` are real.
 
-On the card the classifier's recurrence runs kernels B3 (forward, with the
-residuals) and B4 (backward), through ``ops/cuda_lstm.LSTMSequence``.  Not
+On the card the lstm's recurrence runs kernels B3 (forward, with the
+residuals) and B4 (backward), through ``ops/cuda_lstm.LSTMSequence``.  The
+bert classifier's training steps take the plain attention route, as the JAX
+model's do; its validation passes (eval mode, ``inference_mode``) run kernel
+B5 when ``transformer_attention="flash"``.  Not
 ported yet, and refused with ``NotImplementedError`` naming ROADMAP A7:
 device-resident epochs (``device_corpus='on'``; ``'auto'`` streams),
 multi-device meshes and multi-process runs, ``diagnostics_every``.

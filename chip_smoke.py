@@ -1,32 +1,51 @@
 """Drive the PyTorch + CUDA port's serving and training paths once on one
-NVIDIA GPU.
+NVIDIA GPU, for the lstm and the bert classifiers.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
 
 1. report the card (``nvidia-smi`` name and power limit) and turn TF32 off;
-2. build the CUDA kernels from ``audio_tokens_tpu_torch/csrc/`` with nvcc;
+2. build the CUDA kernels from ``audio_tokens_tpu_torch/csrc/`` with nvcc
+   (one process per source, in parallel);
 3. hold each kernel to its plain PyTorch version on the card at the shapes
-   its path gives it (B1 at 64 ten-second clips, B2 at the same batch's
-   110,272 mel frames, B3 and B4 at T 1728, B 64, H 512, both directions,
-   random prefix masks; B3 also with the residuals B4 needs) and time both
-   with CUDA events;
-4. serve: the full-width lstm classifier (vocab 500, embed 256, hidden
+   its path gives it, and time kernel, plain version and, where one
+   PyTorch call computes the same function, that call (``library_ms``, a
+   yardstick the port never calls) with CUDA events: B1 at 64 ten-second
+   clips, B2 at the same batch's 110,272 mel frames, B3 and B4 at T 1728,
+   B 64, H 512, both directions (B3 also with the residuals B4 needs; the
+   library call is cuDNN's bidirectional ``nn.LSTM``), B5 forward at
+   (64, 12, 1728, 64) in bf16 and f32 and its dk/dv and dq kernels at
+   (8, 12, 1728, 64), random prefix lengths with a 0 (the library call is
+   ``scaled_dot_product_attention`` with the segment mask).  Each record
+   carries ``bound_ms``: the larger of the bytes the function must move
+   over 3.35 TB/s and its operations over the card's peak for their type
+   (67 TFLOP/s f32, 989 TFLOP/s bf16), from this run's shapes and lengths;
+4. serve the lstm: the full-width classifier (vocab 500, embed 256, hidden
    512, 543 classes) behind ``ServingProgram`` answers 3 batches of 64
    clips, one single-clip request and one batch with per-clip min-max
    normalization (the route through B2).  The kernels' launch counters are
    reset just before and read just after; every kernel must have launched.
-   The first two clips are then served on the CPU through the plain
-   versions and the answers compared;
-5. train: the same classifier, from a seeded random init, through
-   ``ModelTrainer(config, cuda).run()`` for 8 steps of batch 64 on a
-   synthetic token corpus written to a temp dir (543-class ontology and
-   segment CSV, 512 training and 64 validation clips of 1728 ids, a split
-   file), then one validation pass and a best checkpoint.  B3's and B4's
-   counters are reset just before and read just after; both must have
-   launched.  Then the trained weights go to a CPU model and one loss +
-   backward on 4 rows of a batch is compared, gradient by gradient.
+   The first two clips are then served on the CPU and the answers compared;
+5. serve bert: the full-width classifier (hidden 768, 12 heads, MLP 3072,
+   2 layers, window 1728, 543 classes, bf16 compute,
+   ``transformer_attention="flash"``; ``tools/bench_training.py``'s
+   ``bert_full`` case) answers 3 batches of 64 clips and one single clip
+   through B1 and B5; B1's and B5's counters must move.  One batch more goes
+   through the plain (``"xla"``) route with the same weights.  Then 2 clips
+   through an f32 program, card vs CPU;
+6. train the lstm through ``ModelTrainer(config, cuda).run()`` for 8 steps
+   of batch 64 on a synthetic token corpus written to a temp dir (543-class
+   ontology and segment CSV, 512 training and 64 validation clips of 1728
+   ids, a split file), then one validation pass and a best checkpoint; B3
+   and B4 must have launched.  The trained weights go to a CPU model and
+   one loss + backward on 4 rows is compared, gradient by gradient;
+7. train bert the same way for 8 steps of batch 8 (training steps take the
+   plain attention route, as the JAX model does; validation runs B5, whose
+   launches must move), then one loss + backward on 4 rows at f32, card vs
+   CPU, in training mode and through an eval-mode forward, the way
+   ``jax.grad`` reaches the library kernel's backward: that pass launches
+   B5's dk/dv and dq kernels.
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -52,6 +71,22 @@ T_LSTM, B_LSTM, H_LSTM = 1728, 64, 512
 MODEL = dict(vocab_size=VOCAB, lstm_embed_dim=256, lstm_hidden_dim=512,
              num_layers=1, num_classes=543, max_seq_len=1728)
 TRAIN_CLIPS, VAL_CLIPS, TRAIN_STEPS = 512, 64, 8
+# tools/bench_training.py bert_full: hidden 768 (12 heads of 64), 2 layers,
+# the whole 1728-token clip attended; compute_dtype stays the default bf16
+BERT = dict(model_type="bert", vocab_size=VOCAB, hidden_size=768,
+            num_layers=2, num_classes=543, max_seq_len=1728,
+            transformer_max_position=1728, dropout=0.0,
+            transformer_attention="flash")
+B_BERT_TRAIN = 8
+HEADS, HEAD_DIM, SM_SCALE = 12, 64, 0.125
+B_ATT_BWD = 8
+# B5 vs its plain version: f32 1728-term sums in another order; bf16 P and
+# the output (or P and dS) each rounded to 8 bits, at other points
+ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATT_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of the largest entry
+# H100 SXM dense peaks at 700 W (NVIDIA data sheet)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 LSTM_ATOL = 1e-4   # 1728 f32 steps, another summation order
 DW_RTOL = 1e-4     # dw_hh: max abs error / max |dw_hh| (110,528-row sums)
 PROBS_ATOL = 1e-4
@@ -123,6 +158,15 @@ def write_token_corpus(base: Path, seed: int = 11) -> None:
                     .astype(np.uint16))
 
 
+def bound_of(flop: float, nbytes: float, dtype: str = "float32"):
+    """(bound_ms, bound_by): the larger of operations over the card's peak
+    for ``dtype`` and bytes over its memory rate."""
+    ops_ms = flop / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean milliseconds per call of fn on the card (CUDA events)."""
     import torch
@@ -139,6 +183,220 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed_run(trainer, kernels):
+    """trainer.run() with every step synchronized and timed and the launch
+    counters of ``kernels`` reset just before -> (val_loss, val_metrics,
+    step_ms, run_s, peak_gb, launches)."""
+    import torch
+
+    step_ms = []
+    train_step = trainer._train_step
+
+    def timed_step(*args):
+        t0 = time.perf_counter()
+        out = train_step(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer._train_step = timed_step  # synchronizes each step to time it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    val_loss, val_metrics = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    return val_loss, val_metrics, step_ms, run_s, peak_gb, launches
+
+
+def card_vs_cpu_grads(tag: str, card_model, cpu_model, x, y, w,
+                      train: bool) -> None:
+    """One weighted-BCE loss + backward on each side (training or eval
+    mode); the losses within LOSS_ATOL and every gradient within
+    GRAD_ATOL + GRAD_RTOL * |CPU's|."""
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    losses, grads = [], []
+    for model in (card_model, cpu_model):
+        d = next(model.parameters()).device
+        model.train(train)
+        model.zero_grad(set_to_none=True)
+        loss = weighted_bce(model(x.to(d)), y.to(d), w.to(d))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    loss_err = abs(losses[0] - losses[1])
+    worst = {}
+    for name, ref in grads[1].items():
+        diff = (grads[0][name] - ref).abs()
+        worst[name] = (float(diff.max()),
+                       float((diff - GRAD_RTOL * ref.abs()).max()))
+    log(f"{tag} {len(x)} rows, loss card {losses[0]:.8f} vs CPU "
+        f"{losses[1]:.8f} (|diff| {loss_err:.3e}, atol {LOSS_ATOL}); "
+        f"largest gradient errors: "
+        + ", ".join(f"{n} {e:.3e}" for n, (e, _) in sorted(
+            worst.items(), key=lambda kv: -kv[1][0])[:4])
+        + f" (atol {GRAD_ATOL} + rtol {GRAD_RTOL})")
+    if not loss_err <= LOSS_ATOL:
+        raise AssertionError(f"{tag} loss differs by {loss_err:.3e}")
+    bad = {n: e for n, (e, over) in worst.items() if over > GRAD_ATOL}
+    if bad:
+        raise AssertionError(f"{tag} gradients differ from the CPU: {bad}")
+
+
+def first_val_rows(cfg, n: int):
+    """The first n rows of the first validation batch: inputs, labels and
+    unit row weights (host tensors)."""
+    import torch
+
+    from audio_tokens_tpu_torch.data.datasets import DataLoaderCreator
+
+    _, val_loader = DataLoaderCreator(cfg).get_dataloaders()
+    batch = next(iter(val_loader.batches(0)))
+    return (torch.from_numpy(batch["inputs"][:n]),
+            torch.from_numpy(batch["labels"][:n]), torch.ones(n))
+
+
+def attention_inputs(b: int, dtype, seed: int):
+    """q, k, v, do (b, 12, 1728, 64) on the card and prefix segment ids
+    from random lengths, the first 0; plus the (b, 1, T, 1) valid-row
+    mask (positions below each length)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    shape = (b, HEADS, MODEL["max_seq_len"], HEAD_DIM)
+    q, k, v, do = (torch.randn(shape, generator=gen).to("cuda", dtype)
+                   for _ in range(4))
+    t = shape[2]
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    lens[0] = 0
+    pos = torch.arange(t)[None, :]
+    seg = (pos >= lens[:, None]).to(torch.int32).cuda()
+    valid = (pos < lens[:, None])[:, None, :, None].cuda()
+    # the work these lengths need: each query against its own segment
+    pairs = int((lens ** 2 + (t - lens) ** 2).sum()) * HEADS
+    return q, k, v, do, seg, valid, pairs
+
+
+def attention_phases(records: list) -> None:
+    """[B5 attention] and [B5 backward]: each kernel vs its plain version,
+    timed beside ``scaled_dot_product_attention`` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_dkv_plain, flash_attention_dq_plain,
+        flash_attention_fwd, flash_attention_plain)
+
+    def sdpa_mask(seg):
+        return seg[:, None, :, None] == seg[:, None, None, :]
+
+    fwd = {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        q, k, v, _, seg, valid, pairs = attention_inputs(BATCH, dtype, 5)
+        got = flash_attention_fwd(q, k, v, seg, SM_SCALE)[0]
+        ref = flash_attention_plain(q, k, v, seg, SM_SCALE)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        err_valid = float((diff * valid).max())
+        err_all = float(diff.max())
+        del got, ref, diff
+        if not max(err_valid, err_all) <= ATT_TOL[name]:
+            raise AssertionError(f"B5 forward {name}: max abs err "
+                                 f"{err_valid:.3e} (valid rows), "
+                                 f"{err_all:.3e} (all) > {ATT_TOL[name]}")
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, seg, SM_SCALE), 5)
+        plain_ms = cuda_ms(
+            lambda: flash_attention_plain(q, k, v, seg, SM_SCALE), 2)
+        mask = sdpa_mask(seg)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=SM_SCALE), 5)
+        nbytes = 4 * q.numel() * q.element_size() + seg.numel() * 4
+        b_ms, b_by = bound_of(4 * HEAD_DIM * pairs, nbytes, name)
+        fwd[name] = dict(err=err_valid, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[B5 attention] {name} q, k, v {tuple(q.shape)}, prefix lengths "
+            f"with a 0: max abs err {err_valid:.3e} on valid rows, "
+            f"{err_all:.3e} on all (atol {ATT_TOL[name]}); kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+            f"{lib_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by})")
+        del q, k, v, seg, valid, mask
+    r = fwd["bfloat16"]
+    records.append(dict(
+        name="B5 flash attention forward (bf16)", route="cuda",
+        source="audio_tokens_tpu_torch/csrc/attention.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:331 "
+                 "(called at audio_tokens_tpu/models/transformer.py:133)",
+        max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], f32_ms=fwd["float32"]["ms"],
+        f32_max_abs_err=fwd["float32"]["err"]))
+
+    bwd = {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        q, k, v, do, seg, _, pairs = attention_inputs(B_ATT_BWD, dtype, 6)
+        o, lse = flash_attention_fwd(q, k, v, seg, SM_SCALE, True)
+        di = (o.float() * do.float()).sum(-1)
+        args = (q, k, v, seg, lse, do, di, SM_SCALE)
+        got = (*flash_attention_bwd_dkv(*args), flash_attention_bwd_dq(*args))
+        ref = (*flash_attention_dkv_plain(*args),
+               flash_attention_dq_plain(*args))
+        torch.cuda.synchronize()
+        abs_errs = {g: float((a.float() - b.float()).abs().max())
+                    for g, a, b in zip(("dk", "dv", "dq"), got, ref)}
+        errs = {g: abs_errs[g] / float(b.float().abs().max())
+                for g, b in zip(("dk", "dv", "dq"), ref)}
+        del got, ref
+        if not max(errs.values()) <= ATT_BWD_RTOL[name]:
+            raise AssertionError(f"B5 backward {name}: {errs} > "
+                                 f"{ATT_BWD_RTOL[name]} of the largest entry")
+        dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(*args), 5)
+        dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(*args), 5)
+        dkv_plain = cuda_ms(lambda: flash_attention_dkv_plain(*args), 2)
+        dq_plain = cuda_ms(lambda: flash_attention_dq_plain(*args), 2)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=sdpa_mask(seg), scale=SM_SCALE)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 5)
+        el = q.element_size()
+        io = q.numel() * el
+        rows = 2 * lse.numel() * 4 + seg.numel() * 4  # lse, di, seg
+        dkv_b = bound_of(8 * HEAD_DIM * pairs, 6 * io + rows, name)
+        dq_b = bound_of(6 * HEAD_DIM * pairs, 5 * io + rows, name)
+        bwd[name] = dict(errs=abs_errs, dkv=(dkv_ms, dkv_plain, dkv_b),
+                         dq=(dq_ms, dq_plain, dq_b), library_ms=lib_ms)
+        log(f"[B5 backward] {name} {tuple(q.shape)}: max abs err / max |ref| "
+            + ", ".join(f"{g} {e:.3e}" for g, e in errs.items())
+            + f" (bound {ATT_BWD_RTOL[name]}); dk/dv kernel {dkv_ms:.3f} ms "
+            f"(plain {dkv_plain:.3f}, bound {dkv_b[0]:.3f} {dkv_b[1]}), dq "
+            f"kernel {dq_ms:.3f} ms (plain {dq_plain:.3f}, bound "
+            f"{dq_b[0]:.3f} {dq_b[1]}); scaled_dot_product_attention "
+            f"backward (dq, dk, dv together) {lib_ms:.3f} ms")
+        del q, k, v, do, o, lse, di, args, leaves, out
+    r = bwd["bfloat16"]
+    for key, label, line, err in (
+            ("dkv", "dk/dv", 796, max(r["errs"]["dk"], r["errs"]["dv"])),
+            ("dq", "dq", 1146, r["errs"]["dq"])):
+        ms, plain_ms, (b_ms, b_by) = r[key]
+        records.append(dict(
+            name=f"B5 flash attention backward {label} (bf16)", route="cuda",
+            source="audio_tokens_tpu_torch/csrc/attention.cu",
+            replaces=f"jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                     f"{line}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=r["library_ms"],
+            f32_ms=bwd["float32"][key][0]))
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -148,11 +406,12 @@ def main() -> int:
         return 1
 
     from audio_tokens_tpu_torch.config import AudioTokensConfig
-    from audio_tokens_tpu_torch.data.datasets import DataLoaderCreator
     from audio_tokens_tpu_torch.export import ServingProgram
     from audio_tokens_tpu_torch.models import get_model
     from audio_tokens_tpu_torch.ops import _build
     from audio_tokens_tpu_torch.ops.common import exact_f32
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from audio_tokens_tpu_torch.ops.cuda_lstm import (
         lstm_sequence_bwd, lstm_sequence_bwd_plain, lstm_sequence_fwd,
         lstm_sequence_fwd_plain)
@@ -200,11 +459,18 @@ def main() -> int:
     log(f"[B1 tokenizer] tokens {tuple(got.shape)}: {frac:.2e} disagree, "
         f"largest score gap {gap:.3e} (near-tie bounds 1e-3, 1e-4); "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    n_frames = BATCH * tok.frontend.frames_max
+    bins = cfg.n_fft // 2 + 1
+    b_ms, b_by = bound_of(  # DFT (re, im), mel, distances; f32 FMA
+        n_frames * (2 * cfg.n_fft * 2 * bins + 2 * bins * cfg.n_mels
+                    + 2 * cfg.n_mels * VOCAB),
+        x.numel() * 4 + n_frames * 4 + cents.nbytes)
     records.append(dict(
         name="B1 tokenizer (wav -> tokens)", route="cuda",
         source="audio_tokens_tpu_torch/csrc/tokenizer.cu",
         replaces="audio_tokens_tpu/ops/pallas_tokenizer.py:222",
-        max_abs_err=gap, ms=ms, plain_ms=plain_ms))
+        max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None))
 
     frames = tok.frontend.mel_frames(x).reshape(-1, cfg.n_mels).contiguous()
     got = vq_argmin(frames, cents_t, True)
@@ -215,11 +481,15 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: vq_argmin_plain(frames, cents_t, True), 5)
     log(f"[B2 vq] ids {tuple(got.shape)}: {frac:.2e} disagree, largest score "
         f"gap {gap:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    n, d = frames.shape
+    b_ms, b_by = bound_of(2 * n * d * VOCAB + 3 * n * d,
+                       frames.numel() * 4 + cents.nbytes + n * 4)
     records.append(dict(
         name="B2 vq (normalize + nearest centroid)", route="cuda",
         source="audio_tokens_tpu_torch/csrc/vq.cu",
         replaces="audio_tokens_tpu/ops/pallas_vq.py:37",
-        max_abs_err=gap, ms=ms, plain_ms=plain_ms))
+        max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None))
 
     gen = torch.Generator().manual_seed(3)
     bound = 1.0 / H_LSTM ** 0.5
@@ -253,18 +523,39 @@ def main() -> int:
     ms = cuda_ms(both(lstm_sequence_fwd), 5)
     res_ms = cuda_ms(both(lstm_sequence_fwd, True), 5)
     plain_ms = cuda_ms(both(lstm_sequence_fwd_plain), 2)
+    # library yardstick: cuDNN's bidirectional LSTM, forward and backward
+    # (it also does the input projection x @ w_ih, which B3 is handed)
+    cudnn = torch.nn.LSTM(MODEL["lstm_embed_dim"], H_LSTM,
+                          bidirectional=True).to(dev)
+    x_lib = torch.randn((T_LSTM, B_LSTM, MODEL["lstm_embed_dim"]),
+                        generator=gen).to(dev).requires_grad_()
+    with torch.no_grad():
+        lib_ms = cuda_ms(lambda: cudnn(x_lib), 5)
+    out_lib = cudnn(x_lib)[0]
+    g_lib = torch.randn_like(out_lib)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out_lib, [x_lib, *cudnn.parameters()], g_lib, retain_graph=True), 3)
+    del cudnn, x_lib, out_lib, g_lib
+    log(f"[library] cuDNN nn.LSTM({MODEL['lstm_embed_dim']}, {H_LSTM}, "
+        f"bidirectional) at T {T_LSTM} B "
+        f"{B_LSTM}, TF32 off: forward {lib_ms:.3f} ms, backward "
+        f"{lib_bwd_ms:.3f} ms (yardstick only)")
     log(f"[B3 lstm] T {T_LSTM} B {B_LSTM} H {H_LSTM}, both directions: max "
         f"abs err {err:.3e} (atol {LSTM_ATOL}: 1728 f32 steps, another "
         f"summation order); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     log(f"[B3 residuals] gates (T, B, 4H) and c (T, B, H) as well: max abs "
         f"err {res_err:.3e} over hs, gates, c, h_last (atol {LSTM_ATOL}); "
         f"kernel {res_ms:.3f} ms (without the residual stores {ms:.3f} ms)")
+    step_flop = 2 * B_LSTM * H_LSTM * 4 * H_LSTM  # h @ w_hh, one step
+    b_ms, b_by = bound_of(2 * T_LSTM * step_flop, 2 * 4 * (
+        xg.numel() + mask.numel() + w_hh.numel() + T_LSTM * B_LSTM * H_LSTM
+        + B_LSTM * H_LSTM))
     records.append(dict(
         name="B3 lstm forward (both directions)", route="cuda",
         source="audio_tokens_tpu_torch/csrc/lstm.cu",
         replaces="audio_tokens_tpu/ops/pallas_lstm.py:50",
         max_abs_err=max(err, res_err), ms=ms, residuals_ms=res_ms,
-        plain_ms=plain_ms))
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
 
     dhs = torch.randn((T_LSTM, B_LSTM, H_LSTM), generator=gen).to(dev)
     dh_last = torch.randn((B_LSTM, H_LSTM), generator=gen).to(dev)
@@ -295,12 +586,19 @@ def main() -> int:
         f"directions: dxg max abs err {dxg_err:.3e} (atol {LSTM_ATOL}); "
         f"dw_hh max abs err / max |dw_hh| {dw_err:.3e} (bound {DW_RTOL}); "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    tbh = T_LSTM * B_LSTM * H_LSTM  # dhs, c, hs; gates and dxg are 4x
+    b_ms, b_by = bound_of(
+        2 * (T_LSTM + T_LSTM - 1) * step_flop,  # dgp @ w_hh^T, dw_hh
+        2 * 4 * (3 * tbh + 2 * 4 * tbh + mask.numel() + 2 * w_hh.numel()
+                 + B_LSTM * H_LSTM))
     records.append(dict(
         name="B4 lstm backward (both directions)", route="cuda",
         source="audio_tokens_tpu_torch/csrc/lstm.cu",
         replaces="audio_tokens_tpu/ops/pallas_lstm.py:81",
-        max_abs_err=dxg_err, dw_rel_err=dw_err, ms=ms, plain_ms=plain_ms))
+        max_abs_err=dxg_err, dw_rel_err=dw_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd_ms))
     del fwd, bwd_args, dhs, dh_last, xg
+    attention_phases(records)
 
     # -- 4. the slice answers requests ---------------------------------------
     prog = ServingProgram.from_components(
@@ -385,9 +683,78 @@ def main() -> int:
         raise AssertionError(f"probs differ from the CPU path by {perr:.3e}")
     log(f"[reference] 2 clips on the CPU: tokens {frac:.2e} disagree (gap "
         f"{gap:.3e}); probs max abs err {perr:.3e} (atol {PROBS_ATOL})")
-    del prog, prog_n, outs, out_n, batches
+    del prog, prog_n, outs, out_n
 
-    # -- 5. the slice trains -------------------------------------------------
+    # -- 5. bert answers requests --------------------------------------------
+    bcfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS, **BERT)
+    bprog = ServingProgram.from_components(
+        bcfg, tok, device=dev, generator=torch.Generator().manual_seed(0))
+    weights = bprog.model.state_dict()
+    xprog = ServingProgram.from_components(
+        AudioTokensConfig(clip_seconds=CLIP_SECONDS,
+                          **{**BERT, "transformer_attention": "xla"}),
+        tok, weights, device=dev)
+    torch.cuda.synchronize()
+    serve_kernels = (TokenizerKernel, flash_attention_fwd)
+    for k in serve_kernels:
+        k.launches = 0
+    batch_ms, outs = [], []
+    for pb, pl in batches:
+        t0 = time.perf_counter()
+        out = bprog(torch.from_numpy(pb), torch.from_numpy(pl))
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    t0 = time.perf_counter()
+    one_tokens, one_probs = bprog.predict_waveforms(single)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    bert_launches = [k.launches for k in serve_kernels]
+    pb, pl = batches[0]
+    t0 = time.perf_counter()
+    out_x = xprog(torch.from_numpy(pb), torch.from_numpy(pl))
+    torch.cuda.synchronize()
+    xla_ms = (time.perf_counter() - t0) * 1e3
+    for out in (*outs, out_x):
+        check(*out, BATCH)
+    if one_probs.shape != (1, bcfg.num_classes):
+        raise AssertionError("bert single-clip request answered wrongly")
+    route_gap = float((outs[0][2] - out_x[2]).abs().max())
+    log(f"[serve bert] hidden {bcfg.hidden_size} x {bcfg.num_layers} layers, "
+        f"window {bcfg.transformer_max_position}, {bcfg.num_classes} classes, "
+        f"{bcfg.compute_dtype}, flash: batches of {BATCH} took "
+        f"{', '.join(f'{t:.1f}' for t in batch_ms)} ms (host clock, host->"
+        f"card copy included); single clip {single_ms:.1f} ms; the same "
+        f"weights through the plain 'xla' route: batch {xla_ms:.1f} ms; "
+        f"probs flash vs xla max abs diff {route_gap:.3e} (bf16, not bound)")
+    log(f"[serve bert] launches B1 {bert_launches[0]}, B5 forward "
+        f"{bert_launches[1]}")
+    if min(bert_launches) < 1:
+        raise AssertionError(f"a kernel of the bert path never launched: "
+                             f"{bert_launches}")
+    records[0]["launches_by_path"]["serve_bert"] = bert_launches[0]
+    records[4]["launches_by_path"] = {"serve_bert": bert_launches[1]}
+
+    # reference: 2 clips through an f32 program on the card and the CPU
+    fcfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS,
+                             **{**BERT, "compute_dtype": "float32"})
+    fprog = ServingProgram.from_components(fcfg, tok, weights, device=dev)
+    toks_gpu, _, probs_gpu = fprog(x2, l2)
+    cpu_bert = get_model(fcfg, "cpu", torch.Generator().manual_seed(0))
+    cpu_bert.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    cpu_bert.eval()
+    seq = torch.zeros((2, fcfg.max_seq_len), dtype=torch.int32)
+    seq[:, : toks_gpu.shape[1]] = toks_gpu.cpu()
+    with torch.inference_mode():
+        probs_cpu = torch.sigmoid(cpu_bert(seq))
+    perr = float((probs_cpu - probs_gpu.cpu()).abs().max())
+    if not perr <= PROBS_ATOL:
+        raise AssertionError(f"bert probs differ from the CPU by {perr:.3e}")
+    log(f"[reference bert] 2 clips, f32 program: card (B5) vs CPU (plain "
+        f"attention) probs max abs err {perr:.3e} (atol {PROBS_ATOL})")
+    del bprog, xprog, fprog, outs, out_x, batches, weights, cpu_bert
+    torch.cuda.empty_cache()
+
+    # -- 6. the lstm trains ---------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         base = Path(tmp)
         write_token_corpus(base)
@@ -396,28 +763,9 @@ def main() -> int:
             epochs=1, max_train_steps=TRAIN_STEPS, num_workers=2,
             log_every_steps=0, device_corpus="off")
         trainer = ModelTrainer(tcfg, dev)
-        step_ms = []
-        train_step = trainer._train_step
-
-        def timed_step(*args):
-            t0 = time.perf_counter()
-            out = train_step(*args)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            return out
-
-        trainer._train_step = timed_step  # synchronizes each step to time it
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        train_kernels = (lstm_sequence_fwd, lstm_sequence_bwd)
-        for k in train_kernels:
-            k.launches = 0
-        t0 = time.perf_counter()
-        val_loss, val_metrics = trainer.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        train_launches = [k.launches for k in train_kernels]
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        (val_loss, val_metrics, step_ms, run_s, peak_gb,
+         train_launches) = timed_run(trainer, (lstm_sequence_fwd,
+                                               lstm_sequence_bwd))
         ckpt_ok = (Path(tcfg.checkpoint_dir) / "no-wandb-best"
                    / "params.pt").exists()
         log(f"[train] lstm {tcfg.lstm_embed_dim}/{tcfg.lstm_hidden_dim} x "
@@ -439,48 +787,80 @@ def main() -> int:
             raise AssertionError(f"val loss {val_loss}, mAP {val_metrics}")
         records[2]["launches_by_path"]["train"] = train_launches[0]
         records[3]["launches_by_path"] = {"train": train_launches[1]}
-        for rec in records:
-            rec["launches"] = sum(rec["launches_by_path"].values())
 
         # reference: the trained weights on the CPU, one loss + backward
         # on 4 rows of the first validation batch on each side
-        from audio_tokens_tpu_torch.train.objective import weighted_bce
-
-        _, val_loader = DataLoaderCreator(tcfg).get_dataloaders()
-        batch = next(iter(val_loader.batches(0)))
-        x4 = torch.from_numpy(batch["inputs"][:4])
-        y4 = torch.from_numpy(batch["labels"][:4])
-        w4 = torch.ones(4)
         cpu_model = get_model(tcfg, "cpu", torch.Generator().manual_seed(0))
         cpu_model.load_state_dict({k: v.cpu() for k, v in
                                    trainer.model.state_dict().items()})
-        losses, grads = [], []
-        for model, d in ((trainer.model, dev), (cpu_model, "cpu")):
-            model.train()
-            model.zero_grad(set_to_none=True)
-            loss = weighted_bce(model(x4.to(d)), y4.to(d), w4.to(d))
-            loss.backward()
-            losses.append(float(loss.detach()))
-            grads.append({n: p.grad.cpu() for n, p in
-                          model.named_parameters()})
-        loss_err = abs(losses[0] - losses[1])
-        worst = {}
-        for name, ref in grads[1].items():
-            diff = (grads[0][name] - ref).abs()
-            worst[name] = (float(diff.max()),
-                           float((diff - GRAD_RTOL * ref.abs()).max()))
-        log(f"[train reference] 4 rows, loss card {losses[0]:.8f} vs CPU "
-            f"{losses[1]:.8f} (|diff| {loss_err:.3e}, atol {LOSS_ATOL}); "
-            f"largest gradient errors: "
-            + ", ".join(f"{n} {e:.3e}" for n, (e, _) in sorted(
-                worst.items(), key=lambda kv: -kv[1][0])[:4])
-            + f" (atol {GRAD_ATOL} + rtol {GRAD_RTOL})")
-        if not loss_err <= LOSS_ATOL:
-            raise AssertionError(f"train loss differs by {loss_err:.3e}")
-        bad = {n: e for n, (e, over) in worst.items() if over > GRAD_ATOL}
-        if bad:
-            raise AssertionError(f"gradients differ from the CPU: {bad}")
+        card_vs_cpu_grads("[train reference]", trainer.model, cpu_model,
+                          *first_val_rows(tcfg, 4), train=True)
+        del trainer, cpu_model
+        torch.cuda.empty_cache()
 
+        # -- 7. bert trains ----------------------------------------------------
+        bt_cfg = AudioTokensConfig(
+            base_dir=str(base), **BERT, training_batch_size=B_BERT_TRAIN,
+            epochs=1, max_train_steps=TRAIN_STEPS, num_workers=2,
+            log_every_steps=0, device_corpus="off",
+            checkpoint_dir=str(base / "bert_checkpoints"))
+        btrainer = ModelTrainer(bt_cfg, dev)
+        b5 = (flash_attention_fwd, flash_attention_bwd_dkv,
+              flash_attention_bwd_dq)
+        (val_loss, val_metrics, step_ms, run_s, peak_gb,
+         b5_launches) = timed_run(btrainer, b5)
+        log(f"[train bert] hidden {bt_cfg.hidden_size} x {bt_cfg.num_layers} "
+            f"layers, window {bt_cfg.transformer_max_position}, "
+            f"{bt_cfg.compute_dtype}, batch {B_BERT_TRAIN}: {len(step_ms)} "
+            f"steps, ms per step {', '.join(f'{t:.1f}' for t in step_ms)} "
+            f"(host clock, synchronized; median of steps 2..{len(step_ms)} "
+            f"{statistics.median(step_ms[1:]):.2f} ms); run() {run_s:.1f} s "
+            f"incl. corpus load, validation and checkpoint; val loss "
+            f"{val_loss:.6f}, val mAP {val_metrics['mAP']:.6f}; peak "
+            f"device memory {peak_gb:.2f} GiB")
+        log(f"[train bert] launches B5 forward {b5_launches[0]} (validation), "
+            f"dk/dv {b5_launches[1]}, dq {b5_launches[2]} (training steps "
+            f"take the plain route)")
+        if (len(step_ms) != TRAIN_STEPS or b5_launches[0] < 1
+                or b5_launches[1:] != [0, 0]):
+            raise AssertionError(f"bert training ran {len(step_ms)} steps, "
+                                 f"B5 launches {b5_launches}")
+        if not (np.isfinite(val_loss) and 0.0 <= val_metrics["mAP"] <= 1.0):
+            raise AssertionError(f"val loss {val_loss}, mAP {val_metrics}")
+        records[4]["launches_by_path"]["train_bert"] = b5_launches[0]
+
+        # reference at f32: the trained weights on the card and the CPU, a
+        # training step's gradient (plain attention), then the gradient
+        # through an eval-mode forward (B5 and its two backward kernels)
+        f32_cfg = AudioTokensConfig(
+            base_dir=str(base), **{**BERT, "compute_dtype": "float32"},
+            training_batch_size=B_BERT_TRAIN)
+        state = btrainer.model.state_dict()
+        card_bert, cpu_bert = (
+            get_model(f32_cfg, d, torch.Generator().manual_seed(0))
+            for d in (dev, "cpu"))
+        card_bert.load_state_dict(state)
+        cpu_bert.load_state_dict({k: v.cpu() for k, v in state.items()})
+        rows = first_val_rows(f32_cfg, 4)
+        card_vs_cpu_grads("[train bert reference] training mode:",
+                          card_bert, cpu_bert, *rows, train=True)
+        for k in b5:
+            k.launches = 0
+        card_vs_cpu_grads("[train bert reference] eval mode, flash:",
+                          card_bert, cpu_bert, *rows, train=False)
+        grad_launches = [k.launches for k in b5]
+        log(f"[train bert reference] eval-mode gradient launches: B5 forward "
+            f"{grad_launches[0]}, dk/dv {grad_launches[1]}, dq "
+            f"{grad_launches[2]}")
+        if min(grad_launches) < 1:
+            raise AssertionError(f"the eval-mode gradient skipped a B5 "
+                                 f"kernel: {grad_launches}")
+        records[4]["launches_by_path"]["eval_grad"] = grad_launches[0]
+        records[5]["launches_by_path"] = {"eval_grad": grad_launches[1]}
+        records[6]["launches_by_path"] = {"eval_grad": grad_launches[2]}
+
+    for rec in records:
+        rec["launches"] = sum(rec["launches_by_path"].values())
     print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -162,3 +162,131 @@ def test_cuda_classifier_backward_reaches_every_parameter(cuda_device,
         assert card[name] is not None, f"{name} got no gradient on the card"
         torch.testing.assert_close(card[name].cpu(), cpu[name], atol=1e-5,
                                    rtol=1e-4, msg=name)
+
+
+FLASH_SHAPES = [
+    (2, 2, 100),   # one partial tile
+    (1, 3, 257),   # T one past a tile multiple
+    (3, 1, 64),    # exactly one tile
+]
+# bf16: P and the output each rounded to 8 bits (2^-8 relative), the
+# kernel rounding P against its running row max, the plain version against
+# the final one; outputs of magnitude below 4
+FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _flash_inputs(device, b, nh, t, dtype):
+    gen = torch.Generator().manual_seed(t)
+    q, k, v, do = (torch.randn((b, nh, t, 64), generator=gen).to(device,
+                                                                  dtype)
+                   for _ in range(4))
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    lens[-1] = 0  # a row with no valid key: every query in segment 1
+    seg = (torch.arange(t)[None, :] >= lens[:, None]).to(torch.int32)
+    return q, k, v, do, seg.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nh,t", FLASH_SHAPES)
+def test_cuda_flash_forward_matches_plain(cuda_device, dtype, b, nh, t):
+    """B5 forward, with and without the logsumexp store, on every row."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_fwd, flash_attention_plain)
+
+    q, k, v, _, seg = _flash_inputs(cuda_device, b, nh, t, dtype)
+    ref_o, ref_lse = flash_attention_plain(q, k, v, seg, 0.125, True)
+    for lse in (False, True):
+        before = flash_attention_fwd.launches
+        o, got_lse = flash_attention_fwd(q, k, v, seg, 0.125, lse)
+        assert flash_attention_fwd.launches == before + 1
+        torch.testing.assert_close(o.float(), ref_o.float(),
+                                   **FLASH_TOL[dtype])
+        if lse:
+            torch.testing.assert_close(got_lse, ref_lse, atol=1e-5,
+                                       rtol=1e-5)
+        else:
+            assert got_lse is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nh,t", FLASH_SHAPES)
+def test_cuda_flash_backward_matches_plain(cuda_device, dtype, b, nh, t):
+    """The dk/dv and dq kernels on the plain forward's logsumexp: each
+    gradient within 1e-5 (f32) or 2e-2 (bf16: P and dS rounded to 8 bits)
+    of its largest entry."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_dkv_plain, flash_attention_dq_plain,
+        flash_attention_plain)
+
+    q, k, v, do, seg = _flash_inputs(cuda_device, b, nh, t, dtype)
+    o, lse = flash_attention_plain(q, k, v, seg, 0.125, True)
+    di = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, seg, lse, do, di, 0.125)
+    launches = (flash_attention_bwd_dkv.launches,
+                flash_attention_bwd_dq.launches)
+    got = (*flash_attention_bwd_dkv(*args), flash_attention_bwd_dq(*args))
+    assert (flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches) == (launches[0] + 1,
+                                                 launches[1] + 1)
+    ref = (*flash_attention_dkv_plain(*args), flash_attention_dq_plain(*args))
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, g, r in zip(("dk", "dv", "dq"), got, ref):
+        assert g.dtype == dtype
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= rel * float(r.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_runs_the_three_kernels(cuda_device):
+    """FlashAttention on the card: one forward, one dk/dv and one dq
+    launch, gradients equal to autograd through the plain forward."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_fwd, flash_attention_plain)
+
+    q, k, v, do, seg = _flash_inputs(cuda_device, 2, 2, 130, torch.float32)
+    counters = (flash_attention_fwd, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq)
+    before = [c.launches for c in counters]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention(*leaves, seg, 0.125)
+    got = torch.autograd.grad(o, leaves, do)
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(
+        flash_attention_plain(*ref_leaves, seg, 0.125), ref_leaves, do)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_bert_eval_matches_cpu(cuda_device):
+    """The bert classifier in eval mode (the B5 route) on the card vs the
+    CPU (plain attention version), f32, lengths with a 0 (atol 1e-4)."""
+    from audio_tokens_tpu_torch.models.transformer import (
+        TransformerClassifier)
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+
+    def model(device):
+        m = TransformerClassifier(50, 2, 7, 128, 200, 0.0, torch.float32,
+                                  "flash", device=device,
+                                  generator=torch.Generator().manual_seed(0))
+        return m.eval()
+
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 50, (4, 150), generator=gen)
+    lens = torch.tensor([150, 77, 1, 0])
+    out = {}
+    for device in ("cpu", cuda_device):
+        before = flash_attention_fwd.launches
+        with torch.inference_mode():
+            out[str(device)] = model(device)(toks.to(device),
+                                             lens.to(device)).cpu()
+        if device != "cpu":
+            assert flash_attention_fwd.launches == before + 2  # 2 layers
+    torch.testing.assert_close(out[str(cuda_device)], out["cpu"], atol=1e-4,
+                               rtol=1e-4)

@@ -102,11 +102,17 @@ def test_unported_tokenizer_options_refused(override, match):
         FusedTokenizer(cfg, np.zeros((4, 8), np.float32), "cpu")
 
 
-@pytest.mark.parametrize("model_type", ["simple", "bert", "cnn", "baseline"])
-def test_unported_families_refused(model_type):
+@pytest.mark.parametrize("model_type,override", [
+    pytest.param("simple", {}, id="simple"),
+    # the bert family is ported; its per-block recompute is not
+    pytest.param("bert", {"transformer_remat": True}, id="bert"),
+    pytest.param("cnn", {}, id="cnn"),
+    pytest.param("baseline", {}, id="baseline"),
+])
+def test_unported_families_refused(model_type, override):
     from audio_tokens_tpu_torch.models import get_model
 
-    cfg = port_config.AudioTokensConfig(model_type=model_type)
+    cfg = port_config.AudioTokensConfig(model_type=model_type, **override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg, "cpu", torch.Generator().manual_seed(0))
 
