@@ -24,14 +24,20 @@
 // dh 64) the forward is 587 GFLOP against 680 MB of q, k, v, o in bf16, so
 // it is bound by arithmetic.  Every kernel keeps the (T, T) scores on chip:
 // one block per (batch x head, 64-row tile), 64-row tiles of the other
-// side staged through shared memory.  The bf16 forward (the serving path's)
-// runs on the tensor cores with mma.sync (flash_fwd_mma_kernel); the f32
-// forward and both backward kernels are plain f32 FMA from f32 tiles, each
-// thread a 4 x 4 register tile, so they cannot beat the 67 TFLOP/s f32
-// rate.  wgmma, TMA and warp specialisation are later work.
+// side staged through shared memory.  In bf16 all three kernels run on the
+// tensor cores with mma.sync from bf16 tiles (flash_fwd_mma_kernel,
+// flash_dkv_mma_kernel, flash_dq_mma_kernel): P and dS stay in registers,
+// the accumulator of one product being the A fragment of the next, and the
+// backward pair streams its tiles through a cp.async ring and skips tiles
+// that share no segment with the block's rows.  The f32 kernels (forward,
+// dk/dv, dq) are plain f32 FMA from f32 tiles, each thread a 4 x 4 register
+// tile, so they cannot beat the 67 TFLOP/s f32 rate.  wgmma, TMA and warp
+// specialisation are later work.
 #include <cuda_bf16.h>
 
+#include <climits>
 #include <cstdint>
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -45,25 +51,13 @@ constexpr int kR = 4;           // rows of a thread's register tile
 constexpr float kMask = -0.7f * 3.40282347e38f;  // library DEFAULT_MASK_VALUE
 constexpr size_t kTileBytes = sizeof(float) * kTile * kLd;
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// x rounded to the input dtype (round to nearest even, as astype does)
-template <typename T>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16(x));
-  return x;
-}
-
-// Rows [r0, r0 + 64) of one (T, 64) head into a shared tile as f32, zeros
-// past T.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
+// Rows [r0, r0 + 64) of one (T, 64) f32 head into a shared tile, zeros past
+// T.
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0,
                                           int t) {
   for (int e = threadIdx.x; e < kTile * kD; e += kThreads) {
     const int r = e / kD, d = e % kD;
-    dst[r * kLd + d] = r0 + r < t ? ld(src + (size_t)(r0 + r) * kD + d) : 0.f;
+    dst[r * kLd + d] = r0 + r < t ? src[(size_t)(r0 + r) * kD + d] : 0.f;
   }
 }
 
@@ -189,20 +183,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (r >= t) continue;
     const float inv = 1.f / l[i];
 #pragma unroll
-    for (int j = 0; j < kR; ++j) st(o + head + (size_t)r * kD + tx + 16 * j, acc[i][j] * inv);
+    for (int j = 0; j < kR; ++j) o[head + (size_t)r * kD + tx + 16 * j] = acc[i][j] * inv;
     if (lse != nullptr && tx == 0) lse[(size_t)bh * t + r] = m[i] + logf(l[i]);
   }
 }
 
-// dk, dv: block (key tile, batch x head).  Thread (ty, tx) owns key rows
-// 4 ty .. 4 ty + 3 and, of each query tile and of dk and dv, the columns
+// dk, dv in f32: block (key tile, batch x head).  Thread (ty, tx) owns key
+// rows 4 ty .. 4 ty + 3 and, of each query tile and of dk and dv, the columns
 // tx + 16 j.  P^T and dS^T of a query tile go through shared memory.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ seg, const float* __restrict__ lse,
-                 const T* __restrict__ dout, const float* __restrict__ di, int heads, int t,
-                 float scale, T* __restrict__ dk, T* __restrict__ dv) {
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ seg,
+                 const float* __restrict__ lse, const float* __restrict__ dout,
+                 const float* __restrict__ di, int heads, int t, float scale,
+                 float* __restrict__ dk, float* __restrict__ dv) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + kTile * kLd;
@@ -251,8 +245,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const float logit = s[i][j] * scale + (segk[i] == segq[c] ? 0.f : kMask);
         const float p = kvalid && q0 + c < t ? expf(logit - lse_s[c]) : 0.f;
         const float ds = (dp[i][j] - di_s[c]) * p * scale;
-        pt[(kR * ty + i) * kLd + c] = rnd<T>(p);
-        dst[(kR * ty + i) * kLd + c] = rnd<T>(ds);
+        pt[(kR * ty + i) * kLd + c] = p;
+        dst[(kR * ty + i) * kLd + c] = ds;
       }
     }
     __syncthreads();
@@ -265,20 +259,20 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (r >= t) continue;
 #pragma unroll
     for (int j = 0; j < kR; ++j) {
-      st(dk + head + (size_t)r * kD + tx + 16 * j, dka[i][j]);
-      st(dv + head + (size_t)r * kD + tx + 16 * j, dva[i][j]);
+      dk[head + (size_t)r * kD + tx + 16 * j] = dka[i][j];
+      dv[head + (size_t)r * kD + tx + 16 * j] = dva[i][j];
     }
   }
 }
 
-// dq: block (query tile, batch x head), shaped like the forward; dS of a key
-// tile goes through shared memory.
-template <typename T>
+// dq in f32: block (query tile, batch x head), shaped like the forward; dS
+// of a key tile goes through shared memory.
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const int* __restrict__ seg, const float* __restrict__ lse,
-                const T* __restrict__ dout, const float* __restrict__ di, int heads, int t,
-                float scale, T* __restrict__ dq) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ seg,
+                const float* __restrict__ lse, const float* __restrict__ dout,
+                const float* __restrict__ di, int heads, int t, float scale,
+                float* __restrict__ dq) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + kTile * kLd;
@@ -321,7 +315,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         const int c = tx + 16 * j;
         const float logit = s[i][j] * scale + (segq[i] == segk[c] ? 0.f : kMask);
         const float p = qvalid && k0 + c < t ? expf(logit - lse_r[i]) : 0.f;
-        dss[(kR * ty + i) * kLd + c] = rnd<T>((dp[i][j] - di_r[i]) * p * scale);
+        dss[(kR * ty + i) * kLd + c] = (dp[i][j] - di_r[i]) * p * scale;
       }
     }
     __syncthreads();
@@ -332,7 +326,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const int r = q0 + kR * ty + i;
     if (r >= t) continue;
 #pragma unroll
-    for (int j = 0; j < kR; ++j) st(dq + head + (size_t)r * kD + tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < kR; ++j) dq[head + (size_t)r * kD + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -525,14 +519,532 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// The backward pair on the tensor cores, for bf16.  Both kernels are shaped
+// like the forward above: a warp owns 16 rows, keeps their operands as mma A
+// fragments in registers for the whole loop, and walks the other side in
+// 64-row tiles.
+//
+//   dk/dv: a warp owns 16 key rows (K and V fragments resident) and streams
+//     Q and dO.  It forms the transposed scores S^T = K.Q^T and dP^T = V.dO^T
+//     with the keys as the M dimension, so the accumulators of two
+//     neighbouring 8-query column tiles are, once P^T and dS^T are rounded
+//     to bf16 and packed, the A fragments of dV += P^T.dO and dK += dS^T.Q.
+//   dq: a warp owns 16 query rows (Q and dO fragments resident) and streams
+//     K and V: S = Q.K^T, dP = dO.V^T, and dS from the accumulator is the A
+//     fragment of dQ += dS.K.
+//
+// P and dS never touch shared memory.  The B fragments of the score products
+// come from the streamed tiles' row-major rows by ldmatrix, those of the
+// output products (contracted over the streamed rows) by ldmatrix.trans.
+// P = exp2(s * sm_scale * log2(e) - lse * log2(e)) where the pair is valid
+// (same segment, streamed row below T), else exactly 0 (as the plain
+// version's exp(MASK_VALUE - lse) is).  An owned row past T is not tested:
+// a row of P or dS reaches only its own row of the output, which is not
+// stored.  exp2 is the bare ex2.approx.ftz instruction: what exp2f compiles
+// to without its rescue of results below 2^-126, which become 0 here; the
+// elementwise pass between the products takes as many instruction slots as
+// the mma, so every instruction in it shows in the kernel's time.
+//
+// The streamed tiles come through a ring of kBwdStages stages filled by
+// cp.async (16 bytes a thread; rows past T are zero-filled by the src-size
+// form), so the loads of the next tiles overlap the mma of this one, with
+// one block barrier a tile.  A streamed tile whose segment ids cannot meet
+// the block's own (disjoint [min, max] ranges; any int32 ids) holds only
+// pairs with P = 0 and is left out of the walk; a full tile whose rows and
+// the block's all carry one id needs no mask and takes a path without the
+// tests.  The walk is in ascending tile order and nothing is accumulated
+// across blocks: bit-identical from launch to launch.
+//
+// Tuning knobs: the defaults are the measured best on an H100 (PERF.md);
+// tools/flash_bwd_ab.py builds the alternatives with -D and times them.
+#ifndef ATK_DKV_WARPS
+#define ATK_DKV_WARPS 4  // warps of a dk/dv block, 16 key rows each
+#endif
+#ifndef ATK_DKV_BLOCKS
+#define ATK_DKV_BLOCKS 3  // dk/dv blocks an SM that the register count must allow
+#endif
+#ifndef ATK_DQ_WARPS
+#define ATK_DQ_WARPS 8  // warps of a dq block, 16 query rows each
+#endif
+#ifndef ATK_DQ_BLOCKS
+#define ATK_DQ_BLOCKS 2  // dq blocks an SM that the register count must allow
+#endif
+#ifndef ATK_BWD_STAGES
+#define ATK_BWD_STAGES 2  // stages of the cp.async ring
+#endif
+#ifndef ATK_BWD_UNROLL
+#define ATK_BWD_UNROLL 1  // unrolling of a tile's four 16-row steps (4 spills registers)
+#endif
+#ifndef ATK_BWD_SKIP
+#define ATK_BWD_SKIP 1  // leave out the tiles whose pairs all have P = 0
+#endif
+#ifndef ATK_BWD_PLAIN_TILES
+#define ATK_BWD_PLAIN_TILES 1  // no mask tests on the tiles that need none
+#endif
+constexpr int kDkvWarps = ATK_DKV_WARPS;
+constexpr int kDkvBlocks = ATK_DKV_BLOCKS;
+constexpr int kDqWarps = ATK_DQ_WARPS;
+constexpr int kDqBlocks = ATK_DQ_BLOCKS;
+constexpr int kBwdStages = ATK_BWD_STAGES;
+constexpr int kBwdUnroll = ATK_BWD_UNROLL;
+constexpr bool kBwdSkip = ATK_BWD_SKIP != 0;
+constexpr bool kBwdPlainTiles = ATK_BWD_PLAIN_TILES != 0;
+constexpr float kLog2e = 1.44269504088896341f;
+
+// One stage of the ring: a 64-row tile of each streamed operand and the
+// rows' segment ids, logsumexp and di (the last two only for dk/dv).
+struct BwdStage {
+  __nv_bfloat16 a[kTile * kLdh];  // Q (dk/dv) or K (dq)
+  __nv_bfloat16 b[kTile * kLdh];  // dO (dk/dv) or V (dq)
+  int seg[kTile];
+  float lse[kTile];
+  float di[kTile];
+};
+static_assert(sizeof(BwdStage) % 16 == 0, "stages stay 16-byte aligned");
+
+// 16 or 4 bytes global -> shared, asynchronously; zeros instead when !valid
+// (src must still be an address inside the tensor).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of rows [r0, r0 + 64) of the heads a and b, of the batch
+// row's segment ids sg and, unless null, of the head's lse and di rows into
+// a stage.  The caller commits the group.
+template <int THREADS>
+__device__ __forceinline__ void stream_tile(BwdStage& st, const __nv_bfloat16* __restrict__ a,
+                                            const __nv_bfloat16* __restrict__ b,
+                                            const int* __restrict__ sg,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ di, int r0, int t) {
+  constexpr int kChunks = kD / 8;  // 16-byte pieces of a row
+  for (int e = threadIdx.x; e < kTile * kChunks; e += THREADS) {
+    const int r = e / kChunks, c = 8 * (e % kChunks);
+    const bool ok = r0 + r < t;
+    const size_t off = (size_t)(ok ? r0 + r : 0) * kD + c;
+    cp_async16(st.a + r * kLdh + c, a + off, ok);
+    cp_async16(st.b + r * kLdh + c, b + off, ok);
+  }
+  const int i = threadIdx.x;
+  if (i < kTile) {
+    const bool ok = r0 + i < t;
+    const int r = ok ? r0 + i : 0;
+    cp_async4(st.seg + i, sg + r, ok);
+    if (lse != nullptr) {
+      cp_async4(st.lse + i, lse + r, ok);
+      cp_async4(st.di + i, di + r, ok);
+    }
+  }
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane i gives the address of
+// row i % 8 of matrix i / 8; a lane receives of each matrix the two values
+// at row lane / 4, columns 2 (lane % 4) and + 1.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The A fragments (16 rows x 64 columns, four k steps) of the 16 staged rows
+// that start at `rows`.
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[kD / 16][4],
+                                             const __nv_bfloat16* rows, int g, int tg) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const __nv_bfloat16* lo = rows + g * kLdh + kk * 16 + 2 * tg;
+    const __nv_bfloat16* hi = lo + 8 * kLdh;
+    a[kk][0] = lds32(lo);
+    a[kk][1] = lds32(hi);
+    a[kk][2] = lds32(lo + 8);
+    a[kk][3] = lds32(hi + 8);
+  }
+}
+
+// acc (16 x 8) += A (16 x 64, fragments a) . X^T for the 8 staged rows of X
+// that start at `rows`: the B fragments of all four k steps by two ldmatrix.
+__device__ __forceinline__ void mma_rows(float (&acc)[4], const uint32_t (&a)[kD / 16][4],
+                                         const __nv_bfloat16* rows, int lane) {
+  uint32_t b[2][4];
+  const __nv_bfloat16* p = rows + (lane & 7) * kLdh + 8 * (lane >> 3);
+  ldmatrix_x4(b[0], p);
+  ldmatrix_x4(b[1], p + 32);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    mma_bf16(acc, a[kk], b[kk / 2][2 * (kk % 2)], b[kk / 2][2 * (kk % 2) + 1]);
+}
+
+// acc (16 x 64) += A (16 x 16, fragment a) . X for the 16 staged rows of X
+// that start at `rows` (X contracted over its rows: ldmatrix.trans).
+__device__ __forceinline__ void mma_cols(float (&acc)[kD / 8][4], const uint32_t (&a)[4],
+                                         const __nv_bfloat16* rows, int lane) {
+#pragma unroll
+  for (int jp = 0; jp < kD / 16; ++jp) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, rows + (lane & 15) * kLdh + 16 * jp + 8 * (lane >> 4));
+    mma_bf16(acc[2 * jp], a, b[0], b[1]);
+    mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+  }
+}
+
+// The accumulators of two neighbouring 8-column tiles, rounded to bf16, as
+// the A fragment of the 16 columns they cover.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[2][4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void warp_range(int& lo, int& hi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+}
+
+// The 64-row tiles of the batch row's T positions that the block must walk,
+// ascending, into `tiles`; returns their number.  A tile is walked unless
+// the [min, max] of its segment ids is disjoint from that of the block's own
+// rows [r0, r0 + 16 WARPS): then every pair of the two has P = 0.  An entry
+// is 2 * tile + 1 where the tile needs its mask, 2 * tile where it is full
+// and it and the block's rows carry one and the same id.
+template <int WARPS>
+__device__ __forceinline__ int tiles_to_walk(int* tiles, const int* __restrict__ sg, int r0,
+                                             int t) {
+  __shared__ int count;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int r = r0 + lane; r < min(r0 + 16 * WARPS, t); r += 32) {
+    lo = min(lo, sg[r]);
+    hi = max(hi, sg[r]);
+  }
+  warp_range(lo, hi);
+  const int ntiles = (t + kTile - 1) / kTile;
+  for (int tile = warp; tile < ntiles; tile += WARPS) {
+    int tlo = INT_MAX, thi = INT_MIN;
+    for (int r = tile * kTile + lane; r < min((tile + 1) * kTile, t); r += 32) {
+      tlo = min(tlo, sg[r]);
+      thi = max(thi, sg[r]);
+    }
+    warp_range(tlo, thi);
+    const bool walk = !kBwdSkip || (tlo <= hi && thi >= lo);
+    const bool plain = kBwdPlainTiles && (tile + 1) * kTile <= t && tlo == thi && lo == hi &&
+                       tlo == lo;
+    if (lane == 0) tiles[tile] = walk ? (plain ? 2 : 1) : 0;  // 0: not walked
+  }
+  __syncthreads();
+  if (warp == 0) {  // compact the flags into the list, in place
+    int n = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      const int tile = base + lane;
+      const int flag = tile < ntiles ? tiles[tile] : 0;
+      const unsigned m = __ballot_sync(0xffffffffu, flag != 0);
+      if (flag != 0) tiles[n + __popc(m & ((1u << lane) - 1u))] = 2 * tile + (flag & 1);
+      n += __popc(m);
+    }
+    if (lane == 0) count = n;
+  }
+  __syncthreads();
+  return count;
+}
+
+// The block's own 16 WARPS rows of heads a and b staged through the ring's
+// first stages and read into this warp's A fragments, while `tiles` is
+// filled; returns the number of tiles to walk.  The ring is free on return.
+template <int WARPS>
+__device__ __forceinline__ int load_resident(BwdStage* stages, int* tiles,
+                                             uint32_t (&fa)[kD / 16][4],
+                                             uint32_t (&fb)[kD / 16][4],
+                                             const __nv_bfloat16* __restrict__ a,
+                                             const __nv_bfloat16* __restrict__ b,
+                                             const int* __restrict__ sg, int r0, int t) {
+  constexpr int kOwnTiles = (16 * WARPS + kTile - 1) / kTile;
+  static_assert(kOwnTiles <= kBwdStages, "the block's own rows fit the ring");
+#pragma unroll
+  for (int i = 0; i < kOwnTiles; ++i)
+    stream_tile<32 * WARPS>(stages[i], a, b, sg, nullptr, nullptr, r0 + i * kTile, t);
+  cp_async_commit();
+  const int n = tiles_to_walk<WARPS>(tiles, sg, r0, t);
+  cp_async_wait<0>();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const BwdStage& own = stages[16 * warp / kTile];
+  const int row = 16 * warp % kTile;
+  load_a_frags(fa, own.a + row * kLdh, lane >> 2, lane & 3);
+  load_a_frags(fb, own.b + row * kLdh, lane >> 2, lane & 3);
+  __syncthreads();
+  return n;
+}
+
+// One (16 x 64) accumulator to rows `row` and `row + 8` of a bf16 head.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
+                                           const float (&acc)[kD / 8][4], int row, int t,
+                                           int tg) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= t) continue;
+    __nv_bfloat16* orow = out + (size_t)(row + 8 * h) * kD + 2 * tg;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+// One staged tile of 64 queries into a warp's dk and dv accumulators.
+// `left` is the number of the tile's queries that exist; kMasked = false
+// leaves out the validity tests (every pair of the tile is valid).
+template <bool kMasked>
+__device__ __forceinline__ void dkv_tile(float (&dka)[kD / 8][4], float (&dva)[kD / 8][4],
+                                         const uint32_t (&ka)[kD / 16][4],
+                                         const uint32_t (&va)[kD / 16][4], const BwdStage& st,
+                                         const int (&segk)[2], int left, float scale,
+                                         float scale_log2, int lane) {
+  const int tg = lane & 3;
+#pragma unroll kBwdUnroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {  // 16 queries a step
+    // S^T and dP^T: element e of column tile jj is key row g + 8 (e >> 1),
+    // query 16 kk + 8 jj + 2 tg + (e & 1)
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
+      mma_rows(s[jj], ka, st.a + (16 * kk + 8 * jj) * kLdh, lane);
+      mma_rows(dp[jj], va, st.b + (16 * kk + 8 * jj) * kLdh, lane);
+      const int c = 16 * kk + 8 * jj + 2 * tg;  // even: the two columns as one load
+      const float2 lse2 = *reinterpret_cast<const float2*>(st.lse + c);
+      const float2 di2 = *reinterpret_cast<const float2*>(st.di + c);
+      const int2 seg2 = *reinterpret_cast<const int2*>(st.seg + c);
+      const float nlse[2] = {-kLog2e * lse2.x, -kLog2e * lse2.y};
+      const float dic[2] = {di2.x, di2.y};
+      const int segq[2] = {seg2.x, seg2.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = e & 1, h = e >> 1;
+        float p = ex2(fmaf(s[jj][e], scale_log2, nlse[o]));
+        if (kMasked && !(c + o < left && segk[h] == segq[o])) p = 0.f;
+        s[jj][e] = p;
+        dp[jj][e] = (dp[jj][e] - dic[o]) * p * scale;
+      }
+    }
+    uint32_t pa[4], dsa[4];
+    pack_a(pa, s);
+    pack_a(dsa, dp);
+    mma_cols(dva, pa, st.b + 16 * kk * kLdh, lane);   // dV += P^T dO
+    mma_cols(dka, dsa, st.a + 16 * kk * kLdh, lane);  // dK += dS^T Q
+  }
+}
+
+__global__ void __launch_bounds__(32 * kDkvWarps, kDkvBlocks)
+flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                     const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ di, int heads, int t, float scale,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdStage* stages = reinterpret_cast<BwdStage*>(smem_raw);
+  int* tiles = reinterpret_cast<int*>(stages + kBwdStages);
+  constexpr int kThr = 32 * kDkvWarps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads;
+  const int k0 = blockIdx.x * 16 * kDkvWarps;
+  const size_t head = (size_t)bh * t * kD;
+  const int* sg = seg + (size_t)b * t;
+  const float* lse_h = lse + (size_t)bh * t;
+  const float* di_h = di + (size_t)bh * t;
+  const float scale_log2 = scale * kLog2e;
+  uint32_t ka[kD / 16][4], va[kD / 16][4];
+  const int n = load_resident<kDkvWarps>(stages, tiles, ka, va, k + head, v + head, sg, k0, t);
+  int segk[2];  // of this thread's two key rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + 16 * warp + g + 8 * h;
+    segk[h] = row < t ? sg[row] : 0;
+  }
+  float dka[kD / 8][4], dva[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kBwdStages - 1; ++s) {
+    if (s < n)
+      stream_tile<kThr>(stages[s], q + head, dout + head, sg, lse_h, di_h,
+                        (tiles[s] >> 1) * kTile, t);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kBwdStages - 2>();  // this thread's part of tile i has landed
+    __syncthreads();  // so has everyone's, and tile i - 1 is consumed
+    const int nx = i + kBwdStages - 1;
+    if (nx < n)
+      stream_tile<kThr>(stages[nx % kBwdStages], q + head, dout + head, sg, lse_h, di_h,
+                        (tiles[nx] >> 1) * kTile, t);
+    cp_async_commit();
+    const BwdStage& st = stages[i % kBwdStages];
+    const int left = t - (tiles[i] >> 1) * kTile;  // queries of this tile that exist
+    if (tiles[i] & 1)
+      dkv_tile<true>(dka, dva, ka, va, st, segk, left, scale, scale_log2, lane);
+    else
+      dkv_tile<false>(dka, dva, ka, va, st, segk, left, scale, scale_log2, lane);
+  }
+  store_rows(dk + head, dka, k0 + 16 * warp + g, t, tg);
+  store_rows(dv + head, dva, k0 + 16 * warp + g, t, tg);
+}
+
+// One staged tile of 64 keys into a warp's dq accumulator; `left` and
+// kMasked as in dkv_tile.  nlse is -lse log2(e) of the thread's two rows.
+template <bool kMasked>
+__device__ __forceinline__ void dq_tile(float (&acc)[kD / 8][4],
+                                        const uint32_t (&qa)[kD / 16][4],
+                                        const uint32_t (&doa)[kD / 16][4], const BwdStage& st,
+                                        const int (&segq)[2], const float (&nlse)[2],
+                                        const float (&dir)[2], int left, float scale,
+                                        float scale_log2, int lane) {
+  const int tg = lane & 3;
+#pragma unroll kBwdUnroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {  // 16 keys a step
+    // S and dP: element e of column tile jj is query row g + 8 (e >> 1),
+    // key 16 kk + 8 jj + 2 tg + (e & 1)
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
+      mma_rows(s[jj], qa, st.a + (16 * kk + 8 * jj) * kLdh, lane);
+      mma_rows(dp[jj], doa, st.b + (16 * kk + 8 * jj) * kLdh, lane);
+      const int c = 16 * kk + 8 * jj + 2 * tg;  // even: the two columns as one load
+      const int2 seg2 = *reinterpret_cast<const int2*>(st.seg + c);
+      const int segk[2] = {seg2.x, seg2.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = e & 1, h = e >> 1;
+        float p = ex2(fmaf(s[jj][e], scale_log2, nlse[h]));
+        if (kMasked && !(c + o < left && segq[h] == segk[o])) p = 0.f;
+        dp[jj][e] = (dp[jj][e] - dir[h]) * p * scale;
+      }
+    }
+    uint32_t dsa[4];
+    pack_a(dsa, dp);
+    mma_cols(acc, dsa, st.a + 16 * kk * kLdh, lane);  // dQ += dS K
+  }
+}
+
+__global__ void __launch_bounds__(32 * kDqWarps, kDqBlocks)
+flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ di, int heads, int t, float scale,
+                    __nv_bfloat16* __restrict__ dq) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdStage* stages = reinterpret_cast<BwdStage*>(smem_raw);
+  int* tiles = reinterpret_cast<int*>(stages + kBwdStages);
+  constexpr int kThr = 32 * kDqWarps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads;
+  const int q0 = blockIdx.x * 16 * kDqWarps;
+  const size_t head = (size_t)bh * t * kD;
+  const int* sg = seg + (size_t)b * t;
+  const float scale_log2 = scale * kLog2e;
+  uint32_t qa[kD / 16][4], doa[kD / 16][4];
+  const int n = load_resident<kDqWarps>(stages, tiles, qa, doa, q + head, dout + head, sg, q0, t);
+  int segq[2];            // of this thread's two query rows,
+  float nlse[2], dir[2];  // their -lse log2(e) and their di
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    const bool ok = row < t;
+    segq[h] = ok ? sg[row] : 0;
+    nlse[h] = ok ? -kLog2e * lse[(size_t)bh * t + row] : 0.f;
+    dir[h] = ok ? di[(size_t)bh * t + row] : 0.f;
+  }
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kBwdStages - 1; ++s) {
+    if (s < n)
+      stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
+                        (tiles[s] >> 1) * kTile, t);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kBwdStages - 2>();  // this thread's part of tile i has landed
+    __syncthreads();  // so has everyone's, and tile i - 1 is consumed
+    const int nx = i + kBwdStages - 1;
+    if (nx < n)
+      stream_tile<kThr>(stages[nx % kBwdStages], k + head, v + head, sg, nullptr, nullptr,
+                        (tiles[nx] >> 1) * kTile, t);
+    cp_async_commit();
+    const BwdStage& st = stages[i % kBwdStages];
+    const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
+    if (tiles[i] & 1)
+      dq_tile<true>(acc, qa, doa, st, segq, nlse, dir, left, scale, scale_log2, lane);
+    else
+      dq_tile<false>(acc, qa, doa, st, segq, nlse, dir, left, scale, scale_log2, lane);
+  }
+  store_rows(dq + head, acc, q0 + 16 * warp + g, t, tg);
+}
+
 template <typename K, typename... Args>
-int launch(K kernel, int tiles, int batch, int heads, size_t smem, void* stream,
+int launch(K kernel, int tiles, int batch, int heads, int threads, size_t smem, void* stream,
            Args... args) {
   cudaError_t err = atk::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(tiles, batch * heads), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(tiles, batch * heads), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one of the bf16 backward kernels: `warps` x 16 owned rows a block,
+// the ring and the list of tiles to walk in dynamic shared memory.  cp.async
+// copies 16 bytes at a time, so the bf16 heads must be 16-byte aligned.
+template <typename K, typename... Args>
+int launch_bwd_mma(K kernel, int warps, int batch, int heads, int t, void* stream,
+                   const void* q, const void* k, const void* v, const void* dout,
+                   Args... args) {
+  for (const void* p : {q, k, v, dout})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  const size_t smem = kBwdStages * sizeof(BwdStage) + sizeof(int) * ((t + kTile - 1) / kTile);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  using T = __nv_bfloat16;
+  return launch(kernel, (t + 16 * warps - 1) / (16 * warps), batch, heads, 32 * warps, smem,
+                stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), args...);
 }
 
 bool bad_shape(int batch, int heads, int t, int dh) {
@@ -556,7 +1068,7 @@ ATK_EXPORT int atk_flash_fwd(const void* q, const void* k, const void* v, const 
     return static_cast<int>(cudaGetLastError());
   }
   const int tiles = (t + kTile - 1) / kTile;
-  return launch(flash_fwd_kernel, tiles, batch, heads, 4 * kTileBytes, stream,
+  return launch(flash_fwd_kernel, tiles, batch, heads, kThreads, 4 * kTileBytes, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), seg, heads, t, scale, static_cast<float*>(o), lse);
 }
@@ -567,16 +1079,14 @@ ATK_EXPORT int atk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  int batch, int heads, int t, int dh, float scale, int bf16,
                                  void* dk, void* dv, void* stream) {
   if (bad_shape(batch, heads, t, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (t + kTile - 1) / kTile;
-  const size_t smem = 6 * kTileBytes;
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch(flash_dkv_kernel<T>, tiles, batch, heads, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
-                  static_cast<T*>(dk), static_cast<T*>(dv));
+    return launch_bwd_mma(flash_dkv_mma_kernel, kDkvWarps, batch, heads, t, stream, q, k, v,
+                          dout, seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
+                          static_cast<T*>(dk), static_cast<T*>(dv));
   }
-  return launch(flash_dkv_kernel<float>, tiles, batch, heads, smem, stream,
+  const int tiles = (t + kTile - 1) / kTile;
+  return launch(flash_dkv_kernel, tiles, batch, heads, kThreads, 6 * kTileBytes, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), seg, lse, static_cast<const float*>(dout), di,
                 heads, t, scale, static_cast<float*>(dk), static_cast<float*>(dv));
@@ -588,16 +1098,14 @@ ATK_EXPORT int atk_flash_bwd_dq(const void* q, const void* k, const void* v, con
                                 int batch, int heads, int t, int dh, float scale, int bf16,
                                 void* dq, void* stream) {
   if (bad_shape(batch, heads, t, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (t + kTile - 1) / kTile;
-  const size_t smem = 5 * kTileBytes;
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch(flash_dq_kernel<T>, tiles, batch, heads, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
-                  static_cast<T*>(dq));
+    return launch_bwd_mma(flash_dq_mma_kernel, kDqWarps, batch, heads, t, stream, q, k, v, dout,
+                          seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
+                          static_cast<T*>(dq));
   }
-  return launch(flash_dq_kernel<float>, tiles, batch, heads, smem, stream,
+  const int tiles = (t + kTile - 1) / kTile;
+  return launch(flash_dq_kernel, tiles, batch, heads, kThreads, 5 * kTileBytes, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), seg, lse, static_cast<const float*>(dout), di,
                 heads, t, scale, static_cast<float*>(dq));

@@ -67,8 +67,11 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < newest
 
 
-def _nvcc_command(name: str, out: Path) -> list:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+def nvcc_command(name: str, out: Path, defines: Iterable[str] = ()) -> list:
+    """The nvcc command line that compiles ``csrc/<name>.cu`` into ``out``,
+    with ``-D<define>`` for each of ``defines`` (a source's tuning knobs)."""
+    return [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+            "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
 def build(names: Iterable[str] = KERNELS) -> float:
@@ -83,7 +86,7 @@ def build(names: Iterable[str] = KERNELS) -> float:
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
         log = open(BUILD_DIR / f"lib{name}.log", "w")
         procs.append((name, tmp, log, subprocess.Popen(
-            _nvcc_command(name, tmp), stdout=log, stderr=subprocess.STDOUT)))
+            nvcc_command(name, tmp), stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for name, tmp, log, proc in procs:
         rc = proc.wait()

@@ -17,7 +17,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    library call is cuDNN's bidirectional ``nn.LSTM``), B5 forward at
    (64, 12, 1728, 64) in bf16 and f32 and its dk/dv and dq kernels at
    (8, 12, 1728, 64), random prefix lengths with a 0 (the library call is
-   ``scaled_dot_product_attention`` with the segment mask).  Each record
+   ``scaled_dot_product_attention`` with the segment mask; its backward
+   gives dq, dk and dv together, so the pair's sum is printed beside it,
+   with each kernel's rate on the work these lengths need).  Each record
    carries ``bound_ms``: the larger of the bytes the function must move
    over 3.35 TB/s and its operations over the card's peak for their type
    (67 TFLOP/s f32, 989 TFLOP/s bf16), from this run's shapes and lengths;
@@ -45,7 +47,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    launches must move), then one loss + backward on 4 rows at f32, card vs
    CPU, in training mode and through an eval-mode forward, the way
    ``jax.grad`` reaches the library kernel's backward: that pass launches
-   B5's dk/dv and dq kernels.
+   B5's dk/dv and dq kernels.  The same loss + backward is then timed on
+   the card (CUDA events) through the eval-mode (B5) route in bf16 and f32
+   and, in bf16, through the training-mode (plain) route.
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -248,6 +252,22 @@ def card_vs_cpu_grads(tag: str, card_model, cpu_model, x, y, w,
         raise AssertionError(f"{tag} gradients differ from the CPU: {bad}")
 
 
+def loss_backward_ms(model, x, y, w, train: bool, iters: int = 5) -> float:
+    """Mean milliseconds of one weighted-BCE loss + backward of ``model`` on
+    the card, in training or eval mode (CUDA events)."""
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    d = next(model.parameters()).device
+    x, y, w = x.to(d), y.to(d), w.to(d)
+    model.train(train)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        weighted_bce(model(x), y, w).backward()
+
+    return cuda_ms(step, iters)
+
+
 def first_val_rows(cfg, n: int):
     """The first n rows of the first validation batch: inputs, labels and
     unit row weights (host tensors)."""
@@ -378,8 +398,13 @@ def attention_phases(records: list) -> None:
             + f" (bound {ATT_BWD_RTOL[name]}); dk/dv kernel {dkv_ms:.3f} ms "
             f"(plain {dkv_plain:.3f}, bound {dkv_b[0]:.3f} {dkv_b[1]}), dq "
             f"kernel {dq_ms:.3f} ms (plain {dq_plain:.3f}, bound "
-            f"{dq_b[0]:.3f} {dq_b[1]}); scaled_dot_product_attention "
-            f"backward (dq, dk, dv together) {lib_ms:.3f} ms")
+            f"{dq_b[0]:.3f} {dq_b[1]}); the pair {dkv_ms + dq_ms:.3f} ms vs "
+            f"scaled_dot_product_attention backward (dq, dk, dv together) "
+            f"{lib_ms:.3f} ms; on the work these lengths need dk/dv "
+            f"{8 * HEAD_DIM * pairs / dkv_ms / 1e9:.1f} TFLOP/s of "
+            f"{8 * HEAD_DIM * pairs / 1e9:.1f} GFLOP, dq "
+            f"{6 * HEAD_DIM * pairs / dq_ms / 1e9:.1f} TFLOP/s of "
+            f"{6 * HEAD_DIM * pairs / 1e9:.1f} GFLOP")
         del q, k, v, do, o, lse, di, args, leaves, out
     r = bwd["bfloat16"]
     for key, label, line, err in (
@@ -858,6 +883,15 @@ def main() -> int:
         records[4]["launches_by_path"]["eval_grad"] = grad_launches[0]
         records[5]["launches_by_path"] = {"eval_grad": grad_launches[1]}
         records[6]["launches_by_path"] = {"eval_grad": grad_launches[2]}
+        # the one place a model reaches the backward pair, timed (after the
+        # counters were read): bf16 is the trained model itself
+        eval_bf16 = loss_backward_ms(btrainer.model, *rows, train=False)
+        plain_bf16 = loss_backward_ms(btrainer.model, *rows, train=True)
+        eval_f32 = loss_backward_ms(card_bert, *rows, train=False)
+        log(f"[train bert reference] loss + backward on {len(rows[0])} rows "
+            f"(CUDA events): eval mode (B5 forward, dk/dv, dq) bf16 "
+            f"{eval_bf16:.3f} ms, f32 {eval_f32:.3f} ms; training mode "
+            f"(plain attention) bf16 {plain_bf16:.3f} ms")
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -17,10 +17,11 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import (
-    BlockSizes, SegmentIds, flash_attention as jax_flash)
+    DEFAULT_MASK_VALUE, BlockSizes, SegmentIds, _flash_attention_bwd_dkv,
+    _flash_attention_bwd_dq, flash_attention as jax_flash)
 
 from audio_tokens_tpu_torch.ops.cuda_attention import (
-    FlashAttention, flash_attention, flash_attention_dkv_plain,
+    FlashAttention, _probs_and_ds, flash_attention, flash_attention_dkv_plain,
     flash_attention_dq_plain, flash_attention_fwd, flash_attention_plain)
 
 BLOCK = 256  # audio_tokens_tpu/models/transformer.py _FLASH_BLOCK
@@ -146,6 +147,84 @@ def test_plain_backward_is_autograd_of_plain_forward(rng, dtype):
         else:
             assert float((g - r).abs().max()) <= 2e-2 * float(
                 r.abs().max()), name
+
+
+def _three_segments(layout, b, t):
+    """(b, t) int32 ids 0, 3 and 7, not a prefix: position by position
+    (``interleaved``) or in thirds out of order, 7 then 0 then 3
+    (``thirds``)."""
+    pos = np.arange(t)
+    if layout == "interleaved":
+        row = np.array([0, 3, 7], np.int32)[pos % 3]
+    else:
+        row = np.array([7, 0, 3], np.int32)[pos * 3 // t]
+    return np.tile(row, (b, 1))
+
+
+@pytest.mark.parametrize("layout", ["interleaved", "thirds"])
+def test_plain_dkv_dq_match_library_kernels_on_three_segments(rng, layout):
+    """``flash_attention_dkv_plain`` / ``flash_attention_dq_plain`` vs the
+    library's dk/dv and dq kernels called directly on the same residuals,
+    with three segments whose ids are not 0/1 and not a prefix; T = 256, so
+    the JAX side pads nothing.  f32, atol 1e-5 (the same sums in another
+    order).  The library takes the row max m and sum l apart; the port their
+    logsumexp."""
+    b, nh, t = 2, 2, BLOCK
+    q, k, v, do, _ = _inputs(rng, b, nh, t, [t] * b)
+    seg = _three_segments(layout, b, t)
+    tq, tk, tv, tdo, tseg = (torch.from_numpy(a) for a in (q, k, v, do, seg))
+    same = tseg[:, None, :, None] == tseg[:, None, None, :]
+    s = (tq @ tk.transpose(-1, -2)) * SCALE + torch.where(
+        same, 0.0, DEFAULT_MASK_VALUE)
+    m = s.amax(-1)
+    l = torch.exp(s - m[..., None]).sum(-1)
+    o, lse = flash_attention_plain(tq, tk, tv, tseg, SCALE, True)
+    torch.testing.assert_close(lse, m + torch.log(l), atol=1e-5, rtol=1e-5)
+    di = (o * tdo).sum(-1)
+    args = (tq, tk, tv, tseg, lse, tdo, di, SCALE)
+    got_dk, got_dv = flash_attention_dkv_plain(*args)
+    got_dq = flash_attention_dq_plain(*args)
+
+    segj = SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
+    common = dict(block_k_major=t, block_k=t, sm_scale=SCALE, causal=False,
+                  mask_value=DEFAULT_MASK_VALUE, debug=False)
+
+    def library(q, k, v, l, m, do, di):
+        dk, dv = _flash_attention_bwd_dkv(
+            q, k, v, None, segj, l, m, do, di, block_q_major=t, block_q=t,
+            **common)
+        dq, _ = _flash_attention_bwd_dq(
+            q, k, v, None, segj, l, m, do, di, block_q_major=t, **common)
+        return dq, dk, dv
+
+    with interpret():
+        ref = jax.jit(library)(*(jnp.asarray(a.numpy()) for a in
+                                 (tq, tk, tv, l, m, tdo, di)))
+    for name, g, r in zip(("dq", "dk", "dv"), (got_dq, got_dk, got_dv), ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pairs_of_different_segments_have_zero_p_and_ds(rng, dtype):
+    """P and dS of the backward are exactly 0 wherever query and key lie in
+    different segments (exp(MASK_VALUE - lse) underflows to 0), for any ids:
+    a tile of such pairs contributes nothing to dq, dk or dv, which is what
+    lets the kernels leave whole tiles out.  Same-segment pairs keep P > 0."""
+    b, nh, t = 2, 2, 96
+    q, k, v, do, _ = _inputs(rng, b, nh, t, [t] * b)
+    seg = torch.from_numpy(_three_segments("interleaved", b, t))
+    seg[1] = torch.from_numpy(_three_segments("thirds", 1, t)[0]) - 5
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in (q, k, v, do))
+    o, lse = flash_attention_plain(q, k, v, seg, SCALE, True)
+    di = (o.float() * do.float()).sum(-1)
+    p, ds = _probs_and_ds(q, k, v, seg, lse, do, di, SCALE)
+    other = (seg[:, None, :, None] != seg[:, None, None, :]).expand_as(p)
+    assert other.any() and not other.all()
+    assert torch.count_nonzero(p[other]) == 0
+    assert torch.count_nonzero(ds[other]) == 0
+    assert bool((p[~other] > 0).all())
+    assert bool(torch.isfinite(ds).all())
 
 
 def test_lse_is_the_row_logsumexp(rng):

@@ -210,22 +210,61 @@ def test_cuda_flash_forward_matches_plain(cuda_device, dtype, b, nh, t):
             assert got_lse is None
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,nh,t", FLASH_SHAPES)
-def test_cuda_flash_backward_matches_plain(cuda_device, dtype, b, nh, t):
-    """The dk/dv and dq kernels on the plain forward's logsumexp: each
-    gradient within 1e-5 (f32) or 2e-2 (bf16: P and dS rounded to 8 bits)
-    of its largest entry."""
-    from audio_tokens_tpu_torch.ops.cuda_attention import (
-        flash_attention_bwd_dkv, flash_attention_bwd_dq,
-        flash_attention_dkv_plain, flash_attention_dq_plain,
-        flash_attention_plain)
+def _prefix_segments(lens, t):
+    """(B, T) int32 ids: 0 below each row's length, 1 from there on."""
+    return (torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]).to(
+        torch.int32)
 
-    q, k, v, do, seg = _flash_inputs(cuda_device, b, nh, t, dtype)
+
+def _interleaved_segments(b, t):
+    """Three segments, ids 2, 5 and 9, interleaved position by position (no
+    tile is all of one segment) and, in the last row, in thirds (tiles of
+    one segment, ids that are not 0/1)."""
+    ids = torch.tensor([2, 5, 9], dtype=torch.int32)
+    seg = ids[torch.arange(t) % 3].repeat(b, 1)
+    seg[-1] = ids[(torch.arange(t) * 3) // t]
+    return seg
+
+
+# (b, nh, t, segment ids or None for _flash_inputs' random prefix lengths)
+FLASH_BWD_CASES = {
+    **{f"{b}x{nh}x{t}": (b, nh, t, None) for b, nh, t in FLASH_SHAPES},
+    "the-serving-length": (1, 2, 1728, None),
+    "two-tiles-ragged": (2, 2, 130, None),
+    "four-tiles-ragged": (2, 1, 200, None),
+    # lengths that leave whole 64-row tiles masked, each way round
+    "whole-tiles-masked": (4, 2, 200, _prefix_segments([0, 64, 65, 200], 200)),
+    "three-segments": (2, 2, 200, _interleaved_segments(2, 200)),
+    "three-segments-long": (2, 1, 450, _interleaved_segments(2, 450)),
+    # more than 32 tiles: the list of tiles to walk is built in two rounds
+    "35-tiles-prefix": (2, 1, 2200, None),
+    "35-tiles-thirds": (1, 1, 2200, _interleaved_segments(1, 2200)),
+}
+
+
+def _flash_backward_args(device, dtype, b, nh, t, seg):
+    """The backward kernels' arguments on the plain forward's logsumexp."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_plain
+
+    q, k, v, do, prefix = _flash_inputs(device, b, nh, t, dtype)
+    seg = prefix if seg is None else seg.to(device)
     o, lse = flash_attention_plain(q, k, v, seg, 0.125, True)
     di = (o.float() * do.float()).sum(-1)
-    args = (q, k, v, seg, lse, do, di, 0.125)
+    return q, k, v, seg, lse, do, di, 0.125
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+def test_cuda_flash_backward_matches_plain(cuda_device, dtype, case):
+    """The dk/dv and dq kernels on the plain forward's logsumexp: each
+    gradient within 1e-5 (f32) or 2e-2 (bf16: P, dS and the outputs each
+    rounded to 8 bits) of its largest entry."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_dkv_plain, flash_attention_dq_plain)
+
+    args = _flash_backward_args(cuda_device, dtype, *FLASH_BWD_CASES[case])
     launches = (flash_attention_bwd_dkv.launches,
                 flash_attention_bwd_dq.launches)
     got = (*flash_attention_bwd_dkv(*args), flash_attention_bwd_dq(*args))
@@ -236,19 +275,58 @@ def test_cuda_flash_backward_matches_plain(cuda_device, dtype, b, nh, t):
     rel = 1e-5 if dtype == torch.float32 else 2e-2
     for name, g, r in zip(("dk", "dv", "dq"), got, ref):
         assert g.dtype == dtype
+        assert bool(torch.isfinite(g).all()), name
         err = float((g.float() - r.float()).abs().max())
         assert err <= rel * float(r.float().abs().max()), (name, err)
 
 
 @pytest.mark.cuda
-def test_cuda_flash_autograd_runs_the_three_kernels(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_backward_is_bit_equal_between_launches(cuda_device,
+                                                           dtype):
+    """No atomics and a fixed walk: two launches of each backward kernel on
+    the same inputs give the same bits."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    args = _flash_backward_args(cuda_device, dtype, 3, 2, 450,
+                                _interleaved_segments(3, 450))
+    first = (*flash_attention_bwd_dkv(*args), flash_attention_bwd_dq(*args))
+    again = (*flash_attention_bwd_dkv(*args), flash_attention_bwd_dq(*args))
+    for name, a, b in zip(("dk", "dv", "dq"), first, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_refuses_misaligned_bf16(cuda_device):
+    """The bf16 backward copies 16 bytes at a time: heads that start 2 bytes
+    off a 16-byte boundary are refused by the launch, not read."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    args = list(_flash_backward_args(cuda_device, torch.bfloat16, 1, 1, 64,
+                                     None))
+    q = args[0]
+    off = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)[1:]
+    args[0] = off.view(q.shape).copy_(q)
+    assert args[0].is_contiguous() and args[0].data_ptr() % 16 == 2
+    for kernel in (flash_attention_bwd_dkv, flash_attention_bwd_dq):
+        with pytest.raises(RuntimeError, match="misaligned"):
+            kernel(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_autograd_runs_the_three_kernels(cuda_device, dtype):
     """FlashAttention on the card: one forward, one dk/dv and one dq
-    launch, gradients equal to autograd through the plain forward."""
+    launch, gradients equal to autograd through the plain forward (f32
+    within 1e-4; bf16, where the kernels round P and dS and autograd does
+    not, within 2e-2 of the largest entry)."""
     from audio_tokens_tpu_torch.ops.cuda_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_fwd, flash_attention_plain)
 
-    q, k, v, do, seg = _flash_inputs(cuda_device, 2, 2, 130, torch.float32)
+    q, k, v, do, seg = _flash_inputs(cuda_device, 2, 2, 130, dtype)
     counters = (flash_attention_fwd, flash_attention_bwd_dkv,
                 flash_attention_bwd_dq)
     before = [c.launches for c in counters]
@@ -260,7 +338,11 @@ def test_cuda_flash_autograd_runs_the_three_kernels(cuda_device):
     ref = torch.autograd.grad(
         flash_attention_plain(*ref_leaves, seg, 0.125), ref_leaves, do)
     for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+        else:
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= 2e-2 * float(r.float().abs().max())
 
 
 @pytest.mark.cuda

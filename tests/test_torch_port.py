@@ -138,3 +138,25 @@ def test_build_command_targets_hopper_without_fast_math():
     # the build lands in a gitignored directory of the checkout
     assert _build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
     assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_flash_backward_ab_variants_name_knobs_of_the_kernel_source(
+        monkeypatch):
+    """Every knob the A/B tool's default variants set is a ``#ifndef`` knob
+    of ``csrc/attention.cu`` (a stale name would silently build the default
+    again), and a variant's defines reach the nvcc command line as ``-D``."""
+    from audio_tokens_tpu_torch.ops import _build
+    from audio_tokens_tpu_torch.tools import flash_bwd_ab
+
+    source = (_build.CSRC / "attention.cu").read_text()
+    names = [v.partition(":")[0] for v in flash_bwd_ab.DEFAULT_VARIANTS]
+    assert names[0] == "default" and len(set(names)) == len(names)
+    for variant in flash_bwd_ab.DEFAULT_VARIANTS:
+        for define in filter(None, variant.partition(":")[2].split(",")):
+            knob, _, value = define.partition("=")
+            assert f"#ifndef {knob}\n" in source, variant
+            assert value.isdigit(), variant
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = _build.nvcc_command("attention", REPO / "build" / "x.so",
+                              ["ATK_BWD_SKIP=0"])
+    assert "-DATK_BWD_SKIP=0" in cmd and cmd[-1].endswith("attention.cu")
