@@ -22,17 +22,21 @@
 //
 // What bounds it on the H100: at the serving shape (B 64, nh 12, T 1728,
 // dh 64) the forward is 587 GFLOP against 680 MB of q, k, v, o in bf16, so
-// it is bound by arithmetic.  Every kernel keeps the (T, T) scores on chip:
-// one block per (batch x head, 64-row tile), 64-row tiles of the other
+// it is bound by arithmetic, and past the mma by the elementwise pass (the
+// online softmax takes about as many instruction slots as the mma at head
+// dim 64).  Every kernel keeps the (T, T) scores on chip: one block per
+// (batch x head, tile of 16 x warps own rows), 64-row tiles of the other
 // side staged through shared memory.  In bf16 all three kernels run on the
 // tensor cores with mma.sync from bf16 tiles (flash_fwd_mma_kernel,
-// flash_dkv_mma_kernel, flash_dq_mma_kernel): P and dS stay in registers,
-// the accumulator of one product being the A fragment of the next, and the
-// backward pair streams its tiles through a cp.async ring and skips tiles
-// that share no segment with the block's rows.  The f32 kernels (forward,
-// dk/dv, dq) are plain f32 FMA from f32 tiles, each thread a 4 x 4 register
-// tile, so they cannot beat the 67 TFLOP/s f32 rate.  wgmma, TMA and warp
-// specialisation are later work.
+// flash_dkv_mma_kernel, flash_dq_mma_kernel) on one design: P and dS stay in
+// registers, the accumulator of one product being the A fragment of the
+// next; the streamed tiles come through a cp.async ring that overlaps the
+// next tile's loads with this tile's mma; tiles that share no segment with
+// the block's rows are left out and tiles of one segment skip the mask
+// tests; the exponential is the bare ex2 instruction.  The f32 kernels
+// (forward, dk/dv, dq) are plain f32 FMA from f32 tiles, each thread a 4 x 4
+// register tile, so they cannot beat the 67 TFLOP/s f32 rate.  wgmma, TMA
+// and warp specialisation are later work.
 #include <cuda_bf16.h>
 
 #include <climits>
@@ -330,20 +334,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Forward on the tensor cores, for bf16: mma.sync m16n8k16 (bf16 operands,
-// f32 accumulation).  Block (query tile of 128, batch x head), 8 warps of
-// 16 query rows each.  A warp keeps its Q fragments in registers for the whole
-// key loop; per 64-key tile it forms S (16 x 64) in the mma accumulator
-// layout, runs the online softmax on it (a row's 16 values per thread
-// reduced over the 4 lanes of a quad), and reuses the accumulator of two
-// neighbouring 8-key column tiles directly as the A fragment of P.V, P
-// rounded to bf16 as it is packed.  K and V are staged row-major; the B
-// fragments of P.V come from V by ldmatrix.trans.  The softmax runs in base
-// 2 (scores times sm_scale * log2(e), exp2f: the same P up to an ulp, and
-// cheaper than expf, whose instruction count rivals the mma at head dim 64).
-constexpr int kMmaWarps = 8;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRows = 16 * kMmaWarps;  // query rows of a block
+// The bf16 kernels run on the tensor cores: mma.sync m16n8k16 (bf16
+// operands, f32 accumulation).
 constexpr int kLdh = kD + 8;  // bf16 row of a staged tile: 144 bytes, no bank conflicts
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -374,156 +366,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(addr));
 }
 
-// Rows [r0, r0 + rows) of one (T, 64) bf16 head into a shared tile with
-// row stride kLdh, zeros past T; 32-bit copies.
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* __restrict__ src, int r0,
-                                               int t, int rows) {
-  for (int e = threadIdx.x; e < rows * kD / 2; e += kMmaThreads) {
-    const int r = e / (kD / 2), w = e % (kD / 2);
-    const uint32_t val =
-        r0 + r < t ? *reinterpret_cast<const uint32_t*>(src + (size_t)(r0 + r) * kD + 2 * w) : 0u;
-    *reinterpret_cast<uint32_t*>(dst + r * kLdh + 2 * w) = val;
-  }
-}
-
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg, int heads,
-                     int t, float scale, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kMmaRows * kLdh];
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * kLdh];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * kLdh];
-  __shared__ int segk[kTile];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tg = lane & 3;  // mma group (row) and thread in group
-  const int bh = blockIdx.y, b = bh / heads;
-  const int q0 = blockIdx.x * kMmaRows;
-  const size_t head = (size_t)bh * t * kD;
-  const int* sg = seg + (size_t)b * t;
-  const float scale_log2 = scale * 1.44269504088896341f;  // log2(e)
-  load_tile_bf16(qs, q + head, q0, t, kMmaRows);
-  __syncthreads();
-  const int r0 = warp * 16;  // this warp's rows within the tile
-  uint32_t qa[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const __nv_bfloat16* row_lo = qs + (r0 + g) * kLdh + kk * 16 + 2 * tg;
-    const __nv_bfloat16* row_hi = row_lo + 8 * kLdh;
-    qa[kk][0] = lds32(row_lo);
-    qa[kk][1] = lds32(row_hi);
-    qa[kk][2] = lds32(row_lo + 8);
-    qa[kk][3] = lds32(row_hi + 8);
-  }
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  int segq[2];
-  float m[2], l[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    segq[h] = rows[h] < t ? sg[rows[h]] : 0;
-    m[h] = -CUDART_INF_F;
-    l[h] = 0.f;
-  }
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();  // the previous tile's ks and vs are consumed
-    load_tile_bf16(ks, k + head, k0, t, kTile);
-    load_tile_bf16(vs, v + head, k0, t, kTile);
-    if (threadIdx.x < kTile) segk[threadIdx.x] = k0 + threadIdx.x < t ? sg[k0 + threadIdx.x] : 0;
-    __syncthreads();
-    // S = Q K^T: 8 column tiles of 8 keys; element e of tile j is row
-    // g + 8 (e >> 1), key 8 j + 2 tg + (e & 1)
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      const __nv_bfloat16* krow = ks + (8 * j + g) * kLdh + 2 * tg;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        mma_bf16(s[j], qa[kk], lds32(krow + kk * 16), lds32(krow + kk * 16 + 8));
-    }
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * tg + (e & 1);
-        const int h = e >> 1;
-        s[j][e] = k0 + c < t ? s[j][e] * scale_log2 + (segq[h] == segk[c] ? 0.f : kMask)
-                             : -CUDART_INF_F;
-        mx[h] = fmaxf(mx[h], s[j][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);  // finite: key k0 exists
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m[e >> 1]);  // P, unrounded for the row sum
-        sum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      l[h] = alpha[h] * l[h] + sum[h];
-    }
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-    // O += P V: the accumulators of key tiles 2 kk and 2 kk + 1 are the A
-    // fragment of keys 16 kk .. 16 kk + 15; one ldmatrix.trans gives the B
-    // fragments of two 8-wide d tiles (lanes 0-15: keys 16 kk + lane % 16
-    // at d 16 jp, lanes 16-31: the same keys at d 16 jp + 8)
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int jp = 0; jp < kD / 16; ++jp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 15)) * kLdh + 16 * jp + 8 * (lane >> 4));
-        mma_bf16(acc[2 * jp], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * jp + 1], pa, vb[2], vb[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= t) continue;
-    const float inv = 1.f / l[h];
-    __nv_bfloat16* orow = o + head + (size_t)rows[h] * kD + 2 * tg;
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
-    if (lse != nullptr && tg == 0)
-      lse[(size_t)bh * t + rows[h]] = (m[h] + log2f(l[h])) * 0.693147180559945309f;
-  }
-}
-
-// The backward pair on the tensor cores, for bf16.  Both kernels are shaped
-// like the forward above: a warp owns 16 rows, keeps their operands as mma A
-// fragments in registers for the whole loop, and walks the other side in
-// 64-row tiles.
+// The three bf16 kernels share one shape: a warp owns 16 rows, keeps their
+// operands as mma A fragments in registers for the whole loop, and walks the
+// other side in 64-row tiles.
 //
+//   forward: a warp owns 16 query rows (Q fragments resident) and streams K
+//     and V.  Per key tile it forms S = Q.K^T in the accumulator layout, runs
+//     the online softmax on it (a row's 16 values per thread reduced over the
+//     4 lanes of a quad; base 2, scores times sm_scale * log2(e)), and reuses
+//     the accumulators of two neighbouring 8-key column tiles, P rounded to
+//     bf16 against the running max as it is packed, as the A fragment of
+//     O += P.V.
 //   dk/dv: a warp owns 16 key rows (K and V fragments resident) and streams
 //     Q and dO.  It forms the transposed scores S^T = K.Q^T and dP^T = V.dO^T
 //     with the keys as the M dimension, so the accumulators of two
@@ -536,27 +389,40 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // P and dS never touch shared memory.  The B fragments of the score products
 // come from the streamed tiles' row-major rows by ldmatrix, those of the
 // output products (contracted over the streamed rows) by ldmatrix.trans.
-// P = exp2(s * sm_scale * log2(e) - lse * log2(e)) where the pair is valid
-// (same segment, streamed row below T), else exactly 0 (as the plain
-// version's exp(MASK_VALUE - lse) is).  An owned row past T is not tested:
-// a row of P or dS reaches only its own row of the output, which is not
-// stored.  exp2 is the bare ex2.approx.ftz instruction: what exp2f compiles
-// to without its rescue of results below 2^-126, which become 0 here; the
+// In the backward P = exp2(s * sm_scale * log2(e) - lse * log2(e)) where the
+// pair is valid (same segment, streamed row below T), else exactly 0 (as the
+// plain version's exp(MASK_VALUE - lse) is).  The forward sets an invalid
+// pair's score to -inf before the row max, so that it neither raises the
+// running max nor adds to l and O (exp2(-inf) = 0); the plain version's
+// exp(MASK_VALUE - m) is 0 there too, since every query row below T has a
+// key of its own segment (itself).  An owned row past T is not tested: a row
+// of P or dS reaches only its own row of the output, which is not stored.
+// exp2 is the bare ex2.approx.ftz instruction: what exp2f compiles to
+// without its rescue of results below 2^-126, which become 0 here; the
 // elementwise pass between the products takes as many instruction slots as
 // the mma, so every instruction in it shows in the kernel's time.
 //
-// The streamed tiles come through a ring of kBwdStages stages filled by
+// The streamed tiles come through a ring of kStages stages filled by
 // cp.async (16 bytes a thread; rows past T are zero-filled by the src-size
 // form), so the loads of the next tiles overlap the mma of this one, with
 // one block barrier a tile.  A streamed tile whose segment ids cannot meet
 // the block's own (disjoint [min, max] ranges; any int32 ids) holds only
 // pairs with P = 0 and is left out of the walk; a full tile whose rows and
 // the block's all carry one id needs no mask and takes a path without the
-// tests.  The walk is in ascending tile order and nothing is accumulated
-// across blocks: bit-identical from launch to launch.
+// tests.  Both are exact: in the forward a left-out tile would leave m, l and
+// O as they are (all its P are 0), or, walked first, be wiped by the first
+// tile with a valid key (alpha = 0).  The walk is in ascending tile order and
+// nothing is accumulated across blocks: bit-identical from launch to launch,
+// and with the skip and the untested path on or off.
 //
 // Tuning knobs: the defaults are the measured best on an H100 (PERF.md);
-// tools/flash_bwd_ab.py builds the alternatives with -D and times them.
+// tools/kernel_ab.py builds the alternatives with -D and times them.
+#ifndef ATK_FWD_WARPS
+#define ATK_FWD_WARPS 4  // warps of a forward block, 16 query rows each
+#endif
+#ifndef ATK_FWD_BLOCKS
+#define ATK_FWD_BLOCKS 4  // forward blocks an SM that the register count must allow
+#endif
 #ifndef ATK_DKV_WARPS
 #define ATK_DKV_WARPS 4  // warps of a dk/dv block, 16 key rows each
 #endif
@@ -569,38 +435,40 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #ifndef ATK_DQ_BLOCKS
 #define ATK_DQ_BLOCKS 2  // dq blocks an SM that the register count must allow
 #endif
-#ifndef ATK_BWD_STAGES
-#define ATK_BWD_STAGES 2  // stages of the cp.async ring
+#ifndef ATK_STAGES
+#define ATK_STAGES 2  // stages of the cp.async ring
 #endif
 #ifndef ATK_BWD_UNROLL
 #define ATK_BWD_UNROLL 1  // unrolling of a tile's four 16-row steps (4 spills registers)
 #endif
-#ifndef ATK_BWD_SKIP
-#define ATK_BWD_SKIP 1  // leave out the tiles whose pairs all have P = 0
+#ifndef ATK_TILE_SKIP
+#define ATK_TILE_SKIP 1  // leave out the tiles whose pairs all have P = 0
 #endif
-#ifndef ATK_BWD_PLAIN_TILES
-#define ATK_BWD_PLAIN_TILES 1  // no mask tests on the tiles that need none
+#ifndef ATK_PLAIN_TILES
+#define ATK_PLAIN_TILES 1  // no mask tests on the tiles that need none
 #endif
+constexpr int kFwdWarps = ATK_FWD_WARPS;
+constexpr int kFwdBlocks = ATK_FWD_BLOCKS;
 constexpr int kDkvWarps = ATK_DKV_WARPS;
 constexpr int kDkvBlocks = ATK_DKV_BLOCKS;
 constexpr int kDqWarps = ATK_DQ_WARPS;
 constexpr int kDqBlocks = ATK_DQ_BLOCKS;
-constexpr int kBwdStages = ATK_BWD_STAGES;
+constexpr int kStages = ATK_STAGES;
 constexpr int kBwdUnroll = ATK_BWD_UNROLL;
-constexpr bool kBwdSkip = ATK_BWD_SKIP != 0;
-constexpr bool kBwdPlainTiles = ATK_BWD_PLAIN_TILES != 0;
+constexpr bool kTileSkip = ATK_TILE_SKIP != 0;
+constexpr bool kPlainTiles = ATK_PLAIN_TILES != 0;
 constexpr float kLog2e = 1.44269504088896341f;
 
 // One stage of the ring: a 64-row tile of each streamed operand and the
 // rows' segment ids, logsumexp and di (the last two only for dk/dv).
-struct BwdStage {
-  __nv_bfloat16 a[kTile * kLdh];  // Q (dk/dv) or K (dq)
-  __nv_bfloat16 b[kTile * kLdh];  // dO (dk/dv) or V (dq)
+struct Stage {
+  __nv_bfloat16 a[kTile * kLdh];  // K (forward, dq) or Q (dk/dv)
+  __nv_bfloat16 b[kTile * kLdh];  // V (forward, dq) or dO (dk/dv)
   int seg[kTile];
   float lse[kTile];
   float di[kTile];
 };
-static_assert(sizeof(BwdStage) % 16 == 0, "stages stay 16-byte aligned");
+static_assert(sizeof(Stage) % 16 == 0, "stages stay 16-byte aligned");
 
 // 16 or 4 bytes global -> shared, asynchronously; zeros instead when !valid
 // (src must still be an address inside the tensor).
@@ -625,11 +493,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Start the copy of rows [r0, r0 + 64) of the heads a and b, of the batch
-// row's segment ids sg and, unless null, of the head's lse and di rows into
-// a stage.  The caller commits the group.
-template <int THREADS>
-__device__ __forceinline__ void stream_tile(BwdStage& st, const __nv_bfloat16* __restrict__ a,
+// Start the copy of rows [r0, r0 + 64) of the head a and, if kB, of the
+// head b, of the batch row's segment ids sg and, unless null, of the head's
+// lse and di rows into a stage.  The caller commits the group.
+template <int THREADS, bool kB = true>
+__device__ __forceinline__ void stream_tile(Stage& st, const __nv_bfloat16* __restrict__ a,
                                             const __nv_bfloat16* __restrict__ b,
                                             const int* __restrict__ sg,
                                             const float* __restrict__ lse,
@@ -640,7 +508,7 @@ __device__ __forceinline__ void stream_tile(BwdStage& st, const __nv_bfloat16* _
     const bool ok = r0 + r < t;
     const size_t off = (size_t)(ok ? r0 + r : 0) * kD + c;
     cp_async16(st.a + r * kLdh + c, a + off, ok);
-    cp_async16(st.b + r * kLdh + c, b + off, ok);
+    if (kB) cp_async16(st.b + r * kLdh + c, b + off, ok);
   }
   const int i = threadIdx.x;
   if (i < kTile) {
@@ -753,8 +621,8 @@ __device__ __forceinline__ int tiles_to_walk(int* tiles, const int* __restrict__
       thi = max(thi, sg[r]);
     }
     warp_range(tlo, thi);
-    const bool walk = !kBwdSkip || (tlo <= hi && thi >= lo);
-    const bool plain = kBwdPlainTiles && (tile + 1) * kTile <= t && tlo == thi && lo == hi &&
+    const bool walk = !kTileSkip || (tlo <= hi && thi >= lo);
+    const bool plain = kPlainTiles && (tile + 1) * kTile <= t && tlo == thi && lo == hi &&
                        tlo == lo;
     if (lane == 0) tiles[tile] = walk ? (plain ? 2 : 1) : 0;  // 0: not walked
   }
@@ -774,30 +642,31 @@ __device__ __forceinline__ int tiles_to_walk(int* tiles, const int* __restrict__
   return count;
 }
 
-// The block's own 16 WARPS rows of heads a and b staged through the ring's
-// first stages and read into this warp's A fragments, while `tiles` is
-// filled; returns the number of tiles to walk.  The ring is free on return.
-template <int WARPS>
-__device__ __forceinline__ int load_resident(BwdStage* stages, int* tiles,
+// The block's own 16 WARPS rows of head a and, if kB, of head b staged
+// through the ring's first stages and read into this warp's A fragments,
+// while `tiles` is filled; returns the number of tiles to walk.  The ring is
+// free on return.
+template <int WARPS, bool kB = true>
+__device__ __forceinline__ int load_resident(Stage* stages, int* tiles,
                                              uint32_t (&fa)[kD / 16][4],
                                              uint32_t (&fb)[kD / 16][4],
                                              const __nv_bfloat16* __restrict__ a,
                                              const __nv_bfloat16* __restrict__ b,
                                              const int* __restrict__ sg, int r0, int t) {
   constexpr int kOwnTiles = (16 * WARPS + kTile - 1) / kTile;
-  static_assert(kOwnTiles <= kBwdStages, "the block's own rows fit the ring");
+  static_assert(kOwnTiles <= kStages, "the block's own rows fit the ring");
 #pragma unroll
   for (int i = 0; i < kOwnTiles; ++i)
-    stream_tile<32 * WARPS>(stages[i], a, b, sg, nullptr, nullptr, r0 + i * kTile, t);
+    stream_tile<32 * WARPS, kB>(stages[i], a, b, sg, nullptr, nullptr, r0 + i * kTile, t);
   cp_async_commit();
   const int n = tiles_to_walk<WARPS>(tiles, sg, r0, t);
   cp_async_wait<0>();
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const BwdStage& own = stages[16 * warp / kTile];
+  const Stage& own = stages[16 * warp / kTile];
   const int row = 16 * warp % kTile;
   load_a_frags(fa, own.a + row * kLdh, lane >> 2, lane & 3);
-  load_a_frags(fb, own.b + row * kLdh, lane >> 2, lane & 3);
+  if (kB) load_a_frags(fb, own.b + row * kLdh, lane >> 2, lane & 3);
   __syncthreads();
   return n;
 }
@@ -823,7 +692,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
 template <bool kMasked>
 __device__ __forceinline__ void dkv_tile(float (&dka)[kD / 8][4], float (&dva)[kD / 8][4],
                                          const uint32_t (&ka)[kD / 16][4],
-                                         const uint32_t (&va)[kD / 16][4], const BwdStage& st,
+                                         const uint32_t (&va)[kD / 16][4], const Stage& st,
                                          const int (&segk)[2], int left, float scale,
                                          float scale_log2, int lane) {
   const int tg = lane & 3;
@@ -869,8 +738,8 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      const float* __restrict__ di, int heads, int t, float scale,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdStage* stages = reinterpret_cast<BwdStage*>(smem_raw);
-  int* tiles = reinterpret_cast<int*>(stages + kBwdStages);
+  Stage* stages = reinterpret_cast<Stage*>(smem_raw);
+  int* tiles = reinterpret_cast<int*>(stages + kStages);
   constexpr int kThr = 32 * kDkvWarps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tg = lane & 3;
@@ -896,21 +765,21 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < kBwdStages - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s) {
     if (s < n)
       stream_tile<kThr>(stages[s], q + head, dout + head, sg, lse_h, di_h,
                         (tiles[s] >> 1) * kTile, t);
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
-    cp_async_wait<kBwdStages - 2>();  // this thread's part of tile i has landed
+    cp_async_wait<kStages - 2>();  // this thread's part of tile i has landed
     __syncthreads();  // so has everyone's, and tile i - 1 is consumed
-    const int nx = i + kBwdStages - 1;
+    const int nx = i + kStages - 1;
     if (nx < n)
-      stream_tile<kThr>(stages[nx % kBwdStages], q + head, dout + head, sg, lse_h, di_h,
+      stream_tile<kThr>(stages[nx % kStages], q + head, dout + head, sg, lse_h, di_h,
                         (tiles[nx] >> 1) * kTile, t);
     cp_async_commit();
-    const BwdStage& st = stages[i % kBwdStages];
+    const Stage& st = stages[i % kStages];
     const int left = t - (tiles[i] >> 1) * kTile;  // queries of this tile that exist
     if (tiles[i] & 1)
       dkv_tile<true>(dka, dva, ka, va, st, segk, left, scale, scale_log2, lane);
@@ -926,7 +795,7 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 template <bool kMasked>
 __device__ __forceinline__ void dq_tile(float (&acc)[kD / 8][4],
                                         const uint32_t (&qa)[kD / 16][4],
-                                        const uint32_t (&doa)[kD / 16][4], const BwdStage& st,
+                                        const uint32_t (&doa)[kD / 16][4], const Stage& st,
                                         const int (&segq)[2], const float (&nlse)[2],
                                         const float (&dir)[2], int left, float scale,
                                         float scale_log2, int lane) {
@@ -966,8 +835,8 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     const float* __restrict__ di, int heads, int t, float scale,
                     __nv_bfloat16* __restrict__ dq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdStage* stages = reinterpret_cast<BwdStage*>(smem_raw);
-  int* tiles = reinterpret_cast<int*>(stages + kBwdStages);
+  Stage* stages = reinterpret_cast<Stage*>(smem_raw);
+  int* tiles = reinterpret_cast<int*>(stages + kStages);
   constexpr int kThr = 32 * kDqWarps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tg = lane & 3;
@@ -995,21 +864,21 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < kBwdStages - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s) {
     if (s < n)
       stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
                         (tiles[s] >> 1) * kTile, t);
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
-    cp_async_wait<kBwdStages - 2>();  // this thread's part of tile i has landed
+    cp_async_wait<kStages - 2>();  // this thread's part of tile i has landed
     __syncthreads();  // so has everyone's, and tile i - 1 is consumed
-    const int nx = i + kBwdStages - 1;
+    const int nx = i + kStages - 1;
     if (nx < n)
-      stream_tile<kThr>(stages[nx % kBwdStages], k + head, v + head, sg, nullptr, nullptr,
+      stream_tile<kThr>(stages[nx % kStages], k + head, v + head, sg, nullptr, nullptr,
                         (tiles[nx] >> 1) * kTile, t);
     cp_async_commit();
-    const BwdStage& st = stages[i % kBwdStages];
+    const Stage& st = stages[i % kStages];
     const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
     if (tiles[i] & 1)
       dq_tile<true>(acc, qa, doa, st, segq, nlse, dir, left, scale, scale_log2, lane);
@@ -1017,6 +886,147 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       dq_tile<false>(acc, qa, doa, st, segq, nlse, dir, left, scale, scale_log2, lane);
   }
   store_rows(dq + head, acc, q0 + 16 * warp + g, t, tg);
+}
+
+// One staged tile of 64 keys into a warp's output accumulator and its two
+// rows' running max m (base 2, of the scaled scores) and sum l.  `left` is
+// the number of the tile's keys that exist; kMasked = false leaves out the
+// validity tests (every pair of the tile is valid).
+template <bool kMasked>
+__device__ __forceinline__ void fwd_tile(float (&acc)[kD / 8][4], float (&m)[2], float (&l)[2],
+                                         const uint32_t (&qa)[kD / 16][4], const Stage& st,
+                                         const int (&segq)[2], int left, float scale_log2,
+                                         int lane) {
+  const int tg = lane & 3;
+  // S = Q K^T: element e of column tile j is row g + 8 (e >> 1), key
+  // 8 j + 2 tg + (e & 1); an invalid pair's score becomes -inf
+  float s[kTile / 8][4];
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_rows(s[j], qa, st.a + 8 * j * kLdh, lane);
+    const int c = 8 * j + 2 * tg;  // even: the two columns' ids as one load
+    const int2 seg2 = *reinterpret_cast<const int2*>(st.seg + c);
+    const int segk[2] = {seg2.x, seg2.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = e & 1, h = e >> 1;
+      if (kMasked && !(c + o < left && segq[h] == segk[o])) s[j][e] = -CUDART_INF_F;
+      mx[h] = fmaxf(mx[h], s[j][e]);
+    }
+  }
+  float alpha[2], nm[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+    // -inf while the row has met no valid key: then l and O stay 0
+    const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
+    alpha[h] = ex2(m[h] - base);
+    nm[h] = -base;
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(fmaf(s[j][e], scale_log2, nm[e >> 1]));  // P, unrounded for the row sum
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l[h] = alpha[h] * l[h] + sum[h];
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+  // O += P V: the accumulators of key tiles 2 kk and 2 kk + 1 are the A
+  // fragment of keys 16 kk .. 16 kk + 15
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    mma_cols(acc, pa, st.b + 16 * kk * kLdh, lane);
+  }
+}
+
+__global__ void __launch_bounds__(32 * kFwdWarps, kFwdBlocks)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg, int heads,
+                     int t, float scale, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Stage* stages = reinterpret_cast<Stage*>(smem_raw);
+  int* tiles = reinterpret_cast<int*>(stages + kStages);
+  constexpr int kThr = 32 * kFwdWarps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads;
+  const int q0 = blockIdx.x * 16 * kFwdWarps;
+  const size_t head = (size_t)bh * t * kD;
+  const int* sg = seg + (size_t)b * t;
+  const float scale_log2 = scale * kLog2e;
+  uint32_t qa[kD / 16][4], unused[kD / 16][4];
+  const int n =
+      load_resident<kFwdWarps, false>(stages, tiles, qa, unused, q + head, nullptr, sg, q0, t);
+  int segq[2];  // of this thread's two query rows,
+  float m[2], l[2];  // their running max and sum
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    segq[h] = row < t ? sg[row] : 0;
+    m[h] = -CUDART_INF_F;
+    l[h] = 0.f;
+  }
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n)
+      stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
+                        (tiles[s] >> 1) * kTile, t);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's part of tile i has landed
+    __syncthreads();  // so has everyone's, and tile i - 1 is consumed
+    const int nx = i + kStages - 1;
+    if (nx < n)
+      stream_tile<kThr>(stages[nx % kStages], k + head, v + head, sg, nullptr, nullptr,
+                        (tiles[nx] >> 1) * kTile, t);
+    cp_async_commit();
+    const Stage& st = stages[i % kStages];
+    const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
+    if (tiles[i] & 1)
+      fwd_tile<true>(acc, m, l, qa, st, segq, left, scale_log2, lane);
+    else
+      fwd_tile<false>(acc, m, l, qa, st, segq, left, scale_log2, lane);
+  }
+  const int row = q0 + 16 * warp + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float inv = 1.f / l[h];  // l > 0 below T: a row meets its own key
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      acc[j][2 * h] *= inv;
+      acc[j][2 * h + 1] *= inv;
+    }
+    if (lse != nullptr && tg == 0 && row + 8 * h < t)
+      lse[(size_t)bh * t + row + 8 * h] = (m[h] + log2f(l[h])) * 0.693147180559945309f;
+  }
+  store_rows(o + head, acc, row, t, tg);
 }
 
 template <typename K, typename... Args>
@@ -1029,17 +1039,17 @@ int launch(K kernel, int tiles, int batch, int heads, int threads, size_t smem, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch one of the bf16 backward kernels: `warps` x 16 owned rows a block,
-// the ring and the list of tiles to walk in dynamic shared memory.  cp.async
-// copies 16 bytes at a time, so the bf16 heads must be 16-byte aligned.
+// Launch one of the bf16 kernels: `warps` x 16 owned rows a block, the ring
+// and the list of tiles to walk in dynamic shared memory.  cp.async copies
+// 16 bytes at a time, so the bf16 heads (q, k, v and, unless null, dout)
+// must be 16-byte aligned.
 template <typename K, typename... Args>
-int launch_bwd_mma(K kernel, int warps, int batch, int heads, int t, void* stream,
-                   const void* q, const void* k, const void* v, const void* dout,
-                   Args... args) {
+int launch_mma(K kernel, int warps, int batch, int heads, int t, void* stream, const void* q,
+               const void* k, const void* v, const void* dout, Args... args) {
   for (const void* p : {q, k, v, dout})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
-  const size_t smem = kBwdStages * sizeof(BwdStage) + sizeof(int) * ((t + kTile - 1) / kTile);
+  const size_t smem = kStages * sizeof(Stage) + sizeof(int) * ((t + kTile - 1) / kTile);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   using T = __nv_bfloat16;
   return launch(kernel, (t + 16 * warps - 1) / (16 * warps), batch, heads, 32 * warps, smem,
@@ -1058,15 +1068,9 @@ ATK_EXPORT int atk_flash_fwd(const void* q, const void* k, const void* v, const 
                              int batch, int heads, int t, int dh, float scale, int bf16,
                              void* o, float* lse, void* stream) {
   if (bad_shape(batch, heads, t, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    const int tiles = (t + kMmaRows - 1) / kMmaRows;
-    flash_fwd_mma_kernel<<<dim3(tiles, batch * heads), kMmaThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg, heads,
-        t, scale, static_cast<T*>(o), lse);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (bf16)
+    return launch_mma(flash_fwd_mma_kernel, kFwdWarps, batch, heads, t, stream, q, k, v, nullptr,
+                      seg, heads, t, scale, static_cast<__nv_bfloat16*>(o), lse);
   const int tiles = (t + kTile - 1) / kTile;
   return launch(flash_fwd_kernel, tiles, batch, heads, kThreads, 4 * kTileBytes, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1081,9 +1085,9 @@ ATK_EXPORT int atk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   if (bad_shape(batch, heads, t, dh)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch_bwd_mma(flash_dkv_mma_kernel, kDkvWarps, batch, heads, t, stream, q, k, v,
-                          dout, seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
-                          static_cast<T*>(dk), static_cast<T*>(dv));
+    return launch_mma(flash_dkv_mma_kernel, kDkvWarps, batch, heads, t, stream, q, k, v, dout,
+                      seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
+                      static_cast<T*>(dk), static_cast<T*>(dv));
   }
   const int tiles = (t + kTile - 1) / kTile;
   return launch(flash_dkv_kernel, tiles, batch, heads, kThreads, 6 * kTileBytes, stream,
@@ -1100,9 +1104,9 @@ ATK_EXPORT int atk_flash_bwd_dq(const void* q, const void* k, const void* v, con
   if (bad_shape(batch, heads, t, dh)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch_bwd_mma(flash_dq_mma_kernel, kDqWarps, batch, heads, t, stream, q, k, v, dout,
-                          seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
-                          static_cast<T*>(dq));
+    return launch_mma(flash_dq_mma_kernel, kDqWarps, batch, heads, t, stream, q, k, v, dout,
+                      seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
+                      static_cast<T*>(dq));
   }
   const int tiles = (t + kTile - 1) / kTile;
   return launch(flash_dq_kernel, tiles, batch, heads, kThreads, 5 * kTileBytes, stream,

@@ -34,21 +34,30 @@
 // B4 walks the forward processing order backwards, carrying (dh, dc), and
 // emits dxg = the pre-activation gate gradients (T, B, 4H) and dw_hh (H, 4H).
 // It is two launches:
-//  1. lstm_bwd_kernel, the serial part, shaped like B3: one cooperative
-//     launch of H/4 blocks, block j owning units 4j..4j+3.  A thread per
-//     (b, u) runs the cell backward from the residuals with dh and dc in
-//     registers, and writes its unit's 4 gate gradients to dxg and to a
-//     double-buffered global plane dgbuf (2, B, 4H).  After a grid barrier,
-//     every block needs ALL 4H columns of that plane for dh = dgp . w_hh^T
-//     of its own 4 units, so it keeps the ROWS w_hh[4j..4j+3, :] in shared
-//     memory (32 KB at H 512), not B3's columns.  The product is tiled 4
-//     batch rows x 4 units per thread over a slice of 4H, the slices summed
-//     in shared memory in a fixed order by the (b, u) thread that owns the
-//     carry, so dh never leaves the block.  Each block reads the whole
-//     (B, 4H) plane from L2 per step, 4x B3's h: that and the barrier bound
-//     a step.  The step's residual loads (HBM: 0.9 GB of gates at T 1728,
-//     B 64, H 512) do not depend on the carry and are issued before the
-//     product of the step before.
+//  1. lstm_bwd_kernel, the serial part: one cooperative launch.  Each step
+//     every cell (b, u) turns its residuals and carries into its unit's 4
+//     gate gradients, written to dxg and to a double-buffered global plane
+//     dgbuf (2, B, 4H); after a grid barrier, dh = dgp . w_hh^T needs ALL 4H
+//     columns of that plane for each row.  What bounds a step on the H100 is
+//     reading the plane from L2: every block reads its batch rows of it in
+//     full, so the card reads (number of unit groups) x the plane a step, and
+//     only blocks that own more units read less; the FMA work (134 MFLOP a
+//     step at B 64, H 512) and the grid barrier (~1.1 us) come next.  So a
+//     block owns U = 8 or 16 units (kBwdUnits) x `rows` batch rows: it keeps
+//     the ROWS w_hh[u0 .. u0+U, :] in shared memory (64 KB at U 8, H 512),
+//     its cell threads hold dh and dc in registers, and its product threads
+//     read only its rows of the plane, each element once (__ldcg: written by
+//     other blocks, so not through L1): 32 MB a step at B 64, H 512, U 8,
+//     from the 64 MB of the first design's 4-unit blocks.  A product thread
+//     holds a 4 rows x U units register tile over every ksplit-th float4
+//     column of 4H; a warp's 32 lanes take 32 neighbouring columns of one
+//     tile (coalesced plane loads, conflict-free weight loads), sum their
+//     tiles over the warp by a reduce-scatter of shuffles, and the warps of a
+//     tile are summed in shared memory in a fixed order by the (b, u) thread
+//     that owns the carry, so dh never leaves the block and launches are
+//     bit-identical.  The step's residual loads (HBM: 0.9 GB of gates at
+//     T 1728, B 64, H 512) do not depend on the carry and are issued before
+//     the product of the step before.
 //  2. lstm_dw_kernel: dw_hh = sum over processing steps p >= 1 of
 //     h_prev(p)^T dgp(p).  h_prev is hs one step back in processing order
 //     (zero at the first step), so the sum is one product A^T B of two
@@ -68,11 +77,33 @@ constexpr int kUnits = 4;            // hidden units per block
 constexpr int kCols = 4 * kUnits;    // w_hh columns per block
 constexpr int kRows = 4;             // batch rows of a thread's register tile
 constexpr int kMaxSplit = 16;        // B3: at most 16 slices of H per tile
-constexpr int kMaxSplitBwd = 64;     // B4: at most 64 slices of 4H per tile
 constexpr int kMaxThreads = 1024;
 constexpr int kGemmTile = 64;        // dw_hh output tile (both sides)
 constexpr int kGemmK = 16;           // K rows staged per iteration
 constexpr int kGemmThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
+
+// B4's partition, tuning knobs: the defaults are the measured best on an
+// H100 (PERF.md); tools/kernel_ab.py builds the alternatives with -D and
+// times them.
+#ifndef ATK_LSTM_BWD_UNITS
+#define ATK_LSTM_BWD_UNITS 8  // hidden units a B4 block owns: 8 or 16
+#endif
+#ifndef ATK_LSTM_BWD_ROWS
+#define ATK_LSTM_BWD_ROWS 32  // batch rows a B4 block owns, unless the grid must shrink to fit
+#endif
+#ifndef ATK_LSTM_BWD_THREADS
+#define ATK_LSTM_BWD_THREADS 512  // threads of a U = 8 block: 512 or 1024 (64 registers: spills)
+#endif
+#ifndef ATK_LSTM_BWD_UNROLL
+#define ATK_LSTM_BWD_UNROLL 2  // unrolling of the product's loop over plane columns
+#endif
+constexpr int kBwdUnits = ATK_LSTM_BWD_UNITS;
+constexpr int kBwdRows = ATK_LSTM_BWD_ROWS;
+constexpr int kBwdThreads = ATK_LSTM_BWD_THREADS;
+constexpr int kBwdUnroll = ATK_LSTM_BWD_UNROLL;
+static_assert(kBwdThreads == 512 || kBwdThreads == 1024, "B4 blocks of 512 or 1024 threads");
+static_assert(kBwdUnits == 8 || kBwdUnits == 16, "B4 blocks own 8 or 16 units");
+constexpr int kTileRows = 4;  // B4: batch rows of a product thread's register tile
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -240,46 +271,82 @@ __device__ __forceinline__ Residuals load_residuals(
   return r;
 }
 
+// The warp's sum, over its 32 lanes, of each of the N values v[0..N) (N a
+// multiple of 32), left scattered: lane i ends with the sums of values
+// i * N/32 .. i * N/32 + N/32 - 1 in v[0..N/32).  Each of the five rounds
+// halves the values a lane keeps and sends the other half to its partner:
+// N - N/32 shuffles where a butterfly would take 5 N.  The order of the
+// additions is fixed: bit-identical from launch to launch.
+template <int N>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N], int lane) {
+  static_assert(N % 32 == 0, "whole warps of values");
+#pragma unroll
+  for (int round = 0; round < 5; ++round) {
+    const int off = 16 >> round, half = N >> (round + 1);
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float keep = upper ? v[i + half] : v[i];
+      const float send = upper ? v[i] : v[i + half];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+}
+
 // B4's recurrence (see the head of the file).  Step s handles forward
-// processing position p = T-1-s.  Thread roles as in B3: product thread
-// (ks, tile) holds a 4 x 4 tile (batch rows row0..row0+3 x the block's 4
-// units) over the k slice [kbeg, kbeg + klen) of 4H; cell thread
-// (cb, cu) = (threadIdx / 4, threadIdx % 4) owns the carries of
-// (batch row cb, unit u0 + cu).
-__global__ void __launch_bounds__(kMaxThreads)
+// processing position p = T-1-s.  Block x owns the hidden units
+// [u0, u0 + U) (unit group x % ceil(H/U); units past H are masked: zero
+// weights, no cell) and the batch rows [b0, b0 + rows) (row group
+// x / ceil(H/U)).  Product thread (tile, ks) = (threadIdx / ksplit,
+// threadIdx % ksplit) holds a kTileRows x U register tile (batch rows
+// b0 + 4 tile .. + 3 x the block's units) over the float4 columns ks,
+// ks + ksplit, ... of the plane's 4H; a warp is 32 neighbouring columns of
+// one tile, so its plane loads are 512 contiguous bytes a row and its
+// weight loads 512 contiguous bytes of shared memory.  Cell thread (cb, cu)
+// = (threadIdx / U, threadIdx % U) owns the carries of (batch row b0 + cb,
+// unit u0 + cu).
+template <int U, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last,
                 const float* __restrict__ gates, const float* __restrict__ c_res,
                 const float* __restrict__ mask, const float* __restrict__ w_hh,
-                int steps, int batch, int hidden, int reverse, int ntiles, int ksplit,
-                float* dgbuf, float* __restrict__ dxg) {
-  // ws[k] = (w_hh[u0, k], w_hh[u0+1, k], w_hh[u0+2, k], w_hh[u0+3, k])
+                int steps, int batch, int hidden, int reverse, int rows, int ntiles,
+                int ksplit, float* dgbuf, float* __restrict__ dxg) {
+  constexpr int kQ = U / 4;                   // float4s of one k's U weights
+  constexpr int kAcc = kTileRows * U;         // a product thread's outputs
+  constexpr int kPer = kAcc / 32;             // of which a lane keeps, summed
+  // ws[(q * kQ + qq) * H + j] = w_hh[u0 + 4 qq .. u0 + 4 qq + 3, 4 j + q]
   extern __shared__ float4 smem4[];
   const int g4 = 4 * hidden;
-  float4* ws = smem4;                                      // g4
-  float* part = reinterpret_cast<float*>(ws + g4);         // ksplit * ntiles * 16
+  float4* ws = smem4;                                                  // U * g4 floats
+  float* part = reinterpret_cast<float*>(ws + static_cast<size_t>(hidden) * 4 * kQ);
   cg::grid_group grid = cg::this_grid();
-  const int u0 = blockIdx.x * kUnits;
+  const int ugroups = (hidden + U - 1) / U;
+  const int u0 = (blockIdx.x % ugroups) * U;
+  const int b0 = (blockIdx.x / ugroups) * rows;
   float* wsf = reinterpret_cast<float*>(ws);
-  for (int e = threadIdx.x; e < g4 * kUnits; e += blockDim.x) {
+  for (int e = threadIdx.x; e < U * g4; e += blockDim.x) {
     const int u = e / g4, k = e % g4;
-    wsf[k * kUnits + u] = w_hh[static_cast<size_t>(u0 + u) * g4 + k];
+    wsf[(static_cast<size_t>((k % 4) * kQ + u / 4) * hidden + k / 4) * 4 + u % 4] =
+        u0 + u < hidden ? w_hh[static_cast<size_t>(u0 + u) * g4 + k] : 0.f;
   }
   // product role
-  const int tile = threadIdx.x % ntiles, ks = threadIdx.x / ntiles;
-  const int row0 = tile * kRows;
-  const int klen = g4 / ksplit, kbeg = ks * klen;
-  const bool producer = ks < ksplit;
-  const int tile_stride = ntiles * kRows * kUnits;  // floats per k slice
+  const int ks = threadIdx.x % ksplit, tile = threadIdx.x / ksplit;
+  const int lane_id = threadIdx.x % 32;
+  const bool producer = tile < ntiles;
+  const int row0 = tile * kTileRows;  // within the block's rows
+  const int nrows = min(kTileRows, min(rows, batch - b0) - row0);  // of the tile that exist
+  const int tile_rows = ntiles * kTileRows;
   // cell role
-  const int cb = threadIdx.x / kUnits, cu = threadIdx.x % kUnits;
-  const bool owner = cb < batch;
-  const int col = u0 + cu;
-  float dh = owner ? dh_last[cb * hidden + col] : 0.f;
+  const int cb = threadIdx.x / U, cu = threadIdx.x % U;
+  const int b = b0 + cb, col = u0 + cu;
+  const bool owner = cb < rows && b < batch && col < hidden;
+  float dh = owner ? dh_last[b * hidden + col] : 0.f;
   float dc = 0.f;
   Residuals res{};
   if (owner)
-    res = load_residuals(dhs, gates, c_res, mask, steps - 1, steps, batch, hidden, reverse,
-                         cb, col);
+    res = load_residuals(dhs, gates, c_res, mask, steps - 1, steps, batch, hidden, reverse, b,
+                         col);
   __syncthreads();  // ws loaded
 
   const size_t plane = static_cast<size_t>(batch) * g4;
@@ -306,12 +373,12 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
       const float gf = d_f * res.f * (1.0f - res.f);
       const float gg = d_g * (1.0f - res.g * res.g);
       const float go = d_o * res.o * (1.0f - res.o);
-      float* x = dxg + (static_cast<size_t>(t) * batch + cb) * g4 + col;
+      float* x = dxg + (static_cast<size_t>(t) * batch + b) * g4 + col;
       x[0] = gi;
       x[hidden] = gf;
       x[2 * hidden] = gg;
       x[3 * hidden] = go;
-      float* d = dg + static_cast<size_t>(cb) * g4 + col;
+      float* d = dg + static_cast<size_t>(b) * g4 + col;
       d[0] = gi;
       d[hidden] = gf;
       d[2 * hidden] = gg;
@@ -321,49 +388,49 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
     grid.sync();  // this step's dgp plane visible to every block
     // the next step's residuals do not depend on the carries: load them now
     if (owner)
-      res = load_residuals(dhs, gates, c_res, mask, p - 1, steps, batch, hidden, reverse,
-                           cb, col);
-    if (producer) {
-      float acc[kRows][kUnits];
+      res = load_residuals(dhs, gates, c_res, mask, p - 1, steps, batch, hidden, reverse, b,
+                           col);
+    if (producer) {  // whole warps: ksplit is a multiple of 32
+      float acc[kAcc];  // acc[r * U + u]: row row0 + r, unit u0 + u
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+      for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+      const float* dgr = dg + static_cast<size_t>(b0 + row0) * g4;
+#pragma unroll kBwdUnroll
+      for (int j = ks; j < hidden; j += ksplit) {  // float4 column j: k = 4j .. 4j + 3
+        float4 dv[kTileRows];
 #pragma unroll
-        for (int u = 0; u < kUnits; ++u) acc[r][u] = 0.f;
-#pragma unroll 2
-      for (int k = kbeg; k < kbeg + klen; k += 4) {
-        float4 dv[kRows];
+        for (int r = 0; r < kTileRows; ++r)
+          dv[r] = r < nrows ? __ldcg(reinterpret_cast<const float4*>(
+                                  dgr + static_cast<size_t>(r) * g4) + j)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          dv[r] = row0 + r < batch
-                      ? __ldcg(reinterpret_cast<const float4*>(
-                            dg + static_cast<size_t>(row0 + r) * g4 + k))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 w = ws[k + q];
+          for (int qq = 0; qq < kQ; ++qq) {
+            const float4 w = ws[static_cast<size_t>(q * kQ + qq) * hidden + j];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float d = lane(dv[r], q);
-            acc[r][0] = fmaf(d, w.x, acc[r][0]);
-            acc[r][1] = fmaf(d, w.y, acc[r][1]);
-            acc[r][2] = fmaf(d, w.z, acc[r][2]);
-            acc[r][3] = fmaf(d, w.w, acc[r][3]);
+            for (int r = 0; r < kTileRows; ++r) {
+              const float d = lane(dv[r], q);
+              float* a = acc + r * U + 4 * qq;
+              a[0] = fmaf(d, w.x, a[0]);
+              a[1] = fmaf(d, w.y, a[1]);
+              a[2] = fmaf(d, w.z, a[2]);
+              a[3] = fmaf(d, w.w, a[3]);
+            }
           }
-        }
       }
-      // part[ks][row][u]: the owner of (row, u) reads a contiguous column
-      float* pp = part + ks * tile_stride + row0 * kUnits;
+      warp_reduce_scatter(acc, lane_id);
+      // part[kw][row][u] for the warp kw = ks / 32 of the tile's k slices
+      float* pp = part + (static_cast<size_t>(ks / 32) * tile_rows + row0) * U + lane_id * kPer;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int u = 0; u < kUnits; ++u) pp[r * kUnits + u] = acc[r][u];
+      for (int i = 0; i < kPer; ++i) pp[i] = acc[i];
     }
     __syncthreads();
     if (owner) {
-      // sum the k slices in ks order: dh = dgp . w_hh^T + dh_prev_direct
-      const float* pp = part + cb * kUnits + cu;
+      // sum the warps' k slices in order: dh = dgp . w_hh^T + dh_prev_direct
+      const float* pp = part + cb * U + cu;
       float sum = pp[0];
-      for (int j = 1; j < ksplit; ++j) sum += pp[j * tile_stride];
+      for (int kw = 1; kw < ksplit / 32; ++kw) sum += pp[static_cast<size_t>(kw) * tile_rows * U];
       dh = sum + dh_direct;
     }
     // part is written again only after the next grid.sync
@@ -456,48 +523,91 @@ struct LstmShape {
   }
 };
 
-// Launch shape of B4's recurrence: H/4 blocks; ntiles = ceil(B/4) tiles of
-// 4 rows x 4 units, each split over ksplit slices of 4H (at most 64) so
-// that ntiles * ksplit fills up to 1024 threads.
+// Launch shape of B4's recurrence for (batch, hidden) on a card of `sms`
+// SMs, shared by the launch and the residency query.  Blocks own U units x
+// `rows` batch rows: ceil(B / kBwdRows) row groups, fewer where the grid of
+// ceil(H/U) x row groups would exceed about one block an SM, but at least
+// enough that a block's rows x U cells fit its threads.  ntiles =
+// ceil(rows / 4) register tiles, each split over ksplit (a multiple of 32,
+// at most the plane's H float4 columns) k slices.  The first of these that
+// can be resident and whose weights fit shared memory is taken: U =
+// kBwdUnits in 512 threads (the 128 registers a thread that U = 16's 64
+// accumulators need; U = 8 in kBwdThreads), U = 8 in 512, U = 8 in 1024
+// (64 registers a thread: it spills, but holds the 128 rows a block that
+// B 256 at H 512 needs).
 struct LstmBwdShape {
-  int blocks, threads, ntiles, ksplit;
+  int units, max_threads, rows, ntiles, ksplit, blocks, threads;
   size_t smem;
-  LstmBwdShape(int batch, int hidden) {
-    const int g4 = 4 * hidden;
-    ntiles = (batch + kRows - 1) / kRows;
-    ksplit = kMaxThreads / ntiles < kMaxSplitBwd ? kMaxThreads / ntiles : kMaxSplitBwd;
-    while (ksplit > 1 && g4 % (4 * ksplit)) --ksplit;  // whole float4s
-    if (ksplit < 1) ksplit = 1;
-    blocks = hidden / kUnits;
-    const int cells = batch * kUnits;
-    threads = ntiles * ksplit > cells ? ntiles * ksplit : cells;
-    threads = (threads + 31) / 32 * 32;
-    smem = static_cast<size_t>(g4) * sizeof(float4) +
-           static_cast<size_t>(ksplit) * ntiles * kRows * kUnits * sizeof(float);
+  LstmBwdShape(int batch, int hidden, int sms) {
+    const int plans[3][2] = {{kBwdUnits, kBwdUnits == 8 ? kBwdThreads : 512}, {8, 512}, {8, 1024}};
+    for (const auto& plan : plans) {
+      units = plan[0];
+      max_threads = plan[1];
+      const int ugroups = (hidden + units - 1) / units;
+      int rgroups = (batch + kBwdRows - 1) / kBwdRows;
+      const int fit = sms / ugroups > 1 ? sms / ugroups : 1;
+      if (rgroups > fit) rgroups = fit;
+      const int least = (batch * units + max_threads - 1) / max_threads;  // a thread a cell
+      if (rgroups < least) rgroups = least;
+      rows = (batch + rgroups - 1) / rgroups;
+      rgroups = (batch + rows - 1) / rows;
+      blocks = ugroups * rgroups;
+      ntiles = (rows + kTileRows - 1) / kTileRows;
+      int warps = max_threads / 32 / ntiles;
+      const int col_warps = (hidden + 31) / 32;  // the plane row's H float4 columns
+      if (warps > col_warps) warps = col_warps;
+      ksplit = 32 * warps;
+      threads = rows * units > ntiles * ksplit ? rows * units : ntiles * ksplit;
+      threads = (threads + 31) / 32 * 32;
+      smem = (static_cast<size_t>(units) * 4 * hidden +
+              static_cast<size_t>(warps) * ntiles * kTileRows * units) * sizeof(float);
+      if (blocks <= sms && smem <= 227 * 1024) break;
+    }
+  }
+  void* kernel() const {
+    if (units == 16) return reinterpret_cast<void*>(lstm_bwd_kernel<16, 512>);
+    return max_threads == 512 ? reinterpret_cast<void*>(lstm_bwd_kernel<8, 512>)
+                              : reinterpret_cast<void*>(lstm_bwd_kernel<8, 1024>);
   }
 };
 
-template <typename Shape, typename K>
-static int max_blocks(K kernel, int batch, int hidden, int* out) {
-  const Shape sh(batch, hidden);
-  int dev, coop, per_sm, sms;
+// The current device's SM count and whether it has cooperative launch.
+static cudaError_t device_sms(int* sms, int* coop) {
+  int dev;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = atk::allow_smem(kernel, sh.smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, sh.threads, sh.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *out = coop ? per_sm * sms : 0;
-  return 0;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 // How many blocks of B3 (backward == 0) or of B4's recurrence (backward ==
 // 1) can be resident at once on the current device (0 if it has no
-// cooperative launch); either launch needs hidden / 4.
-ATK_EXPORT int atk_lstm_max_blocks(int batch, int hidden, int backward, int* out) {
-  return backward ? max_blocks<LstmBwdShape>(lstm_bwd_kernel, batch, hidden, out)
-                  : max_blocks<LstmShape>(lstm_fwd_kernel, batch, hidden, out);
+// cooperative launch) into *resident, and how many the launch at (batch,
+// hidden) needs into *needed.
+ATK_EXPORT int atk_lstm_max_blocks(int batch, int hidden, int backward, int* resident,
+                                   int* needed) {
+  int sms, coop, per_sm = 0;
+  cudaError_t err = device_sms(&sms, &coop);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (backward) {
+    const LstmBwdShape sh(batch, hidden, sms);
+    *needed = sh.blocks;
+    err = cudaFuncSetAttribute(sh.kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sh.smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sh.kernel(), sh.threads,
+                                                          sh.smem);
+  } else {
+    const LstmShape sh(batch, hidden);
+    *needed = sh.blocks;
+    err = atk::allow_smem(lstm_fwd_kernel, sh.smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lstm_fwd_kernel, sh.threads,
+                                                          sh.smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *resident = coop ? per_sm * sms : 0;
+  return 0;
 }
 
 // B3.  gates_res and c_res are both null (no residuals) or both the
@@ -521,23 +631,10 @@ ATK_EXPORT int atk_lstm_fwd(const float* xg, const float* mask, const float* w_h
   return static_cast<int>(cudaGetLastError());
 }
 
-// B4: the recurrence, then dw_hh.  dgbuf is (2, B, 4H) scratch; dxg
-// (T, B, 4H) and dw_hh (H, 4H) are written in full.
-ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float* gates,
-                            const float* c_res, const float* hs, const float* mask,
-                            const float* w_hh, int steps, int batch, int hidden, int reverse,
-                            float* dgbuf, float* dxg, float* dw_hh, void* stream) {
-  LstmBwdShape sh(batch, hidden);
-  if (hidden % kUnits || batch * kUnits > kMaxThreads || steps <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = atk::allow_smem(lstm_bwd_kernel, sh.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&dhs,    &dh_last, &gates,   &c_res,     &mask,      &w_hh,  &steps,
-                  &batch,  &hidden,  &reverse, &sh.ntiles, &sh.ksplit, &dgbuf, &dxg};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_bwd_kernel), dim3(sh.blocks),
-                                    dim3(sh.threads), args, sh.smem, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// B4's second kernel alone: dw_hh (H, 4H) = sum over processing positions
+// p >= 1 of h_prev(p)^T dgp(p), from hs (T, B, H) and dxg (T, B, 4H).
+ATK_EXPORT int atk_lstm_dw(const float* hs, const float* dxg, int steps, int batch, int hidden,
+                           int reverse, float* dw_hh, void* stream) {
   // h_prev of processing position p is hs at the time one step earlier in
   // processing order: pair hs[t-1] with dxg[t] (forward) or hs[t+1] with
   // dxg[t] (reverse), for the T-1 positions p >= 1
@@ -546,6 +643,32 @@ ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float*
   const float* a = hs + (reverse ? static_cast<size_t>(batch) * hidden : 0);
   const float* b = dxg + (reverse ? 0 : static_cast<size_t>(batch) * g4);
   const dim3 grid((g4 + kGemmTile - 1) / kGemmTile, (hidden + kGemmTile - 1) / kGemmTile);
-  lstm_dw_kernel<<<grid, kGemmThreads, 0, st>>>(a, b, kdim, hidden, g4, dw_hh);
+  lstm_dw_kernel<<<grid, kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, kdim, hidden,
+                                                                              g4, dw_hh);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B4: the recurrence, then dw_hh.  dgbuf is (2, B, 4H) scratch; dxg
+// (T, B, 4H) and dw_hh (H, 4H) are written in full.
+ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float* gates,
+                            const float* c_res, const float* hs, const float* mask,
+                            const float* w_hh, int steps, int batch, int hidden, int reverse,
+                            float* dgbuf, float* dxg, float* dw_hh, void* stream) {
+  if (hidden % 4 || batch < 1 || batch * kUnits > kMaxThreads || steps <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms, coop;
+  cudaError_t err = device_sms(&sms, &coop);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  LstmBwdShape sh(batch, hidden, sms);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaFuncSetAttribute(sh.kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(sh.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&dhs,    &dh_last, &gates,   &c_res,   &mask,      &w_hh,
+                  &steps,  &batch,   &hidden,  &reverse, &sh.rows,   &sh.ntiles,
+                  &sh.ksplit, &dgbuf, &dxg};
+  err = cudaLaunchCooperativeKernel(sh.kernel(), dim3(sh.blocks), dim3(sh.threads), args,
+                                    sh.smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return atk_lstm_dw(hs, dxg, steps, batch, hidden, reverse, dw_hh, stream);
 }

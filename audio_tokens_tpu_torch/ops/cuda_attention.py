@@ -21,12 +21,15 @@ cast to the input dtype.  The forward writes the row logsumexp the backward
 recomputes P from only when asked: ``flash_attention`` asks only when
 autograd will need it, so serving under ``inference_mode`` stores nothing
 extra.  On the H100 the kernels are bound by arithmetic (587 GFLOP a layer
-at the serving shape).  In bf16 the forward and both backward kernels run
-on the tensor cores (``mma.sync`` from bf16 tiles, P and dS kept in
-registers; the backward pair streams its tiles through a ``cp.async`` ring
-and leaves out tiles that share no segment with a block's rows, where P is
-exactly 0); in f32 all three are plain f32 FMA from shared-memory tiles.
-The bf16 backward needs 16-byte aligned q, k, v and do.
+at the serving shape), and past the tensor cores by the elementwise pass
+between their products.  In bf16 the forward and both backward kernels run
+on the tensor cores on one design (``mma.sync`` from bf16 tiles, P and dS
+kept in registers, the streamed tiles through a ``cp.async`` ring that
+overlaps the next tile's loads with this tile's products, tiles that share
+no segment with a block's rows left out, where P is exactly 0, and tiles of
+one segment walked without mask tests); in f32 all three are plain f32 FMA
+from shared-memory tiles.  In bf16 every kernel needs 16-byte aligned q, k,
+v (and do).
 
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
 tensors it launches its kernel or raises.

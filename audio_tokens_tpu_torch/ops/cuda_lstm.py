@@ -5,15 +5,20 @@ B3 replaces ``audio_tokens_tpu/ops/pallas_lstm.py::_fwd_kernel`` (launched
 by ``_lstm_fwd_call``), B4 ``_bwd_kernel`` (launched by ``_lstm_bwd_call``);
 ``LSTMSequence`` is the counterpart of the JAX ``lstm_sequence`` custom_vjp.
 The T steps are serial, so on the H100 both kernels are bound by the
-per-step exchange between blocks and the grid barrier, not by flops.  Each
-is one persistent cooperative launch of H/4 blocks, block j owning hidden
-units 4j..4j+3: B3 keeps their gate columns of ``w_hh`` in shared memory and
-exchanges h through a double-buffered global buffer; B4 keeps their rows of
-``w_hh``, runs the cell backward with (dh, dc) in registers and exchanges
-the pre-activation gate gradients, then a second kernel forms ``dw_hh`` as
-one product of the saved hidden states and those gradients.  The wrappers
-refuse a grid that cannot be resident at once (a cooperative launch needs
-every block on the card together).
+per-step exchange between blocks through L2 and the grid barrier, not by
+flops.  Each is one persistent cooperative launch.  B3 has H/4 blocks,
+block j owning hidden units 4j..4j+3: it keeps their gate columns of
+``w_hh`` in shared memory and exchanges h through a double-buffered global
+buffer.  B4's recurrence exchanges the pre-activation gate gradients, a
+(B, 4H) plane every block must read its rows of each step: since the card
+reads the plane once per group of units, its blocks own 8 (or 16) units x
+a share of the batch rows, keep those units' rows of ``w_hh`` and run the
+cell backward with (dh, dc) in registers; then a second kernel forms
+``dw_hh`` as one product of the saved hidden states and those gradients.
+The launch shape is chosen in ``csrc/lstm.cu`` (``LstmBwdShape``), and the
+wrappers refuse a grid that cannot be resident at once (a cooperative launch
+needs every block on the card together), asking the library both how many
+blocks fit and how many the launch needs.
 
 B3 writes the residuals B4 needs (post-activation gates and the cell carry
 per step) only when asked: ``lstm_sequence`` asks only when autograd will
@@ -34,7 +39,7 @@ from torch.autograd.function import once_differentiable
 from audio_tokens_tpu_torch.ops import _build
 from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
 
-UNITS_PER_BLOCK = 4  # csrc/lstm.cu kUnits
+UNITS_PER_BLOCK = 4  # csrc/lstm.cu kUnits: B3's units a block
 
 
 def lstm_sequence_fwd_plain(xg: torch.Tensor, mask: torch.Tensor,
@@ -115,8 +120,11 @@ def _lib():
                                      P]
         lib.atk_lstm_bwd.restype = I
         lib.atk_lstm_max_blocks.argtypes = [I, I, I,
+                                            ctypes.POINTER(ctypes.c_int),
                                             ctypes.POINTER(ctypes.c_int)]
         lib.atk_lstm_max_blocks.restype = I
+        lib.atk_lstm_dw.argtypes = [P, P, I, I, I, I, P, P]
+        lib.atk_lstm_dw.restype = I
     return lib
 
 
@@ -136,15 +144,16 @@ def _check_shapes(xg_shape, mask: torch.Tensor, w_hh: torch.Tensor) -> None:
 
 
 def _check_resident(lib, b: int, h_dim: int, backward: bool) -> None:
-    resident = ctypes.c_int(0)
+    resident, needed = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(lib, lib.atk_lstm_max_blocks(b, h_dim, int(backward),
-                                              ctypes.byref(resident)),
+                                              ctypes.byref(resident),
+                                              ctypes.byref(needed)),
                  "lstm occupancy query")
-    if resident.value < h_dim // UNITS_PER_BLOCK:
+    if resident.value < needed.value:
         raise RuntimeError(
             f"cooperative LSTM {'backward' if backward else 'forward'} grid "
-            f"of {h_dim // UNITS_PER_BLOCK} blocks cannot be resident (device "
-            f"holds {resident.value}; 0 means no cooperative launch)")
+            f"of {needed.value} blocks cannot be resident (device holds "
+            f"{resident.value}; 0 means no cooperative launch)")
 
 
 def lstm_sequence_fwd(xg: torch.Tensor, mask: torch.Tensor,
@@ -239,6 +248,34 @@ def lstm_sequence_bwd(dhs: torch.Tensor, dh_last: torch.Tensor,
 
 
 lstm_sequence_bwd.launches = 0
+
+
+def lstm_dw_hh(hs: torch.Tensor, dxg: torch.Tensor,
+               reverse: bool = False) -> torch.Tensor:
+    """B4's second kernel alone, for timing it apart from the recurrence:
+    dw_hh (H, 4H) = the sum over processing positions p >= 1 of
+    h_prev(p)^T dxg(p), from hs (T, B, H) and dxg (T, B, 4H) f32 on one
+    card.  ``lstm_sequence_bwd`` launches the same kernel after the
+    recurrence."""
+    check_cuda_tensor("hs", hs, torch.float32, 3)
+    check_cuda_tensor("dxg", dxg, torch.float32, 3)
+    t_steps, b, h_dim = hs.shape
+    if tuple(dxg.shape) != (t_steps, b, 4 * h_dim) or dxg.device != hs.device:
+        raise ValueError(f"dxg {tuple(dxg.shape)} does not match hs "
+                         f"{tuple(hs.shape)}")
+    lib = _lib()
+    dw_hh = torch.empty((h_dim, 4 * h_dim), dtype=torch.float32,
+                        device=hs.device)
+    with torch.cuda.device(hs.device):
+        rc = lib.atk_lstm_dw(hs.data_ptr(), dxg.data_ptr(), t_steps, b, h_dim,
+                             int(reverse), dw_hh.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "lstm_dw")
+    lstm_dw_hh.launches += 1
+    return dw_hh
+
+
+lstm_dw_hh.launches = 0
 
 
 class LSTMSequence(torch.autograd.Function):

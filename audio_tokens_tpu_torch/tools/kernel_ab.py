@@ -1,0 +1,318 @@
+"""A/B the tuning knobs of the hand-written kernels on one card.
+
+    python -m audio_tokens_tpu_torch.tools.kernel_ab --kernel attention|lstm
+        [--rounds 5] [--variant NAME:KEY=VAL,KEY=VAL ...]
+        [--source NAME:path/<kernel>.cu]
+
+Each variant is ``csrc/<kernel>.cu`` compiled with other values of its
+``ATK_*`` knobs into ``build/kernels/ab/``; ``--source`` adds another file
+with the same C interface (an earlier commit's kernels, say) under a name.
+All are built in parallel (one nvcc each), then timed in turns, round after
+round (CUDA events, 10 launches a reading, 2 for B4), on the shapes
+``chip_smoke.py`` uses:
+
+- ``attention`` (kernel B5 in bf16; knobs ``ATK_FWD_WARPS``,
+  ``ATK_FWD_BLOCKS``, ``ATK_DKV_WARPS``, ``ATK_DKV_BLOCKS``,
+  ``ATK_DQ_WARPS``, ``ATK_DQ_BLOCKS``, ``ATK_STAGES``, ``ATK_BWD_UNROLL``,
+  ``ATK_TILE_SKIP``, ``ATK_PLAIN_TILES``): the forward at (64, 12, 1728,
+  64) as ``[B5 attention]`` and the dk/dv and dq kernels at (8, 12, 1728,
+  64) as ``[B5 backward]``, random prefix lengths with a 0, and the one
+  model-level step that reaches all three: a weighted-BCE loss + backward
+  through an eval-mode forward of the bert classifier at its full width
+  (hidden 768, 12 heads, 2 layers, window 1728, bf16, ``"flash"``) on 4
+  rows;
+- ``lstm`` (kernel B4; knobs ``ATK_LSTM_BWD_UNITS``, ``ATK_LSTM_BWD_ROWS``,
+  ``ATK_LSTM_BWD_THREADS``, ``ATK_LSTM_BWD_UNROLL``): both directions at
+  T 1728, B 64, H 512 as
+  ``[B4 lstm backward]``, the whole backward and its ``dw_hh`` GEMM alone,
+  the recurrence being the difference.
+
+Per variant the script prints ptxas' registers and spills of the kernels
+it times, the median and the spread of each time over the rounds, and
+whether its outputs equal the default build's bit for bit.  Every knob of
+B5 must keep them (the tile skip and the untested path on full tiles
+included: no B5 knob changes a sum's order or a value), and so must B4's
+unrolling; B4's units, rows and threads a block change which sums its warps
+take, so their outputs differ in the last bits, as another source's may.  The last line is the card as nvidia-smi names it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+from typing import Callable, Dict, List, Tuple
+
+from audio_tokens_tpu_torch.ops import _build
+
+DEFAULT_VARIANTS = {
+    "attention": (
+        "default:",
+        "fwd-8-warps-2-blocks:ATK_FWD_WARPS=8,ATK_FWD_BLOCKS=2",
+        "fwd-6-warps-2-blocks:ATK_FWD_WARPS=6,ATK_FWD_BLOCKS=2",
+        "fwd-4-warps-3-blocks:ATK_FWD_BLOCKS=3",
+        "fwd-6-warps-3-blocks:ATK_FWD_WARPS=6,ATK_FWD_BLOCKS=3",
+        "no-skip:ATK_TILE_SKIP=0",
+        "mask-every-tile:ATK_PLAIN_TILES=0",
+        "stages-3:ATK_STAGES=3",
+    ),
+    "lstm": (
+        "default:",
+        "u16-r16:ATK_LSTM_BWD_UNITS=16,ATK_LSTM_BWD_ROWS=16",
+        "u16-r32:ATK_LSTM_BWD_UNITS=16,ATK_LSTM_BWD_ROWS=32",
+        "u8-r64:ATK_LSTM_BWD_ROWS=64",
+        "unroll-1:ATK_LSTM_BWD_UNROLL=1",
+        "unroll-4:ATK_LSTM_BWD_UNROLL=4",
+        "u8-1024-threads:ATK_LSTM_BWD_THREADS=1024",
+    ),
+}
+# the kernels whose registers and spills are reported: (mangled name part,
+# label)
+PTXAS_KERNELS = {
+    "attention": (("flash_fwd_mma", "fwd"), ("flash_dkv_mma", "dk/dv"),
+                  ("flash_dq_mma", "dq")),
+    "lstm": (("lstm_bwd_kernelILi8ELi512E", "B4<8,512>"),
+             ("lstm_bwd_kernelILi8ELi1024E", "B4<8,1024>"),
+             ("lstm_bwd_kernelILi16ELi512E", "B4<16,512>")),
+}
+SM_SCALE = 0.125
+
+
+def build_all(kernel: str, variants: Dict[str, Tuple[Path, List[str]]]
+              ) -> Dict[str, Path]:
+    """nvcc for every (source, defines), all started together."""
+    out_dir = _build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (source, defines) in variants.items():
+        lib = out_dir / f"lib{kernel}_{name}.so"
+        cmd = _build.nvcc_command(kernel, lib, defines)
+        cmd[-1] = str(source)
+        cmd.insert(1, f"-I{_build.CSRC}")  # common.cuh for a source elsewhere
+        log = open(lib.with_suffix(".log"), "w")
+        procs[name] = (lib, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (lib, log, proc) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc:
+            raise RuntimeError(f"nvcc failed for {name}:\n"
+                               + lib.with_suffix(".log").read_text())
+        libs[name] = lib
+    return libs
+
+
+def ptxas_summary(log: Path, kernels) -> str:
+    """'label: N registers, S spill' for each of ``kernels`` (mangled name
+    part, label) that the log shows."""
+    found, current, spill = [], None, ""
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = next((label for part, label in kernels if part in line),
+                           None)
+        elif current and "spill stores" in line:
+            spill = line.strip()
+        elif current and "Used" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            found.append(f"{current}: {regs}, {spill}")
+            current = None
+    return "; ".join(found)
+
+
+def cuda_ms(fn: Callable[[], object], reps: int) -> float:
+    """Mean milliseconds of fn on the card over ``reps`` calls (CUDA
+    events), after one call to warm up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def attention_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for kernel B5."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.ops import cuda_attention as ca
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    t = 1728
+
+    def inputs(b):
+        q, k, v, do = (torch.randn((b, 12, t, 64), generator=gen)
+                       .to("cuda", torch.bfloat16) for _ in range(4))
+        lens = torch.randint(1, t + 1, (b,), generator=gen)
+        lens[0] = 0
+        seg = (torch.arange(t)[None, :] >= lens[:, None]).to(torch.int32)
+        return q, k, v, do, seg.cuda(), lens
+
+    fq, fk, fv, _, fseg, flens = inputs(64)
+    q, k, v, do, seg, lens = inputs(8)
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, SM_SCALE, True)
+    di = (o.float() * do.float()).sum(-1)
+    call = (q, k, v, seg, lse, do, di, SM_SCALE)
+    cfg = AudioTokensConfig(
+        model_type="bert", vocab_size=500, hidden_size=768, num_layers=2,
+        num_classes=543, max_seq_len=t, transformer_max_position=t,
+        dropout=0.0, transformer_attention="flash")
+    model = get_model(cfg, "cuda", torch.Generator().manual_seed(0)).eval()
+    tokens = torch.randint(0, 500, (4, t), generator=gen,
+                           dtype=torch.int32).cuda()
+    labels = (torch.rand((4, 543), generator=gen) < 0.01).float().cuda()
+    weights = torch.ones(4, device="cuda")
+
+    def model_step() -> None:
+        model.zero_grad(set_to_none=True)
+        weighted_bce(model(tokens), labels, weights).backward()
+
+    timed = {
+        "fwd (64, 12, 1728, 64)": lambda: ca.flash_attention_fwd(
+            fq, fk, fv, fseg, SM_SCALE),
+        "dk/dv (8, 12, 1728, 64)": lambda: ca.flash_attention_bwd_dkv(*call),
+        "dq": lambda: ca.flash_attention_bwd_dq(*call),
+        "bert eval-mode loss + backward on 4 rows": model_step,
+    }
+
+    def outputs():
+        return (*ca.flash_attention_fwd(fq, fk, fv, fseg, SM_SCALE, True),
+                *ca.flash_attention_bwd_dkv(*call),
+                ca.flash_attention_bwd_dq(*call))
+
+    desc = (f"B5 bf16: forward prefix lengths {flens.tolist()}; backward "
+            f"prefix lengths {lens.tolist()}")
+    return desc, timed, outputs
+
+
+def lstm_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for kernel B4."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops import cuda_lstm as cl
+
+    t, b, h = 1728, 64, 512
+    xg = torch.randn((t, b, 4 * h), generator=gen).cuda()
+    w_hh = ((torch.rand((h, 4 * h), generator=gen) * 2 - 1)
+            / h ** 0.5).cuda()
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    mask = (torch.arange(t)[:, None] < lens[None, :]).float().cuda()
+    dhs = torch.randn((t, b, h), generator=gen).cuda()
+    dh_last = torch.randn((b, h), generator=gen).cuda()
+    args = {}
+    for reverse in (False, True):
+        hs, gates, c, _ = cl.lstm_sequence_fwd(xg, mask, w_hh, reverse, True)
+        args[reverse] = (dhs, dh_last, gates, c, hs, mask, w_hh, reverse)
+    dxg = {r: cl.lstm_sequence_bwd(*args[r])[0] for r in (False, True)}
+
+    def both_dw():
+        return [cl.lstm_dw_hh(args[r][4], dxg[r], r) for r in (False, True)]
+
+    timed = {
+        "B4 both directions": lambda: [cl.lstm_sequence_bwd(*args[r])
+                                       for r in (False, True)],
+        "dw_hh GEMM alone": both_dw,
+    }
+
+    def outputs():
+        return tuple(x for r in (False, True)
+                     for x in cl.lstm_sequence_bwd(*args[r]))
+
+    return f"B4: T {t}, B {b}, H {h}, f32", timed, outputs
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(DEFAULT_VARIANTS),
+                    default="attention")
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--source", action="append", default=[])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    reps = 2 if args.kernel == "lstm" else 10  # launches a reading
+    module = {"attention": "cuda_attention", "lstm": "cuda_lstm"}[args.kernel]
+    ops = __import__(f"audio_tokens_tpu_torch.ops.{module}",
+                     fromlist=["_lib"])
+
+    source = _build.CSRC / f"{args.kernel}.cu"
+    variants = {}
+    for spec in args.variant or DEFAULT_VARIANTS[args.kernel]:
+        name, _, defs = spec.partition(":")
+        variants[name] = (source, [d for d in defs.split(",") if d])
+    variants.setdefault("default", (source, []))
+    for spec in args.source:
+        name, _, path = spec.partition(":")
+        variants[name] = (Path(path), [])
+    libs = build_all(args.kernel, variants)
+
+    def use(name: str) -> None:
+        """Point the wrappers at one variant's library."""
+        lib = ctypes.CDLL(str(libs[name]))
+        lib.atk_error_string.argtypes = [ctypes.c_int]
+        lib.atk_error_string.restype = ctypes.c_char_p
+        _build._loaded[args.kernel] = lib
+        try:
+            ops._lib()
+        except AttributeError:  # an earlier source lacks a newer entry point
+            pass
+
+    use("default")
+    gen = torch.Generator().manual_seed(6)
+    case = attention_case if args.kernel == "attention" else lstm_case
+    desc, timed, outputs = case(gen)
+    outs = {}
+    for name in variants:
+        use(name)
+        outs[name] = [x.clone() for x in outputs()]
+    torch.cuda.synchronize()
+    times = {name: {label: [] for label in timed} for name in variants}
+    for _ in range(args.rounds):
+        for name in variants:
+            use(name)
+            for label, fn in timed.items():
+                try:
+                    times[name][label].append(cuda_ms(fn, reps))
+                except AttributeError:  # not in an earlier source
+                    pass
+
+    print(f"{desc}; {args.rounds} rounds in turns, {reps} launches a reading")
+    for name, (src, defines) in variants.items():
+        same = all(torch.equal(a, b) for a, b in zip(outs[name],
+                                                     outs["default"]))
+        worst = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(outs[name], outs["default"]))
+        parts = []
+        for label, ts in times[name].items():
+            if ts:
+                parts.append(f"{label} median {statistics.median(ts):.4f} ms "
+                             f"(min {min(ts):.4f}, max {max(ts):.4f})")
+        print(f"{name} ({' '.join(defines) or src.name}): "
+              + "; ".join(parts)
+              + f"; bit-equal to default: {same} (max abs diff {worst:.3e}); "
+              + ptxas_summary(libs[name].with_suffix(".log"),
+                              PTXAS_KERNELS[args.kernel]))
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,12 +14,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    yardstick the port never calls) with CUDA events: B1 at 64 ten-second
    clips, B2 at the same batch's 110,272 mel frames, B3 and B4 at T 1728,
    B 64, H 512, both directions (B3 also with the residuals B4 needs; the
-   library call is cuDNN's bidirectional ``nn.LSTM``), B5 forward at
-   (64, 12, 1728, 64) in bf16 and f32 and its dk/dv and dq kernels at
-   (8, 12, 1728, 64), random prefix lengths with a 0 (the library call is
+   library call is cuDNN's bidirectional ``nn.LSTM``; B4's recurrence and
+   its ``dw_hh`` GEMM are timed apart), B5 forward at (64, 12, 1728, 64)
+   in bf16 and f32 and its dk/dv and dq kernels at (8, 12, 1728, 64),
+   random prefix lengths with a 0 (the library call is
    ``scaled_dot_product_attention`` with the segment mask; its backward
-   gives dq, dk and dv together, so the pair's sum is printed beside it,
-   with each kernel's rate on the work these lengths need).  Each record
+   gives dq, dk and dv together, so the pair's sum is printed beside it;
+   each bf16 kernel's rate on the work these lengths need).  Each record
    carries ``bound_ms``: the larger of the bytes the function must move
    over 3.35 TB/s and its operations over the card's peak for their type
    (67 TFLOP/s f32, 989 TFLOP/s bf16), from this run's shapes and lengths;
@@ -341,11 +342,14 @@ def attention_phases(records: list) -> None:
         b_ms, b_by = bound_of(4 * HEAD_DIM * pairs, nbytes, name)
         fwd[name] = dict(err=err_valid, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        flop = 4 * HEAD_DIM * pairs  # the work these lengths need
         log(f"[B5 attention] {name} q, k, v {tuple(q.shape)}, prefix lengths "
             f"with a 0: max abs err {err_valid:.3e} on valid rows, "
             f"{err_all:.3e} on all (atol {ATT_TOL[name]}); kernel {ms:.3f} "
             f"ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
-            f"{lib_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by})")
+            f"{lib_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}); on the work "
+            f"these lengths need {flop / ms / 1e9:.1f} TFLOP/s of "
+            f"{flop / 1e9:.1f} GFLOP")
         del q, k, v, seg, valid, mask
     r = fwd["bfloat16"]
     records.append(dict(
@@ -438,8 +442,8 @@ def main() -> int:
     from audio_tokens_tpu_torch.ops.cuda_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from audio_tokens_tpu_torch.ops.cuda_lstm import (
-        lstm_sequence_bwd, lstm_sequence_bwd_plain, lstm_sequence_fwd,
-        lstm_sequence_fwd_plain)
+        lstm_dw_hh, lstm_sequence_bwd, lstm_sequence_bwd_plain,
+        lstm_sequence_fwd, lstm_sequence_fwd_plain)
     from audio_tokens_tpu_torch.processors.model_trainer import ModelTrainer
     from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
@@ -606,11 +610,20 @@ def main() -> int:
         return lambda: (fn(*bwd_args[False]), fn(*bwd_args[True]))
 
     ms = cuda_ms(both_bwd(lstm_sequence_bwd), 3)
+    # B4's two kernels apart: its dw_hh GEMM alone on the same hs and dxg,
+    # the recurrence being the rest
+    dxg_of = {r: lstm_sequence_bwd(*bwd_args[r])[0] for r in (False, True)}
+    dw_ms = cuda_ms(lambda: [lstm_dw_hh(bwd_args[r][4], dxg_of[r], r)
+                             for r in (False, True)], 3)
+    del dxg_of
     plain_ms = cuda_ms(both_bwd(lstm_sequence_bwd_plain), 2)
     log(f"[B4 lstm backward] T {T_LSTM} B {B_LSTM} H {H_LSTM}, both "
         f"directions: dxg max abs err {dxg_err:.3e} (atol {LSTM_ATOL}); "
         f"dw_hh max abs err / max |dw_hh| {dw_err:.3e} (bound {DW_RTOL}); "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"kernel {ms:.3f} ms (recurrence {ms - dw_ms:.3f} ms, "
+        f"{(ms - dw_ms) / 2 / (T_LSTM - 1) * 1e3:.2f} us a step; dw_hh GEMM "
+        f"{dw_ms:.3f} ms), plain {plain_ms:.3f} ms, cuDNN backward "
+        f"{lib_bwd_ms:.3f} ms")
     tbh = T_LSTM * B_LSTM * H_LSTM  # dhs, c, hs; gates and dxg are 4x
     b_ms, b_by = bound_of(
         2 * (T_LSTM + T_LSTM - 1) * step_flop,  # dgp @ w_hh^T, dw_hh
@@ -620,7 +633,8 @@ def main() -> int:
         name="B4 lstm backward (both directions)", route="cuda",
         source="audio_tokens_tpu_torch/csrc/lstm.cu",
         replaces="audio_tokens_tpu/ops/pallas_lstm.py:81",
-        max_abs_err=dxg_err, dw_rel_err=dw_err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=dxg_err, dw_rel_err=dw_err, ms=ms,
+        recurrence_ms=ms - dw_ms, dw_ms=dw_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd_ms))
     del fwd, bwd_args, dhs, dh_last, xg
     attention_phases(records)

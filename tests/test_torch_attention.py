@@ -205,6 +205,27 @@ def test_plain_dkv_dq_match_library_kernels_on_three_segments(rng, layout):
                                    rtol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["interleaved", "thirds"])
+def test_plain_forward_matches_library_kernel_on_three_segments(rng, layout,
+                                                                dtype):
+    """``flash_attention_plain`` vs the library forward kernel with three
+    segments whose ids are not 0/1 and not a prefix (the layouts on which
+    the card kernel leaves tiles out or walks them without tests); T = 256,
+    so the JAX side pads nothing and every row is compared."""
+    b, nh, t = 2, 2, BLOCK
+    q, k, v, _, _ = _inputs(rng, b, nh, t, [t] * b)
+    seg = _three_segments(layout, b, t)
+    attend, args = _jax_attention(q, k, v, seg, dtype)
+    with interpret():
+        ref = np.asarray(attend(*args)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    got = flash_attention_plain(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+        torch.from_numpy(seg), SCALE)
+    np.testing.assert_allclose(got.float().numpy(), ref, **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pairs_of_different_segments_have_zero_p_and_ds(rng, dtype):
     """P and dS of the backward are exactly 0 wherever query and key lie in

@@ -65,6 +65,13 @@ LSTM_SHAPES = [
     (50, 1, 512),   # the single-clip request's batch
     (20, 256, 64),  # 1024 (b, u) pairs: one thread each
     (17, 6, 36),    # a ragged batch tile, H not a multiple of the tiles
+    # B4's partition: batch rows not a multiple of a block's (two row
+    # groups of 17), H not a multiple of its 8 or 16 units (masked edge)
+    (9, 33, 64),
+    (7, 5, 20),
+    (6, 256, 512),  # B4's grid shrunk to stay resident: 128 rows a block
+    (1, 8, 64),     # one step: no product
+    (2, 33, 36),    # two steps: one product
 ]
 
 
@@ -72,7 +79,7 @@ def _lstm_inputs(device, t, b, h):
     gen = torch.Generator().manual_seed(0)
     xg = torch.randn((t, b, 4 * h), generator=gen).to(device)
     w = (torch.rand((h, 4 * h), generator=gen) * 0.2 - 0.1).to(device)
-    lens = torch.randint(3, t + 1, (b,), generator=gen)
+    lens = torch.randint(min(3, t), t + 1, (b,), generator=gen)
     mask = (torch.arange(t)[:, None] < lens[None, :]).float().to(device)
     return gen, xg, mask, w
 
@@ -120,6 +127,25 @@ def test_cuda_lstm_backward_kernel_matches_plain(cuda_device, reverse, t, b,
     torch.testing.assert_close(dxg, ref_dxg, atol=1e-5, rtol=1e-5)
     assert float((dw - ref_dw).abs().max()) <= 1e-5 * float(
         ref_dw.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_backward_is_bit_equal_between_launches(cuda_device):
+    """A fixed partition and fixed-order sums: two launches of B4 on the
+    same inputs give the same bits, and dw_hh equals its kernel run alone."""
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (
+        lstm_dw_hh, lstm_sequence_bwd, lstm_sequence_fwd_plain)
+
+    gen, xg, mask, w = _lstm_inputs(cuda_device, 12, 64, 512)
+    dhs = torch.randn((12, 64, 512), generator=gen).to(cuda_device)
+    dh_last = torch.randn((64, 512), generator=gen).to(cuda_device)
+    for reverse in (False, True):
+        hs, gates, c, _ = lstm_sequence_fwd_plain(xg, mask, w, reverse)
+        args = (dhs, dh_last, gates, c, hs, mask, w, reverse)
+        first, again = lstm_sequence_bwd(*args), lstm_sequence_bwd(*args)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                               again[1])
+        assert torch.equal(lstm_dw_hh(hs, first[0], reverse), first[1])
 
 
 @pytest.mark.cuda
@@ -187,29 +213,6 @@ def _flash_inputs(device, b, nh, t, dtype):
     return q, k, v, do, seg.to(device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,nh,t", FLASH_SHAPES)
-def test_cuda_flash_forward_matches_plain(cuda_device, dtype, b, nh, t):
-    """B5 forward, with and without the logsumexp store, on every row."""
-    from audio_tokens_tpu_torch.ops.cuda_attention import (
-        flash_attention_fwd, flash_attention_plain)
-
-    q, k, v, _, seg = _flash_inputs(cuda_device, b, nh, t, dtype)
-    ref_o, ref_lse = flash_attention_plain(q, k, v, seg, 0.125, True)
-    for lse in (False, True):
-        before = flash_attention_fwd.launches
-        o, got_lse = flash_attention_fwd(q, k, v, seg, 0.125, lse)
-        assert flash_attention_fwd.launches == before + 1
-        torch.testing.assert_close(o.float(), ref_o.float(),
-                                   **FLASH_TOL[dtype])
-        if lse:
-            torch.testing.assert_close(got_lse, ref_lse, atol=1e-5,
-                                       rtol=1e-5)
-        else:
-            assert got_lse is None
-
-
 def _prefix_segments(lens, t):
     """(B, T) int32 ids: 0 below each row's length, 1 from there on."""
     return (torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]).to(
@@ -240,6 +243,62 @@ FLASH_BWD_CASES = {
     "35-tiles-prefix": (2, 1, 2200, None),
     "35-tiles-thirds": (1, 1, 2200, _interleaved_segments(1, 2200)),
 }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+def test_cuda_flash_forward_matches_plain(cuda_device, dtype, case):
+    """B5 forward, with and without the logsumexp store, on every row:
+    partial and ragged tiles, whole tiles of another segment (left out by
+    the bf16 kernel), three interleaved segments, more than 32 tiles."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_fwd, flash_attention_plain)
+
+    b, nh, t, seg = FLASH_BWD_CASES[case]
+    q, k, v, _, prefix = _flash_inputs(cuda_device, b, nh, t, dtype)
+    seg = prefix if seg is None else seg.to(cuda_device)
+    ref_o, ref_lse = flash_attention_plain(q, k, v, seg, 0.125, True)
+    for lse in (False, True):
+        before = flash_attention_fwd.launches
+        o, got_lse = flash_attention_fwd(q, k, v, seg, 0.125, lse)
+        assert flash_attention_fwd.launches == before + 1
+        torch.testing.assert_close(o.float(), ref_o.float(),
+                                   **FLASH_TOL[dtype])
+        if lse:
+            torch.testing.assert_close(got_lse, ref_lse, atol=1e-5,
+                                       rtol=1e-5)
+        else:
+            assert got_lse is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_forward_is_bit_equal_between_launches(cuda_device,
+                                                          dtype):
+    """A fixed walk and no atomics: two launches of the forward on the same
+    inputs give the same output and logsumexp bits."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+
+    q, k, v, _, _ = _flash_inputs(cuda_device, 3, 2, 450, dtype)
+    seg = _interleaved_segments(3, 450).to(cuda_device)
+    first = flash_attention_fwd(q, k, v, seg, 0.125, True)
+    again = flash_attention_fwd(q, k, v, seg, 0.125, True)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_forward_refuses_misaligned_bf16(cuda_device):
+    """The bf16 forward copies 16 bytes at a time too: a head that starts 2
+    bytes off a 16-byte boundary is refused by the launch, not read."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+
+    q, k, v, _, seg = _flash_inputs(cuda_device, 1, 1, 64, torch.bfloat16)
+    off = torch.empty(k.numel() + 1, dtype=k.dtype, device=k.device)[1:]
+    k = off.view(q.shape).copy_(k)
+    assert k.is_contiguous() and k.data_ptr() % 16 == 2
+    with pytest.raises(RuntimeError, match="misaligned"):
+        flash_attention_fwd(q, k, v, seg, 0.125)
 
 
 def _flash_backward_args(device, dtype, b, nh, t, seg):

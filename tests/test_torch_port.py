@@ -142,21 +142,45 @@ def test_build_command_targets_hopper_without_fast_math():
 
 def test_flash_backward_ab_variants_name_knobs_of_the_kernel_source(
         monkeypatch):
-    """Every knob the A/B tool's default variants set is a ``#ifndef`` knob
-    of ``csrc/attention.cu`` (a stale name would silently build the default
-    again), and a variant's defines reach the nvcc command line as ``-D``."""
+    """Every knob the A/B tool's default attention variants set is a
+    ``#ifndef`` knob of ``csrc/attention.cu`` (a stale name would silently
+    build the default again), and a variant's defines reach the nvcc command
+    line as ``-D``."""
     from audio_tokens_tpu_torch.ops import _build
-    from audio_tokens_tpu_torch.tools import flash_bwd_ab
+    from audio_tokens_tpu_torch.tools import kernel_ab
 
-    source = (_build.CSRC / "attention.cu").read_text()
-    names = [v.partition(":")[0] for v in flash_bwd_ab.DEFAULT_VARIANTS]
+    _assert_ab_variants_name_knobs("attention")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = _build.nvcc_command("attention", REPO / "build" / "x.so",
+                              ["ATK_TILE_SKIP=0"])
+    assert "-DATK_TILE_SKIP=0" in cmd and cmd[-1].endswith("attention.cu")
+    assert set(kernel_ab.DEFAULT_VARIANTS) == set(kernel_ab.PTXAS_KERNELS)
+
+
+def test_lstm_ab_variants_name_knobs_of_the_kernel_source():
+    """The same for the A/B tool's B4 variants and ``csrc/lstm.cu``, and
+    the B4 instantiations whose registers it reports are the ones the launch
+    shape can pick."""
+    from audio_tokens_tpu_torch.ops import _build
+    from audio_tokens_tpu_torch.tools import kernel_ab
+
+    _assert_ab_variants_name_knobs("lstm")
+    source = (_build.CSRC / "lstm.cu").read_text()
+    for part, _ in kernel_ab.PTXAS_KERNELS["lstm"]:
+        u, threads = part.split("ILi")[1].rstrip("E").split("ELi")
+        assert f"lstm_bwd_kernel<{u}, {threads}>" in source, part
+
+
+def _assert_ab_variants_name_knobs(kernel: str) -> None:
+    from audio_tokens_tpu_torch.ops import _build
+    from audio_tokens_tpu_torch.tools import kernel_ab
+
+    source = (_build.CSRC / f"{kernel}.cu").read_text()
+    variants = kernel_ab.DEFAULT_VARIANTS[kernel]
+    names = [v.partition(":")[0] for v in variants]
     assert names[0] == "default" and len(set(names)) == len(names)
-    for variant in flash_bwd_ab.DEFAULT_VARIANTS:
+    for variant in variants:
         for define in filter(None, variant.partition(":")[2].split(",")):
             knob, _, value = define.partition("=")
             assert f"#ifndef {knob}\n" in source, variant
             assert value.isdigit(), variant
-    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
-    cmd = _build.nvcc_command("attention", REPO / "build" / "x.so",
-                              ["ATK_BWD_SKIP=0"])
-    assert "-DATK_BWD_SKIP=0" in cmd and cmd[-1].endswith("attention.cu")

@@ -30,14 +30,14 @@ PREC = jax.lax.Precision.DEFAULT
 def _mask(rng, masked, t=T, b=B):
     if not masked:
         return np.ones((t, b), np.float32)
-    lens = rng.integers(3, t + 1, (b,))
+    lens = rng.integers(min(3, t), t + 1, (b,))
     return (np.arange(t)[:, None] < lens[None, :]).astype(np.float32)
 
 
-def _inputs(rng, masked):
-    xg = rng.standard_normal((T, B, 4 * H)).astype(np.float32)
-    w = rng.uniform(-0.3, 0.3, (H, 4 * H)).astype(np.float32)
-    return xg, _mask(rng, masked), w
+def _inputs(rng, masked, t=T, b=B, h=H):
+    xg = rng.standard_normal((t, b, 4 * h)).astype(np.float32)
+    w = rng.uniform(-0.3, 0.3, (h, 4 * h)).astype(np.float32)
+    return xg, _mask(rng, masked, t, b), w
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -54,16 +54,24 @@ def test_forward_residuals_match_pallas_interpret(rng, reverse, masked):
                                    rtol=1e-5, err_msg=name)
 
 
+# (T, B, H): the module's shape, then the edges of the card kernel B4's
+# partition that its card tests use: B not a multiple of a block's batch
+# rows (33), H not a multiple of its 8 or 16 units (36, 20), T 2
+BWD_SHAPES = [(T, B, H), (6, 33, 36), (2, 5, 20)]
+
+
+@pytest.mark.parametrize("tbh", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
-def test_backward_matches_pallas_interpret(rng, reverse, masked):
+def test_backward_matches_pallas_interpret(rng, reverse, masked, tbh):
     """dxg and dw_hh of the plain backward vs ``_bwd_kernel`` on the same
     residuals and upstream gradients."""
-    xg, mask, w = _inputs(rng, masked)
+    t, b, h = tbh
+    xg, mask, w = _inputs(rng, masked, t, b, h)
     hs, gates, c, _ = _lstm_fwd_call(jnp.asarray(xg), jnp.asarray(mask),
                                      jnp.asarray(w), reverse, PREC, True)
-    dhs = rng.standard_normal((T, B, H)).astype(np.float32)
-    dh_last = rng.standard_normal((B, H)).astype(np.float32)
+    dhs = rng.standard_normal((t, b, h)).astype(np.float32)
+    dh_last = rng.standard_normal((b, h)).astype(np.float32)
     ref_dxg, ref_dw = _lstm_bwd_call(
         jnp.asarray(dhs), jnp.asarray(dh_last), gates, c, hs,
         jnp.asarray(mask), jnp.asarray(w), reverse, PREC, True)
