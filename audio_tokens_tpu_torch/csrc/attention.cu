@@ -470,28 +470,10 @@ struct Stage {
 };
 static_assert(sizeof(Stage) % 16 == 0, "stages stay 16-byte aligned");
 
-// 16 or 4 bytes global -> shared, asynchronously; zeros instead when !valid
-// (src must still be an address inside the tensor).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using atk::cp_async16;
+using atk::cp_async4;
+using atk::cp_async_commit;
+using atk::cp_async_wait;
 
 // Start the copy of rows [r0, r0 + 64) of the head a and, if kB, of the
 // head b, of the batch row's segment ids sg and, unless null, of the head's

@@ -1,6 +1,6 @@
 // Shared pieces of the port's kernels: the C export macro, the error-string
-// export, and the nearest-centroid scoring + argmin that kernels B1
-// (tokenizer.cu) and B2 (vq.cu) both end with.
+// export, the cp.async copies, and the nearest-centroid scoring + argmin
+// that kernels B1 (tokenizer.cu) and B2 (vq.cu) both end with.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,7 +41,30 @@ __device__ inline void normalize_rows(float* f, int ldf, int d, int rows) {
   }
 }
 
-// Nearest centroid for each of the 16 * RPT feature rows held in shared
+// 16 or 4 bytes global -> shared, asynchronously; zeros instead when !valid
+// (src must still be an address inside the tensor).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Nearest centroid for each of the (THREADS / 16) * RPT feature rows held in shared
 // memory (row r at feat[r * ldf], d features), written to out[r] for
 // r < rows_valid.  Score = ||c||^2 - 2 f.c (the ||f||^2 term is constant
 // per row and dropped, as in ops/vq.py).
@@ -49,16 +72,17 @@ __device__ inline void normalize_rows(float* f, int ldf, int d, int rows) {
 // Centroids stream from global memory (L2) in chunks of kChunk through the
 // shared buffer cs (kChunk * (d + 1) floats; the +1 keeps the 16 lanes that
 // read one feature index of 16 different centroids on 16 different banks)
-// and c2s (kChunk floats).  Thread (tx, ty) scores rows ty + 16 r against
+// and c2s (kChunk floats).  Thread (tx, ty) scores rows ty + (THREADS / 16) r against
 // centroids tx + 16 c of each chunk, so it visits its centroids in
 // ascending order and keeps a strict-< running (min, index); the 16 lanes
 // of a row group are then merged with `better`.  The loop stops at exactly
-// k: no padded centroid is ever scored.  Requires blockDim.x == kThreads.
-template <int RPT>
+// k: no padded centroid is ever scored.  Requires blockDim.x == THREADS.
+template <int RPT, int THREADS = kThreads>
 __device__ void block_argmin(const float* feat, int ldf, int d,
                              const float* __restrict__ cent,
                              const float* __restrict__ c2, int k,
                              float* cs, float* c2s, int* out, int rows_valid) {
+  constexpr int kGroups = THREADS / kColThreads;  // row groups
   const int t = threadIdx.x;
   const int tx = t % kColThreads;
   const int ty = t / kColThreads;
@@ -72,11 +96,11 @@ __device__ void block_argmin(const float* feat, int ldf, int d,
   }
   for (int c0 = 0; c0 < k; c0 += kChunk) {
     __syncthreads();  // the previous chunk (or the caller's buffer) is done
-    for (int e = t; e < kChunk * d; e += kThreads) {
+    for (int e = t; e < kChunk * d; e += THREADS) {
       const int c = e / d, j = e - c * d;
       cs[c * ldc + j] = (c0 + c < k) ? cent[(size_t)(c0 + c) * d + j] : 0.f;
     }
-    for (int c = t; c < kChunk; c += kThreads)
+    for (int c = t; c < kChunk; c += THREADS)
       c2s[c] = (c0 + c < k) ? c2[c0 + c] : CUDART_INF_F;
     __syncthreads();
     float acc[RPT][kColsPerThread];
@@ -87,7 +111,7 @@ __device__ void block_argmin(const float* feat, int ldf, int d,
     for (int j = 0; j < d; ++j) {
       float f[RPT], cv[kColsPerThread];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) f[r] = feat[(ty + kRowThreads * r) * ldf + j];
+      for (int r = 0; r < RPT; ++r) f[r] = feat[(ty + kGroups * r) * ldf + j];
 #pragma unroll
       for (int c = 0; c < kColsPerThread; ++c)
         cv[c] = cs[(tx + kColThreads * c) * ldc + j];
@@ -123,7 +147,7 @@ __device__ void block_argmin(const float* feat, int ldf, int d,
         bidx[r] = oi;
       }
     }
-    const int row = ty + kRowThreads * r;
+    const int row = ty + kGroups * r;
     if (tx == 0 && row < rows_valid) out[row] = bidx[r];
   }
 }

@@ -17,19 +17,25 @@
 // (B, H) x (H, 4H) product (67 MFLOP at B 64, H 512) plus the cell.  The
 // TPU kernel keeps h, c and w_hh in one core's VMEM across a sequential
 // grid; here w_hh is 4 MB, more than one SM holds, so the recurrence is
-// split across blocks.  The design: one persistent cooperative launch of
-// H/4 blocks.  Block j owns hidden units 4j..4j+3 and all four gate columns
-// of those units, so its (H, 16) slice of w_hh (32 KB at H 512) stays in
-// shared memory for all T steps and the cell update needs no exchange
-// between blocks: a thread per (batch row b, unit u) keeps c in a register
-// and runs the cell.  h is exchanged through a double-buffered global buffer
-// hbuf (2, B, H) with a grid-wide barrier after every step.  Blocks read h
-// written by other blocks after the barrier, so those reads bypass L1
-// (__ldcg) and hbuf carries no const or __restrict__.  The per-step time is
-// then bound by reading h (B*H floats) from L2 in every block and by the
-// barrier itself, not by flops.  The residual stores are one uniform branch
-// per step; serving (no gradient) passes null residual pointers and skips
-// them.
+// split across blocks: one persistent cooperative launch, h exchanged
+// through a double-buffered global buffer hbuf (2, B, H) with a barrier
+// after every step.  Blocks read h written by other blocks after the
+// barrier, so those reads bypass L1 (cp.async.cg) and hbuf carries no const
+// or __restrict__.  Each block reads its rows of h in full every step, so
+// the card reads (unit groups) x its share of h: blocks of 4 units x all
+// rows would read 16 MB a step at B 64, H 512.  So a block
+// owns 8 units x 32 batch rows (B4's partition), 128 blocks at B 64, H 512:
+// its 64 KB of w_hh columns stay in shared memory, it copies its 64 KB of h
+// into shared memory once a step (8 MB in all, every copy in flight at
+// once), and its warps hold 8 rows x 16 gate columns in registers, so a
+// weight load feeds 32 FMAs and an h load 16, and sum their tiles by
+// shuffles: no shared-memory pass.  The barrier waits only for the blocks
+// that write the block's rows (lstm_fwd_kernel's comment).  Per step at
+// B 64, H 512 that leaves the product (~2.3 us of FMA issue over 128 SMs),
+// the copy's L2 round trip and the barrier (~1.1 us).  The sums are in a
+// fixed order: launches are bit-identical.  The residual stores are one
+// uniform branch per step; serving (no gradient) passes null residual
+// pointers and skips them.
 //
 // B4 walks the forward processing order backwards, carrying (dh, dc), and
 // emits dxg = the pre-activation gate gradients (T, B, 4H) and dw_hh (H, 4H).
@@ -57,7 +63,9 @@
 //     that owns the carry, so dh never leaves the block and launches are
 //     bit-identical.  The step's residual loads (HBM: 0.9 GB of gates at
 //     T 1728, B 64, H 512) do not depend on the carry and are issued before
-//     the product of the step before.
+//     the product of the step before.  Its phase counters (ATK_LSTM_TIMERS)
+//     put ~70% of a step in the plane loads and the product and ~16% in the
+//     grid barrier at B 64, H 512 (PERF.md).
 //  2. lstm_dw_kernel: dw_hh = sum over processing steps p >= 1 of
 //     h_prev(p)^T dgp(p).  h_prev is hs one step back in processing order
 //     (zero at the first step), so the sum is one product A^T B of two
@@ -73,11 +81,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kUnits = 4;            // hidden units per block
-constexpr int kCols = 4 * kUnits;    // w_hh columns per block
-constexpr int kRows = 4;             // batch rows of a thread's register tile
-constexpr int kMaxSplit = 16;        // B3: at most 16 slices of H per tile
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxBatch = 256;       // rows the wrappers accept
+constexpr size_t kMaxSmem = 227 * 1024;  // shared memory a block may have
+constexpr int kFwdUnits = 8;         // B3: hidden units a block owns
+constexpr int kFwdRows = 32;         // B3: batch rows a block owns, unless the grid must shrink
+constexpr int kFwdThreads = 256;     // B3: threads of a block (8 warps, up to 255 registers)
+constexpr int kFwdTaskRows = 8;      // B3: batch rows of a warp's task (x 4 units)
 constexpr int kGemmTile = 64;        // dw_hh output tile (both sides)
 constexpr int kGemmK = 16;           // K rows staged per iteration
 constexpr int kGemmThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
@@ -105,139 +114,250 @@ static_assert(kBwdThreads == 512 || kBwdThreads == 1024, "B4 blocks of 512 or 10
 static_assert(kBwdUnits == 8 || kBwdUnits == 16, "B4 blocks own 8 or 16 units");
 constexpr int kTileRows = 4;  // B4: batch rows of a product thread's register tile
 
+// Per-phase cycle counters (clock64) of B3 and B4, compiled in only with
+// -DATK_LSTM_TIMERS=1 (tools/kernel_ab.py reads them): thread 0 of each block
+// adds the cycles between marks to its phase, and writes its sums to
+// g_timers[kernel][block] at the end.  A mark after loads first consumes
+// the loaded value, so the phase ends when the data has arrived.
+constexpr int kTimerPhases = 6;
+constexpr int kTimerBlocks = 1024;
+#ifndef ATK_LSTM_TIMERS
+#define ATK_LSTM_TIMERS 0  // 1: compile the phase counters in
+#endif
+#if ATK_LSTM_TIMERS
+__device__ unsigned long long g_timers[2][kTimerBlocks][kTimerPhases];
+__device__ __forceinline__ long long cycles() {
+  long long now;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(now));
+  return now;
+}
+struct PhaseTimer {
+  unsigned long long acc[kTimerPhases] = {};
+  long long last;
+  __device__ PhaseTimer() : last(cycles()) {}
+  __device__ void mark(int phase) {
+    const long long now = cycles();
+    acc[phase] += now - last;
+    last = now;
+  }
+  __device__ void wait_for(float v) {  // stalls until v is loaded
+    asm volatile("add.f32 %0, %0, 0f00000000;" : "+f"(v));
+  }
+  __device__ void store(int kernel) const {
+    if (threadIdx.x == 0 && blockIdx.x < kTimerBlocks)
+      for (int p = 0; p < kTimerPhases; ++p) g_timers[kernel][blockIdx.x][p] += acc[p];
+  }
+};
+#else
+struct PhaseTimer {
+  __device__ void mark(int) {}
+  __device__ void wait_for(float) {}
+  __device__ void store(int) const {}
+};
+#endif
+
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__device__ __forceinline__ float lane(const float4& v, int q) {
+__device__ __forceinline__ float lane_of(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// One step's gate product for the block's 4 units is a (B, H) x (H, 16)
-// product.  Work is cut into tiles of 4 batch rows x 1 unit (its 4 gates)
-// and the H axis into ksplit slices: thread (ks, tile) accumulates the
-// 4 x 4 register tile of its k slice, so each 16-byte weight load from
-// shared memory feeds 16 FMAs and each h load 4.  The ksplit partial tiles
-// are summed in shared memory in a fixed order; then thread p = b * 4 + u
-// (one per (batch row, unit), which keeps c in a register) runs the cell.
-__global__ void __launch_bounds__(kMaxThreads)
+// The warp's sum, over its 32 lanes, of each of the N values v[0..N) (N a
+// multiple of 32), left scattered: lane i ends with the sums of values
+// i * N/32 .. i * N/32 + N/32 - 1 in v[0..N/32).  Each of the five rounds
+// halves the values a lane keeps and sends the other half to its partner:
+// N - N/32 shuffles where a butterfly would take 5 N.  The order of the
+// additions is fixed: bit-identical from launch to launch.  One template
+// instance a round, so that every index into v is a constant: a loop over
+// rounds whose inner trip count depends on the round leaves the indices
+// unknown to the compiler, which then keeps the whole array in local
+// memory (a stack frame of the array's size in ptxas' report).
+template <int N, int ROUND = 0>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N], int lane) {
+  static_assert(N % 32 == 0, "whole warps of values");
+  if constexpr (ROUND < 5) {
+    constexpr int off = 16 >> ROUND, half = N >> (ROUND + 1);
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float keep = upper ? v[i + half] : v[i];
+      const float send = upper ? v[i] : v[i + half];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    warp_reduce_scatter<N, ROUND + 1>(v, lane);
+  }
+}
+
+// B3 (see the head of the file).  Block x owns the hidden units [u0,
+// u0 + 8) (unit group x % ceil(H/8); units past H are masked: zero weights,
+// no cell) and the batch rows [b0, b0 + rows) (row group x / ceil(H/8)),
+// and keeps the 32 columns of w_hh those units' gates read, all H rows, in
+// shared memory: ws[((p * 4 + q) * 4 + v) * (H/4) + j] = the 4 gates (i, f,
+// g, o) of unit u0 + 4p + v at k = 4j + q.  Each step the block copies its
+// rows of h into shared memory (cp.async, every copy in flight at once: one
+// L2 round trip), `chunk` rows at a time where they do not all fit.  A task
+// is 8 batch rows x 4 units (p = task % 2); warp w takes tasks w, w +
+// warps, ...  A lane forms a register tile of 8 rows x 16 gate columns over
+// the float4 columns j = lane, lane + 32, ... of h: a conflict-free float4
+// of weights feeds 32 FMAs, one of h 16.  A shuffle reduce-scatter over the
+// warp then leaves lane L with the 4 gates of unit L % 4, row L / 4: every
+// lane runs one cell, whose c and h live in shared memory (one owner lane
+// each); h goes out through hbuf.  A block's rows of h are written only by
+// the blocks of its row group, so after a step it waits for those alone (an
+// arrival counter a row group, release/acquire), not for the whole grid.
+__global__ void __launch_bounds__(kFwdThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ mask,
                 const float* __restrict__ w_hh, int steps, int batch, int hidden,
-                int reverse, int ntiles, int ksplit, float* hbuf,
+                int reverse, int rows, int chunk, float* hbuf,
                 float* __restrict__ hs, float* __restrict__ h_last,
                 float* __restrict__ gates_res, float* __restrict__ c_res) {
-  // ws[k * kUnits + u] = w_hh[k, g*H + u0 + u] for g = 0..3 (x, y, z, w)
   extern __shared__ float4 smem4[];
-  float4* ws = smem4;                                  // hidden * kUnits
-  float4* part = ws + hidden * kUnits;                 // ksplit * ntiles * kRows
-  float4* gates = part + ksplit * ntiles * kRows;      // ntiles * kRows
+  const int jn = hidden / 4;                              // float4 columns of a row of h
+  float4* ws = smem4;                                     // 8 * hidden float4s
+  float4* hsm = ws + 8 * static_cast<size_t>(hidden);     // chunk * jn float4s
+  float* cst = reinterpret_cast<float*>(hsm + static_cast<size_t>(chunk) * jn);  // rows * 8
+  float* hst = cst + rows * kFwdUnits;                    // rows * 8
   cg::grid_group grid = cg::this_grid();
-  const int u0 = blockIdx.x * kUnits;
+  const int ugroups = (hidden + kFwdUnits - 1) / kFwdUnits;
+  const int u0 = (blockIdx.x % ugroups) * kFwdUnits;
+  const int b0 = (blockIdx.x / ugroups) * rows;
+  const int row_end = min(b0 + rows, batch);
   const size_t g4 = 4 * static_cast<size_t>(hidden);
   float* wsf = reinterpret_cast<float*>(ws);
-  for (int e = threadIdx.x; e < hidden * kCols; e += blockDim.x) {
-    const int k = e / kCols, ug = e % kCols;
-    const int u = ug / 4, g = ug % 4;
-    wsf[e] = w_hh[k * g4 + g * hidden + u0 + u];
+  for (int e = threadIdx.x; e < 32 * jn; e += blockDim.x) {
+    const int j = e % jn, rest = e / jn;  // rest = (p * 4 + q) * 4 + v
+    const int v = rest % 4, q = (rest / 4) % 4, p = rest / 16;
+    const int k = 4 * j + q, u = u0 + 4 * p + v;
+    for (int g = 0; g < 4; ++g)
+      wsf[(static_cast<size_t>(rest) * jn + j) * 4 + g] =
+          u < hidden ? w_hh[k * g4 + g * hidden + u] : 0.f;
   }
-  // product role
-  const int tile = threadIdx.x % ntiles, ks = threadIdx.x / ntiles;
-  const int tu = tile % kUnits, row0 = (tile / kUnits) * kRows;
-  const int klen = hidden / ksplit, kbeg = ks * klen;
-  const bool producer = ks < ksplit;
-  // cell role
-  const int cb = threadIdx.x / kUnits, cu = threadIdx.x % kUnits;
-  const bool owner = cb < batch;
-  const int col = u0 + cu;
-  float h = 0.f, c = 0.f;
-  if (owner) hbuf[cb * hidden + col] = 0.f;  // buffer 0 holds the zero state
+  for (int e = threadIdx.x; e < rows * kFwdUnits; e += blockDim.x) cst[e] = hst[e] = 0.f;
+  // the row groups' arrival counters, after hbuf (atk_lstm_fwd_scratch)
+  unsigned* arrivals = reinterpret_cast<unsigned*>(hbuf + 2 * static_cast<size_t>(batch) * hidden);
+  const int row_group = blockIdx.x / ugroups;
+  if (blockIdx.x == 0 && threadIdx.x < gridDim.x / ugroups) arrivals[threadIdx.x] = 0u;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const int lr = lane / 4, lv = lane % 4;  // the lane's cell in a task: row, unit
+  const int tasks = 2 * ((rows + kFwdTaskRows - 1) / kFwdTaskRows);
+  // the cells this thread owns write the zero state into buffer 0
+  for (int task = warp; task < tasks; task += warps) {
+    const int b = b0 + kFwdTaskRows * (task / 2) + lr, col = u0 + 4 * (task % 2) + lv;
+    if (b < row_end && col < hidden) hbuf[b * hidden + col] = 0.f;
+  }
   grid.sync();  // w slice loaded, zero state visible to every block
 
   const size_t plane = static_cast<size_t>(batch) * hidden;
+  PhaseTimer timer;  // phases: 0 inputs, 1 h copy, 2 product, 3 sum, 4 cell, 5 barrier
   for (int s = 0; s < steps; ++s) {
     const int t = reverse ? steps - 1 - s : s;
     const float* hp = hbuf + (s & 1) * plane;
     float* hn = hbuf + ((s + 1) & 1) * plane;
-    // this step's input gates and mask do not depend on h: load them first
-    float xi = 0.f, xf = 0.f, xc = 0.f, xo = 0.f, m = 0.f;
-    if (owner) {
-      const float* x = xg + (static_cast<size_t>(t) * batch + cb) * g4 + col;
-      xi = x[0];
-      xf = x[hidden];
-      xc = x[2 * hidden];
-      xo = x[3 * hidden];
-      m = mask[static_cast<size_t>(t) * batch + cb];
-    }
-    if (producer) {
-      float acc[kRows][4];
+    for (int c0 = b0; c0 < row_end; c0 += chunk) {
+      const int c1 = min(c0 + chunk, row_end);
+      // the chunk's rows of h -> shared memory, every copy in flight at once
+      for (int e = threadIdx.x; e < (c1 - c0) * jn; e += blockDim.x)
+        atk::cp_async16(hsm + e, hp + static_cast<size_t>(c0) * hidden + 4 * e, true);
+      atk::cp_async_commit();
+      timer.mark(1);
+      atk::cp_async_wait<0>();
+      __syncthreads();
+      timer.mark(1);
+      for (int task = warp; task < tasks; task += warps) {
+        const int rb = b0 + kFwdTaskRows * (task / 2);  // the task's first row
+        if (rb < c0 || rb >= c1) continue;              // another chunk's task
+        const int b = rb + lr, col = u0 + 4 * (task % 2) + lv;
+        const bool live = b < row_end && col < hidden;
+        // this step's input gates and mask do not depend on h
+        float x[4] = {0.f, 0.f, 0.f, 0.f}, m = 0.f;
+        if (live) {
+          const float* xr = xg + (static_cast<size_t>(t) * batch + b) * g4 + col;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+          for (int g = 0; g < 4; ++g) x[g] = xr[g * hidden];
+          m = mask[static_cast<size_t>(t) * batch + b];
+        }
+        timer.mark(0);
+        float acc[kFwdTaskRows * 16];  // acc[r * 16 + v * 4 + g]
 #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
-#pragma unroll 2
-      for (int k = kbeg; k < kbeg + klen; k += 4) {
-        float4 hv[kRows];
+        for (int e = 0; e < kFwdTaskRows * 16; ++e) acc[e] = 0.f;
+        const float4* wh = ws + static_cast<size_t>((task % 2) * 16) * jn;
+        const float4* hr = hsm + static_cast<size_t>(rb - c0) * jn;
+        const int nr = min(kFwdTaskRows, c1 - rb);  // rows of the task that exist
+        for (int j = lane; j < jn; j += 32) {
+          float4 h4[kFwdTaskRows];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          hv[r] = row0 + r < batch
-                      ? __ldcg(reinterpret_cast<const float4*>(
-                            hp + static_cast<size_t>(row0 + r) * hidden + k))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int r = 0; r < kFwdTaskRows; ++r)
+            h4[r] = r < nr ? hr[static_cast<size_t>(r) * jn + j] : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 w = ws[(k + q) * kUnits + tu];
+          for (int q = 0; q < 4; ++q)
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float hk = lane(hv[r], q);
-            acc[r][0] = fmaf(hk, w.x, acc[r][0]);
-            acc[r][1] = fmaf(hk, w.y, acc[r][1]);
-            acc[r][2] = fmaf(hk, w.z, acc[r][2]);
-            acc[r][3] = fmaf(hk, w.w, acc[r][3]);
+            for (int v = 0; v < 4; ++v) {
+              const float4 w = wh[static_cast<size_t>(q * 4 + v) * jn + j];
+#pragma unroll
+              for (int r = 0; r < kFwdTaskRows; ++r) {
+                const float hk = lane_of(h4[r], q);
+                const int a = r * 16 + v * 4;
+                acc[a] = fmaf(hk, w.x, acc[a]);
+                acc[a + 1] = fmaf(hk, w.y, acc[a + 1]);
+                acc[a + 2] = fmaf(hk, w.z, acc[a + 2]);
+                acc[a + 3] = fmaf(hk, w.w, acc[a + 3]);
+              }
+            }
+        }
+        timer.wait_for(acc[kFwdTaskRows * 16 - 1]);
+        timer.mark(2);
+        warp_reduce_scatter(acc, lane);  // lane L: the 4 gates of row L / 4, unit L % 4
+        timer.wait_for(acc[3]);
+        timer.mark(3);
+        if (live) {
+          const float gi = sigmoid(x[0] + acc[0]);
+          const float gf = sigmoid(x[1] + acc[1]);
+          const float gg = tanhf(x[2] + acc[2]);
+          const float go = sigmoid(x[3] + acc[3]);
+          const int cell = (b - b0) * kFwdUnits + (col - u0);
+          const float c_prev = cst[cell], h_prev = hst[cell];
+          const float c_new = gf * c_prev + gi * gg;
+          const float h_new = go * tanhf(c_new);
+          const float h = m * h_new + (1.0f - m) * h_prev;
+          const float c = m * c_new + (1.0f - m) * c_prev;
+          cst[cell] = c;
+          hst[cell] = h;
+          const size_t row = static_cast<size_t>(t) * batch + b;
+          hn[static_cast<size_t>(b) * hidden + col] = h;
+          hs[row * hidden + col] = h;
+          if (gates_res != nullptr) {  // the residuals of B4
+            float* gr = gates_res + row * g4 + col;
+            gr[0] = gi;
+            gr[hidden] = gf;
+            gr[2 * hidden] = gg;
+            gr[3 * hidden] = go;
+            c_res[row * hidden + col] = c;
           }
         }
+        timer.mark(4);
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        part[(ks * ntiles + tile) * kRows + r] =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      if (c1 < row_end) __syncthreads();  // the next chunk overwrites hsm
     }
+    // wait only for the blocks of this row group, which wrote its rows of h
     __syncthreads();
-    // sum the k slices, in ks order
-    for (int e = threadIdx.x; e < ntiles * kRows; e += blockDim.x) {
-      float4 sum = part[e];
-      for (int j = 1; j < ksplit; ++j) {
-        const float4 v = part[j * ntiles * kRows + e];
-        sum.x += v.x;
-        sum.y += v.y;
-        sum.z += v.z;
-        sum.w += v.w;
-      }
-      gates[e] = sum;
+    if (threadIdx.x == 0) {
+      __threadfence();  // this block's h before its arrival
+      atomicAdd(arrivals + row_group, 1u);
+      const unsigned target = static_cast<unsigned>(s + 1) * ugroups;
+      unsigned seen;
+      do {
+        asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(seen) : "l"(arrivals + row_group));
+      } while (seen < target);
     }
-    __syncthreads();
-    if (owner) {
-      const float4 a = gates[((cb / kRows) * kUnits + cu) * kRows + cb % kRows];
-      const float gi = sigmoid(xi + a.x);
-      const float gf = sigmoid(xf + a.y);
-      const float gg = tanhf(xc + a.z);
-      const float go = sigmoid(xo + a.w);
-      const float c_new = gf * c + gi * gg;
-      const float h_new = go * tanhf(c_new);
-      h = m * h_new + (1.0f - m) * h;
-      c = m * c_new + (1.0f - m) * c;
-      const size_t row = static_cast<size_t>(t) * batch + cb;
-      hn[static_cast<size_t>(cb) * hidden + col] = h;
-      hs[row * hidden + col] = h;
-      if (gates_res != nullptr) {  // the residuals of B4
-        float* gr = gates_res + row * g4 + col;
-        gr[0] = gi;
-        gr[hidden] = gf;
-        gr[2 * hidden] = gg;
-        gr[3 * hidden] = go;
-        c_res[row * hidden + col] = c;
-      }
-    }
-    grid.sync();  // h of this step visible; part and gates free again
+    __syncthreads();  // the group's h visible; hsm free again
+    timer.mark(5);
   }
-  if (owner) h_last[cb * hidden + col] = h;
+  for (int task = warp; task < tasks; task += warps) {
+    const int b = b0 + kFwdTaskRows * (task / 2) + lr, col = u0 + 4 * (task % 2) + lv;
+    if (b < row_end && col < hidden)
+      h_last[b * hidden + col] = hst[(b - b0) * kFwdUnits + (col - u0)];
+  }
+  timer.store(0);
 }
 
 // One step's residuals for thread (b, unit col) of B4, at forward
@@ -269,28 +389,6 @@ __device__ __forceinline__ Residuals load_residuals(
     r.c_prev = c_res[(static_cast<size_t>(tp) * batch + b) * hidden + col];
   }
   return r;
-}
-
-// The warp's sum, over its 32 lanes, of each of the N values v[0..N) (N a
-// multiple of 32), left scattered: lane i ends with the sums of values
-// i * N/32 .. i * N/32 + N/32 - 1 in v[0..N/32).  Each of the five rounds
-// halves the values a lane keeps and sends the other half to its partner:
-// N - N/32 shuffles where a butterfly would take 5 N.  The order of the
-// additions is fixed: bit-identical from launch to launch.
-template <int N>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N], int lane) {
-  static_assert(N % 32 == 0, "whole warps of values");
-#pragma unroll
-  for (int round = 0; round < 5; ++round) {
-    const int off = 16 >> round, half = N >> (round + 1);
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float keep = upper ? v[i + half] : v[i];
-      const float send = upper ? v[i] : v[i + half];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-  }
 }
 
 // B4's recurrence (see the head of the file).  Step s handles forward
@@ -350,6 +448,9 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
   __syncthreads();  // ws loaded
 
   const size_t plane = static_cast<size_t>(batch) * g4;
+  // phases: 0 cell + stores, 1 barrier, 2 residual loads issued, 3 plane
+  // loads + product, 4 reduce-scatter + partial stores, 5 block sum of the partials
+  PhaseTimer timer;
   for (int s = 0; s < steps; ++s) {
     const int p = steps - 1 - s;
     const int t = reverse ? steps - 1 - p : p;
@@ -384,12 +485,15 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
       d[2 * hidden] = gg;
       d[3 * hidden] = go;
     }
+    timer.mark(0);
     if (s + 1 == steps) break;  // the same for every block: no dh after p == 0
     grid.sync();  // this step's dgp plane visible to every block
+    timer.mark(1);
     // the next step's residuals do not depend on the carries: load them now
     if (owner)
       res = load_residuals(dhs, gates, c_res, mask, p - 1, steps, batch, hidden, reverse, b,
                            col);
+    timer.mark(2);
     if (producer) {  // whole warps: ksplit is a multiple of 32
       float acc[kAcc];  // acc[r * U + u]: row row0 + r, unit u0 + u
 #pragma unroll
@@ -410,7 +514,7 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
             const float4 w = ws[static_cast<size_t>(q * kQ + qq) * hidden + j];
 #pragma unroll
             for (int r = 0; r < kTileRows; ++r) {
-              const float d = lane(dv[r], q);
+              const float d = lane_of(dv[r], q);
               float* a = acc + r * U + 4 * qq;
               a[0] = fmaf(d, w.x, a[0]);
               a[1] = fmaf(d, w.y, a[1]);
@@ -419,11 +523,13 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
             }
           }
       }
+      timer.mark(3);
       warp_reduce_scatter(acc, lane_id);
       // part[kw][row][u] for the warp kw = ks / 32 of the tile's k slices
       float* pp = part + (static_cast<size_t>(ks / 32) * tile_rows + row0) * U + lane_id * kPer;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) pp[i] = acc[i];
+      timer.mark(4);
     }
     __syncthreads();
     if (owner) {
@@ -432,9 +538,12 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
       float sum = pp[0];
       for (int kw = 1; kw < ksplit / 32; ++kw) sum += pp[static_cast<size_t>(kw) * tile_rows * U];
       dh = sum + dh_direct;
+      timer.wait_for(dh);
     }
+    timer.mark(5);
     // part is written again only after the next grid.sync
   }
+  timer.store(1);
 }
 
 // c (m x n) = a^T b for row-major a (k x m) and b (k x n); m and n multiples
@@ -480,7 +589,7 @@ lstm_dw_kernel(const float* __restrict__ a, const float* __restrict__ b, int kdi
       const float4 bv = bs[kk][tx];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float ai = lane(av, i);
+        const float ai = lane_of(av, i);
         acc[i][0] = fmaf(ai, bv.x, acc[i][0]);
         acc[i][1] = fmaf(ai, bv.y, acc[i][1]);
         acc[i][2] = fmaf(ai, bv.z, acc[i][2]);
@@ -502,24 +611,32 @@ lstm_dw_kernel(const float* __restrict__ a, const float* __restrict__ b, int kdi
 
 }  // namespace
 
-// Launch shape of B3 for (batch, hidden), shared by the launch and the
-// query: H/4 blocks; ntiles = ceil(B/4) * 4 register tiles, each split over
-// ksplit slices of H (at most 16) so that ntiles * ksplit fills up to 1024
-// threads.
+// Launch shape of B3 for (batch, hidden) on a card of `sms` SMs, shared by
+// the launch and the residency query: blocks own 8 units x `rows` batch
+// rows, ceil(B / 32) row groups, fewer where the grid of ceil(H/8) x row
+// groups would exceed one block an SM; the rows of h a block copies at once
+// (`chunk`, a multiple of 8) are as many as shared memory holds beside the
+// weights.  Threads: a warp a task (8 rows x 4 units), at most 8 warps.
 struct LstmShape {
-  int blocks, threads, ntiles, ksplit;
+  int rows, chunk, blocks, threads;
   size_t smem;
-  LstmShape(int batch, int hidden) {
-    ntiles = (batch + kRows - 1) / kRows * kUnits;
-    ksplit = kMaxThreads / ntiles < kMaxSplit ? kMaxThreads / ntiles : kMaxSplit;
-    while (ksplit > 1 && hidden % (4 * ksplit)) --ksplit;  // whole float4s
-    if (ksplit < 1) ksplit = 1;
-    blocks = hidden / kUnits;
-    const int cells = batch * kUnits;
-    threads = ntiles * ksplit > cells ? ntiles * ksplit : cells;
-    threads = (threads + 31) / 32 * 32;
-    smem = (static_cast<size_t>(hidden) * kUnits +
-            static_cast<size_t>(ksplit + 1) * ntiles * kRows) * sizeof(float4);
+  LstmShape(int batch, int hidden, int sms) {
+    const int ugroups = (hidden + kFwdUnits - 1) / kFwdUnits;
+    int rgroups = (batch + kFwdRows - 1) / kFwdRows;
+    const int fit = sms / ugroups > 1 ? sms / ugroups : 1;
+    if (rgroups > fit) rgroups = fit;
+    rows = (batch + rgroups - 1) / rgroups;
+    rgroups = (batch + rows - 1) / rows;
+    blocks = ugroups * rgroups;
+    const int tasks = 2 * ((rows + kFwdTaskRows - 1) / kFwdTaskRows);
+    threads = 32 * tasks < kFwdThreads ? 32 * tasks : kFwdThreads;
+    const size_t fixed = (static_cast<size_t>(32) * hidden +
+                          2 * static_cast<size_t>(rows) * kFwdUnits) * sizeof(float);
+    const size_t room = fixed < kMaxSmem ? (kMaxSmem - fixed) / (hidden * sizeof(float)) : 0;
+    chunk = (rows + kFwdTaskRows - 1) / kFwdTaskRows * kFwdTaskRows;
+    if (static_cast<size_t>(chunk) > room) chunk = static_cast<int>(room) / kFwdTaskRows * kFwdTaskRows;
+    if (chunk < kFwdTaskRows) chunk = kFwdTaskRows;  // then the launch is refused for its memory
+    smem = fixed + static_cast<size_t>(chunk) * hidden * sizeof(float);
   }
 };
 
@@ -598,7 +715,7 @@ ATK_EXPORT int atk_lstm_max_blocks(int batch, int hidden, int backward, int* res
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sh.kernel(), sh.threads,
                                                           sh.smem);
   } else {
-    const LstmShape sh(batch, hidden);
+    const LstmShape sh(batch, hidden, sms);
     *needed = sh.blocks;
     err = atk::allow_smem(lstm_fwd_kernel, sh.smem);
     if (err == cudaSuccess)
@@ -610,20 +727,30 @@ ATK_EXPORT int atk_lstm_max_blocks(int batch, int hidden, int backward, int* res
   return 0;
 }
 
-// B3.  gates_res and c_res are both null (no residuals) or both the
-// (T, B, 4H) and (T, B, H) outputs.
+// Floats of B3's scratch hbuf at (batch, hidden): h's two planes, then an
+// arrival counter for each row group (LstmShape takes at most ceil(B / 32)).
+ATK_EXPORT long atk_lstm_fwd_scratch(int batch, int hidden) {
+  return 2L * batch * hidden + (batch + kFwdRows - 1) / kFwdRows;
+}
+
+// B3.  hbuf is scratch of atk_lstm_fwd_scratch floats; gates_res and
+// c_res are both null (no residuals) or both the (T, B, 4H) and (T, B, H)
+// outputs.
 ATK_EXPORT int atk_lstm_fwd(const float* xg, const float* mask, const float* w_hh,
                             int steps, int batch, int hidden, int reverse, float* hbuf,
                             float* hs, float* h_last, float* gates_res, float* c_res,
                             void* stream) {
-  LstmShape sh(batch, hidden);
-  if (hidden % kUnits || batch * kUnits > kMaxThreads || (gates_res == nullptr) != (c_res == nullptr))
+  if (hidden % 4 || batch < 1 || batch > kMaxBatch || (gates_res == nullptr) != (c_res == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (steps <= 0) return 0;
-  cudaError_t err = atk::allow_smem(lstm_fwd_kernel, sh.smem);
+  int sms, coop;
+  cudaError_t err = device_sms(&sms, &coop);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&xg,      &mask,      &w_hh,      &steps, &batch,  &hidden,    &reverse,
-                  &sh.ntiles, &sh.ksplit, &hbuf,  &hs,     &h_last, &gates_res, &c_res};
+  LstmShape sh(batch, hidden, sms);
+  err = atk::allow_smem(lstm_fwd_kernel, sh.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&xg,      &mask,     &w_hh,    &steps, &batch,  &hidden,    &reverse,
+                  &sh.rows, &sh.chunk, &hbuf,    &hs,    &h_last, &gates_res, &c_res};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_fwd_kernel), dim3(sh.blocks),
                                     dim3(sh.threads), args, sh.smem,
                                     static_cast<cudaStream_t>(stream));
@@ -648,13 +775,27 @@ ATK_EXPORT int atk_lstm_dw(const float* hs, const float* dxg, int steps, int bat
   return static_cast<int>(cudaGetLastError());
 }
 
+#if ATK_LSTM_TIMERS
+// The phase cycle sums of B3 (kernel 0) or B4's recurrence (kernel 1), per
+// block: host (blocks, kTimerPhases) unsigned 64-bit; then zeroed.
+ATK_EXPORT int atk_lstm_timers(int kernel, unsigned long long* host, int blocks) {
+  if (kernel < 0 || kernel > 1 || blocks > kTimerBlocks) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = sizeof(unsigned long long) * kTimerPhases;
+  const size_t offset = static_cast<size_t>(kernel) * kTimerBlocks * bytes;
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_timers, blocks * bytes, offset);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static unsigned long long zeros[kTimerBlocks][kTimerPhases];
+  return static_cast<int>(cudaMemcpyToSymbol(g_timers, zeros, sizeof(zeros), offset));
+}
+#endif
+
 // B4: the recurrence, then dw_hh.  dgbuf is (2, B, 4H) scratch; dxg
 // (T, B, 4H) and dw_hh (H, 4H) are written in full.
 ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float* gates,
                             const float* c_res, const float* hs, const float* mask,
                             const float* w_hh, int steps, int batch, int hidden, int reverse,
                             float* dgbuf, float* dxg, float* dw_hh, void* stream) {
-  if (hidden % 4 || batch < 1 || batch * kUnits > kMaxThreads || steps <= 0)
+  if (hidden % 4 || batch < 1 || batch > kMaxBatch || steps <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int sms, coop;
   cudaError_t err = device_sms(&sms, &coop);

@@ -1,6 +1,10 @@
 """Bidirectional LSTM token classifier (counterpart of
 ``audio_tokens_tpu/models/lstm.py``): embedding -> biLSTM layers -> concat
-last forward/backward hidden -> ReLU -> dropout -> linear.
+last forward/backward hidden -> ReLU -> dropout -> linear.  Built with a
+``frame_dim`` (the ``use_precomputed_embeddings`` path), it takes float
+frames (B, T, frame_dim) straight into layer 0, whose ``w_ih`` then has
+``frame_dim`` rows, and has no embedding table: the JAX layer sizes ``w_ih``
+by its input's width and creates no table for float inputs.
 
 Parameters keep the JAX layouts where they meet the kernel, so a JAX
 checkpoint transplants as a copy (``convert.py``): per direction ``w_ih``
@@ -63,13 +67,18 @@ class LSTMLayer(nn.Module):
 class SimpleLSTMTokenClassifier(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int, hidden_dim: int,
                  num_layers: int, num_classes: int, dropout: float = 0.0,
-                 *, device: torch.device, generator: torch.Generator):
+                 frame_dim: Optional[int] = None, *, device: torch.device,
+                 generator: torch.Generator):
         super().__init__()
         self.num_layers = num_layers
-        self.embedding = nn.Embedding(vocab_size, embed_dim)
-        with torch.no_grad():
-            self.embedding.weight.copy_(
-                torch.randn((vocab_size, embed_dim), generator=generator))
+        if frame_dim is None:
+            self.embedding = nn.Embedding(vocab_size, embed_dim)
+            with torch.no_grad():
+                self.embedding.weight.copy_(
+                    torch.randn((vocab_size, embed_dim), generator=generator))
+        else:
+            self.embedding = None
+            embed_dim = frame_dim
         for layer in range(num_layers):
             in_dim = embed_dim if layer == 0 else 2 * hidden_dim
             self.add_module(f"lstm_l{layer}_fwd",
@@ -92,7 +101,13 @@ class SimpleLSTMTokenClassifier(nn.Module):
         ``use_precomputed_embeddings`` path) -> (B, num_classes) logits.
         ``generator`` (on x's device) draws the dropout mask in training
         mode."""
-        emb = x if x.is_floating_point() else self.embedding(x.long())
+        if x.is_floating_point():
+            emb = x
+        elif self.embedding is None:
+            raise ValueError("this lstm takes float frames (B, T, frame_dim), "
+                             f"got {x.dtype} input of shape {tuple(x.shape)}")
+        else:
+            emb = self.embedding(x.long())
         b, t = emb.shape[:2]
         if lengths is None:
             mask = torch.ones((b, t), dtype=emb.dtype, device=emb.device)

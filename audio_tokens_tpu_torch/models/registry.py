@@ -80,6 +80,8 @@ def get_model(config: AudioTokensConfig, device: torch.device,
             num_layers=config.num_layers,
             num_classes=config.num_classes,
             dropout=config.dropout,
+            frame_dim=(config.n_mels if model_input_kind(config) == "spec"
+                       else None),
             device=device,
             generator=generator,
         )

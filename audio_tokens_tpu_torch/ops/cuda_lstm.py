@@ -4,18 +4,20 @@ backward, and the ``torch.autograd.Function`` that joins them.
 B3 replaces ``audio_tokens_tpu/ops/pallas_lstm.py::_fwd_kernel`` (launched
 by ``_lstm_fwd_call``), B4 ``_bwd_kernel`` (launched by ``_lstm_bwd_call``);
 ``LSTMSequence`` is the counterpart of the JAX ``lstm_sequence`` custom_vjp.
-The T steps are serial, so on the H100 both kernels are bound by the
-per-step exchange between blocks through L2 and the grid barrier, not by
-flops.  Each is one persistent cooperative launch.  B3 has H/4 blocks,
-block j owning hidden units 4j..4j+3: it keeps their gate columns of
-``w_hh`` in shared memory and exchanges h through a double-buffered global
+The T steps are serial, so on the H100 each step's small product, its
+exchange between blocks through L2 and the barrier after it set the pace.
+Each is one persistent cooperative launch.  B3's blocks own 8
+hidden units x a share of the batch rows (``LstmShape`` in the source):
+each keeps its units' gate columns of ``w_hh`` in shared memory, reads only
+its rows of h each step and exchanges h through a double-buffered global
 buffer.  B4's recurrence exchanges the pre-activation gate gradients, a
 (B, 4H) plane every block must read its rows of each step: since the card
 reads the plane once per group of units, its blocks own 8 (or 16) units x
 a share of the batch rows, keep those units' rows of ``w_hh`` and run the
 cell backward with (dh, dc) in registers; then a second kernel forms
 ``dw_hh`` as one product of the saved hidden states and those gradients.
-The launch shape is chosen in ``csrc/lstm.cu`` (``LstmBwdShape``), and the
+The launch shapes are chosen in ``csrc/lstm.cu`` (``LstmShape``,
+``LstmBwdShape``), and the
 wrappers refuse a grid that cannot be resident at once (a cooperative launch
 needs every block on the card together), asking the library both how many
 blocks fit and how many the launch needs.
@@ -39,7 +41,7 @@ from torch.autograd.function import once_differentiable
 from audio_tokens_tpu_torch.ops import _build
 from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
 
-UNITS_PER_BLOCK = 4  # csrc/lstm.cu kUnits: B3's units a block
+MAX_BATCH = 256  # csrc/lstm.cu kMaxBatch
 
 
 def lstm_sequence_fwd_plain(xg: torch.Tensor, mask: torch.Tensor,
@@ -125,6 +127,8 @@ def _lib():
         lib.atk_lstm_max_blocks.restype = I
         lib.atk_lstm_dw.argtypes = [P, P, I, I, I, I, P, P]
         lib.atk_lstm_dw.restype = I
+        lib.atk_lstm_fwd_scratch.argtypes = [I, I]
+        lib.atk_lstm_fwd_scratch.restype = _build.L
     return lib
 
 
@@ -136,11 +140,9 @@ def _check_shapes(xg_shape, mask: torch.Tensor, w_hh: torch.Tensor) -> None:
         raise ValueError(f"shapes (T, B, 4H) {tuple(xg_shape)}, mask "
                          f"{tuple(mask.shape)}, w_hh {tuple(w_hh.shape)} "
                          "do not describe one LSTM direction")
-    if (t_steps < 1 or b < 1 or h_dim % UNITS_PER_BLOCK
-            or b * UNITS_PER_BLOCK > 1024):
-        raise ValueError(f"kernel takes T >= 1, H % {UNITS_PER_BLOCK} == 0 "
-                         f"and 1 <= B <= {1024 // UNITS_PER_BLOCK}; got T "
-                         f"{t_steps}, B {b}, H {h_dim}")
+    if t_steps < 1 or b < 1 or h_dim % 4 or b > MAX_BATCH:
+        raise ValueError(f"kernel takes T >= 1, H % 4 == 0 and 1 <= B <= "
+                         f"{MAX_BATCH}; got T {t_steps}, B {b}, H {h_dim}")
 
 
 def _check_resident(lib, b: int, h_dim: int, backward: bool) -> None:
@@ -184,7 +186,8 @@ def lstm_sequence_fwd(xg: torch.Tensor, mask: torch.Tensor,
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=xg.device)
 
-    hbuf, hs, h_last = new(2, b, h_dim), new(t_steps, b, h_dim), new(b, h_dim)
+    hbuf = new(lib.atk_lstm_fwd_scratch(b, h_dim))  # h's planes, counters
+    hs, h_last = new(t_steps, b, h_dim), new(b, h_dim)
     gates = new(t_steps, b, g4) if residuals else None
     c = new(t_steps, b, h_dim) if residuals else None
     with torch.cuda.device(xg.device):

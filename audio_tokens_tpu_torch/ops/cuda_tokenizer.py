@@ -6,7 +6,8 @@ mel -> dB -> L2 normalize -> nearest centroid, with only waveform bytes read
 and int32 tokens written.  On the H100 it is bound by float32 FMA issue in
 the DFT product (57.8 GFLOP per batch of 64 ten-second clips against 56 MB
 of waveform); the source explains how the design keeps the window, power
-and features in shared memory and streams the 1 MB DFT basis from L2.
+and features in shared memory, streams the 1 MB DFT basis through a
+``cp.async`` ring, and holds 8 frames x 4 bins (re and im) a thread.
 
 What the TPU kernel needed and this one does not: the 128-multiple frame
 tile plan, the over-allocated host buffer (``alloc_blocks``) and the VMEM
@@ -15,7 +16,10 @@ first ``padded_len`` samples of rows of any length >= ``padded_len``.
 
 The DFT basis drops the Nyquist bin (its filterbank row is exactly zero, so
 the mel sums are unchanged) and keeps re/im of bins 0..n_fft/2-1 as one
-(n_fft, n_fft) matrix; only the ``highest`` (float32) tier is ported.
+(n_fft, n_fft) matrix; only the ``highest`` (float32) tier is ported.  The
+kernel's copy is padded with zeros to whole ring stages (rows a multiple of
+16) and whole passes (bins a multiple of 128), the filterbank's to the same
+bins: the zeros add nothing to any sum.
 """
 
 from __future__ import annotations
@@ -101,6 +105,16 @@ class TokenizerKernel:
                              f"got {cent.shape}")
         self.basis = torch.from_numpy(np.ascontiguousarray(basis)).to(self.device)
         self.fbank = torch.from_numpy(np.ascontiguousarray(fb[:-1])).to(self.device)
+        # the kernel's zero-padded copies: rows to whole ring stages, bins
+        # to whole passes (csrc/tokenizer.cu)
+        rows, nbp = -(-n_fft // 16) * 16, -(-nb // 128) * 128
+        kb = np.zeros((rows, 2 * nbp), np.float32)
+        kb[:n_fft, :nb] = basis[:, :nb]
+        kb[:n_fft, nbp:nbp + nb] = basis[:, nb:]
+        kf = np.zeros((nbp, n_mels), np.float32)
+        kf[:nb] = fb[:-1]
+        self._kbasis = torch.from_numpy(kb).to(self.device)
+        self._kfbank = torch.from_numpy(kf).to(self.device)
         self.centroids = torch.from_numpy(cent).to(self.device)
         self.c2 = (self.centroids * self.centroids).sum(1)
 
@@ -133,9 +147,9 @@ class TokenizerKernel:
         with torch.cuda.device(self.device):
             rc = lib.atk_tokenize(
                 padded.data_ptr(), b, stride, self.padded_len, self.n_frames,
-                self.hop, self.n_fft, self.basis.data_ptr(),
-                self.basis.shape[1] // 2, self.fbank.data_ptr(), self.n_mels,
-                self.centroids.data_ptr(), self.c2.data_ptr(),
+                self.hop, self._kbasis.shape[0], self._kbasis.data_ptr(),
+                self._kbasis.shape[1] // 2, self._kfbank.data_ptr(),
+                self.n_mels, self.centroids.data_ptr(), self.c2.data_ptr(),
                 self.centroids.shape[0], out.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
         _build.check(lib, rc, "tokenize")

@@ -1,15 +1,16 @@
 """A/B the tuning knobs of the hand-written kernels on one card.
 
-    python -m audio_tokens_tpu_torch.tools.kernel_ab --kernel attention|lstm
+    python -m audio_tokens_tpu_torch.tools.kernel_ab
+        --kernel attention|lstm|lstm-fwd|tokenizer
         [--rounds 5] [--variant NAME:KEY=VAL,KEY=VAL ...]
-        [--source NAME:path/<kernel>.cu]
+        [--source NAME:path/<source>.cu[:KEY=VAL,..]]
 
-Each variant is ``csrc/<kernel>.cu`` compiled with other values of its
-``ATK_*`` knobs into ``build/kernels/ab/``; ``--source`` adds another file
-with the same C interface (an earlier commit's kernels, say) under a name.
-All are built in parallel (one nvcc each), then timed in turns, round after
-round (CUDA events, 10 launches a reading, 2 for B4), on the shapes
-``chip_smoke.py`` uses:
+Each variant is the case's ``csrc/<source>.cu`` compiled with other values
+of its ``ATK_*`` knobs into ``build/kernels/ab/``; ``--source`` adds another
+file with the same C interface (an earlier commit's kernels, say) under a
+name, with its own knobs after a second colon.  All are built in parallel (one nvcc each), then timed in turns,
+round after round (CUDA events, 10 launches a reading, 2 for the LSTM
+kernels), on the shapes ``chip_smoke.py`` uses:
 
 - ``attention`` (kernel B5 in bf16; knobs ``ATK_FWD_WARPS``,
   ``ATK_FWD_BLOCKS``, ``ATK_DKV_WARPS``, ``ATK_DKV_BLOCKS``,
@@ -25,7 +26,22 @@ round (CUDA events, 10 launches a reading, 2 for B4), on the shapes
   ``ATK_LSTM_BWD_THREADS``, ``ATK_LSTM_BWD_UNROLL``): both directions at
   T 1728, B 64, H 512 as
   ``[B4 lstm backward]``, the whole backward and its ``dw_hh`` GEMM alone,
-  the recurrence being the difference.
+  the recurrence being the difference;
+- ``lstm-fwd`` (kernel B3, ``lstm.cu``): both directions at T 1728, B 64,
+  H 512 as ``[B3 lstm]``, without and with the residual stores, and the
+  largest difference from the plain version;
+- ``tokenizer`` (kernel B1, ``tokenizer.cu``; knob
+  ``ATK_TOKENIZER_FRAMES``, 128 or 64 frames a block): 64 ten-second
+  synthetic clips, K 500, as ``[B1 tokenizer]``; each variant's tokens are
+  held to the plain version under the near-tie rule (the fraction that
+  disagrees and the largest score gap are printed).
+
+A variant built with ``ATK_LSTM_TIMERS=1`` (``lstm`` and ``lstm-fwd``)
+also reports its per-phase cycle counters (``b3_unit4_timers.patch`` adds
+them to B3's earlier 4-unit design, for ``--source``): after the timing rounds one
+more call runs with the counters zeroed, and the script prints each
+phase's mean cycles a step (over blocks; thread 0 of each block marks the
+phases) and its share of the step.
 
 Per variant the script prints ptxas' registers and spills of the kernels
 it times, the median and the spread of each time over the rounds, and
@@ -33,7 +49,8 @@ whether its outputs equal the default build's bit for bit.  Every knob of
 B5 must keep them (the tile skip and the untested path on full tiles
 included: no B5 knob changes a sum's order or a value), and so must B4's
 unrolling; B4's units, rows and threads a block change which sums its warps
-take, so their outputs differ in the last bits, as another source's may.  The last line is the card as nvidia-smi names it.
+take, and B1's frames a block how its mel sums are grouped, so their
+outputs differ in the last bits, as another source's may.  The last line is the card as nvidia-smi names it.
 """
 
 from __future__ import annotations
@@ -59,8 +76,11 @@ DEFAULT_VARIANTS = {
         "mask-every-tile:ATK_PLAIN_TILES=0",
         "stages-3:ATK_STAGES=3",
     ),
+    "lstm-fwd": ("default:", "timers:ATK_LSTM_TIMERS=1"),
+    "tokenizer": ("default:", "f64:ATK_TOKENIZER_FRAMES=64"),
     "lstm": (
         "default:",
+        "timers:ATK_LSTM_TIMERS=1",
         "u16-r16:ATK_LSTM_BWD_UNITS=16,ATK_LSTM_BWD_ROWS=16",
         "u16-r32:ATK_LSTM_BWD_UNITS=16,ATK_LSTM_BWD_ROWS=32",
         "u8-r64:ATK_LSTM_BWD_ROWS=64",
@@ -77,7 +97,23 @@ PTXAS_KERNELS = {
     "lstm": (("lstm_bwd_kernelILi8ELi512E", "B4<8,512>"),
              ("lstm_bwd_kernelILi8ELi1024E", "B4<8,1024>"),
              ("lstm_bwd_kernelILi16ELi512E", "B4<16,512>")),
+    "lstm-fwd": (("lstm_fwd_kernel", "B3"),),
+    "tokenizer": (("tokenizer_kernelILi64ELb1E", "B1<64>"),
+                  ("tokenizer_kernelILi128ELb1E", "B1<128>"),
+                  ("tokenizer_kernelv", "B1 (first design)")),
 }
+SOURCES = {"attention": "attention", "lstm": "lstm", "lstm-fwd": "lstm",
+           "tokenizer": "tokenizer"}
+MODULES = {"attention": "cuda_attention", "lstm": "cuda_lstm",
+           "lstm-fwd": "cuda_lstm", "tokenizer": "cuda_tokenizer"}
+# the phases of the cycle counters (csrc/lstm.cu, ATK_LSTM_TIMERS)
+TIMER_PHASES = {
+    "lstm-fwd": ("inputs", "h loads", "product", "sum", "cell + stores",
+                 "barrier"),
+    "lstm": ("cell + stores", "barrier", "residual loads", "plane loads + "
+             "product", "reduce-scatter", "block sum"),
+}
+T_LSTM, B_LSTM, H_LSTM = 1728, 64, 512
 SM_SCALE = 0.125
 
 
@@ -89,7 +125,7 @@ def build_all(kernel: str, variants: Dict[str, Tuple[Path, List[str]]]
     procs = {}
     for name, (source, defines) in variants.items():
         lib = out_dir / f"lib{kernel}_{name}.so"
-        cmd = _build.nvcc_command(kernel, lib, defines)
+        cmd = _build.nvcc_command(SOURCES[kernel], lib, defines)
         cmd[-1] = str(source)
         cmd.insert(1, f"-I{_build.CSRC}")  # common.cuh for a source elsewhere
         log = open(lib.with_suffix(".log"), "w")
@@ -196,23 +232,32 @@ def attention_case(gen):
     return desc, timed, outputs
 
 
+def _lstm_inputs(gen):
+    """B3's inputs at the serving and training shape: xg, w_hh, mask."""
+    import torch
+
+    t, b, h = T_LSTM, B_LSTM, H_LSTM
+    xg = torch.randn((t, b, 4 * h), generator=gen).cuda()
+    w_hh = ((torch.rand((h, 4 * h), generator=gen) * 2 - 1)
+            / h ** 0.5).cuda()
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    mask = (torch.arange(t)[:, None] < lens[None, :]).float().cuda()
+    return xg, w_hh, mask
+
+
 def lstm_case(gen):
     """-> (description, {timed name: fn}, outputs fn) for kernel B4."""
     import torch
 
     from audio_tokens_tpu_torch.ops import cuda_lstm as cl
 
-    t, b, h = 1728, 64, 512
-    xg = torch.randn((t, b, 4 * h), generator=gen).cuda()
-    w_hh = ((torch.rand((h, 4 * h), generator=gen) * 2 - 1)
-            / h ** 0.5).cuda()
-    lens = torch.randint(1, t + 1, (b,), generator=gen)
-    mask = (torch.arange(t)[:, None] < lens[None, :]).float().cuda()
+    t, b, h = T_LSTM, B_LSTM, H_LSTM
+    xg, w_hh, mask = _lstm_inputs(gen)
     dhs = torch.randn((t, b, h), generator=gen).cuda()
     dh_last = torch.randn((b, h), generator=gen).cuda()
     args = {}
     for reverse in (False, True):
-        hs, gates, c, _ = cl.lstm_sequence_fwd(xg, mask, w_hh, reverse, True)
+        hs, gates, c, _ = cl.lstm_sequence_fwd_plain(xg, mask, w_hh, reverse)
         args[reverse] = (dhs, dh_last, gates, c, hs, mask, w_hh, reverse)
     dxg = {r: cl.lstm_sequence_bwd(*args[r])[0] for r in (False, True)}
 
@@ -232,6 +277,107 @@ def lstm_case(gen):
     return f"B4: T {t}, B {b}, H {h}, f32", timed, outputs
 
 
+def lstm_fwd_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for kernel B3."""
+    from audio_tokens_tpu_torch.ops import cuda_lstm as cl
+
+    xg, w_hh, mask = _lstm_inputs(gen)
+    refs = [cl.lstm_sequence_fwd_plain(xg, mask, w_hh, r)
+            for r in (False, True)]
+
+    def both(residuals):
+        return [cl.lstm_sequence_fwd(xg, mask, w_hh, r, residuals)
+                for r in (False, True)]
+
+    timed = {"B3 both directions": lambda: both(False),
+             "with residuals": lambda: both(True)}
+
+    def outputs():
+        outs = tuple(x for got in both(True) for x in got)
+        ref = tuple(x for r in refs for x in r)
+        err = max(float((a - b).abs().max()) for a, b in zip(outs, ref))
+        return outs, f"max abs err vs plain {err:.3e}"
+
+    return (f"B3: T {T_LSTM}, B {B_LSTM}, H {H_LSTM}, f32, both directions",
+            timed, outputs)
+
+
+def synthetic_clips(n: int, sr: int = 22050, seconds: float = 10.0):
+    """bench.py's synthetic clips: two partials plus noise, seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    t = np.arange(int(sr * seconds)) / sr
+    return [(0.5 * np.sin(2 * np.pi * 80.0 * (1 + i % 16) * t)
+             + 0.2 * np.sin(2 * np.pi * 2.3 * 80.0 * (1 + i % 16) * t)
+             + 0.1 * rng.standard_normal(len(t))).astype(np.float32)
+            for i in range(n)]
+
+
+def tokenizer_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for kernel B1."""
+    import numpy as np
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
+    from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
+
+    rng = np.random.default_rng(7)
+    cents = rng.standard_normal((500, 64)).astype(np.float32)
+    cents /= np.linalg.norm(cents, axis=1, keepdims=True) + 1e-10
+    cfg = AudioTokensConfig(clip_seconds=10.0, vocab_size=500)
+    tok = FusedTokenizer(cfg, cents, torch.device("cuda", 0))
+    kern, fe = tok.kernel, tok.frontend
+    x = torch.from_numpy(fe.prepare_batch(synthetic_clips(64))[0]).cuda()
+    ref = kern.plain(x)
+    unit = l2_normalize(kern.log_mel_plain(x))
+
+    def outputs():
+        got = kern(x)
+        try:
+            frac, gap = check_near_ties(unit, kern.centroids, got, ref)
+        except AssertionError as e:
+            return (got,), f"FAILS the near-tie rule against plain: {e}"
+        return (got,), (f"{frac:.2e} of tokens differ from the plain "
+                        f"version, largest score gap {gap:.3e}")
+
+    return (f"B1: {tuple(x.shape)} waveforms -> {tuple(ref.shape)} tokens, "
+            f"K 500", {"B1": lambda: kern(x)}, outputs)
+
+
+CASES = {"attention": attention_case, "lstm": lstm_case,
+         "lstm-fwd": lstm_fwd_case, "tokenizer": tokenizer_case}
+
+
+def phase_split(lib, kernel: str, fn) -> str:
+    """One call of ``fn`` with the cycle counters of ``kernel`` zeroed ->
+    each phase's mean cycles a step and share (a timer build only)."""
+    import torch
+
+    which = 1 if kernel == "lstm" else 0
+    resident, needed = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.atk_lstm_max_blocks(
+        B_LSTM, H_LSTM, which, ctypes.byref(resident), ctypes.byref(needed)),
+        "lstm occupancy query")
+    phases = TIMER_PHASES[kernel]
+    buf = (ctypes.c_ulonglong * (needed.value * 6))()
+    lib.atk_lstm_timers.argtypes = [_build.I, ctypes.c_void_p, _build.I]
+    torch.cuda.synchronize()
+    _build.check(lib, lib.atk_lstm_timers(which, buf, needed.value), "timers")
+    fn()
+    torch.cuda.synchronize()
+    _build.check(lib, lib.atk_lstm_timers(which, buf, needed.value), "timers")
+    steps = 2 * T_LSTM  # both directions
+    sums = [sum(buf[blk * 6 + p] for blk in range(needed.value))
+            / needed.value / steps for p in range(len(phases))]
+    total = sum(sums)
+    return ("cycles a step (thread 0, mean over blocks): "
+            + ", ".join(f"{ph} {c:.0f} ({c / total:.0%})"
+                        for ph, c in zip(phases, sums))
+            + f"; total {total:.0f}")
+
+
 def main() -> int:
     import torch
 
@@ -245,20 +391,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    reps = 2 if args.kernel == "lstm" else 10  # launches a reading
-    module = {"attention": "cuda_attention", "lstm": "cuda_lstm"}[args.kernel]
-    ops = __import__(f"audio_tokens_tpu_torch.ops.{module}",
+    reps = 2 if args.kernel.startswith("lstm") else 10  # launches a reading
+    ops = __import__(f"audio_tokens_tpu_torch.ops.{MODULES[args.kernel]}",
                      fromlist=["_lib"])
-
-    source = _build.CSRC / f"{args.kernel}.cu"
+    src_name = SOURCES[args.kernel]
+    source = _build.CSRC / f"{src_name}.cu"
     variants = {}
     for spec in args.variant or DEFAULT_VARIANTS[args.kernel]:
         name, _, defs = spec.partition(":")
         variants[name] = (source, [d for d in defs.split(",") if d])
     variants.setdefault("default", (source, []))
     for spec in args.source:
-        name, _, path = spec.partition(":")
-        variants[name] = (Path(path), [])
+        name, _, rest = spec.partition(":")
+        path, _, defs = rest.partition(":")
+        variants[name] = (Path(path), [d for d in defs.split(",") if d])
     libs = build_all(args.kernel, variants)
 
     def use(name: str) -> None:
@@ -266,7 +412,10 @@ def main() -> int:
         lib = ctypes.CDLL(str(libs[name]))
         lib.atk_error_string.argtypes = [ctypes.c_int]
         lib.atk_error_string.restype = ctypes.c_char_p
-        _build._loaded[args.kernel] = lib
+        _build._loaded[src_name] = lib
+        if src_name == "lstm" and not hasattr(lib, "atk_lstm_fwd_scratch"):
+            # an earlier B3: its scratch is h's two planes
+            lib.atk_lstm_fwd_scratch = lambda b, h: 2 * b * h
         try:
             ops._lib()
         except AttributeError:  # an earlier source lacks a newer entry point
@@ -274,12 +423,14 @@ def main() -> int:
 
     use("default")
     gen = torch.Generator().manual_seed(6)
-    case = attention_case if args.kernel == "attention" else lstm_case
-    desc, timed, outputs = case(gen)
-    outs = {}
+    desc, timed, outputs = CASES[args.kernel](gen)
+    outs, notes = {}, {}
     for name in variants:
         use(name)
-        outs[name] = [x.clone() for x in outputs()]
+        got = outputs()
+        if isinstance(got[-1], str):  # (outputs, a note on their accuracy)
+            got, notes[name] = got
+        outs[name] = [x.clone() for x in got]
     torch.cuda.synchronize()
     times = {name: {label: [] for label in timed} for name in variants}
     for _ in range(args.rounds):
@@ -290,6 +441,13 @@ def main() -> int:
                     times[name][label].append(cuda_ms(fn, reps))
                 except AttributeError:  # not in an earlier source
                     pass
+    splits = {}
+    for name in variants:
+        use(name)
+        lib = _build._loaded[src_name]
+        if args.kernel in TIMER_PHASES and hasattr(lib, "atk_lstm_timers"):
+            splits[name] = phase_split(lib, args.kernel,
+                                       next(iter(timed.values())))
 
     print(f"{desc}; {args.rounds} rounds in turns, {reps} launches a reading")
     for name, (src, defines) in variants.items():
@@ -305,8 +463,11 @@ def main() -> int:
         print(f"{name} ({' '.join(defines) or src.name}): "
               + "; ".join(parts)
               + f"; bit-equal to default: {same} (max abs diff {worst:.3e}); "
+              + (notes[name] + "; " if name in notes else "")
               + ptxas_summary(libs[name].with_suffix(".log"),
                               PTXAS_KERNELS[args.kernel]))
+        if name in splits:
+            print(f"  {name} phases: {splits[name]}")
     print("card: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,

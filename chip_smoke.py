@@ -12,10 +12,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    its path gives it, and time kernel, plain version and, where one
    PyTorch call computes the same function, that call (``library_ms``, a
    yardstick the port never calls) with CUDA events: B1 at 64 ten-second
-   clips, B2 at the same batch's 110,272 mel frames, B3 and B4 at T 1728,
+   clips (beside it the DFT product alone, one cuBLAS GEMM on the frames),
+   B2 at the same batch's 110,272 mel frames, B3 and B4 at T 1728,
    B 64, H 512, both directions (B3 also with the residuals B4 needs; the
-   library call is cuDNN's bidirectional ``nn.LSTM``; B4's recurrence and
-   its ``dw_hh`` GEMM are timed apart), B5 forward at (64, 12, 1728, 64)
+   library call is cuDNN's bidirectional ``nn.LSTM``; B3's time a step is
+   printed; B4's recurrence and its ``dw_hh`` GEMM are timed apart, the
+   GEMM beside cuBLAS on the same views), B5 forward at (64, 12, 1728, 64)
    in bf16 and f32 and its dk/dv and dq kernels at (8, 12, 1728, 64),
    random prefix lengths with a 0 (the library call is
    ``scaled_dot_product_attention`` with the segment mask; its backward
@@ -485,9 +487,20 @@ def main() -> int:
     unit = l2_normalize(kern.log_mel_plain(x))
     frac, gap = check_near_ties(unit, cents_t, got, ref)
     ms, plain_ms = cuda_ms(lambda: kern(x), 10), cuda_ms(lambda: kern.plain(x), 5)
+    # yardstick: the DFT product alone, one cuBLAS f32 GEMM on the frames
+    # laid out beforehand (no single PyTorch call computes B1's function)
+    frames = x[:, :kern.padded_len].unfold(1, cfg.n_fft, cfg.hop_length)[
+        :, :kern.n_frames].reshape(-1, cfg.n_fft).contiguous()
+    dft_ms = cuda_ms(lambda: torch.matmul(frames, kern.basis), 10)
+    dft_flop = 2 * frames.shape[0] * cfg.n_fft * kern.basis.shape[1]
+    del frames
     log(f"[B1 tokenizer] tokens {tuple(got.shape)}: {frac:.2e} disagree, "
         f"largest score gap {gap:.3e} (near-tie bounds 1e-3, 1e-4); "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; the DFT product alone "
+        f"(torch.matmul, TF32 off) {dft_ms:.3f} ms, "
+        f"{dft_flop / dft_ms / 1e9:.1f} TFLOP/s of {dft_flop / 1e9:.1f} "
+        f"GFLOP; the kernel's whole function at "
+        f"{dft_flop / ms / 1e9:.1f} TFLOP/s on the DFT's work")
     n_frames = BATCH * tok.frontend.frames_max
     bins = cfg.n_fft // 2 + 1
     b_ms, b_by = bound_of(  # DFT (re, im), mel, distances; f32 FMA
@@ -499,7 +512,7 @@ def main() -> int:
         source="audio_tokens_tpu_torch/csrc/tokenizer.cu",
         replaces="audio_tokens_tpu/ops/pallas_tokenizer.py:222",
         max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None))
+        bound_by=b_by, library_ms=None, dft_product_ms=dft_ms))
 
     frames = tok.frontend.mel_frames(x).reshape(-1, cfg.n_mels).contiguous()
     got = vq_argmin(frames, cents_t, True)
@@ -569,9 +582,11 @@ def main() -> int:
         f"bidirectional) at T {T_LSTM} B "
         f"{B_LSTM}, TF32 off: forward {lib_ms:.3f} ms, backward "
         f"{lib_bwd_ms:.3f} ms (yardstick only)")
+    step_us = ms / (2 * T_LSTM) * 1e3
     log(f"[B3 lstm] T {T_LSTM} B {B_LSTM} H {H_LSTM}, both directions: max "
         f"abs err {err:.3e} (atol {LSTM_ATOL}: 1728 f32 steps, another "
-        f"summation order); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"summation order); kernel {ms:.3f} ms ({step_us:.2f} us a step), "
+        f"plain {plain_ms:.3f} ms")
     log(f"[B3 residuals] gates (T, B, 4H) and c (T, B, H) as well: max abs "
         f"err {res_err:.3e} over hs, gates, c, h_last (atol {LSTM_ATOL}); "
         f"kernel {res_ms:.3f} ms (without the residual stores {ms:.3f} ms)")
@@ -583,8 +598,8 @@ def main() -> int:
         name="B3 lstm forward (both directions)", route="cuda",
         source="audio_tokens_tpu_torch/csrc/lstm.cu",
         replaces="audio_tokens_tpu/ops/pallas_lstm.py:50",
-        max_abs_err=max(err, res_err), ms=ms, residuals_ms=res_ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        max_abs_err=max(err, res_err), ms=ms, step_us=step_us,
+        residuals_ms=res_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
 
     dhs = torch.randn((T_LSTM, B_LSTM, H_LSTM), generator=gen).to(dev)
     dh_last = torch.randn((B_LSTM, H_LSTM), generator=gen).to(dev)
@@ -615,6 +630,14 @@ def main() -> int:
     dxg_of = {r: lstm_sequence_bwd(*bwd_args[r])[0] for r in (False, True)}
     dw_ms = cuda_ms(lambda: [lstm_dw_hh(bwd_args[r][4], dxg_of[r], r)
                              for r in (False, True)], 3)
+    # yardstick of the dw_hh GEMM: cuBLAS on the same time-shifted views
+    # (hs one step back in processing order against dxg), TF32 off
+    shifted = {False: (slice(None, -1), slice(1, None)),
+               True: (slice(1, None), slice(None, -1))}
+    dw_lib_ms = cuda_ms(lambda: [torch.matmul(
+        bwd_args[r][4][shifted[r][0]].reshape(-1, H_LSTM).t(),
+        dxg_of[r][shifted[r][1]].reshape(-1, 4 * H_LSTM))
+        for r in (False, True)], 3)
     del dxg_of
     plain_ms = cuda_ms(both_bwd(lstm_sequence_bwd_plain), 2)
     log(f"[B4 lstm backward] T {T_LSTM} B {B_LSTM} H {H_LSTM}, both "
@@ -622,7 +645,8 @@ def main() -> int:
         f"dw_hh max abs err / max |dw_hh| {dw_err:.3e} (bound {DW_RTOL}); "
         f"kernel {ms:.3f} ms (recurrence {ms - dw_ms:.3f} ms, "
         f"{(ms - dw_ms) / 2 / (T_LSTM - 1) * 1e3:.2f} us a step; dw_hh GEMM "
-        f"{dw_ms:.3f} ms), plain {plain_ms:.3f} ms, cuDNN backward "
+        f"{dw_ms:.3f} ms; cuBLAS torch.matmul on the same views "
+        f"{dw_lib_ms:.3f} ms), plain {plain_ms:.3f} ms, cuDNN backward "
         f"{lib_bwd_ms:.3f} ms")
     tbh = T_LSTM * B_LSTM * H_LSTM  # dhs, c, hs; gates and dxg are 4x
     b_ms, b_by = bound_of(
@@ -634,7 +658,8 @@ def main() -> int:
         source="audio_tokens_tpu_torch/csrc/lstm.cu",
         replaces="audio_tokens_tpu/ops/pallas_lstm.py:81",
         max_abs_err=dxg_err, dw_rel_err=dw_err, ms=ms,
-        recurrence_ms=ms - dw_ms, dw_ms=dw_ms, plain_ms=plain_ms,
+        recurrence_ms=ms - dw_ms, dw_ms=dw_ms, dw_library_ms=dw_lib_ms,
+        plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd_ms))
     del fwd, bwd_args, dhs, dh_last, xg
     attention_phases(records)

@@ -60,6 +60,57 @@ def test_cuda_tokenizer_kernel_matches_plain(cuda_device):
                     got, kern.plain(x))
 
 
+# (n_fft, hop, n_mels, K): 1.5 s clips give 259 frames at hop 128 and 130 at
+# hop 256, a ragged last tile either way.  B1 takes 128-frame blocks unless
+# their shared memory would pass 227 KB: hop 256 (a 32 K-sample window) at
+# n_fft 256 or 512 takes 64-frame blocks, the other cases 128.  n_fft 200
+# pads the basis to 208 rows and 128 bins; hop 126 loads the window 4 bytes
+# at a time
+TOKENIZER_CASES = [
+    (512, 128, 64, 300),
+    (512, 256, 64, 300),
+    (256, 128, 32, 300),
+    (256, 256, 32, 300),
+    (512, 256, 64, 1),
+    (256, 128, 32, 1),
+    (512, 256, 64, 16384),
+    (512, 128, 64, 16384),
+    (200, 100, 32, 300),
+    (256, 126, 32, 300),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,n_mels,k", TOKENIZER_CASES)
+def test_cuda_tokenizer_tiles_match_plain(cuda_device, n_fft, hop, n_mels,
+                                          k):
+    """B1 at both frame tiles, each with a ragged last tile, at K 1 and
+    16,384, n_fft 200, 256 and 512, and an odd-multiple hop: tokens within
+    the near-tie rule of the plain version; rows longer than padded_len
+    give the same tokens."""
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
+
+    rng = np.random.default_rng(k)
+    cents = rng.standard_normal((k, n_mels)).astype(np.float32)
+    fe = MelFrontend("cpu", 22050, n_mels, n_fft, hop, int(22050 * 1.5))
+    assert fe.frames_max % 64 and fe.frames_max % 128
+    kern = TokenizerKernel(22050, n_mels, n_fft, hop, fe.frames_max, cents,
+                           cuda_device)
+    clips = [rng.standard_normal(int(22050 * s)).astype(np.float32)
+             for s in (1.5, 0.7, 1.2)]
+    x = torch.from_numpy(fe.prepare_batch(clips)[0]).to(cuda_device)
+    before = TokenizerKernel.launches
+    got = kern(x)
+    assert TokenizerKernel.launches == before + 1
+    check_near_ties(l2_normalize(kern.log_mel_plain(x)), kern.centroids,
+                    got, kern.plain(x))
+    wide = torch.cat([x, torch.full((x.shape[0], 37), 1e3,
+                                    device=cuda_device)], 1)
+    assert torch.equal(kern(wide), got)
+
+
 LSTM_SHAPES = [
     (24, 8, 128),   # 4 threads share each dot product
     (50, 1, 512),   # the single-clip request's batch
@@ -72,6 +123,8 @@ LSTM_SHAPES = [
     (6, 256, 512),  # B4's grid shrunk to stay resident: 128 rows a block
     (1, 8, 64),     # one step: no product
     (2, 33, 36),    # two steps: one product
+    (5, 8, 1024),   # B3: h rows wider than one load round (H > 512)
+    (3, 4, 600),    # the same, H/4 not a multiple of 32
 ]
 
 
@@ -146,6 +199,27 @@ def test_cuda_lstm_backward_is_bit_equal_between_launches(cuda_device):
         assert torch.equal(first[0], again[0]) and torch.equal(first[1],
                                                                again[1])
         assert torch.equal(lstm_dw_hh(hs, first[0], reverse), first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,h", [(12, 64, 512), (9, 256, 512),
+                                   (7, 33, 36)])
+def test_cuda_lstm_forward_is_bit_equal_between_launches(cuda_device, t, b,
+                                                         h):
+    """A fixed partition and fixed-order sums: two launches of B3 give the
+    same bits, with and without the residual stores, and the outputs they
+    share agree bit for bit between the two."""
+    from audio_tokens_tpu_torch.ops.cuda_lstm import lstm_sequence_fwd
+
+    _, xg, mask, w = _lstm_inputs(cuda_device, t, b, h)
+    for reverse in (False, True):
+        plain = lstm_sequence_fwd(xg, mask, w, reverse)
+        first = lstm_sequence_fwd(xg, mask, w, reverse, True)
+        again = lstm_sequence_fwd(xg, mask, w, reverse, True)
+        for a, b_ in zip(first, again):
+            assert torch.equal(a, b_)
+        assert torch.equal(plain[0], first[0])
+        assert torch.equal(plain[3], first[3])
 
 
 @pytest.mark.cuda

@@ -171,11 +171,26 @@ def test_lstm_ab_variants_name_knobs_of_the_kernel_source():
         assert f"lstm_bwd_kernel<{u}, {threads}>" in source, part
 
 
+@pytest.mark.parametrize("kernel", ["lstm-fwd", "tokenizer"])
+def test_b1_b3_ab_variants_name_knobs_of_the_kernel_source(kernel):
+    """The A/B tool's B3 and B1 variants set knobs their sources define,
+    and the kernels whose registers it reports are in those sources."""
+    from audio_tokens_tpu_torch.ops import _build
+    from audio_tokens_tpu_torch.tools import kernel_ab
+
+    _assert_ab_variants_name_knobs(kernel)
+    source = (_build.CSRC / f"{kernel_ab.SOURCES[kernel]}.cu").read_text()
+    for part, _ in kernel_ab.PTXAS_KERNELS[kernel]:
+        name = part.split("I")[0].rstrip("v")  # the mangled name's base
+        assert f"{name}(" in source or f"{name}<" in source, part
+    assert set(kernel_ab.TIMER_PHASES) <= set(kernel_ab.CASES)
+
+
 def _assert_ab_variants_name_knobs(kernel: str) -> None:
     from audio_tokens_tpu_torch.ops import _build
     from audio_tokens_tpu_torch.tools import kernel_ab
 
-    source = (_build.CSRC / f"{kernel}.cu").read_text()
+    source = (_build.CSRC / f"{kernel_ab.SOURCES[kernel]}.cu").read_text()
     variants = kernel_ab.DEFAULT_VARIANTS[kernel]
     names = [v.partition(":")[0] for v in variants]
     assert names[0] == "default" and len(set(names)) == len(names)
