@@ -1,6 +1,7 @@
 // Shared pieces of the port's kernels: the C export macro, the error-string
-// export, the cp.async copies, and the nearest-centroid scoring + argmin
-// that kernels B1 (tokenizer.cu) and B2 (vq.cu) both end with.
+// export, the cp.async copies, the (score, index) order of the nearest-
+// centroid argmin (B1 and B2), and the normalize + scoring + argmin that
+// kernel B1 (tokenizer.cu) ends with (B2, vq.cu, has its own).
 #pragma once
 
 #include <cuda_runtime.h>

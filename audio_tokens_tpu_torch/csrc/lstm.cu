@@ -69,10 +69,25 @@
 //  2. lstm_dw_kernel: dw_hh = sum over processing steps p >= 1 of
 //     h_prev(p)^T dgp(p).  h_prev is hs one step back in processing order
 //     (zero at the first step), so the sum is one product A^T B of two
-//     time-shifted contiguous views, hs and dxg, with K = (T-1)*B rows: a
-//     plain f32 GEMM over the whole card (64 x 64 output tiles, 4 x 4 per
-//     thread), run after the recurrence instead of inside its serial steps.
-//     232 GFLOP at T 1728, B 64, H 512: bound by the FMA rate.
+//     time-shifted contiguous views, hs and dxg, with K = (T-1)*B rows, run
+//     after the recurrence instead of inside its serial steps: 232 GFLOP a
+//     direction against 1.13 GB read at T 1728, B 64, H 512, so bound by
+//     the f32 FMA rate (3.46 ms at 67 TFLOP/s).  Both operands are K-major,
+//     so a k-row of A is contiguous along m and one of B along n: the
+//     product is a sum of outer products and needs no transpose.  A block
+//     of 4 warps owns a 128 x 128 output tile, a thread 16 x 8 outputs fed
+//     by six float4 shared loads a k-row (128 FMAs per 6 loads; 255
+//     registers, 2 blocks an SM); k-rows arrive in stages of 16 through a
+//     ring of 4 cp.async stages, one barrier a stage, so the loads of stage
+//     s+3 are in flight while stage s is multiplied; the copies walk
+//     pointers kept across stages, so little address arithmetic sits
+//     between the FMAs.  At H 512 the output has only 64
+//     such tiles for 132 SMs, so K is cut into S slices (split-K, S from the
+//     grid's size: 2 blocks an SM); each block writes its partial tile to
+//     scratch and lstm_dw_sum_kernel adds the S partials in slice order.
+//     No float atomics: every sum has a fixed order, so launches are
+//     bit-identical.  On an H100 (700 W): 9.2 ms for both directions at
+//     T 1728, B 64, H 512, against cuBLAS's 8.8 on the same views (PERF.md).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -87,9 +102,25 @@ constexpr int kFwdUnits = 8;         // B3: hidden units a block owns
 constexpr int kFwdRows = 32;         // B3: batch rows a block owns, unless the grid must shrink
 constexpr int kFwdThreads = 256;     // B3: threads of a block (8 warps, up to 255 registers)
 constexpr int kFwdTaskRows = 8;      // B3: batch rows of a warp's task (x 4 units)
-constexpr int kGemmTile = 64;        // dw_hh output tile (both sides)
-constexpr int kGemmK = 16;           // K rows staged per iteration
-constexpr int kGemmThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
+
+// dw_hh's GEMM, tuning knobs (tools/kernel_ab.py --kernel lstm-dw builds
+// the alternatives with -D and times them)
+#ifndef ATK_LSTM_DW_BK
+#define ATK_LSTM_DW_BK 16  // k-rows of a ring stage: 8, 16 or 32
+#endif
+#ifndef ATK_LSTM_DW_STAGES
+#define ATK_LSTM_DW_STAGES 4  // cp.async ring stages, at least 3
+#endif
+#ifndef ATK_LSTM_DW_SLICES
+#define ATK_LSTM_DW_SLICES 0  // split-K slices; 0: as many as fill the SMs
+#endif
+constexpr int kDwTile = 128;    // output tile rows (of H) and columns (of 4H)
+constexpr int kDwThreads = 128;  // 4 warps, 2 x 2 over the tile
+constexpr int kDwBK = ATK_LSTM_DW_BK;
+constexpr int kDwStages = ATK_LSTM_DW_STAGES;
+constexpr int kDwBlocksPerSm = 2;  // resident blocks an SM
+static_assert(kDwBK == 8 || kDwBK == 16 || kDwBK == 32, "dw_hh stages of 8, 16 or 32 k-rows");
+static_assert(kDwStages >= 3, "dw_hh's ring needs 3 stages to overlap loads and product");
 
 // B4's partition, tuning knobs: the defaults are the measured best on an
 // H100 (PERF.md); tools/kernel_ab.py builds the alternatives with -D and
@@ -546,66 +577,136 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
   timer.store(1);
 }
 
-// c (m x n) = a^T b for row-major a (k x m) and b (k x n); m and n multiples
-// of 4 (whole float4s).  Block (bx, by) owns the 64 x 64 tile of c at rows
-// 64*by, columns 64*bx; thread (tx, ty) its 4 x 4 sub-tile at rows
-// 4*ty.., columns 4*tx...  K advances 16 rows a step through shared memory;
-// the next step's rows are loaded into registers while this step's are
-// multiplied.  One accumulator per output, summed in k order.
-__global__ void __launch_bounds__(kGemmThreads)
-lstm_dw_kernel(const float* __restrict__ a, const float* __restrict__ b, int kdim, int m,
-               int n, float* __restrict__ c) {
-  __shared__ float4 as[kGemmK][kGemmTile / 4];
-  __shared__ float4 bs[kGemmK][kGemmTile / 4];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kGemmTile, n0 = blockIdx.x * kGemmTile;
-  // loader role: thread -> (k row ty, float4 column tx) of both tiles
-  const int am = m0 + 4 * tx, bn = n0 + 4 * tx;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  auto load = [&](int k0, float4& av, float4& bv) {
-    const int k = k0 + ty;
-    av = k < kdim && am < m
-             ? *reinterpret_cast<const float4*>(a + static_cast<size_t>(k) * m + am)
-             : zero;
-    bv = k < kdim && bn < n
-             ? *reinterpret_cast<const float4*>(b + static_cast<size_t>(k) * n + bn)
-             : zero;
-  };
-  float acc[4][4];
+// c (m x n) = a^T b for row-major a (k x m) and b (k x n), m and n
+// multiples of 4 (whole float4s): block (bx, by, bz) sums k-rows
+// [bz * kslice, min(kdim, (bz + 1) * kslice)) of the output tile at rows
+// kDwTile * by, columns kDwTile * bx, into out + bz * m * n (c itself when
+// there is one slice).  Its warps split the tile 2 x 2 into 64 x 64; a
+// warp's tile is split 4 x 8 over its lanes, and lane (ly, lx) owns rows
+// 16 hm + 4 ly + {0..3} (hm < 4) and columns 32 hn + 4 lx + {0..3} (hn < 2)
+// of it: per k-row it reads 4 + 2 float4s, which the warp serves from 4
+// and 8 consecutive float4s (one shared-memory wavefront each).  Rows
+// past m or n and k-rows past the slice are zeros (cp.async's zero fill),
+// so the edge tiles need no other mask until the store.  One accumulator
+// per output, summed in k order.
+__global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
+lstm_dw_kernel(const float* __restrict__ a, const float* __restrict__ b, int kdim, int m, int n,
+               int kslice, float* __restrict__ out) {
+  constexpr int k4 = kDwTile / 4;             // float4s of a k-row of A's or B's tile
+  constexpr int kRows = kDwThreads / k4;      // k-rows one pass of the block copies
+  constexpr int kStage = 2 * kDwBK * k4;      // float4s of a ring stage
+  constexpr int kHM = 4, kHN = 2;             // float4s of A and of B a lane reads a k-row
+  constexpr int kTM = 4 * kHM, kTN = 4 * kHN;  // a lane's outputs
+  extern __shared__ float4 ring[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % 2, wn = warp / 2, ly = lane / 8, lx = lane % 8;
+  const int m0 = blockIdx.y * kDwTile, n0 = blockIdx.x * kDwTile;
+  const int kbeg = blockIdx.z * kslice;
+  const int kend = kdim < kbeg + kslice ? kdim : kbeg + kslice;
+  const int iters = kend > kbeg ? (kend - kbeg + kDwBK - 1) / kDwBK : 0;
+  // copy role: k-rows r + kRows q of the stage at float4 column ca of A and
+  // cb of B; the pointers walk one stage a call
+  const int r = threadIdx.x / k4, ca = m0 + 4 * (threadIdx.x % k4);
+  const int cb = n0 + 4 * (threadIdx.x % k4);
+  const bool a_in = ca < m, b_in = cb < n;
+  const float* a_src = a + static_cast<size_t>(kbeg + r) * m + ca;
+  const float* b_src = b + static_cast<size_t>(kbeg + r) * n + cb;
+  float4* const a_dst = ring + threadIdx.x;
+  float4* const b_dst = ring + kDwBK * k4 + threadIdx.x;
+  int k_next = kbeg;  // first k-row of the next stage to load
+  auto load_next = [&](int slot) {
+    const int left = kend - k_next;  // k-rows of the slice from here
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float4 ra, rb;
-  load(0, ra, rb);
-  for (int k0 = 0; k0 < kdim; k0 += kGemmK) {
-    as[ty][tx] = ra;
-    bs[ty][tx] = rb;
-    __syncthreads();
-    if (k0 + kGemmK < kdim) load(k0 + kGemmK, ra, rb);
-#pragma unroll
-    for (int kk = 0; kk < kGemmK; ++kk) {
-      const float4 av = as[kk][ty];
-      const float4 bv = bs[kk][tx];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = lane_of(av, i);
-        acc[i][0] = fmaf(ai, bv.x, acc[i][0]);
-        acc[i][1] = fmaf(ai, bv.y, acc[i][1]);
-        acc[i][2] = fmaf(ai, bv.z, acc[i][2]);
-        acc[i][3] = fmaf(ai, bv.w, acc[i][3]);
-      }
+    for (int q = 0; q < kDwBK / kRows; ++q) {
+      const bool ok = a_in && r + kRows * q < left;
+      atk::cp_async16(a_dst + slot * kStage + q * kRows * k4,
+                      ok ? a_src + static_cast<size_t>(q) * kRows * m : a, ok);
     }
-    __syncthreads();
-  }
-  const int cn = n0 + 4 * tx;
-  if (cn >= n) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int cm = m0 + 4 * ty + i;
-    if (cm < m)
-      *reinterpret_cast<float4*>(c + static_cast<size_t>(cm) * n + cn) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int q = 0; q < kDwBK / kRows; ++q) {
+      const bool ok = b_in && r + kRows * q < left;
+      atk::cp_async16(b_dst + slot * kStage + q * kRows * k4,
+                      ok ? b_src + static_cast<size_t>(q) * kRows * n : b, ok);
+    }
+    a_src += static_cast<size_t>(kDwBK) * m;
+    b_src += static_cast<size_t>(kDwBK) * n;
+    k_next += kDwBK;
+  };
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < iters) load_next(s);
+    atk::cp_async_commit();  // an empty group keeps the count uniform
+  }
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  const int a_off = wm * (k4 / 2) + ly, b_off = wn * (k4 / 2) + lx;
+  int slot = 0;  // it % kDwStages
+  for (int it = 0; it < iters; ++it) {
+    atk::cp_async_wait<kDwStages - 2>();  // stage it has landed (this thread's part)
+    __syncthreads();  // ... everyone's; and stage it-1's slot is free again
+    if (it + kDwStages - 1 < iters) load_next(slot == 0 ? kDwStages - 1 : slot - 1);
+    atk::cp_async_commit();
+    const float4* as = ring + slot * kStage + a_off;
+    const float4* bs = ring + slot * kStage + kDwBK * k4 + b_off;
+#pragma unroll
+    for (int kk = 0; kk < kDwBK; ++kk) {
+      float av[kTM], bv[kTN];
+#pragma unroll
+      for (int h = 0; h < kHM; ++h) {
+        const float4 v = as[kk * k4 + 4 * h];
+        av[4 * h] = v.x;
+        av[4 * h + 1] = v.y;
+        av[4 * h + 2] = v.z;
+        av[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < kHN; ++h) {
+        const float4 v = bs[kk * k4 + 8 * h];
+        bv[4 * h] = v.x;
+        bv[4 * h + 1] = v.y;
+        bv[4 * h + 2] = v.z;
+        bv[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    slot = slot == kDwStages - 1 ? 0 : slot + 1;
+  }
+  atk::cp_async_wait<0>();  // no copy outlives the block (the tail groups are empty)
+  float* c = out + static_cast<size_t>(blockIdx.z) * m * n;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = m0 + wm * (kDwTile / 2) + 16 * (i / 4) + 4 * ly + i % 4;
+    if (row >= m) continue;
+#pragma unroll
+    for (int h = 0; h < kHN; ++h) {
+      const int col = n0 + wn * (kDwTile / 2) + 32 * h + 4 * lx;
+      if (col < n)
+        *reinterpret_cast<float4*>(c + static_cast<size_t>(row) * n + col) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+  }
+}
+
+// c = the sum of the `slices` partial products part[z] (each count4
+// float4s), in slice order.
+__global__ void lstm_dw_sum_kernel(const float4* __restrict__ part, int slices, int count4,
+                                   float4* __restrict__ c) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count4; i += gridDim.x * blockDim.x) {
+    float4 s = part[i];
+    for (int z = 1; z < slices; ++z) {
+      const float4 p = part[static_cast<size_t>(z) * count4 + i];
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    c[i] = s;
   }
 }
 
@@ -758,20 +859,63 @@ ATK_EXPORT int atk_lstm_fwd(const float* xg, const float* mask, const float* w_h
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch shape of dw_hh's GEMM at (steps, batch, hidden) on a card of
+// `sms` SMs, shared by the launch and the scratch query: K = (T-1)*B
+// k-rows cut into `slices` slices of `kslice` (a multiple of kDwBK), as
+// many as keep about two blocks on each SM (ATK_LSTM_DW_SLICES overrides).
+struct DwShape {
+  int kdim, tiles_m, tiles_n, slices, kslice;
+  DwShape(int steps, int batch, int hidden, int sms) {
+    kdim = steps > 1 ? (steps - 1) * batch : 0;
+    tiles_m = (hidden + kDwTile - 1) / kDwTile;
+    tiles_n = (4 * hidden + kDwTile - 1) / kDwTile;
+    int want = ATK_LSTM_DW_SLICES > 0 ? ATK_LSTM_DW_SLICES
+                                      : kDwBlocksPerSm * sms / (tiles_m * tiles_n);
+    if (want < 1) want = 1;
+    const int per = (kdim + want - 1) / want;
+    kslice = (per + kDwBK - 1) / kDwBK * kDwBK;
+    slices = kslice > 0 ? (kdim + kslice - 1) / kslice : 1;
+  }
+  size_t smem() const { return static_cast<size_t>(kDwStages) * kDwBK * 2 * kDwTile * sizeof(float); }
+};
+
+// Floats of dw_hh's scratch at (steps, batch, hidden): one partial product
+// a slice, none when there is one slice; -1 on a CUDA error.
+ATK_EXPORT long atk_lstm_dw_scratch(int steps, int batch, int hidden) {
+  int sms, coop;
+  if (device_sms(&sms, &coop) != cudaSuccess) return -1;
+  const DwShape sh(steps, batch, hidden, sms);
+  return sh.slices > 1 ? static_cast<long>(sh.slices) * hidden * 4 * hidden : 0;
+}
+
 // B4's second kernel alone: dw_hh (H, 4H) = sum over processing positions
-// p >= 1 of h_prev(p)^T dgp(p), from hs (T, B, H) and dxg (T, B, 4H).
+// p >= 1 of h_prev(p)^T dgp(p), from hs (T, B, H) and dxg (T, B, 4H);
+// scratch holds atk_lstm_dw_scratch floats.
 ATK_EXPORT int atk_lstm_dw(const float* hs, const float* dxg, int steps, int batch, int hidden,
-                           int reverse, float* dw_hh, void* stream) {
+                           int reverse, float* scratch, float* dw_hh, void* stream) {
+  if (hidden % 4 || hidden < 1 || batch < 1 || steps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms, coop;
+  cudaError_t err = device_sms(&sms, &coop);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const DwShape sh(steps, batch, hidden, sms);
   // h_prev of processing position p is hs at the time one step earlier in
   // processing order: pair hs[t-1] with dxg[t] (forward) or hs[t+1] with
   // dxg[t] (reverse), for the T-1 positions p >= 1
   const int g4 = 4 * hidden;
-  const int kdim = (steps - 1) * batch;
   const float* a = hs + (reverse ? static_cast<size_t>(batch) * hidden : 0);
   const float* b = dxg + (reverse ? 0 : static_cast<size_t>(batch) * g4);
-  const dim3 grid((g4 + kGemmTile - 1) / kGemmTile, (hidden + kGemmTile - 1) / kGemmTile);
-  lstm_dw_kernel<<<grid, kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, kdim, hidden,
-                                                                              g4, dw_hh);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = atk::allow_smem(lstm_dw_kernel, sh.smem());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lstm_dw_kernel<<<dim3(sh.tiles_n, sh.tiles_m, sh.slices), kDwThreads, sh.smem(), st>>>(
+      a, b, sh.kdim, hidden, g4, sh.kslice, sh.slices > 1 ? scratch : dw_hh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || sh.slices == 1) return static_cast<int>(err);
+  const int count4 = hidden * g4 / 4;
+  const int blocks = (count4 + 255) / 256 < 4 * sms ? (count4 + 255) / 256 : 4 * sms;
+  lstm_dw_sum_kernel<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(scratch), sh.slices,
+                                             count4, reinterpret_cast<float4*>(dw_hh));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -789,12 +933,14 @@ ATK_EXPORT int atk_lstm_timers(int kernel, unsigned long long* host, int blocks)
 }
 #endif
 
-// B4: the recurrence, then dw_hh.  dgbuf is (2, B, 4H) scratch; dxg
-// (T, B, 4H) and dw_hh (H, 4H) are written in full.
+// B4: the recurrence, then dw_hh.  dgbuf is (2, B, 4H) scratch, dw_scratch
+// atk_lstm_dw_scratch floats; dxg (T, B, 4H) and dw_hh (H, 4H) are written
+// in full.
 ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float* gates,
                             const float* c_res, const float* hs, const float* mask,
                             const float* w_hh, int steps, int batch, int hidden, int reverse,
-                            float* dgbuf, float* dxg, float* dw_hh, void* stream) {
+                            float* dgbuf, float* dw_scratch, float* dxg, float* dw_hh,
+                            void* stream) {
   if (hidden % 4 || batch < 1 || batch > kMaxBatch || steps <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int sms, coop;
@@ -811,5 +957,5 @@ ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float*
   err = cudaLaunchCooperativeKernel(sh.kernel(), dim3(sh.blocks), dim3(sh.threads), args,
                                     sh.smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return atk_lstm_dw(hs, dxg, steps, batch, hidden, reverse, dw_hh, stream);
+  return atk_lstm_dw(hs, dxg, steps, batch, hidden, reverse, dw_scratch, dw_hh, stream);
 }

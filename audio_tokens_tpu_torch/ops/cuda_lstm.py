@@ -15,9 +15,11 @@ buffer.  B4's recurrence exchanges the pre-activation gate gradients, a
 reads the plane once per group of units, its blocks own 8 (or 16) units x
 a share of the batch rows, keep those units' rows of ``w_hh`` and run the
 cell backward with (dh, dc) in registers; then a second kernel forms
-``dw_hh`` as one product of the saved hidden states and those gradients.
+``dw_hh`` as one product of the saved hidden states and those gradients,
+split over K into slices whose partial tiles (scratch sized by the library)
+a third small kernel adds in slice order.
 The launch shapes are chosen in ``csrc/lstm.cu`` (``LstmShape``,
-``LstmBwdShape``), and the
+``LstmBwdShape``, ``DwShape``), and the
 wrappers refuse a grid that cannot be resident at once (a cooperative launch
 needs every block on the card together), asking the library both how many
 blocks fit and how many the launch needs.
@@ -88,7 +90,6 @@ def lstm_sequence_bwd_plain(dhs: torch.Tensor, dh_last: torch.Tensor,
     dh = dh_last.clone()
     dc = torch.zeros_like(dh)
     dxg = gates.new_empty(gates.shape)
-    dw = torch.zeros_like(w_hh)
     for p in range(t_steps - 1, -1, -1):
         t = t_of(p)
         i, f, g, o = gates[t].split(h_dim, dim=1)
@@ -106,10 +107,21 @@ def lstm_sequence_bwd_plain(dhs: torch.Tensor, dh_last: torch.Tensor,
         dgp = torch.cat([dcn * g * i * (1.0 - i), dcn * c_prev * f * (1.0 - f),
                          dcn * i * (1.0 - g * g), d_o * o * (1.0 - o)], dim=1)
         dxg[t] = dgp
-        if p > 0:  # h_prev is the zero state at the first step
-            dw += hs[t_of(p - 1)].t() @ dgp
         dh = dgp @ w_hh.t() + dh_prev_direct
-    return dxg, dw
+    return dxg, lstm_dw_hh_plain(hs, dxg, reverse)
+
+
+def lstm_dw_hh_plain(hs: torch.Tensor, dxg: torch.Tensor,
+                     reverse: bool = False) -> torch.Tensor:
+    """dw_hh (H, 4H) = the sum of h_prev(p)^T dxg(p) over processing
+    positions p, accumulated step by step in ``_bwd_kernel``'s order (last
+    to first); h_prev is the zero state at p = 0, which adds nothing."""
+    t_steps, _, h_dim = hs.shape
+    t_of = (lambda p: t_steps - 1 - p) if reverse else (lambda p: p)
+    dw = hs.new_zeros((h_dim, 4 * h_dim))
+    for p in range(t_steps - 1, 0, -1):
+        dw += hs[t_of(p - 1)].t() @ dxg[t_of(p)]
+    return dw
 
 
 def _lib():
@@ -119,14 +131,16 @@ def _lib():
         lib.atk_lstm_fwd.argtypes = [P, P, P, I, I, I, I, P, P, P, P, P, P]
         lib.atk_lstm_fwd.restype = I
         lib.atk_lstm_bwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P, P, P,
-                                     P]
+                                     P, P]
         lib.atk_lstm_bwd.restype = I
         lib.atk_lstm_max_blocks.argtypes = [I, I, I,
                                             ctypes.POINTER(ctypes.c_int),
                                             ctypes.POINTER(ctypes.c_int)]
         lib.atk_lstm_max_blocks.restype = I
-        lib.atk_lstm_dw.argtypes = [P, P, I, I, I, I, P, P]
+        lib.atk_lstm_dw.argtypes = [P, P, I, I, I, I, P, P, P]
         lib.atk_lstm_dw.restype = I
+        lib.atk_lstm_dw_scratch.argtypes = [I, I, I]
+        lib.atk_lstm_dw_scratch.restype = _build.L
         lib.atk_lstm_fwd_scratch.argtypes = [I, I]
         lib.atk_lstm_fwd_scratch.restype = _build.L
     return lib
@@ -240,11 +254,13 @@ def lstm_sequence_bwd(dhs: torch.Tensor, dh_last: torch.Tensor,
     dw_hh = torch.empty((h_dim, g4), dtype=torch.float32, device=dhs.device)
     with torch.cuda.device(dhs.device):
         _check_resident(lib, b, h_dim, backward=True)
+        scratch = _dw_scratch(lib, t_steps, b, h_dim, dhs.device)
         rc = lib.atk_lstm_bwd(
             dhs.data_ptr(), dh_last.data_ptr(), gates.data_ptr(),
             c.data_ptr(), hs.data_ptr(), mask.data_ptr(), w_hh.data_ptr(),
-            t_steps, b, h_dim, int(reverse), dgbuf.data_ptr(), dxg.data_ptr(),
-            dw_hh.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            t_steps, b, h_dim, int(reverse), dgbuf.data_ptr(),
+            scratch.data_ptr(), dxg.data_ptr(), dw_hh.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "lstm_bwd")
     lstm_sequence_bwd.launches += 1
     return dxg, dw_hh
@@ -253,25 +269,42 @@ def lstm_sequence_bwd(dhs: torch.Tensor, dh_last: torch.Tensor,
 lstm_sequence_bwd.launches = 0
 
 
+def _dw_scratch(lib, t_steps: int, b: int, h_dim: int,
+                device: torch.device) -> torch.Tensor:
+    """The split-K partial products of dw_hh's GEMM, sized by the library
+    for the current device (empty when it takes one slice)."""
+    floats = lib.atk_lstm_dw_scratch(t_steps, b, h_dim)
+    if floats < 0:
+        raise RuntimeError("lstm dw_hh scratch query failed")
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
 def lstm_dw_hh(hs: torch.Tensor, dxg: torch.Tensor,
                reverse: bool = False) -> torch.Tensor:
     """B4's second kernel alone, for timing it apart from the recurrence:
     dw_hh (H, 4H) = the sum over processing positions p >= 1 of
-    h_prev(p)^T dxg(p), from hs (T, B, H) and dxg (T, B, 4H) f32 on one
-    card.  ``lstm_sequence_bwd`` launches the same kernel after the
-    recurrence."""
+    h_prev(p)^T dxg(p), from hs (T, B, H) and dxg (T, B, 4H) f32.
+    ``lstm_sequence_bwd`` launches the same kernel after the recurrence.
+    A CPU tensor takes the plain version ``lstm_dw_hh_plain``."""
+    if hs.device.type == "cpu":
+        return lstm_dw_hh_plain(hs, dxg, reverse)
     check_cuda_tensor("hs", hs, torch.float32, 3)
     check_cuda_tensor("dxg", dxg, torch.float32, 3)
     t_steps, b, h_dim = hs.shape
     if tuple(dxg.shape) != (t_steps, b, 4 * h_dim) or dxg.device != hs.device:
         raise ValueError(f"dxg {tuple(dxg.shape)} does not match hs "
                          f"{tuple(hs.shape)}")
+    if t_steps < 1 or b < 1 or h_dim < 1 or h_dim % 4:
+        raise ValueError(f"kernel takes T >= 1, B >= 1 and H % 4 == 0; got "
+                         f"T {t_steps}, B {b}, H {h_dim}")
     lib = _lib()
     dw_hh = torch.empty((h_dim, 4 * h_dim), dtype=torch.float32,
                         device=hs.device)
     with torch.cuda.device(hs.device):
+        scratch = _dw_scratch(lib, t_steps, b, h_dim, hs.device)
         rc = lib.atk_lstm_dw(hs.data_ptr(), dxg.data_ptr(), t_steps, b, h_dim,
-                             int(reverse), dw_hh.data_ptr(),
+                             int(reverse), scratch.data_ptr(),
+                             dw_hh.data_ptr(),
                              torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "lstm_dw")
     lstm_dw_hh.launches += 1

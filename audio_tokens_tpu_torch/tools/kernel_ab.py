@@ -1,7 +1,7 @@
 """A/B the tuning knobs of the hand-written kernels on one card.
 
     python -m audio_tokens_tpu_torch.tools.kernel_ab
-        --kernel attention|lstm|lstm-fwd|tokenizer
+        --kernel attention|lstm|lstm-dw|lstm-fwd|tokenizer|vq
         [--rounds 5] [--variant NAME:KEY=VAL,KEY=VAL ...]
         [--source NAME:path/<source>.cu[:KEY=VAL,..]]
 
@@ -27,6 +27,13 @@ kernels), on the shapes ``chip_smoke.py`` uses:
   T 1728, B 64, H 512 as
   ``[B4 lstm backward]``, the whole backward and its ``dw_hh`` GEMM alone,
   the recurrence being the difference;
+- ``lstm-dw`` (B4's ``dw_hh`` GEMM, ``lstm.cu``; knobs ``ATK_LSTM_DW_BK``,
+  ``ATK_LSTM_DW_STAGES``, ``ATK_LSTM_DW_SLICES``): the GEMM alone, both directions at T 1728, B 64, H 512, beside cuBLAS
+  (``torch.matmul``, TF32 off) on the same time-shifted views; each
+  variant's largest difference from the plain version over the largest
+  entry, and whether two launches give the same bits.  An earlier
+  ``lstm.cu`` without the split-K scratch is called through its own
+  signature;
 - ``lstm-fwd`` (kernel B3, ``lstm.cu``): both directions at T 1728, B 64,
   H 512 as ``[B3 lstm]``, without and with the residual stores, and the
   largest difference from the plain version;
@@ -34,7 +41,15 @@ kernels), on the shapes ``chip_smoke.py`` uses:
   ``ATK_TOKENIZER_FRAMES``, 128 or 64 frames a block): 64 ten-second
   synthetic clips, K 500, as ``[B1 tokenizer]``; each variant's tokens are
   held to the plain version under the near-tie rule (the fraction that
-  disagrees and the largest score gap are printed).
+  disagrees and the largest score gap are printed);
+- ``vq`` (kernel B2, ``vq.cu``; knobs ``ATK_VQ_STAGES``, ``ATK_VQ_RING``):
+  the normalize + nearest-centroid assignment of the serving batch's
+  110,272 log-mel frames (64 ten-second clips, d 64) at K 500 and at
+  K 16,384 (unit centroids from seeds 7 and 8), and the same clips' 128-mel
+  frames at K 500 (seed 9; the rows too wide for the whole-row ring, walked
+  in feature slices), also normalized beforehand and assigned with
+  ``normalize=False`` (the normalization's share), each variant's ids held
+  to the plain version under the near-tie rule.
 
 A variant built with ``ATK_LSTM_TIMERS=1`` (``lstm`` and ``lstm-fwd``)
 also reports its per-phase cycle counters (``b3_unit4_timers.patch`` adds
@@ -49,8 +64,9 @@ whether its outputs equal the default build's bit for bit.  Every knob of
 B5 must keep them (the tile skip and the untested path on full tiles
 included: no B5 knob changes a sum's order or a value), and so must B4's
 unrolling; B4's units, rows and threads a block change which sums its warps
-take, and B1's frames a block how its mel sums are grouped, so their
-outputs differ in the last bits, as another source's may.  The last line is the card as nvidia-smi names it.
+take, B1's frames a block how its mel sums are grouped, and the
+``dw_hh`` GEMM's k-rows a stage and slices where its partial sums split,
+so their outputs differ in the last bits, as another source's may.  The last line is the card as nvidia-smi names it.
 """
 
 from __future__ import annotations
@@ -78,6 +94,15 @@ DEFAULT_VARIANTS = {
     ),
     "lstm-fwd": ("default:", "timers:ATK_LSTM_TIMERS=1"),
     "tokenizer": ("default:", "f64:ATK_TOKENIZER_FRAMES=64"),
+    "lstm-dw": (
+        "default:",
+        "stages-3:ATK_LSTM_DW_STAGES=3",
+        "stages-5:ATK_LSTM_DW_STAGES=5",
+        "slices-8:ATK_LSTM_DW_SLICES=8",
+        "bk8:ATK_LSTM_DW_BK=8,ATK_LSTM_DW_STAGES=3",
+    ),
+    "vq": ("default:", "ring:ATK_VQ_RING=1", "ring-2-stages:ATK_VQ_STAGES=2",
+           "ring-4-stages:ATK_VQ_STAGES=4"),
     "lstm": (
         "default:",
         "timers:ATK_LSTM_TIMERS=1",
@@ -98,14 +123,20 @@ PTXAS_KERNELS = {
              ("lstm_bwd_kernelILi8ELi1024E", "B4<8,1024>"),
              ("lstm_bwd_kernelILi16ELi512E", "B4<16,512>")),
     "lstm-fwd": (("lstm_fwd_kernel", "B3"),),
+    "lstm-dw": (("lstm_dw_kernel", "dw_hh"), ("lstm_dw_sum_kernel", "slice sum")),
+    "vq": (("vq_resident_kernelILb1E", "B2 resident"),
+           ("vq_ring_kernelILb1ELb0E", "B2 ring"),
+           ("vq_ring_kernelILb1ELb1E", "B2 sliced ring"),
+           ("vq_kernel", "B2 (first design)")),
     "tokenizer": (("tokenizer_kernelILi64ELb1E", "B1<64>"),
                   ("tokenizer_kernelILi128ELb1E", "B1<128>"),
                   ("tokenizer_kernelv", "B1 (first design)")),
 }
-SOURCES = {"attention": "attention", "lstm": "lstm", "lstm-fwd": "lstm",
-           "tokenizer": "tokenizer"}
+SOURCES = {"attention": "attention", "lstm": "lstm", "lstm-dw": "lstm",
+           "lstm-fwd": "lstm", "tokenizer": "tokenizer", "vq": "vq"}
 MODULES = {"attention": "cuda_attention", "lstm": "cuda_lstm",
-           "lstm-fwd": "cuda_lstm", "tokenizer": "cuda_tokenizer"}
+           "lstm-dw": "cuda_lstm", "lstm-fwd": "cuda_lstm",
+           "tokenizer": "cuda_tokenizer", "vq": "cuda_vq"}
 # the phases of the cycle counters (csrc/lstm.cu, ATK_LSTM_TIMERS)
 TIMER_PHASES = {
     "lstm-fwd": ("inputs", "h loads", "product", "sum", "cell + stores",
@@ -302,6 +333,92 @@ def lstm_fwd_case(gen):
             timed, outputs)
 
 
+def lstm_dw_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for B4's dw_hh GEMM."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops import cuda_lstm as cl
+
+    t, b, h = T_LSTM, B_LSTM, H_LSTM
+    hs = {r: torch.tanh(torch.randn((t, b, h), generator=gen)).cuda()
+          for r in (False, True)}
+    dxg = {r: (0.1 * torch.randn((t, b, 4 * h), generator=gen)).cuda()
+           for r in (False, True)}
+    refs = {r: cl.lstm_dw_hh_plain(hs[r], dxg[r], r) for r in (False, True)}
+    # hs one step back in processing order against dxg
+    shifted = {False: (slice(None, -1), slice(1, None)),
+               True: (slice(1, None), slice(None, -1))}
+
+    def both():
+        return [cl.lstm_dw_hh(hs[r], dxg[r], r) for r in (False, True)]
+
+    def cublas():
+        return [torch.matmul(hs[r][shifted[r][0]].reshape(-1, h).t(),
+                             dxg[r][shifted[r][1]].reshape(-1, 4 * h))
+                for r in (False, True)]
+
+    def outputs():
+        got, again = both(), both()
+        err = max(float((g - refs[r]).abs().max() / refs[r].abs().max())
+                  for g, r in zip(got, (False, True)))
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        return tuple(got), (f"max abs err / max |dw_hh| vs plain {err:.3e}, "
+                            f"bit-equal between launches: {same}")
+
+    flop = 2 * 2 * (t - 1) * b * h * 4 * h
+    return (f"dw_hh: T {t}, B {b}, H {h}, f32, both directions, "
+            f"{flop / 1e9:.1f} GFLOP",
+            {"dw_hh both directions": both,
+             "cuBLAS torch.matmul, same views": cublas}, outputs)
+
+
+def vq_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for kernel B2."""
+    import numpy as np
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
+
+    clips = synthetic_clips(64)
+    frames, cases = {}, {}
+    for d in (64, 128):
+        fe = MelFrontend("cuda", 22050, d, 512, 128, 220500)
+        x = torch.from_numpy(fe.prepare_batch(clips)[0]).cuda()
+        frames[d] = fe.mel_frames(x).reshape(-1, d).contiguous()
+    for k, d, seed, norm in ((500, 64, 7, True), (16384, 64, 8, True),
+                             (500, 128, 9, True), (500, 128, 9, False)):
+        c = np.random.default_rng(seed).standard_normal((k, d))
+        c = (c / (np.linalg.norm(c, axis=1, keepdims=True) + 1e-10))
+        name = f"K {k}" if d == 64 else f"K {k}, d {d}"
+        f = frames[d]
+        if not norm:  # the same rows normalized beforehand
+            name, f = name + ", normalize=False", l2_normalize(f)
+        cases[name] = (f, torch.from_numpy(c.astype(np.float32)).cuda(), norm)
+    refs = {name: vq_argmin_plain(*case) for name, case in cases.items()}
+
+    def outputs():
+        got, notes = [], []
+        for name, (f, c, norm) in cases.items():
+            ids = vq_argmin(f, c, norm)
+            got.append(ids)
+            try:
+                frac, gap = check_near_ties(l2_normalize(f) if norm else f, c,
+                                            ids, refs[name])
+                notes.append(f"{name}: {frac:.2e} of ids differ from the "
+                             f"plain version, largest score gap {gap:.3e}")
+            except AssertionError as e:
+                notes.append(f"{name}: FAILS the near-tie rule: {e}")
+        return tuple(got), "; ".join(notes)
+
+    timed = {name: (lambda case=case: vq_argmin(*case))
+             for name, case in cases.items()}
+    return (f"B2: {tuple(frames[64].shape)} log-mel frames (and d 128), "
+            "normalize=True unless named",
+            timed, outputs)
+
+
 def synthetic_clips(n: int, sr: int = 22050, seconds: float = 10.0):
     """bench.py's synthetic clips: two partials plus noise, seeded."""
     import numpy as np
@@ -347,7 +464,8 @@ def tokenizer_case(gen):
 
 
 CASES = {"attention": attention_case, "lstm": lstm_case,
-         "lstm-fwd": lstm_fwd_case, "tokenizer": tokenizer_case}
+         "lstm-dw": lstm_dw_case, "lstm-fwd": lstm_fwd_case,
+         "tokenizer": tokenizer_case, "vq": vq_case}
 
 
 def phase_split(lib, kernel: str, fn) -> str:
@@ -376,6 +494,20 @@ def phase_split(lib, kernel: str, fn) -> str:
             + ", ".join(f"{ph} {c:.0f} ({c / total:.0%})"
                         for ph, c in zip(phases, sums))
             + f"; total {total:.0f}")
+
+
+def _without_dw_scratch(lib) -> None:
+    """Let the wrappers call an earlier ``lstm.cu`` whose dw_hh GEMM takes
+    no split-K scratch: the same entry points without that pointer."""
+    P, I = _build.P, _build.I
+    dw, bwd = lib.atk_lstm_dw, lib.atk_lstm_bwd
+    dw.argtypes, dw.restype = [P, P, I, I, I, I, P, P], I
+    bwd.argtypes, bwd.restype = [P, P, P, P, P, P, P, I, I, I, I, P, P, P,
+                                 P], I
+    lib.atk_lstm_dw_scratch = lambda t, b, h: 0
+    lib.atk_lstm_dw = (lambda hs, dxg, t, b, h, r, scratch, out, stream:
+                       dw(hs, dxg, t, b, h, r, out, stream))
+    lib.atk_lstm_bwd = (lambda *a: bwd(*a[:12], *a[13:]))
 
 
 def main() -> int:
@@ -416,6 +548,9 @@ def main() -> int:
         if src_name == "lstm" and not hasattr(lib, "atk_lstm_fwd_scratch"):
             # an earlier B3: its scratch is h's two planes
             lib.atk_lstm_fwd_scratch = lambda b, h: 2 * b * h
+        if (src_name == "lstm" and hasattr(lib, "atk_lstm_dw")
+                and not hasattr(lib, "atk_lstm_dw_scratch")):
+            _without_dw_scratch(lib)
         try:
             ops._lib()
         except AttributeError:  # an earlier source lacks a newer entry point

@@ -13,11 +13,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    PyTorch call computes the same function, that call (``library_ms``, a
    yardstick the port never calls) with CUDA events: B1 at 64 ten-second
    clips (beside it the DFT product alone, one cuBLAS GEMM on the frames),
-   B2 at the same batch's 110,272 mel frames, B3 and B4 at T 1728,
+   B2 at the same batch's 110,272 mel frames against 500 and 16,384
+   centroids (two records), B3 and B4 at T 1728,
    B 64, H 512, both directions (B3 also with the residuals B4 needs; the
    library call is cuDNN's bidirectional ``nn.LSTM``; B3's time a step is
    printed; B4's recurrence and its ``dw_hh`` GEMM are timed apart, the
-   GEMM beside cuBLAS on the same views), B5 forward at (64, 12, 1728, 64)
+   GEMM beside cuBLAS on the same views, each with its rate and the GEMM
+   with its own bound), B5 forward at (64, 12, 1728, 64)
    in bf16 and f32 and its dk/dv and dq kernels at (8, 12, 1728, 64),
    random prefix lengths with a 0 (the library call is
    ``scaled_dot_product_attention`` with the segment mask; its backward
@@ -31,6 +33,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    clips, one single-clip request and one batch with per-clip min-max
    normalization (the route through B2).  The kernels' launch counters are
    reset just before and read just after; every kernel must have launched.
+   Then one batch with per-clip normalization through a 16,384-token
+   vocabulary (B2's ring instance), its counters reset and read around it.
    The first two clips are then served on the CPU and the answers compared;
 5. serve bert: the full-width classifier (hidden 768, 12 heads, MLP 3072,
    2 layers, window 1728, 543 classes, bf16 compute,
@@ -73,6 +77,7 @@ from pathlib import Path
 import numpy as np
 
 SR, CLIP_SECONDS, BATCH, VOCAB = 22050, 10.0, 64, 500
+VOCAB_LARGE = 16384  # B2 streams these centroids (4 MB at d 64) through a ring
 T_LSTM, B_LSTM, H_LSTM = 1728, 64, 512
 # the package defaults: the lstm case of tools/bench_training.py
 MODEL = dict(vocab_size=VOCAB, lstm_embed_dim=256, lstm_hidden_dim=512,
@@ -127,10 +132,11 @@ def make_clips(n: int, offset: int = 0) -> list:
     return clips
 
 
-def make_centroids() -> np.ndarray:
-    """Unit-normalized normals from seed 7 (tools/serve_bench.py's recipe)."""
-    rng = np.random.default_rng(7)
-    cent = rng.standard_normal((VOCAB, 64)).astype(np.float32)
+def make_centroids(k: int = VOCAB, seed: int = 7) -> np.ndarray:
+    """Unit-normalized normals from a seed (tools/serve_bench.py's recipe:
+    seed 7)."""
+    rng = np.random.default_rng(seed)
+    cent = rng.standard_normal((k, 64)).astype(np.float32)
     return cent / (np.linalg.norm(cent, axis=1, keepdims=True) + 1e-10)
 
 
@@ -515,23 +521,33 @@ def main() -> int:
         bound_by=b_by, library_ms=None, dft_product_ms=dft_ms))
 
     frames = tok.frontend.mel_frames(x).reshape(-1, cfg.n_mels).contiguous()
-    got = vq_argmin(frames, cents_t, True)
-    ref = vq_argmin_plain(frames, cents_t, True)
-    torch.cuda.synchronize()
-    frac, gap = check_near_ties(l2_normalize(frames), cents_t, got, ref)
-    ms = cuda_ms(lambda: vq_argmin(frames, cents_t, True), 10)
-    plain_ms = cuda_ms(lambda: vq_argmin_plain(frames, cents_t, True), 5)
-    log(f"[B2 vq] ids {tuple(got.shape)}: {frac:.2e} disagree, largest score "
-        f"gap {gap:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     n, d = frames.shape
-    b_ms, b_by = bound_of(2 * n * d * VOCAB + 3 * n * d,
-                       frames.numel() * 4 + cents.nbytes + n * 4)
-    records.append(dict(
-        name="B2 vq (normalize + nearest centroid)", route="cuda",
-        source="audio_tokens_tpu_torch/csrc/vq.cu",
-        replaces="audio_tokens_tpu/ops/pallas_vq.py:37",
-        max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None))
+    cents_large = make_centroids(VOCAB_LARGE, 8)
+    b2 = []
+    for c_np in (cents, cents_large):
+        c_t = torch.from_numpy(c_np).to(dev)
+        k = c_np.shape[0]
+        got = vq_argmin(frames, c_t, True)
+        ref = vq_argmin_plain(frames, c_t, True)
+        torch.cuda.synchronize()
+        frac, gap = check_near_ties(l2_normalize(frames), c_t, got, ref)
+        ms = cuda_ms(lambda: vq_argmin(frames, c_t, True), 10)
+        plain_ms = cuda_ms(lambda: vq_argmin_plain(frames, c_t, True), 5)
+        b_ms, b_by = bound_of(2 * n * d * k + 3 * n * d,
+                              frames.numel() * 4 + c_np.nbytes + n * 4)
+        log(f"[B2 vq] ids {tuple(got.shape)}, K {k}: {frac:.2e} disagree, "
+            f"largest score gap {gap:.3e}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}); "
+            f"{2 * n * d * k / ms / 1e9:.1f} TFLOP/s")
+        b2.append(dict(
+            name="B2 vq (normalize + nearest centroid)"
+            + (f", K {k}" if k != VOCAB else ""), route="cuda",
+            source="audio_tokens_tpu_torch/csrc/vq.cu",
+            replaces="audio_tokens_tpu/ops/pallas_vq.py:37",
+            max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
+        del c_t, got, ref
+    records.append(b2[0])  # B2 at K 16,384 goes last (records[7])
 
     gen = torch.Generator().manual_seed(3)
     bound = 1.0 / H_LSTM ** 0.5
@@ -640,15 +656,19 @@ def main() -> int:
         for r in (False, True)], 3)
     del dxg_of
     plain_ms = cuda_ms(both_bwd(lstm_sequence_bwd_plain), 2)
+    tbh = T_LSTM * B_LSTM * H_LSTM  # dhs, c, hs; gates and dxg are 4x
+    dw_flop = 2 * (T_LSTM - 1) * step_flop  # both directions
+    dw_b_ms, _ = bound_of(dw_flop, 2 * 4 * (5 * tbh + w_hh.numel()))
     log(f"[B4 lstm backward] T {T_LSTM} B {B_LSTM} H {H_LSTM}, both "
         f"directions: dxg max abs err {dxg_err:.3e} (atol {LSTM_ATOL}); "
         f"dw_hh max abs err / max |dw_hh| {dw_err:.3e} (bound {DW_RTOL}); "
         f"kernel {ms:.3f} ms (recurrence {ms - dw_ms:.3f} ms, "
         f"{(ms - dw_ms) / 2 / (T_LSTM - 1) * 1e3:.2f} us a step; dw_hh GEMM "
-        f"{dw_ms:.3f} ms; cuBLAS torch.matmul on the same views "
-        f"{dw_lib_ms:.3f} ms), plain {plain_ms:.3f} ms, cuDNN backward "
-        f"{lib_bwd_ms:.3f} ms")
-    tbh = T_LSTM * B_LSTM * H_LSTM  # dhs, c, hs; gates and dxg are 4x
+        f"{dw_ms:.3f} ms, {dw_flop / dw_ms / 1e9:.1f} TFLOP/s of "
+        f"{dw_flop / 1e9:.1f} GFLOP, bound {dw_b_ms:.3f} ms; cuBLAS "
+        f"torch.matmul on the same views {dw_lib_ms:.3f} ms, "
+        f"{dw_flop / dw_lib_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+        f"cuDNN backward {lib_bwd_ms:.3f} ms")
     b_ms, b_by = bound_of(
         2 * (T_LSTM + T_LSTM - 1) * step_flop,  # dgp @ w_hh^T, dw_hh
         2 * 4 * (3 * tbh + 2 * 4 * tbh + mask.numel() + 2 * w_hh.numel()
@@ -659,10 +679,11 @@ def main() -> int:
         replaces="audio_tokens_tpu/ops/pallas_lstm.py:81",
         max_abs_err=dxg_err, dw_rel_err=dw_err, ms=ms,
         recurrence_ms=ms - dw_ms, dw_ms=dw_ms, dw_library_ms=dw_lib_ms,
-        plain_ms=plain_ms,
+        dw_bound_ms=dw_b_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd_ms))
     del fwd, bwd_args, dhs, dh_last, xg
     attention_phases(records)
+    records.append(b2[1])
 
     # -- 4. the slice answers requests ---------------------------------------
     prog = ServingProgram.from_components(
@@ -676,12 +697,12 @@ def main() -> int:
                for i in range(3)]
     single = make_clips(1, 1000)
 
-    def check(tokens, n_valid, probs, b):
+    def check(tokens, n_valid, probs, b, vocab=VOCAB):
         if tuple(tokens.shape) != (b, tok.frontend.frames_max):
             raise AssertionError(f"tokens shape {tuple(tokens.shape)}")
         if tuple(probs.shape) != (b, cfg.num_classes) or n_valid.numel() != b:
             raise AssertionError(f"probs {tuple(probs.shape)}")
-        if int(tokens.min()) < 0 or int(tokens.max()) >= VOCAB:
+        if int(tokens.min()) < 0 or int(tokens.max()) >= vocab:
             raise AssertionError("token id out of range")
         if not (torch.isfinite(probs).all() and probs.min() >= 0
                 and probs.max() <= 1):
@@ -725,6 +746,29 @@ def main() -> int:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     for rec, n in zip(records, launches):
         rec["launches_by_path"] = {"serve": n}
+
+    # a 16,384-token vocabulary through the normalize route: B2's ring
+    cfg_l = AudioTokensConfig(clip_seconds=CLIP_SECONDS,
+                              **{**MODEL, "vocab_size": VOCAB_LARGE},
+                              normalize=True)
+    prog_l = ServingProgram.from_components(
+        cfg_l, FusedTokenizer(cfg_l, cents_large, dev), device=dev,
+        generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    vq_argmin.launches = 0
+    t0 = time.perf_counter()
+    out_l = prog_l(torch.from_numpy(pb), torch.from_numpy(pl))
+    torch.cuda.synchronize()
+    large_ms = (time.perf_counter() - t0) * 1e3
+    large_launches = vq_argmin.launches
+    check(*out_l, BATCH, VOCAB_LARGE)
+    log(f"[serve 16k] lstm, {VOCAB_LARGE}-token vocabulary, normalize=True: "
+        f"batch of {BATCH} took {large_ms:.1f} ms (host clock, first call); "
+        f"launches B2 {large_launches}")
+    if large_launches < 1:
+        raise AssertionError("B2 never launched on the 16k-vocabulary batch")
+    b2[1]["launches_by_path"] = {"serve_16k": large_launches}
+    del prog_l, out_l
 
     # reference on a small input: the first two clips through the plain
     # versions on the CPU, the classifier fed the card's tokens

@@ -22,21 +22,59 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# B2's shapes: K 1, 500 (centroids resident in shared memory where d is
+# narrow) and 16,384 (streamed through the ring); d 10 (4-byte copies), 12,
+# 32 and 64; d 100 (the widest whole-row ring) and 128, 130 and 256 (walked
+# in feature slices, 130 with 4-byte copies and slices of 44); K 300 at d 32;
+# N not a multiple of the 128-row frame tile
+VQ_SHAPES = ([(k, d) for k in (1, 500, 16384) for d in (10, 12, 32, 64)]
+             + [(300, 32)]
+             + [(k, d) for k in (500, 16384) for d in (100, 128, 130, 256)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("normalize", [False, True])
-def test_cuda_vq_kernel_matches_plain(cuda_device, normalize):
+@pytest.mark.parametrize("k,d", VQ_SHAPES)
+def test_cuda_vq_kernel_matches_plain(cuda_device, k, d, normalize):
+    """B2 against its plain version under the near-tie rule."""
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
     from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
 
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((1000, 32)).astype(np.float32))
-    c = torch.from_numpy(rng.standard_normal((300, 32)).astype(np.float32))
+    rng = np.random.default_rng(k + d)
+    x = torch.from_numpy(rng.standard_normal((3001, d)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
     x, c = x.to(cuda_device), c.to(cuda_device)
     before = vq_argmin.launches
     got = vq_argmin(x, c, normalize)
     assert vq_argmin.launches == before + 1
     ref = vq_argmin_plain(x, c, normalize)
     check_near_ties(l2_normalize(x) if normalize else x, c, got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,dups", [(500, (3, 19, 130, 499)),
+                                    (16384, (5, 21, 8000, 16383))])
+def test_cuda_vq_duplicated_centroids_take_the_lowest_index(cuda_device, k,
+                                                            dups):
+    """Equal centroids in one lane, in other lanes and in other chunks give
+    equal scores: the lowest index wins, as in the plain version."""
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+
+    rng = np.random.default_rng(k)
+    c = rng.standard_normal((k, 64)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)  # a unit vocabulary
+    c[list(dups)] = c[dups[0]]
+    x = rng.standard_normal((1000, 64)).astype(np.float32)
+    near = np.arange(0, 1000, 7)
+    x[near] = c[dups[0]] + 1e-3 * x[near]  # nearest: the duplicated rows
+    x[::13] = c[dups[0]]  # exactly on them
+    x, c = torch.from_numpy(x).to(cuda_device), torch.from_numpy(c).to(
+        cuda_device)
+    for normalize in (False, True):
+        got = vq_argmin(x, c, normalize).cpu()
+        ref = vq_argmin_plain(x, c, normalize).cpu()
+        assert (ref[near] == dups[0]).all() and (ref[::13] == dups[0]).all()
+        assert (got[near] == dups[0]).all() and (got[::13] == dups[0]).all()
 
 
 @pytest.mark.cuda
@@ -199,6 +237,52 @@ def test_cuda_lstm_backward_is_bit_equal_between_launches(cuda_device):
         assert torch.equal(first[0], again[0]) and torch.equal(first[1],
                                                                again[1])
         assert torch.equal(lstm_dw_hh(hs, first[0], reverse), first[1])
+
+
+# dw_hh's GEMM: B4's shapes (K = (T-1)*B = 0 at T 1; H 36 and 20 mask the
+# 128-wide tiles), K not a multiple of a stage times the slices, and the
+# training shape
+DW_SHAPES = LSTM_SHAPES + [(13, 7, 64), (300, 37, 128), (1728, 64, 512)]
+
+
+def _dw_inputs(device, t, b, h, reverse):
+    gen = torch.Generator().manual_seed(t * 1000 + h + int(reverse))
+    hs = torch.tanh(torch.randn((t, b, h), generator=gen)).to(device)
+    dxg = (0.1 * torch.randn((t, b, 4 * h), generator=gen)).to(device)
+    return hs, dxg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,b,h", DW_SHAPES)
+def test_cuda_lstm_dw_kernel_matches_plain(cuda_device, reverse, t, b, h):
+    """B4's dw_hh GEMM alone within 1e-5 of the largest entry of its plain
+    version (another summation order over (T-1)*B rows); all zeros at T 1."""
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_dw_hh,
+                                                      lstm_dw_hh_plain)
+
+    hs, dxg = _dw_inputs(cuda_device, t, b, h, reverse)
+    before = lstm_dw_hh.launches
+    got = lstm_dw_hh(hs, dxg, reverse)
+    assert lstm_dw_hh.launches == before + 1
+    ref = lstm_dw_hh_plain(hs, dxg, reverse)
+    if t == 1:
+        assert torch.equal(got, torch.zeros_like(got))
+        return
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,h", [(1728, 64, 512), (300, 37, 128)])
+def test_cuda_lstm_dw_is_bit_equal_between_launches(cuda_device, t, b, h):
+    """The split-K partials are summed in slice order, with no atomics: two
+    launches give the same bits."""
+    from audio_tokens_tpu_torch.ops.cuda_lstm import lstm_dw_hh
+
+    for reverse in (False, True):
+        hs, dxg = _dw_inputs(cuda_device, t, b, h, reverse)
+        assert torch.equal(lstm_dw_hh(hs, dxg, reverse),
+                           lstm_dw_hh(hs, dxg, reverse))
 
 
 @pytest.mark.cuda

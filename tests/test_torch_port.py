@@ -186,6 +186,13 @@ def test_b1_b3_ab_variants_name_knobs_of_the_kernel_source(kernel):
     assert set(kernel_ab.TIMER_PHASES) <= set(kernel_ab.CASES)
 
 
+@pytest.mark.parametrize("kernel", ["lstm-dw", "vq"])
+def test_dw_hh_b2_ab_variants_name_knobs_of_the_kernel_source(kernel):
+    """The A/B tool's variants of B4's ``dw_hh`` GEMM and of B2 set knobs
+    their sources define."""
+    _assert_ab_variants_name_knobs(kernel)
+
+
 def _assert_ab_variants_name_knobs(kernel: str) -> None:
     from audio_tokens_tpu_torch.ops import _build
     from audio_tokens_tpu_torch.tools import kernel_ab

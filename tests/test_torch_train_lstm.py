@@ -18,8 +18,8 @@ from audio_tokens_tpu.train.objective import make_loss_fn
 from audio_tokens_tpu_torch.convert import lstm_state_dict
 from audio_tokens_tpu_torch.models.lstm import SimpleLSTMTokenClassifier
 from audio_tokens_tpu_torch.ops.cuda_lstm import (
-    LSTMSequence, lstm_sequence, lstm_sequence_bwd, lstm_sequence_bwd_plain,
-    lstm_sequence_fwd, lstm_sequence_fwd_plain)
+    LSTMSequence, lstm_dw_hh, lstm_sequence, lstm_sequence_bwd,
+    lstm_sequence_bwd_plain, lstm_sequence_fwd, lstm_sequence_fwd_plain)
 from audio_tokens_tpu_torch.train.objective import weighted_bce
 
 B, T, E, H, C, V = 8, 24, 16, 32, 7, 50
@@ -65,7 +65,8 @@ BWD_SHAPES = [(T, B, H), (6, 33, 36), (2, 5, 20)]
 @pytest.mark.parametrize("masked", [False, True])
 def test_backward_matches_pallas_interpret(rng, reverse, masked, tbh):
     """dxg and dw_hh of the plain backward vs ``_bwd_kernel`` on the same
-    residuals and upstream gradients."""
+    residuals and upstream gradients; and ``lstm_dw_hh`` on CPU tensors
+    (its plain version) vs the same ``dw`` from ``_bwd_kernel``'s dxg."""
     t, b, h = tbh
     xg, mask, w = _inputs(rng, masked, t, b, h)
     hs, gates, c, _ = _lstm_fwd_call(jnp.asarray(xg), jnp.asarray(mask),
@@ -81,6 +82,28 @@ def test_backward_matches_pallas_interpret(rng, reverse, masked, tbh):
         torch.from_numpy(mask), torch.from_numpy(w), reverse)
     np.testing.assert_allclose(dxg.numpy(), np.asarray(ref_dxg), **GRAD_TOL)
     np.testing.assert_allclose(dw.numpy(), np.asarray(ref_dw), **GRAD_TOL)
+    dw_alone = lstm_dw_hh(torch.from_numpy(np.array(hs)),
+                          torch.from_numpy(np.array(ref_dxg)), reverse)
+    np.testing.assert_allclose(dw_alone.numpy(), np.asarray(ref_dw),
+                               **GRAD_TOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_dw_hh_of_one_step_is_zero(rng, reverse):
+    """T 1: the only step's h_prev is the zero state, so dw_hh is all zero,
+    from ``lstm_dw_hh`` and from the whole plain backward."""
+    xg, mask, w = _inputs(rng, False, 1, 5, 20)
+    hs, gates, c, _ = lstm_sequence_fwd(torch.from_numpy(xg),
+                                        torch.from_numpy(mask),
+                                        torch.from_numpy(w), reverse,
+                                        residuals=True)
+    dxg = torch.from_numpy(rng.standard_normal((1, 5, 80)).astype(np.float32))
+    zeros = torch.zeros((20, 80))
+    assert torch.equal(lstm_dw_hh(hs, dxg, reverse), zeros)
+    _, dw = lstm_sequence_bwd(torch.ones_like(hs), torch.ones((5, 20)),
+                              gates, c, hs, torch.from_numpy(mask),
+                              torch.from_numpy(w), reverse)
+    assert torch.equal(dw, zeros)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
