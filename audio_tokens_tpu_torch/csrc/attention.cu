@@ -33,10 +33,15 @@
 // next; the streamed tiles come through a cp.async ring that overlaps the
 // next tile's loads with this tile's mma; tiles that share no segment with
 // the block's rows are left out and tiles of one segment skip the mask
-// tests; the exponential is the bare ex2 instruction.  The f32 kernels
-// (forward, dk/dv, dq) are plain f32 FMA from f32 tiles, each thread a 4 x 4
-// register tile, so they cannot beat the 67 TFLOP/s f32 rate.  wgmma, TMA
-// and warp specialisation are later work.
+// tests; the exponential is the bare ex2 instruction.  In f32 the backward
+// pair (flash_dkv_tf32_kernel, flash_dq_tf32_kernel) runs the same design
+// on the tensor cores in 3xTF32, each operand split into two tf32 parts and
+// three products taken for one, which keeps f32 accuracy at 165 TFLOP/s
+// (495 / 3) where f32 FMA has 67; the block's own rows stay in shared
+// memory (see the note above the pair).  The f32 forward is still plain
+// f32 FMA from f32 tiles, each thread a 4 x 4 register tile, so it cannot
+// beat the 67 TFLOP/s f32 rate.  wgmma, TMA and warp specialisation are
+// later work.
 #include <cuda_bf16.h>
 
 #include <climits>
@@ -192,148 +197,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dk, dv in f32: block (key tile, batch x head).  Thread (ty, tx) owns key
-// rows 4 ty .. 4 ty + 3 and, of each query tile and of dk and dv, the columns
-// tx + 16 j.  P^T and dS^T of a query tile go through shared memory.
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ seg,
-                 const float* __restrict__ lse, const float* __restrict__ dout,
-                 const float* __restrict__ di, int heads, int t, float scale,
-                 float* __restrict__ dk, float* __restrict__ dv) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * kLd;
-  float* qs = vs + kTile * kLd;
-  float* dos = qs + kTile * kLd;
-  float* pt = dos + kTile * kLd;
-  float* dst = pt + kTile * kLd;
-  __shared__ int segq[kTile];
-  __shared__ float lse_s[kTile], di_s[kTile];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y, b = bh / heads;
-  const int k0 = blockIdx.x * kTile;
-  const size_t head = (size_t)bh * t * kD;
-  const int* sg = seg + (size_t)b * t;
-  load_tile(ks, k + head, k0, t);
-  load_tile(vs, v + head, k0, t);
-  int segk[kR];
-  float dka[kR][kR], dva[kR][kR];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = k0 + kR * ty + i;
-    segk[i] = r < t ? sg[r] : 0;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) dka[i][j] = dva[i][j] = 0.f;
-  }
-  for (int q0 = 0; q0 < t; q0 += kTile) {
-    __syncthreads();  // the previous query tile is consumed
-    load_tile(qs, q + head, q0, t);
-    load_tile(dos, dout + head, q0, t);
-    if (threadIdx.x < kTile) {
-      const int r = q0 + threadIdx.x;
-      segq[threadIdx.x] = r < t ? sg[r] : 0;
-      lse_s[threadIdx.x] = r < t ? lse[(size_t)bh * t + r] : 0.f;
-      di_s[threadIdx.x] = r < t ? di[(size_t)bh * t + r] : 0.f;
-    }
-    __syncthreads();
-    float s[kR][kR], dp[kR][kR];
-    tile_qk(s, ks, qs, ty, tx);
-    tile_qk(dp, vs, dos, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const bool kvalid = k0 + kR * ty + i < t;
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const int c = tx + 16 * j;
-        const float logit = s[i][j] * scale + (segk[i] == segq[c] ? 0.f : kMask);
-        const float p = kvalid && q0 + c < t ? expf(logit - lse_s[c]) : 0.f;
-        const float ds = (dp[i][j] - di_s[c]) * p * scale;
-        pt[(kR * ty + i) * kLd + c] = p;
-        dst[(kR * ty + i) * kLd + c] = ds;
-      }
-    }
-    __syncthreads();
-    tile_pv(dva, pt, dos, ty, tx);
-    tile_pv(dka, dst, qs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = k0 + kR * ty + i;
-    if (r >= t) continue;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      dk[head + (size_t)r * kD + tx + 16 * j] = dka[i][j];
-      dv[head + (size_t)r * kD + tx + 16 * j] = dva[i][j];
-    }
-  }
-}
-
-// dq in f32: block (query tile, batch x head), shaped like the forward; dS
-// of a key tile goes through shared memory.
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const int* __restrict__ seg,
-                const float* __restrict__ lse, const float* __restrict__ dout,
-                const float* __restrict__ di, int heads, int t, float scale,
-                float* __restrict__ dq) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kTile * kLd;
-  float* ks = dos + kTile * kLd;
-  float* vs = ks + kTile * kLd;
-  float* dss = vs + kTile * kLd;
-  __shared__ int segk[kTile];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y, b = bh / heads;
-  const int q0 = blockIdx.x * kTile;
-  const size_t head = (size_t)bh * t * kD;
-  const int* sg = seg + (size_t)b * t;
-  load_tile(qs, q + head, q0, t);
-  load_tile(dos, dout + head, q0, t);
-  int segq[kR];
-  float lse_r[kR], di_r[kR], acc[kR][kR];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = q0 + kR * ty + i;
-    segq[i] = r < t ? sg[r] : 0;
-    lse_r[i] = r < t ? lse[(size_t)bh * t + r] : 0.f;
-    di_r[i] = r < t ? di[(size_t)bh * t + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) acc[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();  // the previous key tile is consumed
-    load_tile(ks, k + head, k0, t);
-    load_tile(vs, v + head, k0, t);
-    if (threadIdx.x < kTile) segk[threadIdx.x] = k0 + threadIdx.x < t ? sg[k0 + threadIdx.x] : 0;
-    __syncthreads();
-    float s[kR][kR], dp[kR][kR];
-    tile_qk(s, qs, ks, ty, tx);
-    tile_qk(dp, dos, vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const bool qvalid = q0 + kR * ty + i < t;
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const int c = tx + 16 * j;
-        const float logit = s[i][j] * scale + (segq[i] == segk[c] ? 0.f : kMask);
-        const float p = qvalid && k0 + c < t ? expf(logit - lse_r[i]) : 0.f;
-        dss[(kR * ty + i) * kLd + c] = (dp[i][j] - di_r[i]) * p * scale;
-      }
-    }
-    __syncthreads();
-    tile_pv(acc, dss, ks, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = q0 + kR * ty + i;
-    if (r >= t) continue;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) dq[head + (size_t)r * kD + tx + 16 * j] = acc[i][j];
-  }
-}
-
 // The bf16 kernels run on the tensor cores: mma.sync m16n8k16 (bf16
 // operands, f32 accumulation).
 constexpr int kLdh = kD + 8;  // bf16 row of a staged tile: 144 bytes, no bank conflicts
@@ -459,15 +322,20 @@ constexpr bool kTileSkip = ATK_TILE_SKIP != 0;
 constexpr bool kPlainTiles = ATK_PLAIN_TILES != 0;
 constexpr float kLog2e = 1.44269504088896341f;
 
-// One stage of the ring: a 64-row tile of each streamed operand and the
-// rows' segment ids, logsumexp and di (the last two only for dk/dv).
-struct Stage {
-  __nv_bfloat16 a[kTile * kLdh];  // K (forward, dq) or Q (dk/dv)
-  __nv_bfloat16 b[kTile * kLdh];  // V (forward, dq) or dO (dk/dv)
+// One stage of the ring: a 64-row tile of each streamed operand (rows LD
+// elements apart) and the rows' segment ids, logsumexp and di (the last two
+// only for dk/dv).
+template <typename Elem, int LD>
+struct StageOf {
+  using T = Elem;
+  static constexpr int kLd = LD;
+  Elem a[kTile * LD];  // K (forward, dq) or Q (dk/dv)
+  Elem b[kTile * LD];  // V (forward, dq) or dO (dk/dv)
   int seg[kTile];
   float lse[kTile];
   float di[kTile];
 };
+using Stage = StageOf<__nv_bfloat16, kLdh>;
 static_assert(sizeof(Stage) % 16 == 0, "stages stay 16-byte aligned");
 
 using atk::cp_async16;
@@ -478,19 +346,20 @@ using atk::cp_async_wait;
 // Start the copy of rows [r0, r0 + 64) of the head a and, if kB, of the
 // head b, of the batch row's segment ids sg and, unless null, of the head's
 // lse and di rows into a stage.  The caller commits the group.
-template <int THREADS, bool kB = true>
-__device__ __forceinline__ void stream_tile(Stage& st, const __nv_bfloat16* __restrict__ a,
-                                            const __nv_bfloat16* __restrict__ b,
+template <int THREADS, bool kB = true, typename St>
+__device__ __forceinline__ void stream_tile(St& st, const typename St::T* __restrict__ a,
+                                            const typename St::T* __restrict__ b,
                                             const int* __restrict__ sg,
                                             const float* __restrict__ lse,
                                             const float* __restrict__ di, int r0, int t) {
-  constexpr int kChunks = kD / 8;  // 16-byte pieces of a row
+  constexpr int kPiece = 16 / sizeof(typename St::T);  // elements of a 16-byte piece
+  constexpr int kChunks = kD / kPiece;                 // 16-byte pieces of a row
   for (int e = threadIdx.x; e < kTile * kChunks; e += THREADS) {
-    const int r = e / kChunks, c = 8 * (e % kChunks);
+    const int r = e / kChunks, c = kPiece * (e % kChunks);
     const bool ok = r0 + r < t;
     const size_t off = (size_t)(ok ? r0 + r : 0) * kD + c;
-    cp_async16(st.a + r * kLdh + c, a + off, ok);
-    if (kB) cp_async16(st.b + r * kLdh + c, b + off, ok);
+    cp_async16(st.a + r * St::kLd + c, a + off, ok);
+    if (kB) cp_async16(st.b + r * St::kLd + c, b + off, ok);
   }
   const int i = threadIdx.x;
   if (i < kTile) {
@@ -506,8 +375,10 @@ __device__ __forceinline__ void stream_tile(Stage& st, const __nv_bfloat16* __re
 
 // Four 8 x 8 bf16 matrices from shared memory: lane i gives the address of
 // row i % 8 of matrix i / 8; a lane receives of each matrix the two values
-// at row lane / 4, columns 2 (lane % 4) and + 1.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+// at row lane / 4, columns 2 (lane % 4) and + 1.  Read as 32-bit words, a
+// matrix is 8 rows of 4 f32 values and a lane receives the word at row
+// lane / 4, column lane % 4: a tf32 mma fragment.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -1011,6 +882,416 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   store_rows(o + head, acc, row, t, tg);
 }
 
+// The f32 backward pair runs on the tensor cores too, in 3xTF32:
+// mma.sync m16n8k8 with tf32 operands and f32 accumulation.  Each operand x
+// is split into hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties
+// away), and a product is lo.hi + hi.lo, then hi.hi, into one f32
+// accumulator (CUTLASS's OpMultiplyAddFastF32, which PyTorch's f32
+// attention backward uses too): the lo.lo term left out is below 2^-22 of the
+// product, so the pair keeps f32 accuracy at 165 TFLOP/s (495 / 3) where
+// plain f32 FMA has 67.  P and dS are not rounded (f32 in, f32 out).
+//
+// The shape is the bf16 pair's: a block of 4 warps owns 64 rows (a warp 16
+// key rows for dk/dv, 16 query rows for dq), walks the other side's tiles
+// from tiles_to_walk in ascending order through the cp.async ring, one
+// barrier a tile, masked and untested tiles as there, no atomics.  What
+// differs:
+//
+// - Registers.  Split into hi and lo, a warp's 16 x 64 resident operand
+//   would take 64 registers a thread, two of them 128 before the
+//   accumulators.  So the block's own rows stay in shared memory (a stage
+//   of their own, beside the ring: 3 x 35.6 KB a block, 2 blocks an SM)
+//   and are split as their fragments are loaded.  With S and dP of a whole
+//   64-row tile in registers the kernels take ~240 registers without a
+//   spill; walking a tile 32 rows at a time took ~200 but was 8% slower,
+//   as it loads and splits the own rows twice a tile.
+// - The splits, not the mma, set the time: every fragment is split where it
+//   is loaded (a warp splits all of the streamed tile, four warps the same
+//   values).  cvt.rna.tf32.f32 is a compare-and-select sequence in SASS;
+//   two integer operations give the same bits (split_tf32), and took the
+//   pair from 4.48 to 3.56 ms at (8, 12, 1728, 64) on an H100.
+// - One body of code: the mask is a runtime flag, not a template as in
+//   bf16, and the d loop of the score products is unrolled twice, not 8
+//   times (7% faster).  With two instances of the unrolled tile the
+//   untested path was slower than masking every tile (5.24 vs 4.91 ms),
+//   which points at the instruction cache.
+// - Accumulation.  An mma aligns its products to the accumulator and drops
+//   the bits below, toward zero; 648 mma straight into dk's accumulator at
+//   T 1728 lost 2.4e-5 of its largest entry.  Each tile's products are
+//   summed from zero apart and added to the accumulator by an FADD, which
+//   rounds (mma_step).
+// - Fragments.  A tf32 fragment is 32-bit words: ldmatrix (b16) reads an
+//   8 x 8 b16 matrix as 8 rows of 4 words and hands lane i the word at row
+//   i / 4, column i % 4, which is what the A fragment and the B fragment of
+//   a score product (row-major rows, contracted over d) take.  The output
+//   products contract over the streamed rows, and ldmatrix.trans moves
+//   16-bit values, so their B fragments are plain 8-byte loads.
+// - P^T and dS^T (dk/dv) and dS (dq) stay in registers: the accumulator
+//   gives a thread columns 2t and 2t + 1 of an 8-column tile, the A
+//   fragment wants k-slots t and t + 4, so the contraction index is
+//   permuted instead of shuffled: column 2t is k-slot t, 2t + 1 is k-slot
+//   t + 4, and the B fragment reads streamed rows 2t and 2t + 1.  Its n
+//   index is permuted too: column g of n-tile 2m + h is d = 16m + 2g + h,
+//   so one 8-byte load gives the fragments of n-tiles 2m and 2m + 1 and the
+//   thread's outputs of a row are d 16m + 4t .. + 3, one 16-byte store.
+// - Banks.  Staged rows are kLdf = 68 floats apart (272 bytes, 16-byte
+//   aligned for cp.async and ldmatrix): the 8 rows of an ldmatrix matrix
+//   start 4 words apart, and the 8-byte loads of rows 2t and 2t + 1 at
+//   column 2g fall on 16 distinct bank pairs in each half warp.
+// - ex2.approx.ftz as in bf16 (relative error about 2^-22): a P below
+//   2^-126 becomes 0.
+constexpr int kF32Warps = 4;   // 64 own rows: one stage
+constexpr int kF32Blocks = 2;  // blocks an SM: 2 x 106 KB of shared memory
+constexpr int kLdf = kD + 4;  // f32 row of a staged tile: 272 bytes
+using StageF = StageOf<float, kLdf>;
+static_assert(sizeof(StageF) % 16 == 0, "stages stay 16-byte aligned");
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+#ifndef ATK_F32_SPLIT
+#define ATK_F32_SPLIT 1  // 0: split by cvt.rna.tf32.f32 (the same bits, slower)
+#endif
+
+// x = hi + lo, each a tf32 value rounded to nearest, ties away from zero.
+// cvt.rna.tf32.f32 compiles to a compare-and-select sequence that guards
+// NaN and infinity; adding half a tf32 ulp to the bits and clearing the 13
+// low ones gives the same value for every finite x in two integer
+// operations.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return ATK_F32_SPLIT ? (__float_as_uint(x) + 0x1000u) & 0xffffe000u : to_tf32(x);
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));  // x - hi is exact
+}
+
+// A fragment (or a pair of B fragments) in hi and lo.
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ Frag split_frag(float x0, float x1, float x2, float x3) {
+  Frag f;
+  split_tf32(x0, f.hi[0], f.lo[0]);
+  split_tf32(x1, f.hi[1], f.lo[1]);
+  split_tf32(x2, f.hi[2], f.lo[2]);
+  split_tf32(x3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ Frag split_words(const uint32_t (&w)[4]) {
+  return split_frag(__uint_as_float(w[0]), __uint_as_float(w[1]), __uint_as_float(w[2]),
+                    __uint_as_float(w[3]));
+}
+
+// c += A.B in 3xTF32, B's fragment words j0 and j0 + 1 of b: the small
+// terms first, then hi.hi.
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag& a, const Frag& b, int j0) {
+  mma_tf32(c, a.lo, b.hi[j0], b.hi[j0 + 1]);
+  mma_tf32(c, a.hi, b.lo[j0], b.lo[j0 + 1]);
+  mma_tf32(c, a.hi, b.hi[j0], b.hi[j0 + 1]);
+}
+
+// The A fragment of k step kk (d 8 kk .. 8 kk + 7) of the 16 staged rows at
+// `rows`, split.
+__device__ __forceinline__ Frag own_frag(const float* rows, int kk, int lane) {
+  uint32_t w[4];
+  ldmatrix_x4(w, rows + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdf + 8 * kk + 4 * (lane >> 4));
+  return split_words(w);
+}
+
+// The B fragments of k step kk for the two 8-row n-tiles of the 16 staged
+// rows at `rows` (contracted over d): words 0, 1 of the first, 2, 3 of the
+// second, split.
+__device__ __forceinline__ Frag row_frags(const float* rows, int kk, int lane) {
+  uint32_t w[4];
+  ldmatrix_x4(w, rows + ((lane & 7) + 8 * (lane >> 4)) * kLdf + 8 * kk + 4 * ((lane >> 3) & 1));
+  return split_words(w);
+}
+
+// acc (16 x 64, the permuted columns) += A (16 x 8, fragment a) . X for the
+// 8 staged rows of X at `rows` (k-slot t is row 2t, t + 4 row 2t + 1).
+__device__ __forceinline__ void mma_cols_f32(float (&acc)[kD / 8][4], const Frag& a,
+                                             const float* rows, int lane) {
+  const float* r0 = rows + 2 * (lane & 3) * kLdf + 2 * (lane >> 2);
+#pragma unroll
+  for (int m = 0; m < kD / 16; ++m) {
+    const float2 x0 = *reinterpret_cast<const float2*>(r0 + 16 * m);
+    const float2 x1 = *reinterpret_cast<const float2*>(r0 + kLdf + 16 * m);
+    const Frag b = split_frag(x0.x, x1.x, x0.y, x1.y);
+    mma3(acc[2 * m], a, b, 0);
+    mma3(acc[2 * m + 1], a, b, 2);
+  }
+}
+
+// S (16 x 64) = A . X^T and S2 = A2 . X2^T over d, for the resident 16
+// rows `own`, `own2` and the 64 staged rows at `x`, `x2`.
+__device__ __forceinline__ void score_pair(float (&s)[kTile / 8][4], float (&s2)[kTile / 8][4],
+                                           const float* own, const float* own2, const float* x,
+                                           const float* x2, int lane) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = 0.f;
+#pragma unroll 2  // of 8: see "One body of code" above
+  for (int kk = 0; kk < kD / 8; ++kk) {
+    const Frag a = own_frag(own, kk, lane);
+    const Frag a2 = own_frag(own2, kk, lane);
+#pragma unroll
+    for (int np = 0; np < kTile / 16; ++np) {
+      const Frag b = row_frags(x + 16 * np * kLdf, kk, lane);
+      mma3(s[2 * np], a, b, 0);
+      mma3(s[2 * np + 1], a, b, 2);
+      const Frag b2 = row_frags(x2 + 16 * np * kLdf, kk, lane);
+      mma3(s2[2 * np], a2, b2, 0);
+      mma3(s2[2 * np + 1], a2, b2, 2);
+    }
+  }
+}
+
+// The A fragment of an accumulator tile's 8 columns in the permuted order.
+__device__ __forceinline__ Frag acc_frag(const float (&c)[4]) {
+  return split_frag(c[0], c[2], c[1], c[3]);
+}
+
+// acc (16 x 64) += A . X over the 64 staged rows at `rows`, A the
+// accumulator tiles a (16 x 64): summed from zero first, then added to acc
+// by FADD (see "Accumulation" above).
+__device__ __forceinline__ void mma_step(float (&acc)[kD / 8][4], const float (&a)[kTile / 8][4],
+                                         const float* rows, int lane) {
+  float part[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) mma_cols_f32(part, acc_frag(a[j]), rows + 8 * j * kLdf, lane);
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+}
+
+// One staged tile of 64 queries into a warp's dk and dv accumulators, from
+// its 16 key rows `ks`, `vs`; `left` as in dkv_tile, `masked` false where
+// every pair of the tile is valid.  The mask is a runtime flag, not two
+// instances as in bf16: one body of code keeps the loop in the instruction
+// cache.
+__device__ __forceinline__ void dkv_tile_f32(float (&dka)[kD / 8][4], float (&dva)[kD / 8][4],
+                                             const float* ks, const float* vs, const StageF& st,
+                                             const int (&segk)[2], int left, bool masked,
+                                             float scale, float scale_log2, int lane) {
+  const int tg = lane & 3;
+  // S^T and dP^T: element e of column tile j is key row g + 8 (e >> 1),
+  // query 8 j + 2 tg + (e & 1)
+  float s[kTile / 8][4], dp[kTile / 8][4];
+  score_pair(s, dp, ks, vs, st.a, st.b, lane);
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const int c = 8 * j + 2 * tg;  // even: the two columns as one load
+    const float2 lse2 = *reinterpret_cast<const float2*>(st.lse + c);
+    const float2 di2 = *reinterpret_cast<const float2*>(st.di + c);
+    const int2 seg2 = *reinterpret_cast<const int2*>(st.seg + c);
+    const float nlse[2] = {-kLog2e * lse2.x, -kLog2e * lse2.y};
+    const float dic[2] = {di2.x, di2.y};
+    const int segq[2] = {seg2.x, seg2.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = e & 1, h = e >> 1;
+      float p = ex2(fmaf(s[j][e], scale_log2, nlse[o]));
+      if (masked && !(c + o < left && segk[h] == segq[o])) p = 0.f;
+      s[j][e] = p;
+      dp[j][e] = (dp[j][e] - dic[o]) * p * scale;
+    }
+  }
+  mma_step(dva, s, st.b, lane);   // dV += P^T dO
+  mma_step(dka, dp, st.a, lane);  // dK += dS^T Q
+}
+
+// One (16 x 64, permuted columns) accumulator to rows `row` and `row + 8`
+// of an f32 head.
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ out,
+                                               const float (&acc)[kD / 8][4], int row, int t,
+                                               int tg) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= t) continue;
+    float* orow = out + (size_t)(row + 8 * h) * kD + 4 * tg;
+#pragma unroll
+    for (int m = 0; m < kD / 16; ++m)
+      *reinterpret_cast<float4*>(orow + 16 * m) =
+          make_float4(acc[2 * m][2 * h], acc[2 * m + 1][2 * h], acc[2 * m][2 * h + 1],
+                      acc[2 * m + 1][2 * h + 1]);
+  }
+}
+
+// The block's own 64 rows of heads a and b into `own` while `tiles` is
+// filled; returns the number of tiles to walk.
+__device__ __forceinline__ int load_own(StageF& own, int* tiles, const float* __restrict__ a,
+                                        const float* __restrict__ b, const int* __restrict__ sg,
+                                        int r0, int t) {
+  static_assert(16 * kF32Warps == kTile, "the block's own rows are one stage");
+  stream_tile<32 * kF32Warps>(own, a, b, sg, nullptr, nullptr, r0, t);
+  cp_async_commit();
+  const int n = tiles_to_walk<kF32Warps>(tiles, sg, r0, t);
+  cp_async_wait<0>();
+  __syncthreads();
+  return n;
+}
+
+__global__ void __launch_bounds__(32 * kF32Warps, kF32Blocks)
+flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ seg,
+                      const float* __restrict__ lse, const float* __restrict__ dout,
+                      const float* __restrict__ di, int heads, int t, float scale,
+                      float* __restrict__ dk, float* __restrict__ dv) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StageF* stages = reinterpret_cast<StageF*>(smem_raw);
+  StageF& own = stages[kStages];
+  int* tiles = reinterpret_cast<int*>(stages + kStages + 1);
+  constexpr int kThr = 32 * kF32Warps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads;
+  const int k0 = blockIdx.x * kTile;
+  const size_t head = (size_t)bh * t * kD;
+  const int* sg = seg + (size_t)b * t;
+  const float* lse_h = lse + (size_t)bh * t;
+  const float* di_h = di + (size_t)bh * t;
+  const float scale_log2 = scale * kLog2e;
+  const int n = load_own(own, tiles, k + head, v + head, sg, k0, t);
+  const float* ks = own.a + 16 * warp * kLdf;
+  const float* vs = own.b + 16 * warp * kLdf;
+  int segk[2];  // of this thread's two key rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) segk[h] = own.seg[16 * warp + g + 8 * h];
+  float dka[kD / 8][4], dva[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n)
+      stream_tile<kThr>(stages[s], q + head, dout + head, sg, lse_h, di_h,
+                        (tiles[s] >> 1) * kTile, t);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's part of tile i has landed
+    __syncthreads();  // so has everyone's, and tile i - 1 is consumed
+    const int nx = i + kStages - 1;
+    if (nx < n)
+      stream_tile<kThr>(stages[nx % kStages], q + head, dout + head, sg, lse_h, di_h,
+                        (tiles[nx] >> 1) * kTile, t);
+    cp_async_commit();
+    const StageF& st = stages[i % kStages];
+    const int left = t - (tiles[i] >> 1) * kTile;  // queries of this tile that exist
+    dkv_tile_f32(dka, dva, ks, vs, st, segk, left, tiles[i] & 1, scale, scale_log2, lane);
+  }
+  store_rows_f32(dk + head, dka, k0 + 16 * warp + g, t, tg);
+  store_rows_f32(dv + head, dva, k0 + 16 * warp + g, t, tg);
+}
+
+// One staged tile of 64 keys into a warp's dq accumulator, from its 16
+// query rows `qs`, `dos`; nlse is -lse log2(e) of the thread's two rows;
+// `left` and `masked` as in dkv_tile_f32.
+__device__ __forceinline__ void dq_tile_f32(float (&acc)[kD / 8][4], const float* qs,
+                                            const float* dos, const StageF& st,
+                                            const int (&segq)[2], const float (&nlse)[2],
+                                            const float (&dir)[2], int left, bool masked,
+                                            float scale, float scale_log2, int lane) {
+  const int tg = lane & 3;
+  // S and dP: element e of column tile j is query row g + 8 (e >> 1), key
+  // 8 j + 2 tg + (e & 1)
+  float s[kTile / 8][4], dp[kTile / 8][4];
+  score_pair(s, dp, qs, dos, st.a, st.b, lane);
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const int c = 8 * j + 2 * tg;  // even: the two columns as one load
+    const int2 seg2 = *reinterpret_cast<const int2*>(st.seg + c);
+    const int segk[2] = {seg2.x, seg2.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = e & 1, h = e >> 1;
+      float p = ex2(fmaf(s[j][e], scale_log2, nlse[h]));
+      if (masked && !(c + o < left && segq[h] == segk[o])) p = 0.f;
+      dp[j][e] = (dp[j][e] - dir[h]) * p * scale;
+    }
+  }
+  mma_step(acc, dp, st.a, lane);  // dQ += dS K
+}
+
+__global__ void __launch_bounds__(32 * kF32Warps, kF32Blocks)
+flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ seg,
+                     const float* __restrict__ lse, const float* __restrict__ dout,
+                     const float* __restrict__ di, int heads, int t, float scale,
+                     float* __restrict__ dq) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StageF* stages = reinterpret_cast<StageF*>(smem_raw);
+  StageF& own = stages[kStages];
+  int* tiles = reinterpret_cast<int*>(stages + kStages + 1);
+  constexpr int kThr = 32 * kF32Warps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads;
+  const int q0 = blockIdx.x * kTile;
+  const size_t head = (size_t)bh * t * kD;
+  const int* sg = seg + (size_t)b * t;
+  const float scale_log2 = scale * kLog2e;
+  const int n = load_own(own, tiles, q + head, dout + head, sg, q0, t);
+  const float* qs = own.a + 16 * warp * kLdf;
+  const float* dos = own.b + 16 * warp * kLdf;
+  int segq[2];            // of this thread's two query rows,
+  float nlse[2], dir[2];  // their -lse log2(e) and their di
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    const bool ok = row < t;
+    segq[h] = own.seg[16 * warp + g + 8 * h];
+    nlse[h] = ok ? -kLog2e * lse[(size_t)bh * t + row] : 0.f;
+    dir[h] = ok ? di[(size_t)bh * t + row] : 0.f;
+  }
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n)
+      stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
+                        (tiles[s] >> 1) * kTile, t);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's part of tile i has landed
+    __syncthreads();  // so has everyone's, and tile i - 1 is consumed
+    const int nx = i + kStages - 1;
+    if (nx < n)
+      stream_tile<kThr>(stages[nx % kStages], k + head, v + head, sg, nullptr, nullptr,
+                        (tiles[nx] >> 1) * kTile, t);
+    cp_async_commit();
+    const StageF& st = stages[i % kStages];
+    const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
+    dq_tile_f32(acc, qs, dos, st, segq, nlse, dir, left, tiles[i] & 1, scale, scale_log2, lane);
+  }
+  store_rows_f32(dq + head, acc, q0 + 16 * warp + g, t, tg);
+}
+
 template <typename K, typename... Args>
 int launch(K kernel, int tiles, int batch, int heads, int threads, size_t smem, void* stream,
            Args... args) {
@@ -1021,22 +1302,33 @@ int launch(K kernel, int tiles, int batch, int heads, int threads, size_t smem, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch one of the bf16 kernels: `warps` x 16 owned rows a block, the ring
-// and the list of tiles to walk in dynamic shared memory.  cp.async copies
-// 16 bytes at a time, so the bf16 heads (q, k, v and, unless null, dout)
-// must be 16-byte aligned.
-template <typename K, typename... Args>
-int launch_mma(K kernel, int warps, int batch, int heads, int t, void* stream, const void* q,
-               const void* k, const void* v, const void* dout, Args... args) {
+// Launch one of the tensor-core kernels on T elements (bf16, or f32 for
+// the 3xTF32 pair): `warps` x 16 owned rows a block; `stages` bytes of
+// ring (and own rows) and the list of tiles to walk in dynamic shared
+// memory.  cp.async copies 16 bytes at a time, so the heads (q, k, v and,
+// unless null, dout) must be 16-byte aligned: a misaligned one is refused.
+template <typename T, typename K, typename... Args>
+int launch_rows(K kernel, int warps, size_t stages, int batch, int heads, int t, void* stream,
+                const void* q, const void* k, const void* v, const void* dout, Args... args) {
   for (const void* p : {q, k, v, dout})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
-  const size_t smem = kStages * sizeof(Stage) + sizeof(int) * ((t + kTile - 1) / kTile);
+  const size_t smem = stages + sizeof(int) * ((t + kTile - 1) / kTile);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  using T = __nv_bfloat16;
   return launch(kernel, (t + 16 * warps - 1) / (16 * warps), batch, heads, 32 * warps, smem,
                 stream, static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), args...);
+}
+
+template <typename K, typename... Args>
+int launch_mma(K kernel, int warps, Args... args) {
+  return launch_rows<__nv_bfloat16>(kernel, warps, kStages * sizeof(Stage), args...);
+}
+
+// The f32 pair: the ring and a stage of the block's own rows.
+template <typename K, typename... Args>
+int launch_tf32(K kernel, Args... args) {
+  return launch_rows<float>(kernel, kF32Warps, (kStages + 1) * sizeof(StageF), args...);
 }
 
 bool bad_shape(int batch, int heads, int t, int dh) {
@@ -1071,11 +1363,10 @@ ATK_EXPORT int atk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                       seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
                       static_cast<T*>(dk), static_cast<T*>(dv));
   }
-  const int tiles = (t + kTile - 1) / kTile;
-  return launch(flash_dkv_kernel, tiles, batch, heads, kThreads, 6 * kTileBytes, stream,
-                static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), seg, lse, static_cast<const float*>(dout), di,
-                heads, t, scale, static_cast<float*>(dk), static_cast<float*>(dv));
+  using T = float;
+  return launch_tf32(flash_dkv_tf32_kernel, batch, heads, t, stream, q, k, v, dout, seg, lse,
+                     static_cast<const T*>(dout), di, heads, t, scale, static_cast<T*>(dk),
+                     static_cast<T*>(dv));
 }
 
 // B5 backward, dq.
@@ -1090,9 +1381,7 @@ ATK_EXPORT int atk_flash_bwd_dq(const void* q, const void* k, const void* v, con
                       seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
                       static_cast<T*>(dq));
   }
-  const int tiles = (t + kTile - 1) / kTile;
-  return launch(flash_dq_kernel, tiles, batch, heads, kThreads, 5 * kTileBytes, stream,
-                static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), seg, lse, static_cast<const float*>(dout), di,
-                heads, t, scale, static_cast<float*>(dq));
+  using T = float;
+  return launch_tf32(flash_dq_tf32_kernel, batch, heads, t, stream, q, k, v, dout, seg, lse,
+                     static_cast<const T*>(dout), di, heads, t, scale, static_cast<T*>(dq));
 }

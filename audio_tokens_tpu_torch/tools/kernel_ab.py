@@ -1,7 +1,7 @@
 """A/B the tuning knobs of the hand-written kernels on one card.
 
     python -m audio_tokens_tpu_torch.tools.kernel_ab
-        --kernel attention|lstm|lstm-dw|lstm-fwd|tokenizer|vq
+        --kernel attention|attention-f32|lstm|lstm-dw|lstm-fwd|tokenizer|vq
         [--rounds 5] [--variant NAME:KEY=VAL,KEY=VAL ...]
         [--source NAME:path/<source>.cu[:KEY=VAL,..]]
 
@@ -22,6 +22,17 @@ kernels), on the shapes ``chip_smoke.py`` uses:
   through an eval-mode forward of the bert classifier at its full width
   (hidden 768, 12 heads, 2 layers, window 1728, bf16, ``"flash"``) on 4
   rows;
+- ``attention-f32`` (B5's f32 backward pair in 3xTF32, ``attention.cu``;
+  knobs ``ATK_F32_SPLIT``, ``ATK_STAGES``,
+  ``ATK_TILE_SKIP``, ``ATK_PLAIN_TILES``): the dk/dv and dq kernels at
+  (8, 12, 1728, 64) f32, random prefix lengths with a 0, and the pair,
+  beside ``scaled_dot_product_attention``'s f32 backward (dq, dk and dv
+  together) on the same inputs, and the f32 eval-mode bert loss + backward
+  on 4 rows (the model of ``attention`` with ``compute_dtype="float32"``);
+  each variant's largest difference from the plain version over the
+  largest entry, and whether two launches give the same bits.  With
+  ``--source parent:<an earlier attention.cu>`` the earlier f32 pair (plain
+  FMA before the 3xTF32 one) is timed in turns;
 - ``lstm`` (kernel B4; knobs ``ATK_LSTM_BWD_UNITS``, ``ATK_LSTM_BWD_ROWS``,
   ``ATK_LSTM_BWD_THREADS``, ``ATK_LSTM_BWD_UNROLL``): both directions at
   T 1728, B 64, H 512 as
@@ -62,7 +73,9 @@ Per variant the script prints ptxas' registers and spills of the kernels
 it times, the median and the spread of each time over the rounds, and
 whether its outputs equal the default build's bit for bit.  Every knob of
 B5 must keep them (the tile skip and the untested path on full tiles
-included: no B5 knob changes a sum's order or a value), and so must B4's
+included: no B5 knob changes a sum's order or a value, and
+``ATK_F32_SPLIT=0`` splits by ``cvt.rna`` to the same bits), and so must
+B4's
 unrolling; B4's units, rows and threads a block change which sums its warps
 take, B1's frames a block how its mel sums are grouped, and the
 ``dw_hh`` GEMM's k-rows a stage and slices where its partial sums split,
@@ -92,6 +105,12 @@ DEFAULT_VARIANTS = {
         "mask-every-tile:ATK_PLAIN_TILES=0",
         "stages-3:ATK_STAGES=3",
     ),
+    "attention-f32": (
+        "default:",
+        "split-cvt:ATK_F32_SPLIT=0",
+        "no-skip:ATK_TILE_SKIP=0",
+        "mask-every-tile:ATK_PLAIN_TILES=0",
+    ),
     "lstm-fwd": ("default:", "timers:ATK_LSTM_TIMERS=1"),
     "tokenizer": ("default:", "f64:ATK_TOKENIZER_FRAMES=64"),
     "lstm-dw": (
@@ -119,6 +138,10 @@ DEFAULT_VARIANTS = {
 PTXAS_KERNELS = {
     "attention": (("flash_fwd_mma", "fwd"), ("flash_dkv_mma", "dk/dv"),
                   ("flash_dq_mma", "dq")),
+    "attention-f32": (("flash_dkv_tf32", "dk/dv 3xTF32"),
+                      ("flash_dq_tf32", "dq 3xTF32"),
+                      ("flash_dkv_kernel", "dk/dv FMA (earlier design)"),
+                      ("flash_dq_kernel", "dq FMA (earlier design)")),
     "lstm": (("lstm_bwd_kernelILi8ELi512E", "B4<8,512>"),
              ("lstm_bwd_kernelILi8ELi1024E", "B4<8,1024>"),
              ("lstm_bwd_kernelILi16ELi512E", "B4<16,512>")),
@@ -132,9 +155,11 @@ PTXAS_KERNELS = {
                   ("tokenizer_kernelILi128ELb1E", "B1<128>"),
                   ("tokenizer_kernelv", "B1 (first design)")),
 }
-SOURCES = {"attention": "attention", "lstm": "lstm", "lstm-dw": "lstm",
-           "lstm-fwd": "lstm", "tokenizer": "tokenizer", "vq": "vq"}
-MODULES = {"attention": "cuda_attention", "lstm": "cuda_lstm",
+SOURCES = {"attention": "attention", "attention-f32": "attention",
+           "lstm": "lstm", "lstm-dw": "lstm", "lstm-fwd": "lstm",
+           "tokenizer": "tokenizer", "vq": "vq"}
+MODULES = {"attention": "cuda_attention", "attention-f32": "cuda_attention",
+           "lstm": "cuda_lstm",
            "lstm-dw": "cuda_lstm", "lstm-fwd": "cuda_lstm",
            "tokenizer": "cuda_tokenizer", "vq": "cuda_vq"}
 # the phases of the cycle counters (csrc/lstm.cu, ATK_LSTM_TIMERS)
@@ -261,6 +286,75 @@ def attention_case(gen):
     desc = (f"B5 bf16: forward prefix lengths {flens.tolist()}; backward "
             f"prefix lengths {lens.tolist()}")
     return desc, timed, outputs
+
+
+def attention_f32_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for B5's f32 pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.ops import cuda_attention as ca
+    from audio_tokens_tpu_torch.ops.common import exact_f32
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    exact_f32()  # the plain version and sdpa's yardstick in full f32
+    t, b = 1728, 8
+    q, k, v, do = (torch.randn((b, 12, t, 64), generator=gen).cuda()
+                   for _ in range(4))
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    lens[0] = 0
+    seg = (torch.arange(t)[None, :] >= lens[:, None]).to(torch.int32).cuda()
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, SM_SCALE, True)
+    di = (o * do).sum(-1)
+    call = (q, k, v, seg, lse, do, di, SM_SCALE)
+    refs = (*ca.flash_attention_dkv_plain(*call),
+            ca.flash_attention_dq_plain(*call))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(
+        *leaves, attn_mask=seg[:, None, :, None] == seg[:, None, None, :],
+        scale=SM_SCALE)
+    cfg = AudioTokensConfig(
+        model_type="bert", vocab_size=500, hidden_size=768, num_layers=2,
+        num_classes=543, max_seq_len=t, transformer_max_position=t,
+        dropout=0.0, transformer_attention="flash", compute_dtype="float32")
+    model = get_model(cfg, "cuda", torch.Generator().manual_seed(0)).eval()
+    tokens = torch.randint(0, 500, (4, t), generator=gen,
+                           dtype=torch.int32).cuda()
+    labels = (torch.rand((4, 543), generator=gen) < 0.01).float().cuda()
+    weights = torch.ones(4, device="cuda")
+
+    def model_step() -> None:
+        model.zero_grad(set_to_none=True)
+        weighted_bce(model(tokens), labels, weights).backward()
+
+    def pair():
+        return (*ca.flash_attention_bwd_dkv(*call),
+                ca.flash_attention_bwd_dq(*call))
+
+    timed = {
+        "dk/dv (8, 12, 1728, 64) f32": lambda: ca.flash_attention_bwd_dkv(
+            *call),
+        "dq": lambda: ca.flash_attention_bwd_dq(*call),
+        "the pair": pair,
+        "sdpa f32 backward (dq, dk, dv)": lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True),
+        "bert f32 eval-mode loss + backward on 4 rows": model_step,
+    }
+
+    def outputs():
+        got, again = pair(), pair()
+        errs = [float((g - r).abs().max() / r.abs().max())
+                for g, r in zip(got, refs)]
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        return got, ("max abs err / max |ref| vs plain: "
+                     + ", ".join(f"{n} {e:.3e}" for n, e in
+                                 zip(("dk", "dv", "dq"), errs))
+                     + f", bit-equal between launches: {same}")
+
+    return (f"B5 f32 backward: prefix lengths {lens.tolist()}", timed,
+            outputs)
 
 
 def _lstm_inputs(gen):
@@ -463,7 +557,8 @@ def tokenizer_case(gen):
             f"K 500", {"B1": lambda: kern(x)}, outputs)
 
 
-CASES = {"attention": attention_case, "lstm": lstm_case,
+CASES = {"attention": attention_case, "attention-f32": attention_f32_case,
+         "lstm": lstm_case,
          "lstm-dw": lstm_dw_case, "lstm-fwd": lstm_fwd_case,
          "tokenizer": tokenizer_case, "vq": vq_case}
 

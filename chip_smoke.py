@@ -24,10 +24,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    random prefix lengths with a 0 (the library call is
    ``scaled_dot_product_attention`` with the segment mask; its backward
    gives dq, dk and dv together, so the pair's sum is printed beside it;
-   each bf16 kernel's rate on the work these lengths need).  Each record
-   carries ``bound_ms``: the larger of the bytes the function must move
-   over 3.35 TB/s and its operations over the card's peak for their type
-   (67 TFLOP/s f32, 989 TFLOP/s bf16), from this run's shapes and lengths;
+   each kernel's rate on the work these lengths need; the f32 dk/dv and dq
+   kernels, 3xTF32 on the tensor cores, have records of their own).  Each
+   record carries ``bound_ms``: the larger of the bytes the function must
+   move over 3.35 TB/s and its operations over the card's peak for their
+   type (67 TFLOP/s f32 FMA, 989 TFLOP/s bf16, 165 TFLOP/s for the 3xTF32
+   f32 pair, whose records also carry the FMA bound as ``fma_bound_ms``),
+   from this run's shapes and lengths;
 4. serve the lstm: the full-width classifier (vocab 500, embed 256, hidden
    512, 543 classes) behind ``ServingProgram`` answers 3 batches of 64
    clips, one single-clip request and one batch with per-clip min-max
@@ -54,9 +57,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    launches must move), then one loss + backward on 4 rows at f32, card vs
    CPU, in training mode and through an eval-mode forward, the way
    ``jax.grad`` reaches the library kernel's backward: that pass launches
-   B5's dk/dv and dq kernels.  The same loss + backward is then timed on
-   the card (CUDA events) through the eval-mode (B5) route in bf16 and f32
-   and, in bf16, through the training-mode (plain) route.
+   B5's f32 dk/dv and dq kernels (their counters are read around it).  The
+   same loss + backward is then timed on the card (CUDA events) through the
+   eval-mode (B5) route in bf16 (the bf16 pair's counters read around it)
+   and f32 and, in bf16, through the training-mode (plain) route.
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -96,8 +100,10 @@ B_ATT_BWD = 8
 # the output (or P and dS) each rounded to 8 bits, at other points
 ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATT_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of the largest entry
-# H100 SXM dense peaks at 700 W (NVIDIA data sheet)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM dense peaks at 700 W (NVIDIA data sheet); f32 work on the tensor
+# cores in 3xTF32 (three tf32 products for one f32 product) runs at a third
+# of the 495 TFLOP/s TF32 rate
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 LSTM_ATOL = 1e-4   # 1728 f32 steps, another summation order
 DW_RTOL = 1e-4     # dw_hh: max abs error / max |dw_hh| (110,528-row sums)
@@ -178,6 +184,46 @@ def bound_of(flop: float, nbytes: float, dtype: str = "float32"):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its Itanium-mangled one: the last component of
+    the nested name (``_ZN<len><namespace><len><name>``), with template
+    integers in angle brackets."""
+    import re
+
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        n = re.match(r"\d+", mangled[i:]).group()
+        i += len(n)
+        name = mangled[i:i + int(n)]
+        i += int(n)
+    if mangled[i:i + 1] == "I":  # template arguments up to "EE"
+        args = re.findall(r"L[ib](\d+)E", mangled[i:mangled.find("EE", i) + 1])
+        name += f"<{', '.join(args)}>"
+    return name
+
+
+def ptxas_usage(log_path: Path) -> list:
+    """[(kernel, "stack frame, spills; registers")] for each entry function
+    in an nvcc ``-Xptxas -v`` log."""
+    import re
+
+    if not log_path.exists():
+        return []
+    found, kernel, frame = [], None, ""
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif kernel and "stack frame" in line:
+            frame = line.strip()
+        elif kernel and "Used" in line:
+            found.append((kernel, f"{frame}; {line.split(':', 1)[1].strip()}"))
+            kernel, frame = None, ""
+    return found
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -349,7 +395,9 @@ def attention_phases(records: list) -> None:
         nbytes = 4 * q.numel() * q.element_size() + seg.numel() * 4
         b_ms, b_by = bound_of(4 * HEAD_DIM * pairs, nbytes, name)
         fwd[name] = dict(err=err_valid, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         tf32x3_bound_ms=bound_of(4 * HEAD_DIM * pairs,
+                                                  nbytes, "tf32x3")[0])
         flop = 4 * HEAD_DIM * pairs  # the work these lengths need
         log(f"[B5 attention] {name} q, k, v {tuple(q.shape)}, prefix lengths "
             f"with a 0: max abs err {err_valid:.3e} on valid rows, "
@@ -368,7 +416,8 @@ def attention_phases(records: list) -> None:
         max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"], f32_ms=fwd["float32"]["ms"],
-        f32_max_abs_err=fwd["float32"]["err"]))
+        f32_max_abs_err=fwd["float32"]["err"],
+        f32_tf32x3_bound_ms=fwd["float32"]["tf32x3_bound_ms"]))
 
     bwd = {}
     for name, dtype in (("bfloat16", torch.bfloat16),
@@ -401,36 +450,49 @@ def attention_phases(records: list) -> None:
         el = q.element_size()
         io = q.numel() * el
         rows = 2 * lse.numel() * 4 + seg.numel() * 4  # lse, di, seg
-        dkv_b = bound_of(8 * HEAD_DIM * pairs, 6 * io + rows, name)
-        dq_b = bound_of(6 * HEAD_DIM * pairs, 5 * io + rows, name)
+        # the f32 pair runs 3xTF32 on the tensor cores
+        peak = "tf32x3" if name == "float32" else name
+        dkv_b = bound_of(8 * HEAD_DIM * pairs, 6 * io + rows, peak)
+        dq_b = bound_of(6 * HEAD_DIM * pairs, 5 * io + rows, peak)
+        fma = (bound_of(8 * HEAD_DIM * pairs, 6 * io + rows, name)[0],
+               bound_of(6 * HEAD_DIM * pairs, 5 * io + rows, name)[0])
         bwd[name] = dict(errs=abs_errs, dkv=(dkv_ms, dkv_plain, dkv_b),
-                         dq=(dq_ms, dq_plain, dq_b), library_ms=lib_ms)
+                         dq=(dq_ms, dq_plain, dq_b), library_ms=lib_ms,
+                         fma_bound_ms=fma)
+        shares = (f" ({dkv_b[0] / dkv_ms:.0%} and {dq_b[0] / dq_ms:.0%} of "
+                  f"the 3xTF32 bounds; f32 FMA bounds {fma[0]:.3f} and "
+                  f"{fma[1]:.3f} ms)" if name == "float32" else "")
         log(f"[B5 backward] {name} {tuple(q.shape)}: max abs err / max |ref| "
             + ", ".join(f"{g} {e:.3e}" for g, e in errs.items())
             + f" (bound {ATT_BWD_RTOL[name]}); dk/dv kernel {dkv_ms:.3f} ms "
             f"(plain {dkv_plain:.3f}, bound {dkv_b[0]:.3f} {dkv_b[1]}), dq "
             f"kernel {dq_ms:.3f} ms (plain {dq_plain:.3f}, bound "
-            f"{dq_b[0]:.3f} {dq_b[1]}); the pair {dkv_ms + dq_ms:.3f} ms vs "
-            f"scaled_dot_product_attention backward (dq, dk, dv together) "
-            f"{lib_ms:.3f} ms; on the work these lengths need dk/dv "
+            f"{dq_b[0]:.3f} {dq_b[1]}){shares}; the pair "
+            f"{dkv_ms + dq_ms:.3f} ms vs scaled_dot_product_attention "
+            f"backward (dq, dk, dv together) {lib_ms:.3f} ms; on the work "
+            f"these lengths need dk/dv "
             f"{8 * HEAD_DIM * pairs / dkv_ms / 1e9:.1f} TFLOP/s of "
             f"{8 * HEAD_DIM * pairs / 1e9:.1f} GFLOP, dq "
             f"{6 * HEAD_DIM * pairs / dq_ms / 1e9:.1f} TFLOP/s of "
             f"{6 * HEAD_DIM * pairs / 1e9:.1f} GFLOP")
         del q, k, v, do, o, lse, di, args, leaves, out
-    r = bwd["bfloat16"]
-    for key, label, line, err in (
-            ("dkv", "dk/dv", 796, max(r["errs"]["dk"], r["errs"]["dv"])),
-            ("dq", "dq", 1146, r["errs"]["dq"])):
-        ms, plain_ms, (b_ms, b_by) = r[key]
-        records.append(dict(
-            name=f"B5 flash attention backward {label} (bf16)", route="cuda",
-            source="audio_tokens_tpu_torch/csrc/attention.cu",
-            replaces=f"jax/experimental/pallas/ops/tpu/flash_attention.py:"
-                     f"{line}",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=r["library_ms"],
-            f32_ms=bwd["float32"][key][0]))
+    for name, kind in (("bfloat16", "bf16"), ("float32", "f32, 3xTF32")):
+        r = bwd[name]
+        for i, (key, label, line, err) in enumerate((
+                ("dkv", "dk/dv", 796, max(r["errs"]["dk"], r["errs"]["dv"])),
+                ("dq", "dq", 1146, r["errs"]["dq"]))):
+            ms, plain_ms, (b_ms, b_by) = r[key]
+            rec = dict(
+                name=f"B5 flash attention backward {label} ({kind})",
+                route="cuda",
+                source="audio_tokens_tpu_torch/csrc/attention.cu",
+                replaces=f"jax/experimental/pallas/ops/tpu/"
+                         f"flash_attention.py:{line}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=r["library_ms"])
+            if name == "float32":
+                rec["fma_bound_ms"] = r["fma_bound_ms"][i]
+            records.append(rec)
     torch.cuda.empty_cache()
 
 
@@ -471,11 +533,8 @@ def main() -> int:
     secs = _build.build()
     log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {secs:.1f} s")
     for name in _build.KERNELS:
-        text = (_build.BUILD_DIR / f"lib{name}.log").read_text() \
-            if (_build.BUILD_DIR / f"lib{name}.log").exists() else ""
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kernel, usage in ptxas_usage(_build.BUILD_DIR / f"lib{name}.log"):
+            log(f"[build] {name} {kernel}: {usage}")
 
     # -- 3. kernels vs plain on the card ------------------------------------
     cfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS, **MODEL)
@@ -547,7 +606,7 @@ def main() -> int:
             max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
         del c_t, got, ref
-    records.append(b2[0])  # B2 at K 16,384 goes last (records[7])
+    records.append(b2[0])  # B2 at K 16,384 goes last (records[9])
 
     gen = torch.Generator().manual_seed(3)
     bound = 1.0 / H_LSTM ** 0.5
@@ -964,11 +1023,23 @@ def main() -> int:
             raise AssertionError(f"the eval-mode gradient skipped a B5 "
                                  f"kernel: {grad_launches}")
         records[4]["launches_by_path"]["eval_grad"] = grad_launches[0]
-        records[5]["launches_by_path"] = {"eval_grad": grad_launches[1]}
-        records[6]["launches_by_path"] = {"eval_grad": grad_launches[2]}
-        # the one place a model reaches the backward pair, timed (after the
-        # counters were read): bf16 is the trained model itself
+        records[7]["launches_by_path"] = {"eval_grad_f32": grad_launches[1]}
+        records[8]["launches_by_path"] = {"eval_grad_f32": grad_launches[2]}
+        # the one place a model reaches the backward pair, timed: bf16 is
+        # the trained model itself, which runs the bf16 pair
+        for k in b5:
+            k.launches = 0
         eval_bf16 = loss_backward_ms(btrainer.model, *rows, train=False)
+        bf16_launches = [k.launches for k in b5]
+        log(f"[train bert reference] bf16 eval-mode loss + backward "
+            f"launches: B5 forward {bf16_launches[0]}, dk/dv "
+            f"{bf16_launches[1]}, dq {bf16_launches[2]}")
+        if min(bf16_launches) < 1:
+            raise AssertionError(f"the bf16 eval-mode gradient skipped a B5 "
+                                 f"kernel: {bf16_launches}")
+        records[5]["launches_by_path"] = {"eval_grad_bf16": bf16_launches[1]}
+        records[6]["launches_by_path"] = {"eval_grad_bf16": bf16_launches[2]}
+        records[4]["launches_by_path"]["eval_grad_bf16"] = bf16_launches[0]
         plain_bf16 = loss_backward_ms(btrainer.model, *rows, train=True)
         eval_f32 = loss_backward_ms(card_bert, *rows, train=False)
         log(f"[train bert reference] loss + backward on {len(rows[0])} rows "

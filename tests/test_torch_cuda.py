@@ -533,6 +533,56 @@ def test_cuda_flash_backward_refuses_misaligned_bf16(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_f32_backward_beats_one_tf32_pass(cuda_device):
+    """The f32 pair is 3xTF32, not one TF32 pass: on randn inputs (mantissa
+    bits below TF32's 10) at the serving length, each gradient's largest
+    error against the plain version is at most 1/20 of the plain version's
+    own error with TF32 matmuls (one pass)."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_dkv_plain, flash_attention_dq_plain)
+
+    args = _flash_backward_args(cuda_device, torch.float32,
+                                *FLASH_BWD_CASES["the-serving-length"])
+    got = (*flash_attention_bwd_dkv(*args), flash_attention_bwd_dq(*args))
+    ref = (*flash_attention_dkv_plain(*args), flash_attention_dq_plain(*args))
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = (*flash_attention_dkv_plain(*args),
+                    flash_attention_dq_plain(*args))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    for name, g, r, x in zip(("dk", "dv", "dq"), got, ref, one_pass):
+        err = float((g - r).abs().max())
+        tf32_err = float((x - r).abs().max())
+        assert tf32_err > 0, name  # TF32 did round the plain version
+        assert err <= tf32_err / 20, (name, err, tf32_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2, 5])  # q, k, v, do
+def test_cuda_flash_f32_backward_refuses_misaligned(cuda_device, which):
+    """The 3xTF32 pair copies 16 bytes at a time: an f32 head that starts
+    one float off a 16-byte boundary is refused by both launches, not
+    read."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    args = list(_flash_backward_args(cuda_device, torch.float32, 1, 1, 64,
+                                     None))
+    x = args[which]
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    args[which] = off.view(x.shape).copy_(x)
+    assert args[which].is_contiguous() and args[which].data_ptr() % 16 == 4
+    for kernel in (flash_attention_bwd_dkv, flash_attention_bwd_dq):
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="misaligned"):
+            kernel(*args)
+        assert kernel.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_autograd_runs_the_three_kernels(cuda_device, dtype):
     """FlashAttention on the card: one forward, one dk/dv and one dq

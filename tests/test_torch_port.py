@@ -193,6 +193,43 @@ def test_dw_hh_b2_ab_variants_name_knobs_of_the_kernel_source(kernel):
     _assert_ab_variants_name_knobs(kernel)
 
 
+def test_f32_attention_ab_variants_name_knobs_of_the_kernel_source():
+    """The A/B tool's variants of B5's f32 pair set knobs of
+    ``csrc/attention.cu``, and the 3xTF32 kernels whose registers it reports
+    are in that source."""
+    from audio_tokens_tpu_torch.ops import _build
+    from audio_tokens_tpu_torch.tools import kernel_ab
+
+    _assert_ab_variants_name_knobs("attention-f32")
+    source = (_build.CSRC / "attention.cu").read_text()
+    for part, label in kernel_ab.PTXAS_KERNELS["attention-f32"]:
+        if "3xTF32" in label:
+            assert f"{part}_kernel(" in source, part
+
+
+def test_sass_ops_counts_opcodes_of_the_named_kernels():
+    """``tools/sass_ops.py`` counts each kernel's opcodes in ``cuobjdump
+    -sass`` output, predicates left out, only for the kernels asked for."""
+    from audio_tokens_tpu_torch.tools.sass_ops import opcode_counts
+
+    sass = """
+\tcode for sm_90a
+\t\tFunction : _ZN3abc6kern_aEPf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0020*/              @!P0 HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0030*/               @P1 BRA 0x40 ;
+\t\tFunction : _ZN3abc6kern_bEPf
+        /*0000*/                   EXIT ;
+"""
+    counts = opcode_counts(sass, ["kern_a"])
+    assert list(counts) == ["_ZN3abc6kern_aEPf"]
+    assert counts["_ZN3abc6kern_aEPf"] == {"LDC": 1, "HMMA": 2, "BRA": 1}
+    assert set(opcode_counts(sass)) == {"_ZN3abc6kern_aEPf",
+                                        "_ZN3abc6kern_bEPf"}
+
+
 def _assert_ab_variants_name_knobs(kernel: str) -> None:
     from audio_tokens_tpu_torch.ops import _build
     from audio_tokens_tpu_torch.tools import kernel_ab
