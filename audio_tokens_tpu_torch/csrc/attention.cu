@@ -33,15 +33,14 @@
 // next; the streamed tiles come through a cp.async ring that overlaps the
 // next tile's loads with this tile's mma; tiles that share no segment with
 // the block's rows are left out and tiles of one segment skip the mask
-// tests; the exponential is the bare ex2 instruction.  In f32 the backward
-// pair (flash_dkv_tf32_kernel, flash_dq_tf32_kernel) runs the same design
-// on the tensor cores in 3xTF32, each operand split into two tf32 parts and
-// three products taken for one, which keeps f32 accuracy at 165 TFLOP/s
-// (495 / 3) where f32 FMA has 67; the block's own rows stay in shared
-// memory (see the note above the pair).  The f32 forward is still plain
-// f32 FMA from f32 tiles, each thread a 4 x 4 register tile, so it cannot
-// beat the 67 TFLOP/s f32 rate.  wgmma, TMA and warp specialisation are
-// later work.
+// tests; the exponential is the bare ex2 instruction.  In f32 all three
+// kernels (flash_fwd_tf32_kernel, flash_dkv_tf32_kernel,
+// flash_dq_tf32_kernel) run the same design on the tensor cores in 3xTF32,
+// each operand split into two tf32 parts and three products taken for one,
+// which keeps f32 accuracy at 165 TFLOP/s (495 / 3) where f32 FMA has 67;
+// the block's own rows stay in shared memory (see the notes above the pair
+// and above the forward).  wgmma, TMA and warp specialisation are later
+// work.
 #include <cuda_bf16.h>
 
 #include <climits>
@@ -54,148 +53,6 @@ namespace {
 
 constexpr int kD = 64;          // head dim the kernels take
 constexpr int kTile = 64;       // rows (queries or keys) of a tile
-constexpr int kLd = kD + 1;     // padded row of a shared tile: no bank conflicts
-constexpr int kThreads = 256;   // 16 x 16: thread (ty, tx)
-constexpr int kR = 4;           // rows of a thread's register tile
-constexpr float kMask = -0.7f * 3.40282347e38f;  // library DEFAULT_MASK_VALUE
-constexpr size_t kTileBytes = sizeof(float) * kTile * kLd;
-
-// Rows [r0, r0 + 64) of one (T, 64) f32 head into a shared tile, zeros past
-// T.
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0,
-                                          int t) {
-  for (int e = threadIdx.x; e < kTile * kD; e += kThreads) {
-    const int r = e / kD, d = e % kD;
-    dst[r * kLd + d] = r0 + r < t ? src[(size_t)(r0 + r) * kD + d] : 0.f;
-  }
-}
-
-// acc[i][j] += sum_c a[(4 ty + i), c] * b[c, tx + 16 j] over the 64 columns
-// c of the shared tiles a (row-major) and b (row-major).
-__device__ __forceinline__ void tile_pv(float (&acc)[kR][kR], const float* a, const float* b,
-                                        int ty, int tx) {
-#pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float av[kR], bv[kR];
-#pragma unroll
-    for (int i = 0; i < kR; ++i) av[i] = a[(kR * ty + i) * kLd + c];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) bv[j] = b[c * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kR; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// s[i][j] = sum_d a[(4 ty + i), d] * b[tx + 16 j, d]: rows of a against rows
-// of b, both row-major tiles.
-__device__ __forceinline__ void tile_qk(float (&s)[kR][kR], const float* a, const float* b,
-                                        int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kR; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < kD; ++d) {
-    float av[kR], bv[kR];
-#pragma unroll
-    for (int i = 0; i < kR; ++i) av[i] = a[(kR * ty + i) * kLd + d];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) bv[j] = b[(tx + 16 * j) * kLd + d];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kR; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// The 16 threads of a row group are 16 consecutive lanes of one warp.
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Forward, f32: block (query tile, batch x head).  Thread (ty, tx) owns
-// query rows 4 ty .. 4 ty + 3 and, of each key tile and of the output, the
-// columns tx + 16 j.
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ seg, int heads, int t,
-                 float scale, float* __restrict__ o, float* __restrict__ lse) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kTile * kLd;
-  float* vs = ks + kTile * kLd;
-  float* ps = vs + kTile * kLd;
-  __shared__ int segk[kTile];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y, b = bh / heads;
-  const int q0 = blockIdx.x * kTile;
-  const size_t head = (size_t)bh * t * kD;
-  const int* sg = seg + (size_t)b * t;
-  load_tile(qs, q + head, q0, t);
-  int segq[kR];
-  float m[kR], l[kR], acc[kR][kR];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = q0 + kR * ty + i;
-    segq[i] = r < t ? sg[r] : 0;
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) acc[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();  // the previous tile's ks, vs and ps are consumed
-    load_tile(ks, k + head, k0, t);
-    load_tile(vs, v + head, k0, t);
-    if (threadIdx.x < kTile) segk[threadIdx.x] = k0 + threadIdx.x < t ? sg[k0 + threadIdx.x] : 0;
-    __syncthreads();
-    float s[kR][kR];
-    tile_qk(s, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const int c = tx + 16 * j;
-        s[i][j] = k0 + c < t ? s[i][j] * scale + (segq[i] == segk[c] ? 0.f : kMask)
-                             : -CUDART_INF_F;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));  // finite: key k0 exists
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        ps[(kR * ty + i) * kLd + tx + 16 * j] = p;
-        acc[i][j] *= alpha;
-      }
-      l[i] = alpha * l[i] + group_sum(sum);
-      m[i] = m_new;
-    }
-    __syncthreads();
-    tile_pv(acc, ps, vs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = q0 + kR * ty + i;
-    if (r >= t) continue;
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) o[head + (size_t)r * kD + tx + 16 * j] = acc[i][j] * inv;
-    if (lse != nullptr && tx == 0) lse[(size_t)bh * t + r] = m[i] + logf(l[i]);
-  }
-}
 
 // The bf16 kernels run on the tensor cores: mma.sync m16n8k16 (bf16
 // operands, f32 accumulation).
@@ -882,7 +739,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   store_rows(o + head, acc, row, t, tg);
 }
 
-// The f32 backward pair runs on the tensor cores too, in 3xTF32:
+// The f32 kernels run on the tensor cores too, in 3xTF32 (the forward has
+// a note of its own below the pair):
 // mma.sync m16n8k8 with tf32 operands and f32 accumulation.  Each operand x
 // is split into hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties
 // away), and a product is lo.hi + hi.lo, then hi.hi, into one f32
@@ -941,7 +799,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // - ex2.approx.ftz as in bf16 (relative error about 2^-22): a P below
 //   2^-126 becomes 0.
 constexpr int kF32Warps = 4;   // 64 own rows: one stage
-constexpr int kF32Blocks = 2;  // blocks an SM: 2 x 106 KB of shared memory
+constexpr int kF32Blocks = 2;  // blocks an SM: 2 x 106 KB (the pair), 224-241 registers
 constexpr int kLdf = kD + 4;  // f32 row of a staged tile: 272 bytes
 using StageF = StageOf<float, kLdf>;
 static_assert(sizeof(StageF) % 16 == 0, "stages stay 16-byte aligned");
@@ -1135,13 +993,14 @@ __device__ __forceinline__ void store_rows_f32(float* __restrict__ out,
   }
 }
 
-// The block's own 64 rows of heads a and b into `own` while `tiles` is
-// filled; returns the number of tiles to walk.
+// The block's own 64 rows of head a and, if kB, of head b into `own` while
+// `tiles` is filled; returns the number of tiles to walk.
+template <bool kB = true>
 __device__ __forceinline__ int load_own(StageF& own, int* tiles, const float* __restrict__ a,
                                         const float* __restrict__ b, const int* __restrict__ sg,
                                         int r0, int t) {
   static_assert(16 * kF32Warps == kTile, "the block's own rows are one stage");
-  stream_tile<32 * kF32Warps>(own, a, b, sg, nullptr, nullptr, r0, t);
+  stream_tile<32 * kF32Warps, kB>(own, a, b, sg, nullptr, nullptr, r0, t);
   cp_async_commit();
   const int n = tiles_to_walk<kF32Warps>(tiles, sg, r0, t);
   cp_async_wait<0>();
@@ -1292,6 +1151,183 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows_f32(dq + head, acc, q0 + 16 * warp + g, t, tg);
 }
 
+// The f32 forward in 3xTF32 (flash_fwd_tf32_kernel) is the dq kernel with
+// one score product instead of two and the bf16 forward's online softmax
+// (fwd_tile) in place of the dS formula: a block of 4 warps owns 64 query
+// rows (a warp 16), streams K and V through the ring from tiles_to_walk in
+// ascending order, one barrier a tile, masked and untested tiles by the
+// runtime flag in one body of code, no atomics.  Per 64-key tile a warp
+// takes 192 tf32 mma for S = Q.K^T (mma3 on row_frags) and 192 for
+// O += P.V, where dq takes 576; P stays in registers as the A fragments of
+// P.V (acc_frag, V's rows 2t and 2t + 1 as the B fragments) and is not
+// rounded (f32 in, f32 out).  What the forward adds:
+//
+// - The online softmax in base 2: scores times sm_scale * log2(e), ex2, a
+//   quad shuffle for the row max and the row sum.  An invalid pair (another
+//   segment, or a key past T) gets -inf before the row max, and a row that
+//   has met no valid key keeps base 0, so alpha = ex2(m - base) is
+//   ex2(-inf) = 0, never NaN, on its first valid tile.  A row meets tiles
+//   without a valid key even with the tile skip: a tile is walked when it
+//   shares a segment with any of the block's rows.  The plain version adds
+//   the finite MASK_VALUE instead, and exp(MASK_VALUE - m) is exactly 0 in
+//   f32 for every row below T, since every such row meets its own key: the
+//   two agree.  The logsumexp is (m + log2 l) ln 2, as in bf16.
+// - Accumulation.  acc is rescaled by alpha first, then the tile's P.V,
+//   summed from zero apart, is added by FADD (mma_step): 27 tiles straight
+//   into the mma accumulator would truncate, as dk's 648 mma did.
+// - Q, the one resident operand, passes through the ring's first stage and
+//   is split once into registers (8 k steps x 4 words x (hi, lo), 64
+//   registers; the score loop over d is unrolled fully to keep them
+//   there), so the forward needs no own stage: 71 KB of shared memory a
+//   block, 224 registers, 2 blocks an SM.  Q kept in an own stage and
+//   split as it is read, as in the pair, took 192 registers and was 2.7%
+//   slower at (64, 12, 1728, 64) on an H100 (7.88 vs 7.67 ms); at 3 blocks
+//   an SM the 168-register cap spills (7.72 ms).
+
+// S (16 x 64) += k step kk (d 8 kk .. 8 kk + 7) of A . X^T, for A's split
+// fragment a and the 64 staged rows at `x`: score_pair's inner loop for one
+// product (score_pair built on it took dk/dv from 239 to 255 registers).
+__device__ __forceinline__ void score_step(float (&s)[kTile / 8][4], const Frag& a,
+                                           const float* x, int kk, int lane) {
+#pragma unroll
+  for (int np = 0; np < kTile / 16; ++np) {
+    const Frag b = row_frags(x + 16 * np * kLdf, kk, lane);
+    mma3(s[2 * np], a, b, 0);
+    mma3(s[2 * np + 1], a, b, 2);
+  }
+}
+
+// One staged tile of 64 keys into a warp's output accumulator and its two
+// rows' running max m (base 2, of the scaled scores) and sum l, from Q's
+// split fragments qf; `left` and `masked` as in dkv_tile_f32.
+__device__ __forceinline__ void fwd_tile_f32(float (&acc)[kD / 8][4], float (&m)[2],
+                                             float (&l)[2], const Frag (&qf)[kD / 8],
+                                             const StageF& st, const int (&segq)[2], int left,
+                                             bool masked, float scale_log2, int lane) {
+  const int tg = lane & 3;
+  // S = Q K^T: element e of column tile j is query row g + 8 (e >> 1), key
+  // 8 j + 2 tg + (e & 1)
+  float s[kTile / 8][4];
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) score_step(s, qf[kk], st.a, kk, lane);
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const int c = 8 * j + 2 * tg;  // even: the two columns' ids as one load
+    const int2 seg2 = *reinterpret_cast<const int2*>(st.seg + c);
+    const int segk[2] = {seg2.x, seg2.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = e & 1, h = e >> 1;
+      if (masked && !(c + o < left && segq[h] == segk[o])) s[j][e] = -CUDART_INF_F;
+      mx[h] = fmaxf(mx[h], s[j][e]);
+    }
+  }
+  float alpha[2], nm[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+    // -inf while the row has met no valid key: then l and O stay 0
+    const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
+    alpha[h] = ex2(m[h] - base);
+    nm[h] = -base;
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(fmaf(s[j][e], scale_log2, nm[e >> 1]));  // P
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l[h] = alpha[h] * l[h] + sum[h];
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+  mma_step(acc, s, st.b, lane);  // O += P V
+}
+
+__global__ void __launch_bounds__(32 * kF32Warps, kF32Blocks)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ seg, int heads, int t,
+                      float scale, float* __restrict__ o, float* __restrict__ lse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StageF* stages = reinterpret_cast<StageF*>(smem_raw);
+  int* tiles = reinterpret_cast<int*>(stages + kStages);
+  constexpr int kThr = 32 * kF32Warps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads;
+  const int q0 = blockIdx.x * kTile;
+  const size_t head = (size_t)bh * t * kD;
+  const int* sg = seg + (size_t)b * t;
+  const float scale_log2 = scale * kLog2e;
+  const int n = load_own<false>(stages[0], tiles, q + head, nullptr, sg, q0, t);
+  int segq[2];       // of this thread's two query rows,
+  float m[2], l[2];  // their running max and sum
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    segq[h] = stages[0].seg[16 * warp + g + 8 * h];
+    m[h] = -CUDART_INF_F;
+    l[h] = 0.f;
+  }
+  Frag qf[kD / 8];  // this warp's 16 rows of Q, split
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk)
+    qf[kk] = own_frag(stages[0].a + 16 * warp * kLdf, kk, lane);
+  __syncthreads();  // the ring's first stage is free
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n)
+      stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
+                        (tiles[s] >> 1) * kTile, t);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's part of tile i has landed
+    __syncthreads();  // so has everyone's, and tile i - 1 is consumed
+    const int nx = i + kStages - 1;
+    if (nx < n)
+      stream_tile<kThr>(stages[nx % kStages], k + head, v + head, sg, nullptr, nullptr,
+                        (tiles[nx] >> 1) * kTile, t);
+    cp_async_commit();
+    const StageF& st = stages[i % kStages];
+    const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
+    fwd_tile_f32(acc, m, l, qf, st, segq, left, tiles[i] & 1, scale_log2, lane);
+  }
+  const int row = q0 + 16 * warp + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float inv = 1.f / l[h];  // l > 0 below T: a row meets its own key
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      acc[j][2 * h] *= inv;
+      acc[j][2 * h + 1] *= inv;
+    }
+    if (lse != nullptr && tg == 0 && row + 8 * h < t)
+      lse[(size_t)bh * t + row + 8 * h] = (m[h] + log2f(l[h])) * 0.693147180559945309f;
+  }
+  store_rows_f32(o + head, acc, row, t, tg);
+}
+
 template <typename K, typename... Args>
 int launch(K kernel, int tiles, int batch, int heads, int threads, size_t smem, void* stream,
            Args... args) {
@@ -1303,7 +1339,7 @@ int launch(K kernel, int tiles, int batch, int heads, int threads, size_t smem, 
 }
 
 // Launch one of the tensor-core kernels on T elements (bf16, or f32 for
-// the 3xTF32 pair): `warps` x 16 owned rows a block; `stages` bytes of
+// the 3xTF32 kernels): `warps` x 16 owned rows a block; `stages` bytes of
 // ring (and own rows) and the list of tiles to walk in dynamic shared
 // memory.  cp.async copies 16 bytes at a time, so the heads (q, k, v and,
 // unless null, dout) must be 16-byte aligned: a misaligned one is refused.
@@ -1325,10 +1361,10 @@ int launch_mma(K kernel, int warps, Args... args) {
   return launch_rows<__nv_bfloat16>(kernel, warps, kStages * sizeof(Stage), args...);
 }
 
-// The f32 pair: the ring and a stage of the block's own rows.
+// The 3xTF32 kernels: the ring and `own` stages of the block's own rows.
 template <typename K, typename... Args>
-int launch_tf32(K kernel, Args... args) {
-  return launch_rows<float>(kernel, kF32Warps, (kStages + 1) * sizeof(StageF), args...);
+int launch_tf32(K kernel, int own, Args... args) {
+  return launch_rows<float>(kernel, kF32Warps, (kStages + own) * sizeof(StageF), args...);
 }
 
 bool bad_shape(int batch, int heads, int t, int dh) {
@@ -1345,10 +1381,8 @@ ATK_EXPORT int atk_flash_fwd(const void* q, const void* k, const void* v, const 
   if (bf16)
     return launch_mma(flash_fwd_mma_kernel, kFwdWarps, batch, heads, t, stream, q, k, v, nullptr,
                       seg, heads, t, scale, static_cast<__nv_bfloat16*>(o), lse);
-  const int tiles = (t + kTile - 1) / kTile;
-  return launch(flash_fwd_kernel, tiles, batch, heads, kThreads, 4 * kTileBytes, stream,
-                static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), seg, heads, t, scale, static_cast<float*>(o), lse);
+  return launch_tf32(flash_fwd_tf32_kernel, 0, batch, heads, t, stream, q, k, v, nullptr, seg,
+                     heads, t, scale, static_cast<float*>(o), lse);
 }
 
 // B5 backward, dk and dv.
@@ -1364,7 +1398,7 @@ ATK_EXPORT int atk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                       static_cast<T*>(dk), static_cast<T*>(dv));
   }
   using T = float;
-  return launch_tf32(flash_dkv_tf32_kernel, batch, heads, t, stream, q, k, v, dout, seg, lse,
+  return launch_tf32(flash_dkv_tf32_kernel, 1, batch, heads, t, stream, q, k, v, dout, seg, lse,
                      static_cast<const T*>(dout), di, heads, t, scale, static_cast<T*>(dk),
                      static_cast<T*>(dv));
 }
@@ -1382,6 +1416,6 @@ ATK_EXPORT int atk_flash_bwd_dq(const void* q, const void* k, const void* v, con
                       static_cast<T*>(dq));
   }
   using T = float;
-  return launch_tf32(flash_dq_tf32_kernel, batch, heads, t, stream, q, k, v, dout, seg, lse,
+  return launch_tf32(flash_dq_tf32_kernel, 1, batch, heads, t, stream, q, k, v, dout, seg, lse,
                      static_cast<const T*>(dout), di, heads, t, scale, static_cast<T*>(dq));
 }

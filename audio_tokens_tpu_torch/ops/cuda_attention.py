@@ -27,13 +27,12 @@ on the tensor cores on one design (``mma.sync`` from bf16 tiles, P and dS
 kept in registers, the streamed tiles through a ``cp.async`` ring that
 overlaps the next tile's loads with this tile's products, tiles that share
 no segment with a block's rows left out, where P is exactly 0, and tiles of
-one segment walked without mask tests).  In f32 the backward pair runs on
-the same design in 3xTF32 (each operand split into two tf32 parts, three
-``mma.sync`` products a product, f32 accuracy at 165 TFLOP/s against
-plain FMA's 67; the block's own rows stay in shared memory and are split
-as they are read), and the forward is plain f32 FMA from shared-memory
-tiles.  The tensor-core kernels (all but the f32 forward) need 16-byte
-aligned q, k, v (and do) and refuse others.
+one segment walked without mask tests).  In f32 the forward and the
+backward pair run on the same design in 3xTF32 (each operand split into
+two tf32 parts, three ``mma.sync`` products a product, f32 accuracy at 165
+TFLOP/s against plain FMA's 67; the block's own rows stay in shared memory
+and are split as they are read).  Every kernel needs 16-byte aligned q, k,
+v (and do) and refuses others.
 
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
 tensors it launches its kernel or raises.

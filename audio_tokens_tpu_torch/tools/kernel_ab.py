@@ -22,17 +22,19 @@ kernels), on the shapes ``chip_smoke.py`` uses:
   through an eval-mode forward of the bert classifier at its full width
   (hidden 768, 12 heads, 2 layers, window 1728, bf16, ``"flash"``) on 4
   rows;
-- ``attention-f32`` (B5's f32 backward pair in 3xTF32, ``attention.cu``;
-  knobs ``ATK_F32_SPLIT``, ``ATK_STAGES``,
-  ``ATK_TILE_SKIP``, ``ATK_PLAIN_TILES``): the dk/dv and dq kernels at
-  (8, 12, 1728, 64) f32, random prefix lengths with a 0, and the pair,
-  beside ``scaled_dot_product_attention``'s f32 backward (dq, dk and dv
-  together) on the same inputs, and the f32 eval-mode bert loss + backward
-  on 4 rows (the model of ``attention`` with ``compute_dtype="float32"``);
-  each variant's largest difference from the plain version over the
-  largest entry, and whether two launches give the same bits.  With
-  ``--source parent:<an earlier attention.cu>`` the earlier f32 pair (plain
-  FMA before the 3xTF32 one) is timed in turns;
+- ``attention-f32`` (B5's f32 kernels in 3xTF32, ``attention.cu``; knobs
+  ``ATK_F32_SPLIT``, ``ATK_STAGES``, ``ATK_TILE_SKIP``,
+  ``ATK_PLAIN_TILES``): the forward at
+  (64, 12, 1728, 64) f32 beside ``scaled_dot_product_attention``'s f32
+  forward on the same inputs, the dk/dv and dq kernels at (8, 12, 1728, 64)
+  f32 and the pair, beside sdpa's f32 backward (dq, dk and dv together) on
+  the same inputs, random prefix lengths with a 0, and the f32 eval-mode
+  bert loss + backward on 4 rows (the model of ``attention`` with
+  ``compute_dtype="float32"``); each variant's largest difference from the
+  plain version (absolute for the forward's o and logsumexp, over the
+  largest entry for the gradients), and whether two launches give the same
+  bits.  With ``--source parent:<an earlier attention.cu>`` the earlier f32
+  kernels (plain FMA before the 3xTF32 ones) are timed in turns;
 - ``lstm`` (kernel B4; knobs ``ATK_LSTM_BWD_UNITS``, ``ATK_LSTM_BWD_ROWS``,
   ``ATK_LSTM_BWD_THREADS``, ``ATK_LSTM_BWD_UNROLL``): both directions at
   T 1728, B 64, H 512 as
@@ -138,8 +140,10 @@ DEFAULT_VARIANTS = {
 PTXAS_KERNELS = {
     "attention": (("flash_fwd_mma", "fwd"), ("flash_dkv_mma", "dk/dv"),
                   ("flash_dq_mma", "dq")),
-    "attention-f32": (("flash_dkv_tf32", "dk/dv 3xTF32"),
+    "attention-f32": (("flash_fwd_tf32", "fwd 3xTF32"),
+                      ("flash_dkv_tf32", "dk/dv 3xTF32"),
                       ("flash_dq_tf32", "dq 3xTF32"),
+                      ("flash_fwd_kernel", "fwd FMA (earlier design)"),
                       ("flash_dkv_kernel", "dk/dv FMA (earlier design)"),
                       ("flash_dq_kernel", "dq FMA (earlier design)")),
     "lstm": (("lstm_bwd_kernelILi8ELi512E", "B4<8,512>"),
@@ -289,7 +293,8 @@ def attention_case(gen):
 
 
 def attention_f32_case(gen):
-    """-> (description, {timed name: fn}, outputs fn) for B5's f32 pair."""
+    """-> (description, {timed name: fn}, outputs fn) for B5's f32
+    kernels."""
     import torch
     import torch.nn.functional as F
 
@@ -324,16 +329,33 @@ def attention_f32_case(gen):
                            dtype=torch.int32).cuda()
     labels = (torch.rand((4, 543), generator=gen) < 0.01).float().cuda()
     weights = torch.ones(4, device="cuda")
+    # the forward at the serving batch: its plain version once, kept
+    fq, fk, fv = (torch.randn((64, 12, t, 64), generator=gen).cuda()
+                  for _ in range(3))
+    flens = torch.randint(1, t + 1, (64,), generator=gen)
+    flens[0] = 0
+    fseg = (torch.arange(t)[None, :] >= flens[:, None]).to(
+        torch.int32).cuda()
+    fref = ca.flash_attention_plain(fq, fk, fv, fseg, SM_SCALE, True)
+    torch.cuda.empty_cache()
+    fmask = fseg[:, None, :, None] == fseg[:, None, None, :]
 
     def model_step() -> None:
         model.zero_grad(set_to_none=True)
         weighted_bce(model(tokens), labels, weights).backward()
+
+    def forward():
+        return ca.flash_attention_fwd(fq, fk, fv, fseg, SM_SCALE, True)
 
     def pair():
         return (*ca.flash_attention_bwd_dkv(*call),
                 ca.flash_attention_bwd_dq(*call))
 
     timed = {
+        "fwd (64, 12, 1728, 64) f32": lambda: ca.flash_attention_fwd(
+            fq, fk, fv, fseg, SM_SCALE),
+        "sdpa f32 forward": lambda: F.scaled_dot_product_attention(
+            fq, fk, fv, attn_mask=fmask, scale=SM_SCALE),
         "dk/dv (8, 12, 1728, 64) f32": lambda: ca.flash_attention_bwd_dkv(
             *call),
         "dq": lambda: ca.flash_attention_bwd_dq(*call),
@@ -344,17 +366,24 @@ def attention_f32_case(gen):
     }
 
     def outputs():
+        fwd, fwd_again = forward(), forward()
         got, again = pair(), pair()
+        fwd_errs = [float((g - r).abs().max()) for g, r in zip(fwd, fref)]
         errs = [float((g - r).abs().max() / r.abs().max())
                 for g, r in zip(got, refs)]
-        same = all(torch.equal(x, y) for x, y in zip(got, again))
-        return got, ("max abs err / max |ref| vs plain: "
-                     + ", ".join(f"{n} {e:.3e}" for n, e in
-                                 zip(("dk", "dv", "dq"), errs))
-                     + f", bit-equal between launches: {same}")
+        same = all(torch.equal(x, y) for x, y in
+                   zip((*fwd, *got), (*fwd_again, *again)))
+        return (*fwd, *got), (
+            "max abs err vs plain: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in
+                        zip(("o", "lse"), fwd_errs))
+            + "; max abs err / max |ref| vs plain: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in
+                        zip(("dk", "dv", "dq"), errs))
+            + f", bit-equal between launches: {same}")
 
-    return (f"B5 f32 backward: prefix lengths {lens.tolist()}", timed,
-            outputs)
+    return (f"B5 f32: forward prefix lengths {flens.tolist()}; backward "
+            f"prefix lengths {lens.tolist()}", timed, outputs)
 
 
 def _lstm_inputs(gen):

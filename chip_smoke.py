@@ -24,12 +24,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    random prefix lengths with a 0 (the library call is
    ``scaled_dot_product_attention`` with the segment mask; its backward
    gives dq, dk and dv together, so the pair's sum is printed beside it;
-   each kernel's rate on the work these lengths need; the f32 dk/dv and dq
-   kernels, 3xTF32 on the tensor cores, have records of their own).  Each
+   each kernel's rate on the work these lengths need; the f32 forward, dk/dv
+   and dq kernels, 3xTF32 on the tensor cores, have records of their own).  Each
    record carries ``bound_ms``: the larger of the bytes the function must
    move over 3.35 TB/s and its operations over the card's peak for their
    type (67 TFLOP/s f32 FMA, 989 TFLOP/s bf16, 165 TFLOP/s for the 3xTF32
-   f32 pair, whose records also carry the FMA bound as ``fma_bound_ms``),
+   f32 kernels, whose records also carry the FMA bound as ``fma_bound_ms``),
    from this run's shapes and lengths;
 4. serve the lstm: the full-width classifier (vocab 500, embed 256, hidden
    512, 543 classes) behind ``ServingProgram`` answers 3 batches of 64
@@ -45,7 +45,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ``bert_full`` case) answers 3 batches of 64 clips and one single clip
    through B1 and B5; B1's and B5's counters must move.  One batch more goes
    through the plain (``"xla"``) route with the same weights.  Then 2 clips
-   through an f32 program, card vs CPU;
+   through an f32 program (B5's f32 forward, its counter read around it),
+   card vs CPU;
 6. train the lstm through ``ModelTrainer(config, cuda).run()`` for 8 steps
    of batch 64 on a synthetic token corpus written to a temp dir (543-class
    ontology and segment CSV, 512 training and 64 validation clips of 1728
@@ -393,31 +394,37 @@ def attention_phases(records: list) -> None:
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=SM_SCALE), 5)
         nbytes = 4 * q.numel() * q.element_size() + seg.numel() * 4
-        b_ms, b_by = bound_of(4 * HEAD_DIM * pairs, nbytes, name)
+        flop = 4 * HEAD_DIM * pairs  # the work these lengths need
+        # the f32 forward runs 3xTF32 on the tensor cores
+        peak = "tf32x3" if name == "float32" else name
+        b_ms, b_by = bound_of(flop, nbytes, peak)
         fwd[name] = dict(err=err_valid, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                         tf32x3_bound_ms=bound_of(4 * HEAD_DIM * pairs,
-                                                  nbytes, "tf32x3")[0])
-        flop = 4 * HEAD_DIM * pairs  # the work these lengths need
+                         fma_bound_ms=bound_of(flop, nbytes, name)[0])
+        share = (f" ({b_ms / ms:.0%} of the 3xTF32 bound; f32 FMA bound "
+                 f"{fwd[name]['fma_bound_ms']:.3f} ms)"
+                 if name == "float32" else "")
         log(f"[B5 attention] {name} q, k, v {tuple(q.shape)}, prefix lengths "
             f"with a 0: max abs err {err_valid:.3e} on valid rows, "
             f"{err_all:.3e} on all (atol {ATT_TOL[name]}); kernel {ms:.3f} "
             f"ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
-            f"{lib_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}); on the work "
-            f"these lengths need {flop / ms / 1e9:.1f} TFLOP/s of "
+            f"{lib_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}){share}; on the "
+            f"work these lengths need {flop / ms / 1e9:.1f} TFLOP/s of "
             f"{flop / 1e9:.1f} GFLOP")
         del q, k, v, seg, valid, mask
-    r = fwd["bfloat16"]
-    records.append(dict(
-        name="B5 flash attention forward (bf16)", route="cuda",
-        source="audio_tokens_tpu_torch/csrc/attention.cu",
-        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:331 "
-                 "(called at audio_tokens_tpu/models/transformer.py:133)",
-        max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
-        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-        library_ms=r["library_ms"], f32_ms=fwd["float32"]["ms"],
-        f32_max_abs_err=fwd["float32"]["err"],
-        f32_tf32x3_bound_ms=fwd["float32"]["tf32x3_bound_ms"]))
+    for name, kind in (("bfloat16", "bf16"), ("float32", "f32, 3xTF32")):
+        r = fwd[name]
+        rec = dict(
+            name=f"B5 flash attention forward ({kind})", route="cuda",
+            source="audio_tokens_tpu_torch/csrc/attention.cu",
+            replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:331 "
+                     "(called at audio_tokens_tpu/models/transformer.py:133)",
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"])
+        if name == "float32":
+            rec["fma_bound_ms"] = r["fma_bound_ms"]
+        records.append(rec)
 
     bwd = {}
     for name, dtype in (("bfloat16", torch.bfloat16),
@@ -606,7 +613,7 @@ def main() -> int:
             max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
         del c_t, got, ref
-    records.append(b2[0])  # B2 at K 16,384 goes last (records[9])
+    records.append(b2[0])  # B2 at K 16,384 goes last (records[10])
 
     gen = torch.Generator().manual_seed(3)
     bound = 1.0 / H_LSTM ** 0.5
@@ -905,7 +912,14 @@ def main() -> int:
     fcfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS,
                              **{**BERT, "compute_dtype": "float32"})
     fprog = ServingProgram.from_components(fcfg, tok, weights, device=dev)
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
     toks_gpu, _, probs_gpu = fprog(x2, l2)
+    torch.cuda.synchronize()
+    f32_serve_launches = flash_attention_fwd.launches
+    if f32_serve_launches < 1:
+        raise AssertionError("the f32 bert program skipped B5's forward")
+    records[5]["launches_by_path"] = {"serve_bert_f32": f32_serve_launches}
     cpu_bert = get_model(fcfg, "cpu", torch.Generator().manual_seed(0))
     cpu_bert.load_state_dict({k: v.cpu() for k, v in weights.items()})
     cpu_bert.eval()
@@ -917,7 +931,8 @@ def main() -> int:
     if not perr <= PROBS_ATOL:
         raise AssertionError(f"bert probs differ from the CPU by {perr:.3e}")
     log(f"[reference bert] 2 clips, f32 program: card (B5) vs CPU (plain "
-        f"attention) probs max abs err {perr:.3e} (atol {PROBS_ATOL})")
+        f"attention) probs max abs err {perr:.3e} (atol {PROBS_ATOL}); "
+        f"launches B5 f32 forward {f32_serve_launches}")
     del bprog, xprog, fprog, outs, out_x, batches, weights, cpu_bert
     torch.cuda.empty_cache()
 
@@ -1022,9 +1037,9 @@ def main() -> int:
         if min(grad_launches) < 1:
             raise AssertionError(f"the eval-mode gradient skipped a B5 "
                                  f"kernel: {grad_launches}")
-        records[4]["launches_by_path"]["eval_grad"] = grad_launches[0]
-        records[7]["launches_by_path"] = {"eval_grad_f32": grad_launches[1]}
-        records[8]["launches_by_path"] = {"eval_grad_f32": grad_launches[2]}
+        records[5]["launches_by_path"]["eval_grad_f32"] = grad_launches[0]
+        records[8]["launches_by_path"] = {"eval_grad_f32": grad_launches[1]}
+        records[9]["launches_by_path"] = {"eval_grad_f32": grad_launches[2]}
         # the one place a model reaches the backward pair, timed: bf16 is
         # the trained model itself, which runs the bf16 pair
         for k in b5:
@@ -1037,8 +1052,8 @@ def main() -> int:
         if min(bf16_launches) < 1:
             raise AssertionError(f"the bf16 eval-mode gradient skipped a B5 "
                                  f"kernel: {bf16_launches}")
-        records[5]["launches_by_path"] = {"eval_grad_bf16": bf16_launches[1]}
-        records[6]["launches_by_path"] = {"eval_grad_bf16": bf16_launches[2]}
+        records[6]["launches_by_path"] = {"eval_grad_bf16": bf16_launches[1]}
+        records[7]["launches_by_path"] = {"eval_grad_bf16": bf16_launches[2]}
         records[4]["launches_by_path"]["eval_grad_bf16"] = bf16_launches[0]
         plain_bf16 = loss_backward_ms(btrainer.model, *rows, train=True)
         eval_f32 = loss_backward_ms(card_bert, *rows, train=False)

@@ -81,6 +81,9 @@ def _valid_rows(seg, t):
 @pytest.mark.parametrize("t,lens", [
     (256, [256, 100, 0]),   # a block multiple: every row, a length-0 row
     (300, [300, 7, 0]),     # padded by JAX to 512: segment-0 rows
+    # a ragged T with whole 64-row tiles of the other segment, as the
+    # kernels leave out
+    (200, [200, 64, 0]),
 ])
 def test_plain_forward_matches_library_kernel(rng, dtype, t, lens):
     q, k, v, _, seg = _inputs(rng, 3, 2, t, lens)

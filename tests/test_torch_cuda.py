@@ -409,7 +409,7 @@ FLASH_BWD_CASES = {
 def test_cuda_flash_forward_matches_plain(cuda_device, dtype, case):
     """B5 forward, with and without the logsumexp store, on every row:
     partial and ragged tiles, whole tiles of another segment (left out by
-    the bf16 kernel), three interleaved segments, more than 32 tiles."""
+    the kernels), three interleaved segments, more than 32 tiles."""
     from audio_tokens_tpu_torch.ops.cuda_attention import (
         flash_attention_fwd, flash_attention_plain)
 
@@ -457,6 +457,52 @@ def test_cuda_flash_forward_refuses_misaligned_bf16(cuda_device):
     assert k.is_contiguous() and k.data_ptr() % 16 == 2
     with pytest.raises(RuntimeError, match="misaligned"):
         flash_attention_fwd(q, k, v, seg, 0.125)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_f32_forward_beats_one_tf32_pass(cuda_device):
+    """The f32 forward is 3xTF32, not one TF32 pass: on randn inputs at the
+    serving length, the largest error of o and of the logsumexp against the
+    plain version is at most 1/20 of the plain version's own error with
+    TF32 matmuls (one pass)."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_fwd, flash_attention_plain)
+
+    b, nh, t, _ = FLASH_BWD_CASES["the-serving-length"]
+    q, k, v, _, seg = _flash_inputs(cuda_device, b, nh, t, torch.float32)
+    got = flash_attention_fwd(q, k, v, seg, 0.125, True)
+    ref = flash_attention_plain(q, k, v, seg, 0.125, True)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = flash_attention_plain(q, k, v, seg, 0.125, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    for name, g, r, x in zip(("o", "lse"), got, ref, one_pass):
+        err = float((g - r).abs().max())
+        tf32_err = float((x - r).abs().max())
+        assert tf32_err > 0, name  # TF32 did round the plain version
+        assert err <= tf32_err / 20, (name, err, tf32_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2])  # q, k, v
+def test_cuda_flash_f32_forward_refuses_misaligned(cuda_device, which):
+    """The 3xTF32 forward copies 16 bytes at a time: an f32 head that starts
+    one float off a 16-byte boundary is refused by the launch, not read,
+    and the launch counter does not move."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+
+    args = list(_flash_inputs(cuda_device, 1, 1, 64, torch.float32))
+    x = args[which]
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    args[which] = off.view(x.shape).copy_(x)
+    assert args[which].is_contiguous() and args[which].data_ptr() % 16 == 4
+    q, k, v, _, seg = args
+    before = flash_attention_fwd.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        flash_attention_fwd(q, k, v, seg, 0.125)
+    assert flash_attention_fwd.launches == before
 
 
 def _flash_backward_args(device, dtype, b, nh, t, seg):
