@@ -61,7 +61,29 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    B5's f32 dk/dv and dq kernels (their counters are read around it).  The
    same loss + backward is then timed on the card (CUDA events) through the
    eval-mode (B5) route in bf16 (the bf16 pair's counters read around it)
-   and f32 and, in bf16, through the training-mode (plain) route.
+   and f32 and, in bf16, through the training-mode (plain) route;
+8. run the staged pipeline, ``audio_tokens_tpu_torch.run_pipeline.main(cfg,
+   cuda)``, at the package defaults (64 mel, n_fft 512, hop 128, vocab 500,
+   20 Lloyd iterations a ``batch_warm_start`` batch, the full-width lstm)
+   with 1 epoch: a temp workspace holds phase 6's ontology and segment CSV
+   and 512 training plus 64 validation ten-second 16-bit wavs (every 6th
+   stereo, one at 44.1 kHz so that the resampler runs); spectrograms,
+   centroids, tokens, 8 training steps of 64 and a validation pass follow.
+   Each stage's seconds and the kernels' launches in it are printed: B2 in
+   the clustering stage (the Lloyd assignment, ``normalize=False``) and in
+   the tokenize stage (``normalize=True``), B3 and B4 in training; the B2
+   record's ``launches_by_path`` gains ``pipeline_cluster`` and
+   ``pipeline_tokenize``, B3's and B4's ``pipeline_train``.  Then the card's
+   results are held against the CPU: the first 8 clips' spectrograms
+   recomputed from the decoded waves, one Lloyd iteration from the saved
+   centroids over the first 64 clips' frames, and 8 clips' tokens.  Last,
+   K-means at the real size of a default clustering batch (10,000 clips,
+   17.23M unit rows x 64, made on the card from a seed): two
+   ``KMeans.train`` fits at vocab 500 and 20 iterations, which must be
+   bit-equal, the iteration split into the assignment (B2) and the
+   centroid sums (sorted rows), each beside its bound, the sums as the JAX
+   package forms them (a one-hot GEMM) and the assignment by
+   ``torch.matmul`` + ``argmin`` in chunks as yardsticks.
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -71,6 +93,7 @@ nonzero before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -106,6 +129,10 @@ ATT_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of the largest entry
 # of the 495 TFLOP/s TF32 rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+RESAMPLED_CLIP = 5  # the pipeline's one clip at 44.1 kHz
+KMEANS_CLIPS = 10_000  # config.clustering_batch_size: one default batch
+SPEC_ATOL, SPEC_RTOL = 5e-3, 1e-4  # dB: another DFT summation order
+CENT_ATOL = 1e-5   # one Lloyd step's centroids, other summation orders
 LSTM_ATOL = 1e-4   # 1728 f32 steps, another summation order
 DW_RTOL = 1e-4     # dw_hh: max abs error / max |dw_hh| (110,528-row sums)
 PROBS_ATOL = 1e-4
@@ -125,10 +152,10 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def make_clips(n: int, offset: int = 0) -> list:
+def make_clips(n: int, offset: int = 0, sr: int = SR) -> list:
     """bench.py's synthetic clips: two partials plus noise, seeded."""
     rng = np.random.default_rng(offset)
-    t = np.arange(int(SR * CLIP_SECONDS)) / SR
+    t = np.arange(int(sr * CLIP_SECONDS)) / sr
     clips = []
     for i in range(offset, offset + n):
         f0 = 80.0 * (1 + (i % 16))
@@ -147,11 +174,10 @@ def make_centroids(k: int = VOCAB, seed: int = 7) -> np.ndarray:
     return cent / (np.linalg.norm(cent, axis=1, keepdims=True) + 1e-10)
 
 
-def write_token_corpus(base: Path, seed: int = 11) -> None:
-    """A seeded synthetic corpus in the layout the trainer reads: ontology
-    (543 classes), segment CSV (1-3 labels a clip), split file, and uint16
-    token ids per clip under tokenized_audio/{train,validation}/."""
-    rng = np.random.default_rng(seed)
+def write_labels(base: Path, rng) -> dict:
+    """The metadata of a synthetic corpus: ontology (543 classes), segment
+    CSV (1-3 labels a clip) and split file of TRAIN_CLIPS + VAL_CLIPS
+    clips; returns the split."""
     n_cls = MODEL["num_classes"]
     (base / "metadata").mkdir(parents=True)
     (base / "output").mkdir()
@@ -169,6 +195,15 @@ def write_token_corpus(base: Path, seed: int = 11) -> None:
     split = {"train": ytids[:TRAIN_CLIPS], "validation": ytids[TRAIN_CLIPS:]}
     (base / "output" / "bal_train_data_split.json").write_text(
         json.dumps(split))
+    return split
+
+
+def write_token_corpus(base: Path, seed: int = 11) -> None:
+    """A seeded synthetic corpus in the layout the trainer reads:
+    ``write_labels``' metadata and uint16 token ids per clip under
+    tokenized_audio/{train,validation}/."""
+    rng = np.random.default_rng(seed)
+    split = write_labels(base, rng)
     for name, ids in split.items():
         out = base / "tokenized_audio" / name
         out.mkdir(parents=True)
@@ -500,6 +535,277 @@ def attention_phases(records: list) -> None:
             if name == "float32":
                 rec["fma_bound_ms"] = r["fma_bound_ms"][i]
             records.append(rec)
+    torch.cuda.empty_cache()
+
+
+def write_audio_corpus(base: Path, seed: int = 12) -> dict:
+    """The pipeline's workspace: ``write_labels``' metadata and one 16-bit
+    ten-second wav a clip under audioset/bal_train/, from ``make_clips`` at
+    22,050 Hz, every 6th stereo and clip RESAMPLED_CLIP at 44.1 kHz (the
+    stage resamples it); returns the split."""
+    from audio_tokens_tpu_torch.data.audio_io import write_pcm_wav
+
+    split = write_labels(base, np.random.default_rng(seed))
+    ytids = split["train"] + split["validation"]
+    for start in range(0, len(ytids), BATCH):
+        clips = make_clips(min(BATCH, len(ytids) - start), start)
+        for i, (y, x) in enumerate(zip(ytids[start:], clips), start):
+            sr = 44100 if i == RESAMPLED_CLIP else SR
+            if sr != SR:
+                x = make_clips(1, i, sr)[0]
+            write_pcm_wav(base / "audioset" / "bal_train" / y[:2]
+                          / f"{y}.wav", x, sr, channels=2 if i % 6 == 0 else 1)
+    return split
+
+
+def clock_stages(stages, kernels, seconds: dict, launches: dict):
+    """Wrap each stage class's ``run`` so that it records its seconds (host
+    clock, synchronized) and the launches of ``kernels`` made inside it;
+    returns the function that restores the classes."""
+    import torch
+
+    saved = {cls: cls.__dict__.get("run") for cls in stages}
+    for cls in stages:
+        def run(self, _run=cls.run, _name=cls.__name__):
+            torch.cuda.synchronize()
+            before = [k.launches for k in kernels]
+            t0 = time.perf_counter()
+            out = _run(self)
+            torch.cuda.synchronize()
+            seconds[_name] = time.perf_counter() - t0
+            launches[_name] = [k.launches - b for k, b in zip(kernels,
+                                                               before)]
+            return out
+
+        cls.run = run
+
+    def restore():
+        for cls, run in saved.items():
+            if run is None:
+                del cls.run
+            else:
+                cls.run = run
+
+    return restore
+
+
+def agreeing_centroid_error(ids, ids_ref, cents, cents_ref) -> float:
+    """Largest centroid difference over the clusters whose members are the
+    same in both assignments."""
+    import torch
+
+    moved = torch.cat([ids[ids != ids_ref], ids_ref[ids != ids_ref]])
+    same = torch.ones(cents.shape[0], dtype=torch.bool)
+    same[moved.long()] = False
+    return float((cents[same] - cents_ref[same]).abs().max())
+
+
+def pipeline_phase(records: list, dev) -> None:
+    """Phase 8: ``run_pipeline.main`` on a wav workspace at the package
+    defaults, its results against the CPU, then K-means at real size."""
+    import torch
+
+    from audio_tokens_tpu_torch import run_pipeline
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.vq import (check_near_ties, l2_normalize,
+                                               vq_assign_fused)
+    from audio_tokens_tpu_torch.processors import (ClusterCreator,
+                                                   ModelTrainer,
+                                                   SpecTokenizer,
+                                                   SpectrogramGenerator)
+
+    kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
+               lstm_sequence_bwd)
+    stages = (SpectrogramGenerator, ClusterCreator, SpecTokenizer,
+              ModelTrainer)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp)
+        t0 = time.perf_counter()
+        split = write_audio_corpus(base)
+        write_s = time.perf_counter() - t0
+        cfg = AudioTokensConfig(base_dir=str(base), **MODEL,
+                                training_batch_size=B_LSTM, epochs=1)
+        seconds, launches = {}, {}
+        restore = clock_stages(stages, kernels, seconds, launches)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            val_loss, val_metrics = run_pipeline.main(cfg, dev)
+        finally:
+            restore()
+        run_s = time.perf_counter() - t0
+        total = [k.launches for k in kernels]
+
+        spec_dir = Path(cfg.dest_spec_path) / "train"
+        tok_dir = Path(cfg.dest_tokenized_path) / "train"
+        train_ids = sorted(split["train"])
+        frames = sum(np.load(tok_dir / f"{y}.npy", mmap_mode="r").shape[0]
+                     for y in train_ids)
+        cents = np.load(cfg.centroids_path)
+        names = [c.__name__ for c in stages]
+        log(f"[pipeline] run_pipeline.main at the package defaults (n_mels "
+            f"{cfg.n_mels}, n_fft {cfg.n_fft}, hop {cfg.hop_length}, vocab "
+            f"{cfg.vocab_size}, niter {cfg.niter}, {cfg.kmeans_mode}, lstm "
+            f"{cfg.lstm_embed_dim}/{cfg.lstm_hidden_dim}, {cfg.num_classes} "
+            f"classes), {len(split['train'])} + {len(split['validation'])} "
+            f"wavs of {CLIP_SECONDS:g} s (written in {write_s:.1f} s): "
+            + ", ".join(f"{n} {seconds[n]:.2f} s" for n in names)
+            + f" (host clock, synchronized); main() {run_s:.2f} s; train "
+            f"corpus {frames} frames; val loss {val_loss:.6f}, val mAP "
+            f"{val_metrics['mAP']:.6f}")
+        log("[pipeline] launches B1, B2, B3, B4 by stage: "
+            + "; ".join(f"{n} {launches[n]}" for n in names)
+            + f"; whole run {total}")
+        b2_cluster = launches["ClusterCreator"][1]
+        b2_tokenize = launches["SpecTokenizer"][1]
+        b3_train, b4_train = launches["ModelTrainer"][2:]
+        if frames != TRAIN_CLIPS * (1 + cfg.clip_samples // cfg.hop_length):
+            raise AssertionError(f"train corpus has {frames} frames")
+        if cents.shape != (cfg.vocab_size, cfg.n_mels) or \
+                cents.dtype != np.float32:
+            raise AssertionError(f"centroids {cents.shape} {cents.dtype}")
+        if (b2_cluster < cfg.niter or b2_tokenize < 2 or b3_train < 1
+                or b4_train < 1):
+            raise AssertionError(f"a kernel of the pipeline launched too "
+                                 f"rarely: {launches}")
+        if not (np.isfinite(val_loss) and 0.0 <= val_metrics["mAP"] <= 1.0):
+            raise AssertionError(f"val loss {val_loss}, mAP {val_metrics}")
+        records[1]["launches_by_path"].update(
+            pipeline_cluster=b2_cluster, pipeline_tokenize=b2_tokenize)
+        records[2]["launches_by_path"]["pipeline_train"] = b3_train
+        records[3]["launches_by_path"]["pipeline_train"] = b4_train
+
+        # the card's results against the CPU: spectrograms from the
+        # decoded waves (clip 0 stereo, clip 5 resampled), one Lloyd step
+        # from the saved centroids, tokens from the saved centroids
+        spec_err = 0.0
+        n_specs = 0
+        cpu_cfg = dataclasses.replace(cfg, device_batch_size=8)
+        for y, spec in SpectrogramGenerator(cpu_cfg, "cpu").iter_specs(
+                train_ids[:8]):
+            card = np.load(spec_dir / f"{y}.npy")
+            if card.shape != spec.shape:
+                raise AssertionError(f"{y}: spectrogram {card.shape} vs "
+                                     f"{spec.shape} on the CPU")
+            diff = np.abs(card - spec)
+            if (diff > SPEC_ATOL + SPEC_RTOL * np.abs(spec)).any():
+                raise AssertionError(f"{y}: spectrogram differs from the "
+                                     f"CPU's by {diff.max():.3e} dB")
+            spec_err = max(spec_err, float(diff.max()))
+            n_specs += 1
+        if n_specs != 8:
+            raise AssertionError(f"{n_specs} of 8 spectrograms on the CPU")
+        x = l2_normalize(torch.from_numpy(np.concatenate(
+            [np.load(spec_dir / f"{y}.npy").T for y in train_ids[:64]])))
+        c = torch.from_numpy(cents)
+        step = {}
+        for d in (dev, "cpu"):
+            ids = km.assign(x.to(d), c.to(d)).cpu()
+            new, obj = km.kmeans_fit(x.to(d), cfg.vocab_size, 1,
+                                     init_centroids=c.to(d))
+            step[str(d)] = (ids, new.cpu(), obj)
+        card, cpu = step[str(dev)], step["cpu"]
+        frac, gap = check_near_ties(x, c, card[0], cpu[0])
+        cent_err = agreeing_centroid_error(card[0], cpu[0], card[1], cpu[1])
+        if not cent_err <= CENT_ATOL:
+            raise AssertionError(f"Lloyd step: centroids differ from the "
+                                 f"CPU's by {cent_err:.3e}")
+        tok_frames = torch.from_numpy(np.concatenate(
+            [np.load(spec_dir / f"{y}.npy").T for y in train_ids[:8]]))
+        tok_card = torch.from_numpy(np.concatenate(
+            [np.load(tok_dir / f"{y}.npy") for y in train_ids[:8]]))
+        tok_frac, tok_gap = check_near_ties(
+            l2_normalize(tok_frames), c, tok_card,
+            vq_assign_fused(tok_frames, c, normalize=True))
+        log(f"[pipeline reference] CPU vs card: 8 spectrograms max abs err "
+            f"{spec_err:.3e} dB (atol {SPEC_ATOL} + rtol {SPEC_RTOL}); one "
+            f"Lloyd step over {x.shape[0]} frames of 64 clips: ids "
+            f"{frac:.2e} disagree (gap {gap:.3e}), centroids max abs err "
+            f"{cent_err:.3e} (atol {CENT_ATOL}), objective card "
+            f"{card[2]:.6f} vs CPU {cpu[2]:.6f}; tokens of 8 clips "
+            f"{tok_frac:.2e} disagree (gap {tok_gap:.3e})")
+        del x, c, tok_frames, tok_card, step
+
+    # K-means at the size of one default clustering batch
+    n = KMEANS_CLIPS * (1 + cfg.clip_samples // cfg.hop_length)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    x = torch.randn((n, cfg.n_mels), generator=gen, device=dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-10
+    fits, fit_s = [], []
+    for _ in range(2):
+        fit = km.KMeans(cfg.n_mels, cfg.vocab_size, niter=cfg.niter,
+                        seed=cfg.random_seed, device=dev)
+        torch.cuda.synchronize()
+        before = vq_argmin.launches
+        t0 = time.perf_counter()
+        fit.train(x)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+        if vq_argmin.launches - before != cfg.niter:
+            raise AssertionError(f"a fit launched B2 "
+                                 f"{vq_argmin.launches - before} times")
+        fits.append(fit)
+    if not (torch.equal(fits[0].centroids, fits[1].centroids)
+            and fits[0].obj == fits[1].obj):
+        raise AssertionError("two card K-means fits differ")
+    c = fits[0].centroids
+    assign_ms = cuda_ms(lambda: km.assign(x, c), 3)
+    ids = km.assign(x, c)
+    sums_ms = cuda_ms(lambda: km.cluster_sums(x, ids, cfg.vocab_size), 3)
+    rows = torch.arange(cfg.vocab_size, dtype=ids.dtype, device=dev)[:, None]
+
+    def onehot_sums():  # the JAX formulation, timed beside the one adopted
+        sums = torch.zeros_like(c)
+        for i in range(0, n, 1 << 16):
+            sums += (ids[None, i:i + (1 << 16)] == rows).float() @ x[
+                i:i + (1 << 16)]
+        return sums
+
+    onehot_ms = cuda_ms(onehot_sums, 2)
+    sums, _ = km.cluster_sums(x, ids, cfg.vocab_size)
+    onehot_err = float((onehot_sums() - sums).abs().max())
+    if not onehot_err <= 1e-5 * float(sums.abs().max()):
+        raise AssertionError(f"cluster sums differ from the one-hot GEMM's "
+                             f"by {onehot_err:.3e}")
+    lib_ms = cuda_ms(lambda: vq_argmin_plain(x, c, False, chunk=1 << 18), 2)
+    lib_frac, lib_gap = check_near_ties(
+        x, c, ids, vq_argmin_plain(x, c, False, chunk=1 << 18))
+    flop = 2 * n * cfg.vocab_size * cfg.n_mels
+    nbytes = x.numel() * 4 + n * 4 + c.numel() * 4
+    assign_b = bound_of(flop, nbytes)
+    # the sums read each row and id once and add each row once; the
+    # one-hot GEMM does as many operations as the assignment
+    sums_b = bound_of(x.numel(), nbytes)
+    onehot_b = bound_of(flop, nbytes)
+    iter_ms = min(fit_s) / cfg.niter * 1e3
+    rate = n * cfg.niter / min(fit_s)
+    log(f"[kmeans] {n} unit rows x {cfg.n_mels}, vocab {cfg.vocab_size}, "
+        f"{cfg.niter} iterations: KMeans.train {fit_s[0]:.3f} s and "
+        f"{fit_s[1]:.3f} s (host clock, synchronized), bit-equal; "
+        f"{iter_ms:.2f} ms an iteration, {rate / 1e6:.1f}M point-iterations/s; "
+        f"assignment (B2) {assign_ms:.3f} ms, bound {assign_b[0]:.3f} ms "
+        f"({assign_b[1]}, {flop / 1e12:.3f} TFLOP f32); sums (sorted rows, "
+        f"f64 running sums in blocks of {km.SEGMENT_BLOCK}) {sums_ms:.3f} "
+        f"ms, bound {sums_b[0]:.3f} ms ({sums_b[1]}); the one-hot GEMM "
+        f"in chunks of {1 << 16} instead {onehot_ms:.3f} ms (bound "
+        f"{onehot_b[0]:.3f} ms, {onehot_b[1]}; max abs diff "
+        f"{onehot_err:.3e}); rest of the iteration "
+        f"{iter_ms - assign_ms - sums_ms:.3f} ms; yardstick torch.matmul + "
+        f"argmin in chunks of {1 << 18} (TF32 off) {lib_ms:.3f} ms, ids "
+        f"{lib_frac:.2e} disagree with B2's (gap {lib_gap:.3e})")
+    records[1]["kmeans_17M"] = dict(
+        rows=n, iteration_ms=iter_ms, point_iters_per_s=rate,
+        assign_ms=assign_ms, assign_bound_ms=assign_b[0], sums_ms=sums_ms,
+        sums_bound_ms=sums_b[0], onehot_sums_ms=onehot_ms,
+        onehot_sums_bound_ms=onehot_b[0], matmul_argmin_ms=lib_ms)
+    del x, ids, fits, c, sums
     torch.cuda.empty_cache()
 
 
@@ -1061,6 +1367,11 @@ def main() -> int:
             f"(CUDA events): eval mode (B5 forward, dk/dv, dq) bf16 "
             f"{eval_bf16:.3f} ms, f32 {eval_f32:.3f} ms; training mode "
             f"(plain attention) bf16 {plain_bf16:.3f} ms")
+        del btrainer, card_bert, cpu_bert, state
+        torch.cuda.empty_cache()
+
+    # -- 8. the pipeline, wav files to a trained checkpoint ------------------
+    pipeline_phase(records, dev)
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -685,3 +685,78 @@ def test_cuda_bert_eval_matches_cpu(cuda_device):
             assert flash_attention_fwd.launches == before + 2  # 2 layers
     torch.testing.assert_close(out[str(cuda_device)], out["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+def _unit_rows(n, d, seed):
+    x = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+    return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True))
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_step_matches_the_plain_assignment(cuda_device,
+                                                       monkeypatch):
+    """One Lloyd step on the card through B2 against the same step through
+    B2's plain version on the card: assignments under the near-tie rule,
+    centroids within 1e-5 where the two assignments agree."""
+    from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties
+
+    x = _unit_rows(200_000, 64, 0).to(cuda_device)
+    init = x[:500].clone()
+    got, _ = km.kmeans_fit(x, 500, 1, init_centroids=init)
+    ids = km.assign(x, init)
+    monkeypatch.setattr(km, "vq_argmin", vq_argmin_plain)
+    ref, _ = km.kmeans_fit(x, 500, 1, init_centroids=init)
+    ids_ref = km.assign(x, init)
+    check_near_ties(x, init, ids, ids_ref)
+    moved = torch.cat([ids[ids != ids_ref], ids_ref[ids != ids_ref]])
+    same = torch.ones(500, dtype=torch.bool, device=cuda_device)
+    same[moved.long()] = False
+    torch.testing.assert_close(got[same], ref[same], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_fits_are_bit_equal_and_launch_b2_each_iteration(
+        cuda_device):
+    """Two fits of the same points on the card give the same bits (the sums
+    are one-hot GEMMs added in order, no atomics), and each fit launches B2
+    once an iteration."""
+    from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+
+    x = _unit_rows(150_001, 64, 1).to(cuda_device)
+    fits = []
+    for _ in range(2):
+        before = vq_argmin.launches
+        fits.append(km.kmeans_fit(x, 500, 6, seed=3))
+        assert vq_argmin.launches == before + 6
+    assert fits[0][0].device == x.device
+    assert torch.equal(fits[0][0], fits[1][0]) and fits[0][1] == fits[1][1]
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_warm_start_and_split_on_the_card(cuda_device):
+    """The warm-start class on the card against the same schedule on the
+    CPU (well-separated blobs, 1e-5), and ``split_largest`` repairs an
+    empty cluster there as on the CPU."""
+    from audio_tokens_tpu_torch.ops import kmeans as km
+
+    rng = np.random.default_rng(2)
+    centers = rng.standard_normal((8, 16)) * 2.0
+    x = (centers[rng.integers(0, 8, 8000)]
+         + rng.standard_normal((8000, 16))).astype(np.float32)
+    out = {}
+    for device in ("cpu", cuda_device):
+        k = km.KMeans(16, 8, niter=5, seed=4, device=device)
+        k.train(x[:4000])
+        k.train(x[4000:], init_centroids=k.centroids)
+        init = torch.from_numpy(x[:5].copy())
+        init[2] = 1e3
+        split, _ = km.kmeans_fit(x, 5, 3, init_centroids=init,
+                                 empty_policy="split_largest", device=device)
+        out[str(device)] = (k.centroids.cpu(), k.obj, split.cpu())
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(card[0], cpu[0], atol=1e-5, rtol=0)
+    assert abs(card[1] - cpu[1]) <= 1e-5 * abs(cpu[1])
+    torch.testing.assert_close(card[2], cpu[2], atol=1e-5, rtol=0)
