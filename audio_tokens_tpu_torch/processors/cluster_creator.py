@@ -8,24 +8,34 @@ L2-normalized ``centroids.npy`` (f32 ``x / (||x|| + 1e-10)`` rows, shape
 PCA scatter at ``output/centroids_visualization.png``.
 
 The fit is ``ops/kmeans.py`` on the stage's device (``cuda:0`` unless the
-caller passes another): each file batch is L2-normalized there and stays
-there for the fit.  Two modes (``config.kmeans_mode``):
+caller passes another).  Two modes (``config.kmeans_mode``):
 
   * ``batch_warm_start`` (the default) — the reference's schedule: each
-    ``clustering_batch_size``-file batch re-trains ``niter`` Lloyd
-    iterations from the previous batch's centroids;
-  * ``full`` — one Lloyd fit over every frame, held in device memory.
+    ``clustering_batch_size``-file batch, L2-normalized on the device,
+    re-trains ``niter`` Lloyd iterations from the previous batch's
+    centroids;
+  * ``full`` — one Lloyd fit over every frame: held in device memory, or,
+    when the frames exceed ``kmeans_inmemory_budget_mb`` (or
+    ``kmeans_streaming='always'``), ``kmeans_fit_streaming`` over a host
+    stream of the files (L2-normalized on the host, so the stream is the
+    same on any device) with its device, host and disk caches, its wire
+    (``kmeans_wire``), a seeded init from a sample of the whole train list,
+    and a checkpoint after every iteration
+    (``centroids_path`` + ``.kmeans_ckpt.npz``) that an ``incremental``
+    rerun resumes bit-equal to an uninterrupted fit.
 
-Not ported, and refused with ``NotImplementedError``: the streaming fit and
-its mid-fit checkpoint, its host/disk caches and wire formats (ROADMAP A2,
-second half), the fused device feed and ``take_resident_frames`` (ROADMAP
-A3, fused mode), ``use_convolution`` and the precision tiers (ROADMAP A6),
-multi-process runs and stage traces (ROADMAP A7).
+Not ported, and refused with ``NotImplementedError``: the fused device feed
+and ``take_resident_frames`` (ROADMAP A3, fused mode), ``use_convolution``
+and the precision tiers (ROADMAP A6), multi-process runs and stage traces
+(ROADMAP A7).
 """
 
 from __future__ import annotations
 
+import io
+import json
 import logging
+import zipfile
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -34,14 +44,18 @@ import torch
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.ops.kmeans import (
+    WIRES,
     KMeans,
     kmeans_fit,
+    kmeans_fit_streaming,
+    kmeans_plusplus_init,
     precision_from_str,
 )
 from audio_tokens_tpu_torch.ops.vq import l2_normalize
 from audio_tokens_tpu_torch.processors.spectrogram_generator import (
     refuse_multiprocess,
 )
+from audio_tokens_tpu_torch.utils.npy_io import atomic_save_bytes
 from audio_tokens_tpu_torch.utils.seeding import set_seed
 
 logger = logging.getLogger(__name__)
@@ -52,12 +66,6 @@ def _refuse_unported(config: AudioTokensConfig) -> None:
         "fused_pipeline=True (the fused device feed and the resident-frames "
         "handoff)": ("A3, fused mode", config.fused_pipeline),
         "use_convolution (ConvFeatures)": ("A6", config.use_convolution),
-        "kmeans_stream_cache_mb > 0 (the streaming fit's host cache)":
-            ("A2, second half", config.kmeans_stream_cache_mb > 0),
-        "kmeans_stream_spill_mb > 0 (the streaming fit's disk spill)":
-            ("A2, second half", config.kmeans_stream_spill_mb > 0),
-        f"kmeans_wire='{config.kmeans_wire}' (the streaming fit's wire)":
-            ("A2, second half", config.kmeans_wire != "f32"),
     }
     for what, (item, asked) in refused.items():
         if asked:
@@ -74,18 +82,15 @@ class ClusterCreator:
         self.config = config
         self.device = torch.device("cuda", 0) if device is None else \
             torch.device(device)
+        self._stream_sig: Optional[str] = None
         set_seed(config.random_seed)
 
     def run(self) -> np.ndarray:
         logger.info("starting clustering (mode=%s)", self.config.kmeans_mode)
         cfg = self.config
-        if cfg.kmeans_mode == "full":
-            if self._should_stream():
-                raise NotImplementedError(
-                    "kmeans_mode='full' over more frames than "
-                    "kmeans_inmemory_budget_mb (or kmeans_streaming="
-                    "'always') needs the streaming fit, which is not ported "
-                    "yet: ROADMAP A2, second half")
+        if cfg.kmeans_mode == "full" and self._should_stream():
+            centroids = self._fit_streaming()
+        elif cfg.kmeans_mode == "full":
             frames = torch.cat(list(self._batch_generator(
                 cfg.clustering_batch_size)))
             centroids, obj = kmeans_fit(
@@ -123,11 +128,13 @@ class ClusterCreator:
             if centroids is None:
                 raise RuntimeError("no training spectrograms found")
 
-        centroids = l2_normalize(centroids).cpu().numpy()
+        centroids = l2_normalize(torch.as_tensor(centroids)).cpu().numpy()
         logger.info("Centroids shape: %s", centroids.shape)
         out_path = Path(cfg.centroids_path)
         out_path.parent.mkdir(parents=True, exist_ok=True)
         np.save(out_path, centroids)
+        # the artifact exists: the streaming fit's checkpoint has served
+        self._kmeans_ckpt_path().unlink(missing_ok=True)
         self.visualize_centroids(centroids)
         return centroids
 
@@ -161,19 +168,173 @@ class ClusterCreator:
             return True
         return False
 
-    def _batch_generator(self, batch_size: int) -> Iterator[torch.Tensor]:
-        """Yield (frames, feature_dim) f32 tensors on the stage's device,
-        L2-normalized there, per ``batch_size`` files in sorted order — the
-        reference's frame pipeline (:83-102)."""
+    def _train_files(self) -> list:
         spec_dir = Path(self.config.source_spec_path) / "train"
         files = sorted(spec_dir.glob("*.npy"))
         if not files:
             raise FileNotFoundError(f"no spectrograms under {spec_dir}")
+        return files
+
+    def _file_frames(self, batch_size: int) -> Iterator[np.ndarray]:
+        """(frames, feature_dim) f32 matrices, per ``batch_size`` files in
+        sorted order — the reference's frame pipeline (:83-102)."""
+        files = self._train_files()
         for i in range(0, len(files), batch_size):
-            frames = np.concatenate(
+            yield np.concatenate(
                 [np.load(f).T for f in files[i : i + batch_size]],
                 axis=0).astype(np.float32)
+
+    def _batch_generator(self, batch_size: int) -> Iterator[torch.Tensor]:
+        """The file batches as f32 tensors on the stage's device,
+        L2-normalized there."""
+        for frames in self._file_frames(batch_size):
             yield l2_normalize(torch.from_numpy(frames).to(self.device))
+
+    def _host_batches(self, batch_size: int) -> Iterator[np.ndarray]:
+        """The file batches L2-normalized on the host: the streaming fit's
+        stream, the same on any device."""
+        for frames in self._file_frames(batch_size):
+            yield l2_normalize(torch.from_numpy(frames)).numpy()
+
+    # -- the streaming fit and its mid-fit checkpoint ------------------------
+    # The per-iteration centroid update is the fit's only state across
+    # iterations, so one small npz after each iteration makes the stage
+    # resumable to the exact iteration (the stream is the same every pass).
+
+    def _fit_streaming(self):
+        cfg = self.config
+        if cfg.max_points_per_centroid is not None:
+            logger.warning(
+                "kmeans streaming uses every frame: max_points_per_centroid"
+                "=%d is ignored in the streaming path",
+                cfg.max_points_per_centroid)
+        wire = WIRES.get(cfg.kmeans_wire)
+        if wire is None:
+            raise ValueError(
+                f"kmeans_wire must be 'f32' or 'bf16', got '{cfg.kmeans_wire}'")
+        start_iter, init_c = self._load_kmeans_checkpoint()
+        if init_c is None:
+            init_c = self._global_init_centroids()
+        if start_iter >= cfg.niter:
+            # the fit finished but the run died before centroids.npy was
+            # saved: the checkpoint is the result
+            logger.info("streaming kmeans checkpoint already complete (%d "
+                        "iterations); skipping the fit", start_iter)
+            return init_c
+        spill_path = None
+        if cfg.kmeans_stream_spill_mb > 0:
+            spill_path = (Path(cfg.base_dir) / "output"
+                          / "kmeans_stream_spill.p0.bin")
+        centroids, obj, n = kmeans_fit_streaming(
+            lambda: self._host_batches(cfg.clustering_batch_size),
+            cfg.vocab_size,
+            cfg.niter,
+            d=self.feature_dim,
+            seed=cfg.random_seed,
+            init_centroids=init_c,
+            start_iter=start_iter,
+            checkpoint_fn=self._save_kmeans_checkpoint,
+            superbatch_rows=cfg.kmeans_superbatch_rows,
+            init=cfg.kmeans_init,
+            empty_policy=cfg.kmeans_empty_policy,
+            precision=cfg.kmeans_precision,
+            cache_mb=cfg.kmeans_stream_cache_mb,
+            cache_spill_path=spill_path,
+            cache_spill_mb=cfg.kmeans_stream_spill_mb,
+            hbm_cache_mb=cfg.kmeans_hbm_cache_mb,
+            wire_dtype=wire,
+            device=self.device,
+        )
+        logger.info("streaming kmeans over %d frames: obj=%.2f", n, obj)
+        return centroids
+
+    def _kmeans_ckpt_path(self) -> Path:
+        return Path(self.config.centroids_path).with_suffix(".kmeans_ckpt.npz")
+
+    def _stream_signature(self) -> str:
+        """Everything that shapes the Lloyd trajectory, as the JAX stage
+        writes it: a checkpoint of another corpus or config is not
+        resumed.  Computed once (the writer runs every iteration)."""
+        if self._stream_sig is None:
+            cfg = self.config
+            self._stream_sig = json.dumps([
+                cfg.vocab_size, self.feature_dim, cfg.niter, cfg.random_seed,
+                cfg.kmeans_init, cfg.kmeans_empty_policy,
+                cfg.kmeans_precision, cfg.kmeans_wire,
+                cfg.clustering_batch_size, cfg.kmeans_superbatch_rows,
+                len(self._train_files()),
+            ])
+        return self._stream_sig
+
+    def _save_kmeans_checkpoint(self, completed: int, centroids,
+                                obj: float) -> None:
+        buf = io.BytesIO()
+        np.savez(buf,
+                 centroids=torch.as_tensor(centroids).cpu().numpy().astype(
+                     np.float32),
+                 iter=np.int64(completed), obj=np.float64(obj),
+                 signature=np.str_(self._stream_signature()))
+        atomic_save_bytes(self._kmeans_ckpt_path(), buf.getvalue())
+
+    def _load_kmeans_checkpoint(self):
+        """(start_iter, init centroids): (0, None) unless ``incremental``
+        finds a resumable fit of this exact stream; without
+        ``incremental`` a checkpoint is deleted (destructive rerun)."""
+        path = self._kmeans_ckpt_path()
+        if not path.exists():
+            return 0, None
+        if not self.config.incremental:
+            path.unlink(missing_ok=True)
+            return 0, None
+        try:
+            z = np.load(path, allow_pickle=False)
+            if str(z["signature"]) != self._stream_signature():
+                logger.info("kmeans checkpoint ignored: stream/config changed")
+                return 0, None
+            completed = int(z["iter"])
+            c = np.asarray(z["centroids"], np.float32)
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:
+            logger.warning("kmeans checkpoint unreadable (%s); restarting", e)
+            return 0, None
+        if c.shape != (self.config.vocab_size, self.feature_dim):
+            return 0, None
+        logger.info("resuming streaming kmeans from checkpoint: %d/%d "
+                    "iterations already done", completed, self.config.niter)
+        return completed, c
+
+    def _global_init_centroids(self):
+        """The streaming fit's init, from a seeded sample of the whole
+        sorted train list (``_global_init_sample``) rather than the first
+        super-batch: ``random`` draws the JAX stage's rows,
+        ``kmeans++`` runs the port's draw on the stage's device."""
+        cfg = self.config
+        k = cfg.vocab_size
+        sample = self._global_init_sample()
+        if sample.shape[0] < k:
+            raise ValueError(f"init sample has {sample.shape[0]} frames < k={k}")
+        if cfg.kmeans_init == "kmeans++":
+            return kmeans_plusplus_init(sample, k, seed=cfg.random_seed,
+                                        device=self.device)
+        if cfg.kmeans_init == "random":
+            rng = np.random.default_rng(cfg.random_seed)
+            return sample[rng.choice(sample.shape[0], size=k, replace=False)]
+        raise ValueError(f"unknown kmeans_init '{cfg.kmeans_init}'")
+
+    def _global_init_sample(self) -> np.ndarray:
+        """L2-normalized frames (host) of a seeded subset of the sorted
+        train files, enough for a k-sized draw."""
+        cfg = self.config
+        rng = np.random.default_rng(cfg.random_seed)
+        target = max(4 * cfg.vocab_size, 2048)
+        n_pick = min(-(-target // max(1, cfg.frames_per_clip)) + 2, 10_000)
+        files = self._train_files()
+        n_pick = min(n_pick, len(files))
+        chosen = [files[i] for i in sorted(
+            rng.choice(len(files), size=n_pick, replace=False))]
+        frames = np.concatenate([np.load(f).T for f in chosen],
+                                axis=0).astype(np.float32)
+        return l2_normalize(torch.from_numpy(frames)).numpy()
 
     def evaluate_clustering(self, data: np.ndarray, labels: np.ndarray,
                             sample_size: int = 10000,

@@ -75,15 +75,32 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    record's ``launches_by_path`` gains ``pipeline_cluster`` and
    ``pipeline_tokenize``, B3's and B4's ``pipeline_train``.  Then the card's
    results are held against the CPU: the first 8 clips' spectrograms
-   recomputed from the decoded waves, one Lloyd iteration from the saved
-   centroids over the first 64 clips' frames, and 8 clips' tokens.  Last,
-   K-means at the real size of a default clustering batch (10,000 clips,
-   17.23M unit rows x 64, made on the card from a seed): two
-   ``KMeans.train`` fits at vocab 500 and 20 iterations, which must be
-   bit-equal, the iteration split into the assignment (B2) and the
-   centroid sums (sorted rows), each beside its bound, the sums as the JAX
-   package forms them (a one-hot GEMM) and the assignment by
-   ``torch.matmul`` + ``argmin`` in chunks as yardsticks.
+   recomputed from the decoded waves (with where the largest gap sits: mel
+   bin, frame, the CPU's dB there, and the largest gap over bins above -80
+   dB), one Lloyd iteration from the saved centroids over the first 64
+   clips' frames, and 8 clips' tokens.  The clustering stage then runs
+   ``kmeans_mode="full"`` through the streaming fit (4 super-batches of
+   262,144 of the 882,176 frames): uninterrupted, stopped by a raising
+   checkpoint wrapper after iteration 5 and resumed with
+   ``incremental=True``, bit-equal (``launches_by_path``
+   ``pipeline_cluster_stream``).  Last, K-means at the real size of a
+   default clustering batch (10,000 clips, 17.23M unit rows x 64, made on
+   the card from a seed): two ``KMeans.train`` fits at vocab 500 and 20
+   iterations, which must be bit-equal, with their peak device memory;
+   the iteration split into the assignment (B2) and the centroid sums
+   (sorted rows), each beside its bound, and the sums split into the sort,
+   the gather and the f64 running sums; the sums as the JAX package forms
+   them (a one-hot GEMM) and the assignment by ``torch.matmul`` +
+   ``argmin`` in chunks as yardsticks.  The same rows then go to the host
+   and stream back through ``kmeans_fit_streaming`` (17 super-batches of
+   1,048,576, the in-memory fit's init) in four modes: re-stream, host
+   cache, device (HBM) cache and the bf16 wire with the device cache.  The
+   f32 modes must be bit-equal and within 1e-5 of the in-memory fit (ids
+   apart at near-ties only), the bf16 mode within 1e-5 of the in-memory
+   fit of the bf16-rounded rows; each mode prints its ms an iteration,
+   its time waiting on the stream, its host-to-card GB/s, its peak device
+   memory and B2's launches (340 a fit; ``launches_by_path``
+   ``kmeans_stream``).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -95,6 +112,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -131,7 +149,10 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 RESAMPLED_CLIP = 5  # the pipeline's one clip at 44.1 kHz
 KMEANS_CLIPS = 10_000  # config.clustering_batch_size: one default batch
+STAGE_SUPERBATCH, STAGE_STOP = 262_144, 5  # the streaming stage's resume
+STREAM_PIECE_CLIPS = 1000  # clips a host piece of the 17.23M-row stream
 SPEC_ATOL, SPEC_RTOL = 5e-3, 1e-4  # dB: another DFT summation order
+LOUD_DB, FLOOR_DB = -80.0, -100.0  # bins well above the 1e-10 power floor
 CENT_ATOL = 1e-5   # one Lloyd step's centroids, other summation orders
 LSTM_ATOL = 1e-4   # 1728 f32 steps, another summation order
 DW_RTOL = 1e-4     # dw_hh: max abs error / max |dw_hh| (110,528-row sums)
@@ -589,6 +610,25 @@ def clock_stages(stages, kernels, seconds: dict, launches: dict):
     return restore
 
 
+def f64_spectrogram(cfg, ytid: str) -> np.ndarray:
+    """A clip's (n_mels, frames) log-mel through the port's frontend in
+    float64 on the CPU: the reference for where the card and the CPU part
+    in float32."""
+    import torch
+
+    from audio_tokens_tpu_torch.data.audio_io import (decode_clip,
+                                                      find_audio_file)
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
+
+    fe = MelFrontend("cpu", cfg.common_sr, cfg.n_mels, cfg.n_fft,
+                     cfg.hop_length, cfg.clip_samples)
+    fe._basis, fe._fbank = fe._basis.double(), fe._fbank.double()
+    batch, lengths = fe.prepare_batch(
+        [decode_clip(cfg, find_audio_file(cfg, ytid))])
+    spec = fe(torch.from_numpy(batch).double())[0]
+    return spec[:, : 1 + int(lengths[0]) // cfg.hop_length].numpy()
+
+
 def agreeing_centroid_error(ids, ids_ref, cents, cents_ref) -> float:
     """Largest centroid difference over the clusters whose members are the
     same in both assignments."""
@@ -598,6 +638,70 @@ def agreeing_centroid_error(ids, ids_ref, cents, cents_ref) -> float:
     same = torch.ones(cents.shape[0], dtype=torch.bool)
     same[moved.long()] = False
     return float((cents[same] - cents_ref[same]).abs().max())
+
+
+class Interrupt(Exception):
+    """Stops a streaming fit after a chosen iteration's checkpoint."""
+
+
+def stream_stage(records: list, cfg, base: Path, dev, frames: int) -> None:
+    """The clustering stage's streaming fit on phase 8's workspace:
+    uninterrupted, then stopped after iteration STAGE_STOP and resumed
+    from its checkpoint (``incremental=True``), which must give the same
+    centroids bit for bit."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.ops.kmeans import DEFAULT_CHUNK
+    from audio_tokens_tpu_torch.processors import ClusterCreator
+
+    scfg = dataclasses.replace(
+        cfg, kmeans_mode="full", kmeans_streaming="always",
+        kmeans_superbatch_rows=STAGE_SUPERBATCH, incremental=True,
+        centroids_path=base / "output" / "stream_centroids.npy")
+    capacity = max(1, STAGE_SUPERBATCH // DEFAULT_CHUNK) * DEFAULT_CHUNK
+    n_sb = -(-frames // capacity)
+    runs, launches, seconds = [], [], []
+    for stop in (None, STAGE_STOP, None):
+        cc = ClusterCreator(scfg, dev)
+        if stop is not None:
+            save = cc._save_kmeans_checkpoint
+
+            def save_then_stop(it, c, o, _save=save, _stop=stop):
+                _save(it, c, o)
+                if it == _stop:
+                    raise Interrupt
+
+            cc._save_kmeans_checkpoint = save_then_stop
+        torch.cuda.synchronize()
+        before = vq_argmin.launches
+        t0 = time.perf_counter()
+        try:
+            runs.append(cc.run())
+        except Interrupt:
+            ckpt = np.load(cc._kmeans_ckpt_path())
+            if int(ckpt["iter"]) != stop:
+                raise AssertionError(f"checkpoint at {ckpt['iter']}, not "
+                                     f"{stop}")
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(vq_argmin.launches - before)
+    want = [n_sb * cfg.niter, n_sb * STAGE_STOP, n_sb * (cfg.niter - STAGE_STOP)]
+    if launches != want:
+        raise AssertionError(f"streaming stage launched B2 {launches} times, "
+                             f"not {want}")
+    if not np.array_equal(runs[0], runs[1]):
+        raise AssertionError("the resumed streaming stage differs from the "
+                             "uninterrupted one")
+    if cc._kmeans_ckpt_path().exists():
+        raise AssertionError("the streaming fit's checkpoint was not deleted")
+    records[1]["launches_by_path"]["pipeline_cluster_stream"] = sum(launches)
+    log(f"[pipeline stream] ClusterCreator kmeans_mode=full, streaming "
+        f"always, {frames} frames in {n_sb} super-batches of "
+        f"{capacity}, {cfg.niter} iterations: uninterrupted "
+        f"{seconds[0]:.2f} s, stopped after iteration {STAGE_STOP} "
+        f"{seconds[1]:.2f} s, resumed {seconds[2]:.2f} s (host clock, "
+        f"synchronized); centroids bit-equal; B2 launches {launches}")
 
 
 def pipeline_phase(records: list, dev) -> None:
@@ -684,7 +788,7 @@ def pipeline_phase(records: list, dev) -> None:
         # the card's results against the CPU: spectrograms from the
         # decoded waves (clip 0 stereo, clip 5 resampled), one Lloyd step
         # from the saved centroids, tokens from the saved centroids
-        spec_err = 0.0
+        spec_err, loud_err, spec_at = 0.0, 0.0, None
         n_specs = 0
         cpu_cfg = dataclasses.replace(cfg, device_batch_size=8)
         for y, spec in SpectrogramGenerator(cpu_cfg, "cpu").iter_specs(
@@ -697,7 +801,14 @@ def pipeline_phase(records: list, dev) -> None:
             if (diff > SPEC_ATOL + SPEC_RTOL * np.abs(spec)).any():
                 raise AssertionError(f"{y}: spectrogram differs from the "
                                      f"CPU's by {diff.max():.3e} dB")
-            spec_err = max(spec_err, float(diff.max()))
+            at = np.unravel_index(diff.argmax(), diff.shape)
+            if diff[at] >= spec_err:
+                spec_err = float(diff[at])
+                spec_at = (y, *map(int, at), float(spec[at]), float(card[at]),
+                           float(spec[:, at[1]].max()))
+            loud = spec > LOUD_DB
+            if loud.any():
+                loud_err = max(loud_err, float(diff[loud].max()))
             n_specs += 1
         if n_specs != 8:
             raise AssertionError(f"{n_specs} of 8 spectrograms on the CPU")
@@ -723,6 +834,15 @@ def pipeline_phase(records: list, dev) -> None:
         tok_frac, tok_gap = check_near_ties(
             l2_normalize(tok_frames), c, tok_card,
             vq_assign_fused(tok_frames, c, normalize=True))
+        ref64 = f64_spectrogram(cfg, spec_at[0])[spec_at[1:3]]
+        log(f"[pipeline reference] spectrogram gap: largest {spec_err:.3e} "
+            f"dB at {spec_at[0]} mel bin {spec_at[1]}, frame {spec_at[2]}, "
+            f"where the CPU has {spec_at[3]:.4f} dB (card {spec_at[4]:.4f}, "
+            f"the frame's loudest bin {spec_at[5]:.4f} dB, the same frontend "
+            f"in f64 on the CPU {ref64:.4f}: card {spec_at[4] - ref64:+.3e}, "
+            f"CPU {spec_at[3] - ref64:+.3e}); largest over bins above "
+            f"{LOUD_DB:g} dB {loud_err:.3e} dB (the power floor is "
+            f"{FLOOR_DB:g} dB)")
         log(f"[pipeline reference] CPU vs card: 8 spectrograms max abs err "
             f"{spec_err:.3e} dB (atol {SPEC_ATOL} + rtol {SPEC_RTOL}); one "
             f"Lloyd step over {x.shape[0]} frames of 64 clips: ids "
@@ -731,6 +851,7 @@ def pipeline_phase(records: list, dev) -> None:
             f"{card[2]:.6f} vs CPU {cpu[2]:.6f}; tokens of 8 clips "
             f"{tok_frac:.2e} disagree (gap {tok_gap:.3e})")
         del x, c, tok_frames, tok_card, step
+        stream_stage(records, cfg, base, dev, frames)
 
     # K-means at the size of one default clustering batch
     n = KMEANS_CLIPS * (1 + cfg.clip_samples // cfg.hop_length)
@@ -739,6 +860,8 @@ def pipeline_phase(records: list, dev) -> None:
     x = torch.randn((n, cfg.n_mels), generator=gen, device=dev)
     x /= torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-10
     fits, fit_s = [], []
+    points_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         fit = km.KMeans(cfg.n_mels, cfg.vocab_size, niter=cfg.niter,
                         seed=cfg.random_seed, device=dev)
@@ -752,6 +875,7 @@ def pipeline_phase(records: list, dev) -> None:
             raise AssertionError(f"a fit launched B2 "
                                  f"{vq_argmin.launches - before} times")
         fits.append(fit)
+    fit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not (torch.equal(fits[0].centroids, fits[1].centroids)
             and fits[0].obj == fits[1].obj):
         raise AssertionError("two card K-means fits differ")
@@ -759,6 +883,7 @@ def pipeline_phase(records: list, dev) -> None:
     assign_ms = cuda_ms(lambda: km.assign(x, c), 3)
     ids = km.assign(x, c)
     sums_ms = cuda_ms(lambda: km.cluster_sums(x, ids, cfg.vocab_size), 3)
+    split = sums_split(x, ids)
     rows = torch.arange(cfg.vocab_size, dtype=ids.dtype, device=dev)[:, None]
 
     def onehot_sums():  # the JAX formulation, timed beside the one adopted
@@ -800,13 +925,184 @@ def pipeline_phase(records: list, dev) -> None:
         f"{iter_ms - assign_ms - sums_ms:.3f} ms; yardstick torch.matmul + "
         f"argmin in chunks of {1 << 18} (TF32 off) {lib_ms:.3f} ms, ids "
         f"{lib_frac:.2e} disagree with B2's (gap {lib_gap:.3e})")
+    log(f"[kmeans] peak device memory of the fits {fit_peak_gb:.3f} GB "
+        f"(max_memory_allocated), {fit_peak_gb - points_gb:.3f} GB beside "
+        f"the {points_gb:.3f} GB of points; the sums' {sums_ms:.3f} ms by "
+        f"part (CUDA events, each alone): stable sort of the ids "
+        f"{split['sort_ms']:.3f} ms, gather x[order] {split['gather_ms']:.3f} "
+        f"ms, f64 running sums in blocks {split['cumsum_ms']:.3f} ms, the "
+        f"rest (run ends, differences, one-hot GEMM) "
+        f"{sums_ms - sum(split.values()):.3f} ms")
     records[1]["kmeans_17M"] = dict(
         rows=n, iteration_ms=iter_ms, point_iters_per_s=rate,
         assign_ms=assign_ms, assign_bound_ms=assign_b[0], sums_ms=sums_ms,
         sums_bound_ms=sums_b[0], onehot_sums_ms=onehot_ms,
-        onehot_sums_bound_ms=onehot_b[0], matmul_argmin_ms=lib_ms)
-    del x, ids, fits, c, sums
+        onehot_sums_bound_ms=onehot_b[0], matmul_argmin_ms=lib_ms,
+        peak_gb=fit_peak_gb, points_gb=points_gb,
+        sums_rest_ms=sums_ms - sum(split.values()), **split)
+    del ids, sums
+    stream_phase(records, cfg, dev, x, c)
+    del x, fits, c
     torch.cuda.empty_cache()
+
+
+def sums_split(x, ids) -> dict:
+    """The parts of ``cluster_sums`` at these rows, each timed alone with
+    CUDA events: the stable sort, the gather and the f64 running sums."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.kmeans import SEGMENT_BLOCK
+
+    n, d = x.shape
+    m = n - n % SEGMENT_BLOCK
+    _, order = torch.sort(ids, stable=True)
+    xs = x[order]
+    run = torch.empty((n, d), dtype=torch.float64, device=x.device)
+
+    def cumsum():
+        torch.cumsum(xs[:m].view(-1, SEGMENT_BLOCK, d), 1,
+                     dtype=torch.float64,
+                     out=run[:m].view(-1, SEGMENT_BLOCK, d))
+        torch.cumsum(xs[m:], 0, dtype=torch.float64, out=run[m:])
+
+    out = dict(sort_ms=cuda_ms(lambda: torch.sort(ids, stable=True), 3),
+               gather_ms=cuda_ms(lambda: x[order], 3),
+               cumsum_ms=cuda_ms(cumsum, 3))
+    del xs, run, order
+    torch.cuda.empty_cache()
+    return out
+
+
+class IterationLog(logging.Handler):
+    """Collects the streaming fit's per-iteration log lines: (seconds,
+    seconds waiting on the stream)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.iters = []
+
+    def emit(self, record):
+        if record.msg.startswith("streaming kmeans iter"):
+            self.iters.append((record.args[4], record.args[5]))
+
+
+def stream_phase(records: list, cfg, dev, x, ref) -> None:
+    """The 17.23M rows streamed back from the host through
+    ``kmeans_fit_streaming`` from the in-memory fit's init, in four modes;
+    the three f32 modes must be bit-equal and agree with the in-memory fit
+    ``ref`` within CENT_ATOL, ids differing at near-ties only; bf16 is held
+    to the in-memory fit of the bf16-rounded rows."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties
+
+    n, d = x.shape
+    k = cfg.vocab_size
+    init = x[torch.from_numpy(np.random.default_rng(cfg.random_seed).choice(
+        n, size=k, replace=False)).to(dev)]
+    t0 = time.perf_counter()
+    host = x.cpu().numpy()
+    to_host_s = time.perf_counter() - t0
+    piece = STREAM_PIECE_CLIPS * (1 + cfg.clip_samples // cfg.hop_length)
+
+    def stream():
+        return (host[i : i + piece] for i in range(0, n, piece))
+
+    capacity = max(1, cfg.kmeans_superbatch_rows // km.DEFAULT_CHUNK) * \
+        km.DEFAULT_CHUNK
+    n_sb = -(-n // capacity)
+    pinned = torch.empty((capacity, d), pin_memory=True)
+    on_card = torch.empty((capacity, d), device=dev)
+    link_ms = cuda_ms(lambda: on_card.copy_(pinned, non_blocking=True), 5)
+    link_gbs = pinned.numel() * 4 / link_ms / 1e6
+    del pinned, on_card
+    handler = IterationLog()
+    klog = logging.getLogger("audio_tokens_tpu_torch.ops.kmeans")
+    klog.addHandler(handler)
+    klog.setLevel(logging.INFO)
+    modes = [("restream", {}, torch.float32),
+             ("host_cache", {"cache_mb": 8192}, torch.float32),
+             ("hbm_cache", {"hbm_cache_mb": cfg.kmeans_hbm_cache_mb},
+              torch.float32),
+             ("bf16_hbm_cache", {"hbm_cache_mb": cfg.kmeans_hbm_cache_mb},
+              torch.bfloat16)]
+    out, fits = {}, {}
+    try:
+        for name, caches, wire in modes:
+            handler.iters = []
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            before = vq_argmin.launches
+            t0 = time.perf_counter()
+            c, obj, seen = km.kmeans_fit_streaming(
+                stream, k, cfg.niter, d=d, seed=cfg.random_seed,
+                init_centroids=init, wire_dtype=wire, device=dev,
+                superbatch_rows=cfg.kmeans_superbatch_rows, **caches)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = vq_argmin.launches - before
+            if launches != n_sb * cfg.niter or seen != n:
+                raise AssertionError(f"{name}: B2 launched {launches} times "
+                                     f"over {seen} rows")
+            copying = handler.iters[:1] if "hbm_cache_mb" in caches \
+                else handler.iters
+            wire_bytes = n * d * (4 if wire == torch.float32 else 2)
+            iter_s = [s for s, _ in handler.iters]
+            out[name] = dict(
+                fit_s=fit_s, iteration_ms=fit_s / cfg.niter * 1e3,
+                first_iteration_ms=iter_s[0] * 1e3,
+                later_iteration_ms=statistics.mean(iter_s[1:]) * 1e3,
+                wait_s=sum(w for _, w in handler.iters),
+                h2d_gb_per_s=wire_bytes * len(copying)
+                / sum(s for s, _ in copying) / 1e9,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                base_gb=base_gb, launches=launches, objective=obj)
+            fits[name] = c
+    finally:
+        klog.removeHandler(handler)
+    del host
+    f32 = fits["restream"]
+    for name in ("host_cache", "hbm_cache"):
+        if not (torch.equal(fits[name], f32) and out[name]["objective"]
+                == out["restream"]["objective"]):
+            raise AssertionError(f"{name} replay differs from re-streaming")
+    err = float((f32 - ref).abs().max())
+    frac, gap = check_near_ties(x, ref, km.assign(x, f32), km.assign(x, ref))
+    x_bf = x.bfloat16().float()
+    ref_bf, _ = km.kmeans_fit(x_bf, k, cfg.niter, init_centroids=init)
+    bf_err = float((fits["bf16_hbm_cache"] - ref_bf).abs().max())
+    bf_vs_f32 = float((fits["bf16_hbm_cache"] - f32).abs().max())
+    del x_bf
+    if not (err <= CENT_ATOL and bf_err <= CENT_ATOL):
+        raise AssertionError(f"streaming fits differ from the in-memory fits "
+                             f"by {err:.3e} (f32) and {bf_err:.3e} (bf16)")
+    for name, m in out.items():
+        log(f"[kmeans stream] {name}: {n} rows in {n_sb} super-batches of "
+            f"{capacity}, {cfg.niter} iterations {m['fit_s']:.3f} s = "
+            f"{m['iteration_ms']:.2f} ms an iteration (first "
+            f"{m['first_iteration_ms']:.2f}, later "
+            f"{m['later_iteration_ms']:.2f}; host clock, synchronized); "
+            f"waiting on the stream {m['wait_s']:.3f} s; host to card "
+            f"{m['h2d_gb_per_s']:.2f} GB/s over the iterations that copy; "
+            f"peak device memory {m['peak_gb']:.3f} GB ({m['base_gb']:.3f} GB "
+            f"held before the fit); B2 launches {m['launches']}; objective "
+            f"{m['objective']:.6f}")
+    log(f"[kmeans stream] rows to the host in {to_host_s:.2f} s; one pinned "
+        f"{capacity}-row copy to the card {link_ms:.3f} ms = {link_gbs:.2f} "
+        f"GB/s (CUDA events); restream, host_cache and hbm_cache bit-equal; "
+        f"f32 vs the in-memory fit max abs err {err:.3e} (atol {CENT_ATOL}), "
+        f"ids {frac:.2e} disagree (gap {gap:.3e}); bf16 vs the in-memory fit "
+        f"of the bf16-rounded rows {bf_err:.3e}, vs the f32 fit {bf_vs_f32:.3e}")
+    records[1]["kmeans_stream_17M"] = dict(
+        rows=n, superbatches=n_sb, capacity=capacity, link_gb_per_s=link_gbs,
+        max_abs_err_vs_in_memory=err, bf16_max_abs_err_vs_bf16_in_memory=bf_err,
+        modes=out)
+    records[1]["launches_by_path"]["kmeans_stream"] = sum(
+        m["launches"] for m in out.values())
 
 
 def main() -> int:

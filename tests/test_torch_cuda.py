@@ -760,3 +760,61 @@ def test_cuda_kmeans_warm_start_and_split_on_the_card(cuda_device):
     torch.testing.assert_close(card[0], cpu[0], atol=1e-5, rtol=0)
     assert abs(card[1] - cpu[1]) <= 1e-5 * abs(cpu[1])
     torch.testing.assert_close(card[2], cpu[2], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_cuda_kmeans_stream_replays_are_bit_equal(cuda_device, tmp_path,
+                                                  wire):
+    """The streaming fit on the card from host pieces through the pinned
+    ring: re-streamed, host-cached, device-cached and spilled fits give the
+    same bits, each launches B2 once a super-batch an iteration, and they
+    agree within 1e-5 with the in-memory fit of the same (wire-rounded)
+    rows on the card."""
+    from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+
+    x = _unit_rows(70_000, 64, 5).numpy()
+    init = x[np.random.default_rng(5).choice(len(x), 100, replace=False)]
+
+    def stream():
+        return (x[i : i + 9000] for i in range(0, len(x), 9000))
+
+    fits = []
+    for caches in ({}, {"cache_mb": 64}, {"hbm_cache_mb": 64},
+                   {"cache_spill_path": tmp_path / "s.bin",
+                    "cache_spill_mb": 64}):
+        before = vq_argmin.launches
+        fits.append(km.kmeans_fit_streaming(
+            stream, 100, 3, d=64, init_centroids=init, superbatch_rows=16384,
+            wire_dtype=km.WIRES[wire], device=cuda_device, **caches))
+        assert vq_argmin.launches - before == 5 * 3
+    for c, obj, n in fits[1:]:
+        assert torch.equal(c, fits[0][0]) and obj == fits[0][1] and n == len(x)
+    rows = torch.from_numpy(x).to(cuda_device)
+    if wire == "bf16":
+        rows = rows.bfloat16().float()
+    ref, ref_obj = km.kmeans_fit(rows, 100, 3, init_centroids=init)
+    torch.testing.assert_close(fits[0][0], ref, atol=1e-5, rtol=0)
+    assert abs(fits[0][1] - ref_obj) <= 1e-5 * abs(ref_obj)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_stream_takes_device_feeds_untouched(cuda_device):
+    """CUDA tensors of one super-batch pass the feeder untouched, and the
+    fit equals the fit of the same rows streamed from the host."""
+    from audio_tokens_tpu_torch.ops import kmeans as km
+
+    x = _unit_rows(3 * 16384, 32, 6).to(cuda_device)
+    host = x.cpu().numpy()
+    kw = dict(d=32, init_centroids=host[:50], superbatch_rows=16384,
+              hbm_cache_mb=64, cache_mb=64, device=cuda_device)
+    feeds = [x[i : i + 16384] for i in range(0, len(x), 16384)]
+    packed = list(km._SuperbatchFeeder(16384, 32).feeds(iter(feeds)))
+    assert all(buf is feed for (buf, _), feed in zip(packed, feeds))
+    on_card = km.kmeans_fit_streaming(lambda: iter(feeds), 50, 3, **kw)
+    from_host = km.kmeans_fit_streaming(
+        lambda: iter([host[i : i + 5000] for i in range(0, len(host), 5000)]),
+        50, 3, **kw)
+    assert torch.equal(on_card[0], from_host[0])
+    assert on_card[1:] == from_host[1:]

@@ -244,11 +244,6 @@ def test_evaluate_clustering_equals_jax(workspaces):
     ("cluster", {"fused_pipeline": True}, "ROADMAP A3"),
     ("cluster", {"use_convolution": True}, "ROADMAP A6"),
     ("cluster", {"kmeans_precision": "default"}, "ROADMAP A6"),
-    ("cluster", {"kmeans_wire": "bf16"}, "ROADMAP A2"),
-    ("cluster", {"kmeans_stream_cache_mb": 64}, "ROADMAP A2"),
-    ("cluster", {"kmeans_stream_spill_mb": 64}, "ROADMAP A2"),
-    ("cluster", {"kmeans_mode": "full", "kmeans_streaming": "always"},
-     "ROADMAP A2"),
     ("tokenize", {"fused_pipeline": True}, "ROADMAP A3"),
     ("tokenize", {"use_convolution": True}, "ROADMAP A6"),
     ("pipeline", {"fused_pipeline": True}, "ROADMAP A3"),
