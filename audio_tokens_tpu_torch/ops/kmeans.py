@@ -259,19 +259,26 @@ def kmeans_fit(
     init: str = "random",
     empty_policy: str = "keep",
     device: Optional[torch.device | str] = None,
+    n_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, float]:
     """Fit K-means; returns (centroids (k, d) f32 tensor, final objective).
 
     ``x`` is numpy or a tensor of any float dtype, (n, d).  The fit and its
     result live on ``device``; without one, on the tensor's device, and a
     numpy input goes to ``cuda:0``.  Points already on that device are not
-    copied.
+    copied.  ``n_valid``: fit only the first ``n_valid`` rows, a view of
+    ``x`` (a capacity buffer with rows past its fill, as the fused device
+    feed's), so the fit is ``kmeans_fit(x[:n_valid])``.
     """
     precision_from_str(precision)
     if empty_policy not in EMPTY_POLICIES:
         raise ValueError(f"unknown empty_policy '{empty_policy}' "
                          f"(use {'|'.join(EMPTY_POLICIES)})")
     x = _points(x, device)
+    if n_valid is not None:
+        if not 0 < n_valid <= x.shape[0]:
+            raise ValueError(f"n_valid={n_valid} outside (0, {x.shape[0]}]")
+        x = x[:n_valid]
     n, d = x.shape
     rng = np.random.default_rng(seed)
 

@@ -24,10 +24,18 @@ caller passes another).  Two modes (``config.kmeans_mode``):
     (``centroids_path`` + ``.kmeans_ckpt.npz``) that an ``incremental``
     rerun resumes bit-equal to an uninterrupted fit.
 
-Not ported, and refused with ``NotImplementedError``: the fused device feed
-and ``take_resident_frames`` (ROADMAP A3, fused mode), ``use_convolution``
-and the precision tiers (ROADMAP A6), multi-process runs and stage traces
-(ROADMAP A7).
+Under ``fused_pipeline=True`` no spectrogram file exists: the same frames
+come from the audio through ``SpectrogramGenerator.iter_specs`` (clips in
+sorted order, as the files), or, in ``full`` mode when the whole corpus
+fits ``kmeans_hbm_cache_mb``, from the device feed
+(``_fused_frames_device``): waveforms go to the device, where mel frames,
+L2 normalization and the valid-row prefix land in one preallocated buffer
+that the fit reads as a view and ``take_resident_frames`` hands to the
+tokenize stage.
+
+Not ported, and refused with ``NotImplementedError``: ``use_convolution``
+and the precision tiers (ROADMAP A6), the native decoder under the fused
+mode (ROADMAP A6), multi-process runs and stage traces (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.ops.kmeans import (
+    DEFAULT_CHUNK,
     WIRES,
     KMeans,
     kmeans_fit,
@@ -51,9 +60,12 @@ from audio_tokens_tpu_torch.ops.kmeans import (
     kmeans_plusplus_init,
     precision_from_str,
 )
+from audio_tokens_tpu_torch.ops.mel import MelFrontend, num_frames
 from audio_tokens_tpu_torch.ops.vq import l2_normalize
 from audio_tokens_tpu_torch.processors.spectrogram_generator import (
+    SpectrogramGenerator,
     refuse_multiprocess,
+    refuse_native_decode,
 )
 from audio_tokens_tpu_torch.utils.npy_io import atomic_save_bytes
 from audio_tokens_tpu_torch.utils.seeding import set_seed
@@ -62,15 +74,11 @@ logger = logging.getLogger(__name__)
 
 
 def _refuse_unported(config: AudioTokensConfig) -> None:
-    refused = {
-        "fused_pipeline=True (the fused device feed and the resident-frames "
-        "handoff)": ("A3, fused mode", config.fused_pipeline),
-        "use_convolution (ConvFeatures)": ("A6", config.use_convolution),
-    }
-    for what, (item, asked) in refused.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP {item}")
+    if config.use_convolution:
+        raise NotImplementedError(
+            "use_convolution (ConvFeatures) is not ported yet: ROADMAP A6")
+    if config.fused_pipeline:
+        refuse_native_decode(config)
     refuse_multiprocess(config)
     precision_from_str(config.kmeans_precision)
 
@@ -83,16 +91,28 @@ class ClusterCreator:
         self.device = torch.device("cuda", 0) if device is None else \
             torch.device(device)
         self._stream_sig: Optional[str] = None
+        self._gen: Optional[SpectrogramGenerator] = None
+        self.resident_frames: Optional[torch.Tensor] = None
+        self.resident_manifest: Optional[dict] = None
         set_seed(config.random_seed)
 
     def run(self) -> np.ndarray:
         logger.info("starting clustering (mode=%s)", self.config.kmeans_mode)
         cfg = self.config
-        if cfg.kmeans_mode == "full" and self._should_stream():
+        # the fused device feed goes first: it fits the device budget even
+        # where the host budget would stream
+        self.used_device_feed = (cfg.kmeans_mode == "full"
+                                 and self._use_fused_device_feed())
+        if (cfg.kmeans_mode == "full" and not self.used_device_feed
+                and self._should_stream()):
             centroids = self._fit_streaming()
         elif cfg.kmeans_mode == "full":
-            frames = torch.cat(list(self._batch_generator(
-                cfg.clustering_batch_size)))
+            n_valid = None
+            if self.used_device_feed:  # the fit reads the buffer in place
+                frames, n_valid = self._fused_frames_device()
+            else:
+                frames = torch.cat(list(self._batch_generator(
+                    cfg.clustering_batch_size)))
             centroids, obj = kmeans_fit(
                 frames,
                 cfg.vocab_size,
@@ -102,9 +122,10 @@ class ClusterCreator:
                 init=cfg.kmeans_init,
                 empty_policy=cfg.kmeans_empty_policy,
                 precision=cfg.kmeans_precision,
+                n_valid=n_valid,
             )
             logger.info("full kmeans over %d frames: obj=%.2f",
-                        frames.shape[0], obj)
+                        n_valid or frames.shape[0], obj)
             del frames
         else:  # batch_warm_start (reference schedule)
             km = KMeans(
@@ -144,8 +165,9 @@ class ClusterCreator:
 
     def _should_stream(self) -> bool:
         """Whether full-mode k-means would need the streaming fit: the JAX
-        stage's rule for the staged path (spectrogram bytes on disk against
-        ``kmeans_inmemory_budget_mb``, or the subsample's when
+        stage's rule (spectrogram bytes on disk, or under the fused mode
+        every train clip at its most frames, against
+        ``kmeans_inmemory_budget_mb``, or the subsample's bytes when
         ``max_points_per_centroid`` caps the fit)."""
         mode = self.config.kmeans_streaming
         if mode in ("always", "never"):
@@ -159,8 +181,12 @@ class ClusterCreator:
                          * self.feature_dim * 4)
             if cap_bytes <= budget:
                 return False
-        spec_dir = Path(self.config.source_spec_path) / "train"
-        est = sum(f.stat().st_size for f in spec_dir.glob("*.npy"))
+        if self.config.fused_pipeline:
+            est = (self._n_train_clips() * self.config.frames_per_clip
+                   * self.feature_dim * 4)
+        else:
+            spec_dir = Path(self.config.source_spec_path) / "train"
+            est = sum(f.stat().st_size for f in spec_dir.glob("*.npy"))
         if est > budget:
             logger.info(
                 "full kmeans: ~%.1f GB of frames exceeds the %.1f GB in-memory "
@@ -177,12 +203,148 @@ class ClusterCreator:
 
     def _file_frames(self, batch_size: int) -> Iterator[np.ndarray]:
         """(frames, feature_dim) f32 matrices, per ``batch_size`` files in
-        sorted order — the reference's frame pipeline (:83-102)."""
+        sorted order — the reference's frame pipeline (:83-102); under the
+        fused mode the same frames from the audio."""
+        if self.config.fused_pipeline:
+            yield from self._fused_file_frames(batch_size)
+            return
         files = self._train_files()
         for i in range(0, len(files), batch_size):
             yield np.concatenate(
                 [np.load(f).T for f in files[i : i + batch_size]],
                 axis=0).astype(np.float32)
+
+    def _fused_file_frames(self, batch_size: int) -> Iterator[np.ndarray]:
+        """The fused mode's host-mediated frames: ``iter_specs`` over the
+        sorted train clips (the spectrogram files' order), per
+        ``batch_size`` decodable clips.  ``_batch_generator`` normalizes
+        them on the device, ``_host_batches`` on the host (the streaming
+        fit, which calls this once an iteration)."""
+        gen = self._spec_gen()
+        specs: list = []
+        produced = False
+        for _, spec in gen.iter_specs(sorted(gen.data_split["train"])):
+            specs.append(spec.T)
+            if len(specs) == batch_size:
+                produced = True
+                yield np.concatenate(specs, axis=0).astype(np.float32)
+                specs = []
+        if specs:
+            produced = True
+            yield np.concatenate(specs, axis=0).astype(np.float32)
+        if not produced:
+            raise FileNotFoundError("no decodable training audio under "
+                                    f"{self.config.audio_source_path}")
+
+    def _spec_gen(self) -> SpectrogramGenerator:
+        """The fused mode's decode and mel frontend, made once a stage."""
+        if self._gen is None:
+            self._gen = SpectrogramGenerator(self.config, self.device)
+        return self._gen
+
+    # -- the fused device feed and the resident-frames handoff -------------
+
+    def _use_fused_device_feed(self) -> bool:
+        """Whether the full-mode fit takes the device feed
+        (``_fused_frames_device``): the JAX stage's rule — fused mode, no
+        min-max normalization (its constant-clip screen runs on the host),
+        not ``kmeans_streaming='always'`` (an explicit bound on device
+        memory), and the feed's capacity buffer within
+        ``kmeans_hbm_cache_mb``."""
+        cfg = self.config
+        if (not cfg.fused_pipeline or cfg.normalize
+                or cfg.kmeans_streaming == "always"):
+            return False
+        budget = cfg.kmeans_hbm_cache_mb * (1 << 20)
+        if budget <= 0:
+            return False
+        est = (self._feed_capacity_rows(self._n_train_clips())
+               * self.feature_dim * 4)
+        if est > budget:
+            logger.info(
+                "fused device feed declined: ~%.1f GB of frames exceeds "
+                "kmeans_hbm_cache_mb=%d", est / 2**30, cfg.kmeans_hbm_cache_mb)
+            return False
+        return True
+
+    def _n_train_clips(self) -> int:
+        """Train-split clip count: sizes the device feed's buffer."""
+        with open(self.config.split_file) as f:
+            return len(json.load(f)["train"])
+
+    def _feed_capacity_rows(self, n_clips: int) -> int:
+        """Rows of the device feed's buffer for ``n_clips``: every clip at
+        its most frames plus one decode batch, rounded up to whole
+        ``DEFAULT_CHUNK`` rows — the JAX stage's estimate on one device, so
+        the routing decides as the JAX stage does at any budget."""
+        cfg = self.config
+        rows = (n_clips + cfg.device_batch_size) * cfg.frames_per_clip
+        return -(-rows // DEFAULT_CHUNK) * DEFAULT_CHUNK
+
+    def _fused_frames_device(self):
+        """The device feed -> (capacity buffer, rows filled).
+
+        Waveform batches (``iter_wave_batches``, sorted train clips) are the
+        only host-to-device traffic: each batch's mel frames, L2
+        normalization and valid-row prefix are written in place into one
+        preallocated ``(capacity, feature_dim)`` f32 buffer on the device
+        (``_feed_batch``).  The rows equal the host-mediated route's
+        (``_batch_generator``) bit for bit, in clip and frame order.  The
+        filled rows stay resident for ``take_resident_frames`` as a view."""
+        gen = self._spec_gen()
+        ytids = sorted(gen.data_split["train"])
+        buffer = torch.empty(
+            (self._feed_capacity_rows(len(ytids)), self.feature_dim),
+            dtype=torch.float32, device=self.device)
+        offset = 0
+        manifest: dict = {}
+        for batch, lengths, row_ytids in gen.iter_wave_batches(ytids):
+            offset = self._feed_batch(gen.frontend, buffer, offset, batch,
+                                      lengths, row_ytids, manifest)
+        if offset == 0:
+            raise FileNotFoundError(
+                "fused cluster feed found no decodable training audio")
+        self.resident_frames = buffer[:offset]
+        self.resident_manifest = manifest
+        return buffer, offset
+
+    def _feed_batch(self, frontend: MelFrontend, buffer: torch.Tensor,
+                    offset: int, batch: np.ndarray, lengths: np.ndarray,
+                    row_ytids: list, manifest: dict) -> int:
+        """One decode batch of the device feed: its rows' valid frames,
+        L2-normalized, written into ``buffer[offset:]`` in row order, each
+        clip recorded in ``manifest`` as ``{ytid: (row, frames)}``; rows
+        of length < 0 are padding.  Returns the new offset."""
+        cfg = self.config
+        t_max = frontend.frames_max
+        idx, fill = [], 0
+        for c, ln in enumerate(lengths):
+            if ln < 0:
+                continue
+            nv = num_frames(min(int(ln), cfg.clip_samples), cfg.hop_length)
+            idx.append(np.arange(c * t_max, c * t_max + nv))
+            manifest[row_ytids[c]] = (offset + fill, nv)
+            fill += nv
+        if not fill:
+            return offset
+        rows = torch.from_numpy(np.concatenate(idx)).to(self.device)
+        x = torch.from_numpy(batch).to(self.device)
+        frames = l2_normalize(
+            frontend.mel_frames(x).reshape(-1, self.feature_dim))
+        buffer[offset : offset + fill] = frames.index_select(0, rows)
+        return offset + fill
+
+    def take_resident_frames(self):
+        """(frames, {ytid: (row, frames)}) from the device feed, or None if
+        the fit did not take it: the filled rows as a view of the feed's
+        buffer (no copy).  The creator drops its references, so the
+        buffer lives as long as the caller holds the view."""
+        frames = self.resident_frames
+        if frames is None:
+            return None
+        manifest = self.resident_manifest
+        self.resident_frames = self.resident_manifest = None
+        return frames, manifest
 
     def _batch_generator(self, batch_size: int) -> Iterator[torch.Tensor]:
         """The file batches as f32 tensors on the stage's device,
@@ -257,12 +419,14 @@ class ClusterCreator:
         resumed.  Computed once (the writer runs every iteration)."""
         if self._stream_sig is None:
             cfg = self.config
+            n_src = (self._n_train_clips() if cfg.fused_pipeline
+                     else len(self._train_files()))
             self._stream_sig = json.dumps([
                 cfg.vocab_size, self.feature_dim, cfg.niter, cfg.random_seed,
                 cfg.kmeans_init, cfg.kmeans_empty_policy,
                 cfg.kmeans_precision, cfg.kmeans_wire,
                 cfg.clustering_batch_size, cfg.kmeans_superbatch_rows,
-                len(self._train_files()),
+                n_src,
             ])
         return self._stream_sig
 
@@ -323,16 +487,22 @@ class ClusterCreator:
 
     def _global_init_sample(self) -> np.ndarray:
         """L2-normalized frames (host) of a seeded subset of the sorted
-        train files, enough for a k-sized draw."""
+        train files (under the fused mode: clips, through ``iter_specs``),
+        enough for a k-sized draw."""
         cfg = self.config
         rng = np.random.default_rng(cfg.random_seed)
         target = max(4 * cfg.vocab_size, 2048)
         n_pick = min(-(-target // max(1, cfg.frames_per_clip)) + 2, 10_000)
-        files = self._train_files()
-        n_pick = min(n_pick, len(files))
-        chosen = [files[i] for i in sorted(
-            rng.choice(len(files), size=n_pick, replace=False))]
-        frames = np.concatenate([np.load(f).T for f in chosen],
+        pool = (sorted(self._spec_gen().data_split["train"])
+                if cfg.fused_pipeline else self._train_files())
+        n_pick = min(n_pick, len(pool))
+        chosen = [pool[i] for i in sorted(
+            rng.choice(len(pool), size=n_pick, replace=False))]
+        if cfg.fused_pipeline:
+            specs = [spec for _, spec in self._spec_gen().iter_specs(chosen)]
+        else:
+            specs = [np.load(f) for f in chosen]
+        frames = np.concatenate([s.T for s in specs],
                                 axis=0).astype(np.float32)
         return l2_normalize(torch.from_numpy(frames)).numpy()
 

@@ -16,17 +16,26 @@ call with ``normalize=True`` on the stage's device (``cuda:0`` unless the
 caller passes another): kernel B2 on the card, its plain version on the
 CPU.
 
-Not ported, and refused with ``NotImplementedError``: the fused mode
-(``fused_pipeline=True``) and the resident-frames handoff (ROADMAP A3,
-fused mode), ``use_convolution`` (ROADMAP A6), multi-process runs and stage
-traces (ROADMAP A7).
+``fused_pipeline=True`` reads no spectrogram file and writes the same
+token files: clips go wav -> tokens through ``FusedTokenizer`` (kernel B1)
+in ``device_batch_size`` batches of sorted clips, except the train clips
+that the clustering stage's device feed left resident
+(``resident_frames``), which B2 assigns from those frames (``normalize=
+False``: the rows are already unit) without decoding them again.
+
+Not ported, and refused with ``NotImplementedError``: ``use_convolution``
+(ROADMAP A6), the native decoder under the fused mode (ROADMAP A6),
+multi-process runs and stage traces (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import io
+import json
 import logging
 import shutil
+from concurrent.futures import ThreadPoolExecutor
+from itertools import chain
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -34,10 +43,13 @@ import numpy as np
 import torch
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
+from audio_tokens_tpu_torch.data.audio_io import decode_clip, find_audio_file
 from audio_tokens_tpu_torch.ops.vq import vq_assign_fused
 from audio_tokens_tpu_torch.processors.spectrogram_generator import (
     refuse_multiprocess,
+    refuse_native_decode,
 )
+from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 from audio_tokens_tpu_torch.utils.npy_io import (atomic_save_bytes,
                                                  atomic_save_npy)
 from audio_tokens_tpu_torch.utils.profiling import StageTimer, maybe_trace
@@ -144,15 +156,18 @@ class SpecTokenizer:
     def __init__(self, config: AudioTokensConfig,
                  device: Optional[torch.device | str] = None,
                  resident_frames=None):
-        if config.fused_pipeline or resident_frames is not None:
-            raise NotImplementedError(
-                "the fused tokenize mode (fused_pipeline=True, "
-                "resident_frames) is not ported yet: ROADMAP A3, fused mode")
+        """``resident_frames``: ``ClusterCreator.take_resident_frames()``,
+        the device feed's L2-normalized train frames (a view on the
+        stage's device) and ``{ytid: (row, frames)}``; the fused mode
+        assigns the clips it covers from it."""
         if config.use_convolution:
             raise NotImplementedError(
                 "use_convolution (ConvFeatures) is not ported yet: ROADMAP A6")
+        if config.fused_pipeline:
+            refuse_native_decode(config)
         refuse_multiprocess(config)
         self.config = config
+        self.resident = resident_frames
         self.device = torch.device("cuda", 0) if device is None else \
             torch.device(device)
         set_seed(config.random_seed)
@@ -166,6 +181,8 @@ class SpecTokenizer:
         return self.centroids.shape[0]
 
     def run(self) -> Dict[str, dict]:
+        if self.config.fused_pipeline:
+            return self._run_fused()
         stats = {}
         for split in ["train", "validation"]:
             source_dir = self.source_path / split
@@ -218,28 +235,9 @@ class SpecTokenizer:
         counts = np.zeros(self.vocab, np.int64)
         spec_files = sorted(source_dir.glob("*.npy"))
         if self.config.incremental:
-            before = len(spec_files)
-            # an existing token file only counts if it was produced AFTER the
-            # current centroids — otherwise it encodes a stale codebook
-            cent_mtime = Path(self.config.centroids_path).stat().st_mtime
-            skipped, todo = [], []
-            for f in spec_files:
-                tok = tokenized_dir / f.name
-                if tok.exists() and tok.stat().st_mtime >= cent_mtime and (
-                        ledger is not None or _token_file_ok(tok)):
-                    skipped.append(f)
-                else:
-                    todo.append(f)
-            spec_files = todo
-            logger.info("incremental: %d/%d clips already tokenized",
-                        before - len(spec_files), before)
-            if ledger is not None:
-                caught, failed = ledger.catchup_counts(
-                    [f.stem for f in skipped])
-                counts += caught
-                if failed:  # unreadable token files: re-tokenize those clips
-                    by_stem = {f.stem: f for f in skipped}
-                    spec_files = spec_files + [by_stem[s] for s in failed]
+            by_stem = {f.stem: f for f in spec_files}
+            spec_files = [by_stem[s] for s in self._incremental_todo(
+                list(by_stem), tokenized_dir, ledger, counts)]
         bs = self.config.tokenizer_batch_size
         fresh_frames = 0
         for i in range(0, len(spec_files), bs):
@@ -248,6 +246,30 @@ class SpecTokenizer:
             counts += np.bincount(batch_tokens, minlength=len(counts))
             fresh_frames += len(batch_tokens)
         return counts, fresh_frames
+
+    def _incremental_todo(self, stems: List[str], tokenized_dir: Path,
+                          ledger, counts: np.ndarray) -> List[str]:
+        """The clips (of ``stems``, in order) an incremental run must
+        tokenize: those without a token file written after the current
+        centroids (an older one encodes a stale codebook), then those whose
+        file the ledger's catch-up found unreadable; ``counts`` gains the
+        caught-up counts of the rest."""
+        cent_mtime = Path(self.config.centroids_path).stat().st_mtime
+        skipped, todo = [], []
+        for stem in stems:
+            tok = tokenized_dir / f"{stem}.npy"
+            if tok.exists() and tok.stat().st_mtime >= cent_mtime and (
+                    ledger is not None or _token_file_ok(tok)):
+                skipped.append(stem)
+            else:
+                todo.append(stem)
+        logger.info("incremental: %d/%d clips already tokenized",
+                    len(skipped), len(stems))
+        if ledger is not None:
+            caught, failed = ledger.catchup_counts(skipped)
+            counts += caught
+            todo += failed  # unreadable token files: re-tokenize those
+        return todo
 
     def process_batch(self, batch_files: List[Path],
                       tokenized_dir: Path) -> np.ndarray:
@@ -265,6 +287,117 @@ class SpecTokenizer:
                             tokens[start:end])
             start = end
         return tokens
+
+    # ------------------------------------------------------------------
+    # Fused mode: wav -> tokens on the device, no spectrogram files
+    # ------------------------------------------------------------------
+    def _run_fused(self) -> Dict[str, dict]:
+        """Tokenize straight from audio (``fused_pipeline=True``): the
+        staged mode's artifacts, ledger and statistics, from
+        ``FusedTokenizer`` (B1) batches of ``device_batch_size`` sorted
+        clips, and from the resident frames where the train split has
+        them."""
+        cfg = self.config
+        with open(cfg.split_file) as f:
+            split_map = json.load(f)
+        ft = FusedTokenizer(cfg, self.centroids.cpu().numpy(), self.device)
+        stats: Dict[str, dict] = {}
+        for split in ["train", "validation"]:
+            tokenized_dir = self.dest_tokenized_path / split
+            if cfg.incremental:
+                tokenized_dir.mkdir(parents=True, exist_ok=True)
+            else:  # reference semantics: destructive restart
+                shutil.rmtree(tokenized_dir, ignore_errors=True)
+                tokenized_dir.mkdir(parents=True)
+            ytids = sorted(split_map[split])  # the staged glob's order
+            ledger = self._make_ledger(split, tokenized_dir)
+            counts = np.zeros(self.vocab, np.int64)
+            if cfg.incremental:
+                ytids = self._incremental_todo(ytids, tokenized_dir, ledger,
+                                               counts)
+            logger.info("Fused-tokenizing %s: audio --> %s", split,
+                        tokenized_dir)
+            n_todo = len(ytids)
+            resident_work = None
+            if self.resident is not None and split == "train":
+                frames, manifest = self.resident
+                covered = [y for y in ytids if y in manifest]
+                if covered:
+                    resident_work = (frames, manifest, covered)
+                    ytids = [y for y in ytids if y not in manifest]
+                # the stage's last reference: the frames live until the
+                # assignment below, not into training
+                self.resident = frames = None
+            found = [(y, p) for y in ytids
+                     if (p := find_audio_file(cfg, y)) is not None]
+            n_clips = n_frames = 0
+            bs = cfg.device_batch_size
+            with maybe_trace(cfg.profile_dir), \
+                    StageTimer(f"tokenize-fused/{split}") as timer:
+                resident_tokens: Dict[str, np.ndarray] = {}
+                if resident_work is not None:
+                    resident_tokens = self._assign_resident(*resident_work)
+                    resident_work = None
+                    logger.info("resident frames: %d clips tokenized with "
+                                "no decode", len(resident_tokens))
+                batches = (self._fused_tokens_python(ft, found[i : i + bs])
+                           for i in range(0, len(found), bs))
+                for ytid, toks in chain(resident_tokens.items(),
+                                        chain.from_iterable(batches)):
+                    atomic_save_npy(tokenized_dir / f"{ytid}.npy", toks)
+                    if split == "train":
+                        counts += np.bincount(toks, minlength=self.vocab)
+                    n_frames += len(toks)
+                    n_clips += 1
+                timer.count("clips", n_clips)
+                timer.count("frames", n_frames)
+            logger.info("%s: %d/%d clips tokenized (fused)", split, n_clips,
+                        n_todo)
+            if split == "train":
+                stats[split] = self._finish_train_stats(counts, ledger)
+        return stats
+
+    def _assign_resident(self, frames: torch.Tensor, manifest: dict,
+                         covered: List[str]) -> Dict[str, np.ndarray]:
+        """Per-clip tokens of the ``covered`` clips from the resident
+        frames (unit rows, so B2 runs with ``normalize=False``): one
+        assignment of every row where the clips need at least half of
+        them, else of an ``index_select`` of their row ranges."""
+        spans = [(y, *manifest[y]) for y in covered]
+        need = sum(n for _, _, n in spans)
+        if need < frames.shape[0] // 2:
+            rows = torch.from_numpy(np.concatenate(
+                [np.arange(off, off + n) for _, off, n in spans]))
+            frames = frames.index_select(0, rows.to(frames.device))
+            starts = np.cumsum([0] + [n for _, _, n in spans[:-1]])
+            spans = [(y, int(s), n) for (y, _, n), s in zip(spans, starts)]
+        tokens = vq_assign_fused(frames, self.centroids, normalize=False)
+        tokens = tokens.cpu().numpy().astype(np.int64)
+        return {y: tokens[off : off + n] for y, off, n in spans}
+
+    def _fused_tokens_python(self, ft: FusedTokenizer, chunk: list):
+        """Threaded python decode of ``chunk`` ((ytid, path) pairs) ->
+        [(ytid, tokens)] through ``ft`` (B1 on the card); undecodable and
+        non-finite clips are skipped, as the staged stage's screens drop
+        them."""
+        cfg = self.config
+
+        def decode_one(item):
+            ytid, path = item
+            wave = decode_clip(cfg, path)
+            if wave is None:
+                return None
+            if not np.isfinite(wave).all():
+                logger.info("skipping %s: non-finite samples", path)
+                return None
+            return ytid, wave
+
+        with ThreadPoolExecutor(max_workers=cfg.num_workers) as pool:
+            decoded = [d for d in pool.map(decode_one, chunk) if d is not None]
+        if not decoded:
+            return []
+        tokens = ft.tokenize_waveforms([w for _, w in decoded])
+        return [(ytid, t) for (ytid, _), t in zip(decoded, tokens)]
 
     # ------------------------------------------------------------------
     # Reporting (reference :129-240) — computed from per-token counts so

@@ -14,11 +14,13 @@ Clips are decoded on the host (a thread pool, bounded decode-ahead), packed
 into ``device_batch_size`` padded batches and sent through the port's
 ``MelFrontend`` on the stage's device (``cuda:0`` unless the caller passes
 another), or its per-clip min-max ``.normalized`` under ``normalize=True``.
+The fused mode reads the same decode through ``iter_specs`` (specs without
+files) and ``iter_wave_batches`` (padded waveform batches, no DSP: the
+clustering stage's device feed).
 
 Not ported: the native C++ decoder (``audio_backend='native'``, ROADMAP A6;
-``'auto'`` takes the python decode), the decode-only wave batches of the
-fused mode (``iter_wave_batches``, ROADMAP A3), stage traces
-(``profile_dir``) and multi-process runs (ROADMAP A7).
+``'auto'`` takes the python decode), stage traces (``profile_dir``) and
+multi-process runs (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -56,13 +58,18 @@ def refuse_multiprocess(config: AudioTokensConfig) -> None:
             "ROADMAP A7")
 
 
+def refuse_native_decode(config: AudioTokensConfig) -> None:
+    """Every stage that decodes audio takes the python decode."""
+    if config.audio_backend == "native":
+        raise NotImplementedError(
+            "audio_backend='native' (the C++ decoder) is not ported yet: "
+            "ROADMAP A6; 'auto' takes the python decode")
+
+
 class SpectrogramGenerator:
     def __init__(self, config: AudioTokensConfig,
                  device: Optional[torch.device | str] = None):
-        if config.audio_backend == "native":
-            raise NotImplementedError(
-                "audio_backend='native' (the C++ decoder) is not ported yet: "
-                "ROADMAP A6; 'auto' takes the python decode")
+        refuse_native_decode(config)
         refuse_multiprocess(config)
         self.config = config
         self.device = torch.device("cuda", 0) if device is None else \
@@ -197,6 +204,35 @@ class SpectrogramGenerator:
                                 "(max |s| = %.3g)", ytid, amax)
                     continue
                 yield ytid, wave
+
+    def iter_wave_batches(self, ytids: List[str]):
+        """Decode-only batches of ``device_batch_size`` rows, in ``ytids``
+        order: (padded (B, padded_len) f32 waveforms, lengths (B,) int32,
+        row ytids).  Padding rows have length -1 and ytid None.  The same
+        decode and screens as ``iter_specs``; no DSP, so the clustering
+        stage's device feed sends only waveforms to the card."""
+        bs = self.config.device_batch_size
+
+        def flush(waves, wave_ytids):
+            batch, lengths = self.frontend.prepare_batch(waves)
+            pad = bs - len(waves)
+            if pad:
+                batch = np.concatenate(
+                    [batch, np.zeros((pad, batch.shape[1]), np.float32)])
+                lengths = np.concatenate(
+                    [lengths, np.full(pad, -1, np.int32)])
+            return batch, lengths, wave_ytids + [None] * pad
+
+        waves: List[np.ndarray] = []
+        wave_ytids: List[str] = []
+        for ytid, wave in self._decoded_waves(ytids):
+            waves.append(wave)
+            wave_ytids.append(ytid)
+            if len(waves) == bs:
+                yield flush(waves, wave_ytids)
+                waves, wave_ytids = [], []
+        if waves:
+            yield flush(waves, wave_ytids)
 
     def _decode_one(self, ytid: str) -> Optional[np.ndarray]:
         path = self.find_audio_file(ytid)

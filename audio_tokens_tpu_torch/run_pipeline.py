@@ -1,5 +1,5 @@
 """The four pipeline stages in one run, on one device (counterpart of the
-staged path of the repository's ``run_pipeline.py``).
+repository's ``run_pipeline.py``).
 
 Spectrograms -> centroids -> tokens -> a trained classifier, under one
 shared config and one device (``cuda:0`` unless the caller passes another;
@@ -11,7 +11,12 @@ manifest must exist first:
         --base_dir WS --vocab_size 500 ...
 
 Every flag other than ``--device`` is a config field (``AudioTokensConfig``).
-The fused mode (``fused_pipeline=True``) is not ported yet (ROADMAP A3).
+``--fused_pipeline true`` writes no spectrogram files: clustering takes its
+frames from the audio (in ``kmeans_mode=full`` within the device budget,
+straight into device memory), and the tokenize stage assigns the train
+clips from those resident frames and tokenizes the rest wav -> tokens
+through ``FusedTokenizer`` (kernel B1).  It refuses datasets that train on
+spectrograms.
 """
 
 from __future__ import annotations
@@ -38,14 +43,26 @@ def main(config: Optional[AudioTokensConfig] = None,
     """Run the stages in order; returns (val_loss, val_metrics)."""
     config = config or AudioTokensConfig.from_args()
     device = torch.device("cuda", 0) if device is None else torch.device(device)
-    if config.fused_pipeline:
-        raise NotImplementedError(
-            "fused_pipeline=True (wav -> tokens without spectrogram "
-            "artifacts) is not ported yet: ROADMAP A3, fused mode")
+    if config.fused_pipeline and (
+            config.dataset_type != "TokenizedSpecDataset"
+            or config.use_precomputed_embeddings):
+        raise ValueError(
+            "fused_pipeline=True writes no spectrogram artifacts, but "
+            f"dataset_type={config.dataset_type!r} / "
+            f"use_precomputed_embeddings={config.use_precomputed_embeddings} "
+            "trains on raw spectrograms — run the staged pipeline for "
+            "spec-consuming models (cnn/baseline/raw-embedding)")
     exact_f32()  # the mel, K-means and classifier products stay in f32
-    SpectrogramGenerator(config, device).run()
-    ClusterCreator(config, device).run()
-    SpecTokenizer(config, device).run()
+    if config.fused_pipeline:
+        logger.info("fused pipeline: skipping the spectrogram artifact stage")
+    else:
+        SpectrogramGenerator(config, device).run()
+    cluster = ClusterCreator(config, device)
+    cluster.run()
+    # the device feed's frames, if the fit took it: the train split is then
+    # assigned without a second decode
+    SpecTokenizer(config, device,
+                  resident_frames=cluster.take_resident_frames()).run()
     val_loss, val_metrics = ModelTrainer(config, device).run()
     logger.info(
         "Pipeline complete. Final Val Loss: %.4f, Val mAP: %.4f",

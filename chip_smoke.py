@@ -100,7 +100,29 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    fit of the bf16-rounded rows; each mode prints its ms an iteration,
    its time waiting on the stream, its host-to-card GB/s, its peak device
    memory and B2's launches (340 a fit; ``launches_by_path``
-   ``kmeans_stream``).
+   ``kmeans_stream``);
+9. run the fused pipeline (``fused_pipeline=True``) on phase 8's audio,
+   each run in a workspace of its own: in ``batch_warm_start`` no
+   spectrogram is written, the centroids must equal phase 8's bit for bit,
+   B1 tokenizes all 576 clips in the tokenize stage (9 launches,
+   ``launches_by_path`` ``pipeline_fused_tokenize``; B2 in clustering,
+   ``pipeline_fused_cluster``) and its tokens are held to phase 8's (the
+   mel frontend + B2) under the near-tie rule, with the count of frames
+   apart and the largest float64 gap (``[fused tokens]``).  Then
+   ``kmeans_mode="full"`` twice: staged with ``kmeans_streaming="never"``
+   (its split file in a shuffled order, so that each clip sits at another
+   row of another batch than in the fused mode's sorted batches) and fused,
+   where the device feed must engage, the centroids must equal the staged
+   fit's bit for bit and the train split must come from the resident frames
+   (B2 ``pipeline_fused_resident``, B1 only for validation); each stage's
+   seconds are printed for both.  Last, the device feed at one default
+   clustering batch (``[fused feed]``): 10,000 ten-second clips from memory
+   (157 batches of 64, cycling 4 made once) through
+   ``ClusterCreator._feed_batch`` into a 4.44 GB capacity buffer, then
+   ``kmeans_fit`` on its view (vocab 500, 20 iterations); the first batch's
+   rows bit-equal to the host-mediated route's, and the peak device memory
+   at most the buffer plus phase 8's in-memory fit overhead plus 1 GB (a
+   copied view would pass it).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -151,6 +173,8 @@ RESAMPLED_CLIP = 5  # the pipeline's one clip at 44.1 kHz
 KMEANS_CLIPS = 10_000  # config.clustering_batch_size: one default batch
 STAGE_SUPERBATCH, STAGE_STOP = 262_144, 5  # the streaming stage's resume
 STREAM_PIECE_CLIPS = 1000  # clips a host piece of the 17.23M-row stream
+FEED_CLIPS = KMEANS_CLIPS  # the device feed at one default clustering batch
+FEED_PREMADE = 4  # waveform batches made once and cycled through the feed
 SPEC_ATOL, SPEC_RTOL = 5e-3, 1e-4  # dB: another DFT summation order
 LOUD_DB, FLOOR_DB = -80.0, -100.0  # bins well above the 1e-10 power floor
 CENT_ATOL = 1e-5   # one Lloyd step's centroids, other summation orders
@@ -579,15 +603,19 @@ def write_audio_corpus(base: Path, seed: int = 12) -> dict:
     return split
 
 
-def clock_stages(stages, kernels, seconds: dict, launches: dict):
+def clock_stages(stages, kernels, seconds: dict, launches: dict,
+                 made: dict | None = None):
     """Wrap each stage class's ``run`` so that it records its seconds (host
-    clock, synchronized) and the launches of ``kernels`` made inside it;
-    returns the function that restores the classes."""
+    clock, synchronized), the launches of ``kernels`` made inside it and,
+    into ``made``, the stage object; returns the function that restores
+    the classes."""
     import torch
 
     saved = {cls: cls.__dict__.get("run") for cls in stages}
     for cls in stages:
         def run(self, _run=cls.run, _name=cls.__name__):
+            if made is not None:
+                made[_name] = self
             torch.cuda.synchronize()
             before = [k.launches for k in kernels]
             t0 = time.perf_counter()
@@ -704,9 +732,10 @@ def stream_stage(records: list, cfg, base: Path, dev, frames: int) -> None:
         f"synchronized); centroids bit-equal; B2 launches {launches}")
 
 
-def pipeline_phase(records: list, dev) -> None:
-    """Phase 8: ``run_pipeline.main`` on a wav workspace at the package
-    defaults, its results against the CPU, then K-means at real size."""
+def pipeline_phase(records: list, dev, base: Path):
+    """Phase 8: ``run_pipeline.main`` on a wav workspace written to
+    ``base`` at the package defaults, its results against the CPU, then
+    K-means at real size; returns the run's config and centroids."""
     import torch
 
     from audio_tokens_tpu_torch import run_pipeline
@@ -727,131 +756,129 @@ def pipeline_phase(records: list, dev) -> None:
                lstm_sequence_bwd)
     stages = (SpectrogramGenerator, ClusterCreator, SpecTokenizer,
               ModelTrainer)
-    with tempfile.TemporaryDirectory() as tmp:
-        base = Path(tmp)
-        t0 = time.perf_counter()
-        split = write_audio_corpus(base)
-        write_s = time.perf_counter() - t0
-        cfg = AudioTokensConfig(base_dir=str(base), **MODEL,
-                                training_batch_size=B_LSTM, epochs=1)
-        seconds, launches = {}, {}
-        restore = clock_stages(stages, kernels, seconds, launches)
-        for k in kernels:
-            k.launches = 0
-        t0 = time.perf_counter()
-        try:
-            val_loss, val_metrics = run_pipeline.main(cfg, dev)
-        finally:
-            restore()
-        run_s = time.perf_counter() - t0
-        total = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    split = write_audio_corpus(base)
+    write_s = time.perf_counter() - t0
+    cfg = AudioTokensConfig(base_dir=str(base), **MODEL,
+                            training_batch_size=B_LSTM, epochs=1)
+    seconds, launches = {}, {}
+    restore = clock_stages(stages, kernels, seconds, launches)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        val_loss, val_metrics = run_pipeline.main(cfg, dev)
+    finally:
+        restore()
+    run_s = time.perf_counter() - t0
+    total = [k.launches for k in kernels]
 
-        spec_dir = Path(cfg.dest_spec_path) / "train"
-        tok_dir = Path(cfg.dest_tokenized_path) / "train"
-        train_ids = sorted(split["train"])
-        frames = sum(np.load(tok_dir / f"{y}.npy", mmap_mode="r").shape[0]
-                     for y in train_ids)
-        cents = np.load(cfg.centroids_path)
-        names = [c.__name__ for c in stages]
-        log(f"[pipeline] run_pipeline.main at the package defaults (n_mels "
-            f"{cfg.n_mels}, n_fft {cfg.n_fft}, hop {cfg.hop_length}, vocab "
-            f"{cfg.vocab_size}, niter {cfg.niter}, {cfg.kmeans_mode}, lstm "
-            f"{cfg.lstm_embed_dim}/{cfg.lstm_hidden_dim}, {cfg.num_classes} "
-            f"classes), {len(split['train'])} + {len(split['validation'])} "
-            f"wavs of {CLIP_SECONDS:g} s (written in {write_s:.1f} s): "
-            + ", ".join(f"{n} {seconds[n]:.2f} s" for n in names)
-            + f" (host clock, synchronized); main() {run_s:.2f} s; train "
-            f"corpus {frames} frames; val loss {val_loss:.6f}, val mAP "
-            f"{val_metrics['mAP']:.6f}")
-        log("[pipeline] launches B1, B2, B3, B4 by stage: "
-            + "; ".join(f"{n} {launches[n]}" for n in names)
-            + f"; whole run {total}")
-        b2_cluster = launches["ClusterCreator"][1]
-        b2_tokenize = launches["SpecTokenizer"][1]
-        b3_train, b4_train = launches["ModelTrainer"][2:]
-        if frames != TRAIN_CLIPS * (1 + cfg.clip_samples // cfg.hop_length):
-            raise AssertionError(f"train corpus has {frames} frames")
-        if cents.shape != (cfg.vocab_size, cfg.n_mels) or \
-                cents.dtype != np.float32:
-            raise AssertionError(f"centroids {cents.shape} {cents.dtype}")
-        if (b2_cluster < cfg.niter or b2_tokenize < 2 or b3_train < 1
-                or b4_train < 1):
-            raise AssertionError(f"a kernel of the pipeline launched too "
-                                 f"rarely: {launches}")
-        if not (np.isfinite(val_loss) and 0.0 <= val_metrics["mAP"] <= 1.0):
-            raise AssertionError(f"val loss {val_loss}, mAP {val_metrics}")
-        records[1]["launches_by_path"].update(
-            pipeline_cluster=b2_cluster, pipeline_tokenize=b2_tokenize)
-        records[2]["launches_by_path"]["pipeline_train"] = b3_train
-        records[3]["launches_by_path"]["pipeline_train"] = b4_train
+    spec_dir = Path(cfg.dest_spec_path) / "train"
+    tok_dir = Path(cfg.dest_tokenized_path) / "train"
+    train_ids = sorted(split["train"])
+    frames = sum(np.load(tok_dir / f"{y}.npy", mmap_mode="r").shape[0]
+                 for y in train_ids)
+    cents = np.load(cfg.centroids_path)
+    names = [c.__name__ for c in stages]
+    log(f"[pipeline] run_pipeline.main at the package defaults (n_mels "
+        f"{cfg.n_mels}, n_fft {cfg.n_fft}, hop {cfg.hop_length}, vocab "
+        f"{cfg.vocab_size}, niter {cfg.niter}, {cfg.kmeans_mode}, lstm "
+        f"{cfg.lstm_embed_dim}/{cfg.lstm_hidden_dim}, {cfg.num_classes} "
+        f"classes), {len(split['train'])} + {len(split['validation'])} "
+        f"wavs of {CLIP_SECONDS:g} s (written in {write_s:.1f} s): "
+        + ", ".join(f"{n} {seconds[n]:.2f} s" for n in names)
+        + f" (host clock, synchronized); main() {run_s:.2f} s; train "
+        f"corpus {frames} frames; val loss {val_loss:.6f}, val mAP "
+        f"{val_metrics['mAP']:.6f}")
+    log("[pipeline] launches B1, B2, B3, B4 by stage: "
+        + "; ".join(f"{n} {launches[n]}" for n in names)
+        + f"; whole run {total}")
+    b2_cluster = launches["ClusterCreator"][1]
+    b2_tokenize = launches["SpecTokenizer"][1]
+    b3_train, b4_train = launches["ModelTrainer"][2:]
+    if frames != TRAIN_CLIPS * (1 + cfg.clip_samples // cfg.hop_length):
+        raise AssertionError(f"train corpus has {frames} frames")
+    if cents.shape != (cfg.vocab_size, cfg.n_mels) or \
+            cents.dtype != np.float32:
+        raise AssertionError(f"centroids {cents.shape} {cents.dtype}")
+    if (b2_cluster < cfg.niter or b2_tokenize < 2 or b3_train < 1
+            or b4_train < 1):
+        raise AssertionError(f"a kernel of the pipeline launched too "
+                             f"rarely: {launches}")
+    if not (np.isfinite(val_loss) and 0.0 <= val_metrics["mAP"] <= 1.0):
+        raise AssertionError(f"val loss {val_loss}, mAP {val_metrics}")
+    records[1]["launches_by_path"].update(
+        pipeline_cluster=b2_cluster, pipeline_tokenize=b2_tokenize)
+    records[2]["launches_by_path"]["pipeline_train"] = b3_train
+    records[3]["launches_by_path"]["pipeline_train"] = b4_train
 
-        # the card's results against the CPU: spectrograms from the
-        # decoded waves (clip 0 stereo, clip 5 resampled), one Lloyd step
-        # from the saved centroids, tokens from the saved centroids
-        spec_err, loud_err, spec_at = 0.0, 0.0, None
-        n_specs = 0
-        cpu_cfg = dataclasses.replace(cfg, device_batch_size=8)
-        for y, spec in SpectrogramGenerator(cpu_cfg, "cpu").iter_specs(
-                train_ids[:8]):
-            card = np.load(spec_dir / f"{y}.npy")
-            if card.shape != spec.shape:
-                raise AssertionError(f"{y}: spectrogram {card.shape} vs "
-                                     f"{spec.shape} on the CPU")
-            diff = np.abs(card - spec)
-            if (diff > SPEC_ATOL + SPEC_RTOL * np.abs(spec)).any():
-                raise AssertionError(f"{y}: spectrogram differs from the "
-                                     f"CPU's by {diff.max():.3e} dB")
-            at = np.unravel_index(diff.argmax(), diff.shape)
-            if diff[at] >= spec_err:
-                spec_err = float(diff[at])
-                spec_at = (y, *map(int, at), float(spec[at]), float(card[at]),
-                           float(spec[:, at[1]].max()))
-            loud = spec > LOUD_DB
-            if loud.any():
-                loud_err = max(loud_err, float(diff[loud].max()))
-            n_specs += 1
-        if n_specs != 8:
-            raise AssertionError(f"{n_specs} of 8 spectrograms on the CPU")
-        x = l2_normalize(torch.from_numpy(np.concatenate(
-            [np.load(spec_dir / f"{y}.npy").T for y in train_ids[:64]])))
-        c = torch.from_numpy(cents)
-        step = {}
-        for d in (dev, "cpu"):
-            ids = km.assign(x.to(d), c.to(d)).cpu()
-            new, obj = km.kmeans_fit(x.to(d), cfg.vocab_size, 1,
-                                     init_centroids=c.to(d))
-            step[str(d)] = (ids, new.cpu(), obj)
-        card, cpu = step[str(dev)], step["cpu"]
-        frac, gap = check_near_ties(x, c, card[0], cpu[0])
-        cent_err = agreeing_centroid_error(card[0], cpu[0], card[1], cpu[1])
-        if not cent_err <= CENT_ATOL:
-            raise AssertionError(f"Lloyd step: centroids differ from the "
-                                 f"CPU's by {cent_err:.3e}")
-        tok_frames = torch.from_numpy(np.concatenate(
-            [np.load(spec_dir / f"{y}.npy").T for y in train_ids[:8]]))
-        tok_card = torch.from_numpy(np.concatenate(
-            [np.load(tok_dir / f"{y}.npy") for y in train_ids[:8]]))
-        tok_frac, tok_gap = check_near_ties(
-            l2_normalize(tok_frames), c, tok_card,
-            vq_assign_fused(tok_frames, c, normalize=True))
-        ref64 = f64_spectrogram(cfg, spec_at[0])[spec_at[1:3]]
-        log(f"[pipeline reference] spectrogram gap: largest {spec_err:.3e} "
-            f"dB at {spec_at[0]} mel bin {spec_at[1]}, frame {spec_at[2]}, "
-            f"where the CPU has {spec_at[3]:.4f} dB (card {spec_at[4]:.4f}, "
-            f"the frame's loudest bin {spec_at[5]:.4f} dB, the same frontend "
-            f"in f64 on the CPU {ref64:.4f}: card {spec_at[4] - ref64:+.3e}, "
-            f"CPU {spec_at[3] - ref64:+.3e}); largest over bins above "
-            f"{LOUD_DB:g} dB {loud_err:.3e} dB (the power floor is "
-            f"{FLOOR_DB:g} dB)")
-        log(f"[pipeline reference] CPU vs card: 8 spectrograms max abs err "
-            f"{spec_err:.3e} dB (atol {SPEC_ATOL} + rtol {SPEC_RTOL}); one "
-            f"Lloyd step over {x.shape[0]} frames of 64 clips: ids "
-            f"{frac:.2e} disagree (gap {gap:.3e}), centroids max abs err "
-            f"{cent_err:.3e} (atol {CENT_ATOL}), objective card "
-            f"{card[2]:.6f} vs CPU {cpu[2]:.6f}; tokens of 8 clips "
-            f"{tok_frac:.2e} disagree (gap {tok_gap:.3e})")
-        del x, c, tok_frames, tok_card, step
-        stream_stage(records, cfg, base, dev, frames)
+    # the card's results against the CPU: spectrograms from the
+    # decoded waves (clip 0 stereo, clip 5 resampled), one Lloyd step
+    # from the saved centroids, tokens from the saved centroids
+    spec_err, loud_err, spec_at = 0.0, 0.0, None
+    n_specs = 0
+    cpu_cfg = dataclasses.replace(cfg, device_batch_size=8)
+    for y, spec in SpectrogramGenerator(cpu_cfg, "cpu").iter_specs(
+            train_ids[:8]):
+        card = np.load(spec_dir / f"{y}.npy")
+        if card.shape != spec.shape:
+            raise AssertionError(f"{y}: spectrogram {card.shape} vs "
+                                 f"{spec.shape} on the CPU")
+        diff = np.abs(card - spec)
+        if (diff > SPEC_ATOL + SPEC_RTOL * np.abs(spec)).any():
+            raise AssertionError(f"{y}: spectrogram differs from the "
+                                 f"CPU's by {diff.max():.3e} dB")
+        at = np.unravel_index(diff.argmax(), diff.shape)
+        if diff[at] >= spec_err:
+            spec_err = float(diff[at])
+            spec_at = (y, *map(int, at), float(spec[at]), float(card[at]),
+                       float(spec[:, at[1]].max()))
+        loud = spec > LOUD_DB
+        if loud.any():
+            loud_err = max(loud_err, float(diff[loud].max()))
+        n_specs += 1
+    if n_specs != 8:
+        raise AssertionError(f"{n_specs} of 8 spectrograms on the CPU")
+    x = l2_normalize(torch.from_numpy(np.concatenate(
+        [np.load(spec_dir / f"{y}.npy").T for y in train_ids[:64]])))
+    c = torch.from_numpy(cents)
+    step = {}
+    for d in (dev, "cpu"):
+        ids = km.assign(x.to(d), c.to(d)).cpu()
+        new, obj = km.kmeans_fit(x.to(d), cfg.vocab_size, 1,
+                                 init_centroids=c.to(d))
+        step[str(d)] = (ids, new.cpu(), obj)
+    card, cpu = step[str(dev)], step["cpu"]
+    frac, gap = check_near_ties(x, c, card[0], cpu[0])
+    cent_err = agreeing_centroid_error(card[0], cpu[0], card[1], cpu[1])
+    if not cent_err <= CENT_ATOL:
+        raise AssertionError(f"Lloyd step: centroids differ from the "
+                             f"CPU's by {cent_err:.3e}")
+    tok_frames = torch.from_numpy(np.concatenate(
+        [np.load(spec_dir / f"{y}.npy").T for y in train_ids[:8]]))
+    tok_card = torch.from_numpy(np.concatenate(
+        [np.load(tok_dir / f"{y}.npy") for y in train_ids[:8]]))
+    tok_frac, tok_gap = check_near_ties(
+        l2_normalize(tok_frames), c, tok_card,
+        vq_assign_fused(tok_frames, c, normalize=True))
+    ref64 = f64_spectrogram(cfg, spec_at[0])[spec_at[1:3]]
+    log(f"[pipeline reference] spectrogram gap: largest {spec_err:.3e} "
+        f"dB at {spec_at[0]} mel bin {spec_at[1]}, frame {spec_at[2]}, "
+        f"where the CPU has {spec_at[3]:.4f} dB (card {spec_at[4]:.4f}, "
+        f"the frame's loudest bin {spec_at[5]:.4f} dB, the same frontend "
+        f"in f64 on the CPU {ref64:.4f}: card {spec_at[4] - ref64:+.3e}, "
+        f"CPU {spec_at[3] - ref64:+.3e}); largest over bins above "
+        f"{LOUD_DB:g} dB {loud_err:.3e} dB (the power floor is "
+        f"{FLOOR_DB:g} dB)")
+    log(f"[pipeline reference] CPU vs card: 8 spectrograms max abs err "
+        f"{spec_err:.3e} dB (atol {SPEC_ATOL} + rtol {SPEC_RTOL}); one "
+        f"Lloyd step over {x.shape[0]} frames of 64 clips: ids "
+        f"{frac:.2e} disagree (gap {gap:.3e}), centroids max abs err "
+        f"{cent_err:.3e} (atol {CENT_ATOL}), objective card "
+        f"{card[2]:.6f} vs CPU {cpu[2]:.6f}; tokens of 8 clips "
+        f"{tok_frac:.2e} disagree (gap {tok_gap:.3e})")
+    del x, c, tok_frames, tok_card, step
+    stream_stage(records, cfg, base, dev, frames)
 
     # K-means at the size of one default clustering batch
     n = KMEANS_CLIPS * (1 + cfg.clip_samples // cfg.hop_length)
@@ -943,6 +970,324 @@ def pipeline_phase(records: list, dev) -> None:
     del ids, sums
     stream_phase(records, cfg, dev, x, c)
     del x, fits, c
+    torch.cuda.empty_cache()
+    return cfg, cents
+
+
+def shared_workspace(base: Path, name: str, shuffle: bool = False) -> Path:
+    """A workspace of its own under phase 8's ``base``, reading its audio
+    (a symlink) and metadata and split (copies; with ``shuffle`` each
+    split's clips in a seeded random order, so that a staged spectrogram
+    stage puts each clip at another row of another batch than the fused
+    mode's sorted batches)."""
+    import shutil
+
+    ws = base / name
+    shutil.copytree(base / "metadata", ws / "metadata")
+    (ws / "output").mkdir()
+    split = json.loads((base / "output" / "bal_train_data_split.json")
+                       .read_text())
+    if shuffle:
+        rng = np.random.default_rng(13)
+        split = {k: [v[i] for i in rng.permutation(len(v))]
+                 for k, v in split.items()}
+    (ws / "output" / "bal_train_data_split.json").write_text(
+        json.dumps(split))
+    (ws / "audioset").symlink_to(base / "audioset")
+    return ws
+
+
+def token_flips(tag: str, spec_root: Path, tok_roots, split: dict,
+                cents: np.ndarray) -> dict:
+    """The token files of two runs (``tok_roots``) over every clip of both
+    splits, held under the near-tie rule on the unit frames of the
+    spectrograms under ``spec_root``: logs and returns the frames apart,
+    the largest float64 score gap and where it sits (clip, frame, both
+    ids); raises past the rule or if the artifact sets differ."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
+
+    feats, ids, clips = [], ([], []), []
+    for name, ytids in split.items():
+        ytids = sorted(ytids)
+        for root in tok_roots:
+            if sorted(f.stem for f in (root / name).glob("*.npy")) != ytids:
+                raise AssertionError(f"{tag}: {root / name} holds other "
+                                     f"clips")
+        for y in ytids:
+            spec = np.load(spec_root / name / f"{y}.npy")
+            for side, root in zip(ids, tok_roots):
+                toks = np.load(root / name / f"{y}.npy")
+                if toks.dtype != np.int64 or toks.shape != (spec.shape[1],):
+                    raise AssertionError(f"{tag}: {y} tokens {toks.shape} "
+                                         f"{toks.dtype}")
+                side.append(toks)
+            feats.append(spec.T)
+            clips.append((y, spec.shape[1]))
+    x = l2_normalize(torch.from_numpy(np.concatenate(feats)))
+    a, b = (torch.from_numpy(np.concatenate(side)) for side in ids)
+    c = torch.from_numpy(cents)
+    rows = (a != b).nonzero().flatten()
+    out = dict(frames=int(a.numel()), flips=int(rows.numel()), max_gap=0.0,
+               at=None)
+    if rows.numel():
+        f, cd = x[rows].double(), c.double()
+
+        def score(i):
+            return (cd[i] * cd[i]).sum(1) - 2.0 * (f * cd[i]).sum(1)
+
+        gaps = (score(a[rows]) - score(b[rows])).abs()
+        j = int(gaps.argmax())
+        row = int(rows[j])
+        starts = np.cumsum([0] + [n for _, n in clips])
+        clip = int(np.searchsorted(starts, row, "right")) - 1
+        out.update(max_gap=float(gaps[j]),
+                   at=(clips[clip][0], row - int(starts[clip]), int(a[row]),
+                       int(b[row])))
+    log(f"[fused tokens] {tag}: {out['flips']} of {out['frames']} frames of "
+        f"{len(clips)} clips apart, largest float64 score gap "
+        f"{out['max_gap']:.3e}" + (f" at {out['at'][0]} frame "
+                                   f"{out['at'][1]} (ids {out['at'][2]} vs "
+                                   f"{out['at'][3]})" if out["at"] else ""))
+    check_near_ties(x, c, a, b)
+    return out
+
+
+def fused_phase(records: list, dev, base: Path, cfg, cents) -> None:
+    """Phase 9: ``run_pipeline.main`` with ``fused_pipeline=True`` on
+    phase 8's audio, in ``batch_warm_start`` and in ``full`` beside a staged
+    ``full`` run, held to the staged runs; then the device feed at one
+    default clustering batch."""
+    import torch
+
+    from audio_tokens_tpu_torch import run_pipeline
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.processors import (ClusterCreator,
+                                                   ModelTrainer,
+                                                   SpecTokenizer,
+                                                   SpectrogramGenerator)
+
+    kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
+               lstm_sequence_bwd)
+    stages = (SpectrogramGenerator, ClusterCreator, SpecTokenizer,
+              ModelTrainer)
+    names = [c.__name__ for c in stages]
+    split = json.loads(Path(cfg.split_file).read_text())
+    bs = cfg.device_batch_size
+    train_batches = -(-len(split["train"]) // bs)
+    val_batches = -(-len(split["validation"]) // bs)
+
+    def run(name: str, shuffle: bool = False, **over):
+        ws = shared_workspace(base, name, shuffle)
+        rcfg = AudioTokensConfig(base_dir=str(ws), **MODEL,
+                                 training_batch_size=B_LSTM, epochs=1, **over)
+        seconds, launches, made = {}, {}, {}
+        restore = clock_stages(stages, kernels, seconds, launches, made)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            val_loss, val_metrics = run_pipeline.main(rcfg, dev)
+        finally:
+            restore()
+        run_s = time.perf_counter() - t0
+        if not (np.isfinite(val_loss) and 0.0 <= val_metrics["mAP"] <= 1.0):
+            raise AssertionError(f"{name}: val loss {val_loss}, mAP "
+                                 f"{val_metrics}")
+        flags = ", ".join(f"{k}={v}" for k, v in over.items())
+        log(f"[fused pipeline] {name} ({flags}): "
+            + ", ".join(f"{n} {seconds[n]:.2f} s" for n in names
+                        if n in seconds)
+            + f" (host clock, synchronized); main() {run_s:.2f} s; val loss "
+            f"{val_loss:.6f}, val mAP {val_metrics['mAP']:.6f}; launches "
+            "B1, B2, B3, B4 by stage: "
+            + "; ".join(f"{n} {launches[n]}" for n in names
+                        if n in launches))
+        return rcfg, seconds, launches, made["ClusterCreator"], run_s
+
+    # 9.1 batch_warm_start: B1 tokenizes every clip
+    fcfg, _, fl, fcc, _ = run("fused", fused_pipeline=True)
+    if Path(fcfg.dest_spec_path).exists():
+        raise AssertionError("the fused run wrote spectrograms")
+    got = np.load(fcfg.centroids_path)
+    if not np.array_equal(got, cents):
+        raise AssertionError(f"fused centroids differ from phase 8's by "
+                             f"{np.abs(got - cents).max():.3e}")
+    b1_tok, b2_tok = fl["SpecTokenizer"][:2]
+    if (fcc.used_device_feed or b1_tok != train_batches + val_batches
+            or b2_tok != 0 or fl["ClusterCreator"][1] < cfg.niter
+            or min(fl["ModelTrainer"][2:]) < 1):
+        raise AssertionError(f"fused batch_warm_start launches {fl}")
+    flips = token_flips("fused batch_warm_start (B1) vs phase 8 (MelFrontend "
+                        "+ B2)", Path(cfg.dest_spec_path),
+                        (Path(fcfg.dest_tokenized_path),
+                         Path(cfg.dest_tokenized_path)), split, cents)
+    records[0]["launches_by_path"]["pipeline_fused_tokenize"] = b1_tok
+    records[0]["c2_b1_vs_staged_tokens"] = flips
+    records[1]["launches_by_path"]["pipeline_fused_cluster"] = \
+        fl["ClusterCreator"][1]
+    records[2]["launches_by_path"]["pipeline_fused_train"] = \
+        fl["ModelTrainer"][2]
+    records[3]["launches_by_path"]["pipeline_fused_train"] = \
+        fl["ModelTrainer"][3]
+    log(f"[fused pipeline] batch_warm_start: no spectrograms written; "
+        f"centroids bit-equal to phase 8's; B1 {b1_tok} launches in the "
+        f"tokenize stage ({train_batches} train + {val_batches} validation "
+        f"batches of {bs})")
+
+    # 9.2 full: the device feed and the resident handoff, beside a staged
+    # full fit of the same rows
+    scfg, ss, sl, _, s_run = run("staged_full", shuffle=True,
+                                 kmeans_mode="full", kmeans_streaming="never")
+    fcfg, fs, fl, fcc, f_run = run("fused_full", kmeans_mode="full",
+                                   fused_pipeline=True)
+    if not fcc.used_device_feed or fcc.resident_frames is not None:
+        raise AssertionError("the fused full fit did not take the device "
+                             "feed, or kept its frames")
+    b1_tok, b2_tok = fl["SpecTokenizer"][:2]
+    if b1_tok != val_batches or b2_tok != 1 or \
+            fl["ClusterCreator"][1] != cfg.niter:
+        raise AssertionError(f"fused full launches {fl}: the train split "
+                             f"did not come from the resident frames")
+    got, ref = np.load(fcfg.centroids_path), np.load(scfg.centroids_path)
+    if not np.array_equal(got, ref):
+        raise AssertionError(f"fused full centroids differ from the staged "
+                             f"full fit's by {np.abs(got - ref).max():.3e}")
+    full_flips = token_flips(
+        "fused full (resident B2 + B1) vs staged full",
+        Path(scfg.dest_spec_path), (Path(fcfg.dest_tokenized_path),
+                                    Path(scfg.dest_tokenized_path)),
+        split, ref)
+    records[0]["launches_by_path"]["pipeline_fused_full_tokenize"] = b1_tok
+    records[1]["launches_by_path"].update(
+        pipeline_fused_full_cluster=fl["ClusterCreator"][1],
+        pipeline_fused_resident=b2_tok,
+        pipeline_full_cluster=sl["ClusterCreator"][1],
+        pipeline_full_tokenize=sl["SpecTokenizer"][1])
+    for rec, kernel in ((records[2], 2), (records[3], 3)):
+        rec["launches_by_path"].update(
+            pipeline_fused_full_train=fl["ModelTrainer"][kernel],
+            pipeline_full_train=sl["ModelTrainer"][kernel])
+    records[1]["pipeline_full_seconds"] = dict(
+        staged=dict(ss, main=s_run), fused=dict(fs, main=f_run),
+        token_flips=full_flips)
+    log(f"[fused pipeline] full: the device feed engaged, centroids "
+        f"bit-equal to the staged full fit's (whose spectrogram stage "
+        f"batched the clips in a shuffled split order); the train split "
+        f"from the resident frames (B2 {b2_tok}), validation through B1 "
+        f"({b1_tok})")
+    del fcc
+    feed_phase(records, cfg, dev)
+
+
+def feed_phase(records: list, cfg, dev) -> None:
+    """The device feed at one default clustering batch: FEED_CLIPS
+    synthetic ten-second clips fed from memory through
+    ``ClusterCreator._feed_batch`` (cycling FEED_PREMADE batches), then
+    the fit on the buffer's view; its first batch's rows against the
+    host-mediated route's, its peak memory against the buffer plus phase
+    8's in-memory fit overhead (1 GB of slack)."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.ops.vq import l2_normalize
+    from audio_tokens_tpu_torch.processors import (ClusterCreator,
+                                                   SpectrogramGenerator)
+    from audio_tokens_tpu_torch.processors import cluster_creator
+
+    fcfg = dataclasses.replace(cfg, fused_pipeline=True, kmeans_mode="full")
+    cc = ClusterCreator(fcfg, dev)
+    gen = SpectrogramGenerator(fcfg, dev)
+    bs = cfg.device_batch_size
+    premade = []
+    for i in range(FEED_PREMADE):
+        waves = make_clips(bs, 100_000 + bs * i)
+        premade.append((waves, *gen.frontend.prepare_batch(waves)))
+    batch_bytes = premade[0][1].nbytes
+    copy_ms = cuda_ms(lambda: torch.from_numpy(premade[0][1]).to(dev), 5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    buffer = torch.empty((cc._feed_capacity_rows(FEED_CLIPS), cfg.n_mels),
+                         dtype=torch.float32, device=dev)
+    offset, manifest, wave_bytes = 0, {}, 0
+    n_batches = -(-FEED_CLIPS // bs)
+    t0 = time.perf_counter()
+    for j in range(n_batches):
+        _, batch, lengths = premade[j % FEED_PREMADE]
+        live = min(bs, FEED_CLIPS - j * bs)
+        if live < bs:
+            lengths = np.where(np.arange(bs) < live, lengths, -1)
+        ytids = [f"feed{j * bs + r:05d}" if r < live else None
+                 for r in range(bs)]
+        offset = cc._feed_batch(gen.frontend, buffer, offset, batch,
+                                lengths.astype(np.int32), ytids, manifest)
+        wave_bytes += batch_bytes
+        if j == 0:
+            first = offset
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    if offset != FEED_CLIPS * cfg.frames_per_clip or len(manifest) != \
+            FEED_CLIPS:
+        raise AssertionError(f"the feed filled {offset} rows of "
+                             f"{len(manifest)} clips")
+    specs = [spec.T for _, spec in gen._specs_for_batch(
+        [(f"feed{r:05d}", w) for r, w in enumerate(premade[0][0])])]
+    host = l2_normalize(torch.from_numpy(np.concatenate(specs)).to(dev))
+    if not torch.equal(buffer[:first], host):
+        raise AssertionError(f"the feed's first batch differs from the host "
+                             f"route's by "
+                             f"{float((buffer[:first] - host).abs().max()):.3e}")
+    del host, specs
+    feed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    before = vq_argmin.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centroids, obj = cluster_creator.kmeans_fit(
+        buffer, cfg.vocab_size, cfg.niter, seed=cfg.random_seed,
+        n_valid=offset)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = vq_argmin.launches - before
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    buffer_gb = buffer.numel() * 4 / 1e9
+    k17 = records[1]["kmeans_17M"]
+    limit_gb = buffer_gb + (k17["peak_gb"] - k17["points_gb"]) + 1.0
+    if launches != cfg.niter or not torch.isfinite(centroids).all():
+        raise AssertionError(f"the feed's fit launched B2 {launches} times")
+    if peak_gb > limit_gb:
+        raise AssertionError(f"the feed's fit peaked at {peak_gb:.3f} GB "
+                             f"over {base_gb:.3f} GB, past {limit_gb:.3f}: "
+                             f"the view was copied")
+    log(f"[fused feed] {FEED_CLIPS} clips of {CLIP_SECONDS:g} s in "
+        f"{n_batches} batches of {bs} (cycling {FEED_PREMADE} made in "
+        f"memory) through ClusterCreator._feed_batch: {offset} rows into a "
+        f"({buffer.shape[0]}, {buffer.shape[1]}) f32 buffer "
+        f"({buffer_gb:.3f} GB) in {feed_s:.3f} s (host clock, synchronized; "
+        f"{feed_s / n_batches * 1e3:.2f} ms a batch, one batch's pageable "
+        f"copy {copy_ms:.3f} ms by CUDA events), waveform "
+        f"{wave_bytes / feed_s / 1e9:.2f} GB/s host to card; the first "
+        f"batch's {first} rows bit-equal to the host route's; kmeans_fit "
+        f"on the view, vocab {cfg.vocab_size}, {cfg.niter} iterations "
+        f"{fit_s:.3f} s = {fit_s / cfg.niter * 1e3:.2f} ms an iteration, B2 "
+        f"{launches} launches, objective {obj:.6f}; peak device memory "
+        f"{peak_gb:.3f} GB above the {base_gb:.3f} GB held before (the "
+        f"feed alone {feed_peak_gb - base_gb:.3f}; bound {limit_gb:.3f} = "
+        f"buffer + phase 8's fit overhead + 1)")
+    records[1]["launches_by_path"]["fused_feed_fit"] = launches
+    records[1]["fused_feed_10k"] = dict(
+        clips=FEED_CLIPS, rows=offset, capacity=buffer.shape[0],
+        buffer_gb=buffer_gb, feed_s=feed_s, batch_copy_ms=copy_ms,
+        wave_gb_per_s=wave_bytes / feed_s / 1e9, fit_s=fit_s,
+        iteration_ms=fit_s / cfg.niter * 1e3, peak_gb=peak_gb,
+        feed_peak_gb=feed_peak_gb - base_gb, peak_limit_gb=limit_gb)
+    del buffer, manifest, centroids
     torch.cuda.empty_cache()
 
 
@@ -1667,7 +2012,10 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 8. the pipeline, wav files to a trained checkpoint ------------------
-    pipeline_phase(records, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        staged_cfg, staged_cents = pipeline_phase(records, dev, Path(tmp))
+        # -- 9. the fused pipeline on phase 8's workspace ---------------------
+        fused_phase(records, dev, Path(tmp), staged_cfg, staged_cents)
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

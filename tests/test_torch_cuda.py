@@ -818,3 +818,76 @@ def test_cuda_kmeans_stream_takes_device_feeds_untouched(cuda_device):
         50, 3, **kw)
     assert torch.equal(on_card[0], from_host[0])
     assert on_card[1:] == from_host[1:]
+
+
+def _wav_workspace(base, n_train: int = 10, n_val: int = 2):
+    """A split file and short 16-bit wavs of varied lengths (the fused
+    mode's inputs), written with the port's own wav writer."""
+    import json
+
+    from audio_tokens_tpu_torch.data.audio_io import write_pcm_wav
+
+    rng = np.random.default_rng(4)
+    ytids = [f"yt{i:04d}" for i in range(n_train + n_val)]
+    for i, y in enumerate(ytids):
+        t = np.arange(int(22050 * (2.0 + 0.3 * (i % 4)))) / 22050
+        x = np.sin(2 * np.pi * 110.0 * (1 + i % 5) * t) \
+            + 0.1 * rng.standard_normal(len(t))
+        write_pcm_wav(base / "audioset" / "bal_train" / y[:2] / f"{y}.wav",
+                      (0.5 * x / np.abs(x).max()).astype(np.float32), 22050)
+    (base / "output").mkdir(parents=True)
+    (base / "output" / "bal_train_data_split.json").write_text(json.dumps(
+        {"train": ytids[:n_train], "validation": ytids[n_train:]}))
+
+
+def _fused_config(base, **over):
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+
+    return AudioTokensConfig(
+        base_dir=str(base), fused_pipeline=True, kmeans_mode="full",
+        clip_seconds=3.0, n_mels=32, n_fft=256, hop_length=128,
+        device_batch_size=4, vocab_size=16, niter=4, **over)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_device_feed_rows_equal_host_route(cuda_device, tmp_path):
+    """The device feed's rows on the card equal the host-mediated route's
+    (spectrograms to the host, frames back, L2 on the card) bit for bit."""
+    from audio_tokens_tpu_torch.processors import ClusterCreator
+
+    _wav_workspace(tmp_path)
+    cc = ClusterCreator(_fused_config(tmp_path), cuda_device)
+    buffer, n = cc._fused_frames_device()
+    host = torch.cat(list(cc._batch_generator(10)))
+    assert buffer.is_cuda and host.is_cuda
+    assert torch.equal(buffer[:n], host)
+    frames, manifest = cc.take_resident_frames()
+    assert frames.data_ptr() == buffer.data_ptr() and len(manifest) == 10
+
+
+@pytest.mark.cuda
+def test_cuda_assign_resident_reads_a_view(cuda_device):
+    """The resident assignment (B2, ``normalize=False``) over a view of a
+    capacity buffer, dense and sparse, against the plain version."""
+    from types import SimpleNamespace
+
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties
+    from audio_tokens_tpu_torch.processors import SpecTokenizer
+
+    rows = _unit_rows(6000, 64, 8)
+    buffer = torch.full((8192, 64), float("nan"), device=cuda_device)
+    buffer[:6000] = rows.to(cuda_device)
+    view = buffer[:6000]
+    cents = _unit_rows(500, 64, 9).to(cuda_device)
+    manifest = {f"y{i}": (i * 600, 600) for i in range(10)}
+    stub = SimpleNamespace(centroids=cents)
+    before = vq_argmin.launches
+    dense = SpecTokenizer._assign_resident(stub, view, manifest,
+                                           list(manifest))
+    sparse = SpecTokenizer._assign_resident(stub, view, manifest, ["y4"])
+    assert vq_argmin.launches == before + 2
+    np.testing.assert_array_equal(sparse["y4"], dense["y4"])
+    ref = vq_argmin_plain(view, cents, False).cpu()
+    got = torch.from_numpy(np.concatenate([dense[y] for y in manifest]))
+    check_near_ties(view, cents, got, ref)

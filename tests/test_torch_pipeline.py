@@ -241,12 +241,11 @@ def test_evaluate_clustering_equals_jax(workspaces):
     ("spec", {"audio_backend": "native"}, "ROADMAP A6"),
     ("spec", {"profile_dir": "trace"}, "ROADMAP A7"),
     ("spec", {"distributed": True}, "ROADMAP A7"),
-    ("cluster", {"fused_pipeline": True}, "ROADMAP A3"),
     ("cluster", {"use_convolution": True}, "ROADMAP A6"),
     ("cluster", {"kmeans_precision": "default"}, "ROADMAP A6"),
-    ("tokenize", {"fused_pipeline": True}, "ROADMAP A3"),
     ("tokenize", {"use_convolution": True}, "ROADMAP A6"),
-    ("pipeline", {"fused_pipeline": True}, "ROADMAP A3"),
+    ("pipeline", {"fused_pipeline": True, "audio_backend": "native"},
+     "ROADMAP A6"),
 ])
 def test_unported_options_refused(workspaces, tmp_path, stage, override,
                                   match):
