@@ -26,11 +26,25 @@ tree.  Every dense layer is an ``nn.Linear`` in the port, weight (out, in):
                                                               transposed
     {layer_i/mlp_in,layer_i/mlp_out,classifier,frame_proj}/kernel -> transposed
 
+``simple_state_dict``, ``cnn_state_dict`` and ``mlp_state_dict`` map the
+``SimpleTokenClassifier``, ``CNNClassifier`` and ``BaselineMLPClassifier``
+trees:
+
+    embedding/embedding              -> embedding.weight  (V, E), copied
+    {conv1,conv2}/kernel (3, 3, I, O) -> .weight (O, I, 3, 3)  (HWIO -> OIHW)
+    {classifier,fc1,fc2,fc3}/kernel  -> .weight             transposed
+    */bias                           -> .bias
+
+The port's cnn flattens its activation in the JAX module's NHWC order, so
+``fc1``'s rows need no permutation.  ``state_dict_for(model_type, params)``
+picks the map of a family.
+
 Takes numpy, not jax:
 this package never imports jax.  The same map carries a JAX gradient tree
 (``jax.grad`` of the classifier) to the port's parameter names: the
 transplanted model's gradients equal JAX's
-(``tests/test_torch_train_lstm.py``, ``tests/test_torch_bert.py``).
+(``tests/test_torch_train_lstm.py``, ``tests/test_torch_bert.py``,
+``tests/test_torch_families.py``).
 """
 
 from __future__ import annotations
@@ -90,3 +104,55 @@ def bert_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected parameter {name}")
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def _layers_state_dict(params: Mapping, modules) -> Dict[str, torch.Tensor]:
+    """Embedding, conv and dense layers named ``modules`` -> ``state_dict``."""
+    out = {}
+    for name, arr in _flatten(params).items():
+        module, leaf = name.rsplit("/", 1)
+        if module not in modules:
+            raise KeyError(f"unexpected parameter {name}")
+        if leaf == "embedding":
+            out[f"{module}.weight"] = arr
+        elif leaf == "kernel" and arr.ndim == 4:  # HWIO -> OIHW
+            out[f"{module}.weight"] = arr.transpose(3, 2, 0, 1)
+        elif leaf == "kernel":
+            out[f"{module}.weight"] = arr.T
+        elif leaf == "bias":
+            out[f"{module}.bias"] = arr
+        else:
+            raise KeyError(f"unexpected parameter {name}")
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def simple_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``SimpleTokenClassifier`` params -> port ``state_dict``."""
+    return _layers_state_dict(params, ("embedding", "classifier"))
+
+
+def cnn_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``CNNClassifier`` params -> port ``state_dict``."""
+    return _layers_state_dict(params, ("conv1", "conv2", "fc1", "fc2"))
+
+
+def mlp_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``BaselineMLPClassifier`` params -> port ``state_dict``."""
+    return _layers_state_dict(params, ("fc1", "fc2", "fc3"))
+
+
+_STATE_DICTS = {
+    "lstm": lstm_state_dict,
+    "bert": bert_state_dict,
+    "simple": simple_state_dict,
+    "cnn": cnn_state_dict,
+    "baseline": mlp_state_dict,
+}
+
+
+def state_dict_for(model_type: str, params: Mapping
+                   ) -> Dict[str, torch.Tensor]:
+    """The map of ``model_type``'s family applied to ``params``."""
+    if model_type not in _STATE_DICTS:
+        raise ValueError(f"Unknown model type: {model_type}")
+    return _STATE_DICTS[model_type](params)

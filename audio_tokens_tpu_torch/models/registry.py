@@ -1,8 +1,8 @@
-"""Model factory (counterpart of ``audio_tokens_tpu/models/registry.py``).
-
-``model_type="lstm"`` and ``"bert"`` are ported; the other three families
-raise ``NotImplementedError`` naming their ROADMAP item rather than building
-something else.
+"""Model factory (counterpart of ``audio_tokens_tpu/models/registry.py``):
+the same five ``model_type`` strings build the same architectures from the
+same config fields.  The spec and flat families are sized by the inputs the
+trainer and the serving program give them (``max_seq_len`` frames of
+``n_mels``), where flax infers the width from the first input.
 """
 
 from __future__ import annotations
@@ -11,7 +11,10 @@ import torch
 from torch import nn
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
+from audio_tokens_tpu_torch.models.cnn import CNNClassifier
 from audio_tokens_tpu_torch.models.lstm import SimpleLSTMTokenClassifier
+from audio_tokens_tpu_torch.models.mlp import BaselineMLPClassifier
+from audio_tokens_tpu_torch.models.simple import SimpleTokenClassifier
 from audio_tokens_tpu_torch.models.transformer import TransformerClassifier
 
 # What each model consumes: 'tokens' (int IDs), 'spec' (B,T,M), 'flat' (B,D)
@@ -21,12 +24,6 @@ _INPUT_KINDS = {
     "bert": "tokens",
     "cnn": "spec",
     "baseline": "flat",
-}
-
-_NOT_PORTED = {
-    "simple": "ROADMAP A, the other model families",
-    "cnn": "ROADMAP A, the other model families",
-    "baseline": "ROADMAP A, the other model families",
 }
 
 
@@ -104,8 +101,29 @@ def get_model(config: AudioTokensConfig, device: torch.device,
             device=device,
             generator=generator,
         )
-    if config.model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type='{config.model_type}' is not ported yet: "
-            f"{_NOT_PORTED[config.model_type]}")
+    if config.model_type == "simple":
+        return SimpleTokenClassifier(
+            vocab_size=config.vocab_size,
+            hidden_size=config.hidden_size,
+            num_classes=config.num_classes,
+            device=device,
+            generator=generator,
+        )
+    if config.model_type == "cnn":
+        return CNNClassifier(
+            max_seq_len=config.max_seq_len,
+            n_mels=config.n_mels,
+            num_classes=config.num_classes,
+            compute_dtype=_compute_dtype(config),
+            device=device,
+            generator=generator,
+        )
+    if config.model_type == "baseline":
+        return BaselineMLPClassifier(
+            input_dim=config.max_seq_len * config.n_mels,
+            num_classes=config.num_classes,
+            compute_dtype=_compute_dtype(config),
+            device=device,
+            generator=generator,
+        )
     raise ValueError(f"Unknown model type: {config.model_type}")

@@ -21,7 +21,10 @@ On the card the lstm's recurrence runs kernels B3 (forward, with the
 residuals) and B4 (backward), through ``ops/cuda_lstm.LSTMSequence``.  The
 bert classifier's training steps take the plain attention route, as the JAX
 model's do; its validation passes (eval mode, ``inference_mode``) run kernel
-B5 when ``transformer_attention="flash"``.  Not
+B5 when ``transformer_attention="flash"``.  The simple, cnn and baseline
+classifiers train on tokens, ``RawSTFTDataset`` frames and
+``RawSTFTFlatDataset`` rows; they have no kernel of their own (a gather,
+cuDNN convolutions, cuBLAS products).  Not
 ported yet, and refused with ``NotImplementedError`` naming ROADMAP A7:
 device-resident epochs (``device_corpus='on'``; ``'auto'`` streams),
 multi-device meshes and multi-process runs, ``diagnostics_every``.

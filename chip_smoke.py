@@ -1,5 +1,5 @@
 """Drive the PyTorch + CUDA port's serving and training paths once on one
-NVIDIA GPU, for the lstm and the bert classifiers.
+NVIDIA GPU, for the five classifiers (lstm, bert, simple, cnn, baseline).
 
     python3 chip_smoke.py
 
@@ -14,7 +14,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    yardstick the port never calls) with CUDA events: B1 at 64 ten-second
    clips (beside it the DFT product alone, one cuBLAS GEMM on the frames),
    B2 at the same batch's 110,272 mel frames against 500 and 16,384
-   centroids (two records), B3 and B4 at T 1728,
+   centroids and, at 128 mel bins, 500 (the sliced ring instance, rows
+   wider than d 100; beside it ``torch.matmul`` + argmin over all rows; three
+   records), B3 and B4 at T 1728,
    B 64, H 512, both directions (B3 also with the residuals B4 needs; the
    library call is cuDNN's bidirectional ``nn.LSTM``; B3's time a step is
    printed; B4's recurrence and its ``dw_hh`` GEMM are timed apart, the
@@ -37,7 +39,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    normalization (the route through B2).  The kernels' launch counters are
    reset just before and read just after; every kernel must have launched.
    Then one batch with per-clip normalization through a 16,384-token
-   vocabulary (B2's ring instance), its counters reset and read around it.
+   vocabulary (B2's ring instance) and one at 128 mel bins (its sliced
+   ring instance), each with its counters reset and read around it.
    The first two clips are then served on the CPU and the answers compared;
 5. serve bert: the full-width classifier (hidden 768, 12 heads, MLP 3072,
    2 layers, window 1728, 543 classes, bf16 compute,
@@ -122,7 +125,23 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ``kmeans_fit`` on its view (vocab 500, 20 iterations); the first batch's
    rows bit-equal to the host-mediated route's, and the peak device memory
    at most the buffer plus phase 8's in-memory fit overhead plus 1 GB (a
-   copied view would pass it).
+   copied view would pass it);
+10. on phase 8's workspace, train the simple (hidden 768), cnn and baseline
+   classifiers (``tools/bench_training.py``'s cases; cnn and baseline at
+   the default bf16) for 8 steps of 64 through ``ModelTrainer(config,
+   cuda).run()``, each with its ms a step, the step's bound (its FLOPs
+   over the peak for its type against AdamW's bytes), peak memory and
+   parameter count; the trained weights' loss + backward on 4 rows, card
+   vs CPU, at f32 and (cnn, baseline) at bf16, bounded by twice the CPU's
+   own bf16 error.  Then every family serves from its checkpoint through
+   ``ServingProgram(config, "no-wandb-best", device=cuda)``: those three,
+   the lstm from phase 8's checkpoint (B1 + B3), bert from phase 7's with
+   ``transformer_attention="flash"`` (B1 + B5), one batch of 64 and one
+   clip each, the counters reset and read around them
+   (``launches_by_path`` ``serve_ckpt_<family>``), the tokens equal to
+   ``FusedTokenizer``'s, 2 clips at f32 card vs CPU; and ``ManualTester``
+   (``Predictor``) reports one validation clip, its probabilities held to
+   the serving program's.
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -146,6 +165,7 @@ import numpy as np
 
 SR, CLIP_SECONDS, BATCH, VOCAB = 22050, 10.0, 64, 500
 VOCAB_LARGE = 16384  # B2 streams these centroids (4 MB at d 64) through a ring
+D_WIDE = 128  # mel bins past d 100: B2 walks each row in feature slices
 T_LSTM, B_LSTM, H_LSTM = 1728, 64, 512
 # the package defaults: the lstm case of tools/bench_training.py
 MODEL = dict(vocab_size=VOCAB, lstm_embed_dim=256, lstm_hidden_dim=512,
@@ -183,6 +203,17 @@ DW_RTOL = 1e-4     # dw_hh: max abs error / max |dw_hh| (110,528-row sums)
 PROBS_ATOL = 1e-4
 LOSS_ATOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3
+# phase 10: tools/bench_training.py's simple (hidden 768), cnn and baseline
+# cases at batch 64 and T 1728; cnn and baseline at the default bf16
+FAMILIES = {
+    "simple": dict(model_type="simple", hidden_size=768),
+    "cnn": dict(model_type="cnn", dataset_type="RawSTFTDataset"),
+    "baseline": dict(model_type="baseline",
+                     dataset_type="RawSTFTFlatDataset"),
+}
+# Predictor vs ServingProgram, one clip on one device: the JAX package's
+# own bound for the pair (tests/test_export.py)
+PREDICT_TOL = dict(rtol=2e-4, atol=1e-5)
 
 
 def log(msg: str) -> None:
@@ -211,11 +242,11 @@ def make_clips(n: int, offset: int = 0, sr: int = SR) -> list:
     return clips
 
 
-def make_centroids(k: int = VOCAB, seed: int = 7) -> np.ndarray:
+def make_centroids(k: int = VOCAB, seed: int = 7, d: int = 64) -> np.ndarray:
     """Unit-normalized normals from a seed (tools/serve_bench.py's recipe:
     seed 7)."""
     rng = np.random.default_rng(seed)
-    cent = rng.standard_normal((k, 64)).astype(np.float32)
+    cent = rng.standard_normal((k, d)).astype(np.float32)
     return cent / (np.linalg.norm(cent, axis=1, keepdims=True) + 1e-10)
 
 
@@ -353,39 +384,63 @@ def timed_run(trainer, kernels):
     return val_loss, val_metrics, step_ms, run_s, peak_gb, launches
 
 
-def card_vs_cpu_grads(tag: str, card_model, cpu_model, x, y, w,
-                      train: bool) -> None:
-    """One weighted-BCE loss + backward on each side (training or eval
-    mode); the losses within LOSS_ATOL and every gradient within
-    GRAD_ATOL + GRAD_RTOL * |CPU's|."""
+def loss_and_grads(model, x, y, w, train: bool):
+    """One weighted-BCE loss + backward of ``model`` on its device (training
+    or eval mode) -> (loss, {name: gradient on the host})."""
     from audio_tokens_tpu_torch.train.objective import weighted_bce
 
-    losses, grads = [], []
-    for model in (card_model, cpu_model):
-        d = next(model.parameters()).device
-        model.train(train)
-        model.zero_grad(set_to_none=True)
-        loss = weighted_bce(model(x.to(d)), y.to(d), w.to(d))
-        loss.backward()
-        losses.append(float(loss.detach()))
-        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
-    loss_err = abs(losses[0] - losses[1])
-    worst = {}
-    for name, ref in grads[1].items():
-        diff = (grads[0][name] - ref).abs()
-        worst[name] = (float(diff.max()),
-                       float((diff - GRAD_RTOL * ref.abs()).max()))
-    log(f"{tag} {len(x)} rows, loss card {losses[0]:.8f} vs CPU "
-        f"{losses[1]:.8f} (|diff| {loss_err:.3e}, atol {LOSS_ATOL}); "
+    d = next(model.parameters()).device
+    model.train(train)
+    model.zero_grad(set_to_none=True)
+    loss = weighted_bce(model(x.to(d)), y.to(d), w.to(d))
+    loss.backward()
+    return (float(loss.detach()),
+            {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+
+def card_vs_cpu_grads(tag: str, card_model, cpu_model, x, y, w,
+                      train: bool, f32_ref=None):
+    """One weighted-BCE loss + backward on each side (training or eval
+    mode); the losses within LOSS_ATOL and every gradient within
+    GRAD_ATOL + GRAD_RTOL * |CPU's|.  For bf16 models ``f32_ref`` is the
+    CPU's (loss, gradients) of the same weights in f32: both sides round
+    every layer to 8 bits, so the card may be as far from the CPU's bf16
+    answer as that answer is from the f32 one, and each bound becomes twice
+    the CPU's own bf16 error (largest over the tensor) plus the f32 bound.
+    Returns the CPU's (loss, gradients)."""
+    card, cpu = (loss_and_grads(m, x, y, w, train)
+                 for m in (card_model, cpu_model))
+    loss_err = abs(card[0] - cpu[0])
+    loss_tol = LOSS_ATOL
+    if f32_ref is not None:
+        loss_tol += 2 * abs(cpu[0] - f32_ref[0])
+    worst, bound = {}, {}
+    for name, ref in cpu[1].items():
+        diff = (card[1][name] - ref).abs()
+        if f32_ref is None:
+            bound[name] = GRAD_ATOL
+            over = float((diff - GRAD_RTOL * ref.abs()).max())
+        else:
+            bound[name] = GRAD_ATOL + 2 * float(
+                (ref - f32_ref[1][name]).abs().max())
+            over = float(diff.max())
+        worst[name] = (float(diff.max()), over)
+    rule = (f"atol {GRAD_ATOL} + rtol {GRAD_RTOL}" if f32_ref is None
+            else "bound 2x the CPU bf16's own error + " + str(GRAD_ATOL))
+    log(f"{tag} {len(x)} rows, loss card {card[0]:.8f} vs CPU "
+        f"{cpu[0]:.8f} (|diff| {loss_err:.3e}, bound {loss_tol:.3e}); "
         f"largest gradient errors: "
-        + ", ".join(f"{n} {e:.3e}" for n, (e, _) in sorted(
-            worst.items(), key=lambda kv: -kv[1][0])[:4])
-        + f" (atol {GRAD_ATOL} + rtol {GRAD_RTOL})")
-    if not loss_err <= LOSS_ATOL:
+        + ", ".join(f"{n} {e:.3e}" + (f" of {bound[n]:.3e}"
+                                      if f32_ref is not None else "")
+                    for n, (e, _) in sorted(
+                        worst.items(), key=lambda kv: -kv[1][0])[:4])
+        + f" ({rule})")
+    if not loss_err <= loss_tol:
         raise AssertionError(f"{tag} loss differs by {loss_err:.3e}")
-    bad = {n: e for n, (e, over) in worst.items() if over > GRAD_ATOL}
+    bad = {n: e for n, (e, over) in worst.items() if over > bound[n]}
     if bad:
         raise AssertionError(f"{tag} gradients differ from the CPU: {bad}")
+    return cpu
 
 
 def loss_backward_ms(model, x, y, w, train: bool, iters: int = 5) -> float:
@@ -402,6 +457,22 @@ def loss_backward_ms(model, x, y, w, train: bool, iters: int = 5) -> float:
         weighted_bce(model(x), y, w).backward()
 
     return cuda_ms(step, iters)
+
+
+def check_served(tokens, n_valid, probs, b: int, frames_max: int,
+                 classes: int, vocab: int = VOCAB) -> None:
+    """A served batch's shapes, token range and probabilities in [0, 1]."""
+    import torch
+
+    if tuple(tokens.shape) != (b, frames_max):
+        raise AssertionError(f"tokens shape {tuple(tokens.shape)}")
+    if tuple(probs.shape) != (b, classes) or n_valid.numel() != b:
+        raise AssertionError(f"probs {tuple(probs.shape)}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= vocab:
+        raise AssertionError("token id out of range")
+    if not (torch.isfinite(probs).all() and probs.min() >= 0
+            and probs.max() <= 1):
+        raise AssertionError("probs not finite in [0, 1]")
 
 
 def first_val_rows(cfg, n: int):
@@ -1291,6 +1362,230 @@ def feed_phase(records: list, cfg, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def train_bound(cfg, n_params: int):
+    """(bound_ms, bound_by, flop) of one training step of a family at batch
+    B_LSTM: ``tools/bench_training.py``'s FLOPs over the card's peak for
+    the compute type (the simple family: its head GEMM), against the bytes
+    AdamW moves (f32 parameter, gradient and two moments read, three
+    written: 28 bytes a parameter) plus, for the simple family, the
+    embedding gather's (B, T, E) f32 rows read in the forward and written
+    in the backward."""
+    b, t = B_LSTM, cfg.max_seq_len
+    nbytes = 28 * n_params
+    if cfg.model_type == "simple":
+        flop = 3.0 * 2 * b * cfg.hidden_size * cfg.num_classes
+        nbytes += 2 * b * t * cfg.hidden_size * 4
+    elif cfg.model_type == "cnn":
+        m = cfg.n_mels
+        flop = 3.0 * b * (2.0 * t * m * 9 * 32
+                          + 2.0 * (t // 2) * (m // 2) * 9 * 32 * 64
+                          + 2.0 * ((t // 4) * (m // 4) * 64 * 256
+                                   + 256 * cfg.num_classes))
+    else:
+        d = t * cfg.n_mels
+        flop = 3.0 * 2.0 * b * (d * 512 + 512 * 256 + 256 * cfg.num_classes)
+    dtype = "float32" if cfg.model_type == "simple" else cfg.compute_dtype
+    return (*bound_of(flop, nbytes, dtype), flop)
+
+
+def serve_ckpt(records, tag: str, cfg, dev, clips, kernels, must):
+    """``ServingProgram(cfg, "no-wandb-best", device=dev)`` answers one
+    batch of 64 clips and one single clip, the launch counters of
+    ``kernels`` (B1, B2, B3, B5 forward) reset just before and read just
+    after (``launches_by_path`` ``serve_ckpt_<tag>``; the kernels at the
+    indices ``must`` must move, bert's B5 counting for the bf16 record).
+    The tokens must equal ``FusedTokenizer``'s; the first two clips' probs
+    through the program at f32 on the card and on the CPU within
+    PROBS_ATOL.  Returns the program."""
+    import torch
+
+    from audio_tokens_tpu_torch.export import ServingProgram
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
+    from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
+
+    prog = ServingProgram(cfg, "no-wandb-best", device=dev)
+    batch, lengths = prog.tokenizer.frontend.prepare_batch(clips)
+    x, ln = torch.from_numpy(batch), torch.from_numpy(lengths)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    tokens, n_valid, probs = prog(x, ln)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    one_tokens, one_probs = prog.predict_waveforms(clips[:1])
+    single_ms = (time.perf_counter() - t0) * 1e3
+    launches = [k.launches for k in kernels]
+    check_served(tokens, n_valid, probs, len(clips),
+                 prog.tokenizer.frontend.frames_max, cfg.num_classes)
+    if one_probs.shape != (1, cfg.num_classes):
+        raise AssertionError(f"{tag}: single clip answered wrongly")
+    ref = FusedTokenizer.from_artifacts(cfg, dev).tokens_from_padded(
+        x.to(dev))
+    if not torch.equal(tokens, ref):
+        raise AssertionError(f"{tag}: tokens differ from FusedTokenizer's")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    two = [ServingProgram(f32, "no-wandb-best", device=d)(x[:2], ln[:2])
+           for d in (dev, "cpu")]
+    perr = float((two[0][2].cpu() - two[1][2]).abs().max())
+    frac, gap = check_near_ties(
+        l2_normalize(prog.tokenizer.kernel.log_mel_plain(x[:2].to(dev))),
+        prog.tokenizer.centroids.cpu(), tokens[:2].cpu(), two[1][0])
+    dtype = (cfg.compute_dtype if cfg.model_type in ("bert", "cnn",
+                                                      "baseline")
+             else "float32")
+    log(f"[serve ckpt {tag}] ServingProgram(config) from "
+        f"{Path(cfg.checkpoint_dir).name}/no-wandb-best, {dtype}"
+        f": batch of {len(clips)} {batch_ms:.1f} ms (host clock, first "
+        f"call, host->card copy included), single clip {single_ms:.1f} ms; "
+        f"launches B1, B2, B3, B5 {launches}; tokens equal FusedTokenizer's"
+        f"; 2 clips at f32 card vs CPU: probs max abs err {perr:.3e} (atol "
+        f"{PROBS_ATOL}), tokens {frac:.2e} disagree (gap {gap:.3e})")
+    if not perr <= PROBS_ATOL:
+        raise AssertionError(f"{tag}: probs differ from the CPU by "
+                             f"{perr:.3e}")
+    for i in must:
+        if launches[i] < 1:
+            raise AssertionError(f"{tag}: a kernel of the path never "
+                                 f"launched: {launches}")
+    for rec, n in zip((records[0], records[1], records[2], records[4]),
+                      launches):
+        if n:
+            rec["launches_by_path"][f"serve_ckpt_{tag}"] = n
+    return prog
+
+
+def predict_ckpt(tag: str, cfg, dev, ytid: str, prog) -> None:
+    """``ManualTester(cfg, device=dev).run(ytid)`` prints the report; its
+    ``Predictor``'s probabilities for the clip must equal the serving
+    program ``prog``'s (``predict_waveforms``) within PREDICT_TOL, the rows
+    be ranked and ``is_true`` agree with the metadata."""
+    import torch
+
+    from audio_tokens_tpu_torch.data.audio_io import decode_audio
+    from audio_tokens_tpu_torch.data.metadata import (
+        AudiosetMetadataProcessor)
+    from audio_tokens_tpu_torch.infer import ManualTester
+
+    t0 = time.perf_counter()
+    tester = ManualTester(cfg, device=dev)
+    rows = tester.run(ytid, top_k=5)
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    path = tester.find_audio_file(ytid)
+    t0 = time.perf_counter()
+    tokens, probs = tester.predictor.predict_file(path)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    wave, _ = decode_audio(path, target_sr=cfg.common_sr)
+    p_tokens, p_probs = prog.predict_waveforms([wave])
+    err = float(np.abs(probs - p_probs[0]).max())
+    truth = set(AudiosetMetadataProcessor(cfg).get_ytid_labels(ytid))
+    scores = [r["score"] for r in rows]
+    log(f"[predict {tag}] ManualTester.run({ytid}) {report_s:.2f} s (the "
+        f"Predictor and metadata built); Predictor.predict_file "
+        f"{predict_ms:.1f} ms; probs vs ServingProgram.predict_waveforms "
+        f"max abs err {err:.3e} (rtol {PREDICT_TOL['rtol']}, atol "
+        f"{PREDICT_TOL['atol']}); {len(tokens)} tokens; true labels "
+        f"{sorted(truth)}, top 5 {[r['class_index'] for r in rows]}")
+    if not np.allclose(probs, p_probs[0], **PREDICT_TOL):
+        raise AssertionError(f"{tag}: Predictor and ServingProgram differ "
+                             f"by {err:.3e}")
+    if not np.array_equal(tokens, p_tokens[0]):
+        raise AssertionError(f"{tag}: Predictor's tokens differ")
+    if scores != sorted(scores, reverse=True) or [
+            r["rank"] for r in rows] != [1, 2, 3, 4, 5]:
+        raise AssertionError(f"{tag}: rows not ranked: {rows}")
+    if any(r["is_true"] != (r["class_index"] in truth) for r in rows):
+        raise AssertionError(f"{tag}: is_true disagrees with the metadata")
+
+
+def families_phase(records: list, dev, base: Path, cfg,
+                   bert_ckpt: Path) -> None:
+    """Phase 10 on phase 8's workspace: train the simple, cnn and baseline
+    families through ``ModelTrainer(cfg, dev).run()``, hold their trained
+    weights' gradients to the CPU's, then serve every family from its
+    checkpoint (the lstm from phase 8's, bert from phase 7's) through
+    ``ServingProgram(config)``, ``Predictor`` and ``ManualTester``."""
+    import torch
+
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+    from audio_tokens_tpu_torch.ops.cuda_lstm import lstm_sequence_fwd
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.processors.model_trainer import ModelTrainer
+
+    t_phase = time.perf_counter()
+    configs = {}
+    for tag, fam in FAMILIES.items():
+        fcfg = dataclasses.replace(
+            cfg, **fam, checkpoint_dir=str(base / f"checkpoints_{tag}"),
+            num_workers=2, log_every_steps=0, device_corpus="off")
+        configs[tag] = fcfg
+        trainer = ModelTrainer(fcfg, dev)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        (val_loss, val_metrics, step_ms, run_s, peak_gb,
+         _) = timed_run(trainer, ())
+        b_ms, b_by, flop = train_bound(fcfg, n_params)
+        med = statistics.median(step_ms[1:])
+        dtype = "float32" if tag == "simple" else fcfg.compute_dtype
+        log(f"[train {tag}] {fam}, {fcfg.num_classes} classes, T "
+            f"{fcfg.max_seq_len}, batch {B_LSTM}, {dtype}: {n_params} "
+            f"parameters ({n_params / 1e6:.1f}M); {len(step_ms)} steps, ms "
+            f"per step {', '.join(f'{t:.1f}' for t in step_ms)} (host clock, "
+            f"synchronized; median of steps 2..{len(step_ms)} {med:.2f} ms); "
+            f"bound {b_ms:.3f} ms ({b_by}: {flop / 1e9:.1f} GFLOP {dtype}, "
+            f"AdamW {28 * n_params / 1e9:.3f} GB); run() {run_s:.1f} s incl. "
+            f"corpus load, validation and checkpoint; val loss "
+            f"{val_loss:.6f}, val mAP {val_metrics['mAP']:.6f}; peak device "
+            f"memory {peak_gb:.2f} GiB")
+        if len(step_ms) != TRAIN_STEPS:
+            raise AssertionError(f"{tag} trained {len(step_ms)} steps")
+        if not (np.isfinite(val_loss) and 0.0 <= val_metrics["mAP"] <= 1.0
+                and (Path(fcfg.checkpoint_dir) / "no-wandb-best"
+                     / "params.pt").exists()):
+            raise AssertionError(f"{tag}: val loss {val_loss}, mAP "
+                                 f"{val_metrics}, or no checkpoint")
+        # the trained weights on the CPU: f32 (every family), then the
+        # trained bf16 model against the CPU's bf16 one
+        state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+        rows = first_val_rows(fcfg, 4)
+        f32 = dataclasses.replace(fcfg, compute_dtype="float32")
+        card32, cpu32 = (get_model(f32, d, torch.Generator().manual_seed(0))
+                         for d in (dev, "cpu"))
+        for m in (card32, cpu32):
+            m.load_state_dict(state)
+        ref32 = card_vs_cpu_grads(f"[train {tag} reference] f32:", card32,
+                                  cpu32, *rows, train=True)
+        if tag != "simple":
+            cpu16 = get_model(fcfg, "cpu", torch.Generator().manual_seed(0))
+            cpu16.load_state_dict(state)
+            card_vs_cpu_grads(f"[train {tag} reference] bf16:",
+                              trainer.model, cpu16, *rows, train=True,
+                              f32_ref=ref32)
+            del cpu16
+        del trainer, card32, cpu32, state
+        torch.cuda.empty_cache()
+
+    clips = make_clips(BATCH, 3 * BATCH)
+    kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
+               flash_attention_fwd)
+    configs["lstm"] = cfg
+    configs["bert"] = dataclasses.replace(
+        cfg, **BERT, checkpoint_dir=str(bert_ckpt))
+    must = {"lstm": (0, 2), "bert": (0, 3)}
+    ytid = json.loads(Path(cfg.split_file).read_text())["validation"][0]
+    for tag, fcfg in configs.items():
+        prog = serve_ckpt(records, tag, fcfg, dev, clips, kernels,
+                          must.get(tag, (0,)))
+        predict_ckpt(tag, fcfg, dev, ytid, prog)
+        del prog
+        torch.cuda.empty_cache()
+    log(f"[families] phase 10 took {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+
+
 def sums_split(x, ids) -> dict:
     """The parts of ``cluster_sums`` at these rows, each timed alone with
     CUDA events: the stable sort, the gather and the f64 running sums."""
@@ -1471,6 +1766,7 @@ def main() -> int:
     from audio_tokens_tpu_torch.processors.model_trainer import ModelTrainer
     from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
     from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
     from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 
@@ -1560,7 +1856,37 @@ def main() -> int:
             max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
         del c_t, got, ref
-    records.append(b2[0])  # B2 at K 16,384 goes last (records[10])
+    records.append(b2[0])  # B2 at K 16,384 and d 128 go last (records[10:])
+    # B2's sliced ring instance (rows wider than d 100): the same batch's
+    # frames at D_WIDE mel bins, K 500
+    wide = MelFrontend(dev, SR, D_WIDE, cfg.n_fft, cfg.hop_length,
+                       cfg.clip_samples).mel_frames(x).reshape(-1, D_WIDE)
+    cents_wide = make_centroids(VOCAB, 9, D_WIDE)
+    c_t = torch.from_numpy(cents_wide).to(dev)
+    got = vq_argmin(wide, c_t, True)
+    ref = vq_argmin_plain(wide, c_t, True)
+    torch.cuda.synchronize()
+    frac, gap = check_near_ties(l2_normalize(wide), c_t, got, ref)
+    ms = cuda_ms(lambda: vq_argmin(wide, c_t, True), 10)
+    plain_ms = cuda_ms(lambda: vq_argmin_plain(wide, c_t, True), 5)
+    # yardstick: one torch.matmul over all rows, then argmin (TF32 off)
+    lib_ms = cuda_ms(lambda: vq_argmin_plain(wide, c_t, True,
+                                             chunk=wide.shape[0]), 5)
+    n, k = wide.shape[0], VOCAB
+    b_ms, b_by = bound_of(2 * n * D_WIDE * k + 3 * n * D_WIDE,
+                          wide.numel() * 4 + cents_wide.nbytes + n * 4)
+    log(f"[B2 vq] ids ({n},), d {D_WIDE}, K {k} (the sliced ring "
+        f"instance): {frac:.2e} disagree, largest score gap {gap:.3e}; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul + "
+        f"argmin over all rows {lib_ms:.3f} ms; bound {b_ms:.3f} ms "
+        f"({b_by}); {2 * n * D_WIDE * k / ms / 1e9:.1f} TFLOP/s")
+    b2.append(dict(
+        name=f"B2 vq (normalize + nearest centroid), d {D_WIDE} (sliced "
+        "ring)", route="cuda", source="audio_tokens_tpu_torch/csrc/vq.cu",
+        replaces="audio_tokens_tpu/ops/pallas_vq.py:37", max_abs_err=gap,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, matmul_argmin_ms=lib_ms))
+    del wide, c_t, got, ref
 
     gen = torch.Generator().manual_seed(3)
     bound = 1.0 / H_LSTM ** 0.5
@@ -1696,7 +2022,7 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd_ms))
     del fwd, bwd_args, dhs, dh_last, xg
     attention_phases(records)
-    records.append(b2[1])
+    records.extend(b2[1:])
 
     # -- 4. the slice answers requests ---------------------------------------
     prog = ServingProgram.from_components(
@@ -1711,15 +2037,8 @@ def main() -> int:
     single = make_clips(1, 1000)
 
     def check(tokens, n_valid, probs, b, vocab=VOCAB):
-        if tuple(tokens.shape) != (b, tok.frontend.frames_max):
-            raise AssertionError(f"tokens shape {tuple(tokens.shape)}")
-        if tuple(probs.shape) != (b, cfg.num_classes) or n_valid.numel() != b:
-            raise AssertionError(f"probs {tuple(probs.shape)}")
-        if int(tokens.min()) < 0 or int(tokens.max()) >= vocab:
-            raise AssertionError("token id out of range")
-        if not (torch.isfinite(probs).all() and probs.min() >= 0
-                and probs.max() <= 1):
-            raise AssertionError("probs not finite in [0, 1]")
+        check_served(tokens, n_valid, probs, b, tok.frontend.frames_max,
+                     cfg.num_classes, vocab)
 
     torch.cuda.synchronize()
     kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd)
@@ -1782,6 +2101,29 @@ def main() -> int:
         raise AssertionError("B2 never launched on the 16k-vocabulary batch")
     b2[1]["launches_by_path"] = {"serve_16k": large_launches}
     del prog_l, out_l
+
+    # frames of D_WIDE mel bins through the normalize route: B2's sliced
+    # ring instance
+    cfg_w = AudioTokensConfig(clip_seconds=CLIP_SECONDS,
+                              **{**MODEL, "n_mels": D_WIDE}, normalize=True)
+    prog_w = ServingProgram.from_components(
+        cfg_w, FusedTokenizer(cfg_w, cents_wide, dev), device=dev,
+        generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    vq_argmin.launches = 0
+    t0 = time.perf_counter()
+    out_w = prog_w(torch.from_numpy(pb), torch.from_numpy(pl))
+    torch.cuda.synchronize()
+    wide_ms = (time.perf_counter() - t0) * 1e3
+    wide_launches = vq_argmin.launches
+    check(*out_w, BATCH)
+    log(f"[serve d{D_WIDE}] lstm, {D_WIDE} mel bins, normalize=True: batch "
+        f"of {BATCH} took {wide_ms:.1f} ms (host clock, first call); "
+        f"launches B2 {wide_launches}")
+    if wide_launches < 1:
+        raise AssertionError(f"B2 never launched on the d {D_WIDE} batch")
+    b2[2]["launches_by_path"] = {f"serve_d{D_WIDE}": wide_launches}
+    del prog_w, out_w
 
     # reference on a small input: the first two clips through the plain
     # versions on the CPU, the classifier fed the card's tokens
@@ -2011,11 +2353,15 @@ def main() -> int:
         del btrainer, card_bert, cpu_bert, state
         torch.cuda.empty_cache()
 
-    # -- 8. the pipeline, wav files to a trained checkpoint ------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        staged_cfg, staged_cents = pipeline_phase(records, dev, Path(tmp))
-        # -- 9. the fused pipeline on phase 8's workspace ---------------------
-        fused_phase(records, dev, Path(tmp), staged_cfg, staged_cents)
+        # -- 8. the pipeline, wav files to a trained checkpoint --------------
+        with tempfile.TemporaryDirectory() as tmp8:
+            pipe = Path(tmp8)
+            staged_cfg, staged_cents = pipeline_phase(records, dev, pipe)
+            # -- 9. the fused pipeline on phase 8's workspace -----------------
+            fused_phase(records, dev, pipe, staged_cfg, staged_cents)
+            # -- 10. every family trains and serves from its checkpoint -------
+            families_phase(records, dev, pipe, staged_cfg,
+                           Path(bt_cfg.checkpoint_dir))
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

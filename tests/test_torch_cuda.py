@@ -891,3 +891,100 @@ def test_cuda_assign_resident_reads_a_view(cuda_device):
     ref = vq_argmin_plain(view, cents, False).cpu()
     got = torch.from_numpy(np.concatenate([dense[y] for y in manifest]))
     check_near_ties(view, cents, got, ref)
+
+
+# the simple, cnn and baseline families: no kernel of their own; cuDNN
+# convolutions and cuBLAS products on the card (TF32 off) vs the CPU
+FAMILY_CFG = dict(num_classes=7, vocab_size=48, hidden_size=32, n_mels=32,
+                  max_seq_len=67, n_fft=256, hop_length=128,
+                  clip_seconds=1.5)
+
+
+def _family_inputs(model_type, cfg, gen):
+    if model_type == "simple":
+        return torch.randint(0, cfg.vocab_size, (4, cfg.max_seq_len),
+                             generator=gen)
+    x = 20.0 * torch.randn((4, cfg.max_seq_len, cfg.n_mels), generator=gen)
+    return x.reshape(4, -1) if model_type == "baseline" else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,dtype", [
+    ("simple", "float32"), ("cnn", "float32"), ("cnn", "bfloat16"),
+    ("baseline", "float32"), ("baseline", "bfloat16")])
+def test_cuda_family_forward_backward_matches_cpu(cuda_device, model_type,
+                                                  dtype):
+    """Logits, loss and every gradient of one weighted-BCE step on the card
+    vs the CPU, the same weights (odd max_seq_len 67: pooling floors).
+    f32: atol 1e-4 + rtol 1e-3; bf16: within 2e-2 of each tensor's largest
+    entry (one bf16 rounding apart, 2**-8, carried through the layers)."""
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    cfg = AudioTokensConfig(model_type=model_type, compute_dtype=dtype,
+                            **FAMILY_CFG)
+    gen = torch.Generator().manual_seed(3)
+    x = _family_inputs(model_type, cfg, gen)
+    lens = torch.tensor([67, 30, 1, 0])
+    labels = (torch.rand((4, 7), generator=gen) < 0.3).float()
+    row_w = torch.tensor([1.0, 1.0, 1.0, 0.0])
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = get_model(cfg, device, torch.Generator().manual_seed(0))
+        logits = model(x.to(device), lens.to(device)
+                       if model_type == "simple" else None)
+        loss = weighted_bce(logits, labels.to(device), row_w.to(device))
+        loss.backward()
+        out[str(device)] = (logits.detach().cpu(), loss.detach().cpu(),
+                            {n: p.grad.cpu()
+                             for n, p in model.named_parameters()})
+    card, cpu = out[str(cuda_device)], out["cpu"]
+    assert card[0].dtype == torch.float32
+    for name, got, ref in [("logits", card[0], cpu[0]),
+                           ("loss", card[1], cpu[1]),
+                           *[(n, card[2][n], cpu[2][n]) for n in cpu[2]]]:
+        if dtype == "float32":
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3,
+                                       msg=name)
+        else:
+            err = float((got - ref).abs().max())
+            assert err <= 2e-2 * float(ref.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["cnn", "baseline"])
+def test_cuda_serving_program_from_checkpoint_spec_and_flat(
+        cuda_device, tmp_path, model_type):
+    """``ServingProgram(config)`` on the card for a spec and a flat family:
+    centroids and a checkpoint on disk, B1's tokens equal to
+    ``FusedTokenizer``'s, probabilities within 1e-4 of the CPU program's
+    (f32: the card's mel frontend sums the DFT in another order)."""
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.export import ServingProgram
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
+    from audio_tokens_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = AudioTokensConfig(base_dir=str(tmp_path), model_type=model_type,
+                            compute_dtype="float32", **FAMILY_CFG)
+    (tmp_path / "output").mkdir()
+    np.save(cfg.centroids_path, _unit_rows(48, 32, 4).numpy())
+    save_checkpoint(cfg.checkpoint_dir, "no-wandb-best",
+                    get_model(cfg, "cpu", torch.Generator().manual_seed(2)))
+    rng = np.random.default_rng(6)
+    waves = [rng.standard_normal(int(22050 * s)).astype(np.float32)
+             for s in (1.5, 0.8, 1.2)]
+    progs = {d: ServingProgram(cfg, device=d) for d in ("cpu", cuda_device)}
+    batch, lengths = progs["cpu"].tokenizer.frontend.prepare_batch(waves)
+    x, ln = torch.from_numpy(batch), torch.from_numpy(lengths)
+    before = TokenizerKernel.launches
+    tokens, n_valid, probs = progs[cuda_device](x, ln)
+    assert TokenizerKernel.launches == before + 1
+    ref = FusedTokenizer.from_artifacts(cfg, cuda_device).tokens_from_padded(
+        x.to(cuda_device))
+    torch.testing.assert_close(tokens, ref, atol=0, rtol=0)
+    _, n_cpu, probs_cpu = progs["cpu"](x, ln)
+    torch.testing.assert_close(n_valid.cpu(), n_cpu, atol=0, rtol=0)
+    torch.testing.assert_close(probs.cpu(), probs_cpu, atol=1e-4, rtol=0)

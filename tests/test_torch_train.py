@@ -160,7 +160,6 @@ def test_dropout_is_seeded_per_step(corpus, tmp_path):
     {"diagnostics_every": 1},
     {"lstm_remat_chunk": 16},
     {"model_type": "bert", "transformer_remat": True},
-    {"model_type": "simple"},
 ])
 def test_unported_training_options_refused(tmp_path, override):
     cfg = token_corpus.port_config(tmp_path, **override)
