@@ -12,6 +12,9 @@ checkpoint transplants as a copy (``convert.py``): per direction ``w_ih``
 The input-gate product ``x @ w_ih + bias`` is one large matmul outside the
 recurrence (the JAX package leaves it to XLA as well); the recurrence is
 kernels B3 forward and B4 backward (``ops/cuda_lstm.py::LSTMSequence``).
+Built with ``use_kernels=False`` (a serving program without kernels), the
+recurrence is the plain step as one scan (``lstm_sequence_scan``), which
+``torch.export`` keeps as one loop.
 
 Dropout draws its keep-mask from a ``torch.Generator`` the caller passes
 (the trainer derives one per step from its seed, as the JAX trainer folds
@@ -32,7 +35,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from audio_tokens_tpu_torch.ops.cuda_lstm import lstm_sequence
+from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence,
+                                                 lstm_sequence_scan)
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -44,9 +48,10 @@ class LSTMLayer(nn.Module):
     h_last (B, H))."""
 
     def __init__(self, input_dim: int, hidden_dim: int, reverse: bool,
-                 generator: torch.Generator):
+                 generator: torch.Generator, use_kernels: bool = True):
         super().__init__()
         self.reverse = reverse
+        self.use_kernels = use_kernels
         # torch nn.LSTM init: U(-1/sqrt(H), 1/sqrt(H)) for weights and bias
         bound = 1.0 / math.sqrt(hidden_dim)
         self.w_ih = nn.Parameter(
@@ -58,7 +63,8 @@ class LSTMLayer(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         xg = torch.matmul(x, self.w_ih) + self.bias  # (B, T, 4H)
-        hs, h_last = lstm_sequence(
+        recurrence = lstm_sequence if self.use_kernels else lstm_sequence_scan
+        hs, h_last = recurrence(
             xg.transpose(0, 1).contiguous(), mask.t().contiguous(),
             self.w_hh.contiguous(), self.reverse)
         return hs.transpose(0, 1), h_last
@@ -68,7 +74,7 @@ class SimpleLSTMTokenClassifier(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int, hidden_dim: int,
                  num_layers: int, num_classes: int, dropout: float = 0.0,
                  frame_dim: Optional[int] = None, *, device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, use_kernels: bool = True):
         super().__init__()
         self.num_layers = num_layers
         if frame_dim is None:
@@ -81,10 +87,10 @@ class SimpleLSTMTokenClassifier(nn.Module):
             embed_dim = frame_dim
         for layer in range(num_layers):
             in_dim = embed_dim if layer == 0 else 2 * hidden_dim
-            self.add_module(f"lstm_l{layer}_fwd",
-                            LSTMLayer(in_dim, hidden_dim, False, generator))
-            self.add_module(f"lstm_l{layer}_bwd",
-                            LSTMLayer(in_dim, hidden_dim, True, generator))
+            self.add_module(f"lstm_l{layer}_fwd", LSTMLayer(
+                in_dim, hidden_dim, False, generator, use_kernels))
+            self.add_module(f"lstm_l{layer}_bwd", LSTMLayer(
+                in_dim, hidden_dim, True, generator, use_kernels))
         self.dropout = dropout
         self.fc = nn.Linear(2 * hidden_dim, num_classes)
         bound = 1.0 / math.sqrt(2 * hidden_dim)

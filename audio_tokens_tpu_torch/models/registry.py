@@ -62,9 +62,14 @@ def _compute_dtype(config: AudioTokensConfig) -> torch.dtype:
 
 
 def get_model(config: AudioTokensConfig, device: torch.device,
-              generator: torch.Generator) -> nn.Module:
+              generator: torch.Generator,
+              use_kernels: bool = True) -> nn.Module:
     """The classifier for ``config.model_type``, randomly initialized from
-    ``generator`` and placed on ``device``."""
+    ``generator`` and placed on ``device``.  ``use_kernels=False`` builds
+    the lstm's recurrence as a scan of its plain step (a portable serving
+    export); bert's attention is ``config.transformer_attention``'s, which
+    ``export.ServingProgram`` sets to the plain one when it runs no
+    kernels."""
     if config.model_type == "lstm":
         if config.lstm_remat_chunk > 0:
             raise NotImplementedError(
@@ -81,6 +86,7 @@ def get_model(config: AudioTokensConfig, device: torch.device,
                        else None),
             device=device,
             generator=generator,
+            use_kernels=use_kernels,
         )
     if config.model_type == "bert":
         if config.transformer_remat:

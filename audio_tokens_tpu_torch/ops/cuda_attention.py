@@ -35,7 +35,12 @@ and are split as they are read).  Every kernel needs 16-byte aligned q, k,
 v (and do) and refuses others.
 
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
-tensors it launches its kernel or raises.
+tensors it launches its kernel or raises.  The forward's wrapper does so
+through the custom op ``atk::flash_fwd``, so that ``torch.export`` records
+the kernel as one node: the op's CPU registration is the plain version, its
+CUDA registration launches the forward (and counts the launch), and its
+fake only allocates the outputs.  The backward pair stays direct calls
+(training only).
 """
 
 from __future__ import annotations
@@ -160,21 +165,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the attention tensors must share one device")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        segment_ids: torch.Tensor, sm_scale: float,
-                        lse: bool = False
-                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """B5 forward -> (o (B, nh, T, dh) in q's dtype, the (B, nh, T) f32 row
-    logsumexp when ``lse``, else None)."""
-    if q.device.type == "cpu":
-        if lse:
-            return flash_attention_plain(q, k, v, segment_ids, sm_scale, True)
-        return flash_attention_plain(q, k, v, segment_ids, sm_scale), None
+@torch.library.custom_op("atk::flash_fwd", mutates_args=(),
+                        device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  segment_ids: torch.Tensor, sm_scale: float, lse: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (o, the row logsumexp); the logsumexp is an empty f32 tensor
+    unless ``lse``."""
+    if lse:
+        return flash_attention_plain(q, k, v, segment_ids, sm_scale, True)
+    return (flash_attention_plain(q, k, v, segment_ids, sm_scale),
+            q.new_empty(0, dtype=torch.float32))
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, segment_ids, sm_scale, lse):
     _check(q, k, v, segment_ids)
     b, nh, t_len, dh = q.shape
     o = torch.empty_like(q)
-    row_lse = (torch.empty((b, nh, t_len), dtype=torch.float32,
-                           device=q.device) if lse else None)
+    row_lse = torch.empty((b, nh, t_len) if lse else (0,),
+                          dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.atk_flash_fwd(
@@ -185,6 +195,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, rc, "flash_fwd")
     flash_attention_fwd.launches += 1
     return o, row_lse
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, segment_ids, sm_scale, lse):
+    b, nh, t_len, _ = q.shape
+    return torch.empty_like(q), q.new_empty(
+        (b, nh, t_len) if lse else (0,), dtype=torch.float32)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        segment_ids: torch.Tensor, sm_scale: float,
+                        lse: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """B5 forward -> (o (B, nh, T, dh) in q's dtype, the (B, nh, T) f32 row
+    logsumexp when ``lse``, else None)."""
+    o, row_lse = torch.ops.atk.flash_fwd(q, k, v, segment_ids,
+                                         float(sm_scale), lse)
+    return o, (row_lse if lse else None)
 
 
 flash_attention_fwd.launches = 0

@@ -29,7 +29,17 @@ per step) only when asked: ``lstm_sequence`` asks only when autograd will
 need them, so serving under ``inference_mode`` skips those stores.
 
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
-tensors it launches its kernel or raises.
+tensors it launches its kernel or raises.  B3's wrapper does so through
+the custom op ``atk::lstm_fwd``, so that ``torch.export`` records the
+kernel as one node: the op's CPU registration is the plain version, its
+CUDA registration launches B3 (and counts the launch), and its fake only
+allocates the outputs.  B4 stays a direct call (training only).
+
+``lstm_sequence_scan`` is the plain recurrence as one
+``torch._higher_order_ops.scan`` over ``lstm_sequence_fwd_plain``'s step
+(``_lstm_step``, one definition for both), which ``torch.export`` keeps as
+one loop where the Python loop would unroll into T steps.  A serving
+program without kernels runs it.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._higher_order_ops.scan import scan
 from torch.autograd.function import once_differentiable
 
 from audio_tokens_tpu_torch.ops import _build
@@ -62,18 +73,43 @@ def lstm_sequence_fwd_plain(xg: torch.Tensor, mask: torch.Tensor,
     cs = xg.new_empty((t_steps, b, h_dim))
     order = range(t_steps - 1, -1, -1) if reverse else range(t_steps)
     for t in order:
-        i, f, g, o = (xg[t] + h @ w_hh).split(h_dim, dim=1)
-        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
-        g = torch.tanh(g)
-        c_new = f * c + i * g
-        h_new = o * torch.tanh(c_new)
-        m = mask[t][:, None]
-        h = m * h_new + (1.0 - m) * h
-        c = m * c_new + (1.0 - m) * c
+        h, c, ifgo = _lstm_step(h, c, xg[t], mask[t], w_hh)
         hs[t] = h
-        gates[t] = torch.cat([i, f, g, o], dim=1)
+        gates[t] = torch.cat(ifgo, dim=1)
         cs[t] = c
     return hs, gates, cs, h
+
+
+def _lstm_step(h: torch.Tensor, c: torch.Tensor, x_t: torch.Tensor,
+               m: torch.Tensor, w_hh: torch.Tensor):
+    """One step of the plain recurrence, shared by the loop and the scan:
+    (h, c) (B, H), x_t (B, 4H), m (B,) -> (h, c) after the masked carry,
+    and the post-activation gates (i, f, g, o)."""
+    i, f, g, o = (x_t + h @ w_hh).split(h.shape[1], dim=1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    g = torch.tanh(g)
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    m = m[:, None]
+    h = m * h_new + (1.0 - m) * h
+    c = m * c_new + (1.0 - m) * c
+    return h, c, (i, f, g, o)
+
+
+def lstm_sequence_scan(xg: torch.Tensor, mask: torch.Tensor,
+                       w_hh: torch.Tensor, reverse: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lstm_sequence_fwd_plain``'s (hs (T, B, H), h_last (B, H)) as one
+    scan over time: the same step, so the same numbers."""
+
+    def step(carry, inputs):
+        h, c, _ = _lstm_step(*carry, *inputs, w_hh)
+        return (h, c), h.clone()  # scan refuses an output aliasing the carry
+
+    zeros = xg.new_zeros((xg.shape[1], xg.shape[2] // 4))
+    (h_last, _), hs = scan(step, (zeros, zeros.clone()), (xg, mask),
+                           reverse=reverse)
+    return hs, h_last
 
 
 def lstm_sequence_bwd_plain(dhs: torch.Tensor, dh_last: torch.Tensor,
@@ -172,21 +208,22 @@ def _check_resident(lib, b: int, h_dim: int, backward: bool) -> None:
             f"{resident.value}; 0 means no cooperative launch)")
 
 
-def lstm_sequence_fwd(xg: torch.Tensor, mask: torch.Tensor,
-                      w_hh: torch.Tensor, reverse: bool = False,
-                      residuals: bool = False
-                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                                 Optional[torch.Tensor], torch.Tensor]:
-    """B3: one LSTM direction over precomputed input gates (torch gate order
-    i, f, g, o).  xg (T, B, 4H) f32 = x @ w_ih + bias; mask (T, B) f32
-    prefix mask; w_hh (H, 4H) f32.  Returns (hs (T, B, H), gates, c, h_last
-    (B, H)); gates (T, B, 4H) and c (T, B, H) are B4's residuals when
-    ``residuals``, else None.  ``reverse`` walks time back to front and keeps
-    hs in time order."""
-    if xg.device.type == "cpu":
-        hs, gates, c, h_last = lstm_sequence_fwd_plain(xg, mask, w_hh, reverse)
-        return (hs, gates, c, h_last) if residuals else (hs, None, None,
-                                                         h_last)
+@torch.library.custom_op("atk::lstm_fwd", mutates_args=(),
+                        device_types="cpu")
+def _lstm_fwd_op(xg: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor,
+                 reverse: bool, residuals: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """-> (hs, h_last, gates, c); gates and c are empty tensors unless
+    ``residuals``."""
+    hs, gates, c, h_last = lstm_sequence_fwd_plain(xg, mask, w_hh, reverse)
+    if not residuals:
+        gates, c = xg.new_empty(0), xg.new_empty(0)
+    return hs, h_last, gates, c
+
+
+@_lstm_fwd_op.register_kernel("cuda")
+def _lstm_fwd_cuda(xg, mask, w_hh, reverse, residuals):
     check_cuda_tensor("xg", xg, torch.float32, 3)
     check_cuda_tensor("mask", mask, torch.float32, 2)
     check_cuda_tensor("w_hh", w_hh, torch.float32, 2)
@@ -202,8 +239,8 @@ def lstm_sequence_fwd(xg: torch.Tensor, mask: torch.Tensor,
 
     hbuf = new(lib.atk_lstm_fwd_scratch(b, h_dim))  # h's planes, counters
     hs, h_last = new(t_steps, b, h_dim), new(b, h_dim)
-    gates = new(t_steps, b, g4) if residuals else None
-    c = new(t_steps, b, h_dim) if residuals else None
+    gates = new(t_steps, b, g4) if residuals else new(0)
+    c = new(t_steps, b, h_dim) if residuals else new(0)
     with torch.cuda.device(xg.device):
         _check_resident(lib, b, h_dim, backward=False)
         rc = lib.atk_lstm_fwd(
@@ -214,7 +251,36 @@ def lstm_sequence_fwd(xg: torch.Tensor, mask: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "lstm_fwd")
     lstm_sequence_fwd.launches += 1
-    return hs, gates, c, h_last
+    return hs, h_last, gates, c
+
+
+@_lstm_fwd_op.register_fake
+def _lstm_fwd_fake(xg, mask, w_hh, reverse, residuals):
+    t_steps, b, g4 = xg.shape
+    h_dim = g4 // 4
+    if residuals:
+        gates, c = xg.new_empty((t_steps, b, g4)), xg.new_empty(
+            (t_steps, b, h_dim))
+    else:
+        gates, c = xg.new_empty(0), xg.new_empty(0)
+    return (xg.new_empty((t_steps, b, h_dim)), xg.new_empty((b, h_dim)),
+            gates, c)
+
+
+def lstm_sequence_fwd(xg: torch.Tensor, mask: torch.Tensor,
+                      w_hh: torch.Tensor, reverse: bool = False,
+                      residuals: bool = False
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                 Optional[torch.Tensor], torch.Tensor]:
+    """B3: one LSTM direction over precomputed input gates (torch gate order
+    i, f, g, o).  xg (T, B, 4H) f32 = x @ w_ih + bias; mask (T, B) f32
+    prefix mask; w_hh (H, 4H) f32.  Returns (hs (T, B, H), gates, c, h_last
+    (B, H)); gates (T, B, 4H) and c (T, B, H) are B4's residuals when
+    ``residuals``, else None.  ``reverse`` walks time back to front and keeps
+    hs in time order."""
+    hs, h_last, gates, c = torch.ops.atk.lstm_fwd(xg, mask, w_hh, reverse,
+                                                  residuals)
+    return (hs, gates, c, h_last) if residuals else (hs, None, None, h_last)
 
 
 lstm_sequence_fwd.launches = 0

@@ -20,12 +20,20 @@ the mel sums are unchanged) and keeps re/im of bins 0..n_fft/2-1 as one
 kernel's copy is padded with zeros to whole ring stages (rows a multiple of
 16) and whole passes (bins a multiple of 128), the filterbank's to the same
 bins: the zeros add nothing to any sum.
+
+``TokenizerKernel`` is an ``nn.Module`` whose buffers are the basis,
+filterbank and centroids, so that a traced serving program owns them.  Its
+forward calls the custom op ``atk::tokenize``: the op's CPU registration is
+the plain PyTorch version (on the unpadded views of the kernel's copies),
+its CUDA registration launches the kernel (and counts the launch) or
+raises, and its fake only allocates the output.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from audio_tokens_tpu_torch.ops import _build
 from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
@@ -72,9 +80,59 @@ def _lib():
     return lib
 
 
-class TokenizerKernel:
-    """Device-resident basis, filterbank and centroids + the wrapper
-    ``(B, >= padded_len) waveforms -> (B, n_frames) int32 tokens``.
+@torch.library.custom_op("atk::tokenize", mutates_args=(),
+                        device_types="cpu")
+def _tokenize_op(padded: torch.Tensor, basis: torch.Tensor,
+                 fbank: torch.Tensor, centroids: torch.Tensor,
+                 c2: torch.Tensor, n_fft: int, hop: int, padded_len: int,
+                 n_frames: int) -> torch.Tensor:
+    """padded (B, >= padded_len) f32 with the kernel's zero-padded basis
+    (rows, 2 nbp) and filterbank (nbp, M), centroids (K, M) and their
+    squared norms c2 (K,) -> (B, n_frames) int32."""
+    nb, nbp = n_fft // 2, basis.shape[1] // 2
+    plain_basis = torch.cat([basis[:n_fft, :nb], basis[:n_fft, nbp:nbp + nb]],
+                            dim=1)
+    return tokenize_plain(padded, plain_basis, fbank[:nb], centroids, n_fft,
+                          hop, padded_len, n_frames)
+
+
+@_tokenize_op.register_kernel("cuda")
+def _tokenize_cuda(padded, basis, fbank, centroids, c2, n_fft, hop,
+                   padded_len, n_frames):
+    check_cuda_tensor("padded", padded, torch.float32, 2)
+    for name, t, nd in (("basis", basis, 2), ("fbank", fbank, 2),
+                        ("centroids", centroids, 2), ("c2", c2, 1)):
+        check_cuda_tensor(name, t, torch.float32, nd)
+    if len({t.device for t in (padded, basis, fbank, centroids, c2)}) != 1:
+        raise ValueError(f"batch on {padded.device}, kernel tensors on "
+                         f"{basis.device}")
+    b, stride = padded.shape
+    if stride < padded_len:
+        raise ValueError(f"rows of {stride} samples are shorter than "
+                         f"padded_len {padded_len}")
+    out = torch.empty((b, n_frames), dtype=torch.int32, device=padded.device)
+    lib = _lib()
+    with torch.cuda.device(padded.device):
+        rc = lib.atk_tokenize(
+            padded.data_ptr(), b, stride, padded_len, n_frames, hop,
+            basis.shape[0], basis.data_ptr(), basis.shape[1] // 2,
+            fbank.data_ptr(), fbank.shape[1], centroids.data_ptr(),
+            c2.data_ptr(), centroids.shape[0], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "tokenize")
+    TokenizerKernel.launches += 1
+    return out
+
+
+@_tokenize_op.register_fake
+def _tokenize_fake(padded, basis, fbank, centroids, c2, n_fft, hop,
+                   padded_len, n_frames):
+    return padded.new_empty((padded.shape[0], n_frames), dtype=torch.int32)
+
+
+class TokenizerKernel(nn.Module):
+    """Device-resident basis, filterbank and centroids (buffers) + the
+    wrapper ``(B, >= padded_len) waveforms -> (B, n_frames) int32 tokens``.
 
     ``TokenizerKernel.launches`` counts kernel launches (all instances).
     """
@@ -84,6 +142,7 @@ class TokenizerKernel:
     def __init__(self, sample_rate: int, n_mels: int, n_fft: int, hop: int,
                  n_frames: int, centroids: np.ndarray,
                  device: torch.device):
+        super().__init__()
         if n_fft % 2:
             raise ValueError("TokenizerKernel requires an even n_fft")
         self.device = torch.device(device)
@@ -103,8 +162,13 @@ class TokenizerKernel:
         if cent.ndim != 2 or cent.shape[0] < 1 or cent.shape[1] != n_mels:
             raise ValueError(f"centroids must be (K >= 1, {n_mels}), "
                              f"got {cent.shape}")
-        self.basis = torch.from_numpy(np.ascontiguousarray(basis)).to(self.device)
-        self.fbank = torch.from_numpy(np.ascontiguousarray(fb[:-1])).to(self.device)
+
+        def buffer(name, array):
+            self.register_buffer(name, torch.from_numpy(
+                np.ascontiguousarray(array)).to(self.device))
+
+        buffer("basis", basis)
+        buffer("fbank", fb[:-1])
         # the kernel's zero-padded copies: rows to whole ring stages, bins
         # to whole passes (csrc/tokenizer.cu)
         rows, nbp = -(-n_fft // 16) * 16, -(-nb // 128) * 128
@@ -113,10 +177,10 @@ class TokenizerKernel:
         kb[:n_fft, nbp:nbp + nb] = basis[:, nb:]
         kf = np.zeros((nbp, n_mels), np.float32)
         kf[:nb] = fb[:-1]
-        self._kbasis = torch.from_numpy(kb).to(self.device)
-        self._kfbank = torch.from_numpy(kf).to(self.device)
-        self.centroids = torch.from_numpy(cent).to(self.device)
-        self.c2 = (self.centroids * self.centroids).sum(1)
+        buffer("_kbasis", kb)
+        buffer("_kfbank", kf)
+        buffer("centroids", cent)
+        self.register_buffer("c2", (self.centroids * self.centroids).sum(1))
 
     def log_mel_plain(self, padded: torch.Tensor) -> torch.Tensor:
         """(B, n_frames, M) dB features as the plain version computes them."""
@@ -130,28 +194,7 @@ class TokenizerKernel:
                               self.centroids, self.n_fft, self.hop,
                               self.padded_len, self.n_frames)
 
-    def __call__(self, padded: torch.Tensor) -> torch.Tensor:
-        if padded.device.type == "cpu":
-            return self.plain(padded)
-        padded = decode_wire(padded)
-        check_cuda_tensor("padded", padded, torch.float32, 2)
-        if padded.device != self.device:
-            raise ValueError(f"batch on {padded.device}, kernel on {self.device}")
-        b, stride = padded.shape
-        if stride < self.padded_len:
-            raise ValueError(f"rows of {stride} samples are shorter than "
-                             f"padded_len {self.padded_len}")
-        out = torch.empty((b, self.n_frames), dtype=torch.int32,
-                          device=self.device)
-        lib = _lib()
-        with torch.cuda.device(self.device):
-            rc = lib.atk_tokenize(
-                padded.data_ptr(), b, stride, self.padded_len, self.n_frames,
-                self.hop, self._kbasis.shape[0], self._kbasis.data_ptr(),
-                self._kbasis.shape[1] // 2, self._kfbank.data_ptr(),
-                self.n_mels, self.centroids.data_ptr(), self.c2.data_ptr(),
-                self.centroids.shape[0], out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        _build.check(lib, rc, "tokenize")
-        TokenizerKernel.launches += 1
-        return out
+    def forward(self, padded: torch.Tensor) -> torch.Tensor:
+        return torch.ops.atk.tokenize(
+            decode_wire(padded), self._kbasis, self._kfbank, self.centroids,
+            self.c2, self.n_fft, self.hop, self.padded_len, self.n_frames)

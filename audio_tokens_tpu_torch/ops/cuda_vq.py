@@ -7,8 +7,11 @@ their norms and every score in shared memory and registers and writes only
 the int32 ids, with a lexicographic (score, index) merge so the lowest index
 wins ties as ``jnp.argmin`` does.  The design is written up in the source.
 
-``vq_argmin`` is the wrapper: a CPU tensor takes the plain PyTorch version
-``vq_argmin_plain``; a CUDA tensor launches the kernel or raises.
+``vq_argmin`` is the wrapper.  It calls the custom op ``atk::vq_argmin``,
+so that ``torch.export`` records the kernel as one node: the op's CPU
+registration is the plain PyTorch version ``vq_argmin_plain``, its CUDA
+registration launches the kernel (and counts the launch) or raises, and its
+fake only allocates the output.
 """
 
 from __future__ import annotations
@@ -52,12 +55,16 @@ def _lib():
     return lib
 
 
-def vq_argmin(frames: torch.Tensor, centroids: torch.Tensor,
-              normalize: bool) -> torch.Tensor:
-    """Nearest-centroid id per frame row, optionally L2-normalizing the rows
-    first: frames (N, d) f32, centroids (K, d) f32 -> (N,) int32."""
-    if frames.device.type == "cpu":
-        return vq_argmin_plain(frames, centroids, normalize)
+@torch.library.custom_op("atk::vq_argmin", mutates_args=(),
+                        device_types="cpu")
+def _vq_argmin_op(frames: torch.Tensor, centroids: torch.Tensor,
+                  normalize: bool) -> torch.Tensor:
+    return vq_argmin_plain(frames, centroids, normalize)
+
+
+@_vq_argmin_op.register_kernel("cuda")
+def _vq_argmin_cuda(frames: torch.Tensor, centroids: torch.Tensor,
+                    normalize: bool) -> torch.Tensor:
     check_cuda_tensor("frames", frames, torch.float32, 2)
     check_cuda_tensor("centroids", centroids, torch.float32, 2)
     n, d = frames.shape
@@ -79,6 +86,18 @@ def vq_argmin(frames: torch.Tensor, centroids: torch.Tensor,
     _build.check(lib, rc, "vq_argmin")
     vq_argmin.launches += 1
     return out
+
+
+@_vq_argmin_op.register_fake
+def _vq_argmin_fake(frames, centroids, normalize):
+    return frames.new_empty((frames.shape[0],), dtype=torch.int32)
+
+
+def vq_argmin(frames: torch.Tensor, centroids: torch.Tensor,
+              normalize: bool) -> torch.Tensor:
+    """Nearest-centroid id per frame row, optionally L2-normalizing the rows
+    first: frames (N, d) f32, centroids (K, d) f32 -> (N,) int32."""
+    return torch.ops.atk.vq_argmin(frames, centroids, normalize)
 
 
 vq_argmin.launches = 0

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def decode_wire(padded_batch: torch.Tensor) -> torch.Tensor:
@@ -114,13 +115,14 @@ def amplitude_to_db(power: torch.Tensor, amin: float = 1e-10) -> torch.Tensor:
     return 10.0 * torch.log10(torch.clamp(power, min=amin))
 
 
-class MelFrontend:
+class MelFrontend(nn.Module):
     """Batched waveform -> log-mel with fixed shapes.
 
-    ``__call__`` takes a host-prepared padded batch (see
+    ``forward`` takes a host-prepared padded batch (see
     :func:`reflect_pad_clip`) of shape (B, >= pad+T+pad) and returns
-    (B, n_mels, frames_max) float32.  The filter tensors live on ``device``;
-    inputs must be on the same device.
+    (B, n_mels, frames_max) float32.  The filter tensors are buffers on
+    ``device`` (so that a traced serving program owns them); inputs must be
+    on the same device.
     """
 
     def __init__(
@@ -132,6 +134,7 @@ class MelFrontend:
         hop_length: int = 128,
         clip_samples: int = 220500,
     ):
+        super().__init__()
         self.device = torch.device(device)
         self.sample_rate = sample_rate
         self.n_mels = n_mels
@@ -141,10 +144,10 @@ class MelFrontend:
         self.clip_samples = clip_samples
         self.frames_max = num_frames(clip_samples, hop_length)
         self.padded_len = n_fft // 2 + clip_samples + n_fft // 2
-        self._basis = torch.from_numpy(
-            np.ascontiguousarray(dft_filters(n_fft)[:, 0, :].T)).to(self.device)
-        self._fbank = torch.from_numpy(
-            mel_filterbank(self.n_freq, n_mels, sample_rate)).to(self.device)
+        self.register_buffer("_basis", torch.from_numpy(
+            np.ascontiguousarray(dft_filters(n_fft)[:, 0, :].T)).to(self.device))
+        self.register_buffer("_fbank", torch.from_numpy(
+            mel_filterbank(self.n_freq, n_mels, sample_rate)).to(self.device))
 
     def prepare_batch(self, waves) -> Tuple[np.ndarray, np.ndarray]:
         """Host: list of 1-D float arrays -> (padded (B, padded_len), lengths (B,))."""
@@ -166,7 +169,7 @@ class MelFrontend:
         mel = torch.matmul(re * re + im * im, self._fbank)
         return amplitude_to_db(mel)
 
-    def __call__(self, padded_batch: torch.Tensor) -> torch.Tensor:
+    def forward(self, padded_batch: torch.Tensor) -> torch.Tensor:
         """(B, L) -> (B, n_mels, T): the reference's artifact layout."""
         return self.mel_frames(padded_batch).transpose(1, 2)
 

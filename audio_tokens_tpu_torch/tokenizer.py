@@ -10,7 +10,14 @@ Two routes, chosen by the same gate as the JAX package:
 
 Each kernel's wrapper takes its plain PyTorch version for CPU tensors and
 launches the CUDA kernel (or raises) for CUDA tensors, so the device the
-tokenizer is built on decides; nothing is detected.
+tokenizer is built on decides; nothing is detected.  ``use_kernels=False``
+(the counterpart of the JAX ``use_pallas=False``) asks for the plain route
+on any device: the mel frontend, then the plain nearest-centroid search,
+with no kernel's op in between, as a portable serving export needs.
+
+``FusedTokenizer`` is an ``nn.Module``: its centroids, the frontend's and
+the kernel's tensors are buffers, so that a traced serving program owns
+them.
 """
 
 from __future__ import annotations
@@ -19,9 +26,11 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin_plain
 from audio_tokens_tpu_torch.ops.mel import MelFrontend, decode_wire, num_frames
 from audio_tokens_tpu_torch.ops.vq import vq_assign_fused
 
@@ -39,12 +48,14 @@ def _check_ported(config: AudioTokensConfig) -> None:
                 "'highest' (float32) is: ROADMAP A")
 
 
-class FusedTokenizer:
+class FusedTokenizer(nn.Module):
     def __init__(self, config: AudioTokensConfig, centroids: np.ndarray,
-                 device: torch.device):
+                 device: torch.device, use_kernels: bool = True):
+        super().__init__()
         _check_ported(config)
         self.config = config
         self.device = torch.device(device)
+        self.use_kernels = use_kernels
         self.frontend = MelFrontend(
             self.device,
             sample_rate=config.common_sr,
@@ -54,12 +65,14 @@ class FusedTokenizer:
             clip_samples=config.clip_samples,
         )
         centroids = np.asarray(centroids, np.float32)
-        self.centroids = torch.from_numpy(centroids).to(self.device)
+        self.register_buffer("centroids",
+                             torch.from_numpy(centroids).to(self.device))
         # the megakernel gate of audio_tokens_tpu/tokenizer.py: per-clip
         # min-max normalization needs clip-global statistics, so it runs
         # the staged mel -> B2 route
         self.kernel = None
-        if not config.normalize and config.n_fft % config.hop_length == 0:
+        if (use_kernels and not config.normalize
+                and config.n_fft % config.hop_length == 0):
             self.kernel = TokenizerKernel(
                 config.common_sr, config.n_mels, config.n_fft,
                 config.hop_length, self.frontend.frames_max, centroids,
@@ -96,6 +109,9 @@ class FusedTokenizer:
             mel = self.frontend.mel_frames(padded_batch)  # (B, T, M)
         b, t, m = mel.shape
         frames = mel.reshape(b * t, m)
+        if not self.use_kernels:
+            return vq_argmin_plain(frames, self.centroids,
+                                   normalize=True).reshape(b, t)
         return vq_assign_fused(frames, self.centroids,
                                normalize=True).reshape(b, t)
 
@@ -116,9 +132,9 @@ class FusedTokenizer:
         return out
 
     @classmethod
-    def from_artifacts(cls, config: AudioTokensConfig,
-                       device: torch.device) -> "FusedTokenizer":
+    def from_artifacts(cls, config: AudioTokensConfig, device: torch.device,
+                       use_kernels: bool = True) -> "FusedTokenizer":
         """Load centroids from the pipeline's artifacts
         (``config.centroids_path``)."""
         centroids = np.load(config.centroids_path).astype(np.float32)
-        return cls(config, centroids, device)
+        return cls(config, centroids, device, use_kernels)

@@ -141,7 +141,24 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    (``launches_by_path`` ``serve_ckpt_<family>``), the tokens equal to
    ``FusedTokenizer``'s, 2 clips at f32 card vs CPU; and ``ManualTester``
    (``Predictor``) reports one validation clip, its probabilities held to
-   the serving program's.
+   the serving program's;
+11. on phase 10's checkpoints, the serving export: the lstm (phase 8's
+   checkpoint) and bert (phase 7's, ``flash``) exported in kernel form
+   (``export_serving(portable=False)``) at batch 64 on the card and loaded
+   (``load_serving``); the loaded program's tokens and n_valid equal to the
+   live ``ServingProgram``'s and its probs within 1e-5; B1 + B3 and B1 + B5
+   launched by the loaded program (``launches_by_path`` ``export_lstm``,
+   ``export_bert``); the export and load seconds, the artifact's bytes and
+   a batch of 64 (inputs on the card) through the loaded and the live
+   program, median of 3.  Then the lstm exported portable on the CPU,
+   loaded onto the card, 8 clips through it (no kernel launched), its
+   tokens held to the kernel program's under the near-tie rule and its
+   probs within 1e-4.  ``torch.library.opcheck`` of the four custom ops on
+   small card tensors.  Last, ``tools/serve_bench`` in-process at its
+   default 512 ten-second clips (8 batches of 64): tokens, ``--classify
+   lstm`` and ``--classify bert`` (window 1728, flash), each with
+   ``--latency 200``; clips/s and the request percentiles and maximum
+   (``launches_by_path`` ``serve_bench_<branch>``).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -214,6 +231,13 @@ FAMILIES = {
 # Predictor vs ServingProgram, one clip on one device: the JAX package's
 # own bound for the pair (tests/test_export.py)
 PREDICT_TOL = dict(rtol=2e-4, atol=1e-5)
+# phase 11: a loaded kernel-form program vs the live one, the same kernels
+# on the same inputs
+EXPORT_PROBS_ATOL = 1e-5
+PORTABLE_CLIPS = 8  # the portable lstm on the card: a scan of 1728 steps
+# serve_bench's default corpus; 200 single requests, so that p99 is not
+# the largest of a handful
+SERVE_BENCH_CLIPS, SERVE_BENCH_LATENCY = 512, 200
 
 
 def log(msg: str) -> None:
@@ -1586,6 +1610,216 @@ def families_phase(records: list, dev, base: Path, cfg,
         f"(host clock)")
 
 
+def median_ms(fn, n: int = 3) -> float:
+    """Median host-clock ms of ``n`` synchronized calls of ``fn``."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def opcheck_phase(dev) -> None:
+    """``torch.library.opcheck`` of the four custom ops on small card
+    tensors (schema, fake, autograd registration, dynamic-shape dispatch);
+    its launches fall outside every counted path."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
+
+    gen = torch.Generator().manual_seed(21)
+    fe = MelFrontend("cpu", SR, 64, 512, 128, SR)
+    kern = TokenizerKernel(SR, 64, 512, 128, fe.frames_max,
+                           make_centroids(40, 21), dev)
+    padded = torch.from_numpy(fe.prepare_batch(make_clips(3, 7))[0]).to(dev)
+    xg = torch.randn((20, 3, 64), generator=gen).to(dev)
+    mask = (torch.arange(20)[:, None] < torch.tensor([20, 9, 0])).float()
+    w_hh = (torch.randn((16, 64), generator=gen) / 4).to(dev)
+    q, k, v = (torch.randn((2, 2, 37, HEAD_DIM), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(3))
+    seg = (torch.arange(37)[None, :] >= torch.tensor([[37], [20]])).to(
+        dev, torch.int32)
+    cases = {
+        "atk::vq_argmin": (torch.ops.atk.vq_argmin.default, (
+            torch.randn((300, 64), generator=gen).to(dev),
+            torch.randn((40, 64), generator=gen).to(dev), True)),
+        "atk::tokenize": (torch.ops.atk.tokenize.default, (
+            padded, kern._kbasis, kern._kfbank, kern.centroids, kern.c2,
+            kern.n_fft, kern.hop, kern.padded_len, kern.n_frames)),
+        "atk::lstm_fwd": (torch.ops.atk.lstm_fwd.default, (
+            xg, mask.to(dev), w_hh, True, True)),
+        "atk::flash_fwd": (torch.ops.atk.flash_fwd.default, (
+            q, k, v, seg, SM_SCALE, True)),
+    }
+    for name, (op, args) in cases.items():
+        report = torch.library.opcheck(op, args)
+        torch.cuda.synchronize()
+        log(f"[opcheck] {name} on {dev}: {report}")
+        if set(report.values()) != {"SUCCESS"}:
+            raise AssertionError(f"{name} failed opcheck: {report}")
+
+
+def export_phase(records: list, dev, base: Path, cfg,
+                 bert_ckpt: Path) -> None:
+    """Phase 11: export the lstm and bert serving programs in kernel form
+    on the card and hold the loaded programs to the live ones; export the
+    lstm portable on the CPU and run it on the card; opcheck the ops; run
+    ``tools/serve_bench`` in-process."""
+    import torch
+
+    from audio_tokens_tpu_torch.export import (PROGRAM_NAME, ServingProgram,
+                                               export_serving, load_serving)
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+    from audio_tokens_tpu_torch.ops.cuda_lstm import lstm_sequence_fwd
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
+    from audio_tokens_tpu_torch.tools import serve_bench
+
+    t_phase = time.perf_counter()
+    kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
+               flash_attention_fwd)
+    names = ("B1", "B2", "B3", "B5")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [kern.launches for kern in kernels]
+
+    clips = make_clips(BATCH, 4 * BATCH)
+    bcfg = dataclasses.replace(cfg, **BERT, checkpoint_dir=str(bert_ckpt))
+    cases = (("lstm", cfg, ["atk::lstm_fwd", "atk::tokenize"], (0, 2)),
+             ("bert", bcfg, ["atk::flash_fwd", "atk::tokenize"], (0, 3)))
+    kernel_out = None
+    for tag, fcfg, ops, must in cases:
+        out_dir = base / f"serving_{tag}"
+        t0 = time.perf_counter()
+        export_serving(fcfg, out_dir, BATCH, portable=False, device=dev)
+        export_s = time.perf_counter() - t0
+        nbytes = (out_dir / PROGRAM_NAME).stat().st_size
+        t0 = time.perf_counter()
+        module, manifest = load_serving(out_dir, device=dev)
+        load_s = time.perf_counter() - t0
+        if manifest["custom_ops"] != ops or manifest["platforms"] != [dev.type]:
+            raise AssertionError(f"{tag}: manifest ops "
+                                 f"{manifest['custom_ops']}, platforms "
+                                 f"{manifest['platforms']}")
+        live = ServingProgram(fcfg, device=dev)
+        batch, lengths = live.tokenizer.frontend.prepare_batch(clips)
+        x = torch.from_numpy(batch).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        with torch.inference_mode():
+            got, launches = counted(lambda: module(x, ln))
+            ref = live(x, ln)
+            loaded_ms = median_ms(lambda: module(x, ln))
+            live_ms = median_ms(lambda: live(x, ln))
+        check_served(*got, BATCH, live.tokenizer.frontend.frames_max,
+                     fcfg.num_classes)
+        perr = float((got[2] - ref[2]).abs().max())
+        log(f"[export {tag}] kernel form ({', '.join(ops)}), batch {BATCH}: "
+            f"export {export_s:.2f} s, {nbytes} bytes, load {load_s:.2f} s; "
+            f"a batch of {BATCH} (inputs on the card, host clock, "
+            f"synchronized, median of 3): loaded {loaded_ms:.1f} ms, live "
+            f"{live_ms:.1f} ms; launches {dict(zip(names, launches))}; "
+            f"tokens and n_valid equal the live program's: "
+            f"{torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])}"
+            f"; probs max abs err {perr:.3e} (atol {EXPORT_PROBS_ATOL})")
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"{tag}: the loaded program's tokens differ")
+        if not perr <= EXPORT_PROBS_ATOL:
+            raise AssertionError(f"{tag}: probs differ by {perr:.3e}")
+        for i in must:
+            if launches[i] < 1:
+                raise AssertionError(f"{tag}: the loaded program launched "
+                                     f"no {names[i]}: {launches}")
+        for rec, n in zip((records[0], records[1], records[2], records[4]),
+                          launches):
+            if n:
+                rec["launches_by_path"][f"export_{tag}"] = n
+        if tag == "lstm":
+            kernel_out = [t[:PORTABLE_CLIPS].cpu() for t in got]
+            x8, ln8 = x[:PORTABLE_CLIPS], ln[:PORTABLE_CLIPS]
+            unit8 = l2_normalize(live.tokenizer.kernel.log_mel_plain(x8))
+            cents = live.tokenizer.centroids
+        del module, live, got, ref
+        torch.cuda.empty_cache()
+
+    # the portable lstm: exported on the CPU, run on the card
+    out_dir = base / "serving_lstm_portable"
+    t0 = time.perf_counter()
+    export_serving(cfg, out_dir, PORTABLE_CLIPS, portable=True, device="cpu")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    module, manifest = load_serving(out_dir, device=dev)
+    load_s = time.perf_counter() - t0
+    if manifest["custom_ops"] or manifest["platforms"] != ["cpu", "cuda"]:
+        raise AssertionError(f"portable manifest: {manifest['custom_ops']}, "
+                             f"{manifest['platforms']}")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got, launches = counted(lambda: module(x8, ln8))
+    run_ms = (time.perf_counter() - t0) * 1e3
+    got = [t.cpu() for t in got]
+    frac, gap = check_near_ties(unit8, cents, got[0], kernel_out[0])
+    perr = float((got[2] - kernel_out[2]).abs().max())
+    log(f"[export lstm portable] exported on the CPU ({export_s:.2f} s, "
+        f"{(out_dir / PROGRAM_NAME).stat().st_size} bytes), loaded onto "
+        f"{dev} ({load_s:.2f} s): {PORTABLE_CLIPS} clips in {run_ms:.0f} ms "
+        f"(first call, synchronized); launches {dict(zip(names, launches))}"
+        f"; vs the kernel program: tokens {frac:.2e} disagree (gap "
+        f"{gap:.3e}), n_valid equal {torch.equal(got[1], kernel_out[1])}, "
+        f"probs max abs err {perr:.3e} (atol {PROBS_ATOL})")
+    if any(launches):
+        raise AssertionError(f"the portable program launched {launches}")
+    if not torch.equal(got[1], kernel_out[1]) or not perr <= PROBS_ATOL:
+        raise AssertionError(f"portable lstm: n_valid or probs ({perr:.3e}) "
+                             "differ from the kernel program's")
+    del module, x8, ln8, unit8
+    torch.cuda.empty_cache()
+
+    opcheck_phase(dev)
+
+    bench = {
+        "tokens": [],
+        "lstm": ["--classify", "lstm"],
+        "bert": ["--classify", "bert", "--transformer_max_position", "1728",
+                 "--transformer_attention", "flash"],
+    }
+    must = {"tokens": (0,), "lstm": (0, 2), "bert": (0, 3)}
+    for tag, extra in bench.items():
+        argv = ["--n_clips", str(SERVE_BENCH_CLIPS), "--latency",
+                str(SERVE_BENCH_LATENCY), "--device", str(dev), *extra]
+        result, launches = counted(lambda: serve_bench.main(argv))
+        log(f"[serve_bench {tag}] {' '.join(argv)}: {result['clips_per_s']:.1f}"
+            f" clips/s over {result['n_clips']} clips ({result['seconds']:.2f}"
+            f" s); a batch of {result['batch']}: decode {result['decode_ms']:.1f} ms, "
+            f"transfer + card {result['device_ms']:.1f} ms; one request p50 "
+            f"{result['p50_ms']:.1f} / p90 {result['p90_ms']:.1f} / p99 "
+            f"{result['p99_ms']:.1f} / max {result['max_ms']:.1f} ms over "
+            f"{SERVE_BENCH_LATENCY} requests (decode p50 "
+            f"{result['decode_p50_ms']:.1f}); launches "
+            f"{dict(zip(names, launches))}")
+        for i in must[tag]:
+            if launches[i] < 1:
+                raise AssertionError(f"serve_bench {tag} launched no "
+                                     f"{names[i]}: {launches}")
+        for rec, n in zip((records[0], records[1], records[2], records[4]),
+                          launches):
+            if n:
+                rec["launches_by_path"][f"serve_bench_{tag}"] = n
+    log(f"[export] phase 11 took {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+
+
 def sums_split(x, ids) -> dict:
     """The parts of ``cluster_sums`` at these rows, each timed alone with
     CUDA events: the stable sort, the gather and the f64 running sums."""
@@ -2362,6 +2596,9 @@ def main() -> int:
             # -- 10. every family trains and serves from its checkpoint -------
             families_phase(records, dev, pipe, staged_cfg,
                            Path(bt_cfg.checkpoint_dir))
+            # -- 11. the serving export and serve_bench -----------------------
+            export_phase(records, dev, pipe, staged_cfg,
+                         Path(bt_cfg.checkpoint_dir))
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

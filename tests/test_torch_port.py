@@ -116,10 +116,14 @@ def test_unported_families_refused(model_type, override):
 
 def test_unported_serving_entry_points_refused():
     from audio_tokens_tpu_torch import export
+    from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 
-    cfg = port_config.AudioTokensConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        export.export_serving(cfg, "unused")
+    cfg = port_config.AudioTokensConfig(model_type="simple", hidden_size=8)
+    prog = export.ServingProgram.from_components(
+        cfg, FusedTokenizer(cfg, np.ones((4, cfg.n_mels), np.float32), "cpu"),
+        device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        prog.serve_sharded(None, None, None)
 
 
 def test_build_command_targets_hopper_without_fast_math():
