@@ -39,6 +39,10 @@ The port's cnn flattens its activation in the JAX module's NHWC order, so
 ``fc1``'s rows need no permutation.  ``state_dict_for(model_type, params)``
 picks the map of a family.
 
+``conv_state_dict(jax_state)`` maps the JAX ``ConvFeatures.state_dict()``
+(``weight`` (K, 1, w), ``bias`` (K,) numpy arrays, the ``.conv.npz``
+layout) to the port's ``ConvFeatures`` buffers: the same layout, copied.
+
 Takes numpy, not jax:
 this package never imports jax.  The same map carries a JAX gradient tree
 (``jax.grad`` of the classifier) to the port's parameter names: the
@@ -156,3 +160,9 @@ def state_dict_for(model_type: str, params: Mapping
     if model_type not in _STATE_DICTS:
         raise ValueError(f"Unknown model type: {model_type}")
     return _STATE_DICTS[model_type](params)
+
+
+def conv_state_dict(jax_state: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``ConvFeatures.state_dict()`` -> the port ``ConvFeatures``'s."""
+    return {k: torch.from_numpy(np.array(jax_state[k], np.float32))
+            for k in ("weight", "bias")}

@@ -58,20 +58,9 @@ constexpr int kTile = 64;       // rows (queries or keys) of a tile
 // operands, f32 accumulation).
 constexpr int kLdh = kD + 8;  // bf16 row of a staged tile: 144 bytes, no bank conflicts
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (lo, hi) rounded to bf16 and packed, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// mma_bf16 and pack_bf16 live in common.cuh (B1 and B2 use them too).
+using atk::mma_bf16;
+using atk::pack_bf16;
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -230,17 +219,10 @@ __device__ __forceinline__ void stream_tile(St& st, const typename St::T* __rest
   }
 }
 
-// Four 8 x 8 bf16 matrices from shared memory: lane i gives the address of
-// row i % 8 of matrix i / 8; a lane receives of each matrix the two values
-// at row lane / 4, columns 2 (lane % 4) and + 1.  Read as 32-bit words, a
-// matrix is 8 rows of 4 f32 values and a lane receives the word at row
-// lane / 4, column lane % 4: a tf32 mma fragment.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+// ldmatrix_x4 lives in common.cuh.  Read as 32-bit words, a matrix is 8
+// rows of 4 f32 values and a lane receives the word at row lane / 4, column
+// lane % 4: a tf32 mma fragment.
+using atk::ldmatrix_x4;
 
 // The A fragments (16 rows x 64 columns, four k steps) of the 16 staged rows
 // that start at `rows`.

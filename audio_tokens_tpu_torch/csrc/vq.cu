@@ -40,6 +40,20 @@
 // product over d rounded up to 4 adds exact zeros).  Plain f32 FMA, no
 // tensor cores: the scores are full float32 like the reference's HIGHEST
 // products.
+//
+// The bf16x3 and default tiers (atk_vq_argmin_tier; the Lloyd assignment at
+// kmeans_precision high and default, the TPU's Precision.HIGH and DEFAULT)
+// run the distance product on the tensor cores (common.cuh's tiered
+// product): at 17.23M rows x 64 x 500 it is 1.10 TFLOP, three bf16 passes
+// (3.35 ms at 989 TFLOP/s) for bf16x3, and for default one pass, where the
+// 4.4 GB of frames read bound it (1.32 ms).  One instance, the resident
+// one: the bf16 centroids (hi and lo) stay in shared memory, the grid is
+// persistent with 16 warps an SM, the next 256-row frame tile loads by
+// cp.async while this one is scored; each warp splits its 16 rows once a
+// tile and walks the centroids four n-tiles (32 centroids) at a time, in two
+// running-min chains.  Shapes whose centroids do not fit (K 500 at d 64
+// takes 214 KB at bf16x3) are refused; the wrapper names the tier and the
+// shape.
 #include "common.cuh"
 
 #ifndef ATK_VQ_STAGES
@@ -112,9 +126,11 @@ __device__ __forceinline__ float row_den(const float* row, int d) {
   return sqrtf(s) + atk::kEps;
 }
 
-// x / (||x|| + eps) for each of the tile's rows in place.  Zero rows stay zero.
+// x / (||x|| + eps) for each of the tile's ROWS rows in place (THREADS
+// threads).  Zero rows stay zero.
+template <int ROWS = kTile, int THREADS = kThreads>
 __device__ __forceinline__ void normalize_tile(float* fs, int d, int ld) {
-  for (int r = threadIdx.x / 8; r < kTile; r += kThreads / 8) {
+  for (int r = threadIdx.x / 8; r < ROWS; r += THREADS / 8) {
     float* row = fs + r * ld;
     const float den = row_den(row, d);
     for (int j = threadIdx.x % 8; j < d; j += 8) row[j] = row[j] / den;
@@ -364,11 +380,120 @@ vq_ring_kernel(const float* __restrict__ frames, int n, int d, const float* __re
   atk::cp_async_wait<0>();
 }
 
-template <typename K, typename... Args>
+// ---- the bf16x3 and default tiers --------------------------------------------
+
+// The tiered instance: 16 warps, each scoring 16 rows of a 256-row frame
+// tile, one block an SM (the bf16 centroids fill its shared memory).
+constexpr int kTierThreads = 512;
+constexpr int kTierRows = kTierThreads / 32 * 16;
+constexpr int kTierTiles = 4;  // n-tiles a warp scores at once
+
+// Shared memory of the tiered instance: the bf16 centroid rows (hi, and lo
+// at bf16x3) of kp = k rounded up to kTierTiles n-tiles (zero rows past k),
+// their c2, and the f32 frame tile of row pitch tier_ld(ks).
+__host__ __device__ inline int tier_ld(int ks) { return row_stride(16 * ks); }
+__host__ __device__ inline int tier_rows(int k) {
+  return (k + 8 * kTierTiles - 1) / (8 * kTierTiles) * (8 * kTierTiles);
+}
+__host__ __device__ inline size_t tier_smem(int ks, int k, bool x3) {
+  const int kp = tier_rows(k);
+  return static_cast<size_t>(kp) * atk::tier_pitch(ks) * 2 * (x3 ? 2 : 1) + kp * sizeof(float) +
+         static_cast<size_t>(kTierRows) * tier_ld(ks) * sizeof(float);
+}
+
+// rows [r0, r0 + kTierRows) of frames (n x d) -> fs (pitch ld) by cp.async,
+// zeros past n and past d; d4 = d rounded up to 4.
+template <bool VEC>
+__device__ __forceinline__ void stage_tier_rows(float* fs, const float* __restrict__ frames,
+                                                long r0, long n, int d, int d4, int ld) {
+  if (VEC) {
+    const int q4 = d4 / 4;
+    for (int e = threadIdx.x; e < kTierRows * q4; e += kTierThreads) {
+      const int r = e / q4, q = e - r * q4;
+      const bool ok = r0 + r < n;
+      atk::cp_async16(fs + r * ld + 4 * q, ok ? frames + (r0 + r) * d + 4 * q : frames, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTierRows * d4; e += kTierThreads) {
+      const int r = e / d4, j = e - r * d4;
+      const bool ok = r0 + r < n && j < d;
+      atk::cp_async4(fs + r * ld + j, ok ? frames + (r0 + r) * d + j : frames, ok);
+    }
+  }
+  atk::cp_async_commit();
+}
+
+// KS: the fragments' capacity in k-steps (ks <= KS).  Per frame tile: the
+// rows land (the previous tile's scoring overlapped their copy), are
+// normalized, and each warp takes its 16 rows as split A fragments; then
+// the next tile's copy starts and the warps score their rows against every
+// centroid from registers and shared memory.
+template <int KS, bool VEC>
+__global__ void __launch_bounds__(kTierThreads, 1)
+vq_tier_kernel(const float* __restrict__ frames, int n, int d,
+               const __nv_bfloat16* __restrict__ chi, const __nv_bfloat16* __restrict__ clo,
+               int ks, const float* __restrict__ c2, int k, int normalize, int x3,
+               int* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int kp = tier_rows(k), ldc = atk::tier_pitch(ks), row_len = 16 * ks;
+  const int d4 = (d + 3) / 4 * 4, ld = tier_ld(ks);
+  __nv_bfloat16* cs_hi = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* cs_lo = cs_hi + kp * ldc;
+  float* c2s = reinterpret_cast<float*>(cs_hi + kp * ldc * (x3 ? 2 : 1));
+  float* fs = c2s + kp;  // kTierRows x ld
+  const int tiles = (n + kTierRows - 1) / kTierRows;
+  const int pieces = row_len / 8;  // 16-byte pieces of a centroid row
+  for (int e = threadIdx.x; e < kp * pieces; e += kTierThreads) {
+    const int c = e / pieces, q = e - c * pieces;
+    const bool ok = c < k;
+    const size_t src = ok ? static_cast<size_t>(c) * row_len + 8 * q : 0;
+    atk::cp_async16(cs_hi + c * ldc + 8 * q, chi + src, ok);
+    if (x3) atk::cp_async16(cs_lo + c * ldc + 8 * q, clo + src, ok);
+  }
+  for (int c = threadIdx.x; c < kp; c += kTierThreads)
+    atk::cp_async4(c2s + c, c2 + (c < k ? c : 0), c < k);
+  // the features from d4 up to 16 ks are zeros the copies never write
+  for (int e = threadIdx.x; e < kTierRows * (row_len - d4); e += kTierThreads) {
+    const int r = e / (row_len - d4);
+    fs[r * ld + d4 + (e - r * (row_len - d4))] = 0.f;
+  }
+  if (blockIdx.x < tiles)
+    stage_tier_rows<VEC>(fs, frames, static_cast<long>(blockIdx.x) * kTierRows, n, d, d4, ld);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    atk::cp_async_wait<0>();  // this tile (and, the first time, the centroids)
+    __syncthreads();
+    if (normalize) {
+      normalize_tile<kTierRows, kTierThreads>(fs, d, ld);
+      __syncthreads();
+    }
+    atk::RowFrags<KS> a;
+    atk::load_row_frags(a, fs + warp * 16 * ld, ld, ks, x3);
+    __syncthreads();  // every warp holds its rows: the tile buffer is free
+    const int next = tile + gridDim.x;
+    if (next < tiles)
+      stage_tier_rows<VEC>(fs, frames, static_cast<long>(next) * kTierRows, n, d, d4, ld);
+    float best[2][2];
+    int bidx[2][2];
+    atk::reset_best(best, bidx);
+    for (int n0 = 0; n0 < k; n0 += 8 * kTierTiles)
+      atk::score_tiles<KS, kTierTiles>(a, ks, x3, cs_hi + n0 * ldc, cs_lo + n0 * ldc, ldc,
+                                       c2s + n0, n0, k, best, bidx);
+    atk::quad_merge(best, bidx);
+    const long r0 = static_cast<long>(tile) * kTierRows + warp * 16 + lane / 4;
+    if (lane % 4 == 0) {
+      if (r0 < n) out[r0] = bidx[0][0];
+      if (r0 + 8 < n) out[r0 + 8] = bidx[0][1];
+    }
+  }
+  atk::cp_async_wait<0>();
+}
+
+template <int THREADS = kThreads, typename K, typename... Args>
 cudaError_t launch(K kernel, size_t smem, int grid, cudaStream_t stream, Args... args) {
   cudaError_t err = atk::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -405,5 +530,41 @@ ATK_EXPORT int atk_vq_argmin(const float* frames, int n, int d, const float* cen
     err = launch(vec ? vq_ring_kernel<true, true> : vq_ring_kernel<false, true>, sliced, grid, st,
                  frames, n, d, cent, c2, k, normalize, chunks, ds, out);
   }
+  return static_cast<int>(err);
+}
+
+// Shared memory the tiered instance needs for k centroids of d features at
+// bf16x3 (x3 = 1) or default; the wrapper refuses what passes 227 KB.
+ATK_EXPORT long atk_vq_tier_smem(int d, int k, int x3) {
+  return static_cast<long>(tier_smem((d + 15) / 16, k, x3 != 0));
+}
+
+// B2 at the bf16x3 (tier 1) or default (tier 2) tier.  chi, clo: the
+// centroids' bf16 split (k, 16 ks) with ks = ceil(d / 16), zeros past d;
+// clo is read at bf16x3 only.  c2 = ||c||^2 of the f32 centroids.
+ATK_EXPORT int atk_vq_argmin_tier(const float* frames, int n, int d, const void* chi,
+                                  const void* clo, const float* c2, int k, int normalize,
+                                  int tier, int* out, void* stream) {
+  if (n <= 0) return 0;
+  const int ks = (d + 15) / 16;
+  const bool x3 = tier == atk::kBf16x3;
+  if (k < 1 || d < 1 || ks > atk::kMaxKs || (tier != atk::kBf16x3 && tier != atk::kDefault))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tier_smem(ks, k, x3);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n + kTierRows - 1) / kTierRows;
+  const int grid = tiles < sms ? tiles : sms;
+  const auto* h = static_cast<const __nv_bfloat16*>(chi);
+  const auto* l = static_cast<const __nv_bfloat16*>(clo);
+  const bool vec = d % 4 == 0;
+  const auto kernel = ks <= 2   ? (vec ? vq_tier_kernel<2, true> : vq_tier_kernel<2, false>)
+                      : ks <= 4 ? (vec ? vq_tier_kernel<4, true> : vq_tier_kernel<4, false>)
+                                : (vec ? vq_tier_kernel<8, true> : vq_tier_kernel<8, false>);
+  err = launch<kTierThreads>(kernel, smem, grid, static_cast<cudaStream_t>(stream), frames, n, d,
+                             h, l, ks, c2, k, normalize, static_cast<int>(x3), out);
   return static_cast<int>(err);
 }

@@ -4,10 +4,11 @@ A copy of ``audio_tokens_tpu/data/audio_io.py`` (numpy only), held bit-equal
 to the original by ``tests/test_torch_audio_io.py``.
 
 The reference delegates decode/resample to torchaudio's C++ backends
-(reference: processors/spectrogram_generator.py:99,117-121).  In the port
-this python decode is the only one: the native C++ decoder under ``native/``
-is not ported yet (``audio_backend='native'`` is refused, ROADMAP A6), so
-``audio_backend='auto'`` takes this path.
+(reference: processors/spectrogram_generator.py:99,117-121).  This python
+decode is the stages' ``audio_backend="python"`` route; ``"native"`` and
+``"auto"`` (where the library builds) take the C++ decoder under
+``native/`` through ``data/native_loader.py`` (``select_backend`` makes
+the choice and logs it), as the JAX package does.
 
 Decode returns float32 in [-1, 1].  Multi-channel audio is downmixed to mono
 by the channel mean, matching the reference's ``convert_to_mono``

@@ -16,10 +16,19 @@ first ``padded_len`` samples of rows of any length >= ``padded_len``.
 
 The DFT basis drops the Nyquist bin (its filterbank row is exactly zero, so
 the mel sums are unchanged) and keeps re/im of bins 0..n_fft/2-1 as one
-(n_fft, n_fft) matrix; only the ``highest`` (float32) tier is ported.  The
-kernel's copy is padded with zeros to whole ring stages (rows a multiple of
-16) and whole passes (bins a multiple of 128), the filterbank's to the same
-bins: the zeros add nothing to any sum.
+(n_fft, n_fft) matrix.  The kernel's copy is padded with zeros to whole ring
+stages (rows a multiple of 16) and whole passes (bins a multiple of 128),
+the filterbank's to the same bins: the zeros add nothing to any sum.
+
+The precision tiers (``ops/tiers.py``) of the JAX kernel: ``tier`` sets the
+DFT and mel products, ``vq_tier`` the centroid-distance product, each
+``highest`` (f32, today's kernel), ``bf16x3`` or ``default`` (bf16 on the
+tensor cores).  Their bf16 operands are split once, here, when the kernel is
+built: the basis and the filterbank transposed (bins x samples, bands x
+bins; rows to a multiple of 32, bins of 64, bands of 16) and the centroids
+(bands to a multiple of 16), as the JAX kernel splits its centroids on the
+host.  The tensor-core DFT needs hop a multiple of 16 and the bf16 argmin
+at most 128 mel bands; other shapes raise ``ValueError`` on the card.
 
 ``TokenizerKernel`` is an ``nn.Module`` whose buffers are the basis,
 filterbank and centroids, so that a traced serving program owns them.  Its
@@ -31,52 +40,69 @@ raises, and its fake only allocates the output.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
 
 from audio_tokens_tpu_torch.ops import _build
 from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
-from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin_plain
+from audio_tokens_tpu_torch.ops.cuda_vq import (
+    MAX_SMEM,
+    bf16_split_rows,
+    vq_argmin_plain,
+)
 from audio_tokens_tpu_torch.ops.mel import (
     decode_wire,
     dft_filters,
     mel_filterbank,
 )
+from audio_tokens_tpu_torch.ops.tiers import TIERS, check_tier, tier_matmul
+
+ROW_STAGE, BIN_PASS = 32, 64  # the tensor-core DFT's sample and bin steps
 
 
 def log_mel_plain(padded: torch.Tensor, basis: torch.Tensor,
                   fbank: torch.Tensor, n_fft: int, hop: int, padded_len: int,
-                  n_frames: int) -> torch.Tensor:
+                  n_frames: int, tier: str = "highest") -> torch.Tensor:
     """The kernel's features before normalization, in plain PyTorch:
     padded (B, >= padded_len) f32 -> (B, n_frames, M) dB, with the pruned
-    basis (n_fft, 2 nb) and filterbank (nb, M)."""
+    basis (n_fft, 2 nb) and filterbank (nb, M), the DFT and mel products at
+    ``tier``."""
     nb = basis.shape[1] // 2
     frames = padded[:, :padded_len].unfold(1, n_fft, hop)[:, :n_frames]
-    spec = torch.matmul(frames, basis)  # (B, T, 2 nb)
+    spec = tier_matmul(frames, basis, tier)  # (B, T, 2 nb)
     re, im = spec[..., :nb], spec[..., nb:]
-    mel = torch.matmul(re * re + im * im, fbank)
+    mel = tier_matmul(re * re + im * im, fbank, tier)
     return 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
 
 
 def tokenize_plain(padded: torch.Tensor, basis: torch.Tensor,
                    fbank: torch.Tensor, centroids: torch.Tensor, n_fft: int,
-                   hop: int, padded_len: int, n_frames: int) -> torch.Tensor:
+                   hop: int, padded_len: int, n_frames: int,
+                   tier: str = "highest",
+                   vq_tier: str = "highest") -> torch.Tensor:
     """The kernel's function in plain PyTorch: padded (B, >= padded_len)
     f32 -> (B, n_frames) int32."""
-    db = log_mel_plain(padded, basis, fbank, n_fft, hop, padded_len, n_frames)
+    db = log_mel_plain(padded, basis, fbank, n_fft, hop, padded_len, n_frames,
+                       tier)
     b, t, m = db.shape
-    return vq_argmin_plain(db.reshape(b * t, m), centroids,
-                           normalize=True).reshape(b, t)
+    return vq_argmin_plain(db.reshape(b * t, m), centroids, normalize=True,
+                           tier=vq_tier).reshape(b, t)
 
 
 def _lib():
     lib = _build.load("tokenizer")
-    fn = lib.atk_tokenize
+    fn = lib.atk_tokenize_tier
     if fn.argtypes is None:
         P, I, L = _build.P, _build.I, _build.L
-        fn.argtypes = [P, I, L, L, I, I, I, P, I, P, I, P, P, I, P, P]
+        fn.argtypes = [
+            P, I, L, L, I, I, I, P, I, P, I, P, I, I, P, P, P, I, P, I, I,
+            P, P]
         fn.restype = I
+        lib.atk_tokenize_tier_smem.argtypes = [I, I, I, I, I]
+        lib.atk_tokenize_tier_smem.restype = L
     return lib
 
 
@@ -85,40 +111,83 @@ def _lib():
 def _tokenize_op(padded: torch.Tensor, basis: torch.Tensor,
                  fbank: torch.Tensor, centroids: torch.Tensor,
                  c2: torch.Tensor, n_fft: int, hop: int, padded_len: int,
-                 n_frames: int) -> torch.Tensor:
+                 n_frames: int, tier: str = "highest",
+                 vq_tier: str = "highest",
+                 tbasis: Optional[torch.Tensor] = None,
+                 tfbank: Optional[torch.Tensor] = None,
+                 tcent: Optional[torch.Tensor] = None) -> torch.Tensor:
     """padded (B, >= padded_len) f32 with the kernel's zero-padded basis
     (rows, 2 nbp) and filterbank (nbp, M), centroids (K, M) and their
-    squared norms c2 (K,) -> (B, n_frames) int32."""
+    squared norms c2 (K,) -> (B, n_frames) int32.  At the bf16 tiers the
+    kernel also takes the split operands ``TokenizerKernel`` made: tbasis
+    (planes, 2 tnb, trows), tfbank (planes, M16, tnb) for ``tier``, tcent
+    (planes, K, M16) for ``vq_tier``; the plain version splits the f32
+    tensors itself."""
     nb, nbp = n_fft // 2, basis.shape[1] // 2
     plain_basis = torch.cat([basis[:n_fft, :nb], basis[:n_fft, nbp:nbp + nb]],
                             dim=1)
     return tokenize_plain(padded, plain_basis, fbank[:nb], centroids, n_fft,
-                          hop, padded_len, n_frames)
+                          hop, padded_len, n_frames, tier, vq_tier)
 
 
 @_tokenize_op.register_kernel("cuda")
 def _tokenize_cuda(padded, basis, fbank, centroids, c2, n_fft, hop,
-                   padded_len, n_frames):
+                   padded_len, n_frames, tier="highest", vq_tier="highest",
+                   tbasis=None, tfbank=None, tcent=None):
+    check_tier(tier)
+    check_tier(vq_tier, "VQ precision tier")
     check_cuda_tensor("padded", padded, torch.float32, 2)
     for name, t, nd in (("basis", basis, 2), ("fbank", fbank, 2),
                         ("centroids", centroids, 2), ("c2", c2, 1)):
         check_cuda_tensor(name, t, torch.float32, nd)
-    if len({t.device for t in (padded, basis, fbank, centroids, c2)}) != 1:
+    split = {}  # the bf16 operands the tiers read, None where f32
+    for name, t, t_tier in (("tbasis", tbasis, tier), ("tfbank", tfbank, tier),
+                            ("tcent", tcent, vq_tier)):
+        split[name] = None if t_tier == "highest" else t
+        if t_tier != "highest":
+            if t is None:
+                raise ValueError(f"{name} is required at tiers ({tier}, "
+                                 f"{vq_tier})")
+            check_cuda_tensor(name, t, torch.bfloat16, 3)
+    tensors = [padded, basis, fbank, centroids, c2,
+               *(t for t in split.values() if t is not None)]
+    if len({t.device for t in tensors}) != 1:
         raise ValueError(f"batch on {padded.device}, kernel tensors on "
                          f"{basis.device}")
     b, stride = padded.shape
     if stride < padded_len:
         raise ValueError(f"rows of {stride} samples are shorter than "
                          f"padded_len {padded_len}")
+    k, m = centroids.shape
     out = torch.empty((b, n_frames), dtype=torch.int32, device=padded.device)
     lib = _lib()
+    if vq_tier != "highest" and m > 128:
+        raise ValueError(f"B1 at vq_tier '{vq_tier}' takes at most 128 mel "
+                         f"bands, got {m}")
+    trows = tnb = 0
+    if tier != "highest":
+        trows, tnb = tbasis.shape[2], tbasis.shape[1] // 2
+        smem = lib.atk_tokenize_tier_smem(hop, trows, m,
+                                          int(tier == "bf16x3"),
+                                          int(vq_tier != "highest"))
+        if hop % 16 or m > 128 or smem > MAX_SMEM:
+            raise ValueError(
+                f"B1 at tier '{tier}' needs hop a multiple of 16, at most "
+                f"128 mel bands and its shared memory within {MAX_SMEM} "
+                f"bytes: hop {hop}, n_fft {n_fft}, {m} mel bands need "
+                f"{smem}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(padded.device):
-        rc = lib.atk_tokenize(
+        rc = lib.atk_tokenize_tier(
             padded.data_ptr(), b, stride, padded_len, n_frames, hop,
             basis.shape[0], basis.data_ptr(), basis.shape[1] // 2,
-            fbank.data_ptr(), fbank.shape[1], centroids.data_ptr(),
-            c2.data_ptr(), centroids.shape[0], out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            fbank.data_ptr(), m, ptr(split["tbasis"]), trows, tnb,
+            ptr(split["tfbank"]), centroids.data_ptr(), c2.data_ptr(), k,
+            ptr(split["tcent"]), TIERS.index(tier), TIERS.index(vq_tier),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "tokenize")
     TokenizerKernel.launches += 1
     return out
@@ -126,7 +195,8 @@ def _tokenize_cuda(padded, basis, fbank, centroids, c2, n_fft, hop,
 
 @_tokenize_op.register_fake
 def _tokenize_fake(padded, basis, fbank, centroids, c2, n_fft, hop,
-                   padded_len, n_frames):
+                   padded_len, n_frames, tier="highest", vq_tier="highest",
+                   tbasis=None, tfbank=None, tcent=None):
     return padded.new_empty((padded.shape[0], n_frames), dtype=torch.int32)
 
 
@@ -141,10 +211,13 @@ class TokenizerKernel(nn.Module):
 
     def __init__(self, sample_rate: int, n_mels: int, n_fft: int, hop: int,
                  n_frames: int, centroids: np.ndarray,
-                 device: torch.device):
+                 device: torch.device, tier: str = "highest",
+                 vq_tier: str = "highest"):
         super().__init__()
         if n_fft % 2:
             raise ValueError("TokenizerKernel requires an even n_fft")
+        self.tier = check_tier(tier, "tokenizer precision tier")
+        self.vq_tier = check_tier(vq_tier, "VQ precision tier")
         self.device = torch.device(device)
         self.n_mels = n_mels
         self.n_fft = n_fft
@@ -181,20 +254,40 @@ class TokenizerKernel(nn.Module):
         buffer("_kfbank", kf)
         buffer("centroids", cent)
         self.register_buffer("c2", (self.centroids * self.centroids).sum(1))
+        # the tiers' bf16 operands, split once (None where the tier is f32)
+        for name in ("_tbasis", "_tfbank", "_tcent"):
+            self.register_buffer(name, None)
+        if tier != "highest":
+            trows = -(-n_fft // ROW_STAGE) * ROW_STAGE
+            tnb = -(-nb // BIN_PASS) * BIN_PASS
+            tb = torch.zeros((2 * tnb, trows))
+            tb[:nb, :n_fft] = torch.from_numpy(basis[:, :nb].T)
+            tb[tnb:tnb + nb, :n_fft] = torch.from_numpy(basis[:, nb:].T)
+            tf = torch.zeros((-(-n_mels // 16) * 16, tnb))
+            tf[:n_mels, :nb] = torch.from_numpy(fb[:-1].T)
+            self.register_buffer("_tbasis", bf16_split_rows(tb, tier).to(
+                self.device))
+            self.register_buffer("_tfbank", bf16_split_rows(tf, tier).to(
+                self.device))
+        if vq_tier != "highest":
+            self.register_buffer("_tcent", bf16_split_rows(
+                torch.from_numpy(cent), vq_tier).to(self.device))
 
     def log_mel_plain(self, padded: torch.Tensor) -> torch.Tensor:
         """(B, n_frames, M) dB features as the plain version computes them."""
         return log_mel_plain(decode_wire(padded), self.basis, self.fbank,
                              self.n_fft, self.hop, self.padded_len,
-                             self.n_frames)
+                             self.n_frames, self.tier)
 
     def plain(self, padded: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version, on whatever device ``padded`` is."""
         return tokenize_plain(decode_wire(padded), self.basis, self.fbank,
                               self.centroids, self.n_fft, self.hop,
-                              self.padded_len, self.n_frames)
+                              self.padded_len, self.n_frames, self.tier,
+                              self.vq_tier)
 
     def forward(self, padded: torch.Tensor) -> torch.Tensor:
         return torch.ops.atk.tokenize(
             decode_wire(padded), self._kbasis, self._kfbank, self.centroids,
-            self.c2, self.n_fft, self.hop, self.padded_len, self.n_frames)
+            self.c2, self.n_fft, self.hop, self.padded_len, self.n_frames,
+            self.tier, self.vq_tier, self._tbasis, self._tfbank, self._tcent)

@@ -12,6 +12,14 @@ so that ``torch.export`` records the kernel as one node: the op's CPU
 registration is the plain PyTorch version ``vq_argmin_plain``, its CUDA
 registration launches the kernel (and counts the launch) or raises, and its
 fake only allocates the output.
+
+``tier`` (``ops/tiers.py``: ``highest``, ``bf16x3``, ``default``) sets the
+distance product's precision: ``highest`` is the f32 kernel above; the bf16
+tiers, the Lloyd assignment at ``kmeans_precision`` ``high`` and
+``default``, run on the tensor cores in one resident instance whose bf16
+centroids must fit in shared memory (K 500 at d 64 does); a shape that does
+not fit raises ``ValueError`` on the card.  ``c2 = ||c||^2`` is f32 from
+the f32 centroids at every tier, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +28,15 @@ import torch
 
 from audio_tokens_tpu_torch.ops import _build
 from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
+from audio_tokens_tpu_torch.ops.tiers import (
+    TIERS,
+    check_tier,
+    split_bf16,
+    tier_operands,
+    tier_product,
+)
+
+MAX_SMEM = 227 * 1024  # shared memory a block may have on the H100
 
 EPS = 1e-10  # matches ops/vq.py and the reference's normalize_vectors
 CHUNK = 16384  # plain version: frame rows scored at once (no (N, K) matrix)
@@ -31,40 +48,59 @@ def l2_normalize(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
 
 
 def vq_argmin_plain(frames: torch.Tensor, centroids: torch.Tensor,
-                    normalize: bool, chunk: int = CHUNK) -> torch.Tensor:
+                    normalize: bool, chunk: int = CHUNK,
+                    tier: str = "highest") -> torch.Tensor:
     """(N, d) frames, (K, d) centroids -> (N,) int32 nearest-centroid ids,
-    scoring ``||c||^2 - 2 f.c`` in row chunks; torch.argmin keeps the first
-    (lowest) index among equal scores."""
+    scoring ``||c||^2 - 2 f.c`` in row chunks, the product at ``tier``;
+    torch.argmin keeps the first (lowest) index among equal scores."""
+    check_tier(tier)
     if normalize:
         frames = l2_normalize(frames)
     c2 = (centroids * centroids).sum(1)[None, :]
+    cparts = tier_operands(centroids.T, tier)
     out = torch.empty(frames.shape[0], dtype=torch.int32, device=frames.device)
     for i in range(0, frames.shape[0], chunk):
-        scores = c2 - 2.0 * (frames[i : i + chunk] @ centroids.T)
-        out[i : i + chunk] = scores.argmin(dim=1).to(torch.int32)
+        fc = tier_product(tier_operands(frames[i : i + chunk], tier), cparts)
+        out[i : i + chunk] = (c2 - 2.0 * fc).argmin(dim=1).to(torch.int32)
     return out
+
+
+def bf16_split_rows(x: torch.Tensor, tier: str) -> torch.Tensor:
+    """(K, d) f32 -> the tier's bf16 operand planes, (planes, K, d16): hi
+    (and lo at bf16x3) of x with the features zero-padded to a multiple of
+    16, as the tensor-core kernels read them."""
+    k, d = x.shape
+    padded = x.new_zeros((k, -(-d // 16) * 16))
+    padded[:, :d] = x
+    parts = split_bf16(padded) if tier == "bf16x3" else (padded,)
+    return torch.stack(parts).to(torch.bfloat16).contiguous()
 
 
 def _lib():
     lib = _build.load("vq")
     fn = lib.atk_vq_argmin
     if fn.argtypes is None:
-        P, I = _build.P, _build.I
+        P, I, L = _build.P, _build.I, _build.L
         fn.argtypes = [P, I, I, P, P, I, I, P, P]
         fn.restype = I
+        lib.atk_vq_argmin_tier.argtypes = [P, I, I, P, P, P, I, I, I, P, P]
+        lib.atk_vq_argmin_tier.restype = I
+        lib.atk_vq_tier_smem.argtypes = [I, I, I]
+        lib.atk_vq_tier_smem.restype = L
     return lib
 
 
 @torch.library.custom_op("atk::vq_argmin", mutates_args=(),
                         device_types="cpu")
 def _vq_argmin_op(frames: torch.Tensor, centroids: torch.Tensor,
-                  normalize: bool) -> torch.Tensor:
-    return vq_argmin_plain(frames, centroids, normalize)
+                  normalize: bool, tier: str = "highest") -> torch.Tensor:
+    return vq_argmin_plain(frames, centroids, normalize, tier=tier)
 
 
 @_vq_argmin_op.register_kernel("cuda")
 def _vq_argmin_cuda(frames: torch.Tensor, centroids: torch.Tensor,
-                    normalize: bool) -> torch.Tensor:
+                    normalize: bool, tier: str = "highest") -> torch.Tensor:
+    check_tier(tier)
     check_cuda_tensor("frames", frames, torch.float32, 2)
     check_cuda_tensor("centroids", centroids, torch.float32, 2)
     n, d = frames.shape
@@ -78,26 +114,43 @@ def _vq_argmin_cuda(frames: torch.Tensor, centroids: torch.Tensor,
     c2 = (centroids * centroids).sum(1)
     out = torch.empty(n, dtype=torch.int32, device=frames.device)
     lib = _lib()
-    with torch.cuda.device(frames.device):
-        rc = lib.atk_vq_argmin(frames.data_ptr(), n, d, centroids.data_ptr(),
-                               c2.data_ptr(), k, int(normalize),
-                               out.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream(frames.device).cuda_stream
+    if tier == "highest":
+        with torch.cuda.device(frames.device):
+            rc = lib.atk_vq_argmin(frames.data_ptr(), n, d,
+                                   centroids.data_ptr(), c2.data_ptr(), k,
+                                   int(normalize), out.data_ptr(), stream)
+    else:
+        x3 = int(tier == "bf16x3")
+        smem = lib.atk_vq_tier_smem(d, k, x3)
+        if d > 128 or smem > MAX_SMEM:
+            raise ValueError(
+                f"B2 at tier '{tier}' runs only where the bf16 centroids fit "
+                f"in shared memory (d <= 128): K {k} x d {d} needs {smem} "
+                f"bytes of {MAX_SMEM} (the ring and sliced instances are "
+                "f32 only; tier 'highest' takes any shape)")
+        split = bf16_split_rows(centroids, tier)
+        with torch.cuda.device(frames.device):
+            rc = lib.atk_vq_argmin_tier(
+                frames.data_ptr(), n, d, split[0].data_ptr(),
+                split[-1].data_ptr(), c2.data_ptr(), k, int(normalize),
+                TIERS.index(tier), out.data_ptr(), stream)
     _build.check(lib, rc, "vq_argmin")
     vq_argmin.launches += 1
     return out
 
 
 @_vq_argmin_op.register_fake
-def _vq_argmin_fake(frames, centroids, normalize):
+def _vq_argmin_fake(frames, centroids, normalize, tier="highest"):
     return frames.new_empty((frames.shape[0],), dtype=torch.int32)
 
 
 def vq_argmin(frames: torch.Tensor, centroids: torch.Tensor,
-              normalize: bool) -> torch.Tensor:
+              normalize: bool, tier: str = "highest") -> torch.Tensor:
     """Nearest-centroid id per frame row, optionally L2-normalizing the rows
-    first: frames (N, d) f32, centroids (K, d) f32 -> (N,) int32."""
-    return torch.ops.atk.vq_argmin(frames, centroids, normalize)
+    first, the distance product at ``tier``: frames (N, d) f32, centroids
+    (K, d) f32 -> (N,) int32."""
+    return torch.ops.atk.vq_argmin(frames, centroids, normalize, tier)
 
 
 vq_argmin.launches = 0

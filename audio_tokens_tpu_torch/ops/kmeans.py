@@ -40,8 +40,18 @@ rounds its f64 sums: a fit of one super-batch equals ``kmeans_fit`` bit for
 bit, and any replay of the same stream (cache, spill, resume) equals
 re-streaming it.  The JAX package adds f32 one-hot sums.
 
-Not ported: the matmul precision tiers other than ``"highest"`` (ROADMAP
-A6), meshes, multi-process fits and the wire meter (ROADMAP A7).
+``precision`` is the Lloyd loop's matmul tier (``precision_from_str``):
+``highest`` f32; ``high``, the TPU's ``Precision.HIGH``, is the bf16x3
+split (``ops/tiers.py``) and ``default`` one bf16 pass.  At a bf16 tier B2
+assigns on the tensor cores, and the centroid sums add the rows as the
+JAX package's one-hot product at that tier sees them (the one-hot operand
+is exact in bf16): ``bf16(x)`` at ``default``, ``hi(x) + lo(x)`` at
+``high`` (the f64 sums of ``hi`` and of ``lo`` over the sorted rows, added).
+The objective is the tier's assignment score, from those sums: ``n_k
+||c_k||^2 - 2 c_k.S_k`` with the tier's product (``hi(c).(S_hi + S_lo) +
+lo(c).S_hi`` at ``high``), plus ``sum ||x||^2`` of the f32 rows.
+
+Not ported: meshes, multi-process fits and the wire meter (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ import numpy as np
 import torch
 
 from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+from audio_tokens_tpu_torch.ops.tiers import tier_operands
 
 logger = logging.getLogger(__name__)
 
@@ -64,18 +75,19 @@ _SPLIT_EPS = 1.0 / 1024.0  # FAISS's symmetric perturbation magnitude
 EMPTY_POLICIES = ("keep", "split_largest")
 
 
+PRECISION_TIERS = {"highest": "highest", "high": "bf16x3",
+                   "default": "default"}
+
+
 def precision_from_str(name: str) -> str:
-    """Config string -> the Lloyd loop's matmul precision.  Only
-    ``'highest'`` (f32) is ported; ``'high'`` and ``'default'`` raise."""
+    """Config string -> the Lloyd loop's matmul tier (``ops/tiers.py``):
+    ``highest`` -> ``highest``, ``high`` -> ``bf16x3`` (the TPU's
+    Precision.HIGH), ``default`` -> ``default``."""
     key = name.lower()
-    if key not in ("highest", "high", "default"):
+    if key not in PRECISION_TIERS:
         raise ValueError(
             f"unknown kmeans_precision '{name}' (use highest|high|default)")
-    if key != "highest":
-        raise NotImplementedError(
-            f"kmeans_precision='{name}' is not ported yet; only 'highest' "
-            "(float32) is: ROADMAP A6")
-    return key
+    return PRECISION_TIERS[key]
 
 
 def _points(x, device: Optional[torch.device | str]) -> torch.Tensor:
@@ -87,9 +99,11 @@ def _points(x, device: Optional[torch.device | str]) -> torch.Tensor:
                                  dtype=torch.float32).contiguous()
 
 
-def assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-    """Nearest centroid of every row (int32): kernel B2 on the card."""
-    return vq_argmin(x, centroids, normalize=False)
+def assign(x: torch.Tensor, centroids: torch.Tensor,
+           tier: str = "highest") -> torch.Tensor:
+    """Nearest centroid of every row (int32) at the tier: kernel B2 on the
+    card."""
+    return vq_argmin(x, centroids, normalize=False, tier=tier)
 
 
 def cluster_sums64(x: torch.Tensor, ids: torch.Tensor, k: int,
@@ -104,16 +118,22 @@ def cluster_sums64(x: torch.Tensor, ids: torch.Tensor, k: int,
     an f64 product with their one-hot (K, runs) matrix.  Every step is a
     sort, a gather, a scan along an outer dimension or a GEMM: no atomics.
     """
-    n, d = x.shape
     sid, order = torch.sort(ids, stable=True)
-    xs = x[order]
+    return _sorted_sums64(x[order], sid, k, block)
+
+
+def _sorted_sums64(xs: torch.Tensor, sid: torch.Tensor, k: int,
+                   block: int = SEGMENT_BLOCK) -> torch.Tensor:
+    """``cluster_sums64`` of rows already sorted by cluster (``sid`` their
+    sorted ids)."""
+    n, d = xs.shape
     m = n - n % block
-    run = torch.empty((n, d), dtype=torch.float64, device=x.device)
+    run = torch.empty((n, d), dtype=torch.float64, device=xs.device)
     torch.cumsum(xs[:m].view(-1, block, d), 1, dtype=torch.float64,
                  out=run[:m].view(-1, block, d))
     torch.cumsum(xs[m:], 0, dtype=torch.float64, out=run[m:])
     del xs
-    pos = torch.arange(n, device=x.device)
+    pos = torch.arange(n, device=run.device)
     last = pos % block == block - 1  # a run ends at its block's end ...
     last[:-1] |= sid[1:] != sid[:-1]  # ... or where the cluster changes
     last[-1] = True
@@ -123,7 +143,7 @@ def cluster_sums64(x: torch.Tensor, ids: torch.Tensor, k: int,
     same_block = (ends[1:] // block == ends[:-1] // block)[:, None]
     runs[1:] -= torch.where(same_block, at_end[:-1], 0.0)
     onehot = (sid[ends][None, :] == torch.arange(
-        k, dtype=sid.dtype, device=x.device)[:, None]).to(torch.float64)
+        k, dtype=sid.dtype, device=run.device)[:, None]).to(torch.float64)
     return onehot @ runs
 
 
@@ -137,22 +157,43 @@ def cluster_sums(x: torch.Tensor, ids: torch.Tensor, k: int,
     return sums, counts
 
 
-def _score(centroids: torch.Tensor, sums: torch.Tensor,
-           counts: torch.Tensor) -> torch.Tensor:
+def tier_sums64(x: torch.Tensor, ids: torch.Tensor, k: int,
+                tier: str = "highest") -> torch.Tensor:
+    """(parts, K, d) f64 sums of the rows of each cluster as the tier's
+    one-hot product sees them (``tier_operands``): x; bf16(x); or hi(x) and
+    lo(x) apart (bf16x3), over one sort and one gather of the rows."""
+    sid, order = torch.sort(ids, stable=True)
+    xs = x[order]
+    return torch.stack([_sorted_sums64(part, sid, k)
+                        for part in tier_operands(xs, tier)])
+
+
+def _score(centroids: torch.Tensor, parts: torch.Tensor,
+           counts: torch.Tensor, tier: str = "highest") -> torch.Tensor:
     """The assignment's summed score ``sum_k n_k ||c_k||^2 - 2 c_k.S_k``
-    (f64) from the clusters' f32 sums and counts."""
+    (f64) from the clusters' part sums (``tier_sums64``, each rounded to
+    f32) and counts, the product at the tier: at bf16x3 ``hi(c).(S_hi +
+    S_lo) + lo(c).S_hi``, the three passes summed over the rows."""
     c = centroids.double()
-    return ((counts.double() * (c * c).sum(1)).sum()
-            - 2.0 * (c * sums.double()).sum())
+    s = parts.to(torch.float32).double()
+    cp = [p.double() for p in tier_operands(centroids, tier)]
+    dot = (cp[0] * s.sum(0)).sum()
+    if len(cp) == 2:
+        dot = dot + (cp[1] * s[0]).sum()
+    return (counts.double() * (c * c).sum(1)).sum() - 2.0 * dot
 
 
-def _lloyd_stats(x: torch.Tensor, centroids: torch.Tensor):
-    """One assignment pass: centroid sums (K, d), counts (K,) and the
-    assignment's summed score ``sum_i ||c_a(i)||^2 - 2 x_i.c_a(i)`` (f64;
-    the ``||x||^2`` term is added once by the caller)."""
-    ids = assign(x, centroids)
-    sums, counts = cluster_sums(x, ids, centroids.shape[0])
-    return sums, counts, _score(centroids, sums, counts)
+def _lloyd_stats(x: torch.Tensor, centroids: torch.Tensor,
+                 tier: str = "highest"):
+    """One assignment pass at the tier: centroid sums (K, d), counts (K,)
+    and the assignment's summed score ``sum_i ||c_a(i)||^2 - 2
+    x_i.c_a(i)`` (f64; the ``||x||^2`` term is added once by the caller)."""
+    k = centroids.shape[0]
+    ids = assign(x, centroids, tier)
+    parts = tier_sums64(x, ids, k, tier)
+    counts = torch.bincount(ids, minlength=k).to(torch.float32)
+    return (parts.sum(0).to(torch.float32), counts,
+            _score(centroids, parts, counts, tier))
 
 
 def _sum_squares(x: torch.Tensor, chunk: int = SUM_CHUNK) -> torch.Tensor:
@@ -190,13 +231,14 @@ def _split_empty_clusters(centroids: torch.Tensor, counts: torch.Tensor
 
 
 def _lloyd_loop(x: torch.Tensor, centroids: torch.Tensor, niter: int,
-                empty_policy: str = "keep") -> Tuple[torch.Tensor, float]:
-    """niter Lloyd iterations -> (centroids, the last assignment's
-    objective; 0.0 for niter 0)."""
+                empty_policy: str = "keep", tier: str = "highest"
+                ) -> Tuple[torch.Tensor, float]:
+    """niter Lloyd iterations at the tier -> (centroids, the last
+    assignment's objective; 0.0 for niter 0)."""
     x2 = _sum_squares(x)
     obj = None
     for _ in range(niter):
-        sums, counts, score = _lloyd_stats(x, centroids)
+        sums, counts, score = _lloyd_stats(x, centroids, tier)
         centroids, obj = _update(centroids, sums, counts, empty_policy), score
     return centroids, 0.0 if obj is None else float(obj + x2)
 
@@ -270,7 +312,7 @@ def kmeans_fit(
     ``x`` (a capacity buffer with rows past its fill, as the fused device
     feed's), so the fit is ``kmeans_fit(x[:n_valid])``.
     """
-    precision_from_str(precision)
+    tier = precision_from_str(precision)
     if empty_policy not in EMPTY_POLICIES:
         raise ValueError(f"unknown empty_policy '{empty_policy}' "
                          f"(use {'|'.join(EMPTY_POLICIES)})")
@@ -298,7 +340,7 @@ def kmeans_fit(
         else:
             raise ValueError(f"unknown init '{init}'")
     centroids = _points(init_centroids, x.device).reshape(k, d)
-    return _lloyd_loop(x, centroids, niter, empty_policy)
+    return _lloyd_loop(x, centroids, niter, empty_policy, tier)
 
 
 class KMeans:
@@ -382,12 +424,13 @@ def _host_tensor(buf: np.ndarray) -> torch.Tensor:
 
 
 def _stats_accum(x: torch.Tensor, fill: int, centroids: torch.Tensor,
-                 acc: tuple) -> None:
-    """One assignment pass over the first ``fill`` rows of a super-batch,
-    ADDED into accumulators that stay on the device: ``acc = (sums (K, d)
-    f64, counts (K,) int64, sum ||x||^2 f64 or None)``.
+                 acc: tuple, tier: str = "highest") -> None:
+    """One assignment pass at the tier over the first ``fill`` rows of a
+    super-batch, ADDED into accumulators that stay on the device: ``acc =
+    (part sums (parts, K, d) f64, counts (K,) int64, sum ||x||^2 f64 or
+    None)``.
 
-    B2 assigns (``assign``), ``cluster_sums64`` adds the rows' f64 sums and
+    B2 assigns (``assign``), ``tier_sums64`` adds the rows' f64 sums and
     an integer bincount the counts, so the accumulators hold the same
     values, in stream order, for any replay of the same stream; ``sum
     ||x||^2`` is added only where the caller passes its accumulator (the
@@ -397,8 +440,8 @@ def _stats_accum(x: torch.Tensor, fill: int, centroids: torch.Tensor,
     if x.dtype != torch.float32:
         x = x.float()
     sums, counts, x2 = acc
-    ids = assign(x, centroids)
-    sums += cluster_sums64(x, ids, centroids.shape[0])
+    ids = assign(x, centroids, tier)
+    sums += tier_sums64(x, ids, centroids.shape[0], tier)
     counts += torch.bincount(ids, minlength=centroids.shape[0])
     if x2 is not None:
         x2 += _sum_squares(x)
@@ -651,10 +694,10 @@ def kmeans_fit_streaming(
     obj)`` runs after every iteration; ``start_iter=j`` with those
     centroids as ``init_centroids`` resumes the fit bit-equal to an
     uninterrupted one (the ``sum ||x||^2`` term is collected again on the
-    first resumed pass).  Only ``precision="highest"`` is ported (ROADMAP
-    A6); meshes and multi-process fits are ROADMAP A7.
+    first resumed pass).  ``precision`` is the Lloyd tier, as in
+    ``kmeans_fit``; meshes and multi-process fits are ROADMAP A7.
     """
-    precision_from_str(precision)
+    tier = precision_from_str(precision)
     if empty_policy not in EMPTY_POLICIES:
         raise ValueError(f"unknown empty_policy '{empty_policy}' "
                          f"(use {'|'.join(EMPTY_POLICIES)})")
@@ -713,7 +756,9 @@ def kmeans_fit_streaming(
             first_pass = it == start_iter
             t_iter = time.perf_counter()
             t_wait = 0.0
-            acc = (torch.zeros((k, d), dtype=torch.float64, device=device),
+            parts = 2 if tier == "bf16x3" else 1
+            acc = (torch.zeros((parts, k, d), dtype=torch.float64,
+                               device=device),
                    torch.zeros(k, dtype=torch.int64, device=device),
                    torch.zeros((), dtype=torch.float64, device=device)
                    if x2_total is None else None)
@@ -742,7 +787,7 @@ def kmeans_fit_streaming(
                         x.record_stream(stream)
                     if centroids is None:
                         centroids = init_from(buf, fill)
-                    _stats_accum(x, fill, centroids, acc)
+                    _stats_accum(x, fill, centroids, acc, tier)
                     n_seen += fill
                     if hbm is not None and not hbm_sealed:
                         hbm_bytes += x.numel() * x.element_size()
@@ -837,11 +882,12 @@ def kmeans_fit_streaming(
                         "stream cache sealed on disk: %d super-batches, %.0f "
                         "MB at %s", len(spill.meta),
                         spill.nbytes() / (1 << 20), spill.path)
-            sums64, counts64, x2 = acc
+            parts64, counts64, x2 = acc
             if x2 is not None:
                 x2_total = float(x2)
-            sums, counts = sums64.to(torch.float32), counts64.to(torch.float32)
-            obj = float(_score(centroids, sums, counts) + x2_total)
+            sums = parts64.sum(0).to(torch.float32)
+            counts = counts64.to(torch.float32)
+            obj = float(_score(centroids, parts64, counts, tier) + x2_total)
             centroids = _update(centroids, sums, counts, empty_policy)
             logger.info(
                 "streaming kmeans iter %d/%d: %d pts, obj=%.4f (%.2fs, "

@@ -33,9 +33,17 @@ L2 normalization and the valid-row prefix land in one preallocated buffer
 that the fit reads as a view and ``take_resident_frames`` hands to the
 tokenize stage.
 
-Not ported, and refused with ``NotImplementedError``: ``use_convolution``
-and the precision tiers (ROADMAP A6), the native decoder under the fused
-mode (ROADMAP A6), multi-process runs and stage traces (ROADMAP A7).
+``use_convolution``: every route widens the frames with the conv front-end
+(``make_conv_features``, weights from ``(random_seed, "conv_features")``)
+before the L2 normalization on the stage's device, as the JAX stage does:
+in the staged batches, the device feed, and the streaming fit's stream and
+its init sample (whose rows then come back to the host); the weights are
+saved beside the centroids as ``<centroids>.conv.npz`` for the tokenize
+stage and serving.
+``kmeans_precision`` is the Lloyd tier (``ops/kmeans.precision_from_str``).
+
+Not ported, and refused with ``NotImplementedError``: multi-process runs and
+stage traces (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import numpy as np
 import torch
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
+from audio_tokens_tpu_torch.ops.conv_features import ConvFeatures
 from audio_tokens_tpu_torch.ops.kmeans import (
     DEFAULT_CHUNK,
     WIRES,
@@ -65,7 +74,6 @@ from audio_tokens_tpu_torch.ops.vq import l2_normalize
 from audio_tokens_tpu_torch.processors.spectrogram_generator import (
     SpectrogramGenerator,
     refuse_multiprocess,
-    refuse_native_decode,
 )
 from audio_tokens_tpu_torch.utils.npy_io import atomic_save_bytes
 from audio_tokens_tpu_torch.utils.seeding import set_seed
@@ -73,23 +81,26 @@ from audio_tokens_tpu_torch.utils.seeding import set_seed
 logger = logging.getLogger(__name__)
 
 
-def _refuse_unported(config: AudioTokensConfig) -> None:
-    if config.use_convolution:
-        raise NotImplementedError(
-            "use_convolution (ConvFeatures) is not ported yet: ROADMAP A6")
-    if config.fused_pipeline:
-        refuse_native_decode(config)
-    refuse_multiprocess(config)
-    precision_from_str(config.kmeans_precision)
+def make_conv_features(config: AudioTokensConfig,
+                       device: torch.device | str = "cpu"
+                       ) -> Optional[ConvFeatures]:
+    """The conv front-end the cluster and tokenize stages share (its
+    weights drawn from ``(random_seed, "conv_features")``), or None."""
+    if not config.use_convolution:
+        return None
+    return ConvFeatures(config.num_kernels, config.kernel_size,
+                        config.random_seed, device)
 
 
 class ClusterCreator:
     def __init__(self, config: AudioTokensConfig,
                  device: Optional[torch.device | str] = None):
-        _refuse_unported(config)
+        refuse_multiprocess(config)
+        precision_from_str(config.kmeans_precision)
         self.config = config
         self.device = torch.device("cuda", 0) if device is None else \
             torch.device(device)
+        self.conv = make_conv_features(config, self.device)
         self._stream_sig: Optional[str] = None
         self._gen: Optional[SpectrogramGenerator] = None
         self.resident_frames: Optional[torch.Tensor] = None
@@ -154,6 +165,8 @@ class ClusterCreator:
         out_path = Path(cfg.centroids_path)
         out_path.parent.mkdir(parents=True, exist_ok=True)
         np.save(out_path, centroids)
+        if self.conv is not None:
+            self.conv.save_npz(out_path.with_suffix(".conv.npz"))
         # the artifact exists: the streaming fit's checkpoint has served
         self._kmeans_ckpt_path().unlink(missing_ok=True)
         self.visualize_centroids(centroids)
@@ -187,6 +200,7 @@ class ClusterCreator:
         else:
             spec_dir = Path(self.config.source_spec_path) / "train"
             est = sum(f.stat().st_size for f in spec_dir.glob("*.npy"))
+            est *= self.feature_dim // self.config.n_mels  # the conv's width
         if est > budget:
             logger.info(
                 "full kmeans: ~%.1f GB of frames exceeds the %.1f GB in-memory "
@@ -202,7 +216,7 @@ class ClusterCreator:
         return files
 
     def _file_frames(self, batch_size: int) -> Iterator[np.ndarray]:
-        """(frames, feature_dim) f32 matrices, per ``batch_size`` files in
+        """(frames, n_mels) f32 matrices, per ``batch_size`` files in
         sorted order — the reference's frame pipeline (:83-102); under the
         fused mode the same frames from the audio."""
         if self.config.fused_pipeline:
@@ -329,8 +343,10 @@ class ClusterCreator:
             return offset
         rows = torch.from_numpy(np.concatenate(idx)).to(self.device)
         x = torch.from_numpy(batch).to(self.device)
-        frames = l2_normalize(
-            frontend.mel_frames(x).reshape(-1, self.feature_dim))
+        frames = frontend.mel_frames(x).reshape(-1, cfg.n_mels)
+        if self.conv is not None:
+            frames = self.conv(frames)
+        frames = l2_normalize(frames)
         buffer[offset : offset + fill] = frames.index_select(0, rows)
         return offset + fill
 
@@ -347,16 +363,28 @@ class ClusterCreator:
         return frames, manifest
 
     def _batch_generator(self, batch_size: int) -> Iterator[torch.Tensor]:
-        """The file batches as f32 tensors on the stage's device,
-        L2-normalized there."""
+        """The file batches as f32 tensors on the stage's device, through
+        the conv front-end there and L2-normalized there."""
         for frames in self._file_frames(batch_size):
-            yield l2_normalize(torch.from_numpy(frames).to(self.device))
+            x = torch.from_numpy(frames).to(self.device)
+            if self.conv is not None:
+                x = self.conv(x)
+            yield l2_normalize(x)
+
+    def _host_frames(self, frames: np.ndarray) -> np.ndarray:
+        """The streaming fit's stream and its init sample as host rows:
+        L2-normalized on the host, or under the conv front-end widened and
+        normalized on the stage's device (as the JAX stage runs its conv)
+        and brought back."""
+        if self.conv is None:
+            return l2_normalize(torch.from_numpy(frames)).numpy()
+        x = self.conv(torch.from_numpy(frames).to(self.device))
+        return l2_normalize(x).cpu().numpy()
 
     def _host_batches(self, batch_size: int) -> Iterator[np.ndarray]:
-        """The file batches L2-normalized on the host: the streaming fit's
-        stream, the same on any device."""
+        """The file batches through ``_host_frames``."""
         for frames in self._file_frames(batch_size):
-            yield l2_normalize(torch.from_numpy(frames)).numpy()
+            yield self._host_frames(frames)
 
     # -- the streaming fit and its mid-fit checkpoint ------------------------
     # The per-iteration centroid update is the fit's only state across
@@ -504,7 +532,7 @@ class ClusterCreator:
             specs = [np.load(f) for f in chosen]
         frames = np.concatenate([s.T for s in specs],
                                 axis=0).astype(np.float32)
-        return l2_normalize(torch.from_numpy(frames)).numpy()
+        return self._host_frames(frames)
 
     def evaluate_clustering(self, data: np.ndarray, labels: np.ndarray,
                             sample_size: int = 10000,

@@ -14,18 +14,23 @@ matplotlib is installed.
 Each batch of ``tokenizer_batch_size`` files is one ``vq_assign_fused``
 call with ``normalize=True`` on the stage's device (``cuda:0`` unless the
 caller passes another): kernel B2 on the card, its plain version on the
-CPU.
+CPU.  Under ``use_convolution`` the frames first go through the conv
+front-end with the clustering stage's weights (``<centroids>.conv.npz``;
+the seeded draw where that file is missing), as the JAX stage does.
 
 ``fused_pipeline=True`` reads no spectrogram file and writes the same
 token files: clips go wav -> tokens through ``FusedTokenizer`` (kernel B1)
 in ``device_batch_size`` batches of sorted clips, except the train clips
 that the clustering stage's device feed left resident
 (``resident_frames``), which B2 assigns from those frames (``normalize=
-False``: the rows are already unit) without decoding them again.
+False``: the rows are already unit) without decoding them again.  The fused
+mode decodes with the native decoder where ``audio_backend`` takes it
+(``data/native_loader.select_backend``), one batch straight into the
+kernel's padded layout (int16 under ``pcm_wire="i16"``), else with the
+python decode.
 
-Not ported, and refused with ``NotImplementedError``: ``use_convolution``
-(ROADMAP A6), the native decoder under the fused mode (ROADMAP A6),
-multi-process runs and stage traces (ROADMAP A7).
+Not ported, and refused with ``NotImplementedError``: multi-process runs and
+stage traces (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -43,11 +48,15 @@ import numpy as np
 import torch
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
+from audio_tokens_tpu_torch.data import native_loader
 from audio_tokens_tpu_torch.data.audio_io import decode_clip, find_audio_file
+from audio_tokens_tpu_torch.ops.mel import num_frames
 from audio_tokens_tpu_torch.ops.vq import vq_assign_fused
+from audio_tokens_tpu_torch.processors.cluster_creator import (
+    make_conv_features,
+)
 from audio_tokens_tpu_torch.processors.spectrogram_generator import (
     refuse_multiprocess,
-    refuse_native_decode,
 )
 from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 from audio_tokens_tpu_torch.utils.npy_io import (atomic_save_bytes,
@@ -160,11 +169,6 @@ class SpecTokenizer:
         the device feed's L2-normalized train frames (a view on the
         stage's device) and ``{ytid: (row, frames)}``; the fused mode
         assigns the clips it covers from it."""
-        if config.use_convolution:
-            raise NotImplementedError(
-                "use_convolution (ConvFeatures) is not ported yet: ROADMAP A6")
-        if config.fused_pipeline:
-            refuse_native_decode(config)
         refuse_multiprocess(config)
         self.config = config
         self.resident = resident_frames
@@ -175,6 +179,11 @@ class SpecTokenizer:
         self.dest_tokenized_path = Path(config.dest_tokenized_path)
         self.centroids = torch.from_numpy(
             np.load(config.centroids_path).astype(np.float32)).to(self.device)
+        self.conv = make_conv_features(config, self.device)
+        if self.conv is not None:
+            state = Path(config.centroids_path).with_suffix(".conv.npz")
+            if state.exists():
+                self.conv.load_state_dict(dict(np.load(state)))
 
     @property
     def vocab(self) -> int:
@@ -274,11 +283,12 @@ class SpecTokenizer:
     def process_batch(self, batch_files: List[Path],
                       tokenized_dir: Path) -> np.ndarray:
         batch_specs = [np.load(f).T for f in batch_files]  # (T_i, n_mels) each
-        frames = np.concatenate(batch_specs, axis=0).astype(np.float32)
-        tokens = vq_assign_fused(
-            torch.from_numpy(frames).to(self.device), self.centroids,
-            normalize=True,
-        ).cpu().numpy().astype(np.int64)
+        frames = torch.from_numpy(np.concatenate(
+            batch_specs, axis=0).astype(np.float32)).to(self.device)
+        if self.conv is not None:
+            frames = self.conv(frames)
+        tokens = vq_assign_fused(frames, self.centroids, normalize=True,
+                                 ).cpu().numpy().astype(np.int64)
 
         start = 0
         for spec_file, spec in zip(batch_files, batch_specs):
@@ -300,7 +310,11 @@ class SpecTokenizer:
         cfg = self.config
         with open(cfg.split_file) as f:
             split_map = json.load(f)
-        ft = FusedTokenizer(cfg, self.centroids.cpu().numpy(), self.device)
+        ft = FusedTokenizer(cfg, self.centroids.cpu().numpy(), self.device,
+                            conv=self.conv)
+        use_native = native_loader.select_backend(cfg)
+        fused_tokens = (self._fused_tokens_native if use_native
+                        else self._fused_tokens_python)
         stats: Dict[str, dict] = {}
         for split in ["train", "validation"]:
             tokenized_dir = self.dest_tokenized_path / split
@@ -340,7 +354,7 @@ class SpecTokenizer:
                     resident_work = None
                     logger.info("resident frames: %d clips tokenized with "
                                 "no decode", len(resident_tokens))
-                batches = (self._fused_tokens_python(ft, found[i : i + bs])
+                batches = (fused_tokens(ft, found[i : i + bs])
                            for i in range(0, len(found), bs))
                 for ytid, toks in chain(resident_tokens.items(),
                                         chain.from_iterable(batches)):
@@ -374,6 +388,39 @@ class SpecTokenizer:
         tokens = vq_assign_fused(frames, self.centroids, normalize=False)
         tokens = tokens.cpu().numpy().astype(np.int64)
         return {y: tokens[off : off + n] for y, off, n in spans}
+
+    def _fused_tokens_native(self, ft: FusedTokenizer, chunk: list):
+        """The native decode of ``chunk`` ((ytid, path) pairs), one batch of
+        ``device_batch_size`` rows straight into the kernel's padded layout
+        (int16 under ``pcm_wire="i16"``) -> [(ytid, tokens)] through ``ft``;
+        rows the decoder fails (length -1) or with non-finite samples are
+        skipped and logged."""
+        cfg = self.config
+        batch, lengths = native_loader.decode_batch(
+            [p for _, p in chunk], cfg.common_sr, cfg.clip_samples,
+            cfg.n_fft, n_threads=cfg.num_workers,
+            dtype=np.int16 if cfg.pcm_wire == "i16" else np.float32)
+        pad_rows = cfg.device_batch_size - len(chunk)
+        if pad_rows:  # the batch shape of every other call
+            batch = np.pad(batch, ((0, pad_rows), (0, 0)))
+            lengths = np.concatenate([lengths,
+                                      np.full(pad_rows, -1, np.int32)])
+        tokens = ft.tokens_from_padded(
+            torch.from_numpy(batch).to(self.device),
+            torch.from_numpy(np.maximum(lengths, 0)).to(self.device)
+            if cfg.normalize else None).cpu().numpy()
+        out = []
+        for row, (ytid, path) in enumerate(chunk):
+            if lengths[row] < 0:
+                logger.info("skipping %s: %s", path,
+                            native_loader.last_error())
+                continue
+            if not np.isfinite(batch[row]).all():
+                logger.info("skipping %s: non-finite samples", path)
+                continue
+            n_valid = num_frames(int(lengths[row]), cfg.hop_length)
+            out.append((ytid, tokens[row, :n_valid].astype(np.int64)))
+        return out
 
     def _fused_tokens_python(self, ft: FusedTokenizer, chunk: list):
         """Threaded python decode of ``chunk`` ((ytid, path) pairs) ->

@@ -10,17 +10,24 @@ a ``_signature.json`` of the signal chain); missing, undecodable, non-finite
 or extreme-amplitude clips are skipped with a log line; NaN/Inf
 spectrograms and, under ``normalize=True``, constant ones are dropped.
 
-Clips are decoded on the host (a thread pool, bounded decode-ahead), packed
-into ``device_batch_size`` padded batches and sent through the port's
-``MelFrontend`` on the stage's device (``cuda:0`` unless the caller passes
-another), or its per-clip min-max ``.normalized`` under ``normalize=True``.
-The fused mode reads the same decode through ``iter_specs`` (specs without
-files) and ``iter_wave_batches`` (padded waveform batches, no DSP: the
-clustering stage's device feed).
+Clips are decoded on the host and packed into ``device_batch_size``
+padded batches for the port's ``MelFrontend`` on the stage's device
+(``cuda:0`` unless the caller passes another), or its per-clip min-max
+``.normalized`` under ``normalize=True``.  Two decoders, chosen by
+``audio_backend`` (``data/native_loader.select_backend``): the native C++
+decoder (``"native"``, and ``"auto"`` where it builds) decodes a batch in
+its thread pool straight into the padded layout, in f32 or, under
+``pcm_wire="i16"``, as int16 PCM that the frontend reconstructs on the card
+(half the host-to-card bytes); rows it cannot decode (length -1) are
+skipped and logged.  The python decode (``"python"``) runs a thread pool
+of ``decode_clip`` with bounded decode-ahead.  The two differ by up to
+1e-7 on WAV (more on resampled clips).  The fused mode reads the same
+decode through ``iter_specs`` (specs without files) and
+``iter_wave_batches`` (padded waveform batches, no DSP: the clustering
+stage's device feed).
 
-Not ported: the native C++ decoder (``audio_backend='native'``, ROADMAP A6;
-``'auto'`` takes the python decode), stage traces (``profile_dir``) and
-multi-process runs (ROADMAP A7).
+Not ported: stage traces (``profile_dir``) and multi-process runs (ROADMAP
+A7).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
+from audio_tokens_tpu_torch.data import native_loader
 from audio_tokens_tpu_torch.data.audio_io import decode_clip, find_audio_file
 from audio_tokens_tpu_torch.ops.mel import MelFrontend, num_frames
 from audio_tokens_tpu_torch.utils.npy_io import atomic_save_npy
@@ -58,18 +66,9 @@ def refuse_multiprocess(config: AudioTokensConfig) -> None:
             "ROADMAP A7")
 
 
-def refuse_native_decode(config: AudioTokensConfig) -> None:
-    """Every stage that decodes audio takes the python decode."""
-    if config.audio_backend == "native":
-        raise NotImplementedError(
-            "audio_backend='native' (the C++ decoder) is not ported yet: "
-            "ROADMAP A6; 'auto' takes the python decode")
-
-
 class SpectrogramGenerator:
     def __init__(self, config: AudioTokensConfig,
                  device: Optional[torch.device | str] = None):
-        refuse_native_decode(config)
         refuse_multiprocess(config)
         self.config = config
         self.device = torch.device("cuda", 0) if device is None else \
@@ -84,6 +83,7 @@ class SpectrogramGenerator:
         )
         with open(config.split_file, "r") as f:
             self.data_split = json.load(f)
+        self.use_native = native_loader.select_backend(config)
 
     def _signature(self) -> dict:
         """Signal-chain signature persisted next to each split's artifacts:
@@ -166,6 +166,9 @@ class SpectrogramGenerator:
         """Yield (ytid, (n_mels, frames) float32 spec) without touching
         disk, in ``ytids`` order (the frontend math is row-independent, so
         batch composition does not change a clip's spectrogram)."""
+        if self.use_native:
+            yield from self._iter_specs_native(ytids)
+            return
         bs = self.config.device_batch_size
         pending: List[Tuple[str, np.ndarray]] = []
         for ytid, wave in self._decoded_waves(ytids):
@@ -210,8 +213,17 @@ class SpectrogramGenerator:
         order: (padded (B, padded_len) f32 waveforms, lengths (B,) int32,
         row ytids).  Padding rows have length -1 and ytid None.  The same
         decode and screens as ``iter_specs``; no DSP, so the clustering
-        stage's device feed sends only waveforms to the card."""
+        stage's device feed sends only waveforms to the card.  Native
+        decode: rows it fails or screens out carry length -1, and
+        ``pcm_wire="i16"`` ships int16 PCM (the frontend decodes it)."""
         bs = self.config.device_batch_size
+        if self.use_native:
+            for chunk, batch, lengths in self._native_batches(ytids):
+                for r in np.flatnonzero(lengths == -2):
+                    lengths[r] = -1  # screened above, logged there
+                row_ytids = [y for y, _ in chunk] + [None] * (bs - len(chunk))
+                yield batch, lengths, row_ytids
+            return
 
         def flush(waves, wave_ytids):
             batch, lengths = self.frontend.prepare_batch(waves)
@@ -233,6 +245,70 @@ class SpectrogramGenerator:
                 waves, wave_ytids = [], []
         if waves:
             yield flush(waves, wave_ytids)
+
+    def _native_batches(self, ytids: List[str]):
+        """The native decode of ``ytids`` (those with a file) in
+        ``device_batch_size`` chunks -> (chunk of (ytid, path), padded
+        batch (bs rows; f32, or int16 under ``pcm_wire="i16"``), lengths):
+        padding rows and failed decodes have length -1, f32 rows with
+        non-finite or extreme samples -2 (logged here; int16 PCM is safe
+        by construction)."""
+        cfg = self.config
+        bs = cfg.device_batch_size
+        found = [(y, p) for y in ytids
+                 if (p := self.find_audio_file(y)) is not None]
+        dtype = np.int16 if cfg.pcm_wire == "i16" else np.float32
+        for i in range(0, len(found), bs):
+            chunk = found[i : i + bs]
+            batch, lengths = native_loader.decode_batch(
+                [p for _, p in chunk], cfg.common_sr, cfg.clip_samples,
+                cfg.n_fft, n_threads=cfg.num_workers, dtype=dtype)
+            if len(chunk) < bs:  # keep the batch shape
+                batch = np.concatenate([batch, np.zeros(
+                    (bs - len(chunk), batch.shape[1]), batch.dtype)])
+                lengths = np.concatenate(
+                    [lengths, np.full(bs - len(chunk), -1, np.int32)])
+            if batch.dtype == np.float32:
+                amax = np.abs(batch).max(axis=1)
+                for r in np.flatnonzero(
+                        (~np.isfinite(amax) | (amax > AMPLITUDE_LIMIT))
+                        & (lengths >= 0)):
+                    logger.info("skipping %s: non-finite or extreme "
+                                "samples", chunk[r][1])
+                    lengths[r] = -2
+            for r in np.flatnonzero(lengths[:len(chunk)] == -1):
+                logger.info("skipping %s: %s", chunk[r][1],
+                            native_loader.last_error())
+            yield chunk, batch, lengths
+
+    def _iter_specs_native(self, ytids: List[str]):
+        """``iter_specs`` over the native decode: one frontend pass a
+        batch, decoded rows only, with the python route's spectrogram
+        screens."""
+        cfg = self.config
+        for chunk, batch, lengths in self._native_batches(ytids):
+            x = torch.from_numpy(batch).to(self.device)
+            with torch.inference_mode():
+                if cfg.normalize:
+                    specs = self.frontend.normalized(
+                        x, torch.from_numpy(np.maximum(lengths, 0)).to(
+                            self.device))
+                else:
+                    specs = self.frontend(x)
+                specs = specs.cpu().numpy()
+            for row, (ytid, _) in enumerate(chunk):
+                if lengths[row] < 0:  # failed or screened, logged
+                    continue
+                n_valid = num_frames(int(lengths[row]), cfg.hop_length)
+                spec = specs[row, :, :n_valid]
+                if not np.isfinite(spec).all():
+                    logger.debug("Warning: NaN/Inf values found in "
+                                 "spectrogram %s", ytid)
+                    continue
+                if cfg.normalize and spec.size and spec.min() == spec.max():
+                    logger.debug("skipping %s: constant spectrogram", ytid)
+                    continue
+                yield ytid, spec
 
     def _decode_one(self, ytid: str) -> Optional[np.ndarray]:
         path = self.find_audio_file(ytid)

@@ -4,16 +4,24 @@ Counterpart of ``audio_tokens_tpu/tools/serve_bench.py``.  It measures the
 whole serving loop: a host thread decodes and pads the NEXT batch while the
 card tokenizes (or, with ``--classify``, tokenizes and classifies) the
 current one (double buffering), so the number includes disk reads, WAV
-decode, padding and the host-to-card copy.  Decoding is the python route
-(``data/audio_io.decode_audio``); the native decoder is not ported yet
-(ROADMAP A6), and neither are the precision tiers (``--tier`` other than
-``highest`` is refused).  A result is synchronized by fetching one value of
-the last output.
+decode, padding and the host-to-card copy.  The config's ``audio_backend``
+picks the decode as in the stages (``data/native_loader``): ``auto`` (the
+default, as the JAX tool) takes the native C++ decoder where it builds,
+``--workers`` threads decoding a batch straight into the padded layout
+(int16 under ``--wire i16``); ``--audio_backend python`` decodes with
+``data/audio_io.decode_audio`` in the decode-ahead thread.  The printed
+line names the decoder that ran, and the median time a batch's decode took
+inside the loop (the first stage line times one warm batch alone).
+``--tier`` sets both tokenizer tiers (``tokenizer_precision`` and
+``tokenizer_vq_precision``; a config flag of either overrides it).  A
+result is synchronized by fetching one value of the last output.
 
 Usage: python -m audio_tokens_tpu_torch.tools.serve_bench [--n_clips 512]
        [--batch 64] [--seconds 10] [--vocab 500] [--wire f32|i16]
+       [--tier highest|bf16x3|default] [--workers 8]
        [--classify MODEL_TYPE] [--latency N] [--device cuda:0]
-       [<config flags>, e.g. --transformer_max_position 1728]
+       [<config flags>, e.g. --audio_backend python or
+        --transformer_max_position 1728]
 """
 
 from __future__ import annotations
@@ -54,17 +62,19 @@ def _quantile(values, q: float) -> float:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the benchmark, print its lines and return its numbers: clips/s,
-    the stage times, and with ``--latency`` the request percentiles and
-    maximum (ms)."""
+    the stage times, the median decode of a batch inside the loop, and with
+    ``--latency`` the request percentiles and maximum (ms)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--n_clips", type=int, default=512)
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--seconds", type=float, default=10.0)
     parser.add_argument("--vocab", type=int, default=500)
     parser.add_argument("--workers", type=int, default=8,
-                        help="the native decoder's threads (ROADMAP A6); "
-                        "the python decode runs in the decode-ahead thread")
-    parser.add_argument("--tier", default="highest")
+                        help="the native decoder's threads; the python "
+                        "decode runs in the decode-ahead thread")
+    parser.add_argument("--tier", default="highest",
+                        choices=("highest", "bf16x3", "default"),
+                        help="both tokenizer precision tiers")
     parser.add_argument("--wire", default="f32", choices=("f32", "i16"),
                         help="host->card waveform format: i16 PCM halves "
                         "the copy (exact for 16-bit sources at the target "
@@ -78,27 +88,27 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         "end-to-end latency over N requests and report "
                         "p50/p90/p99")
     parser.add_argument("--device", default="cuda:0")
-    # extra --field value pairs overlay the config (e.g.
-    # --transformer_max_position 1728 for full-clip bert serving)
+    # extra --field value pairs overlay the config (e.g. --audio_backend
+    # python, or --transformer_max_position 1728 for full-clip bert serving)
     args, rest = parser.parse_known_args(argv)
-    if args.tier != "highest":
-        raise NotImplementedError(
-            f"--tier {args.tier}: the precision tiers are not ported yet, "
-            "only 'highest' (float32) is: ROADMAP A6")
 
     from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.data import native_loader
     from audio_tokens_tpu_torch.data.audio_io import decode_audio
     from audio_tokens_tpu_torch.ops.common import exact_f32
     from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 
     exact_f32()
     device = torch.device(args.device)
+    fields = dict(clip_seconds=args.seconds, vocab_size=args.vocab,
+                  tokenizer_precision=args.tier,
+                  tokenizer_vq_precision=args.tier)
+    if args.classify:
+        fields["model_type"] = args.classify
     cfg = AudioTokensConfig(
-        clip_seconds=args.seconds, vocab_size=args.vocab,
-        tokenizer_precision=args.tier,
-        **({"model_type": args.classify} if args.classify else {}),
-        **AudioTokensConfig.parse_overrides(rest),
-    )
+        **{**fields, **AudioTokensConfig.parse_overrides(rest)})
+    use_native = native_loader.select_backend(cfg)
+    decoder = "native" if use_native else "python"
     rng = np.random.default_rng(7)
     cent = rng.standard_normal((args.vocab, cfg.n_mels)).astype(np.float32)
     cent /= np.linalg.norm(cent, axis=1, keepdims=True) + 1e-10
@@ -106,6 +116,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     wire_dtype = np.int16 if args.wire == "i16" else np.float32
 
     def decode_batch(batch_paths, pad_to=args.batch):
+        if use_native:
+            batch, _ = native_loader.decode_batch(
+                batch_paths, cfg.common_sr, cfg.clip_samples, cfg.n_fft,
+                n_threads=args.workers, dtype=wire_dtype)
+            if batch.shape[0] < pad_to:
+                batch = np.pad(batch, ((0, pad_to - batch.shape[0]), (0, 0)))
+            return batch
         waves = [decode_audio(p, target_sr=cfg.common_sr)[0]
                  for p in batch_paths]
         batch, _ = tok.frontend.prepare_batch(waves)
@@ -135,7 +152,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     what = (f"disk->decode->probs[{args.classify}]" if args.classify
             else "disk->decode->tokens")
-    result = {"what": what, "n_clips": args.n_clips, "batch": args.batch}
+    result = {"what": what, "n_clips": args.n_clips, "batch": args.batch,
+              "tier": cfg.tokenizer_precision, "decoder": decoder}
     with tempfile.TemporaryDirectory(prefix="atk_serve_") as tmp:
         paths = make_corpus(Path(tmp), args.n_clips, args.seconds,
                             cfg.common_sr)
@@ -157,24 +175,34 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               f"({mb:.0f} MB/batch crosses the host->device link)",
               flush=True)
 
+        loop_decode_ms = []
+
+        def decode_in_loop(batch_paths):
+            t = time.perf_counter()
+            batch = decode_batch(batch_paths)
+            loop_decode_ms.append((time.perf_counter() - t) * 1e3)
+            return batch
+
         with ThreadPoolExecutor(max_workers=1) as pool:  # decode-ahead
             t0 = time.perf_counter()
-            nxt = pool.submit(decode_batch, batches[0])
+            nxt = pool.submit(decode_in_loop, batches[0])
             out = None
             for i in range(len(batches)):
                 host_batch = nxt.result()
                 if i + 1 < len(batches):
-                    nxt = pool.submit(decode_batch, batches[i + 1])
+                    nxt = pool.submit(decode_in_loop, batches[i + 1])
                 out = run(host_batch)
             fetch(out)
             dt = time.perf_counter() - t0
         cps = len(paths) / dt
-        print(f"serving ({what}, double-buffered, tier={args.tier}, "
-              f"wire={args.wire}, python decode): {cps:.0f} clips/s over "
+        loop_ms = _quantile(loop_decode_ms, 50)
+        print(f"serving ({what}, double-buffered, tier={cfg.tokenizer_precision}"
+              f", wire={args.wire}, {decoder} decode): {cps:.0f} clips/s over "
               f"{len(paths)} clips ({dt:.2f}s, "
-              f"{len(paths) * args.seconds / dt:.0f}x realtime)", flush=True)
+              f"{len(paths) * args.seconds / dt:.0f}x realtime; decode "
+              f"{loop_ms:.0f} ms a batch in the loop, median)", flush=True)
         result.update(decode_ms=decode_s * 1e3, device_ms=dev_s * 1e3,
-                      clips_per_s=cps, seconds=dt)
+                      decode_loop_ms=loop_ms, clips_per_s=cps, seconds=dt)
 
         if args.latency > 0:
             # single-request (batch=1) latency: one clip is decoded, crosses

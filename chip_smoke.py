@@ -158,7 +158,36 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    default 512 ten-second clips (8 batches of 64): tokens, ``--classify
    lstm`` and ``--classify bert`` (window 1728, flash), each with
    ``--latency 200``; clips/s and the request percentiles and maximum
-   (``launches_by_path`` ``serve_bench_<branch>``).
+   (``launches_by_path`` ``serve_bench_<branch>``), each with
+   ``--audio_backend python`` (the decode these numbers were first taken
+   with);
+12. the precision tiers, the conv front-end and the native decoder: B1 at
+   each combo of ``tools/bench_tokenizer_tiers`` ((highest, bf16x3),
+   (bf16x3, bf16x3), (default, default) beside (highest, highest)) at K
+   500 and 16,384 on 64 ten-second clips, driven through ``FusedTokenizer``
+   with the config's tiers and held to its plain tier version under the
+   near-tie rule with the coarser tier's bound (``ops/tiers.py``), and to
+   its tier against the ``highest`` kernel (``check_follows_tier``: the
+   share of tokens apart within the tier's band, the plain tier's answer
+   taken where it leaves ``highest``), a record each
+   (``tiers_b1_<tier>_<vq_tier>_k<K>``; yardstick the DFT product alone
+   in bf16); B2 at bf16x3 and default at phase 8's 17.23M rows x 64 x 500
+   against its plain tier version and to its tier against the ``highest``
+   ids, as B1 (yardstick ``torch.matmul`` + argmin in bf16), and
+   ``KMeans.train`` at ``kmeans_precision`` high and default against the
+   ``highest`` fit: objective drift (within ``KMEANS_DRIFT``), ids apart,
+   ms an iteration (``kmeans_<tier>``); phase 8's pipeline on its audio with
+   ``use_convolution=True`` (B2's sliced instance at d 640; 8 clips' tokens
+   against the CPU) and with ``audio_backend="native"``,
+   ``pcm_wire="i16"`` (centroids and tokens against phase 8's), each
+   stage's seconds and launches (``pipeline_conv_*``,
+   ``pipeline_native_*``); ``serve_bench`` for tokens and the lstm with
+   the native decoder (``serve_bench_native_<branch>``) beside phase 11's
+   python-decode numbers.
+
+Phases 8-12 decode with ``audio_backend="auto"``: the native decoder
+(``data/native_loader.py``, built with g++ into ``build/native/``) where it
+builds, as the JAX package.
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the per-kernel JSON record, and the last line
@@ -827,6 +856,19 @@ def stream_stage(records: list, cfg, base: Path, dev, frames: int) -> None:
         f"synchronized); centroids bit-equal; B2 launches {launches}")
 
 
+def kmeans_rows(cfg, dev):
+    """The unit rows of one default clustering batch (KMEANS_CLIPS clips:
+    17.23M x 64 at the package defaults), made on the card from a seed."""
+    import torch
+
+    n = KMEANS_CLIPS * (1 + cfg.clip_samples // cfg.hop_length)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    x = torch.randn((n, cfg.n_mels), generator=gen, device=dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-10
+    return x
+
+
 def pipeline_phase(records: list, dev, base: Path):
     """Phase 8: ``run_pipeline.main`` on a wav workspace written to
     ``base`` at the package defaults, its results against the CPU, then
@@ -976,11 +1018,8 @@ def pipeline_phase(records: list, dev, base: Path):
     stream_stage(records, cfg, base, dev, frames)
 
     # K-means at the size of one default clustering batch
-    n = KMEANS_CLIPS * (1 + cfg.clip_samples // cfg.hop_length)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(17)
-    x = torch.randn((n, cfg.n_mels), generator=gen, device=dev)
-    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-10
+    x = kmeans_rows(cfg, dev)
+    n = x.shape[0]
     fits, fit_s = [], []
     points_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
@@ -1666,7 +1705,7 @@ def opcheck_phase(dev) -> None:
 
 
 def export_phase(records: list, dev, base: Path, cfg,
-                 bert_ckpt: Path) -> None:
+                 bert_ckpt: Path) -> dict:
     """Phase 11: export the lstm and bert serving programs in kernel form
     on the card and hold the loaded programs to the live ones; export the
     lstm portable on the CPU and run it on the card; opcheck the ops; run
@@ -1795,13 +1834,17 @@ def export_phase(records: list, dev, base: Path, cfg,
                  "--transformer_attention", "flash"],
     }
     must = {"tokens": (0,), "lstm": (0, 2), "bert": (0, 3)}
+    results = {}
     for tag, extra in bench.items():
         argv = ["--n_clips", str(SERVE_BENCH_CLIPS), "--latency",
-                str(SERVE_BENCH_LATENCY), "--device", str(dev), *extra]
+                str(SERVE_BENCH_LATENCY), "--device", str(dev),
+                "--audio_backend", "python", *extra]
         result, launches = counted(lambda: serve_bench.main(argv))
+        results[tag] = result
         log(f"[serve_bench {tag}] {' '.join(argv)}: {result['clips_per_s']:.1f}"
             f" clips/s over {result['n_clips']} clips ({result['seconds']:.2f}"
-            f" s); a batch of {result['batch']}: decode {result['decode_ms']:.1f} ms, "
+            f" s); a batch of {result['batch']}: decode {result['decode_ms']:.1f} ms "
+            f"(in the loop, median {result['decode_loop_ms']:.1f}), "
             f"transfer + card {result['device_ms']:.1f} ms; one request p50 "
             f"{result['p50_ms']:.1f} / p90 {result['p90_ms']:.1f} / p99 "
             f"{result['p99_ms']:.1f} / max {result['max_ms']:.1f} ms over "
@@ -1818,6 +1861,7 @@ def export_phase(records: list, dev, base: Path, cfg,
                 rec["launches_by_path"][f"serve_bench_{tag}"] = n
     log(f"[export] phase 11 took {time.perf_counter() - t_phase:.1f} s "
         f"(host clock)")
+    return results
 
 
 def sums_split(x, ids) -> dict:
@@ -1977,6 +2021,395 @@ def stream_phase(records: list, cfg, dev, x, ref) -> None:
         modes=out)
     records[1]["launches_by_path"]["kmeans_stream"] = sum(
         m["launches"] for m in out.values())
+
+
+# phase 12: the precision tiers' peak rates: bf16 on the tensor cores, and
+# bf16x3's three passes for one product
+TIER_FLOPS = {"highest": PEAK_FLOPS["float32"], "bf16x3": PEAK_FLOPS[
+    "bfloat16"] / 3, "default": PEAK_FLOPS["bfloat16"]}
+KMEANS_TIERS = (("high", "bf16x3"), ("default", "default"))
+# the K-means objective's drift from the highest fit that a tier's fit may
+# show: the card's readings are 1.5e-8 (high) and 7.4e-6 (default) at
+# 17.23M x 64 x 500; the JAX package documents ~4e-5 for default on a TPU
+KMEANS_DRIFT = {"high": 1e-6, "default": 1e-4}
+
+
+def fmt_share(share) -> str:
+    """A share from ``check_follows_tier``, or why there is none."""
+    return "too few rows" if share is None else f"{share:.4f}"
+
+
+def tier_bound(ops: dict, nbytes: float):
+    """(ms, "bytes" or "operations"): ``ops`` maps a tier to the operations
+    done at it, each over that tier's peak, against ``nbytes`` over the
+    memory rate."""
+    ops_ms = sum(n / TIER_FLOPS[t] for t, n in ops.items()) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def coarse_tier(*tiers) -> str:
+    """The coarsest of the tiers: the near-tie bound two results of them
+    are held to."""
+    for t in ("default", "bf16x3"):
+        if t in tiers:
+            return t
+    return "highest"
+
+
+def tiers_b1(records: list, dev) -> None:
+    """B1 at each combo of ``tools/bench_tokenizer_tiers`` at K 500 and
+    16,384 on 64 ten-second clips, driven through ``FusedTokenizer`` with
+    the config's tiers; each against its plain tier version on the card,
+    its agreement with ``highest``; one record per combo other than
+    (highest, highest)."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.tiers import (check_follows_tier,
+                                                  check_tier_ties)
+    from audio_tokens_tpu_torch.ops.vq import l2_normalize
+    from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
+    from audio_tokens_tpu_torch.tools.bench_tokenizer_tiers import COMBOS
+
+    base_cfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS, **MODEL)
+    clips = make_clips(BATCH)
+    x = dft_ms = None
+    for k in (VOCAB, VOCAB_LARGE):
+        cents = make_centroids(k, 7 if k == VOCAB else 8)
+        exact = None
+        for tier, vq in COMBOS:
+            cfg = dataclasses.replace(base_cfg, vocab_size=k,
+                                      tokenizer_precision=tier,
+                                      tokenizer_vq_precision=vq)
+            tok = FusedTokenizer(cfg, cents, dev)
+            kern = tok.kernel
+            if x is None:
+                x = torch.from_numpy(tok.frontend.prepare_batch(clips)[0]
+                                     ).to(dev)
+                # yardstick: the DFT product alone in bf16 (one cuBLAS
+                # GEMM of the frames laid out beforehand)
+                frames = x[:, :kern.padded_len].unfold(
+                    1, cfg.n_fft, cfg.hop_length)[:, :kern.n_frames].reshape(
+                    -1, cfg.n_fft).to(torch.bfloat16).contiguous()
+                basis = kern.basis.to(torch.bfloat16)
+                dft_ms = cuda_ms(lambda: torch.matmul(frames, basis), 10)
+                del frames, basis
+            torch.cuda.synchronize()
+            TokenizerKernel.launches = 0
+            got = tok.tokens_from_padded(x)
+            torch.cuda.synchronize()
+            launches = TokenizerKernel.launches
+            if launches != 1:
+                raise AssertionError(f"B1 {tier}/{vq}: {launches} launches")
+            if exact is None:  # the all-highest kernel: the baseline
+                exact = got
+                log(f"[tiers B1 highest/highest K {k}] kernel "
+                    f"{cuda_ms(lambda: kern(x), 10):.3f} ms")
+                continue
+            ref = kern.plain(x)
+            coarse = coarse_tier(tier, vq)
+            frac, gap, worst = check_tier_ties(
+                l2_normalize(kern.log_mel_plain(x)), kern.centroids, got,
+                ref, coarse)
+            apart, followed = check_follows_tier(got, ref, exact, coarse)
+            agree = 1.0 - apart
+            ms = cuda_ms(lambda: kern(x), 10)
+            plain_ms = cuda_ms(lambda: kern.plain(x), 2)
+            n_frames = BATCH * tok.frontend.frames_max
+            bins = cfg.n_fft // 2 + 1
+            front = n_frames * (2 * cfg.n_fft * 2 * bins
+                                + 2 * bins * cfg.n_mels)
+            ops = {tier: front}
+            ops[vq] = ops.get(vq, 0) + n_frames * 2 * cfg.n_mels * k
+            b_ms, b_by = tier_bound(ops, x.numel() * 4 + n_frames * 4
+                                    + cents.nbytes)
+            log(f"[tiers B1 {tier}/{vq} K {k}] {frac:.2e} of the tokens "
+                f"apart from the plain tier version (largest score gap "
+                f"{gap:.3e}, {worst:.3f} of its {coarse} bound); agreement "
+                f"with highest {agree * 100:.4f}%, the plain tier's answer "
+                f"taken where it leaves highest: {fmt_share(followed)}; "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b_ms:.3f} ms ({b_by}); the DFT product alone in bf16 "
+                f"(torch.matmul) {dft_ms:.3f} ms; launches {launches}")
+            records.append(dict(
+                name=f"B1 tokenizer at tiers {tier}/{vq}, K {k}",
+                route="cuda", source="audio_tokens_tpu_torch/csrc/tokenizer.cu",
+                replaces="audio_tokens_tpu/ops/pallas_tokenizer.py:222",
+                max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=dft_ms, agreement_highest=agree,
+                launches_by_path={f"tiers_b1_{tier}_{vq}_k{k}": launches}))
+            del tok, kern, got, ref
+        del exact
+        torch.cuda.empty_cache()
+
+
+def tiers_kmeans(records: list, cfg, dev) -> None:
+    """B2 at bf16x3 and default at one default clustering batch's rows
+    against its plain tier version, and ``KMeans.train`` at
+    ``kmeans_precision`` high and default against the ``highest`` fit:
+    objective drift, ids apart, iteration time."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.tiers import (check_follows_tier,
+                                                  check_tier_ties)
+
+    x = kmeans_rows(cfg, dev)
+    n, d = x.shape
+
+    def fit(precision):
+        f = km.KMeans(d, cfg.vocab_size, niter=cfg.niter,
+                      seed=cfg.random_seed, precision=precision, device=dev)
+        torch.cuda.synchronize()
+        vq_argmin.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        f.train(x)
+        torch.cuda.synchronize()
+        return (f, time.perf_counter() - t0, vq_argmin.launches,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    ref, ref_s, _, ref_gb = fit("highest")
+    c = ref.centroids
+    ids_ref = km.assign(x, c)
+    x_bf = x.to(torch.bfloat16)
+    c2 = (c * c).sum(1)[None, :]
+    c_bf = c.to(torch.bfloat16)
+
+    def matmul_argmin():  # yardstick: one bf16 cuBLAS GEMM a chunk, argmin
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        for i in range(0, n, 1 << 18):
+            fc = torch.matmul(x_bf[i:i + (1 << 18)], c_bf.T).float()
+            out[i:i + (1 << 18)] = (c2 - 2.0 * fc).argmin(1)
+        return out
+
+    lib_ms = cuda_ms(matmul_argmin, 3)
+    log(f"[tiers kmeans] highest: KMeans.train {ref_s:.3f} s "
+        f"({ref_s / cfg.niter * 1e3:.2f} ms an iteration), objective "
+        f"{ref.obj:.6f}, peak {ref_gb:.3f} GB")
+    for precision, tier in KMEANS_TIERS:
+        f, fit_s, launches, peak_gb = fit(precision)
+        if launches != cfg.niter:
+            raise AssertionError(f"KMeans {precision}: {launches} launches")
+        drift = abs(f.obj - ref.obj) / abs(ref.obj)
+        apart = float((km.assign(x, f.centroids, tier) != ids_ref)
+                      .float().mean())
+        cent_err = float((f.centroids - c).abs().max())
+        got = vq_argmin(x, c, False, tier)
+        plain = vq_argmin_plain(x, c, False, tier=tier)
+        frac, gap, worst = check_tier_ties(x, c, got, plain, tier)
+        flip, followed = check_follows_tier(got, plain, ids_ref, tier)
+        ms = cuda_ms(lambda: vq_argmin(x, c, False, tier), 5)
+        plain_ms = cuda_ms(lambda: vq_argmin_plain(x, c, False, tier=tier), 1)
+        flop = 2 * n * cfg.vocab_size * d
+        b_ms, b_by = tier_bound({tier: flop},
+                                x.numel() * 4 + n * 4 + c.numel() * 4)
+        if not (np.isfinite(f.obj) and drift < KMEANS_DRIFT[precision]):
+            raise AssertionError(f"KMeans {precision}: objective {f.obj} "
+                                 f"against highest {ref.obj} (drift limit "
+                                 f"{KMEANS_DRIFT[precision]})")
+        log(f"[tiers kmeans] {precision} ({tier}): KMeans.train "
+            f"{fit_s:.3f} s ({fit_s / cfg.niter * 1e3:.2f} ms an iteration, "
+            f"highest {ref_s / cfg.niter * 1e3:.2f}), objective {f.obj:.6f}, "
+            f"drift from highest {drift:.3e}, centroids max abs diff "
+            f"{cent_err:.3e}, ids apart from the highest fit's {apart:.3e}; "
+            f"peak {peak_gb:.3f} GB; launches {launches}")
+        log(f"[tiers B2 {tier}] {n} x {d} x {cfg.vocab_size}: {frac:.2e} of "
+            f"the ids apart from the plain tier version (largest gap "
+            f"{gap:.3e}, {worst:.3f} of its bound), {flip:.3e} apart from "
+            f"highest, the plain tier's answer taken where it leaves "
+            f"highest: {fmt_share(followed)}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}); torch.matmul + argmin in bf16 "
+            f"{lib_ms:.3f} ms")
+        records.append(dict(
+            name=f"B2 vq at tier {tier}, {n} x {d} x {cfg.vocab_size}",
+            route="cuda", source="audio_tokens_tpu_torch/csrc/vq.cu",
+            replaces="audio_tokens_tpu/ops/pallas_vq.py:37",
+            max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, objective_drift=drift,
+            ids_apart_from_highest_fit=apart,
+            launches_by_path={f"kmeans_{tier}": launches}))
+        del f, got, plain
+    del x, x_bf, ids_ref
+    torch.cuda.empty_cache()
+
+
+def tiers_pipelines(records: list, dev, base: Path, cfg, cents) -> None:
+    """Phase 8's staged pipeline on its audio with ``use_convolution``
+    (B2's sliced instance at d 640) and with the native decoder over the
+    int16 wire, each in a workspace of its own, with each stage's seconds
+    and launches; the conv run's tokens against the CPU, the native run's
+    against phase 8's."""
+    import torch
+
+    from audio_tokens_tpu_torch import run_pipeline
+    from audio_tokens_tpu_torch.ops.conv_features import ConvFeatures
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.ops.vq import (check_near_ties, l2_normalize,
+                                               vq_assign_fused)
+    from audio_tokens_tpu_torch.processors import (ClusterCreator,
+                                                   ModelTrainer,
+                                                   SpecTokenizer,
+                                                   SpectrogramGenerator)
+
+    kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
+               lstm_sequence_bwd)
+    stages = (SpectrogramGenerator, ClusterCreator, SpecTokenizer,
+              ModelTrainer)
+    names = [c.__name__ for c in stages]
+    split = json.loads((base / "output" / "bal_train_data_split.json")
+                       .read_text())
+    variants = (("conv", dict(use_convolution=True)),
+                ("native", dict(audio_backend="native", pcm_wire="i16")))
+    for tag, over in variants:
+        ws = shared_workspace(base, f"tiers_{tag}")
+        vcfg = dataclasses.replace(cfg, base_dir=str(ws), **over)
+        seconds, launches = {}, {}
+        restore = clock_stages(stages, kernels, seconds, launches)
+        t0 = time.perf_counter()
+        try:
+            val_loss, val_metrics = run_pipeline.main(vcfg, dev)
+        finally:
+            restore()
+        run_s = time.perf_counter() - t0
+        got = np.load(vcfg.centroids_path)
+        log(f"[pipeline {tag}] {over}: "
+            + ", ".join(f"{n} {seconds[n]:.2f} s" for n in names)
+            + f"; main() {run_s:.2f} s; centroids {got.shape}; val loss "
+            f"{val_loss:.6f}, val mAP {val_metrics['mAP']:.6f}; launches B1, "
+            "B2, B3, B4 by stage: "
+            + "; ".join(f"{n} {launches[n]}" for n in names))
+        b2_c, b2_t = launches["ClusterCreator"][1], launches["SpecTokenizer"][1]
+        b3, b4 = launches["ModelTrainer"][2:]
+        if (b2_c < vcfg.niter or b2_t < 1 or b3 < 1 or b4 < 1
+                or not np.isfinite(val_loss)):
+            raise AssertionError(f"pipeline {tag}: launches {launches}, "
+                                 f"val loss {val_loss}")
+        if got.shape != (vcfg.vocab_size, vcfg.feature_dim) or \
+                not np.isfinite(got).all():
+            raise AssertionError(f"pipeline {tag}: centroids {got.shape}")
+        records[1]["launches_by_path"].update({
+            f"pipeline_{tag}_cluster": b2_c, f"pipeline_{tag}_tokenize": b2_t})
+        records[2]["launches_by_path"][f"pipeline_{tag}_train"] = b3
+        records[3]["launches_by_path"][f"pipeline_{tag}_train"] = b4
+        spec_dir = Path(vcfg.dest_spec_path)
+        tok_dir = Path(vcfg.dest_tokenized_path)
+        if tag == "conv":
+            # 8 clips' tokens against the CPU: the saved conv weights and
+            # centroids, the plain conv and nearest-centroid search
+            conv = ConvFeatures(vcfg.num_kernels, vcfg.kernel_size)
+            conv.load_state_dict(dict(np.load(Path(vcfg.centroids_path)
+                                              .with_suffix(".conv.npz"))))
+            ids = sorted(split["train"])[:8]
+            frames = torch.from_numpy(np.concatenate(
+                [np.load(spec_dir / "train" / f"{y}.npy").T for y in ids]))
+            feats = conv(frames)
+            card = torch.from_numpy(np.concatenate(
+                [np.load(tok_dir / "train" / f"{y}.npy") for y in ids]))
+            c = torch.from_numpy(got)
+            frac, gap = check_near_ties(l2_normalize(feats), c, card,
+                                        vq_assign_fused(feats, c,
+                                                        normalize=True))
+            log(f"[pipeline conv reference] 8 clips' tokens (d "
+                f"{feats.shape[1]}) card vs CPU: {frac:.2e} apart (gap "
+                f"{gap:.3e})")
+        else:
+            # the card against the CPU with the same decode: 8 clips'
+            # spectrograms (clip 0 stereo, clip 5 resampled: the int16
+            # wire rounds both) and tokens with the run's centroids
+            ids = sorted(split["train"])[:8]
+            cpu_cfg = dataclasses.replace(vcfg, device_batch_size=8)
+            spec_err, frames = 0.0, []
+            for y, spec in SpectrogramGenerator(cpu_cfg, "cpu").iter_specs(
+                    ids):
+                card = np.load(spec_dir / "train" / f"{y}.npy")
+                diff = np.abs(card - spec)
+                if card.shape != spec.shape or (
+                        diff > SPEC_ATOL + SPEC_RTOL * np.abs(spec)).any():
+                    raise AssertionError(f"native i16: {y}'s spectrogram "
+                                         f"differs from the CPU's")
+                spec_err = max(spec_err, float(diff.max()))
+                frames.append(card.T)
+            if len(frames) != 8:
+                raise AssertionError(f"native i16: {len(frames)} of 8 "
+                                     f"spectrograms on the CPU")
+            x = torch.from_numpy(np.concatenate(frames))
+            card = torch.from_numpy(np.concatenate(
+                [np.load(tok_dir / "train" / f"{y}.npy") for y in ids]))
+            c = torch.from_numpy(got)
+            frac, gap = check_near_ties(l2_normalize(x), c, card,
+                                        vq_assign_fused(x, c, normalize=True))
+            # beside phase 8 (the f32 wire): another input, so no bound
+            a = np.concatenate([np.load(tok_dir / n / f"{y}.npy")
+                                for n in split for y in sorted(split[n])])
+            b = np.concatenate([np.load(Path(cfg.dest_tokenized_path) / n
+                                        / f"{y}.npy")
+                                for n in split for y in sorted(split[n])])
+            log(f"[pipeline native reference] card vs CPU (native decode, "
+                f"int16 wire): 8 spectrograms max abs err {spec_err:.3e} dB "
+                f"(atol {SPEC_ATOL} + rtol {SPEC_RTOL}), their tokens "
+                f"{frac:.2e} apart (gap {gap:.3e}); beside phase 8's f32 "
+                f"wire: centroids max abs diff "
+                f"{float(np.abs(got - cents).max()):.3e}, tokens "
+                f"{float((a != b).mean()):.3e} apart")
+        torch.cuda.empty_cache()
+
+
+def tiers_phase(records: list, dev, base: Path, cfg, cents,
+                python_bench: dict) -> None:
+    """Phase 12: B1's tier combos, B2's tiers and K-means at them, the conv
+    and native pipelines, and ``serve_bench`` with the native decoder for
+    tokens and the lstm (beside phase 11's python decode)."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_lstm import lstm_sequence_fwd
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.tools import serve_bench
+
+    t_phase = time.perf_counter()
+    tiers_b1(records, dev)
+    tiers_kmeans(records, cfg, dev)
+    tiers_pipelines(records, dev, base, cfg, cents)
+    kernels = (TokenizerKernel, lstm_sequence_fwd)
+    for tag, extra, must in (("tokens", [], (0,)),
+                             ("lstm", ["--classify", "lstm"], (0, 1))):
+        argv = ["--n_clips", str(SERVE_BENCH_CLIPS), "--latency",
+                str(SERVE_BENCH_LATENCY), "--device", str(dev),
+                "--audio_backend", "native", *extra]
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        result = serve_bench.main(argv)
+        torch.cuda.synchronize()
+        launches = [k.launches for k in kernels]
+        py = python_bench[tag]
+        log(f"[serve_bench native {tag}] {' '.join(argv)}: "
+            f"{result['clips_per_s']:.1f} clips/s (python decode, phase 11: "
+            f"{py['clips_per_s']:.1f}); a batch of {result['batch']}: decode "
+            f"{result['decode_ms']:.1f} ms (python {py['decode_ms']:.1f}); in "
+            f"the loop, median {result['decode_loop_ms']:.1f} ms (python "
+            f"{py['decode_loop_ms']:.1f}); transfer + card "
+            f"{result['device_ms']:.1f} ms; one request p50 "
+            f"{result['p50_ms']:.1f} / p99 {result['p99_ms']:.1f} / max "
+            f"{result['max_ms']:.1f} ms (python {py['p50_ms']:.1f} / "
+            f"{py['p99_ms']:.1f} / {py['max_ms']:.1f}); launches B1, B3 "
+            f"{launches}")
+        if result["decoder"] != "native" or min(launches[i] for i in must) < 1:
+            raise AssertionError(f"serve_bench native {tag}: {result}, "
+                                 f"launches {launches}")
+        for rec, n in zip((records[0], records[2]), launches):
+            if n:
+                rec["launches_by_path"][f"serve_bench_native_{tag}"] = n
+    log(f"[tiers] phase 12 took {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
 
 
 def main() -> int:
@@ -2597,8 +3030,11 @@ def main() -> int:
             families_phase(records, dev, pipe, staged_cfg,
                            Path(bt_cfg.checkpoint_dir))
             # -- 11. the serving export and serve_bench -----------------------
-            export_phase(records, dev, pipe, staged_cfg,
-                         Path(bt_cfg.checkpoint_dir))
+            python_bench = export_phase(records, dev, pipe, staged_cfg,
+                                        Path(bt_cfg.checkpoint_dir))
+            # -- 12. the tiers, the conv front-end, the native decoder ---------
+            tiers_phase(records, dev, pipe, staged_cfg, staged_cents,
+                        python_bench)
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

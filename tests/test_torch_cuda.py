@@ -149,6 +149,126 @@ def test_cuda_tokenizer_tiles_match_plain(cuda_device, n_fft, hop, n_mels,
     assert torch.equal(kern(wide), got)
 
 
+# B2 at the bf16 tiers: its one (resident) instance at K 1, 300 and 500
+# (the Lloyd assignment's), d 10 (4-byte copies), 32, 64 and 100, and the
+# shapes it refuses (the centroids do not fit in shared memory)
+VQ_TIER_SHAPES = [(1, 10), (300, 32), (500, 64), (500, 12), (100, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("k,d", VQ_TIER_SHAPES)
+def test_cuda_vq_tier_matches_plain(cuda_device, k, d, normalize, tier):
+    """B2 on the tensor cores against its plain tier version under the
+    tier's near-tie rule, and to its tier against the f32 kernel: where the
+    plain tier version leaves the highest answer, the kernel follows it.
+    At default on the raw rows (K > 1) there are always such rows here;
+    normalized rows against these unnormalized centroids are decided
+    mostly by ||c||^2, and may leave too few."""
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.tiers import (check_follows_tier,
+                                                  check_tier_ties)
+    from audio_tokens_tpu_torch.ops.vq import l2_normalize
+
+    rng = np.random.default_rng(k + d + 1)
+    x = torch.from_numpy(rng.standard_normal((30001, d)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    x, c = x.to(cuda_device), c.to(cuda_device)
+    before = vq_argmin.launches
+    got = vq_argmin(x, c, normalize, tier)
+    assert vq_argmin.launches == before + 1
+    ref = vq_argmin_plain(x, c, normalize, tier=tier)
+    check_tier_ties(l2_normalize(x) if normalize else x, c, got, ref, tier)
+    highest = vq_argmin(x, c, normalize)
+    _, followed = check_follows_tier(got, ref, highest, tier, min_rows=20,
+                                     band=False)
+    if tier == "default" and k > 1 and not normalize:
+        assert followed is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_cuda_vq_tier_duplicated_centroids_take_the_lowest_index(cuda_device,
+                                                                 tier):
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+
+    rng = np.random.default_rng(5)
+    c = rng.standard_normal((500, 64)).astype(np.float32)
+    dups = (3, 19, 130, 499)
+    c[list(dups)] = c[dups[0]]
+    x = rng.standard_normal((1000, 64)).astype(np.float32)
+    x[::13] = c[dups[0]]
+    got = vq_argmin(torch.from_numpy(x).to(cuda_device),
+                    torch.from_numpy(c).to(cuda_device), False, tier).cpu()
+    assert (got[::13] == dups[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d", [(16384, 64), (500, 130)])
+def test_cuda_vq_tier_refuses_what_does_not_fit(cuda_device, k, d):
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+
+    x = torch.zeros((10, d), device=cuda_device)
+    c = torch.ones((k, d), device=cuda_device)
+    with pytest.raises(ValueError, match=f"K {k} x d {d}"):
+        vq_argmin(x, c, False, "bf16x3")
+
+
+# (tier, vq_tier): every combination with a bf16 tier
+TOKENIZER_TIERS = [(t, v) for t in ("highest", "bf16x3", "default")
+                   for v in ("highest", "bf16x3", "default")
+                   if (t, v) != ("highest", "highest")]
+# (n_fft, hop, n_mels, K): the package defaults at K 500 and 16,384, a
+# narrow case with K 300 (chunks of 64 centroids, a partial last one) and a
+# 64-frame f32 tile (hop 256 at n_fft 512)
+TOKENIZER_TIER_CASES = [(512, 128, 64, 500), (512, 128, 64, 16384),
+                        (256, 128, 32, 300), (512, 256, 64, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,vq_tier", TOKENIZER_TIERS)
+@pytest.mark.parametrize("n_fft,hop,n_mels,k", TOKENIZER_TIER_CASES)
+def test_cuda_tokenizer_tiers_match_plain(cuda_device, n_fft, hop, n_mels, k,
+                                          tier, vq_tier):
+    """B1 at each tier combination against its plain tier version, under
+    the near-tie rule of the coarser of the two tiers."""
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
+    from audio_tokens_tpu_torch.ops.tiers import (check_follows_tier,
+                                                  check_tier_ties)
+    from audio_tokens_tpu_torch.ops.vq import l2_normalize
+
+    rng = np.random.default_rng(k + n_mels)
+    cents = rng.standard_normal((k, n_mels)).astype(np.float32)
+    fe = MelFrontend("cpu", 22050, n_mels, n_fft, hop, int(22050 * 1.5))
+    kern = TokenizerKernel(22050, n_mels, n_fft, hop, fe.frames_max, cents,
+                           cuda_device, tier, vq_tier)
+    clips = [rng.standard_normal(int(22050 * s)).astype(np.float32)
+             for s in (1.5, 0.7, 1.2)]
+    x = torch.from_numpy(fe.prepare_batch(clips)[0]).to(cuda_device)
+    before = TokenizerKernel.launches
+    got = kern(x)
+    assert TokenizerKernel.launches == before + 1
+    coarse = "default" if "default" in (tier, vq_tier) else "bf16x3"
+    ref = kern.plain(x)
+    check_tier_ties(l2_normalize(kern.log_mel_plain(x)), kern.centroids,
+                    got, ref, coarse)
+    highest = TokenizerKernel(22050, n_mels, n_fft, hop, fe.frames_max, cents,
+                              cuda_device)(x)
+    check_follows_tier(got, ref, highest, coarse, min_rows=20, band=False)
+
+
+@pytest.mark.cuda
+def test_cuda_tokenizer_tier_refuses_a_hop_off_16(cuda_device):
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+
+    kern = TokenizerKernel(22050, 32, 256, 120, 40, np.ones((5, 32),
+                           np.float32), cuda_device, "bf16x3")
+    with pytest.raises(ValueError, match="hop a multiple of 16"):
+        kern(torch.zeros((1, 39 * 120 + 256), device=cuda_device))
+
+
 LSTM_SHAPES = [
     (24, 8, 128),   # 4 threads share each dot product
     (50, 1, 512),   # the single-clip request's batch
@@ -891,6 +1011,39 @@ def test_cuda_assign_resident_reads_a_view(cuda_device):
     ref = vq_argmin_plain(view, cents, False).cpu()
     got = torch.from_numpy(np.concatenate([dense[y] for y in manifest]))
     check_near_ties(view, cents, got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_conv_rows_come_from_the_card(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """Under ``use_convolution`` the streaming fit's host rows are widened
+    and normalized on the stage's device (cuDNN, TF32 off) and brought
+    back: the CPU stage's rows within 1e-6."""
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.conv_features import ConvFeatures
+    from audio_tokens_tpu_torch.processors.cluster_creator import (
+        ClusterCreator,
+    )
+
+    cfg = AudioTokensConfig(base_dir=str(tmp_path), use_convolution=True)
+    card, host = ClusterCreator(cfg, cuda_device), ClusterCreator(cfg, "cpu")
+    host.conv.load_state_dict(card.conv.state_dict())
+    devices = []
+    forward = ConvFeatures.forward
+
+    def spy(self, frames):
+        devices.append(frames.device.type)
+        return forward(self, frames)
+
+    monkeypatch.setattr(ConvFeatures, "forward", spy)
+    frames = np.random.default_rng(4).standard_normal(
+        (5000, cfg.n_mels)).astype(np.float32)
+    got = card._host_frames(frames)
+    want = host._host_frames(frames)
+    assert devices == ["cuda", "cpu"]
+    assert isinstance(got, np.ndarray)
+    assert got.shape == (5000, cfg.n_mels * cfg.num_kernels)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
 # the simple, cnn and baseline families: no kernel of their own; cuDNN

@@ -170,6 +170,36 @@ def test_round_trip_equals_live_program(workspace, family, portable,
                                **PROBS_LIVE_TOL)
 
 
+@pytest.mark.parametrize("portable", [False, True])
+def test_tiered_program_round_trips(workspace, tmp_path, portable):
+    """A program at the bf16 tiers (``tokenizer_precision`` bf16x3,
+    ``tokenizer_vq_precision`` default): in kernel form the tiers and the
+    split operands ride through ``atk::tokenize``; the portable form runs
+    B1's plain tier arithmetic with no op.  Both reproduce the live
+    program, whose tokens are B1's plain version at the tiers."""
+    configs, _ = workspace
+    cfg = AudioTokensConfig(**{**configs["simple"][1].to_dict(),
+                               "tokenizer_precision": "bf16x3",
+                               "tokenizer_vq_precision": "default"})
+    out = export_serving(cfg, tmp_path / "tiered", batch_size=BATCH,
+                         portable=portable, device="cpu")
+    module, manifest = load_serving(out, device="cpu")
+    assert _atk_nodes(out) == manifest["custom_ops"] == (
+        [] if portable else ["atk::tokenize"])
+    live = ServingProgram(cfg, device="cpu", use_kernels=not portable)
+    x, lengths = _batch(cfg)
+    with torch.inference_mode():
+        got = module(x, lengths)
+    ref = live(x, lengths)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    np.testing.assert_allclose(got[2].numpy(), ref[2].numpy(),
+                               **PROBS_LIVE_TOL)
+    kern = (live.tokenizer.plain_kernel if portable
+            else live.tokenizer.kernel)
+    assert (kern.tier, kern.vq_tier) == ("bf16x3", "default")
+    assert torch.equal(got[0], kern.plain(x))
+
+
 def test_portable_artifact_loads_without_the_package(workspace, tmp_path):
     """The portable lstm program (a scan for each direction, no custom op)
     loads and runs through ``torch.export.load`` alone in a fresh process

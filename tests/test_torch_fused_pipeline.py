@@ -120,7 +120,8 @@ def test_iter_wave_batches_match_jax(runs, tmp_path, monkeypatch, n_clips):
     base = _copy(runs["fresh"], tmp_path / "ws")
     jgen = JaxSpectrogramGenerator(fixtures.test_config(
         base, fused_pipeline=True, audio_backend="python"))
-    gen = SpectrogramGenerator(port_config(base, fused_pipeline=True), "cpu")
+    gen = SpectrogramGenerator(port_config(base, fused_pipeline=True,
+                                           audio_backend="python"), "cpu")
     ytids = sorted(gen.data_split["train"])[:n_clips]
     bad = ytids[1]
     for cls in (JaxSpectrogramGenerator, SpectrogramGenerator):

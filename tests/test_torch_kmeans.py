@@ -180,9 +180,9 @@ def test_fit_assigns_once_an_iteration(monkeypatch):
     x, _ = _blobs(seed=11, n=1000)
     calls = []
 
-    def spy(frames, centroids, normalize):
+    def spy(frames, centroids, normalize, tier="highest"):
         calls.append(normalize)
-        return vq_argmin(frames, centroids, normalize)
+        return vq_argmin(frames, centroids, normalize, tier)
 
     monkeypatch.setattr(km, "vq_argmin", spy)
     before = vq_argmin.launches
@@ -227,16 +227,28 @@ def test_kmeanspp_init_through_the_fit():
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    ({"precision": "high"}, NotImplementedError),
-    ({"precision": "default"}, NotImplementedError),
+    ({"precision": "high"}, None),
+    ({"precision": "default"}, None),
     ({"precision": "fastest"}, ValueError),
     ({"init": "kmeans||"}, ValueError),
     ({"empty_policy": "drop"}, ValueError),
 ])
 def test_unported_or_unknown_options_raise(kwargs, error):
+    """Unknown values raise; the precision tiers (ported) run and equal the
+    numpy version of the TPU's arithmetic at the tier."""
+    from tests.test_torch_tiers import np_lloyd
+
     x, _ = _blobs(seed=15, n=200)
-    match = "ROADMAP A6" if error is NotImplementedError else None
-    with pytest.raises(error, match=match):
+    if error is None:
+        init = x[:8].copy()
+        pc, pobj = km.kmeans_fit(torch.from_numpy(x), 8, 2,
+                                 init_centroids=init, **kwargs)
+        ref_c, ref_obj, _ = np_lloyd(
+            x, init, 2, km.precision_from_str(kwargs["precision"]))
+        np.testing.assert_allclose(pc.numpy(), ref_c, atol=TOL, rtol=0)
+        assert abs(pobj - ref_obj) <= TOL * abs(ref_obj)
+        return
+    with pytest.raises(error):
         km.kmeans_fit(torch.from_numpy(x), 8, 2, **kwargs)
 
 

@@ -281,14 +281,26 @@ def test_ring_buffers_outlive_a_slow_consumer(data):
     ({"d": None, "stream": []}, ValueError, "empty stream"),
     ({"stream": []}, ValueError, "empty stream"),
     ({"wire_dtype": torch.float16}, ValueError, "wire_dtype"),
-    ({"precision": "high"}, NotImplementedError, "ROADMAP A6"),
+    ({"precision": "high"}, None, None),
     ({"superbatch_rows": 4, "chunk": 4, "init": "random"}, ValueError,
      "first super-batch has 4 points"),
 ])
 def test_bad_arguments_raise(data, kwargs, error, match):
+    """Bad arguments raise; ``precision="high"`` (ported) runs and equals
+    the in-memory fit at that tier."""
     x, _, _ = data
     pieces = kwargs.pop("stream", [x])
     kwargs.setdefault("d", D)
+    if error is None:
+        init = x[:K].copy()
+        got, obj, _ = km.kmeans_fit_streaming(
+            lambda: iter(pieces), K, 2, device="cpu", init_centroids=init,
+            superbatch_rows=len(x), chunk=len(x), **kwargs)
+        ref, ref_obj = km.kmeans_fit(torch.from_numpy(x), K, 2,
+                                     init_centroids=init,
+                                     precision=kwargs["precision"])
+        assert torch.equal(got, ref) and obj == ref_obj
+        return
     with pytest.raises(error, match=match):
         km.kmeans_fit_streaming(lambda: iter(pieces), K, 2, device="cpu",
                                 **kwargs)

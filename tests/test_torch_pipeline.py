@@ -237,21 +237,155 @@ def test_evaluate_clustering_equals_jax(workspaces):
     assert got == ref
 
 
+def _spec_native_matches_jax_native(workspaces, base, cfg):
+    """The native decode: the port's spectrograms against the JAX stage's
+    with its own native decoder."""
+    jax_base = base.parent / "jax_native"
+    shutil.copytree(workspaces["fresh"], jax_base)
+    jcfg = fixtures.test_config(jax_base, audio_backend="native")
+    JaxSpectrogramGenerator(jcfg).run()
+    SpectrogramGenerator(cfg, "cpu").run()
+    for s in SPLITS:
+        jf, pf = _files(jcfg, "spec", s), _files(cfg, "spec", s)
+        assert [f.name for f in pf] == [f.name for f in jf] and pf
+        for a, b in zip(jf, pf):
+            np.testing.assert_allclose(np.load(b), np.load(a), atol=5e-3,
+                                       rtol=1e-4)
+
+
+def _conv_workspaces(workspaces, base):
+    """Two copies of the JAX workspace (its spectrograms), the JAX
+    clustering stage run with ``use_convolution`` on one: (jax config, the
+    JAX creator, its centroids, the port's workspace)."""
+    src = Path(workspaces["jcfg"].base_dir)
+    jax_base, port_base = base.parent / "jax_conv", base.parent / "port_conv"
+    shutil.copytree(src, jax_base)
+    shutil.copytree(src, port_base)
+    jcfg = fixtures.test_config(jax_base, audio_backend="python",
+                                use_convolution=True)
+    jcc = JaxClusterCreator(jcfg)
+    return jcfg, jcc, jcc.run(), port_base
+
+
+def _cluster_conv_matches_jax(workspaces, base, cfg):
+    """``use_convolution``: with the JAX stage's conv weights carried
+    across, the port's centroids within 1e-5 of the JAX stage's, and the
+    weights saved beside them."""
+    from audio_tokens_tpu_torch.convert import conv_state_dict
+
+    jcfg, jcc, ref, port_base = _conv_workspaces(workspaces, base)
+    pcfg = port_config(port_base, use_convolution=True)
+    cc = ClusterCreator(pcfg, "cpu")
+    cc.conv.load_state_dict(conv_state_dict(jcc.conv.state_dict()))
+    got = cc.run()
+    assert got.shape == (pcfg.vocab_size, pcfg.n_mels * pcfg.num_kernels)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    saved = np.load(Path(pcfg.centroids_path).with_suffix(".conv.npz"))
+    np.testing.assert_array_equal(saved["weight"], jcc.conv.state_dict()[
+        "weight"])
+
+
+def _tokenize_conv_matches_jax(workspaces, base, cfg):
+    """``use_convolution``: the port's tokenize stage reads the JAX
+    clustering stage's centroids and ``.conv.npz``; tokens equal to the JAX
+    stage's except at near-ties."""
+    jcfg, _, cents, port_base = _conv_workspaces(workspaces, base)
+    pcfg = port_config(port_base, use_convolution=True)
+    out = Path(pcfg.centroids_path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(jcfg.centroids_path, out)
+    shutil.copy(Path(jcfg.centroids_path).with_suffix(".conv.npz"),
+                out.with_suffix(".conv.npz"))
+    JaxSpecTokenizer(jcfg).run()
+    tok = SpecTokenizer(pcfg, "cpu")
+    tok.run()
+    feats, got, ref = [], [], []
+    for s in SPLITS:
+        for a, b in zip(_files(jcfg, "tok", s), _files(pcfg, "tok", s)):
+            assert a.name == b.name
+            spec = np.load(Path(jcfg.dest_spec_path) / s / a.name).T
+            feats.append(l2_normalize(tok.conv(torch.from_numpy(
+                np.ascontiguousarray(spec)))))
+            got.append(torch.from_numpy(np.load(b)))
+            ref.append(torch.from_numpy(np.load(a)))
+    check_near_ties(torch.cat(feats), torch.from_numpy(cents),
+                    torch.cat(got), torch.cat(ref))
+
+
+def _cluster_default_tier_matches_numpy(workspaces, base, cfg):
+    """``kmeans_precision="default"``: the stage's centroids are the
+    warm-start schedule run by the numpy version of the TPU's one-pass
+    bf16 arithmetic on the stage's own frames."""
+    from tests.test_torch_tiers import np_lloyd
+
+    src = Path(workspaces["pcfg"].base_dir)
+    shutil.rmtree(base)
+    shutil.copytree(src, base)
+    assert cfg.max_points_per_centroid is None
+    cc = ClusterCreator(cfg, "cpu")
+    got = cc.run()
+    c = None
+    for b in cc._batch_generator(cfg.clustering_batch_size):
+        x = b.numpy()
+        if c is None:
+            rng = np.random.default_rng(cfg.random_seed)
+            c = x[rng.choice(len(x), cfg.vocab_size, replace=False)]
+        c, _, _ = np_lloyd(x, c, cfg.niter, "default")
+    ref = l2_normalize(torch.from_numpy(c)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+def _fused_native_matches_staged(workspaces, base, cfg):
+    """The fused mode with the native decoder: the staged port run's
+    centroids, its tokens except at near-ties, and a trained model."""
+    val_loss, val_metrics = run_pipeline.main(cfg, "cpu")
+    assert np.isfinite(val_loss) and 0.0 <= val_metrics["mAP"] <= 1.0
+    pcfg = workspaces["pcfg"]
+    cents = np.load(pcfg.centroids_path)
+    np.testing.assert_allclose(np.load(cfg.centroids_path), cents,
+                               atol=1e-5, rtol=0)
+    feats, got, ref = [], [], []
+    for s in SPLITS:
+        staged, fused = _files(pcfg, "tok", s), _files(cfg, "tok", s)
+        assert [f.name for f in fused] == [f.name for f in staged]
+        for a, b in zip(staged, fused):
+            spec = np.load(Path(pcfg.dest_spec_path) / s / a.name).T
+            feats.append(l2_normalize(torch.from_numpy(
+                np.ascontiguousarray(spec))))
+            got.append(torch.from_numpy(np.load(b)))
+            ref.append(torch.from_numpy(np.load(a)))
+    check_near_ties(torch.cat(feats), torch.from_numpy(cents),
+                    torch.cat(got), torch.cat(ref))
+
+
+A6_CHECKS = {
+    "spec": _spec_native_matches_jax_native,
+    "cluster_conv": _cluster_conv_matches_jax,
+    "cluster_tier": _cluster_default_tier_matches_numpy,
+    "tokenize": _tokenize_conv_matches_jax,
+    "pipeline": _fused_native_matches_staged,
+}
+
+
 @pytest.mark.parametrize("stage,override,match", [
-    ("spec", {"audio_backend": "native"}, "ROADMAP A6"),
+    ("spec", {"audio_backend": "native"}, None),
     ("spec", {"profile_dir": "trace"}, "ROADMAP A7"),
     ("spec", {"distributed": True}, "ROADMAP A7"),
-    ("cluster", {"use_convolution": True}, "ROADMAP A6"),
-    ("cluster", {"kmeans_precision": "default"}, "ROADMAP A6"),
-    ("tokenize", {"use_convolution": True}, "ROADMAP A6"),
-    ("pipeline", {"fused_pipeline": True, "audio_backend": "native"},
-     "ROADMAP A6"),
+    ("cluster_conv", {"use_convolution": True}, None),
+    ("cluster_tier", {"kmeans_precision": "default"}, None),
+    ("tokenize", {"use_convolution": True}, None),
+    ("pipeline", {"fused_pipeline": True, "audio_backend": "native"}, None),
 ])
 def test_unported_options_refused(workspaces, tmp_path, stage, override,
                                   match):
+    """The A7 options are refused; the A6 options, once refused, run and
+    agree with their references (``A6_CHECKS``)."""
     base = tmp_path / "ws"
     shutil.copytree(workspaces["fresh"], base)
     cfg = port_config(base, **override)
+    if match is None:
+        A6_CHECKS[stage](workspaces, base, cfg)
+        return
     with pytest.raises(NotImplementedError, match=match):
         if stage == "spec":
             SpectrogramGenerator(cfg, "cpu").run()

@@ -94,12 +94,56 @@ def test_port_never_imports_jax():
     ({"tokenizer_vq_precision": "default"}, "tokenizer_vq_precision"),
 ])
 def test_unported_tokenizer_options_refused(override, match):
+    """The tokenizer options once refused (``match`` names each) run: the
+    tokens equal the JAX tokenizer's with the same options except at the
+    near-ties of the coarsest tier (the conv with the port's weights
+    carried over; the tiers against the JAX kernel in interpret mode)."""
+    import jax.numpy as jnp
+
+    from audio_tokens_tpu.ops import pallas_tokenizer as jax_pt
+    from audio_tokens_tpu.ops.conv_features import ConvFeatures as JaxConv
+    from audio_tokens_tpu.tokenizer import FusedTokenizer as JaxTokenizer
+    from audio_tokens_tpu.utils.seeding import key_for
+    from audio_tokens_tpu_torch.ops.conv_features import ConvFeatures
+    from audio_tokens_tpu_torch.ops.tiers import check_tier_ties
+    from audio_tokens_tpu_torch.ops.vq import l2_normalize
     from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 
-    cfg = port_config.AudioTokensConfig(n_mels=8, n_fft=64, hop_length=32,
-                                        clip_seconds=0.1, **override)
-    with pytest.raises(NotImplementedError, match=match):
-        FusedTokenizer(cfg, np.zeros((4, 8), np.float32), "cpu")
+    kw = dict(n_mels=8, n_fft=64, hop_length=32, clip_seconds=0.1)
+    cfg = port_config.AudioTokensConfig(**kw, **override)
+    assert getattr(cfg, match) == override[match]
+    rng = np.random.default_rng(3)
+    d = cfg.feature_dim
+    cents = rng.standard_normal((40, d)).astype(np.float32)
+    waves = [rng.standard_normal(n).astype(np.float32) for n in (2205, 1500)]
+    conv = ConvFeatures(cfg.num_kernels, cfg.kernel_size, 0) \
+        if cfg.use_convolution else None
+    tok = FusedTokenizer(cfg, cents, "cpu", conv=conv)
+    batch, _ = tok.frontend.prepare_batch(waves)
+    x = torch.from_numpy(batch)
+    got = tok.tokens_from_padded(x)
+    feats = tok.frontend.mel_frames(x).reshape(-1, cfg.n_mels)
+    if conv is not None:
+        assert tok.kernel is None
+        jconv = JaxConv(cfg.num_kernels, cfg.kernel_size, key_for(0, "c"))
+        jconv.load_state_dict({k: v.numpy() for k, v in
+                               conv.state_dict().items()})
+        jtok = JaxTokenizer(jax_config.AudioTokensConfig(**kw, **override),
+                            cents, conv=jconv, use_pallas=False)
+        ref = np.asarray(jtok.tokens_from_padded(jnp.asarray(batch)))
+        feats, tier = conv(feats), "highest"
+    else:
+        kern = jax_pt.TokenizerKernel(
+            cfg.common_sr, cfg.n_mels, cfg.n_fft, cfg.hop_length,
+            tok.frontend.frames_max, cents, tier=cfg.tokenizer_precision,
+            vq_tier=cfg.tokenizer_vq_precision, interpret=True)
+        wide = np.zeros((len(batch), kern.n_blocks * kern.hop), np.float32)
+        wide[:, :batch.shape[1]] = batch
+        ref = np.asarray(kern(jnp.asarray(wide)))
+        feats = tok.kernel.log_mel_plain(x).reshape(-1, cfg.n_mels)
+        tier = ("default" if "default" in override.values() else "bf16x3")
+    check_tier_ties(l2_normalize(feats), torch.from_numpy(cents), got,
+                    torch.from_numpy(ref), tier)
 
 
 @pytest.mark.parametrize("model_type,override", [
