@@ -2,9 +2,9 @@
 // export, the cp.async copies, the (score, index) order of the nearest-
 // centroid argmin (B1 and B2), the normalize + scoring + argmin that
 // kernel B1 (tokenizer.cu) ends with (B2, vq.cu, has its own), the bf16
-// tensor-core pieces (mma.sync, ldmatrix, the hi/lo split) and the tiered
-// centroid-distance product that B1 and B2 share at the bf16x3 and default
-// tiers.
+// tensor-core pieces (mma.sync, ldmatrix, the hi/lo split), Hopper's
+// mbarriers, bulk copies and wgmma, and the tiered centroid-distance search
+// that B1 and B2 share at the bf16x3 and default tiers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -202,156 +202,374 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "r"(addr));
 }
 
-// ---- the tiered centroid-distance product (B1 and B2) ------------------------
+// ---- the tiered centroid-distance product (B1 and B2) on wgmma ---------------
 //
 // At the bf16x3 and default tiers the products f.c of the nearest-centroid
-// search run on the tensor cores: a warp owns 16 feature rows, held as bf16
-// A fragments in registers (split once a frame tile, as the JAX kernel
-// splits the features once a tile into bf16 scratch), and walks the
-// centroids in groups of NT 8-centroid n-tiles whose bf16 rows (split once
-// by the wrapper, as the JAX kernel's host-side split) lie in shared
-// memory; ldmatrix.x4 loads the B fragments of two n-tiles at once, and the
-// NT tiles' products are independent accumulator chains, so their mma
-// latencies overlap.  bf16x3 takes three passes, hi.hi, hi.lo and lo.hi,
-// each accumulated in f32 and summed as the JAX kernel sums them, (hh + hl)
-// + lh; default one pass of the rounded operands.  c2 = ||c||^2 stays f32
-// from the f32 centroids.  The score is c2 - 2 f.c, as at the highest tier.
+// search run on Hopper's warpgroup products (wgmma.mma_async m64nNk16, bf16
+// operands, f32 sums).  A warpgroup owns 64 feature rows; each of its warps
+// keeps its 16 rows as bf16 A fragments in registers (split once a frame
+// tile, as the JAX kernel splits the features once a tile: the register-A
+// layout of wgmma is mma.sync's m16n8k16 A layout, warp by warp).  B is a
+// chunk of nc centroids in shared memory, laid out by the wrapper as the
+// exact image wgmma reads (K-major, no swizzle: 8 centroids x 8 features a
+// 128-byte core matrix, a chunk's core matrices in (8-centroid group,
+// 8-feature block) order).  c2 = ||c||^2 of the f32 centroids comes in one
+// of two ways (tier_item_bytes): B2 folds it into the products as one more
+// k-step, -c2 / 2 in three bf16 parts that sum to it exactly against A's
+// ones, so that the products are the scores f.c - c2 / 2 (the largest the
+// nearest: one instruction a score fewer, the epilogue B2 is bound by);
+// B1, bound by reading the chunks from L2, keeps c2 in f32 after the
+// planes and subtracts it.  Padded centroids score -inf or -2^127, never
+// chosen under strict >: no per-score index test.  One cp.async.bulk moves an
+// item (a chunk, or a chunk's feature slice) into a ring stage and
+// completes on the stage's mbarrier; the consumers release a stage through
+// a second mbarrier, with no block-wide barrier a chunk.  bf16x3 takes
+// hi.hi, hi.lo and lo.hi into one f32 accumulator (the JAX kernel sums
+// (hh + hl) + lh: another order of the same exact products), default one
+// pass of the rounded operands.
 //
-// Tie-break: a thread scores columns 2t and 2t + 1 of each n-tile, n-tiles
-// in ascending order, so it visits its centroids in ascending index order
-// with a strict-< running (min, index); the quad's 4 lanes (and, where
-// warps split the n-tiles, the warps) merge with `better`: the lowest index
-// wins among equal scores, whatever the fragment layout.
+// Two accumulator sets overlap the epilogue with the products: chunk j+1's
+// wgmmas are issued, then chunk j's compare-selects run while they do
+// (wgmma.wait_group 1).  What bounds it: the products at the tensor rate
+// (bf16x3 three passes), the epilogue's compare-selects (~4 instructions a
+// score in B2, ~5 in B1), and at default the rows' bytes (B2) or the
+// centroids' L2 reads (B1).
+//
+// Tie-break: a thread scores columns 2t and 2t + 1 of each 8-centroid
+// n-tile, n-tiles in ascending order and chunks in ascending order, so it
+// visits its centroids in ascending index order with a strict-> running
+// (max, index), in kChains chains by n-tile; the chains, the quad's 4
+// lanes (and, in B1, the column groups) merge with `nearer`: the lowest
+// index wins among equal scores, whatever the fragment layout.
 
 enum Tier { kHighest = 0, kBf16x3 = 1, kDefault = 2 };
 
-constexpr int kMaxKs = 8;        // k-steps of 16 features a warp's rows keep: d <= 128
-constexpr int kTierChunk = 64;   // centroids a streamed chunk holds (8 n-tiles)
+// The A/B tool's split of the tiered product (tools/kernel_ab.py, vq-tier
+// and tokenizer-tier): bit 1 drops the compare-select epilogue, bit 2 the
+// products (3: copies, barriers and fragment loads only), bit 4 (B2) the
+// frame tiles' copies and waits (4: products and epilogue only).  Wrong
+// ids; 0 in every real build.
+#ifndef ATK_TIER_SPLIT
+#define ATK_TIER_SPLIT 0
+#endif
 
-// Pitch (bf16) of a centroid row of 16 ks features in shared memory: 8 more,
-// so that the 8 rows an ldmatrix reads fall on 8 bank groups.
-__host__ __device__ inline int tier_pitch(int ks) { return 16 * ks + 8; }
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may have
+constexpr int kRingHeader = 128;    // bytes of mbarriers ahead of a ring
+constexpr int kMaxStages = 4;       // ring stages at most
 
-// A warp's 16 feature rows as bf16 A fragments, hi and (bf16x3) lo, for at
-// most KS k-steps.
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int align128(int x) { return (x + 127) / 128 * 128; }
+
+// Bytes of one item of a centroid image: the hi (and, bf16x3, lo) bf16
+// planes of nc centroids x 16 ks features, and either (c2k) a 16-feature
+// c2 k-step more a centroid (-c2 / 2 in three bf16 parts, then zeros; zeros
+// in the lo plane) or, after the planes, the nc f32 c2.
+__host__ __device__ inline int tier_item_bytes(int nc, int ks, bool x3, bool c2k) {
+  return (x3 ? 2 : 1) * nc * 16 * (ks + (c2k ? 1 : 0)) * 2 + (c2k ? 0 : nc * 4);
+}
+
+// (score, index) for the tiers' f.c - c2 / 2, the larger the nearer: the
+// larger wins and, on equal scores, the lower index.
+__device__ __forceinline__ bool nearer(float s, int i, float best, int bi) {
+  return s > best || (s == best && i < bi);
+}
+
+// -- mbarriers and bulk copies --
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Arrive, and expect `bytes` more of asynchronous copies on this phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed.  A wait past
+// ~20 G cycles (a copy or an arrival that never comes) traps, so that a
+// fault surfaces as a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+// This thread's cp.async copies so far arrive on bar when they have landed
+// (noinc: the barrier's count includes this arrival).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) global -> shared
+// by the bulk-copy unit, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Order this thread's generic shared-memory accesses before later
+// asynchronous-proxy ones (a bulk copy into a buffer threads used).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- wgmma --
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator accesses across a wgmma issue
+// or wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a K-major bf16 tile without swizzle at `tile` (shared
+// memory): core matrices 128 bytes apart along K (the leading offset) and
+// `sbo` bytes apart along the 8-row groups.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* tile, int sbo) {
+  const uint64_t a = smem_u32(tile);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d (the warpgroup's m64 x N f32 accumulators, N / 2 a thread, in mma.sync's
+// C layout n-tile by n-tile) += a.b: a the thread's m16n8k16-layout A
+// fragment (its warp's 16 rows), b the K-major k16 x N bf16 tile of desc;
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
+                                        int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_n128(d, a, desc, scale_d);
+  } else {
+    static_assert(N == 64, "wgmma widths: 64 or 128 centroids");
+    wgmma_n64(d, a, desc, scale_d);
+  }
+}
+
+// -- the search --
+
+// A warp's 16 feature rows as bf16 A fragments, hi and (bf16x3) lo, KS
+// k-steps of 16 features.
 template <int KS>
 struct RowFrags {
   uint32_t hi[KS][4];
   uint32_t lo[KS][4];
 };
 
-// Rows f[0 .. 16) (f32, row r at f + r * ldf; zeros from d up to 16 ks) ->
-// fragments: default rounds, bf16x3 splits.
-template <int KS>
-__device__ __forceinline__ void load_row_frags(RowFrags<KS>& a, const float* f, int ldf, int ks,
-                                               bool x3) {
+// The warp's 16 feature rows -> fragments, at(r, c) giving the f32 pair
+// (row r, features c and c + 1) of 16 KS features (zeros past the real
+// ones): default rounds, bf16x3 splits; with `div` each value is divided by
+// its row's den first (rows g: den0, g + 8: den1).
+template <int KS, bool X3, typename At>
+__device__ __forceinline__ void load_frags(RowFrags<KS>& a, At at, bool div, float den0,
+                                           float den1) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
-    if (s < ks) {
-      const float* r0 = f + g * ldf + 16 * s + 2 * t;
-      const float* r1 = r0 + 8 * ldf;
-      const float v[4][2] = {{r0[0], r0[1]}, {r1[0], r1[1]}, {r0[8], r0[9]}, {r1[8], r1[9]}};
+    const int c = 16 * s + 2 * t;
+    const float2 p[4] = {at(g, c), at(g + 8, c), at(g, c + 8), at(g + 8, c + 8)};
+    float v[4][2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (x3) {
-          split_bf16(v[q][0], v[q][1], a.hi[s][q], a.lo[s][q]);
-        } else {
-          a.hi[s][q] = pack_bf16(v[q][0], v[q][1]);
-        }
+    for (int q = 0; q < 4; ++q) {
+      v[q][0] = p[q].x;
+      v[q][1] = p[q].y;
+      if (div) {
+        v[q][0] = v[q][0] / (q & 1 ? den1 : den0);
+        v[q][1] = v[q][1] / (q & 1 ? den1 : den0);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (X3) {
+        split_bf16(v[q][0], v[q][1], a.hi[s][q], a.lo[s][q]);
+      } else {
+        a.hi[s][q] = pack_bf16(v[q][0], v[q][1]);
       }
     }
   }
 }
 
-// Scores of the warp's 16 rows against the NT n-tiles (8 NT centroids) whose
-// bf16 rows start at ch (and cl, bf16x3), pitch ldc, centroid indices from
-// n0; c2s their squared norms.  The running (min, index) of rows g (slot 0)
-// and g + 8 (slot 1) is kept over the centroids below k in two chains, by
-// the parity of the n-tile (two shorter dependency chains of
-// compare-selects; each still visits its centroids in ascending order).
-template <int KS, int NT>
-__device__ __forceinline__ void score_tiles(const RowFrags<KS>& a, int ks, bool x3,
-                                            const __nv_bfloat16* ch, const __nv_bfloat16* cl,
-                                            int ldc, const float* c2s, int n0, int k,
-                                            float (&best)[2][2], int (&bidx)[2][2]) {
-  static_assert(NT % 2 == 0, "n-tiles come in ldmatrix pairs");
-  const int lane = threadIdx.x % 32, t = lane % 4;
-  float hh[NT][4], hl[NT][4], lh[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) hh[j][e] = hl[j][e] = lh[j][e] = 0.f;
-  // this lane's ldmatrix row: a centroid of the pair, 8 features of the k-step
-  const int boff = ((lane & 7) + 8 * (lane >> 4)) * ldc + 8 * ((lane >> 3) & 1);
+// The A fragment of the c2 k-step: ones at features 0, 1, 2 of every row
+// (exact in bf16), zeros elsewhere.
+__device__ __forceinline__ void ones3_frag(uint32_t (&a)[4]) {
+  const int t = threadIdx.x % 4;
+  const uint32_t one = 0x3F80u;  // bf16 1.0
+  a[0] = a[1] = t == 0 ? (one | one << 16) : t == 1 ? one : 0u;
+  a[2] = a[3] = 0u;
+}
+
+// Issue the products of the warpgroup's rows (fragments a) with the NW
+// centroids of the image plane(s) at b (bf16x3: lo plane plane_bytes after
+// hi; KS k-steps of features a centroid, and with C2K the c2 k-step), into
+// acc (overwritten unless accumulate), as one wgmma group; with c2 (C2K)
+// the c2 k-step too, so that acc = f.c - c2 / 2.
+template <int KS, int NW, bool X3, bool C2K>
+__device__ __forceinline__ void issue_products(float (&acc)[NW / 2], const RowFrags<KS>& a,
+                                               const char* b, int plane_bytes, bool accumulate,
+                                               bool c2) {
+  constexpr int kSbo = 256 * (KS + (C2K ? 1 : 0));  // bytes an 8-centroid group
+  const uint64_t dh = kmajor_desc(b, kSbo);
+  const uint64_t dl = kmajor_desc(b + plane_bytes, kSbo);
+  uint32_t ones[4];
+  ones3_frag(ones);
+  fence_acc(acc);
+  wgmma_fence();
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
-    if (s < ks) {
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t bh[4];
-        ldmatrix_x4(bh, ch + 16 * p * ldc + boff + 16 * s);
-        mma_bf16(hh[2 * p], a.hi[s], bh[0], bh[1]);
-        mma_bf16(hh[2 * p + 1], a.hi[s], bh[2], bh[3]);
-        if (x3) {
-          uint32_t bl[4];
-          ldmatrix_x4(bl, cl + 16 * p * ldc + boff + 16 * s);
-          mma_bf16(hl[2 * p], a.hi[s], bl[0], bl[1]);
-          mma_bf16(hl[2 * p + 1], a.hi[s], bl[2], bl[3]);
-          mma_bf16(lh[2 * p], a.lo[s], bh[0], bh[1]);
-          mma_bf16(lh[2 * p + 1], a.lo[s], bh[2], bh[3]);
-        }
-      }
+    // k-step s starts 2 core matrices (256 bytes, 16 descriptor units) on
+    wgmma_n<NW>(acc, a.hi[s], dh + 16 * s, s > 0 || accumulate);
+    if (X3) {
+      wgmma_n<NW>(acc, a.hi[s], dl + 16 * s, 1);
+      wgmma_n<NW>(acc, a.lo[s], dh + 16 * s, 1);
     }
   }
+  if (C2K && c2) wgmma_n<NW>(acc, ones, dh + 16 * KS, 1);
+  wgmma_commit();
+  fence_acc(acc);
+}
+
+// Running minima a thread keeps a row, each over the n-tiles j of one
+// residue j % kChains: independent compare-select chains whose latencies
+// overlap (2 and 8 time the same on the card).
+constexpr int kChains = 4;
+
+// Running (max, index) of the thread's rows g (slot 0) and g + 8 (slot 1)
+// over the NW scores f.c - c2 / 2 of centroids n0 + 8 j + 2 t + q, chain j
+// % kChains: the products' own sums where they took the c2 k-step, else
+// acc - c2s[.] / 2 (one rounding).
+template <int NW, bool C2K>
+__device__ __forceinline__ void scan_scores(const float (&acc)[NW / 2], const float* c2s, int n0,
+                                            float (&best)[kChains][2], int (&bidx)[kChains][2]) {
+  const int t = threadIdx.x % 4;
+  if (ATK_TIER_SPLIT & 1) {  // no epilogue: one read keeps the products alive
+    if (acc[0] == 1.2345e-30f) bidx[0][0] = n0;
+    return;
+  }
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int j = 0; j < NW / 8; ++j) {
+    float2 cc = make_float2(0.f, 0.f);
+    if (!C2K) cc = *reinterpret_cast<const float2*>(c2s + 8 * j + 2 * t);
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int ci = n0 + 8 * j + 2 * t + q;
-      if (ci < k) {
-        const float c2v = c2s[8 * j + 2 * t + q];
-        const float f0 = x3 ? (hh[j][q] + hl[j][q]) + lh[j][q] : hh[j][q];
-        const float f1 = x3 ? (hh[j][2 + q] + hl[j][2 + q]) + lh[j][2 + q] : hh[j][2 + q];
-        const float s0 = c2v - 2.0f * f0, s1 = c2v - 2.0f * f1;
-        if (s0 < best[j & 1][0]) {
-          best[j & 1][0] = s0;
-          bidx[j & 1][0] = ci;
-        }
-        if (s1 < best[j & 1][1]) {
-          best[j & 1][1] = s1;
-          bidx[j & 1][1] = ci;
-        }
+      float s0 = acc[4 * j + q], s1 = acc[4 * j + 2 + q];
+      if (!C2K) {
+        const float h = -0.5f * (q ? cc.y : cc.x);  // exact
+        s0 += h;
+        s1 += h;
+      }
+      const int ch = j % kChains;
+      if (s0 > best[ch][0]) {
+        best[ch][0] = s0;
+        bidx[ch][0] = ci;
+      }
+      if (s1 > best[ch][1]) {
+        best[ch][1] = s1;
+        bidx[ch][1] = ci;
       }
     }
   }
 }
 
-__device__ __forceinline__ void reset_best(float (&best)[2][2], int (&bidx)[2][2]) {
+__device__ __forceinline__ void reset_best(float (&best)[kChains][2], int (&bidx)[kChains][2]) {
 #pragma unroll
-  for (int c = 0; c < 2; ++c)
+  for (int c = 0; c < kChains; ++c)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      best[c][r] = CUDART_INF_F;
+      best[c][r] = -CUDART_INF_F;
       bidx[c][r] = 0;
     }
 }
 
-// Merge the two parity chains, then the 4 lanes of each quad: afterwards
-// every lane of the quad holds in best[0] / bidx[0] the row's (min, lowest
-// index).
-__device__ __forceinline__ void quad_merge(float (&best)[2][2], int (&bidx)[2][2]) {
+// Merge the chains, then the 4 lanes of each quad: afterwards every lane of
+// the quad holds in best[0] / bidx[0] the row's (min, lowest index).
+__device__ __forceinline__ void quad_merge(float (&best)[kChains][2], int (&bidx)[kChains][2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (better(best[1][r], bidx[1][r], best[0][r], bidx[0][r])) {
-      best[0][r] = best[1][r];
-      bidx[0][r] = bidx[1][r];
-    }
+#pragma unroll
+    for (int c = 1; c < kChains; ++c)
+      if (nearer(best[c][r], bidx[c][r], best[0][r], bidx[0][r])) {
+        best[0][r] = best[c][r];
+        bidx[0][r] = bidx[c][r];
+      }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       const float os = __shfl_xor_sync(0xffffffffu, best[0][r], off);
       const int oi = __shfl_xor_sync(0xffffffffu, bidx[0][r], off);
-      if (better(os, oi, best[0][r], bidx[0][r])) {
+      if (nearer(os, oi, best[0][r], bidx[0][r])) {
         best[0][r] = os;
         bidx[0][r] = oi;
       }
@@ -359,86 +577,198 @@ __device__ __forceinline__ void quad_merge(float (&best)[2][2], int (&bidx)[2][2
   }
 }
 
-// Floats of a chunk stage of block_argmin_tier: the hi and lo planes of
-// kTierChunk bf16 rows and their c2.
-__host__ __device__ inline int tier_stage_floats(int ks) {
-  return kTierChunk * tier_pitch(ks) + kTierChunk;
+// One chunk's products and scores for the split builds: products off (2)
+// stand in the fragments for them.
+template <int KS, int NW>
+__device__ __forceinline__ void fake_products(float (&acc)[NW / 2], const RowFrags<KS>& a) {
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = __uint_as_float(a.hi[0][i % 4] ^ (i << 20));
 }
 
-// Floats of block_argmin_tier's shared scratch for `rows` rows: two chunk
-// stages and the merge of two column groups.
-__host__ __device__ inline int tier_scratch_floats(int ks, int rows) {
-  return 2 * tier_stage_floats(ks) + 2 * 2 * rows;
-}
-
-// Nearest centroid at the tier for each of the `rows` (16 x the block's row
-// tiles) feature rows in shared memory (row r at feat + r * ldf, zeros from d
-// to 16 ks, ks <= KS), written to out[r] for r < rows_valid.  The bf16
-// centroid rows (chi, clo: (k, 16 ks), zeros past d) stream from global
-// memory in chunks of kTierChunk through a 2-stage cp.async ring in
-// `scratch` (tier_scratch_floats), the next chunk loading while this one is
-// scored; warps split into rows / 16 row tiles x CG column groups, a group
-// taking the chunk's 8 / CG n-tiles in turn (NT at a time), merged through
-// shared memory.  Requires blockDim.x == THREADS.
-template <int THREADS, int KS, int NT>
-__device__ void block_argmin_tier(const float* feat, int ldf, int ks, bool x3, int rows,
-                                  const __nv_bfloat16* __restrict__ chi,
-                                  const __nv_bfloat16* __restrict__ clo,
-                                  const float* __restrict__ c2, int k, float* scratch, int* out,
-                                  int rows_valid) {
-  constexpr int kWarps = THREADS / 32;
-  const int rt_count = rows / 16;
-  const int groups = kWarps / rt_count;  // 1 or 2
-  const int per_group = kTierChunk / 8 / groups;  // n-tiles of a chunk a group scores
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4;
-  const int rt = warp % rt_count, cg = warp / rt_count;
-  const int ldc = tier_pitch(ks), row_len = 16 * ks;
-  const int stage = tier_stage_floats(ks);
-  float* mbest = scratch + 2 * stage;
-  int* midx = reinterpret_cast<int*>(mbest + 2 * rows);
-  const int pieces = row_len / 8;  // 16-byte pieces of a centroid row
-  // chunk c0 -> stage buf: rows past k and their c2 zero-filled (never scored)
-  auto issue = [&](int c0, int buf) {
-    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(scratch + buf * stage);
-    __nv_bfloat16* l = h + kTierChunk * ldc;
-    float* cs2 = scratch + buf * stage + kTierChunk * ldc;
-    for (int e = threadIdx.x; e < kTierChunk * pieces; e += THREADS) {
-      const int c = e / pieces, q = e - c * pieces;
-      const bool ok = c0 + c < k;
-      const size_t src = ok ? static_cast<size_t>(c0 + c) * row_len + 8 * q : 0;
-      cp_async16(h + c * ldc + 8 * q, chi + src, ok);
-      if (x3) cp_async16(l + c * ldc + 8 * q, clo + src, ok);
-    }
-    for (int c = threadIdx.x; c < kTierChunk; c += THREADS)
-      cp_async4(cs2 + c, c2 + (c0 + c < k ? c0 + c : 0), c0 + c < k);
-    cp_async_commit();
+// The chunk walk of a warpgroup whose rows' fragments are loaded: items
+// [0, items) (item i = chunk i, nc centroids), NW of them from column col0
+// of each; wait(i) -> the item's stage once it has landed, release(i) once
+// its products and scores are done.  Chunk i+1's products are in flight
+// while chunk i's scores are compared.
+template <int KS, int NW, bool X3, bool C2K, typename Wait, typename Release>
+__device__ __forceinline__ void scan_narrow(const RowFrags<KS>& a, int items, int nc, int col0,
+                                            int plane_bytes, Wait wait,
+                                            Release release, float (&best)[kChains][2],
+                                            int (&bidx)[kChains][2]) {
+  float acc0[NW / 2], acc1[NW / 2];
+  // bytes to the column's 8-centroid group; the c2 after the planes
+  const int bcol = col0 / 8 * 256 * (KS + (C2K ? 1 : 0));
+  const int c2_off = (X3 ? 2 : 1) * plane_bytes + 4 * col0;
+  auto issue = [&](float (&acc)[NW / 2], const char* st) {
+    if (ATK_TIER_SPLIT & 2)
+      fake_products<KS, NW>(acc, a);
+    else
+      issue_products<KS, NW, X3, C2K>(acc, a, st + bcol, plane_bytes, false, true);
   };
+  auto scores = [&](float (&acc)[NW / 2], int i, const char* st) {
+    fence_acc(acc);
+    scan_scores<NW, C2K>(acc, reinterpret_cast<const float*>(st + c2_off), i * nc + col0, best,
+                         bidx);
+  };
+  const char* s0 = wait(0);
+  issue(acc0, s0);
+  int i = 1;
+  for (; i + 1 < items; i += 2) {
+    const char* s1 = wait(i);
+    issue(acc1, s1);
+    wgmma_wait<1>();
+    scores(acc0, i - 1, s0);
+    release(i - 1);
+    s0 = wait(i + 1);
+    issue(acc0, s0);
+    wgmma_wait<1>();
+    scores(acc1, i, s1);
+    release(i);
+  }
+  if (i < items) {
+    const char* s1 = wait(i);
+    issue(acc1, s1);
+    wgmma_wait<1>();
+    scores(acc0, i - 1, s0);
+    release(i - 1);
+    wgmma_wait<0>();
+    scores(acc1, i, s1);
+    release(i);
+  } else {
+    wgmma_wait<0>();
+    scores(acc0, i - 1, s0);
+    release(i - 1);
+  }
+}
+
+// The same for rows wider than the fragments hold: item i = chunk i /
+// slices, feature slice i % slices; load(a, slice, stage) fills the
+// fragments of a slice, the products are summed over a chunk's slices in
+// feature order and scored after the last.  The fragments are reloaded
+// after each item's products have finished: no overlap.
+template <int KS, int NW, bool X3, bool C2K, typename Wait, typename Release, typename Load>
+__device__ __forceinline__ void scan_wide(int chunks, int slices, int nc, int col0,
+                                          int plane_bytes, Wait wait, Release release,
+                                          Load load, float (&best)[kChains][2], int (&bidx)[kChains][2]) {
+  float acc[NW / 2];
   RowFrags<KS> a;
-  __syncthreads();  // the features are written; the caller's use of scratch is done
-  issue(0, 0);
-  load_row_frags(a, feat + rt * 16 * ldf, ldf, ks, x3);
-  float best[2][2];
-  int bidx[2][2];
-  reset_best(best, bidx);
-  for (int c0 = 0, it = 0; c0 < k; c0 += kTierChunk, ++it) {
-    const int buf = it & 1;
-    if (c0 + kTierChunk < k) {
-      issue(c0 + kTierChunk, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int bcol = col0 / 8 * 256 * (KS + (C2K ? 1 : 0));
+  const int c2_off = (X3 ? 2 : 1) * plane_bytes + 4 * col0;
+  for (int c = 0, i = 0; c < chunks; ++c) {
+    for (int s = 0; s < slices; ++s, ++i) {
+      const char* st = wait(i);
+      load(a, s, st);
+      if (ATK_TIER_SPLIT & 2)
+        fake_products<KS, NW>(acc, a);
+      else
+        issue_products<KS, NW, X3, C2K>(acc, a, st + bcol, plane_bytes, s > 0,
+                                        s == slices - 1);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (s == slices - 1)
+        scan_scores<NW, C2K>(acc, reinterpret_cast<const float*>(st + c2_off), c * nc + col0,
+                             best, bidx);
+      release(i);
     }
-    __syncthreads();  // chunk `it` visible to every thread
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(scratch + buf * stage);
-    const float* cs2 = scratch + buf * stage + kTierChunk * ldc;
-    for (int j = cg * per_group; j < (cg + 1) * per_group && c0 + 8 * j < k; j += NT)
-      score_tiles<KS, NT>(a, ks, x3, h + 8 * j * ldc, h + kTierChunk * ldc + 8 * j * ldc, ldc,
-                          cs2 + 8 * j, c0 + 8 * j, k, best, bidx);
-    __syncthreads();  // stage buf free for the chunk after next
+  }
+}
+
+// B1's argmin at a bf16 tier: for each of the ROWS (64 x RB) feature rows
+// in shared memory (row r at fs + r * ldf, 64 slices features, zeros past
+// the real ones) the nearest centroid, written to out[r] for r <
+// rows_valid.  THREADS = 128 x RB x G: RB warpgroups of rows times G column
+// groups, group gi scoring columns [gi NW, (gi + 1) NW) of every 128-wide
+// chunk, merged through shared memory.  The centroid image img (chunks x
+// slices items of tier_item_bytes(128, 4, X3), the wrapper's) streams
+// through a ring of up to 4 stages in `scratch` (scratch_bytes, the
+// window's buffer: b1_scratch_bytes), thread 0 refilling a stage once every
+// warp has released it.  WIDE: more than 64 features, the fragments
+// reloaded per slice.
+constexpr int kB1Chunk = 128;
+constexpr int kB1Ks = 4;
+
+__host__ __device__ inline int b1_slices(int m) { return ceil_div(ceil_div(m, 16), kB1Ks); }
+__host__ __device__ inline int b1_merge_bytes(int rows, int groups) {
+  return groups > 1 ? groups * rows * 8 : 0;
+}
+// Shared scratch the argmin needs for `stages` ring stages.
+__host__ __device__ inline int b1_scratch_bytes(int stages, bool x3, int rows, int groups) {
+  return kRingHeader + stages * align128(tier_item_bytes(kB1Chunk, kB1Ks, x3, false)) +
+         b1_merge_bytes(rows, groups);
+}
+
+template <int THREADS, int ROWS, bool X3, bool WIDE>
+__device__ void block_argmin_wg(const float* fs, int ldf, const char* __restrict__ img,
+                                int slices, int chunks, char* scratch, int scratch_bytes,
+                                int* out, int rows_valid) {
+  constexpr int RB = ROWS / 64, G = THREADS / (128 * RB), NW = kB1Chunk / G;
+  static_assert(G * 128 * RB == THREADS && (G == 1 || G == 2), "warpgroups x column groups");
+  const int ibytes = tier_item_bytes(kB1Chunk, kB1Ks, X3, false), istride = align128(ibytes);
+  const int merge = b1_merge_bytes(ROWS, G);
+  int stages = (scratch_bytes - kRingHeader - merge) / istride;
+  stages = stages < kMaxStages ? stages : kMaxStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(scratch);
+  uint64_t* empty = full + kMaxStages;
+  char* ring = scratch + kRingHeader;
+  float* mbest = reinterpret_cast<float*>(ring + stages * istride);
+  int* midx = reinterpret_cast<int*>(mbest + G * ROWS);
+  const int items = chunks * slices;
+  fence_proxy_async();  // the window's generic accesses before the copies
+  __syncthreads();      // the features are written; scratch is free
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, THREADS / 32);
+    }
+    mbar_init_fence();
+    for (int i = 0; i < stages && i < items; ++i) {
+      mbar_expect(full + i, ibytes);
+      bulk_copy(ring + i * istride, img + static_cast<size_t>(i) * ibytes, ibytes, full + i);
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, rb = wg % RB, gi = wg / RB;
+  auto wait = [&](int i) -> const char* {
+    mbar_wait(full + i % stages, (i / stages) & 1);
+    return ring + (i % stages) * istride;
+  };
+  auto release = [&](int i) {
+    const int st = i % stages;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+    if (threadIdx.x == 0 && i + stages < items) {
+      mbar_wait(empty + st, (i / stages) & 1);
+      mbar_expect(full + st, ibytes);
+      bulk_copy(ring + st * istride, img + static_cast<size_t>(i + stages) * ibytes, ibytes,
+                full + st);
+    }
+    __syncwarp();
+  };
+  const float* f = fs + (64 * rb + 16 * (warp % 4)) * ldf;
+  const int plane_bytes = kB1Chunk * 16 * kB1Ks * 2;
+  float best[kChains][2];
+  int bidx[kChains][2];
+  reset_best(best, bidx);
+  if (!WIDE) {
+    RowFrags<kB1Ks> a;
+    load_frags<kB1Ks, X3>(a, [&](int r, int c) { return make_float2(f[r * ldf + c], f[r * ldf + c + 1]); },
+                          false, 1.f, 1.f);
+    scan_narrow<kB1Ks, NW, X3, false>(a, items, kB1Chunk, gi * NW, plane_bytes, wait, release,
+                               best, bidx);
+  } else {
+    auto load = [&](RowFrags<kB1Ks>& a, int s, const char*) {
+      const float* fsl = f + 16 * kB1Ks * s;
+      load_frags<kB1Ks, X3>(
+          a, [&](int r, int c) { return make_float2(fsl[r * ldf + c], fsl[r * ldf + c + 1]); },
+          false, 1.f, 1.f);
+    };
+    scan_wide<kB1Ks, NW, X3, false>(chunks, slices, kB1Chunk, gi * NW, plane_bytes, wait,
+                             release, load, best, bidx);
   }
   quad_merge(best, bidx);
-  const int r0 = rt * 16 + g;
-  if (groups == 1) {
+  const int r0 = 64 * rb + 16 * (warp % 4) + lane / 4;
+  if (G == 1) {
     if (lane % 4 == 0) {
       if (r0 < rows_valid) out[r0] = bidx[0][0];
       if (r0 + 8 < rows_valid) out[r0 + 8] = bidx[0][1];
@@ -446,38 +776,44 @@ __device__ void block_argmin_tier(const float* feat, int ldf, int ks, bool x3, i
     return;
   }
   if (lane % 4 == 0) {
-    mbest[cg * rows + r0] = best[0][0];
-    midx[cg * rows + r0] = bidx[0][0];
-    mbest[cg * rows + r0 + 8] = best[0][1];
-    midx[cg * rows + r0 + 8] = bidx[0][1];
+    mbest[gi * ROWS + r0] = best[0][0];
+    midx[gi * ROWS + r0] = bidx[0][0];
+    mbest[gi * ROWS + r0 + 8] = best[0][1];
+    midx[gi * ROWS + r0 + 8] = bidx[0][1];
   }
   __syncthreads();
   for (int r = threadIdx.x; r < rows_valid; r += THREADS) {
     float b = mbest[r];
     int bi = midx[r];
-    for (int q = 1; q < groups; ++q)
-      if (better(mbest[q * rows + r], midx[q * rows + r], b, bi)) {
-        b = mbest[q * rows + r];
-        bi = midx[q * rows + r];
+    for (int q = 1; q < G; ++q)
+      if (nearer(mbest[q * ROWS + r], midx[q * ROWS + r], b, bi)) {
+        b = mbest[q * ROWS + r];
+        bi = midx[q * ROWS + r];
       }
     out[r] = bi;
   }
 }
 
-// block_argmin_tier with the fragments' capacity picked by ks: 4 k-steps
-// and 4 n-tiles at once for d <= 64, else 8 and 2 (registers).
-template <int THREADS>
-__device__ void block_argmin_tier_any(const float* feat, int ldf, int ks, bool x3, int rows,
-                                      const __nv_bfloat16* __restrict__ chi,
-                                      const __nv_bfloat16* __restrict__ clo,
-                                      const float* __restrict__ c2, int k, float* scratch,
-                                      int* out, int rows_valid) {
-  if (ks <= 4)
-    block_argmin_tier<THREADS, 4, 4>(feat, ldf, ks, x3, rows, chi, clo, c2, k, scratch, out,
-                                     rows_valid);
-  else
-    block_argmin_tier<THREADS, kMaxKs, 2>(feat, ldf, ks, x3, rows, chi, clo, c2, k, scratch, out,
-                                          rows_valid);
+// block_argmin_wg with the tier and the width picked at run time.
+template <int THREADS, int ROWS>
+__device__ void block_argmin_wg_any(const float* fs, int ldf, const char* img, bool x3,
+                                    int slices, int chunks, char* scratch, int scratch_bytes,
+                                    int* out, int rows_valid) {
+  if (x3) {
+    if (slices > 1)
+      block_argmin_wg<THREADS, ROWS, true, true>(fs, ldf, img, slices, chunks, scratch,
+                                                 scratch_bytes, out, rows_valid);
+    else
+      block_argmin_wg<THREADS, ROWS, true, false>(fs, ldf, img, slices, chunks, scratch,
+                                                  scratch_bytes, out, rows_valid);
+  } else {
+    if (slices > 1)
+      block_argmin_wg<THREADS, ROWS, false, true>(fs, ldf, img, slices, chunks, scratch,
+                                                  scratch_bytes, out, rows_valid);
+    else
+      block_argmin_wg<THREADS, ROWS, false, false>(fs, ldf, img, slices, chunks, scratch,
+                                                   scratch_bytes, out, rows_valid);
+  }
 }
 
 // Dynamic shared memory above 48 KB must be granted per kernel.

@@ -46,8 +46,11 @@
 //
 // The precision tiers (atk_tokenize_tier; the JAX kernel's `tier` and
 // `vq_tier`, config tokenizer_precision and tokenizer_vq_precision):
-// - vq_tier bf16x3 or default: the argmin's distance product runs on the
-//   tensor cores (common.cuh's block_argmin_tier), after either front end;
+// - vq_tier bf16x3 or default: the argmin's distance product runs on
+//   wgmma (common.cuh's block_argmin_wg), after either front end, its
+//   centroid chunks streamed by bulk copies through a ring in the window's
+//   (with the ring's and the power's, the f32 front end's) idle buffer; any
+//   number of mel bands, in 64-band slices past 64;
 // - tier bf16x3 or default: the DFT and mel products run on the tensor cores
 //   (tokenizer_mma_kernel), bf16 operands with f32 accumulation: bf16x3
 //   takes the three passes hi.hi + hi.lo + lo.hi of _dot_tier, default one
@@ -89,20 +92,33 @@ constexpr int kWarpFrames = 8;         // frames of a thread's register tile
 constexpr int kRowMultiple = 16;       // the basis' rows, padded (the wrapper)
 constexpr int kArgminRows = 4;         // argmin rows a thread group scores: FT / (threads / 16)
 
-// Shared memory of a block, in floats: the window (later the argmin's
-// centroid chunks), the ring (also the fb pieces), one pass's power, the
-// features (FT x (m + 1)).  Each region starts 16-byte aligned.
-// `ks` > 0: the argmin runs at a bf16 tier (block_argmin_tier) on features
-// of pitch 16 ks + 1, zeros past m.
+// Feature pitch (floats) of the argmin: at a bf16 vq tier whole slices of
+// the tiered argmin (zeros past m), plus one so rows fall on other banks.
+__host__ __device__ inline int feat_pitch(int m, int vq) {
+  return vq ? 16 * atk::kB1Ks * atk::b1_slices(m) + 1 : m + 1;
+}
+
+// Ring stages the tiered argmin is given room for (it takes up to 4 where
+// the window's buffer is larger).
+constexpr int kArgminStages = 4;
+
+// Shared memory of a block, in floats: the window (later, with the ring and
+// the power, the argmin's centroid chunks), the ring (also the fb pieces),
+// one pass's power, the features (FT x feat_pitch).  Each region starts
+// 16-byte aligned.  vq: the argmin's tier (0 highest: f32 chunks in the
+// window; else block_argmin_wg's ring).
 struct Layout {
   int win, ring, pw, fs;
-  __host__ __device__ Layout(int ft, int hop, int rows, int m, int ks = 0) {
+  __host__ __device__ Layout(int ft, int hop, int rows, int m, int vq = 0) {
     const int w = (ft - 1) * hop + rows;
-    const int cs = ks ? atk::tier_scratch_floats(ks, ft) : atk::kChunk * (m + 1) + atk::kChunk;
-    win = ((w > cs ? w : cs) + 3) / 4 * 4;
     ring = 2 * (ft / 8) * kCols;
     pw = ft * kBins;
-    fs = ft * (ks ? 16 * ks + 1 : m + 1);
+    const int cs =
+        vq ? atk::ceil_div(atk::b1_scratch_bytes(kArgminStages, vq == atk::kBf16x3, ft, 2), 4) -
+                 ring - pw
+           : atk::kChunk * (m + 1) + atk::kChunk;
+    win = ((w > cs ? w : cs) + 3) / 4 * 4;
+    fs = ft * feat_pitch(m, vq);
   }
   __host__ __device__ size_t bytes() const {
     return static_cast<size_t>(win + ring + pw + fs) * sizeof(float);
@@ -110,8 +126,8 @@ struct Layout {
 };
 
 // VEC: hop is a multiple of 4, so a frame's 4 samples load as one float4.
-// TVQ: the argmin at a bf16 tier (vq_x3: bf16x3, else default) against the
-// centroids' bf16 split chi, clo ((k, 16 ks)); else the f32 argmin on cent.
+// TVQ: the argmin at a bf16 tier (vq: bf16x3 or default) against the
+// centroid image timg (block_argmin_wg's); else the f32 argmin on cent.
 template <int FT, bool VEC, bool TVQ>
 __global__ void __launch_bounds__(FT / kWarpFrames * 32, FT == 64 ? 2 : 1)
 tokenizer_kernel(const float* __restrict__ wave, long stride, long padded_len,
@@ -119,19 +135,18 @@ tokenizer_kernel(const float* __restrict__ wave, long stride, long padded_len,
                  const float* __restrict__ basis, int nb,
                  const float* __restrict__ fb, int m,
                  const float* __restrict__ cent, const float* __restrict__ c2,
-                 int k, const __nv_bfloat16* __restrict__ chi,
-                 const __nv_bfloat16* __restrict__ clo, int ks, int vq_x3,
+                 int k, const char* __restrict__ timg, int vq,
                  int* __restrict__ out) {
   constexpr int kThreads = FT / kWarpFrames * 32;
   constexpr int kStage = FT / 8;             // samples a ring stage holds
   constexpr int kStageFloats = kStage * kCols;
   extern __shared__ float4 smem4[];
-  const Layout lay(FT, hop, rows, m, TVQ ? ks : 0);
+  const Layout lay(FT, hop, rows, m, TVQ ? vq : 0);
   float* win = reinterpret_cast<float*>(smem4);
   float* ring = win + lay.win;
   float* pw = ring + lay.ring;
   float* fs = pw + lay.pw;
-  const int ldf = TVQ ? 16 * ks + 1 : m + 1;
+  const int ldf = feat_pitch(m, TVQ ? vq : 0);
   const int t = threadIdx.x, lane = t % 32;
   const int f0 = (t / 32) * kWarpFrames;     // the warp's first frame of the tile
   const int t0 = blockIdx.x * FT;
@@ -277,8 +292,10 @@ tokenizer_kernel(const float* __restrict__ wave, long stride, long padded_len,
   // the argmin synchronizes before it overwrites the window or reads fs
   const int rows_valid = min(FT, n_frames - t0);
   if (TVQ) {
-    atk::block_argmin_tier_any<kThreads>(fs, ldf, ks, vq_x3 != 0, FT, chi, clo, c2, k, win,
-                                     out + static_cast<long>(clip) * n_frames + t0, rows_valid);
+    atk::block_argmin_wg_any<kThreads, FT>(
+        fs, ldf, timg, vq == atk::kBf16x3, atk::b1_slices(m), atk::ceil_div(k, atk::kB1Chunk),
+        reinterpret_cast<char*>(win), (lay.win + lay.ring + lay.pw) * 4,
+        out + static_cast<long>(clip) * n_frames + t0, rows_valid);
   } else {
     atk::block_argmin<kArgminRows, kThreads>(fs, ldf, m, cent, c2, k, win,
                                              win + atk::kChunk * ldf,
@@ -299,23 +316,27 @@ constexpr int kMaxMelTiles = 16;       // mel bands <= 128
 constexpr int kStageElems = 2 * kPassBins * kSlabPitch;  // bf16 of one plane of a stage
 
 // Shared memory of tokenizer_mma_kernel, in bytes: the window (planes x
-// pitch bf16; later the argmin's scratch), the ring (two stages of planes;
-// also one pass's filterbank columns), the features (f32, pitch m16 + 1).
+// pitch bf16; later, with the ring, the argmin's scratch), the ring (two
+// stages of planes; also one pass's filterbank columns), the features (f32,
+// pitch mma_feat_pitch).  vq: the argmin's tier.
+__host__ __device__ inline int mma_feat_pitch(int m, int vq) {
+  return vq ? feat_pitch(m, vq) : (m + 15) / 16 * 16 + 1;
+}
 struct MmaLayout {
   size_t win, ring, fs;
   int pitch;  // bf16 of one plane of the window: hop-blocks of hop + 8
-  __host__ __device__ MmaLayout(int hop, int rows, int m, bool x3, bool tvq) {
-    const int planes = x3 ? 2 : 1, m16 = (m + 15) / 16 * 16, ldf = m16 + 1;
+  __host__ __device__ MmaLayout(int hop, int rows, int m, bool x3, int vq) {
+    const int planes = x3 ? 2 : 1, m16 = (m + 15) / 16 * 16, ldf = mma_feat_pitch(m, vq);
     const int wlen = (kMmaFrames - 1) * hop + rows;
     pitch = ((wlen + hop - 1) / hop * (hop + 8) + 7) / 8 * 8;
     const size_t w = static_cast<size_t>(planes) * pitch * 2;
-    const size_t cs = 4 * static_cast<size_t>(
-                              tvq ? atk::tier_scratch_floats(m16 / 16, kMmaFrames)
-                                  : atk::kChunk * ldf + atk::kChunk);
-    win = ((w > cs ? w : cs) + 15) / 16 * 16;
     const size_t stages = static_cast<size_t>(2) * planes * kStageElems * 2;
     const size_t fbs = static_cast<size_t>(m16) * kFbPitch * planes * 2;
     ring = ((stages > fbs ? stages : fbs) + 15) / 16 * 16;
+    const size_t tier = atk::b1_scratch_bytes(kArgminStages, vq == atk::kBf16x3, kMmaFrames, 1);
+    const size_t cs = vq ? (tier > ring ? tier - ring : 0)
+                         : 4 * static_cast<size_t>(atk::kChunk * ldf + atk::kChunk);
+    win = ((w > cs ? w : cs) + 127) / 128 * 128;
     fs = static_cast<size_t>(kMmaFrames) * ldf * 4;
   }
   __host__ __device__ size_t bytes() const { return win + ring + fs; }
@@ -324,7 +345,7 @@ struct MmaLayout {
 // B1 at tier bf16x3 (x3) or default: bhi, blo the basis' bf16 split,
 // transposed ((2 nbp, rows): re of bins 0..nbp-1, then im; rows a multiple
 // of 32, nbp of 64, zeros past n_fft and past the bins); fhi, flo the
-// filterbank's ((m16, nbp)); hop a multiple of 16.  TVQ as in
+// filterbank's ((m16, nbp)); hop a multiple of 16.  TVQ and vq as in
 // tokenizer_kernel.
 template <bool TVQ>
 __global__ void __launch_bounds__(kMmaThreads, 1)
@@ -333,18 +354,17 @@ tokenizer_mma_kernel(const float* __restrict__ wave, long stride, long padded_le
                      const __nv_bfloat16* __restrict__ blo, int nbp,
                      const __nv_bfloat16* __restrict__ fhi, const __nv_bfloat16* __restrict__ flo,
                      int m, int x3, const float* __restrict__ cent, const float* __restrict__ c2,
-                     int k, const __nv_bfloat16* __restrict__ chi,
-                     const __nv_bfloat16* __restrict__ clo, int vq_x3, int* __restrict__ out) {
+                     int k, const char* __restrict__ timg, int vq, int* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const bool x3v = x3 != 0;
   const int planes = x3v ? 2 : 1;
-  const MmaLayout lay(hop, rows, m, x3v, TVQ);
+  const MmaLayout lay(hop, rows, m, x3v, TVQ ? vq : 0);
   char* base = reinterpret_cast<char*>(smem4);
   __nv_bfloat16* whi = reinterpret_cast<__nv_bfloat16*>(base);
   __nv_bfloat16* wlo = whi + lay.pitch;
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(base + lay.win);
   float* fs = reinterpret_cast<float*>(base + lay.win + lay.ring);
-  const int m16 = (m + 15) / 16 * 16, ldf = m16 + 1, mt = m16 / 8;
+  const int m16 = (m + 15) / 16 * 16, ldf = mma_feat_pitch(m, TVQ ? vq : 0), mt = m16 / 8;
   const int t = threadIdx.x, lane = t % 32, tq = lane % 4;
   const int f0 = (t / 32) * 16;  // the warp's first frame of the tile
   const int t0 = blockIdx.x * kMmaFrames, clip = blockIdx.y;
@@ -523,13 +543,18 @@ tokenizer_mma_kernel(const float* __restrict__ wave, long stride, long padded_le
       row1[col + 1] = mel[j][3] / den1;
     }
   }
+  for (int col = m16 + tq; col < ldf - 1; col += 4) {  // the tiered argmin's whole slices
+    row0[col] = 0.f;
+    row1[col] = 0.f;
+  }
   // the argmin synchronizes before it overwrites the window or reads fs
   const int rows_valid = min(kMmaFrames, n_frames - t0);
   float* scratch = reinterpret_cast<float*>(base);
   int* o = out + static_cast<long>(clip) * n_frames + t0;
   if (TVQ) {
-    atk::block_argmin_tier_any<kMmaThreads>(fs, ldf, m16 / 16, vq_x3 != 0, kMmaFrames, chi, clo, c2,
-                                        k, scratch, o, rows_valid);
+    atk::block_argmin_wg_any<kMmaThreads, kMmaFrames>(
+        fs, ldf, timg, vq == atk::kBf16x3, atk::b1_slices(m), atk::ceil_div(k, atk::kB1Chunk),
+        base, static_cast<int>(lay.win + lay.ring), o, rows_valid);
   } else {
     atk::block_argmin<kMmaFrames * atk::kColThreads / kMmaThreads, kMmaThreads>(
         fs, ldf, m, cent, c2, k, scratch, scratch + atk::kChunk * ldf, o, rows_valid);
@@ -539,26 +564,26 @@ tokenizer_mma_kernel(const float* __restrict__ wave, long stride, long padded_le
 template <int FT, bool TVQ>
 cudaError_t launch(const float* wave, int batch, long stride, long padded_len, int n_frames,
                    int hop, int rows, const float* basis, int nb, const float* fb, int m,
-                   const float* cent, const float* c2, int k, const __nv_bfloat16* chi,
-                   const __nv_bfloat16* clo, int ks, int vq_x3, int* out, cudaStream_t stream) {
+                   const float* cent, const float* c2, int k, const char* timg, int vq, int* out,
+                   cudaStream_t stream) {
   static_assert(kArgminRows * (FT / kWarpFrames * 32) / atk::kColThreads == FT,
                 "argmin rows must cover the tile");
   constexpr int kThreads = FT / kWarpFrames * 32;
-  const size_t smem = Layout(FT, hop, rows, m, TVQ ? ks : 0).bytes();
+  const size_t smem = Layout(FT, hop, rows, m, TVQ ? vq : 0).bytes();
   const dim3 grid((n_frames + FT - 1) / FT, batch);
   cudaError_t err;
   if (hop % 4 == 0) {
     err = atk::allow_smem(tokenizer_kernel<FT, true, TVQ>, smem);
     if (err != cudaSuccess) return err;
     tokenizer_kernel<FT, true, TVQ><<<grid, kThreads, smem, stream>>>(
-        wave, stride, padded_len, n_frames, hop, rows, basis, nb, fb, m, cent, c2, k, chi, clo,
-        ks, vq_x3, out);
+        wave, stride, padded_len, n_frames, hop, rows, basis, nb, fb, m, cent, c2, k, timg, vq,
+        out);
   } else {
     err = atk::allow_smem(tokenizer_kernel<FT, false, TVQ>, smem);
     if (err != cudaSuccess) return err;
     tokenizer_kernel<FT, false, TVQ><<<grid, kThreads, smem, stream>>>(
-        wave, stride, padded_len, n_frames, hop, rows, basis, nb, fb, m, cent, c2, k, chi, clo,
-        ks, vq_x3, out);
+        wave, stride, padded_len, n_frames, hop, rows, basis, nb, fb, m, cent, c2, k, timg, vq,
+        out);
   }
   return cudaGetLastError();
 }
@@ -569,8 +594,8 @@ ATK_EXPORT int atk_tokenize_tier(const float* wave, int batch, long stride, long
                                  int n_frames, int hop, int rows, const float* basis, int nb,
                                  const float* fb, int m, const void* tbasis, int trows, int tnb,
                                  const void* tfb, const float* cent, const float* c2, int k,
-                                 const void* tcent, int tier, int vq_tier, int* out,
-                                 void* stream);
+                                 const void* timg, long timg_bytes, int tier, int vq_tier,
+                                 int* out, void* stream);
 
 // B1 in f32 (the highest tiers).  basis (rows, 2 nb) with rows a multiple of
 // 16 and nb of 128; fb (nb, m).  A 128-frame block whose shared memory would
@@ -580,7 +605,7 @@ ATK_EXPORT int atk_tokenize(const float* wave, int batch, long stride, long padd
                             const float* fb, int m, const float* cent, const float* c2, int k,
                             int* out, void* stream) {
   return atk_tokenize_tier(wave, batch, stride, padded_len, n_frames, hop, rows, basis, nb, fb, m,
-                           nullptr, 0, 0, nullptr, cent, c2, k, nullptr, atk::kHighest,
+                           nullptr, 0, 0, nullptr, cent, c2, k, nullptr, 0, atk::kHighest,
                            atk::kHighest, out, stream);
 }
 
@@ -590,55 +615,53 @@ ATK_EXPORT int atk_tokenize(const float* wave, int batch, long stride, long padd
 // otherwise tokenizer_mma_kernel on tbasis ((planes, 2 tnb, trows) bf16,
 // planes 2 at bf16x3: hi then lo) and tfb ((planes, m16, tnb)), hop a
 // multiple of 16.  vq_tier highest scores against cent (k, m) f32, else
-// against tcent ((planes, k, m16) bf16: the centroids' split, zeros past
-// m).  c2 = ||c||^2 of the f32 centroids at every tier.
+// against timg, the centroid image of block_argmin_wg (timg_bytes: chunks
+// of 128 x b1_slices(m) items of tier_item_bytes(128, 4, bf16x3)), whose c2
+// are those of the f32 centroids, as c2 is at every tier.
 ATK_EXPORT int atk_tokenize_tier(const float* wave, int batch, long stride, long padded_len,
                                  int n_frames, int hop, int rows, const float* basis, int nb,
                                  const float* fb, int m, const void* tbasis, int trows, int tnb,
                                  const void* tfb, const float* cent, const float* c2, int k,
-                                 const void* tcent, int tier, int vq_tier, int* out,
-                                 void* stream) {
+                                 const void* timg, long timg_bytes, int tier, int vq_tier,
+                                 int* out, void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
   constexpr size_t kMaxSmem = 227 * 1024;
-  const int m16 = (m + 15) / 16 * 16, ks = m16 / 16;
+  const int m16 = (m + 15) / 16 * 16;
   const bool tvq = vq_tier != atk::kHighest;
-  if (tier < 0 || tier > 2 || vq_tier < 0 || vq_tier > 2 || hop < 1 || m < 1 || k < 1 ||
-      (tvq && ks > atk::kMaxKs))
+  const int vq = tvq ? vq_tier : 0;
+  if (tier < 0 || tier > 2 || vq_tier < 0 || vq_tier > 2 || hop < 1 || m < 1 || k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* tc = static_cast<const __nv_bfloat16*>(tcent);
-  const __nv_bfloat16* chi = tvq ? tc : nullptr;
-  const __nv_bfloat16* clo = tvq ? tc + static_cast<size_t>(k) * m16 : nullptr;
-  const int vq_x3 = vq_tier == atk::kBf16x3;
+  if (tvq && timg_bytes != static_cast<long>(atk::ceil_div(k, atk::kB1Chunk)) *
+                               atk::b1_slices(m) *
+                               atk::tier_item_bytes(atk::kB1Chunk, atk::kB1Ks, vq == atk::kBf16x3,
+                                                    false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* ti = static_cast<const char*>(timg);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tier == atk::kHighest) {
     if (rows % kRowMultiple || nb % kBins || Layout(64, hop, rows, m).ring / m < 4)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int lks = tvq ? ks : 0;
     int ft = kDefaultFrames;
-    if (ft == 128 && Layout(128, hop, rows, m, lks).bytes() > kMaxSmem) ft = 64;
-    if (Layout(ft, hop, rows, m, lks).bytes() > kMaxSmem)
+    if (ft == 128 && Layout(128, hop, rows, m, vq).bytes() > kMaxSmem) ft = 64;
+    if (Layout(ft, hop, rows, m, vq).bytes() > kMaxSmem)
       return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err;
     if (tvq)
       err = ft == 128 ? launch<128, true>(wave, batch, stride, padded_len, n_frames, hop, rows,
-                                          basis, nb, fb, m, cent, c2, k, chi, clo, ks, vq_x3, out,
-                                          st)
+                                          basis, nb, fb, m, cent, c2, k, ti, vq, out, st)
                       : launch<64, true>(wave, batch, stride, padded_len, n_frames, hop, rows,
-                                         basis, nb, fb, m, cent, c2, k, chi, clo, ks, vq_x3, out,
-                                         st);
+                                         basis, nb, fb, m, cent, c2, k, ti, vq, out, st);
     else
       err = ft == 128 ? launch<128, false>(wave, batch, stride, padded_len, n_frames, hop, rows,
-                                           basis, nb, fb, m, cent, c2, k, nullptr, nullptr, 0, 0,
-                                           out, st)
+                                           basis, nb, fb, m, cent, c2, k, nullptr, 0, out, st)
                       : launch<64, false>(wave, batch, stride, padded_len, n_frames, hop, rows,
-                                          basis, nb, fb, m, cent, c2, k, nullptr, nullptr, 0, 0,
-                                          out, st);
+                                          basis, nb, fb, m, cent, c2, k, nullptr, 0, out, st);
     return static_cast<int>(err);
   }
   const bool x3 = tier == atk::kBf16x3;
   if (hop % 16 || trows % kSlab || tnb % kPassBins || tnb < 1 || m16 > 8 * kMaxMelTiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  const MmaLayout lay(hop, trows, m, x3, tvq);
+  const MmaLayout lay(hop, trows, m, x3, vq);
   if (lay.bytes() > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const auto* tb = static_cast<const __nv_bfloat16*>(tbasis);
   const auto* tf = static_cast<const __nv_bfloat16*>(tfb);
@@ -650,12 +673,12 @@ ATK_EXPORT int atk_tokenize_tier(const float* wave, int batch, long stride, long
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kMmaThreads, lay.bytes(), st>>>(wave, stride, padded_len, n_frames, hop, trows,
                                                  tb, blo, tnb, tf, flo, m, x3 ? 1 : 0, cent, c2,
-                                                 k, chi, clo, vq_x3, out);
+                                                 k, ti, vq, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Shared memory of atk_tokenize_tier's tensor-core instance (tier bf16x3 or
-// default); the wrapper refuses what passes 227 KB.
-ATK_EXPORT long atk_tokenize_tier_smem(int hop, int trows, int m, int x3, int vq_tiered) {
-  return static_cast<long>(MmaLayout(hop, trows, m, x3 != 0, vq_tiered != 0).bytes());
+// default) with the argmin at vq_tier; the wrapper refuses what passes 227 KB.
+ATK_EXPORT long atk_tokenize_tier_smem(int hop, int trows, int m, int x3, int vq_tier) {
+  return static_cast<long>(MmaLayout(hop, trows, m, x3 != 0, vq_tier).bytes());
 }

@@ -43,17 +43,26 @@
 //
 // The bf16x3 and default tiers (atk_vq_argmin_tier; the Lloyd assignment at
 // kmeans_precision high and default, the TPU's Precision.HIGH and DEFAULT)
-// run the distance product on the tensor cores (common.cuh's tiered
-// product): at 17.23M rows x 64 x 500 it is 1.10 TFLOP, three bf16 passes
-// (3.35 ms at 989 TFLOP/s) for bf16x3, and for default one pass, where the
-// 4.4 GB of frames read bound it (1.32 ms).  One instance, the resident
-// one: the bf16 centroids (hi and lo) stay in shared memory, the grid is
-// persistent with 16 warps an SM, the next 256-row frame tile loads by
-// cp.async while this one is scored; each warp splits its 16 rows once a
-// tile and walks the centroids four n-tiles (32 centroids) at a time, in two
-// running-min chains.  Shapes whose centroids do not fit (K 500 at d 64
-// takes 214 KB at bf16x3) are refused; the wrapper names the tier and the
-// shape.
+// run the distance product on wgmma (common.cuh's tiered product): at
+// 17.23M rows x 64 x 500 it is 1.10 TFLOP, three bf16 passes (3.35 ms at
+// 989 TFLOP/s) for bf16x3, and for default one pass, where the 4.4 GB of
+// frames read bound it (1.32 ms).  A persistent block an SM: two consumer
+// warpgroups hold a 128-row frame tile's rows as fragments (64 each), one
+// producer warp stages the tiles by cp.async into a ring of frame buffers
+// and the centroid image items by cp.async.bulk, each buffer completing on
+// an mbarrier, released through another: no block-wide barrier a tile.
+// tier_plan picks the instance: rows up to 64 features keep 4 k-steps of
+// fragments and score 128-centroid chunks, up to 128 features 8 k-steps and
+// 64-centroid chunks (registers); the chunks stay resident where they fit
+// beside two frame buffers (K 500 at d 64: 130 KB at bf16x3), else they
+// stream through a ring of up to 4 stages (K 16,384); rows wider than 128
+// features are walked in 128-feature slices, each ring item carrying a
+// chunk's slice and the frame tile's same slice, the products summed over a
+// chunk's slices in feature order, so any K and d run.  Bound: the
+// products' tensor rate at bf16x3; at default the epilogue (~5
+// instructions a score) and the frames' bytes.
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is looked up at run time)
+
 #include "common.cuh"
 
 #ifndef ATK_VQ_STAGES
@@ -61,6 +70,9 @@
 #endif
 #ifndef ATK_VQ_RING
 #define ATK_VQ_RING 0  // 1: stream the centroids even where they would fit
+#endif
+#ifndef ATK_VQ_TMA
+#define ATK_VQ_TMA 1  // tiers: 0 stages the frame rows by cp.async, not the tensor map
 #endif
 
 namespace {
@@ -382,111 +394,322 @@ vq_ring_kernel(const float* __restrict__ frames, int n, int d, const float* __re
 
 // ---- the bf16x3 and default tiers --------------------------------------------
 
-// The tiered instance: 16 warps, each scoring 16 rows of a 256-row frame
-// tile, one block an SM (the bf16 centroids fill its shared memory).
-constexpr int kTierThreads = 512;
-constexpr int kTierRows = kTierThreads / 32 * 16;
-constexpr int kTierTiles = 4;  // n-tiles a warp scores at once
+// The tiered instance: two consumer warpgroups score a 128-row frame tile
+// (64 rows each, from registers) and one warp of a third, the producer
+// warpgroup, keeps the copies in flight, one block an SM.  The producer
+// warpgroup gives its registers to the consumers (setmaxnreg): 3 warps an
+// SM sub-partition would otherwise cap every thread at 168, too few for two
+// 128-wide accumulator sets (ptxas then serializes the wgmmas).
+constexpr int kTierRows = 128;
+constexpr int kTierConsumers = 256;
+constexpr int kTierThreads = kTierConsumers + 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kTierHeader = 256;   // mbarriers: centroid full/empty, frame full/empty
+constexpr int kMaxResident = 12;   // chunks that may stay resident (their barriers)
+constexpr int kMaxFrameStages = 4;
+constexpr int kSmemAlign = 1024;   // the frame tiles' swizzle repeats every 1024 bytes
+constexpr int kBox = 32;           // features of a tensor-map box: 128 bytes a row
 
-// Shared memory of the tiered instance: the bf16 centroid rows (hi, and lo
-// at bf16x3) of kp = k rounded up to kTierTiles n-tiles (zero rows past k),
-// their c2, and the f32 frame tile of row pitch tier_ld(ks).
-__host__ __device__ inline int tier_ld(int ks) { return row_stride(16 * ks); }
-__host__ __device__ inline int tier_rows(int k) {
-  return (k + 8 * kTierTiles - 1) / (8 * kTierTiles) * (8 * kTierTiles);
-}
-__host__ __device__ inline size_t tier_smem(int ks, int k, bool x3) {
-  const int kp = tier_rows(k);
-  return static_cast<size_t>(kp) * atk::tier_pitch(ks) * 2 * (x3 ? 2 : 1) + kp * sizeof(float) +
-         static_cast<size_t>(kTierRows) * tier_ld(ks) * sizeof(float);
+// The launch plan of the tiered instance; ops/cuda_vq.vq_tier_plan is its
+// Python mirror (the wrapper lays the centroid image out by it), and a card
+// test holds the two equal through atk_vq_tier_plan.  Shared memory, from
+// a 1024-aligned base: the frame tile buffers, the ring, the mbarriers.
+struct TierPlan {
+  int ks;        // k-steps of 16 features the fragments hold (a slice): 4 or 8
+  int nc;        // centroids a chunk (and a wgmma): 128 at 4 k-steps, else 64
+  int wide;      // rows wider than 128 features, walked in slices
+  int slices;    // feature slices of 16 ks (the image's features)
+  int chunks;    // ceil(k / nc)
+  int items;     // chunks x slices, an image item each
+  int ibytes;    // bytes of an image item
+  int istride;   // bytes of a ring stage: (wide: the tile's slice, then) the item
+  int tile;      // bytes of a frame tile (a slice where wide): 128 rows x 16 ks f32
+  int resident;  // every item stays in shared memory for the whole launch
+  int stages;    // ring stages (resident: the items)
+  int fstages;   // frame tile buffers (0 where wide)
+  int smem;      // bytes of dynamic shared memory, the alignment slack included
+};
+
+__host__ __device__ inline TierPlan tier_plan(int d, int k, bool x3) {
+  TierPlan p{};
+  const int ks = atk::ceil_div(d, 16);
+  p.ks = ks <= 4 ? 4 : 8;
+  p.nc = ks <= 4 ? 128 : 64;
+  p.wide = ks > 8;
+  p.slices = p.wide ? atk::ceil_div(ks, 8) : 1;
+  p.chunks = atk::ceil_div(k, p.nc);
+  p.items = p.chunks * p.slices;
+  p.ibytes = atk::tier_item_bytes(p.nc, p.ks, x3, true);
+  p.tile = kTierRows * 16 * p.ks * 4;
+  p.istride = p.wide ? (p.tile + p.ibytes + kSmemAlign - 1) / kSmemAlign * kSmemAlign
+                     : atk::align128(p.ibytes);
+  const int avail = atk::kSmemLimit - kSmemAlign - kTierHeader;
+  if (!p.wide && p.items <= kMaxResident && p.items * p.istride + 2 * p.tile <= avail) {
+    p.resident = 1;
+    p.stages = p.items;
+    const int fs = (avail - p.items * p.istride) / p.tile;
+    p.fstages = fs < kMaxFrameStages ? fs : kMaxFrameStages;
+  } else {
+    p.fstages = p.wide ? 0 : 2;
+    const int st = (avail - p.fstages * p.tile) / p.istride;
+    p.stages = st < atk::kMaxStages ? st : atk::kMaxStages;
+  }
+  p.smem = kSmemAlign + p.fstages * p.tile + p.stages * p.istride + kTierHeader;
+  return p;
 }
 
-// rows [r0, r0 + kTierRows) of frames (n x d) -> fs (pitch ld) by cp.async,
-// zeros past n and past d; d4 = d rounded up to 4.
-template <bool VEC>
-__device__ __forceinline__ void stage_tier_rows(float* fs, const float* __restrict__ frames,
-                                                long r0, long n, int d, int d4, int ld) {
-  if (VEC) {
-    const int q4 = d4 / 4;
-    for (int e = threadIdx.x; e < kTierRows * q4; e += kTierThreads) {
-      const int r = e / q4, q = e - r * q4;
-      const bool ok = r0 + r < n;
-      atk::cp_async16(fs + r * ld + 4 * q, ok ? frames + (r0 + r) * d + 4 * q : frames, ok);
+// Float index of (row r, feature c) in a frame tile: boxes of 32 features
+// x 128 rows, each row's 16-byte pieces swizzled by the row (the tensor
+// map's 128-byte swizzle), so that the 8 rows a fragment load reads fall
+// on other banks.
+__device__ __forceinline__ int tile_at(int r, int c) {
+  return (c / kBox) * (kTierRows * kBox) + r * kBox + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// Rows [r0, r0 + kTierRows) x features [f0, f0 + 16 KS) of frames (n x d)
+// -> the tile at dst (tile_at's layout), zeros past n and past d,
+// completing on bar, by the producer warp: with a tensor map, lane 0 loads
+// the 16 KS / 32 boxes (announcing their bytes and `extra` of the
+// caller's); else every lane copies 4 bytes at a time by cp.async and
+// arrives on bar as its copies land.
+template <int KS>
+__device__ __forceinline__ void copy_tile(float* dst, const CUtensorMap* tmap,
+                                          const float* __restrict__ frames, long r0, long n, int d,
+                                          int f0, uint64_t* bar, int extra) {
+  constexpr int kBoxes = 16 * KS / kBox;
+  const int lane = threadIdx.x % 32;
+  if (tmap) {
+    if (lane == 0) {
+      atk::mbar_expect(bar, kBoxes * kTierRows * kBox * 4 + extra);
+#pragma unroll
+      for (int b = 0; b < kBoxes; ++b) {
+        asm volatile(
+            "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+            " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(atk::smem_u32(dst + b * kTierRows * kBox)),
+            "l"(reinterpret_cast<uint64_t>(tmap)), "r"(f0 + b * kBox),
+            "r"(static_cast<int>(r0)), "r"(atk::smem_u32(bar))
+            : "memory");
+      }
     }
   } else {
-    for (int e = threadIdx.x; e < kTierRows * d4; e += kTierThreads) {
-      const int r = e / d4, j = e - r * d4;
-      const bool ok = r0 + r < n && j < d;
-      atk::cp_async4(fs + r * ld + j, ok ? frames + (r0 + r) * d + j : frames, ok);
+    if (lane == 0 && extra) atk::mbar_expect(bar, extra);
+    for (int e = lane; e < kTierRows * 16 * KS; e += 32) {
+      const int r = e / (16 * KS), j = e % (16 * KS), col = f0 + j;
+      const bool ok = r0 + r < n && col < d;
+      atk::cp_async4(dst + tile_at(r, j), ok ? frames + (r0 + r) * d + col : frames, ok);
     }
+    atk::cp_async_arrive(bar);
   }
-  atk::cp_async_commit();
 }
 
-// KS: the fragments' capacity in k-steps (ks <= KS).  Per frame tile: the
-// rows land (the previous tile's scoring overlapped their copy), are
-// normalized, and each warp takes its 16 rows as split A fragments; then
-// the next tile's copy starts and the warps score their rows against every
-// centroid from registers and shared memory.
-template <int KS, bool VEC>
+// x / (||x|| + eps) in place for the warpgroup's 64 rows (from row rb) of
+// the tile fs, 8 lanes a row: the formula and the summation order of
+// normalize_tile.
+__device__ __forceinline__ void normalize_wg_rows(float* fs, int rb, int d) {
+  const int t = threadIdx.x % 128, l = t % 8;
+  for (int r = rb + t / 8; r < rb + 64; r += 16) {
+    float s = 0.f;
+    for (int j = l; j < d; j += 8) {
+      const float x = fs[tile_at(r, j)];
+      s = fmaf(x, x, s);
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    const float den = sqrtf(s) + atk::kEps;
+    for (int j = l; j < d; j += 8) fs[tile_at(r, j)] = fs[tile_at(r, j)] / den;
+  }
+}
+
+// ||x|| + eps of the warp's rows g (den0) and g + 8 (den1) from row0 on,
+// read whole from frames (lanes 2r and 2r + 1 sum row r); rows past n get 1.
+__device__ __forceinline__ void wide_dens(const float* __restrict__ frames, long row0, long n,
+                                          int d, float& den0, float& den1) {
+  const int lane = threadIdx.x % 32;
+  const long row = row0 + lane / 2;
+  float s = 0.f;
+  if (row < n)
+    for (int j = lane % 2; j < d; j += 2) {
+      const float x = __ldg(frames + row * d + j);
+      s = fmaf(x, x, s);
+    }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  const float den = row < n ? sqrtf(s) + atk::kEps : 1.f;
+  den0 = __shfl_sync(0xffffffffu, den, 2 * (lane / 4));
+  den1 = __shfl_sync(0xffffffffu, den, 2 * (lane / 4 + 8));
+}
+
+// KS: the fragments' k-steps; WIDE: the sliced walk.  The producer warp
+// loads the image items once (resident) or streams them through the ring
+// for every tile, and stages each frame tile (WIDE: each item's slice of
+// it) by the tensor map tmap (null: by cp.async); the consumers take a
+// tile's rows as fragments (normalized in place first), release its buffer
+// and walk the chunks.
+template <int KS, bool X3, bool WIDE>
 __global__ void __launch_bounds__(kTierThreads, 1)
-vq_tier_kernel(const float* __restrict__ frames, int n, int d,
-               const __nv_bfloat16* __restrict__ chi, const __nv_bfloat16* __restrict__ clo,
-               int ks, const float* __restrict__ c2, int k, int normalize, int x3,
-               int* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  const int kp = tier_rows(k), ldc = atk::tier_pitch(ks), row_len = 16 * ks;
-  const int d4 = (d + 3) / 4 * 4, ld = tier_ld(ks);
-  __nv_bfloat16* cs_hi = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* cs_lo = cs_hi + kp * ldc;
-  float* c2s = reinterpret_cast<float*>(cs_hi + kp * ldc * (x3 ? 2 : 1));
-  float* fs = c2s + kp;  // kTierRows x ld
-  const int tiles = (n + kTierRows - 1) / kTierRows;
-  const int pieces = row_len / 8;  // 16-byte pieces of a centroid row
-  for (int e = threadIdx.x; e < kp * pieces; e += kTierThreads) {
-    const int c = e / pieces, q = e - c * pieces;
-    const bool ok = c < k;
-    const size_t src = ok ? static_cast<size_t>(c) * row_len + 8 * q : 0;
-    atk::cp_async16(cs_hi + c * ldc + 8 * q, chi + src, ok);
-    if (x3) atk::cp_async16(cs_lo + c * ldc + 8 * q, clo + src, ok);
-  }
-  for (int c = threadIdx.x; c < kp; c += kTierThreads)
-    atk::cp_async4(c2s + c, c2 + (c < k ? c : 0), c < k);
-  // the features from d4 up to 16 ks are zeros the copies never write
-  for (int e = threadIdx.x; e < kTierRows * (row_len - d4); e += kTierThreads) {
-    const int r = e / (row_len - d4);
-    fs[r * ld + d4 + (e - r * (row_len - d4))] = 0.f;
-  }
-  if (blockIdx.x < tiles)
-    stage_tier_rows<VEC>(fs, frames, static_cast<long>(blockIdx.x) * kTierRows, n, d, d4, ld);
+vq_tier_kernel(const __grid_constant__ CUtensorMap tmap, int use_tmap,
+               const float* __restrict__ frames, long n, int d, const char* __restrict__ img,
+               TierPlan p, int normalize, int* __restrict__ out) {
+  constexpr int NW = KS == 4 ? 128 : 64;
+  extern __shared__ __align__(128) char smem_raw[];
+  // offset, not a cast of the address, so the compiler keeps shared loads
+  char* smem = smem_raw + ((kSmemAlign - (atk::smem_u32(smem_raw) & (kSmemAlign - 1))) &
+                           (kSmemAlign - 1));
+  char* fbuf = smem;
+  char* ring = fbuf + p.fstages * p.tile;
+  uint64_t* cfull = reinterpret_cast<uint64_t*>(ring + p.stages * p.istride);
+  uint64_t* cempty = cfull + kMaxResident;
+  uint64_t* ffull = cempty + kMaxResident;
+  uint64_t* fempty = ffull + kMaxFrameStages;
+  const CUtensorMap* tm = use_tmap ? &tmap : nullptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    atk::cp_async_wait<0>();  // this tile (and, the first time, the centroids)
-    __syncthreads();
-    if (normalize) {
-      normalize_tile<kTierRows, kTierThreads>(fs, d, ld);
-      __syncthreads();
+  const long tiles = (n + kTierRows - 1) / kTierRows;
+  const int item_at = WIDE ? p.tile : 0;  // the image's offset in a ring stage
+  if (threadIdx.x == 0) {
+    // full: lane 0's arrival with the bytes (and, copying by cp.async, each
+    // lane's arrival as its copies land)
+    for (int s = 0; s < p.stages; ++s) {
+      atk::mbar_init(cfull + s, WIDE && !tm ? 33 : 1);
+      atk::mbar_init(cempty + s, kTierConsumers / 32);
     }
-    atk::RowFrags<KS> a;
-    atk::load_row_frags(a, fs + warp * 16 * ld, ld, ks, x3);
-    __syncthreads();  // every warp holds its rows: the tile buffer is free
-    const int next = tile + gridDim.x;
-    if (next < tiles)
-      stage_tier_rows<VEC>(fs, frames, static_cast<long>(next) * kTierRows, n, d, d4, ld);
-    float best[2][2];
-    int bidx[2][2];
+    for (int s = 0; s < p.fstages; ++s) {
+      atk::mbar_init(ffull + s, tm ? 1 : 32);
+      atk::mbar_init(fempty + s, kTierConsumers / 32);
+    }
+    atk::mbar_init_fence();
+  }
+  __syncthreads();
+  if (warp >= kTierConsumers / 32) {  // the producer warpgroup: one warp works
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp > kTierConsumers / 32) return;
+    if (p.resident && lane == 0)
+      for (int i = 0; i < p.items; ++i) {
+        atk::mbar_expect(cfull + i, p.ibytes);
+        atk::bulk_copy(ring + i * p.istride, img + static_cast<size_t>(i) * p.ibytes, p.ibytes,
+                       cfull + i);
+      }
+    long g = 0;
+    int ft = 0;
+    for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ft) {
+      const long r0 = tile * kTierRows;
+      if (!WIDE && !(ATK_TIER_SPLIT & 4)) {
+        const int fb = ft % p.fstages;
+        atk::mbar_wait(fempty + fb, ((ft / p.fstages) & 1) ^ 1);
+        copy_tile<KS>(reinterpret_cast<float*>(fbuf + fb * p.tile), tm, frames, r0, n, d, 0,
+                      ffull + fb, 0);
+      }
+      if (p.resident) continue;
+      for (int i = 0; i < p.items; ++i, ++g) {
+        const int st = static_cast<int>(g % p.stages);
+        atk::mbar_wait(cempty + st, static_cast<int>((g / p.stages) & 1) ^ 1);
+        char* dst = ring + st * p.istride;
+        if (WIDE)  // the item's bytes announced with the slice's
+          copy_tile<KS>(reinterpret_cast<float*>(dst), tm, frames, r0, n, d,
+                        (i % p.slices) * 16 * KS, cfull + st, p.ibytes);
+        else if (lane == 0)
+          atk::mbar_expect(cfull + st, p.ibytes);
+        if (lane == 0)
+          atk::bulk_copy(dst + item_at, img + static_cast<size_t>(i) * p.ibytes, p.ibytes,
+                         cfull + st);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp / 4, wq = warp % 4, rw = 64 * wg + 16 * wq;  // the warp's first row
+  const int plane_bytes = p.nc * 16 * (KS + 1) * 2;
+  float best[atk::kChains][2];
+  int bidx[atk::kChains][2];
+  long g0 = 0;
+  int ft = 0;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ft, g0 += p.items) {
+    const long r0 = tile * kTierRows;
+    auto wait = [&](int i) -> const char* {
+      if (p.resident) {  // landed once for the whole launch
+        if (ft == 0) atk::mbar_wait(cfull + i, 0);
+        return ring + i * p.istride;
+      }
+      const long gi = g0 + i;
+      atk::mbar_wait(cfull + gi % p.stages, static_cast<int>((gi / p.stages) & 1));
+      return ring + (gi % p.stages) * p.istride + item_at;
+    };
+    auto release = [&](int i) {
+      if (p.resident) return;
+      __syncwarp();
+      if (lane == 0) atk::mbar_arrive(cempty + (g0 + i) % p.stages);
+    };
     atk::reset_best(best, bidx);
-    for (int n0 = 0; n0 < k; n0 += 8 * kTierTiles)
-      atk::score_tiles<KS, kTierTiles>(a, ks, x3, cs_hi + n0 * ldc, cs_lo + n0 * ldc, ldc,
-                                       c2s + n0, n0, k, best, bidx);
+    if (!WIDE) {
+      const int fb = ft % p.fstages;
+      if (!(ATK_TIER_SPLIT & 4)) atk::mbar_wait(ffull + fb, (ft / p.fstages) & 1);
+      float* f = reinterpret_cast<float*>(fbuf + fb * p.tile);
+      if (normalize) {
+        normalize_wg_rows(f, 64 * wg, d);
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      }
+      atk::RowFrags<KS> a;
+      atk::load_frags<KS, X3>(a, [&](int r, int c) {
+        return *reinterpret_cast<const float2*>(f + tile_at(rw + r, c));
+      }, false, 1.f, 1.f);
+      if (normalize) atk::fence_proxy_async();  // the rows written here before the next copy
+      __syncwarp();
+      if (lane == 0) atk::mbar_arrive(fempty + fb);  // the tile buffer is free
+      atk::scan_narrow<KS, NW, X3, true>(a, p.items, p.nc, 0, plane_bytes, wait, release, best,
+                                   bidx);
+    } else {
+      float den0 = 1.f, den1 = 1.f;
+      if (normalize) wide_dens(frames, r0 + rw, n, d, den0, den1);
+      auto load = [&](atk::RowFrags<KS>& a, int, const char* st) {
+        const float* f = reinterpret_cast<const float*>(st - item_at);
+        atk::load_frags<KS, X3>(a, [&](int r, int c) {
+          return *reinterpret_cast<const float2*>(f + tile_at(rw + r, c));
+        }, normalize != 0, den0, den1);
+      };
+      atk::scan_wide<KS, NW, X3, true>(p.chunks, p.slices, p.nc, 0, plane_bytes, wait, release,
+                                 load, best, bidx);
+    }
     atk::quad_merge(best, bidx);
-    const long r0 = static_cast<long>(tile) * kTierRows + warp * 16 + lane / 4;
+    const long row = r0 + rw + lane / 4;
     if (lane % 4 == 0) {
-      if (r0 < n) out[r0] = bidx[0][0];
-      if (r0 + 8 < n) out[r0 + 8] = bidx[0][1];
+      if (row < n) out[row] = bidx[0][0];
+      if (row + 8 < n) out[row + 8] = bidx[0][1];
     }
   }
-  atk::cp_async_wait<0>();
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's
+// cudaGetDriverEntryPoint (no link against libcuda); null where missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// The frames (n x d f32) as a 2-D tensor map of 32-feature x 128-row boxes,
+// 128-byte swizzle, zeros out of bounds; false where TMA cannot read them
+// (d % 4 or the base not 16-byte aligned).
+bool frames_map(CUtensorMap* map, const float* frames, long n, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (ATK_VQ_TMA == 0 || !encode || d % 4 || reinterpret_cast<uintptr_t>(frames) % 16) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 4};
+  const cuuint32_t box[2] = {kBox, kTierRows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(frames), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int THREADS = kThreads, typename K, typename... Args>
@@ -533,38 +756,47 @@ ATK_EXPORT int atk_vq_argmin(const float* frames, int n, int d, const float* cen
   return static_cast<int>(err);
 }
 
-// Shared memory the tiered instance needs for k centroids of d features at
-// bf16x3 (x3 = 1) or default; the wrapper refuses what passes 227 KB.
-ATK_EXPORT long atk_vq_tier_smem(int d, int k, int x3) {
-  return static_cast<long>(tier_smem((d + 15) / 16, k, x3 != 0));
+// The tiered instance's plan for k centroids of d features at bf16x3 (x3 =
+// 1) or default, as 13 ints in TierPlan's order (the wrapper's mirror is
+// held to it).
+ATK_EXPORT int atk_vq_tier_plan(int d, int k, int x3, int* out) {
+  if (k < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const TierPlan p = tier_plan(d, k, x3 != 0);
+  const int v[] = {p.ks,      p.nc,   p.wide,     p.slices, p.chunks,  p.items, p.ibytes,
+                   p.istride, p.tile, p.resident, p.stages, p.fstages, p.smem};
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  return 0;
 }
 
-// B2 at the bf16x3 (tier 1) or default (tier 2) tier.  chi, clo: the
-// centroids' bf16 split (k, 16 ks) with ks = ceil(d / 16), zeros past d;
-// clo is read at bf16x3 only.  c2 = ||c||^2 of the f32 centroids.
-ATK_EXPORT int atk_vq_argmin_tier(const float* frames, int n, int d, const void* chi,
-                                  const void* clo, const float* c2, int k, int normalize,
-                                  int tier, int* out, void* stream) {
+// B2 at the bf16x3 (tier 1) or default (tier 2) tier.  img: the centroid
+// image of tier_plan (img_bytes = items x ibytes): per chunk and feature
+// slice, the bf16 planes in wgmma's core-matrix order and the chunk's c2
+// (of the f32 centroids, +inf past k).
+ATK_EXPORT int atk_vq_argmin_tier(const float* frames, int n, int d, const void* img,
+                                  long img_bytes, int k, int normalize, int tier, int* out,
+                                  void* stream) {
   if (n <= 0) return 0;
-  const int ks = (d + 15) / 16;
   const bool x3 = tier == atk::kBf16x3;
-  if (k < 1 || d < 1 || ks > atk::kMaxKs || (tier != atk::kBf16x3 && tier != atk::kDefault))
+  if (k < 1 || d < 1 || (tier != atk::kBf16x3 && tier != atk::kDefault))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tier_smem(ks, k, x3);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const TierPlan p = tier_plan(d, k, x3);
+  if (img_bytes != static_cast<long>(p.items) * p.ibytes || (p.stages < 2 && !p.resident) ||
+      p.smem > atk::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (n + kTierRows - 1) / kTierRows;
-  const int grid = tiles < sms ? tiles : sms;
-  const auto* h = static_cast<const __nv_bfloat16*>(chi);
-  const auto* l = static_cast<const __nv_bfloat16*>(clo);
-  const bool vec = d % 4 == 0;
-  const auto kernel = ks <= 2   ? (vec ? vq_tier_kernel<2, true> : vq_tier_kernel<2, false>)
-                      : ks <= 4 ? (vec ? vq_tier_kernel<4, true> : vq_tier_kernel<4, false>)
-                                : (vec ? vq_tier_kernel<8, true> : vq_tier_kernel<8, false>);
-  err = launch<kTierThreads>(kernel, smem, grid, static_cast<cudaStream_t>(stream), frames, n, d,
-                             h, l, ks, c2, k, normalize, static_cast<int>(x3), out);
+  const long tiles = (static_cast<long>(n) + kTierRows - 1) / kTierRows;
+  const int grid = tiles < sms ? static_cast<int>(tiles) : sms;
+  CUtensorMap map{};
+  const int use_map = frames_map(&map, frames, n, d);
+  const auto* im = static_cast<const char*>(img);
+  const auto kernel =
+      p.ks == 4 ? (x3 ? vq_tier_kernel<4, true, false> : vq_tier_kernel<4, false, false>)
+      : p.wide  ? (x3 ? vq_tier_kernel<8, true, true> : vq_tier_kernel<8, false, true>)
+                : (x3 ? vq_tier_kernel<8, true, false> : vq_tier_kernel<8, false, false>);
+  err = launch<kTierThreads>(kernel, p.smem, grid, static_cast<cudaStream_t>(stream), map,
+                             use_map, frames, static_cast<long>(n), d, im, p, normalize, out);
   return static_cast<int>(err);
 }

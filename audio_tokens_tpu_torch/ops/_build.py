@@ -120,6 +120,8 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+SMEM_LIMIT = 232448  # dynamic shared memory a block may have on the H100
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_long

@@ -26,9 +26,11 @@ DFT and mel products, ``vq_tier`` the centroid-distance product, each
 tensor cores).  Their bf16 operands are split once, here, when the kernel is
 built: the basis and the filterbank transposed (bins x samples, bands x
 bins; rows to a multiple of 32, bins of 64, bands of 16) and the centroids
-(bands to a multiple of 16), as the JAX kernel splits its centroids on the
-host.  The tensor-core DFT needs hop a multiple of 16 and the bf16 argmin
-at most 128 mel bands; other shapes raise ``ValueError`` on the card.
+as the argmin's image (``cuda_vq.tier_image``: chunks of 128 centroids,
+slices of 64 bands), as the JAX kernel splits its centroids on the host.
+The tensor-core DFT needs hop a multiple of 16 and at most 128 mel bands;
+other shapes raise ``ValueError`` on the card.  The bf16 argmin takes any
+number of bands, as the JAX megakernel does (``kernel_fits``).
 
 ``TokenizerKernel`` is an ``nn.Module`` whose buffers are the basis,
 filterbank and centroids, so that a traced serving program owns them.  Its
@@ -51,6 +53,7 @@ from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
 from audio_tokens_tpu_torch.ops.cuda_vq import (
     MAX_SMEM,
     bf16_split_rows,
+    tier_image,
     vq_argmin_plain,
 )
 from audio_tokens_tpu_torch.ops.mel import (
@@ -61,6 +64,9 @@ from audio_tokens_tpu_torch.ops.mel import (
 from audio_tokens_tpu_torch.ops.tiers import TIERS, check_tier, tier_matmul
 
 ROW_STAGE, BIN_PASS = 32, 64  # the tensor-core DFT's sample and bin steps
+# the tiered argmin's chunk (centroids) and slice (k-steps of 16 bands):
+# csrc/common.cuh's kB1Chunk, kB1Ks
+ARGMIN_CHUNK, ARGMIN_KS = 128, 4
 
 
 def log_mel_plain(padded: torch.Tensor, basis: torch.Tensor,
@@ -98,7 +104,7 @@ def _lib():
     if fn.argtypes is None:
         P, I, L = _build.P, _build.I, _build.L
         fn.argtypes = [
-            P, I, L, L, I, I, I, P, I, P, I, P, I, I, P, P, P, I, P, I, I,
+            P, I, L, L, I, I, I, P, I, P, I, P, I, I, P, P, P, I, P, L, I, I,
             P, P]
         fn.restype = I
         lib.atk_tokenize_tier_smem.argtypes = [I, I, I, I, I]
@@ -148,7 +154,10 @@ def _tokenize_cuda(padded, basis, fbank, centroids, c2, n_fft, hop,
             if t is None:
                 raise ValueError(f"{name} is required at tiers ({tier}, "
                                  f"{vq_tier})")
-            check_cuda_tensor(name, t, torch.bfloat16, 3)
+            if name == "tcent":  # the argmin's centroid image
+                check_cuda_tensor(name, t, torch.uint8, 1)
+            else:
+                check_cuda_tensor(name, t, torch.bfloat16, 3)
     tensors = [padded, basis, fbank, centroids, c2,
                *(t for t in split.values() if t is not None)]
     if len({t.device for t in tensors}) != 1:
@@ -161,15 +170,12 @@ def _tokenize_cuda(padded, basis, fbank, centroids, c2, n_fft, hop,
     k, m = centroids.shape
     out = torch.empty((b, n_frames), dtype=torch.int32, device=padded.device)
     lib = _lib()
-    if vq_tier != "highest" and m > 128:
-        raise ValueError(f"B1 at vq_tier '{vq_tier}' takes at most 128 mel "
-                         f"bands, got {m}")
     trows = tnb = 0
     if tier != "highest":
         trows, tnb = tbasis.shape[2], tbasis.shape[1] // 2
         smem = lib.atk_tokenize_tier_smem(hop, trows, m,
                                           int(tier == "bf16x3"),
-                                          int(vq_tier != "highest"))
+                                          TIERS.index(vq_tier))
         if hop % 16 or m > 128 or smem > MAX_SMEM:
             raise ValueError(
                 f"B1 at tier '{tier}' needs hop a multiple of 16, at most "
@@ -186,7 +192,9 @@ def _tokenize_cuda(padded, basis, fbank, centroids, c2, n_fft, hop,
             basis.shape[0], basis.data_ptr(), basis.shape[1] // 2,
             fbank.data_ptr(), m, ptr(split["tbasis"]), trows, tnb,
             ptr(split["tfbank"]), centroids.data_ptr(), c2.data_ptr(), k,
-            ptr(split["tcent"]), TIERS.index(tier), TIERS.index(vq_tier),
+            ptr(split["tcent"]),
+            0 if split["tcent"] is None else split["tcent"].numel(),
+            TIERS.index(tier), TIERS.index(vq_tier),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "tokenize")
     TokenizerKernel.launches += 1
@@ -270,8 +278,9 @@ class TokenizerKernel(nn.Module):
             self.register_buffer("_tfbank", bf16_split_rows(tf, tier).to(
                 self.device))
         if vq_tier != "highest":
-            self.register_buffer("_tcent", bf16_split_rows(
-                torch.from_numpy(cent), vq_tier).to(self.device))
+            self.register_buffer("_tcent", tier_image(
+                torch.from_numpy(cent), vq_tier, ARGMIN_CHUNK, ARGMIN_KS,
+                False).to(self.device))
 
     def log_mel_plain(self, padded: torch.Tensor) -> torch.Tensor:
         """(B, n_frames, M) dB features as the plain version computes them."""

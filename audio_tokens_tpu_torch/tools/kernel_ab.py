@@ -2,6 +2,7 @@
 
     python -m audio_tokens_tpu_torch.tools.kernel_ab
         --kernel attention|attention-f32|lstm|lstm-dw|lstm-fwd|tokenizer|vq
+                 |tokenizer-tier|vq-tier
         [--rounds 5] [--variant NAME:KEY=VAL,KEY=VAL ...]
         [--source NAME:path/<source>.cu[:KEY=VAL,..]]
 
@@ -62,7 +63,28 @@ kernels), on the shapes ``chip_smoke.py`` uses:
   frames at K 500 (seed 9; the rows too wide for the whole-row ring, walked
   in feature slices), also normalized beforehand and assigned with
   ``normalize=False`` (the normalization's share), each variant's ids held
-  to the plain version under the near-tie rule.
+  to the plain version under the near-tie rule;
+- ``vq-tier`` (B2 at the bf16x3 and default tiers, ``vq.cu``'s tiered
+  instance; knob ``ATK_TIER_SPLIT``): the Lloyd assignment's 17.23M x 64
+  x 500 (one default clustering batch of Gaussian rows, centroids drawn
+  from them), K 16,384 at N 110,272, d 128 at K 500 on 110,272 rows and
+  d 640 (the conv front-end's) at K 500 on 882,176 rows, both tiers each,
+  ``normalize=False`` as the Lloyd loop calls it; each variant's ids held
+  to the plain tier version under ``check_tier_ties`` (on the first
+  262,144 rows of the 17.23M); a shape a source refuses is reported so;
+- ``tokenizer-tier`` (B1's tiered argmin, ``tokenizer.cu``; knob
+  ``ATK_TIER_SPLIT``): ``FusedTokenizer`` at (highest, bf16x3), (bf16x3,
+  bf16x3) and (default, default) on 64 ten-second clips at K 500 and
+  16,384, tokens held to the plain tier version under ``check_tier_ties``.
+
+``ATK_TIER_SPLIT`` splits the tiered product's time (``common.cuh``): 1
+drops the compare-select epilogue, 2 the products, 3 both, leaving the
+copies, barriers and fragment loads; in B2 4 drops the frame tiles' copies
+and waits (4: products and epilogue, 5: products, 6: epilogue alone; wrong
+ids, by design: ``--variant compute-only:ATK_TIER_SPLIT=4``).
+``ATK_VQ_TMA=0`` stages B2's frame tiles by cp.async instead of the tensor
+map.  ``tools/tier_mma_sync_split.patch`` adds the knob to the earlier
+mma.sync design (its header says how to time that tree).
 
 A variant built with ``ATK_LSTM_TIMERS=1`` (``lstm`` and ``lstm-fwd``)
 also reports its per-phase cycle counters (``b3_unit4_timers.patch`` adds
@@ -96,6 +118,9 @@ from typing import Callable, Dict, List, Tuple
 
 from audio_tokens_tpu_torch.ops import _build
 
+TIER_SPLIT_VARIANTS = ("default:", "no-epilogue:ATK_TIER_SPLIT=1",
+                       "no-products:ATK_TIER_SPLIT=2",
+                       "staging-only:ATK_TIER_SPLIT=3")
 DEFAULT_VARIANTS = {
     "attention": (
         "default:",
@@ -124,6 +149,8 @@ DEFAULT_VARIANTS = {
     ),
     "vq": ("default:", "ring:ATK_VQ_RING=1", "ring-2-stages:ATK_VQ_STAGES=2",
            "ring-4-stages:ATK_VQ_STAGES=4"),
+    "vq-tier": TIER_SPLIT_VARIANTS,
+    "tokenizer-tier": TIER_SPLIT_VARIANTS,
     "lstm": (
         "default:",
         "timers:ATK_LSTM_TIMERS=1",
@@ -158,14 +185,22 @@ PTXAS_KERNELS = {
     "tokenizer": (("tokenizer_kernelILi64ELb1E", "B1<64>"),
                   ("tokenizer_kernelILi128ELb1E", "B1<128>"),
                   ("tokenizer_kernelv", "B1 (first design)")),
+    "vq-tier": (("vq_tier_kernelILi4ELb1ELb0E", "B2 tiered <4, bf16x3>"),
+                ("vq_tier_kernelILi4ELb0ELb0E", "B2 tiered <4, default>"),
+                ("vq_tier_kernelILi8ELb1ELb0E", "B2 tiered <8, bf16x3>"),
+                ("vq_tier_kernelILi8ELb1ELb1E", "B2 tiered <8, bf16x3, wide>")),
+    "tokenizer-tier": (("tokenizer_kernelILi128ELb1ELb1E", "B1<128> f32 + tier argmin"),
+                       ("tokenizer_mma_kernelILb1E", "B1 mma + tier argmin")),
 }
 SOURCES = {"attention": "attention", "attention-f32": "attention",
            "lstm": "lstm", "lstm-dw": "lstm", "lstm-fwd": "lstm",
-           "tokenizer": "tokenizer", "vq": "vq"}
+           "tokenizer": "tokenizer", "vq": "vq", "vq-tier": "vq",
+           "tokenizer-tier": "tokenizer"}
 MODULES = {"attention": "cuda_attention", "attention-f32": "cuda_attention",
            "lstm": "cuda_lstm",
            "lstm-dw": "cuda_lstm", "lstm-fwd": "cuda_lstm",
-           "tokenizer": "cuda_tokenizer", "vq": "cuda_vq"}
+           "tokenizer": "cuda_tokenizer", "vq": "cuda_vq",
+           "vq-tier": "cuda_vq", "tokenizer-tier": "cuda_tokenizer"}
 # the phases of the cycle counters (csrc/lstm.cu, ATK_LSTM_TIMERS)
 TIMER_PHASES = {
     "lstm-fwd": ("inputs", "h loads", "product", "sum", "cell + stores",
@@ -542,6 +577,113 @@ def vq_case(gen):
             timed, outputs)
 
 
+# vq-tier: (label, rows, d, K), each at both tiers
+VQ_TIER_CASES = (("17.23M x 64 x 500", 17_230_000, 64, 500),
+                 ("K 16384", 110_272, 64, 16384),
+                 ("d 128", 110_272, 128, 500),
+                 ("d 640", 882_176, 640, 500))
+VQ_TIER_CHECK_ROWS = 1 << 18
+
+
+def vq_tier_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for B2's tiers."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.tiers import check_tier_ties
+
+    cases, refs = {}, {}
+    card_gen = torch.Generator(device="cuda").manual_seed(6)
+    for label, n, d, k in VQ_TIER_CASES:
+        x = torch.randn((n, d), generator=card_gen, device="cuda")
+        c = x[torch.randperm(n, generator=card_gen, device="cuda")[:k]].clone()
+        for tier in ("bf16x3", "default"):
+            name = f"{label} {tier}"
+            cases[name] = (x, c, tier)
+            refs[name] = vq_argmin_plain(x[:VQ_TIER_CHECK_ROWS], c, False,
+                                         tier=tier)
+
+    def outputs():
+        got, notes = [], []
+        for name, (x, c, tier) in cases.items():
+            try:
+                ids = vq_argmin(x, c, False, tier)
+            except ValueError as e:
+                notes.append(f"{name}: refused ({e})")
+                continue
+            got.append(ids)
+            try:
+                frac, _, worst = check_tier_ties(
+                    x[:VQ_TIER_CHECK_ROWS], c, ids[:VQ_TIER_CHECK_ROWS],
+                    refs[name], tier)
+                notes.append(f"{name}: {frac:.2e} apart from the plain tier "
+                             f"version ({worst:.3f} of the bound)")
+            except AssertionError as e:
+                notes.append(f"{name}: FAILS the tier's near-tie rule: {e}")
+        return tuple(got), "; ".join(notes)
+
+    def timed_fn(x, c, tier):
+        def run():
+            try:
+                vq_argmin(x, c, False, tier)
+            except ValueError:  # the source refuses the shape
+                raise AttributeError("refused")
+        return run
+
+    timed = {name: timed_fn(*case) for name, case in cases.items()}
+    return ("B2 tiers: Gaussian rows, centroids drawn from them, "
+            "normalize=False", timed, outputs)
+
+
+def tokenizer_tier_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for B1's tiers."""
+    import numpy as np
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.tiers import check_tier_ties
+    from audio_tokens_tpu_torch.ops.vq import l2_normalize
+    from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
+
+    clips = synthetic_clips(64)
+    kerns, x = {}, None
+    for k, seed in ((500, 7), (16384, 8)):
+        cents = np.random.default_rng(seed).standard_normal((k, 64))
+        cents = (cents / (np.linalg.norm(cents, axis=1, keepdims=True)
+                          + 1e-10)).astype(np.float32)
+        for tier, vq in (("highest", "bf16x3"), ("bf16x3", "bf16x3"),
+                         ("default", "default")):
+            cfg = AudioTokensConfig(clip_seconds=10.0, vocab_size=k,
+                                    tokenizer_precision=tier,
+                                    tokenizer_vq_precision=vq)
+            tok = FusedTokenizer(cfg, cents, torch.device("cuda", 0))
+            if x is None:
+                x = torch.from_numpy(tok.frontend.prepare_batch(clips)[0]
+                                     ).cuda()
+            kern = tok.kernel
+            kerns[f"K {k} {tier}/{vq}"] = (
+                kern, kern.plain(x), l2_normalize(kern.log_mel_plain(x)),
+                "default" if "default" in (tier, vq) else "bf16x3")
+
+    def outputs():
+        got, notes = [], []
+        for name, (kern, ref, unit, coarse) in kerns.items():
+            ids = kern(x)
+            got.append(ids)
+            try:
+                frac, _, worst = check_tier_ties(unit, kern.centroids, ids,
+                                                 ref, coarse)
+                notes.append(f"{name}: {frac:.2e} apart from the plain tier "
+                             f"version ({worst:.3f} of the bound)")
+            except AssertionError as e:
+                notes.append(f"{name}: FAILS the tier's near-tie rule: {e}")
+        return tuple(got), "; ".join(notes)
+
+    timed = {name: (lambda kern=v[0]: kern(x)) for name, v in kerns.items()}
+    return (f"B1 tiers: {tuple(x.shape)} waveforms, 64 mel bands",
+            timed, outputs)
+
+
 def synthetic_clips(n: int, sr: int = 22050, seconds: float = 10.0):
     """bench.py's synthetic clips: two partials plus noise, seeded."""
     import numpy as np
@@ -589,7 +731,8 @@ def tokenizer_case(gen):
 CASES = {"attention": attention_case, "attention-f32": attention_f32_case,
          "lstm": lstm_case,
          "lstm-dw": lstm_dw_case, "lstm-fwd": lstm_fwd_case,
-         "tokenizer": tokenizer_case, "vq": vq_case}
+         "tokenizer": tokenizer_case, "vq": vq_case,
+         "vq-tier": vq_tier_case, "tokenizer-tier": tokenizer_tier_case}
 
 
 def phase_split(lib, kernel: str, fn) -> str:

@@ -176,7 +176,14 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ids, as B1 (yardstick ``torch.matmul`` + argmin in bf16), and
    ``KMeans.train`` at ``kmeans_precision`` high and default against the
    ``highest`` fit: objective drift (within ``KMEANS_DRIFT``), ids apart,
-   ms an iteration (``kmeans_<tier>``); phase 8's pipeline on its audio with
+   ms an iteration (``kmeans_<tier>``); B2 at both tiers at the shapes its
+   earlier design refused (``TIER_SHAPES``: K 16,384 at 110,272 rows, d 128,
+   d 640 at 882,176 rows; ``tiers_b2_<tier>_<shape>``), each against its
+   plain tier version as above, with its launch plan, and ``KMeans.train``
+   at high at K 16,384 on 1.723M rows (``kmeans_high_k16384``); the split
+   of the tiered search, B2 at 17.23M x 64 x 500 and B1 at K 16,384 in each
+   ``ATK_TIER_SPLIT`` build (compiled beside phases 3-11) beside the
+   default one (``[tiers split <build>]``); phase 8's pipeline on its audio with
    ``use_convolution=True`` (B2's sliced instance at d 640; 8 clips' tokens
    against the CPU) and with ``audio_backend="native"``,
    ``pcm_wire="i16"`` (centroids and tokens against phase 8's), each
@@ -197,6 +204,7 @@ nonzero before doing anything.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import logging
@@ -2363,8 +2371,206 @@ def tiers_pipelines(records: list, dev, base: Path, cfg, cents) -> None:
         torch.cuda.empty_cache()
 
 
+# phase 12: B2 at the bf16 tiers at the shapes the mma.sync design refused
+# (label, rows, d, K): the north star's vocabulary, 128 mel bands, the conv
+# front-end's width; unit Gaussian rows, centroids drawn from them
+TIER_SHAPES = (("K 16384", 110_272, 64, VOCAB_LARGE),
+               (f"d {D_WIDE}", 110_272, D_WIDE, VOCAB),
+               ("d 640", 882_176, 640, VOCAB))
+# KMeans.train at kmeans_precision high at K 16,384: a tenth of a default
+# clustering batch's rows, 5 iterations
+KMEANS_LARGE_ROWS, KMEANS_LARGE_ITERS = 1_723_000, 5
+# the split of the tiered search (tools/kernel_ab.py's ATK_TIER_SPLIT)
+TIER_SPLITS = (("no-epilogue", 1), ("no-products", 2), ("staging-only", 3))
+_split_procs: list = []
+
+
+def start_split_builds() -> dict:
+    """nvcc for each ATK_TIER_SPLIT build of vq.cu and tokenizer.cu, all
+    started together and left to run beside phases 3-11 (the CPU is idle
+    there); -> {(source, split): (library, log, process)}."""
+    from audio_tokens_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "split"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in ("vq", "tokenizer"):
+        for name, bit in TIER_SPLITS:
+            lib = out / f"lib{src}_{name}.so"
+            log_f = open(lib.with_suffix(".log"), "w")
+            proc = subprocess.Popen(
+                _build.nvcc_command(src, lib, [f"ATK_TIER_SPLIT={bit}"]),
+                stdout=log_f, stderr=subprocess.STDOUT)
+            _split_procs.append(proc)
+            procs[(src, name)] = (lib, log_f, proc)
+    return procs
+
+
+@atexit.register
+def _stop_split_builds() -> None:
+    for proc in _split_procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def tiers_search(records: list, dev) -> None:
+    """B2 at bf16x3 and default at ``TIER_SHAPES`` against its plain tier
+    version (``check_tier_ties``) and to its tier against the ``highest``
+    ids (``check_follows_tier``), a record each, yardstick ``torch.matmul``
+    + argmin in bf16; then ``KMeans.train`` at high at K 16,384."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_vq import (vq_argmin, vq_argmin_plain,
+                                                    vq_tier_plan)
+    from audio_tokens_tpu_torch.ops.tiers import (check_follows_tier,
+                                                  check_tier_ties)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    by_shape = {}
+    for label, n, d, k in TIER_SHAPES:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        x /= torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-10
+        c = x[torch.randperm(n, generator=gen, device=dev)[:k]].clone()
+        highest = vq_argmin(x, c, False)
+        c2 = (c * c).sum(1)[None, :]
+        x_bf, c_bf = x.to(torch.bfloat16), c.to(torch.bfloat16)
+
+        def matmul_argmin():  # yardstick: bf16 cuBLAS GEMMs, argmin
+            step = max(1, (1 << 31) // (4 * k))
+            return torch.cat([(c2 - 2.0 * torch.matmul(
+                x_bf[i:i + step], c_bf.T).float()).argmin(1)
+                for i in range(0, n, step)])
+
+        lib_ms = cuda_ms(matmul_argmin, 3)
+        for tier in ("bf16x3", "default"):
+            torch.cuda.synchronize()
+            vq_argmin.launches = 0
+            got = vq_argmin(x, c, False, tier)
+            torch.cuda.synchronize()
+            launches = vq_argmin.launches
+            plain = vq_argmin_plain(x, c, False, tier=tier)
+            frac, gap, worst = check_tier_ties(x, c, got, plain, tier)
+            flip, followed = check_follows_tier(got, plain, highest, tier,
+                                                min_rows=20, band=False)
+            ms = cuda_ms(lambda: vq_argmin(x, c, False, tier), 5)
+            plain_ms = cuda_ms(lambda: vq_argmin_plain(x, c, False,
+                                                       tier=tier), 1)
+            b_ms, b_by = tier_bound({tier: 2 * n * k * d},
+                                    x.numel() * 4 + n * 4 + c.numel() * 4)
+            plan = vq_tier_plan(k, d, tier)
+            if launches != 1:
+                raise AssertionError(f"B2 {tier} {label}: {launches} "
+                                     f"launches")
+            log(f"[tiers B2 {tier} {label}] {n} x {d} x {k} "
+                f"({plan.instance}, {plan.chunks} chunks of {plan.nc}, "
+                f"{plan.slices} slices, {'resident' if plan.resident else f'{plan.stages}-stage ring'}, "
+                f"{plan.smem} B shared): {frac:.2e} of the ids apart from "
+                f"the plain tier version (largest gap {gap:.3e}, "
+                f"{worst:.3f} of its bound), {flip:.3e} apart from highest, "
+                f"the plain tier's answer taken where it leaves highest: "
+                f"{fmt_share(followed)}; kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+                f"torch.matmul + argmin in bf16 {lib_ms:.3f} ms; launches "
+                f"{launches}")
+            records.append(dict(
+                name=f"B2 vq at tier {tier}, {n} x {d} x {k}",
+                route="cuda", source="audio_tokens_tpu_torch/csrc/vq.cu",
+                replaces="audio_tokens_tpu/ops/pallas_vq.py:37",
+                max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                launches_by_path={
+                    f"tiers_b2_{tier}_{label.replace(' ', '')}": launches}))
+            by_shape[label, tier] = records[-1]
+            del got, plain
+        del x, c, highest, x_bf, c_bf
+        torch.cuda.empty_cache()
+    # the clustering stage's fit at high at the north star's vocabulary
+    x = torch.randn((KMEANS_LARGE_ROWS, 64), generator=gen, device=dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-10
+    fit = km.KMeans(64, VOCAB_LARGE, niter=KMEANS_LARGE_ITERS, seed=0,
+                    precision="high", device=dev)
+    torch.cuda.synchronize()
+    vq_argmin.launches = 0
+    t0 = time.perf_counter()
+    fit.train(x)
+    torch.cuda.synchronize()
+    fit_s, launches = time.perf_counter() - t0, vq_argmin.launches
+    if launches != KMEANS_LARGE_ITERS or not np.isfinite(fit.obj):
+        raise AssertionError(f"KMeans high at K {VOCAB_LARGE}: {launches} "
+                             f"launches, objective {fit.obj}")
+    log(f"[tiers kmeans K {VOCAB_LARGE}] high: KMeans.train on "
+        f"{KMEANS_LARGE_ROWS} x 64, {KMEANS_LARGE_ITERS} iterations, "
+        f"{fit_s:.3f} s ({fit_s / KMEANS_LARGE_ITERS * 1e3:.2f} ms an "
+        f"iteration), objective {fit.obj:.6f}; launches {launches}")
+    by_shape[TIER_SHAPES[0][0], "bf16x3"]["launches_by_path"][
+        f"kmeans_high_k{VOCAB_LARGE}"] = launches
+    del x, fit
+    torch.cuda.empty_cache()
+
+
+def tiers_split(dev, cfg, procs: dict) -> None:
+    """The split of the tiered search: each ATK_TIER_SPLIT build beside
+    the default one, B2 at one default clustering batch (17.23M x 64 x 500,
+    both tiers) and B1 at K 16,384 (its three combos), in turns."""
+    import ctypes
+
+    import torch
+
+    from audio_tokens_tpu_torch.ops import _build, cuda_tokenizer, cuda_vq
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
+    from audio_tokens_tpu_torch.tools.bench_tokenizer_tiers import COMBOS
+
+    libs = {}
+    for key, (lib, log_f, proc) in procs.items():
+        rc = proc.wait()
+        log_f.close()
+        if rc:
+            raise RuntimeError(f"nvcc failed for {key}:\n"
+                               + lib.with_suffix(".log").read_text())
+        cdll = ctypes.CDLL(str(lib))
+        cdll.atk_error_string.argtypes = [ctypes.c_int]
+        cdll.atk_error_string.restype = ctypes.c_char_p
+        libs[key] = cdll
+    modules = {"vq": cuda_vq, "tokenizer": cuda_tokenizer}
+    default = {src: _build.load(src) for src in modules}
+    x = kmeans_rows(cfg, dev)
+    c = x[torch.randperm(x.shape[0], device=dev)[:VOCAB]].clone()
+    fe = MelFrontend("cpu", SR, cfg.n_mels, cfg.n_fft, cfg.hop_length,
+                     cfg.clip_samples)
+    wave = torch.from_numpy(fe.prepare_batch(make_clips(BATCH))[0]).to(dev)
+    cents = make_centroids(VOCAB_LARGE, 8)
+    kerns = {f"{t}/{v}": TokenizerKernel(SR, cfg.n_mels, cfg.n_fft,
+                                         cfg.hop_length, fe.frames_max, cents,
+                                         dev, t, v)
+             for t, v in COMBOS if (t, v) != ("highest", "highest")}
+    try:
+        for name in ["default"] + [n for n, _ in TIER_SPLITS]:
+            for src, mod in modules.items():
+                _build._loaded[src] = (default[src] if name == "default"
+                                       else libs[(src, name)])
+                mod._lib()
+            b2 = {t: cuda_ms(lambda t=t: cuda_vq.vq_argmin(x, c, False, t), 3)
+                  for t in ("bf16x3", "default")}
+            b1 = {combo: cuda_ms(lambda k=k: k(wave), 5)
+                  for combo, k in kerns.items()}
+            log(f"[tiers split {name}] B2 {x.shape[0]} x 64 x {VOCAB}: "
+                + ", ".join(f"{t} {ms:.3f} ms" for t, ms in b2.items())
+                + f"; B1 at K {VOCAB_LARGE}: "
+                + ", ".join(f"{combo} {ms:.3f} ms" for combo, ms in b1.items()))
+    finally:
+        for src, mod in modules.items():
+            _build._loaded[src] = default[src]
+            mod._lib()
+    del x, c, wave, kerns
+    torch.cuda.empty_cache()
+
+
 def tiers_phase(records: list, dev, base: Path, cfg, cents,
-                python_bench: dict) -> None:
+                python_bench: dict, split_procs: dict) -> None:
     """Phase 12: B1's tier combos, B2's tiers and K-means at them, the conv
     and native pipelines, and ``serve_bench`` with the native decoder for
     tokens and the lstm (beside phase 11's python decode)."""
@@ -2377,6 +2583,7 @@ def tiers_phase(records: list, dev, base: Path, cfg, cents,
     t_phase = time.perf_counter()
     tiers_b1(records, dev)
     tiers_kmeans(records, cfg, dev)
+    tiers_search(records, dev)
     tiers_pipelines(records, dev, base, cfg, cents)
     kernels = (TokenizerKernel, lstm_sequence_fwd)
     for tag, extra, must in (("tokens", [], (0,)),
@@ -2408,6 +2615,7 @@ def tiers_phase(records: list, dev, base: Path, cfg, cents,
         for rec, n in zip((records[0], records[2]), launches):
             if n:
                 rec["launches_by_path"][f"serve_bench_native_{tag}"] = n
+    tiers_split(dev, cfg, split_procs)
     log(f"[tiers] phase 12 took {time.perf_counter() - t_phase:.1f} s "
         f"(host clock)")
 
@@ -2452,6 +2660,7 @@ def main() -> int:
     for name in _build.KERNELS:
         for kernel, usage in ptxas_usage(_build.BUILD_DIR / f"lib{name}.log"):
             log(f"[build] {name} {kernel}: {usage}")
+    split_procs = start_split_builds()  # phase 12's, built meanwhile
 
     # -- 3. kernels vs plain on the card ------------------------------------
     cfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS, **MODEL)
@@ -3034,7 +3243,7 @@ def main() -> int:
                                         Path(bt_cfg.checkpoint_dir))
             # -- 12. the tiers, the conv front-end, the native decoder ---------
             tiers_phase(records, dev, pipe, staged_cfg, staged_cents,
-                        python_bench)
+                        python_bench, split_procs)
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -149,10 +149,15 @@ def test_cuda_tokenizer_tiles_match_plain(cuda_device, n_fft, hop, n_mels,
     assert torch.equal(kern(wide), got)
 
 
-# B2 at the bf16 tiers: its one (resident) instance at K 1, 300 and 500
-# (the Lloyd assignment's), d 10 (4-byte copies), 32, 64 and 100, and the
-# shapes it refuses (the centroids do not fit in shared memory)
-VQ_TIER_SHAPES = [(1, 10), (300, 32), (500, 64), (500, 12), (100, 100)]
+# B2 at the bf16 tiers (csrc/vq.cu's wgmma instance): K 1, 300 and 500 (the
+# Lloyd assignment's), d 10 (cp.async rows), 32, 64 and 100; the shapes the
+# mma.sync design refused: K 545 and 1,089 (past what stays resident at
+# bf16x3 and default; not multiples of the 128-wide chunk), 16,384 (the
+# ring), d 128 (8 k-steps of fragments) and 640 (feature slices); K 1,100 at
+# d 100 (64-wide chunks, a partial last one)
+VQ_TIER_SHAPES = [(1, 10), (300, 32), (500, 64), (500, 12), (100, 100),
+                  (545, 64), (1089, 64), (16384, 64), (500, 128), (500, 640),
+                  (1100, 100)]
 
 
 @pytest.mark.cuda
@@ -189,13 +194,14 @@ def test_cuda_vq_tier_matches_plain(cuda_device, k, d, normalize, tier):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", ["bf16x3", "default"])
+@pytest.mark.parametrize("k", [500, 16384])
 def test_cuda_vq_tier_duplicated_centroids_take_the_lowest_index(cuda_device,
-                                                                 tier):
+                                                                 k, tier):
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
 
     rng = np.random.default_rng(5)
-    c = rng.standard_normal((500, 64)).astype(np.float32)
-    dups = (3, 19, 130, 499)
+    c = rng.standard_normal((k, 64)).astype(np.float32)
+    dups = (3, 19, 130, k - 1)
     c[list(dups)] = c[dups[0]]
     x = rng.standard_normal((1000, 64)).astype(np.float32)
     x[::13] = c[dups[0]]
@@ -205,14 +211,78 @@ def test_cuda_vq_tier_duplicated_centroids_take_the_lowest_index(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
 @pytest.mark.parametrize("k,d", [(16384, 64), (500, 130)])
-def test_cuda_vq_tier_refuses_what_does_not_fit(cuda_device, k, d):
+def test_cuda_vq_tier_takes_what_the_resident_design_refused(cuda_device, k,
+                                                             d, tier):
+    """The shapes the mma.sync design refused with ValueError launch once
+    and hold to their plain tier version (d 130: rows of 520 bytes, copied
+    4 bytes at a time; a view off 16-byte alignment)."""
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+    from audio_tokens_tpu_torch.ops.tiers import check_tier_ties
+
+    rng = np.random.default_rng(k + d)
+    x = torch.from_numpy(rng.standard_normal((5001, d)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    x = x.to(cuda_device)[1:]
+    c = c.to(cuda_device)
+    before = vq_argmin.launches
+    got = vq_argmin(x, c, False, tier)
+    assert vq_argmin.launches == before + 1
+    check_tier_ties(x, c, got, vq_argmin_plain(x, c, False, tier=tier), tier)
+
+
+# (K, d) of the plan test: the CPU tests' grid (tests/test_torch_tiers.py)
+TIER_PLAN_SHAPES = [(k, d) for k in (1, 500, 1100, 16384)
+                    for d in (12, 64, 100, 128, 130, 640)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_cuda_vq_tier_plan_is_the_c_plan(cuda_device, tier):
+    """ops/cuda_vq.vq_tier_plan (by which the wrapper lays out the image)
+    equals csrc/vq.cu's tier_plan (by which the kernel reads it)."""
+    import ctypes
+    import dataclasses
+
+    from audio_tokens_tpu_torch.ops.cuda_vq import _lib, vq_tier_plan
+
+    lib = _lib()
+    for k, d in TIER_PLAN_SHAPES:
+        plan = vq_tier_plan(k, d, tier)
+        out = (ctypes.c_int * len(dataclasses.fields(plan)))()
+        assert lib.atk_vq_tier_plan(d, k, int(tier == "bf16x3"), out) == 0
+        assert list(out) == list(dataclasses.astuple(plan)), (k, d)
+
+
+# the K-means objective's drift a tier's fit may show (chip_smoke.py's
+# KMEANS_DRIFT, there against the highest fit)
+KMEANS_DRIFT = {"high": 1e-6, "default": 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("k,d", [(1100, 64), (64, 640)])
+def test_cuda_kmeans_tier_fit_matches_the_plain_fit(cuda_device, k, d,
+                                                    precision):
+    """KMeans.train at the tier on the card (B2) against the same fit on
+    the CPU (the plain tier version): the objectives within KMEANS_DRIFT."""
+    from audio_tokens_tpu_torch.ops import kmeans as km
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
 
-    x = torch.zeros((10, d), device=cuda_device)
-    c = torch.ones((k, d), device=cuda_device)
-    with pytest.raises(ValueError, match=f"K {k} x d {d}"):
-        vq_argmin(x, c, False, "bf16x3")
+    rng = np.random.default_rng(k + d)
+    centers = rng.standard_normal((k, d)) * 2.0
+    x = (centers[rng.integers(0, k, 100_000)]
+         + rng.standard_normal((100_000, d))).astype(np.float32)
+    init = x[rng.choice(len(x), k, replace=False)].copy()
+    card = km.KMeans(d, k, niter=5, precision=precision, device=cuda_device)
+    before = vq_argmin.launches
+    card_obj = card.train(x, init_centroids=init)
+    assert vq_argmin.launches == before + 5
+    cpu = km.KMeans(d, k, niter=5, precision=precision, device="cpu")
+    cpu_obj = cpu.train(x, init_centroids=init)
+    assert np.isfinite(card_obj)
+    assert abs(card_obj - cpu_obj) <= KMEANS_DRIFT[precision] * abs(cpu_obj)
 
 
 # (tier, vq_tier): every combination with a bf16 tier
@@ -223,7 +293,8 @@ TOKENIZER_TIERS = [(t, v) for t in ("highest", "bf16x3", "default")
 # narrow case with K 300 (chunks of 64 centroids, a partial last one) and a
 # 64-frame f32 tile (hop 256 at n_fft 512)
 TOKENIZER_TIER_CASES = [(512, 128, 64, 500), (512, 128, 64, 16384),
-                        (256, 128, 32, 300), (512, 256, 64, 300)]
+                        (256, 128, 32, 300), (512, 256, 64, 300),
+                        (512, 128, 64, 16383)]
 
 
 @pytest.mark.cuda
@@ -257,6 +328,34 @@ def test_cuda_tokenizer_tiers_match_plain(cuda_device, n_fft, hop, n_mels, k,
     highest = TokenizerKernel(22050, n_mels, n_fft, hop, fe.frames_max, cents,
                               cuda_device)(x)
     check_follows_tier(got, ref, highest, coarse, min_rows=20, band=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vq_tier", ["bf16x3", "default"])
+@pytest.mark.parametrize("n_mels,k", [(128, 500), (130, 700)])
+def test_cuda_tokenizer_vq_tier_takes_wide_mels(cuda_device, n_mels, k,
+                                                vq_tier):
+    """Past 64 mel bands the tiered argmin walks the features in slices
+    (and past 128 the JAX megakernel still runs): the f32 front end with a
+    bf16 vq_tier launches and holds to its plain tier version."""
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
+    from audio_tokens_tpu_torch.ops.tiers import check_tier_ties
+    from audio_tokens_tpu_torch.ops.vq import l2_normalize
+
+    rng = np.random.default_rng(k + n_mels)
+    cents = rng.standard_normal((k, n_mels)).astype(np.float32)
+    fe = MelFrontend("cpu", 22050, n_mels, 512, 128, int(22050 * 1.5))
+    kern = TokenizerKernel(22050, n_mels, 512, 128, fe.frames_max, cents,
+                           cuda_device, "highest", vq_tier)
+    clips = [rng.standard_normal(int(22050 * s)).astype(np.float32)
+             for s in (1.5, 0.7)]
+    x = torch.from_numpy(fe.prepare_batch(clips)[0]).to(cuda_device)
+    before = TokenizerKernel.launches
+    got = kern(x)
+    assert TokenizerKernel.launches == before + 1
+    check_tier_ties(l2_normalize(kern.log_mel_plain(x)), kern.centroids, got,
+                    kern.plain(x), vq_tier)
 
 
 @pytest.mark.cuda

@@ -11,8 +11,13 @@ port's plain versions, against the JAX package.
   chunked; tokens equal except at the tier's near-ties;
 * K-means at ``high`` and ``default`` against a numpy version of the TPU
   arithmetic (``Precision.HIGH``: three bf16 passes; ``DEFAULT``: one), its
-  objective against the JAX ``highest`` fit, and the streaming fit equal to
-  the in-memory one at each tier.
+  objective against the JAX ``highest`` fit (also at K 600 and d 130, past
+  what the tiered kernel once took), and the streaming fit equal to the
+  in-memory one at each tier;
+* the tiered kernels' launch plan (``cuda_vq.vq_tier_plan``) at the
+  package's shapes, and their centroid image (``cuda_vq.tier_image``)
+  decoded back into the tier's operands, its c2 k-step summing to -c2 / 2
+  exactly, the kernel's arithmetic on it held to the plain tier version.
 """
 
 import jax
@@ -25,7 +30,15 @@ from audio_tokens_tpu.ops import kmeans as jax_km
 from audio_tokens_tpu.ops import pallas_tokenizer as jax_pt
 from audio_tokens_tpu_torch.ops import kmeans as km
 from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
-from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
+from audio_tokens_tpu_torch.ops.cuda_vq import (
+    MAX_SMEM,
+    PAD_SCORE,
+    tier_image,
+    tier_item_bytes,
+    vq_argmin,
+    vq_argmin_plain,
+    vq_tier_plan,
+)
 from audio_tokens_tpu_torch.ops.mel import MelFrontend
 from audio_tokens_tpu_torch.ops.tiers import (
     check_follows_tier,
@@ -339,3 +352,109 @@ def test_kmeans_class_trains_at_the_tier(precision):
     np.testing.assert_allclose(kmeans.centroids.numpy(), ref_c, atol=1e-5,
                                rtol=0)
     assert abs(obj - ref_obj) <= 1e-5 * abs(ref_obj)
+
+
+@pytest.mark.parametrize("precision,tier", [("high", "bf16x3"),
+                                            ("default", "default")])
+def test_kmeans_tier_wide_matches_numpy_tpu_arithmetic(precision, tier):
+    """K 600 at d 130: more centroids and wider rows than the kernel's
+    mma.sync design took at these tiers."""
+    x, init = blobs(seed=10, n=6000, d=130, k=600)
+    ref_c, ref_obj, _ = np_lloyd(x, init, 4, tier)
+    pc, pobj = km.kmeans_fit(torch.from_numpy(x), 600, 4, init_centroids=init,
+                             precision=precision)
+    np.testing.assert_allclose(pc.numpy(), ref_c, atol=1e-5, rtol=0)
+    assert abs(pobj - ref_obj) <= 1e-5 * abs(ref_obj)
+    jc, jobj = jax_km.kmeans_fit(x, 600, 4, init_centroids=init)
+    # the JAX fit (highest) on the CPU: at bf16x3 the same assignments, so
+    # the same centroids up to the rows' rounding (~16 bits) and the same
+    # objective; default's 8 bits move 3% of these rows to other clusters,
+    # so only its objective is held, within 1%
+    if tier == "bf16x3":
+        np.testing.assert_allclose(pc.numpy(), np.asarray(jc), atol=1e-4,
+                                   rtol=0)
+    assert abs(pobj - jobj) <= {"bf16x3": 1e-5, "default": 1e-2}[tier] * \
+        abs(jobj)
+
+
+# ---- the tiered kernels' plan and centroid image ----------------------------
+
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+@pytest.mark.parametrize("d", [12, 64, 100, 128, 130, 640])
+@pytest.mark.parametrize("k", [1, 500, 1100, 16384])
+def test_vq_tier_plan_takes_every_shape(k, d, tier):
+    """B2's plan at the package's shapes: an instance by the width, the
+    chunks resident or a ring of at least two stages, within the card's
+    shared memory; none refused."""
+    plan = vq_tier_plan(k, d, tier)
+    ks = -(-d // 16)
+    assert (plan.ks, plan.nc, plan.wide) == ((4, 128, 0) if ks <= 4 else
+                                             (8, 64, int(ks > 8)))
+    assert plan.slices * 16 * plan.ks >= d and plan.chunks * plan.nc >= k
+    assert plan.items == plan.chunks * plan.slices
+    assert plan.ibytes == tier_item_bytes(plan.nc, plan.ks,
+                                          tier == "bf16x3", True)
+    assert plan.resident or plan.stages >= 2
+    assert not plan.resident or plan.stages == plan.items
+    assert plan.smem <= MAX_SMEM
+    if k * d <= 1100 * 130:
+        c = torch.ones((k, d))
+        assert tier_image(c, tier, plan.nc, plan.ks, True).numel() == \
+            plan.items * plan.ibytes
+
+
+def decode_image(img, k, d, tier, chunk, ks, c2_step):
+    """tier_image's bytes -> (planes (P, K', d') f32, c2 part): the c2
+    k-step's 16 values a centroid (P, K', 16), or the f32 c2 (K',)."""
+    planes = 2 if tier == "bf16x3" else 1
+    chunks, slices = -(-k // chunk), -(-d // (16 * ks))
+    kb = 2 * ks + (2 if c2_step else 0)
+    item = tier_item_bytes(chunk, ks, tier == "bf16x3", c2_step)
+    raw = img.reshape(chunks, slices, item)
+    core = raw[..., :planes * chunk * kb * 8 * 2].contiguous().view(
+        torch.bfloat16).float()
+    core = core.reshape(chunks, slices, planes, chunk // 8, kb, 8, 8)
+    core = core.permute(2, 0, 3, 5, 1, 4, 6)  # (P, chunks, g8, r, slices, kb, e)
+    feats = core[..., :2 * ks, :].reshape(planes, chunks * chunk, -1)
+    if c2_step:
+        return feats, core[:, :, :, :, 0, 2 * ks:, :].reshape(
+            planes, chunks * chunk, 16)
+    c2 = raw[:, 0, planes * chunk * kb * 16:].contiguous().view(
+        torch.float32).reshape(-1)
+    return feats, c2
+
+
+@pytest.mark.parametrize("c2_step", [True, False])
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_tier_image_decodes_to_the_tier_operands(tier, c2_step):
+    """The image holds the tier's bf16 operands of the centroids, zeros
+    past K and d, and c2 as the kernel reads it; the kernel's arithmetic on
+    it (f.c - c2 / 2, the largest, the lowest index on ties) holds to the
+    plain tier version."""
+    rng = np.random.default_rng(11)
+    k, d, chunk, ks = 300, 70, 128, 4
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    feats, c2part = decode_image(tier_image(c, tier, chunk, ks, c2_step), k,
+                                 d, tier, chunk, ks, c2_step)
+    parts = split_bf16(c) if tier == "bf16x3" else (bf16(c.numpy()),)
+    for got, want in zip(feats, parts):
+        assert torch.equal(got[:k, :d], torch.as_tensor(want))
+    assert (feats[:, k:] == 0).all() and (feats[:, :, d:] == 0).all()
+    c2 = (c * c).sum(1)
+    if c2_step:
+        half = c2part[0, :, :3].double().sum(1)
+        assert torch.equal(half[:k], -0.5 * c2.double())
+        assert (half[k:] == PAD_SCORE).all()
+        assert (c2part[0, :, 3:] == 0).all() and (c2part[1:] == 0).all()
+    else:
+        assert torch.equal(c2part[:k], c2)
+        assert torch.isinf(c2part[k:]).all()
+        half = -0.5 * c2part.double()
+    x = torch.from_numpy(rng.standard_normal((3000, d)).astype(np.float32))
+    xp = [p.double() for p in (split_bf16(x) if tier == "bf16x3"
+                               else (torch.as_tensor(bf16(x.numpy())),))]
+    fp = [f[:, :d].double() for f in feats]
+    fc = (xp[0] @ fp[0].T + (xp[0] @ fp[1].T + xp[1] @ fp[0].T)
+          if tier == "bf16x3" else xp[0] @ fp[0].T)
+    ids = (fc + half[None, :]).argmax(1)
+    check_tier_ties(x, c, ids, vq_argmin_plain(x, c, False, tier=tier), tier)
