@@ -247,8 +247,11 @@ enum Tier { kHighest = 0, kBf16x3 = 1, kDefault = 2 };
 // The A/B tool's split of the tiered product (tools/kernel_ab.py, vq-tier
 // and tokenizer-tier): bit 1 drops the compare-select epilogue, bit 2 the
 // products (3: copies, barriers and fragment loads only), bit 4 (B2) the
-// frame tiles' copies and waits (4: products and epilogue only).  Wrong
-// ids; 0 in every real build.
+// frame tiles' copies and waits (4: products and epilogue only).  In B1's
+// bf16 front end (tokenizer.cu) bit 8 drops the DFT products, 16 the mel
+// products, 32 the argmin (ids 0 or 1 from the features' first value), 64
+// the waveform window's loads and rounding.  Wrong ids; 0 in every
+// real build.
 #ifndef ATK_TIER_SPLIT
 #define ATK_TIER_SPLIT 0
 #endif

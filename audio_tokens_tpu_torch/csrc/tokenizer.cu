@@ -51,28 +51,37 @@
 //   centroid chunks streamed by bulk copies through a ring in the window's
 //   (with the ring's and the power's, the f32 front end's) idle buffer; any
 //   number of mel bands, in 64-band slices past 64;
-// - tier bf16x3 or default: the DFT and mel products run on the tensor cores
-//   (tokenizer_mma_kernel), bf16 operands with f32 accumulation: bf16x3
-//   takes the three passes hi.hi + hi.lo + lo.hi of _dot_tier, default one
-//   pass of both operands rounded to bf16 (what the TPU computes for
-//   Precision.DEFAULT on f32 operands).  A block owns 128 frames in 8 warps
-//   of 16.  The tile's waveform window is rounded to bf16 once (hi, and lo at
-//   bf16x3) into shared memory, laid out in hop-sample blocks 8 values apart
-//   so that the 8 frames an ldmatrix reads fall on 8 bank groups, and read in
-//   place as the A fragments; the Hann window lives in the basis, so raw
-//   samples are what gets rounded, as in the JAX kernel.  The basis, split
-//   and transposed once by the wrapper (bins x samples, bf16), streams
-//   through a 2-stage cp.async ring, 32 samples x 128 columns (re and im of
-//   64 bins) a stage; a warp holds the 16 frames x 128 columns in
-//   registers, squares them into the power and, the accumulators of two
-//   neighbouring n-tiles being an A fragment, feeds the power straight into
-//   the mel product (the filterbank split and transposed by the wrapper,
-//   one pass's 64 bins at a time through the idle ring) without a shared
-//   buffer; the mel sums stay in registers over the passes.  The three
+// - tier bf16x3 or default: the DFT and mel products run on Hopper's
+//   warpgroup products (tokenizer_wg_kernel), bf16 operands with f32
+//   accumulation: bf16x3 takes the three passes hi.hi + hi.lo + lo.hi of
+//   _dot_tier, default one pass of both operands rounded to bf16 (what the
+//   TPU computes for Precision.DEFAULT on f32 operands).  A block owns 128
+//   frames (64 where shared memory is short) in consumer warpgroups of 64.
+//   The tile's waveform window is rounded to bf16 once (hi, and lo at
+//   bf16x3) into shared memory, in hop-sample blocks padded so that the 8
+//   frames an ldmatrix reads fall on 8 bank groups, and read in place as
+//   the register A fragments of wgmma m64n128k16 (overlapping frames, hop
+//   apart, cannot be a shared-memory descriptor); where hop % 8 != 0 the
+//   fragments are gathered from an unpadded window sample by sample.  The
+//   Hann window lives in the basis, so raw samples are what gets rounded,
+//   as in the JAX kernel.  The wrapper lays the basis and the filterbank
+//   out once as the exact images wgmma reads (K-major core matrices, no
+//   swizzle needed): per pass of 64 bins, 64-sample slabs of its 128
+//   columns (re, im) and 64-band slices of its filterbank rows, each an
+//   item that one bulk copy (the TMA unit) brings into a ring of up to 4
+//   stages on mbarriers; one shared-memory descriptor serves the 4 warps
+//   of a warpgroup.  Thread 0 refills a stage once every warp has
+//   released it, one item behind, with no block barrier in the loop.  The
+//   accumulators of a pass (re and im of 64 bins: a thread holds columns c
+//   and c + 64, one bin's re and im) are squared into the power in
+//   registers and become the A fragments of the mel wgmma (m64n64k16),
+//   split hi/lo at bf16x3; each 64-band slice's sums are added into the
+//   features in shared memory, so any number of bands runs.  The three
 //   passes of bf16x3 add into one f32 accumulator, k-step by k-step, where
 //   _dot_tier adds three products: another summation order.  At 64
 //   ten-second clips the DFT is 57.8 GFLOP: 0.175 ms at bf16x3 (three
-//   passes at 989 TFLOP/s), 0.058 ms at default.
+//   passes at 989 TFLOP/s), 0.058 ms at default; every block reads the
+//   basis images from L2 (1 MB at bf16x3 and n_fft 512), 0.9 GB in all.
 #include "common.cuh"
 
 namespace {
@@ -304,261 +313,408 @@ tokenizer_kernel(const float* __restrict__ wave, long stride, long padded_len,
   }
 }
 
-// ---- the bf16 tiers of the DFT and mel products -------------------------------
+// ---- the bf16 tiers of the DFT and mel products, on wgmma -------------------
 
-constexpr int kMmaFrames = 128;        // frames a block owns: 8 warps x 16
-constexpr int kMmaThreads = 256;
-constexpr int kPassBins = 64;          // bins a pass: 8 re + 8 im n-tiles a warp
-constexpr int kSlab = 32;              // samples a ring stage holds
-constexpr int kSlabPitch = kSlab + 8;  // bf16: 80 bytes, 8 columns on 8 bank groups
-constexpr int kFbPitch = kPassBins + 8;
-constexpr int kMaxMelTiles = 16;       // mel bands <= 128
-constexpr int kStageElems = 2 * kPassBins * kSlabPitch;  // bf16 of one plane of a stage
+constexpr int kWgFrames = 64;        // frames a consumer warpgroup owns
+constexpr int kPassBins = 64;        // bins a pass: re and im, 128 wgmma columns
+constexpr int kSlab = 64;            // samples a basis item holds
+constexpr int kSlabSteps = kSlab / 16;  // its k-steps
+constexpr int kBandSlice = 64;       // mel bands a filterbank item holds: 4 k-steps
+constexpr int kPlaneBytes = 2 * kPassBins * kSlab * 2;  // one bf16 plane of a basis item
+constexpr int kFbPlaneBytes = kBandSlice * kPassBins * 2;  // ... of a filterbank item
+constexpr int kBasisSbo = 8 * kSlab * 2;  // bytes an 8-column group of a basis item
+constexpr int kFbSbo = 1024;         // bytes an 8-band group of a filterbank item
+constexpr int kMaxRing = 8;          // ring stages at most (16 mbarriers: the 128-byte header)
+constexpr int kArgminMinStages = 2;  // argmin ring stages the window's room must hold
+constexpr int kFillUnroll = 16;      // window samples a thread loads at once
 
-// Shared memory of tokenizer_mma_kernel, in bytes: the window (planes x
-// pitch bf16; later, with the ring, the argmin's scratch), the ring (two
-// stages of planes; also one pass's filterbank columns), the features (f32,
-// pitch mma_feat_pitch).  vq: the argmin's tier.
-__host__ __device__ inline int mma_feat_pitch(int m, int vq) {
-  return vq ? feat_pitch(m, vq) : (m + 15) / 16 * 16 + 1;
+// The frames' window in shared memory: sample p of the tile at
+// p + pad * (p / hop).  Where hop % 8 == 0 (LDM) the 8 samples an ldmatrix
+// row reads never cross a hop block and the pad (8 or 16 bf16) puts 8
+// neighbouring frames on 8 bank groups ((hop + pad) / 8 odd); otherwise
+// pad 0 and the fragments are gathered sample by sample.
+__host__ __device__ inline int wg_pad(int hop) {
+  return hop % 8 ? 0 : ((hop / 8) % 2 ? 16 : 8);
 }
-struct MmaLayout {
-  size_t win, ring, fs;
-  int pitch;  // bf16 of one plane of the window: hop-blocks of hop + 8
-  __host__ __device__ MmaLayout(int hop, int rows, int m, bool x3, int vq) {
-    const int planes = x3 ? 2 : 1, m16 = (m + 15) / 16 * 16, ldf = mma_feat_pitch(m, vq);
-    const int wlen = (kMmaFrames - 1) * hop + rows;
-    pitch = ((wlen + hop - 1) / hop * (hop + 8) + 7) / 8 * 8;
+__host__ __device__ inline int wg_feat_pitch(int m, int vq) {
+  return vq ? feat_pitch(m, vq) : m + 1;
+}
+
+// Shared memory of tokenizer_wg_kernel, in bytes: the ring (stages items
+// of planes x 8 KB), the window (planes x pitch bf16; with the ring, later
+// the argmin's scratch), the features (f32, FT x ldf), the mbarriers.
+struct WgLayout {
+  size_t ring, win, fs, bar, total;
+  int pitch;  // bf16 of one plane of the window
+  __host__ __device__ WgLayout(int ft, int stages, int hop, int rows, int m, bool x3, int vq) {
+    const int planes = x3 ? 2 : 1, pad = wg_pad(hop), ldf = wg_feat_pitch(m, vq);
+    const int wlen = (ft - 1) * hop + rows;
+    pitch = ((wlen + hop - 1) / hop * (hop + pad) + 7) / 8 * 8;
+    ring = static_cast<size_t>(stages) * planes * kPlaneBytes;
     const size_t w = static_cast<size_t>(planes) * pitch * 2;
-    const size_t stages = static_cast<size_t>(2) * planes * kStageElems * 2;
-    const size_t fbs = static_cast<size_t>(m16) * kFbPitch * planes * 2;
-    ring = ((stages > fbs ? stages : fbs) + 15) / 16 * 16;
-    const size_t tier = atk::b1_scratch_bytes(kArgminStages, vq == atk::kBf16x3, kMmaFrames, 1);
-    const size_t cs = vq ? (tier > ring ? tier - ring : 0)
-                         : 4 * static_cast<size_t>(atk::kChunk * ldf + atk::kChunk);
+    const size_t need =
+        vq ? atk::b1_scratch_bytes(kArgminMinStages, vq == atk::kBf16x3, ft, 1)
+           : 4 * static_cast<size_t>(atk::kChunk * ldf + atk::kChunk);
+    const size_t cs = need > ring ? need - ring : 0;
     win = ((w > cs ? w : cs) + 127) / 128 * 128;
-    fs = static_cast<size_t>(kMmaFrames) * ldf * 4;
+    fs = static_cast<size_t>(ft) * ldf * 4;
+    bar = ring + win + fs;
+    total = bar + 128;
   }
-  __host__ __device__ size_t bytes() const { return win + ring + fs; }
 };
 
-// B1 at tier bf16x3 (x3) or default: bhi, blo the basis' bf16 split,
-// transposed ((2 nbp, rows): re of bins 0..nbp-1, then im; rows a multiple
-// of 32, nbp of 64, zeros past n_fft and past the bins); fhi, flo the
-// filterbank's ((m16, nbp)); hop a multiple of 16.  TVQ and vq as in
-// tokenizer_kernel.
-template <bool TVQ>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-tokenizer_mma_kernel(const float* __restrict__ wave, long stride, long padded_len, int n_frames,
-                     int hop, int rows, const __nv_bfloat16* __restrict__ bhi,
-                     const __nv_bfloat16* __restrict__ blo, int nbp,
-                     const __nv_bfloat16* __restrict__ fhi, const __nv_bfloat16* __restrict__ flo,
-                     int m, int x3, const float* __restrict__ cent, const float* __restrict__ c2,
-                     int k, const char* __restrict__ timg, int vq, int* __restrict__ out) {
-  extern __shared__ float4 smem4[];
+// A warp's A fragments of one basis item: its k-steps of 16 samples, hi and
+// (bf16x3) lo.
+struct SlabFrags {
+  uint32_t hi[kSlabSteps][4];
+  uint32_t lo[kSlabSteps][4];
+};
+
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+__device__ __forceinline__ void keep_frags(SlabFrags& a) {
+#pragma unroll
+  for (int kk = 0; kk < kSlabSteps; ++kk) {
+    keep_regs(a.hi[kk]);
+    keep_regs(a.lo[kk]);
+  }
+}
+
+// B1 at tier bf16x3 (x3) or default, RB consumer warpgroups of 64 frames
+// each (FT = 64 RB frames a block).  bimg: the basis items, (passes x
+// slabs) x planes x 16 KB, item (pass, slab) the 128 columns (re then im of
+// the pass's 64 bins) x 64 samples in wgmma's K-major core-matrix order
+// (8 columns x 8 samples a 128-byte core matrix, (8-column group, 8-sample
+// block) order); fimg: the filterbank items, (passes x mslices) x planes x
+// 8 KB, item (pass, slice) 64 bands x the pass's 64 bins in the same
+// order.  rows: the basis' samples, a multiple of 64 (zeros past n_fft).
+// LDM: hop % 8 == 0.  TVQ, vq as in tokenizer_kernel.
+template <int RB, bool LDM, bool TVQ>
+__global__ void __launch_bounds__(128 * RB, 1)
+tokenizer_wg_kernel(const float* __restrict__ wave, long stride, long padded_len, int n_frames,
+                    int hop, int rows, const char* __restrict__ bimg,
+                    const char* __restrict__ fimg, int passes, int m, int x3, int stages,
+                    const float* __restrict__ cent, const float* __restrict__ c2, int k,
+                    const char* __restrict__ timg, int vq, int* __restrict__ out) {
+  constexpr int FT = kWgFrames * RB, kThreads = 128 * RB;
+  extern __shared__ __align__(128) char smem[];
   const bool x3v = x3 != 0;
-  const int planes = x3v ? 2 : 1;
-  const MmaLayout lay(hop, rows, m, x3v, TVQ ? vq : 0);
-  char* base = reinterpret_cast<char*>(smem4);
-  __nv_bfloat16* whi = reinterpret_cast<__nv_bfloat16*>(base);
+  // a ring stage holds a basis item; a filterbank item fills part of one
+  const int planes = x3v ? 2 : 1, ibytes = planes * kPlaneBytes, fbytes = planes * kFbPlaneBytes;
+  const WgLayout lay(FT, stages, hop, rows, m, x3v, TVQ ? vq : 0);
+  char* ring = smem;
+  __nv_bfloat16* whi = reinterpret_cast<__nv_bfloat16*>(smem + lay.ring);
   __nv_bfloat16* wlo = whi + lay.pitch;
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(base + lay.win);
-  float* fs = reinterpret_cast<float*>(base + lay.win + lay.ring);
-  const int m16 = (m + 15) / 16 * 16, ldf = mma_feat_pitch(m, TVQ ? vq : 0), mt = m16 / 8;
-  const int t = threadIdx.x, lane = t % 32, tq = lane % 4;
-  const int f0 = (t / 32) * 16;  // the warp's first frame of the tile
-  const int t0 = blockIdx.x * kMmaFrames, clip = blockIdx.y;
-  const int slabs = rows / kSlab, passes = nbp / kPassBins;
+  float* fs = reinterpret_cast<float*>(smem + lay.ring + lay.win);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  uint64_t* empty = full + kMaxRing;
+  const int ldf = wg_feat_pitch(m, TVQ ? vq : 0), pad = wg_pad(hop);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
+  const int f_w = 16 * warp;  // the warp's first frame of the tile (warpgroup wg = warp / 4)
+  const int t0 = blockIdx.x * FT, clip = blockIdx.y;
+  const int slabs = rows / kSlab, mslices = atk::ceil_div(m, kBandSlice);
+  const int per_pass = slabs + mslices, items = passes * per_pass;
 
-  // ring stage `buf` <- samples [slab * 32, + 32) of the 128 basis columns
-  // (re, im) of the pass's bins, each plane; the caller waits
-  auto issue = [&](int pass, int slab, int buf) {
-    constexpr int kPieces = 2 * kPassBins * (kSlab / 8);  // 16-byte pieces a plane
-    for (int e = t; e < kPieces * planes; e += kMmaThreads) {
-      const int p = e / kPieces, r = e - p * kPieces;
-      const int col = r / (kSlab / 8), q = r % (kSlab / 8);
-      const int gcol = col < kPassBins ? pass * kPassBins + col
-                                       : nbp + pass * kPassBins + col - kPassBins;
-      atk::cp_async16(ring + (buf * planes + p) * kStageElems + col * kSlabPitch + 8 * q,
-                      (p ? blo : bhi) + static_cast<size_t>(gcol) * rows + slab * kSlab + 8 * q,
-                      true);
+  // The items in order: per pass its basis slabs, then its filterbank
+  // slices.  Thread 0 copies item `next` (pass np, np_r within it) into a
+  // stage; every counter below moves by one, with no division.
+  int next = 0, np = 0, np_r = 0;
+  auto issue = [&](int st) {
+    const bool basis = np_r < slabs;
+    const char* src = basis ? bimg + static_cast<size_t>(np * slabs + np_r) * ibytes
+                            : fimg + static_cast<size_t>(np * mslices + np_r - slabs) * fbytes;
+    const int bytes = basis ? ibytes : fbytes;
+    atk::mbar_expect(full + st, bytes);
+    atk::bulk_copy(ring + st * ibytes, src, bytes, full + st);
+    ++next;
+    if (++np_r == per_pass) {
+      np_r = 0;
+      ++np;
     }
-    atk::cp_async_commit();
   };
-  issue(0, 0, 0);
-
-  // the tile's waveform window rounded to bf16 once (hi, and lo at bf16x3),
-  // zeros past padded_len; sample p at p + 8 (p / hop)
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      atk::mbar_init(full + st, 1);
+      atk::mbar_init(empty + st, kThreads / 32);
+    }
+    atk::mbar_init_fence();
+    for (int st = 0; st < stages && next < items; ++st) issue(st);
+  }
+  // the tile's waveform window rounded to bf16 once (hi, and lo at
+  // bf16x3), zeros past padded_len; the mel sums start at 0
   const float* src = wave + clip * stride + static_cast<long>(t0) * hop;
   const long avail = padded_len - static_cast<long>(t0) * hop;
-  const int wlen = (kMmaFrames - 1) * hop + rows;
-  for (int e = t; e < wlen; e += kMmaThreads) {
-    const float x = e < avail ? src[e] : 0.f;
-    const __nv_bfloat16 h = __float2bfloat16_rn(x);
-    const int at = e + 8 * (e / hop);
-    whi[at] = h;
-    if (x3v) wlo[at] = __float2bfloat16_rn(x - __bfloat162float(h));
-  }
-
-  float mel[kMaxMelTiles][4];
+  const int wlen = (FT - 1) * hop + rows;
+  // e / hop for the window's e < 2^22: exact in f32 with e + 1/2 (the error
+  // stays far below 1/(2 hop) of the nearest integer)
+  const float inv_hop = 1.0f / hop;
+  auto hop_block = [&](int e) { return static_cast<int>((e + 0.5f) * inv_hop); };
+  for (int e0 = tid; e0 < (ATK_TIER_SPLIT & 64 ? 0 : wlen); e0 += kFillUnroll * kThreads) {
+    float v[kFillUnroll];  // kFillUnroll loads a thread in flight
 #pragma unroll
-  for (int j = 0; j < kMaxMelTiles; ++j)
+    for (int u = 0; u < kFillUnroll; ++u) {
+      const int e = e0 + u * kThreads;
+      v[u] = e < wlen && e < avail ? src[e] : 0.f;
+    }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) mel[j][e] = 0.f;
-  // this lane's ldmatrix rows: a frame of the warp's 16 (A) and a column of
-  // an n-tile pair (B, the ring's and the filterbank's)
-  const int a_frame = f0 + (lane & 7) + 8 * ((lane >> 3) & 1), a_k = 8 * (lane >> 4);
-  const int b_row = (lane & 7) + 8 * (lane >> 4), b_k = 8 * ((lane >> 3) & 1);
-  for (int pass = 0; pass < passes; ++pass) {
-    float acc[16][4];  // re (n-tiles 0..7) and im (8..15) of the pass's 64 bins
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    for (int slab = 0; slab < slabs; ++slab) {
-      const int buf = slab & 1;
-      if (slab + 1 < slabs) {
-        issue(pass, slab + 1, buf ^ 1);
-        atk::cp_async_wait<1>();
-      } else {
-        atk::cp_async_wait<0>();
+    for (int u = 0; u < kFillUnroll; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < wlen) {
+        const __nv_bfloat16 h = __float2bfloat16_rn(v[u]);
+        const int at = pad ? e + pad * hop_block(e) : e;
+        whi[at] = h;
+        if (x3v) wlo[at] = __float2bfloat16_rn(v[u] - __bfloat162float(h));
       }
-      __syncthreads();  // stage buf (and, the first time, the window) visible
-      const __nv_bfloat16* sh = ring + buf * planes * kStageElems;
-      const __nv_bfloat16* sl = sh + kStageElems;
+    }
+  }
+  for (int e = tid; e < FT * ldf; e += kThreads) fs[e] = 0.f;
+  __syncthreads();
+
+  // the items are waited for, and released, in order: the stage and
+  // phase of the next to wait for, of the next to release, and of the one
+  // released last
+  int w_st = 0, w_ph = 0, r_st = 0, r_ph = 0, p_st = -1, p_ph = 0;
+  auto wait = [&]() -> const char* {
+    atk::mbar_wait(full + w_st, w_ph);
+    const char* st = ring + w_st * ibytes;
+    if (++w_st == stages) {
+      w_st = 0;
+      w_ph ^= 1;
+    }
+    return st;
+  };
+  // every warp releases the next item; thread 0 refills the stage of the
+  // item released before it (which the slower warpgroup let go a step
+  // earlier) with the next item to copy
+  auto release = [&]() {
+    __syncwarp();
+    if (lane == 0) atk::mbar_arrive(empty + r_st);
+    if (tid == 0 && p_st >= 0 && next < items) {
+      atk::mbar_wait(empty + p_st, p_ph);
+      issue(p_st);
+    }
+    p_st = r_st;
+    p_ph = r_ph;
+    if (++r_st == stages) {
+      r_st = 0;
+      r_ph ^= 1;
+    }
+    __syncwarp();
+  };
+  // the warp's A fragments of samples [32 slab, + 32)
+  auto load_frags = [&](SlabFrags& a, int slab) {
 #pragma unroll
-      for (int kk = 0; kk < kSlab / 16; ++kk) {
-        const int s = slab * kSlab + kk * 16 + a_k;
-        const int at = a_frame * (hop + 8) + s + 8 * (s / hop);
-        uint32_t ah[4], al[4];
-        atk::ldmatrix_x4(ah, whi + at);
-        if (x3v) atk::ldmatrix_x4(al, wlo + at);
-        const int boff = b_row * kSlabPitch + kk * 16 + b_k;
+    for (int kk = 0; kk < kSlabSteps; ++kk) {
+      const int sb = slab * kSlab + 16 * kk;
+      if (LDM) {
+        const int fr = f_w + (lane & 7) + 8 * ((lane >> 3) & 1), s = sb + 8 * (lane >> 4);
+        const int at = fr * (hop + pad) + s + pad * hop_block(s);
+        atk::ldmatrix_x4(a.hi[kk], whi + at);
+        if (x3v) atk::ldmatrix_x4(a.lo[kk], wlo + at);
+      } else {
+        const unsigned short* wh = reinterpret_cast<const unsigned short*>(whi);
+        const unsigned short* wl = reinterpret_cast<const unsigned short*>(wlo);
 #pragma unroll
-        for (int jp = 0; jp < 8; ++jp) {
-          uint32_t bh[4];
-          atk::ldmatrix_x4(bh, sh + 16 * jp * kSlabPitch + boff);
-          atk::mma_bf16(acc[2 * jp], ah, bh[0], bh[1]);
-          atk::mma_bf16(acc[2 * jp + 1], ah, bh[2], bh[3]);
+        for (int q = 0; q < 4; ++q) {
+          const int at = (f_w + g + 8 * (q & 1)) * hop + sb + 2 * tq + 8 * (q >> 1);
+          a.hi[kk][q] = wh[at] | static_cast<uint32_t>(wh[at + 1]) << 16;
+          if (x3v) a.lo[kk][q] = wl[at] | static_cast<uint32_t>(wl[at + 1]) << 16;
+        }
+      }
+    }
+  };
+
+  for (int pass = 0; pass < passes; ++pass) {
+    float acc[64];  // re (columns 0..63) and im (64..127) of the pass's 64 bins
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    SlabFrags fa{}, fb{};
+    // one basis item: its products into acc, one wgmma group; the previous
+    // item's group finishes meanwhile, then its stage and fragments are
+    // released
+    auto dft_item = [&](SlabFrags& a, SlabFrags& prev, int slab) {
+      load_frags(a, slab);
+      const char* st = wait();
+      atk::fence_acc(acc);
+      atk::wgmma_fence();
+      if (ATK_TIER_SPLIT & 8) {  // no DFT products: the fragments stand in
+        acc[0] += __uint_as_float(a.hi[0][0] & 0x807fffffu);
+        acc[1] += __uint_as_float(a.hi[1][1] & 0x807fffffu);
+        if (x3v) acc[2] += __uint_as_float(a.lo[0][2] & 0x807fffffu);
+        acc[3] += st[lane];
+      } else {
+        const uint64_t dh = atk::kmajor_desc(st, kBasisSbo);
+        const uint64_t dl = atk::kmajor_desc(st + kPlaneBytes, kBasisSbo);
+#pragma unroll
+        for (int kk = 0; kk < kSlabSteps; ++kk) {
+          atk::wgmma_n128(acc, a.hi[kk], dh + 16 * kk, 1);
           if (x3v) {
-            uint32_t bl[4];
-            atk::ldmatrix_x4(bl, sl + 16 * jp * kSlabPitch + boff);
-            atk::mma_bf16(acc[2 * jp], ah, bl[0], bl[1]);
-            atk::mma_bf16(acc[2 * jp + 1], ah, bl[2], bl[3]);
-            atk::mma_bf16(acc[2 * jp], al, bh[0], bh[1]);
-            atk::mma_bf16(acc[2 * jp + 1], al, bh[2], bh[3]);
+            atk::wgmma_n128(acc, a.hi[kk], dl + 16 * kk, 1);
+            atk::wgmma_n128(acc, a.lo[kk], dh + 16 * kk, 1);
           }
         }
       }
-      __syncthreads();  // stage buf free for the slab after next
+      atk::wgmma_commit();
+      atk::fence_acc(acc);
+      atk::wgmma_wait<1>();
+      keep_frags(prev);
+      if (slab > 0) release();
+    };
+    for (int slab = 0; slab < slabs; slab += 2) {
+      dft_item(fa, fb, slab);
+      if (slab + 1 < slabs) dft_item(fb, fa, slab + 1);
     }
-    // the power of the pass's bins, in acc[0..7]
+    atk::wgmma_wait<0>();
+    atk::fence_acc(acc);
+    keep_frags(fa);
+    keep_frags(fb);
+    release();
+
+    // the power of the pass's bins as the mel product's A fragments: a
+    // thread holds columns c and c + 64 (re, im of one bin); k-step kk is
+    // bins 16 kk .. 16 kk + 15, the n-tiles 2 kk and 2 kk + 1
+    uint32_t ph[4][4], pl[4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[j][e] = acc[j][e] * acc[j][e] + acc[j + 8][e] * acc[j + 8][e];
-    // the mel product over the pass's bins: the filterbank's columns of
-    // them through the idle ring; two neighbouring power n-tiles are one A
-    // fragment
-    constexpr int kFbPieces = kPassBins / 8;
-    for (int e = t; e < m16 * kFbPieces * planes; e += kMmaThreads) {
-      const int p = e / (m16 * kFbPieces), r = e - p * m16 * kFbPieces;
-      const int band = r / kFbPieces, q = r % kFbPieces;
-      *reinterpret_cast<uint4*>(ring + (p * m16 + band) * kFbPitch + 8 * q) =
-          *reinterpret_cast<const uint4*>((p ? flo : fhi) + static_cast<size_t>(band) * nbp +
-                                          pass * kPassBins + 8 * q);
-    }
-    __syncthreads();
-    const __nv_bfloat16* fh = ring;
-    const __nv_bfloat16* fl = ring + m16 * kFbPitch;
-#pragma unroll
-    for (int i = 0; i < kPassBins / 16; ++i) {
-      uint32_t ph[4], pl[4];
-      const float v[4][2] = {{acc[2 * i][0], acc[2 * i][1]},
-                             {acc[2 * i][2], acc[2 * i][3]},
-                             {acc[2 * i + 1][0], acc[2 * i + 1][1]},
-                             {acc[2 * i + 1][2], acc[2 * i + 1][3]}};
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
+        const int j = 2 * kk + (q >> 1), e = 2 * (q & 1);
+        const float p0 = acc[4 * j + e] * acc[4 * j + e] + acc[4 * j + 32 + e] * acc[4 * j + 32 + e];
+        const float p1 = acc[4 * j + e + 1] * acc[4 * j + e + 1] +
+                         acc[4 * j + 33 + e] * acc[4 * j + 33 + e];
         if (x3v) {
-          atk::split_bf16(v[q][0], v[q][1], ph[q], pl[q]);
+          atk::split_bf16(p0, p1, ph[kk][q], pl[kk][q]);
         } else {
-          ph[q] = atk::pack_bf16(v[q][0], v[q][1]);
+          ph[kk][q] = atk::pack_bf16(p0, p1);
+          pl[kk][q] = 0u;
         }
       }
-      const int boff = b_row * kFbPitch + 16 * i + b_k;
+    // the mel product, one 64-band slice an item, added into the features
+    // (each (frame, band) has one owner thread: no race, a fixed order)
+    for (int sl = 0; sl < mslices; ++sl) {
+      float mel[32];
 #pragma unroll
-      for (int jp = 0; jp < kMaxMelTiles / 2; ++jp) {
-        if (2 * jp < mt) {
-          uint32_t bh[4];
-          atk::ldmatrix_x4(bh, fh + 16 * jp * kFbPitch + boff);
-          atk::mma_bf16(mel[2 * jp], ph, bh[0], bh[1]);
-          atk::mma_bf16(mel[2 * jp + 1], ph, bh[2], bh[3]);
+      for (int i = 0; i < 32; ++i) mel[i] = 0.f;
+      const char* st = wait();
+      atk::fence_acc(mel);
+      atk::wgmma_fence();
+      if (ATK_TIER_SPLIT & 16) {  // no mel products: the fragments stand in
+        mel[0] += __uint_as_float(ph[0][0] & 0x807fffffu);
+        mel[1] += __uint_as_float(ph[3][3] & 0x807fffffu);
+        if (x3v) mel[2] += __uint_as_float(pl[1][2] & 0x807fffffu);
+        mel[3] += st[lane];
+      } else {
+        const uint64_t dh = atk::kmajor_desc(st, kFbSbo);
+        const uint64_t dl = atk::kmajor_desc(st + kFbPlaneBytes, kFbSbo);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          atk::wgmma_n64(mel, ph[kk], dh + 16 * kk, 1);
           if (x3v) {
-            uint32_t bl[4];
-            atk::ldmatrix_x4(bl, fl + 16 * jp * kFbPitch + boff);
-            atk::mma_bf16(mel[2 * jp], ph, bl[0], bl[1]);
-            atk::mma_bf16(mel[2 * jp + 1], ph, bl[2], bl[3]);
-            atk::mma_bf16(mel[2 * jp], pl, bh[0], bh[1]);
-            atk::mma_bf16(mel[2 * jp + 1], pl, bh[2], bh[3]);
+            atk::wgmma_n64(mel, ph[kk], dl + 16 * kk, 1);
+            atk::wgmma_n64(mel, pl[kk], dh + 16 * kk, 1);
           }
         }
       }
+      atk::wgmma_commit();
+      atk::wgmma_wait<0>();
+      atk::fence_acc(mel);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        keep_regs(ph[kk]);
+        keep_regs(pl[kk]);
+      }
+      release();
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int band = kBandSlice * sl + 8 * j + 2 * tq + (e & 1);
+          if (band < m) fs[(f_w + g + 8 * (e >> 1)) * ldf + band] += mel[4 * j + e];
+        }
     }
-    __syncthreads();  // the ring is free for the next pass
-    if (pass + 1 < passes) issue(pass + 1, 0, 0);
   }
 
-  // dB (bands past m are zero features), unit norm over the quad's lanes,
-  // the features to shared memory for the argmin
-  float ss[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < kMaxMelTiles; ++j) {
-    if (j < mt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * tq + (e & 1);
-        const float v = col < m ? 10.0f * log10f(fmaxf(mel[j][e], 1e-10f)) : 0.f;
-        mel[j][e] = v;
-        ss[e >> 1] = fmaf(v, v, ss[e >> 1]);
-      }
-    }
+  // dB, unit norm, nearest centroid
+  __syncthreads();
+  for (int e = tid; e < FT * m; e += kThreads) {
+    float* p = fs + (e / m) * ldf + e % m;
+    *p = 10.0f * log10f(fmaxf(*p, 1e-10f));
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], 1);
-    ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], 2);
-  }
-  const float den0 = sqrtf(ss[0]) + atk::kEps, den1 = sqrtf(ss[1]) + atk::kEps;
-  float* row0 = fs + (f0 + lane / 4) * ldf;
-  float* row1 = row0 + 8 * ldf;
-#pragma unroll
-  for (int j = 0; j < kMaxMelTiles; ++j) {
-    if (j < mt) {
-      const int col = 8 * j + 2 * tq;
-      row0[col] = mel[j][0] / den0;
-      row0[col + 1] = mel[j][1] / den0;
-      row1[col] = mel[j][2] / den1;
-      row1[col + 1] = mel[j][3] / den1;
-    }
-  }
-  for (int col = m16 + tq; col < ldf - 1; col += 4) {  // the tiered argmin's whole slices
-    row0[col] = 0.f;
-    row1[col] = 0.f;
-  }
-  // the argmin synchronizes before it overwrites the window or reads fs
-  const int rows_valid = min(kMmaFrames, n_frames - t0);
-  float* scratch = reinterpret_cast<float*>(base);
+  __syncthreads();
+  atk::normalize_rows(fs, ldf, m, FT);
+  // the argmin synchronizes before it overwrites the ring and the window
+  const int rows_valid = min(FT, n_frames - t0);
   int* o = out + static_cast<long>(clip) * n_frames + t0;
-  if (TVQ) {
-    atk::block_argmin_wg_any<kMmaThreads, kMmaFrames>(
+  if (ATK_TIER_SPLIT & 32) {  // no argmin: the features stand in for the ids
+    __syncthreads();
+    for (int r = tid; r < rows_valid; r += kThreads) o[r] = fs[r * ldf] == 1.2345e-30f;
+  } else if (TVQ) {
+    atk::block_argmin_wg_any<kThreads, FT>(
         fs, ldf, timg, vq == atk::kBf16x3, atk::b1_slices(m), atk::ceil_div(k, atk::kB1Chunk),
-        base, static_cast<int>(lay.win + lay.ring), o, rows_valid);
+        smem, static_cast<int>(lay.ring + lay.win), o, rows_valid);
   } else {
-    atk::block_argmin<kMmaFrames * atk::kColThreads / kMmaThreads, kMmaThreads>(
+    float* scratch = reinterpret_cast<float*>(smem);
+    atk::block_argmin<FT * atk::kColThreads / kThreads, kThreads>(
         fs, ldf, m, cent, c2, k, scratch, scratch + atk::kChunk * ldf, o, rows_valid);
   }
+}
+
+// The launch plan of tokenizer_wg_kernel: 128 frames with the most ring
+// stages (8 down to 3) that fit, else 64 frames so, else 2 stages at 128
+// and 64 frames; frames 0 where no plan's shared memory fits.  A deep ring
+// keeps the basis items' copies from L2 ahead of the products; 128 frames
+// a block read the basis from L2 half as often as 64.
+struct WgPlan {
+  int ft = 0, stages = 0;
+  size_t smem = 0;
+  WgPlan(int hop, int rows, int m, bool x3, int vq) {
+    auto fits = [&](int f, int s) {
+      const size_t bytes = WgLayout(f, s, hop, rows, m, x3, vq).total;
+      if (bytes > static_cast<size_t>(atk::kSmemLimit)) return false;
+      ft = f;
+      stages = s;
+      smem = bytes;
+      return true;
+    };
+    for (int f = 128; f >= 64; f /= 2)
+      for (int s = kMaxRing; s >= 3; --s)
+        if (fits(f, s)) return;
+    for (int f = 128; f >= 64; f /= 2)
+      if (fits(f, 2)) return;
+  }
+};
+
+template <int RB, bool LDM, bool TVQ>
+cudaError_t launch_wg(const WgPlan& plan, const float* wave, int batch, long stride,
+                      long padded_len, int n_frames, int hop, int rows, const char* bimg,
+                      const char* fimg, int passes, int m, int x3, const float* cent,
+                      const float* c2, int k, const char* timg, int vq, int* out,
+                      cudaStream_t stream) {
+  const auto kernel = tokenizer_wg_kernel<RB, LDM, TVQ>;
+  cudaError_t err = atk::allow_smem(kernel, plan.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_frames + plan.ft - 1) / plan.ft, batch);
+  kernel<<<grid, 128 * RB, plan.smem, stream>>>(wave, stride, padded_len, n_frames, hop, rows,
+                                                 bimg, fimg, passes, m, x3, plan.stages, cent,
+                                                 c2, k, timg, vq, out);
+  return cudaGetLastError();
+}
+
+template <int RB, bool LDM>
+cudaError_t launch_wg_vq(bool tvq, const WgPlan& plan, const float* wave, int batch, long stride,
+                         long padded_len, int n_frames, int hop, int rows, const char* bimg,
+                         const char* fimg, int passes, int m, int x3, const float* cent,
+                         const float* c2, int k, const char* timg, int vq, int* out,
+                         cudaStream_t stream) {
+  return tvq ? launch_wg<RB, LDM, true>(plan, wave, batch, stride, padded_len, n_frames, hop,
+                                        rows, bimg, fimg, passes, m, x3, cent, c2, k, timg, vq,
+                                        out, stream)
+             : launch_wg<RB, LDM, false>(plan, wave, batch, stride, padded_len, n_frames, hop,
+                                         rows, bimg, fimg, passes, m, x3, cent, c2, k, nullptr, 0,
+                                         out, stream);
 }
 
 template <int FT, bool TVQ>
@@ -612,9 +768,12 @@ ATK_EXPORT int atk_tokenize(const float* wave, int batch, long stride, long padd
 // B1 at the precision tiers: tier and vq_tier 0 highest, 1 bf16x3, 2 default.
 // tier highest runs tokenizer_kernel
 // on the f32 basis (rows, 2 nb) and filterbank (nb, m), as atk_tokenize;
-// otherwise tokenizer_mma_kernel on tbasis ((planes, 2 tnb, trows) bf16,
-// planes 2 at bf16x3: hi then lo) and tfb ((planes, m16, tnb)), hop a
-// multiple of 16.  vq_tier highest scores against cent (k, m) f32, else
+// otherwise tokenizer_wg_kernel on the front end's items tbasis ((tnb / 64)
+// x (trows / 64) items of planes x 16 KB) and tfb ((tnb / 64) x ceil(m /
+// 64) items of planes x 8 KB), bf16 (planes 2 at bf16x3: hi then lo; the
+// layouts at tokenizer_wg_kernel), trows a multiple of 64, tnb of 64, any hop (the
+// wrapper refuses one that does not divide n_fft, as the JAX kernel does)
+// and any m whose WgPlan fits.  vq_tier highest scores against cent (k, m) f32, else
 // against timg, the centroid image of block_argmin_wg (timg_bytes: chunks
 // of 128 x b1_slices(m) items of tier_item_bytes(128, 4, bf16x3)), whose c2
 // are those of the f32 centroids, as c2 is at every tier.
@@ -626,7 +785,6 @@ ATK_EXPORT int atk_tokenize_tier(const float* wave, int batch, long stride, long
                                  int* out, void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
   constexpr size_t kMaxSmem = 227 * 1024;
-  const int m16 = (m + 15) / 16 * 16;
   const bool tvq = vq_tier != atk::kHighest;
   const int vq = tvq ? vq_tier : 0;
   if (tier < 0 || tier > 2 || vq_tier < 0 || vq_tier > 2 || hop < 1 || m < 1 || k < 1)
@@ -659,26 +817,38 @@ ATK_EXPORT int atk_tokenize_tier(const float* wave, int batch, long stride, long
     return static_cast<int>(err);
   }
   const bool x3 = tier == atk::kBf16x3;
-  if (hop % 16 || trows % kSlab || tnb % kPassBins || tnb < 1 || m16 > 8 * kMaxMelTiles)
+  if (trows < kSlab || trows % kSlab || tnb < kPassBins || tnb % kPassBins)
     return static_cast<int>(cudaErrorInvalidValue);
-  const MmaLayout lay(hop, trows, m, x3, vq);
-  if (lay.bytes() > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* tb = static_cast<const __nv_bfloat16*>(tbasis);
-  const auto* tf = static_cast<const __nv_bfloat16*>(tfb);
-  const __nv_bfloat16* blo = tb + static_cast<size_t>(2) * tnb * trows;
-  const __nv_bfloat16* flo = tf + static_cast<size_t>(m16) * tnb;
-  const dim3 grid((n_frames + kMmaFrames - 1) / kMmaFrames, batch);
-  const auto kernel = tvq ? tokenizer_mma_kernel<true> : tokenizer_mma_kernel<false>;
-  cudaError_t err = atk::allow_smem(kernel, lay.bytes());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kMmaThreads, lay.bytes(), st>>>(wave, stride, padded_len, n_frames, hop, trows,
-                                                 tb, blo, tnb, tf, flo, m, x3 ? 1 : 0, cent, c2,
-                                                 k, ti, vq, out);
-  return static_cast<int>(cudaGetLastError());
+  const WgPlan plan(hop, trows, m, x3, vq);
+  if (plan.ft == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* bi = static_cast<const char*>(tbasis);
+  const auto* fi = static_cast<const char*>(tfb);
+  const int passes = tnb / kPassBins, x3i = x3 ? 1 : 0;
+  cudaError_t err;
+  if (hop % 8 == 0)
+    err = plan.ft == 128
+              ? launch_wg_vq<2, true>(tvq, plan, wave, batch, stride, padded_len, n_frames, hop,
+                                      trows, bi, fi, passes, m, x3i, cent, c2, k, ti, vq, out, st)
+              : launch_wg_vq<1, true>(tvq, plan, wave, batch, stride, padded_len, n_frames, hop,
+                                      trows, bi, fi, passes, m, x3i, cent, c2, k, ti, vq, out, st);
+  else
+    err = plan.ft == 128
+              ? launch_wg_vq<2, false>(tvq, plan, wave, batch, stride, padded_len, n_frames, hop,
+                                       trows, bi, fi, passes, m, x3i, cent, c2, k, ti, vq, out, st)
+              : launch_wg_vq<1, false>(tvq, plan, wave, batch, stride, padded_len, n_frames,
+                                       hop, trows, bi, fi, passes, m, x3i, cent, c2, k, ti, vq,
+                                       out, st);
+  return static_cast<int>(err);
 }
 
-// Shared memory of atk_tokenize_tier's tensor-core instance (tier bf16x3 or
-// default) with the argmin at vq_tier; the wrapper refuses what passes 227 KB.
-ATK_EXPORT long atk_tokenize_tier_smem(int hop, int trows, int m, int x3, int vq_tier) {
-  return static_cast<long>(MmaLayout(hop, trows, m, x3 != 0, vq_tier).bytes());
+// The launch plan of atk_tokenize_tier's tensor-core instance (tier bf16x3
+// or default) with the argmin at vq_tier: frames a block (128 or 64; 0
+// where no plan's shared memory fits 227 KB, which the wrapper refuses),
+// ring stages and bytes of shared memory, into plan[3].
+ATK_EXPORT void atk_tokenize_tier_plan(int hop, int trows, int m, int x3, int vq_tier,
+                                       long* plan) {
+  const WgPlan p(hop, trows, m, x3 != 0, vq_tier);
+  plan[0] = p.ft;
+  plan[1] = p.stages;
+  plan[2] = static_cast<long>(p.smem);
 }

@@ -24,13 +24,17 @@ The precision tiers (``ops/tiers.py``) of the JAX kernel: ``tier`` sets the
 DFT and mel products, ``vq_tier`` the centroid-distance product, each
 ``highest`` (f32, today's kernel), ``bf16x3`` or ``default`` (bf16 on the
 tensor cores).  Their bf16 operands are split once, here, when the kernel is
-built: the basis and the filterbank transposed (bins x samples, bands x
-bins; rows to a multiple of 32, bins of 64, bands of 16) and the centroids
-as the argmin's image (``cuda_vq.tier_image``: chunks of 128 centroids,
-slices of 64 bands), as the JAX kernel splits its centroids on the host.
-The tensor-core DFT needs hop a multiple of 16 and at most 128 mel bands;
-other shapes raise ``ValueError`` on the card.  The bf16 argmin takes any
-number of bands, as the JAX megakernel does (``kernel_fits``).
+built, as the JAX kernel splits its centroids on the host: the basis and the
+filterbank as the items the bf16 front end's ring streams
+(``front_items``: per pass of 64 bins, 64-sample basis slabs of its 128
+columns, re then im, and 64-band filterbank slices, each in ``wgmma``'s
+K-major core-matrix order), the centroids as the argmin's image
+(``cuda_vq.tier_image``: chunks of 128 centroids, slices of 64 bands).  The
+bf16 front end takes every hop that divides n_fft (as the JAX kernel,
+``pallas_tokenizer.py:383``) and any number of mel bands whose launch plan
+fits shared memory (``tier_plan``); other shapes raise ``ValueError`` on
+the card.  The bf16 argmin takes any number of bands, as the JAX
+megakernel does (``kernel_fits``).
 
 ``TokenizerKernel`` is an ``nn.Module`` whose buffers are the basis,
 filterbank and centroids, so that a traced serving program owns them.  Its
@@ -52,8 +56,8 @@ from audio_tokens_tpu_torch.ops import _build
 from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
 from audio_tokens_tpu_torch.ops.cuda_vq import (
     MAX_SMEM,
-    bf16_split_rows,
     tier_image,
+    tier_item_bytes,
     vq_argmin_plain,
 )
 from audio_tokens_tpu_torch.ops.mel import (
@@ -61,12 +65,27 @@ from audio_tokens_tpu_torch.ops.mel import (
     dft_filters,
     mel_filterbank,
 )
-from audio_tokens_tpu_torch.ops.tiers import TIERS, check_tier, tier_matmul
+from audio_tokens_tpu_torch.ops.tiers import (
+    TIERS,
+    check_tier,
+    tier_matmul,
+    tier_operands,
+)
 
-ROW_STAGE, BIN_PASS = 32, 64  # the tensor-core DFT's sample and bin steps
+# the bf16 front end's items (csrc/tokenizer.cu): samples a basis slab,
+# bins a pass, bands a filterbank slice
+ROW_STAGE, BIN_PASS, BAND_SLICE = 64, 64, 64
 # the tiered argmin's chunk (centroids) and slice (k-steps of 16 bands):
-# csrc/common.cuh's kB1Chunk, kB1Ks
-ARGMIN_CHUNK, ARGMIN_KS = 128, 4
+# csrc/common.cuh's kB1Chunk, kB1Ks; its ring's mbarrier header and the
+# stages the front end leaves it room for; the f32 argmin's chunk (kChunk)
+ARGMIN_CHUNK, ARGMIN_KS, RING_HEADER, ARGMIN_MIN_STAGES = 128, 4, 128, 2
+VQ_CHUNK = 64
+ITEM_PLANE_BYTES = 2 * BIN_PASS * ROW_STAGE * 2  # a bf16 plane of a basis item
+# the bf16 front end's (frames a block, ring stages), in the order tried:
+# 128 frames with the deepest ring of 8 down to 3 stages, then 64 frames,
+# then 2 stages
+FRONT_PLANS = (tuple((ft, st) for ft in (128, 64) for st in range(8, 2, -1))
+               + ((128, 2), (64, 2)))
 
 
 def log_mel_plain(padded: torch.Tensor, basis: torch.Tensor,
@@ -107,9 +126,58 @@ def _lib():
             P, I, L, L, I, I, I, P, I, P, I, P, I, I, P, P, P, I, P, L, I, I,
             P, P]
         fn.restype = I
-        lib.atk_tokenize_tier_smem.argtypes = [I, I, I, I, I]
-        lib.atk_tokenize_tier_smem.restype = L
+        lib.atk_tokenize_tier_plan.argtypes = [I, I, I, I, I, P]
+        lib.atk_tokenize_tier_plan.restype = None
     return lib
+
+
+def front_items(mat: torch.Tensor, tier: str, n_item: int,
+                k_item: int) -> torch.Tensor:
+    """(N, K) f32 -> the tier's bf16 planes of (N / n_item) x (K /
+    k_item) items, (n chunks, k slices, planes, n_item * k_item): each item
+    in wgmma's K-major core-matrix order (8 rows x 8 k values a 128-byte core
+    matrix, in (8-row group, 8-k block) order), hi then (bf16x3) lo."""
+    n, kd = mat.shape
+    parts = torch.stack(tier_operands(mat, tier)).to(torch.bfloat16)
+    planes = parts.reshape(parts.shape[0], n // n_item, n_item // 8, 8,
+                           kd // k_item, k_item // 8, 8)
+    return (planes.permute(1, 4, 0, 2, 5, 3, 6).contiguous()
+            .reshape(n // n_item, kd // k_item, parts.shape[0],
+                     n_item * k_item))
+
+
+def _front_bytes(ft: int, stages: int, hop: int, rows: int, m: int,
+                 x3: bool, vq_tier: str) -> int:
+    """Shared memory of the bf16 front end (csrc/tokenizer.cu's WgLayout):
+    the ring, the window (or the argmin's scratch where larger), the
+    features, the mbarriers."""
+    planes = 2 if x3 else 1
+    pad = 0 if hop % 8 else (16 if (hop // 8) % 2 else 8)
+    slices = -(-(-(-m // 16)) // ARGMIN_KS)
+    ldf = 16 * ARGMIN_KS * slices + 1 if vq_tier != "highest" else m + 1
+    wlen = (ft - 1) * hop + rows
+    pitch = -(-(-(-wlen // hop) * (hop + pad)) // 8) * 8
+    ring = stages * planes * ITEM_PLANE_BYTES
+    if vq_tier != "highest":
+        item = tier_item_bytes(ARGMIN_CHUNK, ARGMIN_KS, vq_tier == "bf16x3",
+                               False)
+        need = RING_HEADER + ARGMIN_MIN_STAGES * (-(-item // 128) * 128)
+    else:
+        need = 4 * (VQ_CHUNK * ldf + VQ_CHUNK)
+    win = -(-max(planes * pitch * 2, need - ring) // 128) * 128
+    return ring + win + ft * ldf * 4 + 128
+
+
+def tier_plan(hop: int, trows: int, m: int, tier: str, vq_tier: str):
+    """The bf16 front end's launch plan (csrc/tokenizer.cu's WgPlan):
+    (frames a block, ring stages, bytes of shared memory), the first of
+    ``FRONT_PLANS`` that fits; (0, 0, 0) where none does."""
+    for ft, stages in FRONT_PLANS:
+        smem = _front_bytes(ft, stages, hop, trows, m, tier == "bf16x3",
+                            vq_tier)
+        if smem <= MAX_SMEM:
+            return ft, stages, smem
+    return 0, 0, 0
 
 
 @torch.library.custom_op("atk::tokenize", mutates_args=(),
@@ -125,10 +193,11 @@ def _tokenize_op(padded: torch.Tensor, basis: torch.Tensor,
     """padded (B, >= padded_len) f32 with the kernel's zero-padded basis
     (rows, 2 nbp) and filterbank (nbp, M), centroids (K, M) and their
     squared norms c2 (K,) -> (B, n_frames) int32.  At the bf16 tiers the
-    kernel also takes the split operands ``TokenizerKernel`` made: tbasis
-    (planes, 2 tnb, trows), tfbank (planes, M16, tnb) for ``tier``, tcent
-    (planes, K, M16) for ``vq_tier``; the plain version splits the f32
-    tensors itself."""
+    kernel also takes the split operands ``TokenizerKernel`` made: the
+    front end's items tbasis (passes x slabs, planes, 8192) and tfbank
+    (passes x band slices, planes, 4096) for ``tier`` (``front_items``),
+    the centroid image tcent for ``vq_tier``; the plain version splits the
+    f32 tensors itself."""
     nb, nbp = n_fft // 2, basis.shape[1] // 2
     plain_basis = torch.cat([basis[:n_fft, :nb], basis[:n_fft, nbp:nbp + nb]],
                             dim=1)
@@ -172,16 +241,21 @@ def _tokenize_cuda(padded, basis, fbank, centroids, c2, n_fft, hop,
     lib = _lib()
     trows = tnb = 0
     if tier != "highest":
-        trows, tnb = tbasis.shape[2], tbasis.shape[1] // 2
-        smem = lib.atk_tokenize_tier_smem(hop, trows, m,
-                                          int(tier == "bf16x3"),
-                                          TIERS.index(vq_tier))
-        if hop % 16 or m > 128 or smem > MAX_SMEM:
+        nb = n_fft // 2
+        trows = -(-n_fft // ROW_STAGE) * ROW_STAGE
+        tnb = -(-nb // BIN_PASS) * BIN_PASS
+        planes = 2 if tier == "bf16x3" else 1
+        passes = tnb // BIN_PASS
+        want = ((passes * trows // ROW_STAGE, planes, 2 * BIN_PASS * ROW_STAGE),
+                (passes * -(-m // BAND_SLICE), planes, BAND_SLICE * BIN_PASS))
+        if (tuple(tbasis.shape), tuple(tfbank.shape)) != want:
+            raise ValueError(f"front-end items {tuple(tbasis.shape)}, "
+                             f"{tuple(tfbank.shape)} are not {want}")
+        if n_fft % hop or not tier_plan(hop, trows, m, tier, vq_tier)[0]:
             raise ValueError(
-                f"B1 at tier '{tier}' needs hop a multiple of 16, at most "
-                f"128 mel bands and its shared memory within {MAX_SMEM} "
-                f"bytes: hop {hop}, n_fft {n_fft}, {m} mel bands need "
-                f"{smem}")
+                f"B1 at tier '{tier}' needs hop to divide n_fft (as the JAX "
+                f"kernel) and its shared memory within {MAX_SMEM} bytes: "
+                f"hop {hop}, n_fft {n_fft}, {m} mel bands")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -267,16 +341,26 @@ class TokenizerKernel(nn.Module):
             self.register_buffer(name, None)
         if tier != "highest":
             trows = -(-n_fft // ROW_STAGE) * ROW_STAGE
-            tnb = -(-nb // BIN_PASS) * BIN_PASS
-            tb = torch.zeros((2 * tnb, trows))
-            tb[:nb, :n_fft] = torch.from_numpy(basis[:, :nb].T)
-            tb[tnb:tnb + nb, :n_fft] = torch.from_numpy(basis[:, nb:].T)
-            tf = torch.zeros((-(-n_mels // 16) * 16, tnb))
+            passes = -(-nb // BIN_PASS)
+            tnb = passes * BIN_PASS
+            # columns: per pass re of its 64 bins, then im
+            re = torch.zeros((tnb, trows))
+            im = torch.zeros((tnb, trows))
+            re[:nb, :n_fft] = torch.from_numpy(basis[:, :nb].T)
+            im[:nb, :n_fft] = torch.from_numpy(basis[:, nb:].T)
+            tb = torch.stack([re.view(passes, BIN_PASS, trows),
+                              im.view(passes, BIN_PASS, trows)], dim=1)
+            items = front_items(tb.reshape(passes * 2 * BIN_PASS, trows),
+                                tier, 2 * BIN_PASS, ROW_STAGE)
+            self.register_buffer("_tbasis", items.reshape(
+                -1, *items.shape[2:]).to(self.device))
+            mp = -(-n_mels // BAND_SLICE) * BAND_SLICE
+            tf = torch.zeros((mp, tnb))
             tf[:n_mels, :nb] = torch.from_numpy(fb[:-1].T)
-            self.register_buffer("_tbasis", bf16_split_rows(tb, tier).to(
-                self.device))
-            self.register_buffer("_tfbank", bf16_split_rows(tf, tier).to(
-                self.device))
+            items = front_items(tf, tier, BAND_SLICE, BIN_PASS).transpose(
+                0, 1).contiguous()
+            self.register_buffer("_tfbank", items.reshape(
+                -1, *items.shape[2:]).to(self.device))
         if vq_tier != "highest":
             self.register_buffer("_tcent", tier_image(
                 torch.from_numpy(cent), vq_tier, ARGMIN_CHUNK, ARGMIN_KS,

@@ -199,17 +199,6 @@ def tier_image(centroids: torch.Tensor, tier: str, chunk: int, ks: int,
     return core.reshape(-1)
 
 
-def bf16_split_rows(x: torch.Tensor, tier: str) -> torch.Tensor:
-    """(K, d) f32 -> the tier's bf16 operand planes, (planes, K, d16): hi
-    (and lo at bf16x3) of x with the features zero-padded to a multiple of
-    16, as the tensor-core kernels read them."""
-    k, d = x.shape
-    padded = x.new_zeros((k, -(-d // 16) * 16))
-    padded[:, :d] = x
-    parts = split_bf16(padded) if tier == "bf16x3" else (padded,)
-    return torch.stack(parts).to(torch.bfloat16).contiguous()
-
-
 def _lib():
     lib = _build.load("vq")
     fn = lib.atk_vq_argmin

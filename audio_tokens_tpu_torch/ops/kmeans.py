@@ -13,13 +13,15 @@ Each Lloyd iteration makes two passes over the points:
 * the assignment, ``argmin_k ||c_k||^2 - 2 x.c_k`` with the lowest index
   winning ties: kernel B2 with ``normalize=False`` (``ops/cuda_vq.py``) for
   CUDA tensors, its plain version for CPU tensors;
-* the centroid sums, from the rows sorted by cluster: f64 running sums in
-  blocks of sorted rows and one small GEMM over the runs
-  (``cluster_sums``).  This moves O(N*d) bytes where the JAX package's
-  one-hot GEMM does 2*N*K*d operations, as many as the assignment, and it
-  uses no atomics, so two fits of the same points are bit-equal
-  (``index_add_`` on CUDA adds with atomics, in an order that changes from
-  run to run).
+* the centroid sums, from the rows sorted by cluster (``tier_sums64``,
+  ``ops/cuda_kmeans.py``): on the card one pass of ``csrc/kmeans.cu`` over
+  the rows in sorted order, f64 sums a run of one cluster in a tile of
+  sorted positions and the runs added in order; on the CPU f64 running
+  sums in blocks of sorted rows and one small GEMM over the runs.  This
+  moves O(N*d) bytes where the JAX package's one-hot GEMM does 2*N*K*d
+  operations, as many as the assignment, and it uses no atomics, so two
+  fits of the same points are bit-equal (``index_add_`` on CUDA adds with
+  atomics, in an order that changes from run to run).
 
 Counts are integer bincounts.  The objective is the assignment's score
 summed per cluster, ``sum_k n_k ||c_k||^2 - 2 c_k.S_k`` with ``S_k`` the
@@ -64,13 +66,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from audio_tokens_tpu_torch.ops.cuda_kmeans import SEGMENT_BLOCK, tier_sums64
 from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
 from audio_tokens_tpu_torch.ops.tiers import tier_operands
 
 logger = logging.getLogger(__name__)
 
 SUM_CHUNK = 65536  # rows a pass of sum ||x||^2 and of the k-means++ distances
-SEGMENT_BLOCK = 256  # sorted rows a block of the centroid sums' running sums
 _SPLIT_EPS = 1.0 / 1024.0  # FAISS's symmetric perturbation magnitude
 EMPTY_POLICIES = ("keep", "split_largest")
 
@@ -109,42 +111,8 @@ def assign(x: torch.Tensor, centroids: torch.Tensor,
 def cluster_sums64(x: torch.Tensor, ids: torch.Tensor, k: int,
                    block: int = SEGMENT_BLOCK) -> torch.Tensor:
     """(K, d) f64 sums of the rows of each cluster, in a fixed order on any
-    device.
-
-    The rows are sorted by cluster (a stable sort), summed as f64 running
-    sums within blocks of ``block`` sorted rows, and each run of one
-    cluster inside a block is the difference of two running sums; a
-    cluster's runs (about N / block + K of them in all) are then added by
-    an f64 product with their one-hot (K, runs) matrix.  Every step is a
-    sort, a gather, a scan along an outer dimension or a GEMM: no atomics.
-    """
-    sid, order = torch.sort(ids, stable=True)
-    return _sorted_sums64(x[order], sid, k, block)
-
-
-def _sorted_sums64(xs: torch.Tensor, sid: torch.Tensor, k: int,
-                   block: int = SEGMENT_BLOCK) -> torch.Tensor:
-    """``cluster_sums64`` of rows already sorted by cluster (``sid`` their
-    sorted ids)."""
-    n, d = xs.shape
-    m = n - n % block
-    run = torch.empty((n, d), dtype=torch.float64, device=xs.device)
-    torch.cumsum(xs[:m].view(-1, block, d), 1, dtype=torch.float64,
-                 out=run[:m].view(-1, block, d))
-    torch.cumsum(xs[m:], 0, dtype=torch.float64, out=run[m:])
-    del xs
-    pos = torch.arange(n, device=run.device)
-    last = pos % block == block - 1  # a run ends at its block's end ...
-    last[:-1] |= sid[1:] != sid[:-1]  # ... or where the cluster changes
-    last[-1] = True
-    ends = last.nonzero().flatten()
-    at_end = run[ends]
-    runs = at_end.clone()
-    same_block = (ends[1:] // block == ends[:-1] // block)[:, None]
-    runs[1:] -= torch.where(same_block, at_end[:-1], 0.0)
-    onehot = (sid[ends][None, :] == torch.arange(
-        k, dtype=sid.dtype, device=run.device)[:, None]).to(torch.float64)
-    return onehot @ runs
+    device: ``tier_sums64`` at ``highest`` (the kernel on the card)."""
+    return tier_sums64(x, ids, k, "highest", block)[0]
 
 
 def cluster_sums(x: torch.Tensor, ids: torch.Tensor, k: int,
@@ -155,17 +123,6 @@ def cluster_sums(x: torch.Tensor, ids: torch.Tensor, k: int,
     sums = cluster_sums64(x, ids, k, block).to(torch.float32)
     counts = torch.bincount(ids, minlength=k).to(torch.float32)
     return sums, counts
-
-
-def tier_sums64(x: torch.Tensor, ids: torch.Tensor, k: int,
-                tier: str = "highest") -> torch.Tensor:
-    """(parts, K, d) f64 sums of the rows of each cluster as the tier's
-    one-hot product sees them (``tier_operands``): x; bf16(x); or hi(x) and
-    lo(x) apart (bf16x3), over one sort and one gather of the rows."""
-    sid, order = torch.sort(ids, stable=True)
-    xs = x[order]
-    return torch.stack([_sorted_sums64(part, sid, k)
-                        for part in tier_operands(xs, tier)])
 
 
 def _score(centroids: torch.Tensor, parts: torch.Tensor,

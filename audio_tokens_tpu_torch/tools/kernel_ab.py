@@ -2,7 +2,7 @@
 
     python -m audio_tokens_tpu_torch.tools.kernel_ab
         --kernel attention|attention-f32|lstm|lstm-dw|lstm-fwd|tokenizer|vq
-                 |tokenizer-tier|vq-tier
+                 |tokenizer-tier|vq-tier|kmeans
         [--rounds 5] [--variant NAME:KEY=VAL,KEY=VAL ...]
         [--source NAME:path/<source>.cu[:KEY=VAL,..]]
 
@@ -72,8 +72,14 @@ kernels), on the shapes ``chip_smoke.py`` uses:
   ``normalize=False`` as the Lloyd loop calls it; each variant's ids held
   to the plain tier version under ``check_tier_ties`` (on the first
   262,144 rows of the 17.23M); a shape a source refuses is reported so;
-- ``tokenizer-tier`` (B1's tiered argmin, ``tokenizer.cu``; knob
-  ``ATK_TIER_SPLIT``): ``FusedTokenizer`` at (highest, bf16x3), (bf16x3,
+- ``kmeans`` (the centroid sums, ``kmeans.cu``; knobs ``ATK_SUMS_UNROLL``,
+  rows a warp loads a group, ``ATK_SUMS_PIPELINE``, the next group loaded
+  while this one is summed, ``ATK_SUMS_BLOCKS``, blocks an SM must hold):
+  ``tier_sums64`` at each tier on one default clustering batch's 17.23M x
+  64 unit rows and K 500, the sort included; every variant's sums must
+  equal the default build's bit for bit;
+- ``tokenizer-tier`` (B1's tiered argmin and bf16 front end,
+  ``tokenizer.cu``; knob ``ATK_TIER_SPLIT``): ``FusedTokenizer`` at (highest, bf16x3), (bf16x3,
   bf16x3) and (default, default) on 64 ten-second clips at K 500 and
   16,384, tokens held to the plain tier version under ``check_tier_ties``.
 
@@ -81,10 +87,18 @@ kernels), on the shapes ``chip_smoke.py`` uses:
 drops the compare-select epilogue, 2 the products, 3 both, leaving the
 copies, barriers and fragment loads; in B2 4 drops the frame tiles' copies
 and waits (4: products and epilogue, 5: products, 6: epilogue alone; wrong
-ids, by design: ``--variant compute-only:ATK_TIER_SPLIT=4``).
+ids, by design: ``--variant compute-only:ATK_TIER_SPLIT=4``).  In B1's
+bf16 front end (``tokenizer.cu``, the tier combos other than highest) 8
+drops the DFT products, 16 the mel products, 24 both (the front end's
+staging only: the waveform window, the basis and filterbank copies, the
+barriers and the fragment loads), 32 the argmin, 64 the waveform
+window's loads; the argmin runs as in the default build unless 32 is
+set.
 ``ATK_VQ_TMA=0`` stages B2's frame tiles by cp.async instead of the tensor
 map.  ``tools/tier_mma_sync_split.patch`` adds the knob to the earlier
-mma.sync design (its header says how to time that tree).
+mma.sync design of the tiered product, ``tools/b1_mma_sync_front_split.patch``
+bits 8-24 to B1's earlier mma.sync front end (each header says how to
+time that tree).
 
 A variant built with ``ATK_LSTM_TIMERS=1`` (``lstm`` and ``lstm-fwd``)
 also reports its per-phase cycle counters (``b3_unit4_timers.patch`` adds
@@ -150,7 +164,15 @@ DEFAULT_VARIANTS = {
     "vq": ("default:", "ring:ATK_VQ_RING=1", "ring-2-stages:ATK_VQ_STAGES=2",
            "ring-4-stages:ATK_VQ_STAGES=4"),
     "vq-tier": TIER_SPLIT_VARIANTS,
-    "tokenizer-tier": TIER_SPLIT_VARIANTS,
+    "kmeans": ("default:", "unroll-4:ATK_SUMS_UNROLL=4",
+               "no-pipeline:ATK_SUMS_UNROLL=4,ATK_SUMS_PIPELINE=0",
+               "unroll-8-2-blocks:ATK_SUMS_UNROLL=8,ATK_SUMS_BLOCKS=2",
+               "no-cap:ATK_SUMS_BLOCKS=0"),
+    "tokenizer-tier": TIER_SPLIT_VARIANTS + (
+        "no-dft:ATK_TIER_SPLIT=8", "no-mel:ATK_TIER_SPLIT=16",
+        "front-staging-only:ATK_TIER_SPLIT=24", "no-argmin:ATK_TIER_SPLIT=32",
+        "staging-no-argmin:ATK_TIER_SPLIT=56",
+        "staging-no-argmin-no-window:ATK_TIER_SPLIT=120"),
     "lstm": (
         "default:",
         "timers:ATK_LSTM_TIMERS=1",
@@ -189,14 +211,23 @@ PTXAS_KERNELS = {
                 ("vq_tier_kernelILi4ELb0ELb0E", "B2 tiered <4, default>"),
                 ("vq_tier_kernelILi8ELb1ELb0E", "B2 tiered <8, bf16x3>"),
                 ("vq_tier_kernelILi8ELb1ELb1E", "B2 tiered <8, bf16x3, wide>")),
+    "kmeans": (("sums_runs_kernelILi0E", "sums runs highest"),
+               ("sums_runs_kernelILi1E", "sums runs bf16x3"),
+               ("sums_runs_kernelILi2E", "sums runs default"),
+               ("sums_join_kernelILi2E", "sums join (2 parts)")),
     "tokenizer-tier": (("tokenizer_kernelILi128ELb1ELb1E", "B1<128> f32 + tier argmin"),
-                       ("tokenizer_mma_kernelILb1E", "B1 mma + tier argmin")),
+                       ("tokenizer_wg_kernelILi2ELb1ELb1E",
+                        "B1 wgmma front end + tier argmin"),
+                       ("tokenizer_wg_kernelILi1ELb0ELb1E",
+                        "B1 wgmma front end, 64 frames, gathered fragments")),
 }
 SOURCES = {"attention": "attention", "attention-f32": "attention",
+           "kmeans": "kmeans",
            "lstm": "lstm", "lstm-dw": "lstm", "lstm-fwd": "lstm",
            "tokenizer": "tokenizer", "vq": "vq", "vq-tier": "vq",
            "tokenizer-tier": "tokenizer"}
 MODULES = {"attention": "cuda_attention", "attention-f32": "cuda_attention",
+           "kmeans": "cuda_kmeans",
            "lstm": "cuda_lstm",
            "lstm-dw": "cuda_lstm", "lstm-fwd": "cuda_lstm",
            "tokenizer": "cuda_tokenizer", "vq": "cuda_vq",
@@ -684,6 +715,33 @@ def tokenizer_tier_case(gen):
             timed, outputs)
 
 
+def kmeans_case(gen):
+    """-> (description, {timed name: fn}, outputs fn) for the centroid sums
+    at one default clustering batch (17.23M unit rows x 64, K 500, the ids
+    of a Lloyd assignment to 500 of the rows), each tier."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin_plain
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    n, k = 10_000 * (1 + 220_500 // 128), 500
+    x = torch.randn((n, 64), generator=g, device=dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-10
+    cents = x[torch.randperm(n, generator=g, device=dev)[:k]]
+    ids = vq_argmin_plain(x, cents, False, chunk=1 << 18)  # Lloyd's ids
+    tiers = ("highest", "bf16x3", "default")
+
+    def outputs():
+        return tuple(tier_sums64(x, ids, k, t) for t in tiers)
+
+    timed = {t: (lambda t=t: tier_sums64(x, ids, k, t)) for t in tiers}
+    return (f"centroid sums: {n} x 64 rows, K {k}, sort included", timed,
+            outputs)
+
+
 def synthetic_clips(n: int, sr: int = 22050, seconds: float = 10.0):
     """bench.py's synthetic clips: two partials plus noise, seeded."""
     import numpy as np
@@ -731,7 +789,7 @@ def tokenizer_case(gen):
 CASES = {"attention": attention_case, "attention-f32": attention_f32_case,
          "lstm": lstm_case,
          "lstm-dw": lstm_dw_case, "lstm-fwd": lstm_fwd_case,
-         "tokenizer": tokenizer_case, "vq": vq_case,
+         "tokenizer": tokenizer_case, "vq": vq_case, "kmeans": kmeans_case,
          "vq-tier": vq_tier_case, "tokenizer-tier": tokenizer_tier_case}
 
 

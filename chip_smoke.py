@@ -164,7 +164,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 12. the precision tiers, the conv front-end and the native decoder: B1 at
    each combo of ``tools/bench_tokenizer_tiers`` ((highest, bf16x3),
    (bf16x3, bf16x3), (default, default) beside (highest, highest)) at K
-   500 and 16,384 on 64 ten-second clips, driven through ``FusedTokenizer``
+   500 and 16,384 on 64 ten-second clips, and (bf16x3, bf16x3) and
+   (default, default) at the shapes PR 16's front end refused (C5:
+   n_fft 400 with hop 200 and 100, 256 mel bands), driven through ``FusedTokenizer``
    with the config's tiers and held to its plain tier version under the
    near-tie rule with the coarser tier's bound (``ops/tiers.py``), and to
    its tier against the ``highest`` kernel (``check_follows_tier``: the
@@ -174,9 +176,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    in bf16); B2 at bf16x3 and default at phase 8's 17.23M rows x 64 x 500
    against its plain tier version and to its tier against the ``highest``
    ids, as B1 (yardstick ``torch.matmul`` + argmin in bf16), and
-   ``KMeans.train`` at ``kmeans_precision`` high and default against the
-   ``highest`` fit: objective drift (within ``KMEANS_DRIFT``), ids apart,
-   ms an iteration (``kmeans_<tier>``); B2 at both tiers at the shapes its
+   ``KMeans.train`` at ``kmeans_precision`` highest, high and default:
+   the tiers' objective drift from the ``highest`` fit (within
+   ``KMEANS_DRIFT``), ids apart, ms an iteration beside ``highest``'s and
+   peak memory, the sums kernel once an iteration (``kmeans_<tier>``); B2 at both tiers at the shapes its
    earlier design refused (``TIER_SHAPES``: K 16,384 at 110,272 rows, d 128,
    d 640 at 882,176 rows; ``tiers_b2_<tier>_<shape>``), each against its
    plain tier version as above, with its launch plan, and ``KMeans.train``
@@ -811,6 +814,7 @@ def stream_stage(records: list, cfg, base: Path, dev, frames: int) -> None:
     centroids bit for bit."""
     import torch
 
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
     from audio_tokens_tpu_torch.ops.kmeans import DEFAULT_CHUNK
     from audio_tokens_tpu_torch.processors import ClusterCreator
@@ -822,6 +826,7 @@ def stream_stage(records: list, cfg, base: Path, dev, frames: int) -> None:
     capacity = max(1, STAGE_SUPERBATCH // DEFAULT_CHUNK) * DEFAULT_CHUNK
     n_sb = -(-frames // capacity)
     runs, launches, seconds = [], [], []
+    tier_sums64.launches = 0
     for stop in (None, STAGE_STOP, None):
         cc = ClusterCreator(scfg, dev)
         if stop is not None:
@@ -847,15 +852,18 @@ def stream_stage(records: list, cfg, base: Path, dev, frames: int) -> None:
         seconds.append(time.perf_counter() - t0)
         launches.append(vq_argmin.launches - before)
     want = [n_sb * cfg.niter, n_sb * STAGE_STOP, n_sb * (cfg.niter - STAGE_STOP)]
-    if launches != want:
-        raise AssertionError(f"streaming stage launched B2 {launches} times, "
-                             f"not {want}")
+    if launches != want or tier_sums64.launches != sum(want):
+        raise AssertionError(f"streaming stage launched B2 {launches} times "
+                             f"and the sums {tier_sums64.launches}, not "
+                             f"{want}")
     if not np.array_equal(runs[0], runs[1]):
         raise AssertionError("the resumed streaming stage differs from the "
                              "uninterrupted one")
     if cc._kmeans_ckpt_path().exists():
         raise AssertionError("the streaming fit's checkpoint was not deleted")
     records[1]["launches_by_path"]["pipeline_cluster_stream"] = sum(launches)
+    sums_record(records)["launches_by_path"]["pipeline_cluster_stream"] = \
+        tier_sums64.launches
     log(f"[pipeline stream] ClusterCreator kmeans_mode=full, streaming "
         f"always, {frames} frames in {n_sb} super-batches of "
         f"{capacity}, {cfg.niter} iterations: uninterrupted "
@@ -886,6 +894,8 @@ def pipeline_phase(records: list, dev, base: Path):
     from audio_tokens_tpu_torch import run_pipeline
     from audio_tokens_tpu_torch.config import AudioTokensConfig
     from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import (tier_sums64,
+                                                        tier_sums64_plain)
     from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
                                                       lstm_sequence_fwd)
     from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
@@ -898,9 +908,15 @@ def pipeline_phase(records: list, dev, base: Path):
                                                    SpectrogramGenerator)
 
     kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
-               lstm_sequence_bwd)
+               lstm_sequence_bwd, tier_sums64)
     stages = (SpectrogramGenerator, ClusterCreator, SpecTokenizer,
               ModelTrainer)
+    sums_rec = dict(
+        name=SUMS_NAME, route="cuda",
+        source="audio_tokens_tpu_torch/csrc/kmeans.cu",
+        replaces="audio_tokens_tpu/ops/kmeans.py:90 (the one-hot product "
+        "inside _lloyd_stats; no Pallas kernel)", launches_by_path={})
+    records.append(sums_rec)
     t0 = time.perf_counter()
     split = write_audio_corpus(base)
     write_s = time.perf_counter() - t0
@@ -935,25 +951,27 @@ def pipeline_phase(records: list, dev, base: Path):
         + f" (host clock, synchronized); main() {run_s:.2f} s; train "
         f"corpus {frames} frames; val loss {val_loss:.6f}, val mAP "
         f"{val_metrics['mAP']:.6f}")
-    log("[pipeline] launches B1, B2, B3, B4 by stage: "
+    log("[pipeline] launches B1, B2, B3, B4, sums by stage: "
         + "; ".join(f"{n} {launches[n]}" for n in names)
         + f"; whole run {total}")
     b2_cluster = launches["ClusterCreator"][1]
+    sums_cluster = launches["ClusterCreator"][4]
     b2_tokenize = launches["SpecTokenizer"][1]
-    b3_train, b4_train = launches["ModelTrainer"][2:]
+    b3_train, b4_train = launches["ModelTrainer"][2:4]
     if frames != TRAIN_CLIPS * (1 + cfg.clip_samples // cfg.hop_length):
         raise AssertionError(f"train corpus has {frames} frames")
     if cents.shape != (cfg.vocab_size, cfg.n_mels) or \
             cents.dtype != np.float32:
         raise AssertionError(f"centroids {cents.shape} {cents.dtype}")
     if (b2_cluster < cfg.niter or b2_tokenize < 2 or b3_train < 1
-            or b4_train < 1):
+            or b4_train < 1 or sums_cluster != b2_cluster):
         raise AssertionError(f"a kernel of the pipeline launched too "
                              f"rarely: {launches}")
     if not (np.isfinite(val_loss) and 0.0 <= val_metrics["mAP"] <= 1.0):
         raise AssertionError(f"val loss {val_loss}, mAP {val_metrics}")
     records[1]["launches_by_path"].update(
         pipeline_cluster=b2_cluster, pipeline_tokenize=b2_tokenize)
+    sums_rec["launches_by_path"]["pipeline_cluster"] = sums_cluster
     records[2]["launches_by_path"]["pipeline_train"] = b3_train
     records[3]["launches_by_path"]["pipeline_train"] = b4_train
 
@@ -1031,6 +1049,7 @@ def pipeline_phase(records: list, dev, base: Path):
     fits, fit_s = [], []
     points_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
+    tier_sums64.launches = 0
     for _ in range(2):
         fit = km.KMeans(cfg.n_mels, cfg.vocab_size, niter=cfg.niter,
                         seed=cfg.random_seed, device=dev)
@@ -1045,6 +1064,9 @@ def pipeline_phase(records: list, dev, base: Path):
                                  f"{vq_argmin.launches - before} times")
         fits.append(fit)
     fit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fit_sums = tier_sums64.launches
+    if fit_sums != 2 * cfg.niter:
+        raise AssertionError(f"two fits launched the sums {fit_sums} times")
     if not (torch.equal(fits[0].centroids, fits[1].centroids)
             and fits[0].obj == fits[1].obj):
         raise AssertionError("two card K-means fits differ")
@@ -1052,7 +1074,7 @@ def pipeline_phase(records: list, dev, base: Path):
     assign_ms = cuda_ms(lambda: km.assign(x, c), 3)
     ids = km.assign(x, c)
     sums_ms = cuda_ms(lambda: km.cluster_sums(x, ids, cfg.vocab_size), 3)
-    split = sums_split(x, ids)
+    split = sums_split(x, ids, cfg.vocab_size)
     rows = torch.arange(cfg.vocab_size, dtype=ids.dtype, device=dev)[:, None]
 
     def onehot_sums():  # the JAX formulation, timed beside the one adopted
@@ -1068,15 +1090,43 @@ def pipeline_phase(records: list, dev, base: Path):
     if not onehot_err <= 1e-5 * float(sums.abs().max()):
         raise AssertionError(f"cluster sums differ from the one-hot GEMM's "
                              f"by {onehot_err:.3e}")
+    # the sums kernel at each tier against its plain version; yardstick
+    # one index_add_ (f32 atomics: another order each run)
+    acc = torch.zeros_like(c)
+    idx = ids.long()
+    index_add_ms = cuda_ms(lambda: acc.zero_().index_add_(0, idx, x), 3)
+    del acc, idx
+    # the sums read each row and id once and write (parts, K, d) f64
+    sums_by_tier = {}
+    for tier in ("highest", "bf16x3", "default"):
+        parts = 2 if tier == "bf16x3" else 1
+        err, rel, frac, ulps = sums_check(x, ids, cfg.vocab_size, tier)
+        k_ms = cuda_ms(lambda: tier_sums64(x, ids, cfg.vocab_size, tier), 5)
+        p_ms = cuda_ms(lambda: tier_sums64_plain(x, ids, cfg.vocab_size,
+                                                 tier), 2)
+        b = bound_of(x.numel() * parts, x.numel() * 4 + n * 4
+                     + parts * c.numel() * 8)
+        sums_by_tier[tier] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
+                                  bound_by=b[1], max_abs_err=err,
+                                  rel_err=rel, f32_apart=frac,
+                                  max_ulps=ulps)
+        log(f"[kmeans sums] {tier}: tier_sums64 (csrc/kmeans.cu, sort "
+            f"included) {k_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), plain "
+            f"version {p_ms:.3f} ms; against the plain version: f64 max abs "
+            f"err {err:.3e}, within {rel:.2e} of the entries' sum |x| (limit "
+            f"1e-12), f32 sums "
+            f"{frac:.2e} apart (limit 1e-4), at most {ulps} ulp; index_add_ "
+            f"(f32 atomics) {index_add_ms:.3f} ms")
+    torch.cuda.empty_cache()
     lib_ms = cuda_ms(lambda: vq_argmin_plain(x, c, False, chunk=1 << 18), 2)
     lib_frac, lib_gap = check_near_ties(
         x, c, ids, vq_argmin_plain(x, c, False, chunk=1 << 18))
     flop = 2 * n * cfg.vocab_size * cfg.n_mels
     nbytes = x.numel() * 4 + n * 4 + c.numel() * 4
     assign_b = bound_of(flop, nbytes)
-    # the sums read each row and id once and add each row once; the
-    # one-hot GEMM does as many operations as the assignment
-    sums_b = bound_of(x.numel(), nbytes)
+    sums_b = (sums_by_tier["highest"]["bound_ms"],
+              sums_by_tier["highest"]["bound_by"])
+    # the one-hot GEMM does as many operations as the assignment
     onehot_b = bound_of(flop, nbytes)
     iter_ms = min(fit_s) / cfg.niter * 1e3
     rate = n * cfg.niter / min(fit_s)
@@ -1085,22 +1135,22 @@ def pipeline_phase(records: list, dev, base: Path):
         f"{fit_s[1]:.3f} s (host clock, synchronized), bit-equal; "
         f"{iter_ms:.2f} ms an iteration, {rate / 1e6:.1f}M point-iterations/s; "
         f"assignment (B2) {assign_ms:.3f} ms, bound {assign_b[0]:.3f} ms "
-        f"({assign_b[1]}, {flop / 1e12:.3f} TFLOP f32); sums (sorted rows, "
-        f"f64 running sums in blocks of {km.SEGMENT_BLOCK}) {sums_ms:.3f} "
+        f"({assign_b[1]}, {flop / 1e12:.3f} TFLOP f32); sums (the sums "
+        f"kernel, tiles of {km.SEGMENT_BLOCK} sorted rows) {sums_ms:.3f} "
         f"ms, bound {sums_b[0]:.3f} ms ({sums_b[1]}); the one-hot GEMM "
         f"in chunks of {1 << 16} instead {onehot_ms:.3f} ms (bound "
         f"{onehot_b[0]:.3f} ms, {onehot_b[1]}; max abs diff "
         f"{onehot_err:.3e}); rest of the iteration "
         f"{iter_ms - assign_ms - sums_ms:.3f} ms; yardstick torch.matmul + "
         f"argmin in chunks of {1 << 18} (TF32 off) {lib_ms:.3f} ms, ids "
-        f"{lib_frac:.2e} disagree with B2's (gap {lib_gap:.3e})")
+        f"{lib_frac:.2e} disagree with B2's (gap {lib_gap:.3e}); sums "
+        f"launches {fit_sums}")
     log(f"[kmeans] peak device memory of the fits {fit_peak_gb:.3f} GB "
         f"(max_memory_allocated), {fit_peak_gb - points_gb:.3f} GB beside "
         f"the {points_gb:.3f} GB of points; the sums' {sums_ms:.3f} ms by "
         f"part (CUDA events, each alone): stable sort of the ids "
-        f"{split['sort_ms']:.3f} ms, gather x[order] {split['gather_ms']:.3f} "
-        f"ms, f64 running sums in blocks {split['cumsum_ms']:.3f} ms, the "
-        f"rest (run ends, differences, one-hot GEMM) "
+        f"{split['sort_ms']:.3f} ms, the clusters' bounds (searchsorted) "
+        f"{split['bounds_ms']:.3f} ms, the kernel's two passes (the rest) "
         f"{sums_ms - sum(split.values()):.3f} ms")
     records[1]["kmeans_17M"] = dict(
         rows=n, iteration_ms=iter_ms, point_iters_per_s=rate,
@@ -1108,7 +1158,15 @@ def pipeline_phase(records: list, dev, base: Path):
         sums_bound_ms=sums_b[0], onehot_sums_ms=onehot_ms,
         onehot_sums_bound_ms=onehot_b[0], matmul_argmin_ms=lib_ms,
         peak_gb=fit_peak_gb, points_gb=points_gb,
-        sums_rest_ms=sums_ms - sum(split.values()), **split)
+        sums_passes_ms=sums_ms - sum(split.values()), **split)
+    top = sums_by_tier["highest"]
+    sums_rec.update(
+        max_abs_err=top["max_abs_err"], rel_err=top["rel_err"],
+        ms=top["ms"], plain_ms=top["plain_ms"],
+        bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+        library_ms=index_add_ms, shapes=f"N {n}, d {cfg.n_mels}, K "
+        f"{cfg.vocab_size}", by_tier=sums_by_tier)
+    sums_rec["launches_by_path"]["kmeans_17M"] = fit_sums
     del ids, sums
     stream_phase(records, cfg, dev, x, c)
     del x, fits, c
@@ -1207,6 +1265,7 @@ def fused_phase(records: list, dev, base: Path, cfg, cents) -> None:
     from audio_tokens_tpu_torch.config import AudioTokensConfig
     from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
                                                       lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
     from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
     from audio_tokens_tpu_torch.processors import (ClusterCreator,
@@ -1215,10 +1274,11 @@ def fused_phase(records: list, dev, base: Path, cfg, cents) -> None:
                                                    SpectrogramGenerator)
 
     kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
-               lstm_sequence_bwd)
+               lstm_sequence_bwd, tier_sums64)
     stages = (SpectrogramGenerator, ClusterCreator, SpecTokenizer,
               ModelTrainer)
     names = [c.__name__ for c in stages]
+    sums_paths = sums_record(records)["launches_by_path"]
     split = json.loads(Path(cfg.split_file).read_text())
     bs = cfg.device_batch_size
     train_batches = -(-len(split["train"]) // bs)
@@ -1247,7 +1307,7 @@ def fused_phase(records: list, dev, base: Path, cfg, cents) -> None:
                         if n in seconds)
             + f" (host clock, synchronized); main() {run_s:.2f} s; val loss "
             f"{val_loss:.6f}, val mAP {val_metrics['mAP']:.6f}; launches "
-            "B1, B2, B3, B4 by stage: "
+            "B1, B2, B3, B4, sums by stage: "
             + "; ".join(f"{n} {launches[n]}" for n in names
                         if n in launches))
         return rcfg, seconds, launches, made["ClusterCreator"], run_s
@@ -1263,7 +1323,8 @@ def fused_phase(records: list, dev, base: Path, cfg, cents) -> None:
     b1_tok, b2_tok = fl["SpecTokenizer"][:2]
     if (fcc.used_device_feed or b1_tok != train_batches + val_batches
             or b2_tok != 0 or fl["ClusterCreator"][1] < cfg.niter
-            or min(fl["ModelTrainer"][2:]) < 1):
+            or fl["ClusterCreator"][4] != fl["ClusterCreator"][1]
+            or min(fl["ModelTrainer"][2:4]) < 1):
         raise AssertionError(f"fused batch_warm_start launches {fl}")
     flips = token_flips("fused batch_warm_start (B1) vs phase 8 (MelFrontend "
                         "+ B2)", Path(cfg.dest_spec_path),
@@ -1273,6 +1334,7 @@ def fused_phase(records: list, dev, base: Path, cfg, cents) -> None:
     records[0]["c2_b1_vs_staged_tokens"] = flips
     records[1]["launches_by_path"]["pipeline_fused_cluster"] = \
         fl["ClusterCreator"][1]
+    sums_paths["pipeline_fused_cluster"] = fl["ClusterCreator"][4]
     records[2]["launches_by_path"]["pipeline_fused_train"] = \
         fl["ModelTrainer"][2]
     records[3]["launches_by_path"]["pipeline_fused_train"] = \
@@ -1293,7 +1355,9 @@ def fused_phase(records: list, dev, base: Path, cfg, cents) -> None:
                              "feed, or kept its frames")
     b1_tok, b2_tok = fl["SpecTokenizer"][:2]
     if b1_tok != val_batches or b2_tok != 1 or \
-            fl["ClusterCreator"][1] != cfg.niter:
+            fl["ClusterCreator"][1] != cfg.niter or \
+            fl["ClusterCreator"][4] != cfg.niter or \
+            sl["ClusterCreator"][4] != sl["ClusterCreator"][1]:
         raise AssertionError(f"fused full launches {fl}: the train split "
                              f"did not come from the resident frames")
     got, ref = np.load(fcfg.centroids_path), np.load(scfg.centroids_path)
@@ -1311,6 +1375,8 @@ def fused_phase(records: list, dev, base: Path, cfg, cents) -> None:
         pipeline_fused_resident=b2_tok,
         pipeline_full_cluster=sl["ClusterCreator"][1],
         pipeline_full_tokenize=sl["SpecTokenizer"][1])
+    sums_paths.update(pipeline_fused_full_cluster=fl["ClusterCreator"][4],
+                      pipeline_full_cluster=sl["ClusterCreator"][4])
     for rec, kernel in ((records[2], 2), (records[3], 3)):
         rec["launches_by_path"].update(
             pipeline_fused_full_train=fl["ModelTrainer"][kernel],
@@ -1336,6 +1402,7 @@ def feed_phase(records: list, cfg, dev) -> None:
     8's in-memory fit overhead (1 GB of slack)."""
     import torch
 
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
     from audio_tokens_tpu_torch.ops.vq import l2_normalize
     from audio_tokens_tpu_torch.processors import (ClusterCreator,
@@ -1389,6 +1456,7 @@ def feed_phase(records: list, cfg, dev) -> None:
     del host, specs
     feed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     before = vq_argmin.launches
+    tier_sums64.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     centroids, obj = cluster_creator.kmeans_fit(
@@ -1401,8 +1469,10 @@ def feed_phase(records: list, cfg, dev) -> None:
     buffer_gb = buffer.numel() * 4 / 1e9
     k17 = records[1]["kmeans_17M"]
     limit_gb = buffer_gb + (k17["peak_gb"] - k17["points_gb"]) + 1.0
-    if launches != cfg.niter or not torch.isfinite(centroids).all():
-        raise AssertionError(f"the feed's fit launched B2 {launches} times")
+    if launches != cfg.niter or tier_sums64.launches != cfg.niter or \
+            not torch.isfinite(centroids).all():
+        raise AssertionError(f"the feed's fit launched B2 {launches} times, "
+                             f"the sums {tier_sums64.launches}")
     if peak_gb > limit_gb:
         raise AssertionError(f"the feed's fit peaked at {peak_gb:.3f} GB "
                              f"over {base_gb:.3f} GB, past {limit_gb:.3f}: "
@@ -1423,6 +1493,8 @@ def feed_phase(records: list, cfg, dev) -> None:
         f"feed alone {feed_peak_gb - base_gb:.3f}; bound {limit_gb:.3f} = "
         f"buffer + phase 8's fit overhead + 1)")
     records[1]["launches_by_path"]["fused_feed_fit"] = launches
+    sums_record(records)["launches_by_path"]["fused_feed_fit"] = \
+        tier_sums64.launches
     records[1]["fused_feed_10k"] = dict(
         clips=FEED_CLIPS, rows=offset, capacity=buffer.shape[0],
         buffer_gb=buffer_gb, feed_s=feed_s, batch_copy_ms=copy_ms,
@@ -1872,31 +1944,55 @@ def export_phase(records: list, dev, base: Path, cfg,
     return results
 
 
-def sums_split(x, ids) -> dict:
-    """The parts of ``cluster_sums`` at these rows, each timed alone with
-    CUDA events: the stable sort, the gather and the f64 running sums."""
+SUMS_NAME = "K-means centroid sums (sorted rows, f64 runs, every tier)"
+
+
+def sums_record(records: list) -> dict:
+    """The centroid sums kernel's record (made by phase 8)."""
+    return next(r for r in records if r["name"] == SUMS_NAME)
+
+
+def sums_split(x, ids, k: int) -> dict:
+    """The parts of ``tier_sums64`` at these rows, each timed alone with
+    CUDA events: the stable sort, the clusters' bounds (searchsorted); the
+    kernel's two passes are the rest."""
     import torch
 
-    from audio_tokens_tpu_torch.ops.kmeans import SEGMENT_BLOCK
-
-    n, d = x.shape
-    m = n - n % SEGMENT_BLOCK
-    _, order = torch.sort(ids, stable=True)
-    xs = x[order]
-    run = torch.empty((n, d), dtype=torch.float64, device=x.device)
-
-    def cumsum():
-        torch.cumsum(xs[:m].view(-1, SEGMENT_BLOCK, d), 1,
-                     dtype=torch.float64,
-                     out=run[:m].view(-1, SEGMENT_BLOCK, d))
-        torch.cumsum(xs[m:], 0, dtype=torch.float64, out=run[m:])
-
+    sid, _ = torch.sort(ids, stable=True)
+    keys = torch.arange(k + 1, dtype=sid.dtype, device=x.device)
     out = dict(sort_ms=cuda_ms(lambda: torch.sort(ids, stable=True), 3),
-               gather_ms=cuda_ms(lambda: x[order], 3),
-               cumsum_ms=cuda_ms(cumsum, 3))
-    del xs, run, order
-    torch.cuda.empty_cache()
+               bounds_ms=cuda_ms(lambda: torch.searchsorted(sid, keys), 3))
+    del sid
     return out
+
+
+def sums_check(x, ids, k: int, tier: str) -> tuple:
+    """``tier_sums64`` on the card against its plain version on the same
+    tensors: (largest f64 error, largest f64 error over the entry's sum of
+    |parts|, share of the f32 roundings apart, their largest ulp gap);
+    raises past 1e-12 of the sum of |parts|, 1e-4 and 1 ulp."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import (tier_sums64,
+                                                        tier_sums64_plain)
+    from audio_tokens_tpu_torch.ops.tiers import tier_operands
+
+    got = tier_sums64(x, ids, k, tier)
+    ref = tier_sums64_plain(x, ids, k, tier)
+    mags = torch.stack([tier_sums64_plain(p.abs(), ids, k)[0]
+                        for p in tier_operands(x, tier)])
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / mags.clamp_min(1e-300)).max())
+    g32, r32 = got.float(), ref.float()
+    apart = g32 != r32
+    frac = float(apart.float().mean())
+    ulps = int((g32.view(torch.int32).long() - r32.view(torch.int32).long())
+               .abs().max())
+    if not (rel <= 1e-12 and frac <= 1e-4 and ulps <= 1):
+        raise AssertionError(f"sums at {tier}: {rel:.3e} of sum|x| from the "
+                             f"plain version, {frac:.2e} of the f32 sums "
+                             f"apart, {ulps} ulp at most")
+    return err, rel, frac, ulps
 
 
 class IterationLog(logging.Handler):
@@ -1921,6 +2017,7 @@ def stream_phase(records: list, cfg, dev, x, ref) -> None:
     import torch
 
     from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
     from audio_tokens_tpu_torch.ops.vq import check_near_ties
 
@@ -1963,6 +2060,7 @@ def stream_phase(records: list, cfg, dev, x, ref) -> None:
             base_gb = torch.cuda.memory_allocated() / 1e9
             torch.cuda.reset_peak_memory_stats()
             before = vq_argmin.launches
+            tier_sums64.launches = 0
             t0 = time.perf_counter()
             c, obj, seen = km.kmeans_fit_streaming(
                 stream, k, cfg.niter, d=d, seed=cfg.random_seed,
@@ -1971,8 +2069,10 @@ def stream_phase(records: list, cfg, dev, x, ref) -> None:
             torch.cuda.synchronize()
             fit_s = time.perf_counter() - t0
             launches = vq_argmin.launches - before
-            if launches != n_sb * cfg.niter or seen != n:
+            if launches != n_sb * cfg.niter or seen != n or \
+                    tier_sums64.launches != launches:
                 raise AssertionError(f"{name}: B2 launched {launches} times "
+                                     f"and the sums {tier_sums64.launches} "
                                      f"over {seen} rows")
             copying = handler.iters[:1] if "hbm_cache_mb" in caches \
                 else handler.iters
@@ -2029,6 +2129,8 @@ def stream_phase(records: list, cfg, dev, x, ref) -> None:
         modes=out)
     records[1]["launches_by_path"]["kmeans_stream"] = sum(
         m["launches"] for m in out.values())
+    sums_record(records)["launches_by_path"]["kmeans_stream"] = sum(
+        m["launches"] for m in out.values())
 
 
 # phase 12: the precision tiers' peak rates: bf16 on the tensor cores, and
@@ -2036,6 +2138,9 @@ def stream_phase(records: list, cfg, dev, x, ref) -> None:
 TIER_FLOPS = {"highest": PEAK_FLOPS["float32"], "bf16x3": PEAK_FLOPS[
     "bfloat16"] / 3, "default": PEAK_FLOPS["bfloat16"]}
 KMEANS_TIERS = (("high", "bf16x3"), ("default", "default"))
+# (n_fft, hop, n_mels) the bf16 front end took up in PR 17 (C5): a hop off
+# 16 and off 8 at n_fft 400, 256 mel bands
+C5_SHAPES = ((400, 200, 64), (400, 100, 64), (512, 128, 256))
 # the K-means objective's drift from the highest fit that a tier's fit may
 # show: the card's readings are 1.5e-8 (high) and 7.4e-6 (default) at
 # 17.23M x 64 x 500; the JAX package documents ~4e-5 for default on a TPU
@@ -2075,7 +2180,8 @@ def tiers_b1(records: list, dev) -> None:
     import torch
 
     from audio_tokens_tpu_torch.config import AudioTokensConfig
-    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import (TokenizerKernel,
+                                                           tier_plan)
     from audio_tokens_tpu_torch.ops.tiers import (check_follows_tier,
                                                   check_tier_ties)
     from audio_tokens_tpu_torch.ops.vq import l2_normalize
@@ -2085,6 +2191,7 @@ def tiers_b1(records: list, dev) -> None:
     base_cfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS, **MODEL)
     clips = make_clips(BATCH)
     x = dft_ms = None
+    by_combo = {}
     for k in (VOCAB, VOCAB_LARGE):
         cents = make_centroids(k, 7 if k == VOCAB else 8)
         exact = None
@@ -2149,8 +2256,54 @@ def tiers_b1(records: list, dev) -> None:
                 max_abs_err=gap, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=dft_ms, agreement_highest=agree,
                 launches_by_path={f"tiers_b1_{tier}_{vq}_k{k}": launches}))
+            by_combo[tier, vq, k] = records[-1]
             del tok, kern, got, ref
         del exact
+        torch.cuda.empty_cache()
+    # the shapes the mma.sync front end refused (C5): a hop off 16 and
+    # off 8 at n_fft 400, 256 mel bands, each combo of one bf16 tier
+    for n_fft, hop, n_mels in C5_SHAPES:
+        cents = make_centroids(VOCAB, 10, n_mels)
+        for tier in ("bf16x3", "default"):
+            cfg = dataclasses.replace(
+                base_cfg, n_fft=n_fft, hop_length=hop, n_mels=n_mels,
+                tokenizer_precision=tier, tokenizer_vq_precision=tier)
+            exact = FusedTokenizer(dataclasses.replace(
+                cfg, tokenizer_precision="highest",
+                tokenizer_vq_precision="highest"), cents, dev)
+            tok = FusedTokenizer(cfg, cents, dev)
+            kern = tok.kernel
+            xs = torch.from_numpy(tok.frontend.prepare_batch(clips)[0]).to(dev)
+            highest = exact.tokens_from_padded(xs)
+            torch.cuda.synchronize()
+            TokenizerKernel.launches = 0
+            got = tok.tokens_from_padded(xs)
+            torch.cuda.synchronize()
+            launches = TokenizerKernel.launches
+            if launches != 1:
+                raise AssertionError(f"B1 {tier}/{tier} at n_fft {n_fft}, hop "
+                                     f"{hop}, {n_mels} mels: {launches} "
+                                     f"launches")
+            ref = kern.plain(xs)
+            frac, gap, worst = check_tier_ties(
+                l2_normalize(kern.log_mel_plain(xs)), kern.centroids, got,
+                ref, tier)
+            apart, followed = check_follows_tier(got, ref, highest, tier,
+                                                 min_rows=20, band=False)
+            ms = cuda_ms(lambda: kern(xs), 5)
+            frames, stages, smem = tier_plan(hop, -(-n_fft // 32) * 32,
+                                             n_mels, tier, tier)
+            log(f"[tiers B1 {tier}/{tier} n_fft {n_fft} hop {hop} mels "
+                f"{n_mels}] ({frames} frames a block, {stages} ring stages, "
+                f"{smem} B shared) {frac:.2e} of the tokens apart from the "
+                f"plain tier version (largest score gap {gap:.3e}, "
+                f"{worst:.3f} of its bound); {apart:.3e} apart from "
+                f"highest, the plain tier's answer taken where it leaves "
+                f"highest: {fmt_share(followed)}; kernel {ms:.3f} ms; "
+                f"launches {launches}")
+            by_combo[tier, tier, VOCAB]["launches_by_path"][
+                f"tiers_b1_{tier}_{tier}_n{n_fft}_h{hop}_m{n_mels}"] = launches
+            del tok, exact, kern, xs, got, ref, highest
         torch.cuda.empty_cache()
 
 
@@ -2162,22 +2315,29 @@ def tiers_kmeans(records: list, cfg, dev) -> None:
     import torch
 
     from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
     from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin, vq_argmin_plain
     from audio_tokens_tpu_torch.ops.tiers import (check_follows_tier,
                                                   check_tier_ties)
 
     x = kmeans_rows(cfg, dev)
     n, d = x.shape
+    sums_rec = sums_record(records)
 
     def fit(precision):
         f = km.KMeans(d, cfg.vocab_size, niter=cfg.niter,
                       seed=cfg.random_seed, precision=precision, device=dev)
         torch.cuda.synchronize()
-        vq_argmin.launches = 0
+        vq_argmin.launches = tier_sums64.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         f.train(x)
         torch.cuda.synchronize()
+        if tier_sums64.launches != cfg.niter:
+            raise AssertionError(f"KMeans {precision}: the sums launched "
+                                 f"{tier_sums64.launches} times")
+        sums_rec["launches_by_path"][f"kmeans_{precision}"] = \
+            tier_sums64.launches
         return (f, time.perf_counter() - t0, vq_argmin.launches,
                 torch.cuda.max_memory_allocated() / 1e9)
 
@@ -2222,7 +2382,10 @@ def tiers_kmeans(records: list, cfg, dev) -> None:
                                  f"{KMEANS_DRIFT[precision]})")
         log(f"[tiers kmeans] {precision} ({tier}): KMeans.train "
             f"{fit_s:.3f} s ({fit_s / cfg.niter * 1e3:.2f} ms an iteration, "
-            f"highest {ref_s / cfg.niter * 1e3:.2f}), objective {f.obj:.6f}, "
+            f"highest {ref_s / cfg.niter * 1e3:.2f}; below highest: "
+            f"{fit_s < ref_s}; the sums at the tier "
+            f"{sums_rec['by_tier'][tier]['ms']:.3f} ms, phase 8), objective "
+            f"{f.obj:.6f}, "
             f"drift from highest {drift:.3e}, centroids max abs diff "
             f"{cent_err:.3e}, ids apart from the highest fit's {apart:.3e}; "
             f"peak {peak_gb:.3f} GB; launches {launches}")
@@ -2257,6 +2420,7 @@ def tiers_pipelines(records: list, dev, base: Path, cfg, cents) -> None:
 
     from audio_tokens_tpu_torch import run_pipeline
     from audio_tokens_tpu_torch.ops.conv_features import ConvFeatures
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
     from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
                                                       lstm_sequence_fwd)
     from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
@@ -2269,7 +2433,7 @@ def tiers_pipelines(records: list, dev, base: Path, cfg, cents) -> None:
                                                    SpectrogramGenerator)
 
     kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
-               lstm_sequence_bwd)
+               lstm_sequence_bwd, tier_sums64)
     stages = (SpectrogramGenerator, ClusterCreator, SpecTokenizer,
               ModelTrainer)
     names = [c.__name__ for c in stages]
@@ -2293,12 +2457,13 @@ def tiers_pipelines(records: list, dev, base: Path, cfg, cents) -> None:
             + ", ".join(f"{n} {seconds[n]:.2f} s" for n in names)
             + f"; main() {run_s:.2f} s; centroids {got.shape}; val loss "
             f"{val_loss:.6f}, val mAP {val_metrics['mAP']:.6f}; launches B1, "
-            "B2, B3, B4 by stage: "
+            "B2, B3, B4, sums by stage: "
             + "; ".join(f"{n} {launches[n]}" for n in names))
         b2_c, b2_t = launches["ClusterCreator"][1], launches["SpecTokenizer"][1]
-        b3, b4 = launches["ModelTrainer"][2:]
+        b3, b4 = launches["ModelTrainer"][2:4]
+        sums_c = launches["ClusterCreator"][4]
         if (b2_c < vcfg.niter or b2_t < 1 or b3 < 1 or b4 < 1
-                or not np.isfinite(val_loss)):
+                or sums_c != b2_c or not np.isfinite(val_loss)):
             raise AssertionError(f"pipeline {tag}: launches {launches}, "
                                  f"val loss {val_loss}")
         if got.shape != (vcfg.vocab_size, vcfg.feature_dim) or \
@@ -2306,6 +2471,8 @@ def tiers_pipelines(records: list, dev, base: Path, cfg, cents) -> None:
             raise AssertionError(f"pipeline {tag}: centroids {got.shape}")
         records[1]["launches_by_path"].update({
             f"pipeline_{tag}_cluster": b2_c, f"pipeline_{tag}_tokenize": b2_t})
+        sums_record(records)["launches_by_path"][
+            f"pipeline_{tag}_cluster"] = sums_c
         records[2]["launches_by_path"][f"pipeline_{tag}_train"] = b3
         records[3]["launches_by_path"][f"pipeline_{tag}_train"] = b4
         spec_dir = Path(vcfg.dest_spec_path)
@@ -2422,6 +2589,7 @@ def tiers_search(records: list, dev) -> None:
     import torch
 
     from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
     from audio_tokens_tpu_torch.ops.cuda_vq import (vq_argmin, vq_argmin_plain,
                                                     vq_tier_plan)
     from audio_tokens_tpu_torch.ops.tiers import (check_follows_tier,
@@ -2493,12 +2661,13 @@ def tiers_search(records: list, dev) -> None:
     fit = km.KMeans(64, VOCAB_LARGE, niter=KMEANS_LARGE_ITERS, seed=0,
                     precision="high", device=dev)
     torch.cuda.synchronize()
-    vq_argmin.launches = 0
+    vq_argmin.launches = tier_sums64.launches = 0
     t0 = time.perf_counter()
     fit.train(x)
     torch.cuda.synchronize()
     fit_s, launches = time.perf_counter() - t0, vq_argmin.launches
-    if launches != KMEANS_LARGE_ITERS or not np.isfinite(fit.obj):
+    if (launches != KMEANS_LARGE_ITERS or not np.isfinite(fit.obj)
+            or tier_sums64.launches != launches):
         raise AssertionError(f"KMeans high at K {VOCAB_LARGE}: {launches} "
                              f"launches, objective {fit.obj}")
     log(f"[tiers kmeans K {VOCAB_LARGE}] high: KMeans.train on "
@@ -2507,6 +2676,8 @@ def tiers_search(records: list, dev) -> None:
         f"iteration), objective {fit.obj:.6f}; launches {launches}")
     by_shape[TIER_SHAPES[0][0], "bf16x3"]["launches_by_path"][
         f"kmeans_high_k{VOCAB_LARGE}"] = launches
+    sums_record(records)["launches_by_path"][
+        f"kmeans_high_k{VOCAB_LARGE}"] = tier_sums64.launches
     del x, fit
     torch.cuda.empty_cache()
 

@@ -285,8 +285,81 @@ def test_cuda_kmeans_tier_fit_matches_the_plain_fit(cuda_device, k, d,
     assert abs(card_obj - cpu_obj) <= KMEANS_DRIFT[precision] * abs(cpu_obj)
 
 
+# the centroid sums kernel's shapes (N, d, K): 17 rows and K 9 (one partial
+# tile), runs spanning tiles at d 64 and K 500, K 16,384 (most clusters in
+# one tile, many empty), d 128 and the conv front-end's d 640, d 130 (a
+# partial 64-column slab)
+SUMS_SHAPES = [(17, 64, 9), (200_001, 64, 500), (40_000, 64, 16384),
+               (30_000, 128, 500), (6_000, 640, 500), (5_000, 130, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("n,d,k", SUMS_SHAPES)
+def test_cuda_tier_sums_match_plain(cuda_device, n, d, k, tier):
+    """``tier_sums64`` on the card (csrc/kmeans.cu) against its plain
+    version on the same card tensors: f64 within 1e-12 of the entry's sum of
+    |parts| (another order of the same f64 additions), the f32 roundings
+    equal on all but 1e-4 of the entries and at most 1 ulp apart; one
+    launch; and bit for bit the kernel's decomposition rendered in plain
+    PyTorch where it is small enough to run."""
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import (sums_decomposition,
+                                                        tier_sums64,
+                                                        tier_sums64_plain)
+    from audio_tokens_tpu_torch.ops.tiers import tier_operands
+
+    rng = np.random.default_rng(n + d + k)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)
+                         ).to(cuda_device)
+    ids = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)
+                           ).to(cuda_device)
+    before = tier_sums64.launches
+    got = tier_sums64(x, ids, k, tier)
+    assert tier_sums64.launches == before + 1
+    ref = tier_sums64_plain(x, ids, k, tier)
+    assert got.shape == ref.shape
+    mags = torch.stack([tier_sums64_plain(p.abs(), ids, k, "highest")[0]
+                        for p in tier_operands(x, tier)])
+    assert bool(((got - ref).abs() <= 1e-12 * mags).all())
+    g32, r32 = got.float(), ref.float()
+    apart = g32 != r32
+    assert float(apart.float().mean()) <= 1e-4
+    ulps = (g32.view(torch.int32).long() - r32.view(torch.int32).long()).abs()
+    assert not apart.any() or int(ulps[apart].max()) <= 1
+    if n * d <= 200_000:
+        assert torch.equal(got, sums_decomposition(x, ids, k, tier))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_cuda_kmeans_tier_fits_are_bit_equal_through_the_sums_kernel(
+        cuda_device, precision):
+    """Two fits of the same points on the card at each precision give the
+    same bits, the sums kernel launched once an iteration; a streaming fit
+    of one super-batch equals ``kmeans_fit`` bit for bit."""
+    from audio_tokens_tpu_torch.ops import kmeans as km
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
+
+    x = _unit_rows(120_003, 64, 9).to(cuda_device)
+    init = x[:300].clone()
+    fits = []
+    for _ in range(2):
+        before = tier_sums64.launches
+        fits.append(km.kmeans_fit(x, 300, 5, init_centroids=init,
+                                  precision=precision))
+        assert tier_sums64.launches == before + 5
+    assert torch.equal(fits[0][0], fits[1][0]) and fits[0][1] == fits[1][1]
+    host = x.cpu().numpy()
+    sc, sobj, seen = km.kmeans_fit_streaming(
+        lambda: iter([host[:60_000], host[60_000:]]), 300, 5, d=64,
+        init_centroids=init, superbatch_rows=1 << 17, chunk=1 << 15,
+        precision=precision, device=cuda_device)
+    assert seen == x.shape[0]
+    assert torch.equal(sc, fits[0][0]) and sobj == fits[0][1]
+
+
 # (tier, vq_tier): every combination with a bf16 tier
-TOKENIZER_TIERS = [(t, v) for t in ("highest", "bf16x3", "default")
+TOKENIZER_TIERS =[(t, v) for t in ("highest", "bf16x3", "default")
                    for v in ("highest", "bf16x3", "default")
                    if (t, v) != ("highest", "highest")]
 # (n_fft, hop, n_mels, K): the package defaults at K 500 and 16,384, a
@@ -358,14 +431,73 @@ def test_cuda_tokenizer_vq_tier_takes_wide_mels(cuda_device, n_mels, k,
                     kern.plain(x), vq_tier)
 
 
+# (n_fft, hop, n_mels): the shapes PR 16's mma.sync front end refused
+# (C5): a hop off 16, a hop off 8 (its fragments gathered sample by
+# sample), 256 mel bands (four 64-band slices, 64 frames a block)
+C5_SHAPES = [(400, 200, 64), (400, 100, 64), (512, 128, 256),
+             (400, 80, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+@pytest.mark.parametrize("n_fft,hop,n_mels", C5_SHAPES)
+def test_cuda_tokenizer_tier_takes_any_hop_and_wide_mels(cuda_device, n_fft,
+                                                         hop, n_mels, tier):
+    """B1 at (tier, tier) at the shapes the f32 front end and the JAX
+    kernel take: one launch, held to its plain tier version."""
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.mel import MelFrontend
+    from audio_tokens_tpu_torch.ops.tiers import check_tier_ties
+    from audio_tokens_tpu_torch.ops.vq import l2_normalize
+
+    rng = np.random.default_rng(n_fft + hop + n_mels)
+    cents = rng.standard_normal((500, n_mels)).astype(np.float32)
+    fe = MelFrontend("cpu", 22050, n_mels, n_fft, hop, int(22050 * 1.5))
+    kern = TokenizerKernel(22050, n_mels, n_fft, hop, fe.frames_max, cents,
+                           cuda_device, tier, tier)
+    clips = [rng.standard_normal(int(22050 * s)).astype(np.float32)
+             for s in (1.5, 0.7, 1.2)]
+    x = torch.from_numpy(fe.prepare_batch(clips)[0]).to(cuda_device)
+    before = TokenizerKernel.launches
+    got = kern(x)
+    assert TokenizerKernel.launches == before + 1
+    check_tier_ties(l2_normalize(kern.log_mel_plain(x)), kern.centroids,
+                    got, kern.plain(x), tier)
+
+
 @pytest.mark.cuda
 def test_cuda_tokenizer_tier_refuses_a_hop_off_16(cuda_device):
+    """A hop that does not divide n_fft (hop 120 at n_fft 256, which the
+    JAX kernel refuses too) raises at the bf16 tiers."""
     from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
 
     kern = TokenizerKernel(22050, 32, 256, 120, 40, np.ones((5, 32),
                            np.float32), cuda_device, "bf16x3")
-    with pytest.raises(ValueError, match="hop a multiple of 16"):
+    with pytest.raises(ValueError, match="hop to divide n_fft"):
         kern(torch.zeros((1, 39 * 120 + 256), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vq_tier", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_cuda_tokenizer_tier_plan_is_the_c_plan(cuda_device, tier, vq_tier):
+    """The bf16 front end's launch plan in Python (``tier_plan``, which the
+    wrapper refuses by) equals the C side's (``WgPlan``)."""
+    import ctypes
+
+    from audio_tokens_tpu_torch.ops import cuda_tokenizer as ct
+
+    lib = ct._lib()
+    for n_fft, hop, m in ([(512, h, 64) for h in (512, 128, 100, 8, 1)]
+                          + [(400, h, 64) for h in (200, 100, 25)]
+                          + [(512, 128, mm) for mm in (32, 130, 256, 512)]
+                          + [(2048, 2048, 64)]):
+        trows = -(-n_fft // ct.ROW_STAGE) * ct.ROW_STAGE
+        out = (ctypes.c_long * 3)()
+        lib.atk_tokenize_tier_plan(hop, trows, m, int(tier == "bf16x3"),
+                                   ct.TIERS.index(vq_tier), out)
+        assert tuple(out) == ct.tier_plan(hop, trows, m, tier, vq_tier), (
+            n_fft, hop, m)
 
 
 LSTM_SHAPES = [

@@ -229,6 +229,19 @@ def test_b1_b3_ab_variants_name_knobs_of_the_kernel_source(kernel):
     assert set(kernel_ab.TIMER_PHASES) <= set(kernel_ab.CASES)
 
 
+def test_sums_ab_variants_name_knobs_of_the_kernel_source():
+    """The A/B tool's variants of the centroid sums set knobs that
+    ``csrc/kmeans.cu`` defines, and the kernels whose registers it reports
+    are in that source."""
+    from audio_tokens_tpu_torch.ops import _build
+    from audio_tokens_tpu_torch.tools import kernel_ab
+
+    _assert_ab_variants_name_knobs("kmeans")
+    source = (_build.CSRC / "kmeans.cu").read_text()
+    for part, _ in kernel_ab.PTXAS_KERNELS["kmeans"]:
+        assert f"{part.split('I')[0]}(" in source, part
+
+
 @pytest.mark.parametrize("kernel", ["lstm-dw", "vq"])
 def test_dw_hh_b2_ab_variants_name_knobs_of_the_kernel_source(kernel):
     """The A/B tool's variants of B4's ``dw_hh`` GEMM and of B2 set knobs
