@@ -10,7 +10,11 @@
 // (T, B, 4H) and the masked cell carry c (T, B, H).  Step s processes time
 // t = s, or t = T-1-s when reverse, and writes hs[t], so the outputs stay in
 // the original time order.  Past a sequence's end (mask 0) the state passes
-// through: h = m*new + (1-m)*prev, likewise c.
+// through: h = m*new + (1-m)*prev, likewise c.  The state starts at zero,
+// or at given carries (h0, c0) (B, H): a sequence cut into time chunks (the
+// lstm's chunked recompute) launches B3 once a chunk, each from the last
+// chunk's (h_last, c_last), and gives the whole launch's hs and h_last bit
+// for bit, the per-step arithmetic being the same.
 //
 // What bounds B3 on the H100: the recurrence.  Each step needs all of the
 // previous step's h, so the T steps are serial; per step the work is one
@@ -37,9 +41,11 @@
 // uniform branch per step; serving (no gradient) passes null residual
 // pointers and skips them.
 //
-// B4 walks the forward processing order backwards, carrying (dh, dc), and
-// emits dxg = the pre-activation gate gradients (T, B, 4H) and dw_hh (H, 4H).
-// It is two launches:
+// B4 walks the forward processing order backwards, carrying (dh, dc) from
+// (dh_last, dc_last) (dc_last zero unless given), and emits dxg = the
+// pre-activation gate gradients (T, B, 4H) and dw_hh (H, 4H); with carries
+// (h0, c0) in the forward, also their gradients (dh0, dc0), and h0 enters
+// dw_hh as the first step's h_prev.  It is two launches:
 //  1. lstm_bwd_kernel, the serial part: one cooperative launch.  Each step
 //     every cell (b, u) turns its residuals and carries into its unit's 4
 //     gate gradients, written to dxg and to a double-buffered global plane
@@ -238,10 +244,12 @@ __device__ __forceinline__ void warp_reduce_scatter(float (&v)[N], int lane) {
 // arrival counter a row group, release/acquire), not for the whole grid.
 __global__ void __launch_bounds__(kFwdThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ mask,
-                const float* __restrict__ w_hh, int steps, int batch, int hidden,
+                const float* __restrict__ w_hh, const float* __restrict__ h0,
+                const float* __restrict__ c0, int steps, int batch, int hidden,
                 int reverse, int rows, int chunk, float* hbuf,
                 float* __restrict__ hs, float* __restrict__ h_last,
-                float* __restrict__ gates_res, float* __restrict__ c_res) {
+                float* __restrict__ c_last, float* __restrict__ gates_res,
+                float* __restrict__ c_res) {
   extern __shared__ float4 smem4[];
   const int jn = hidden / 4;                              // float4 columns of a row of h
   float4* ws = smem4;                                     // 8 * hidden float4s
@@ -263,7 +271,13 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ mask,
       wsf[(static_cast<size_t>(rest) * jn + j) * 4 + g] =
           u < hidden ? w_hh[k * g4 + g * hidden + u] : 0.f;
   }
-  for (int e = threadIdx.x; e < rows * kFwdUnits; e += blockDim.x) cst[e] = hst[e] = 0.f;
+  // the cells' carries: zero, or the given (h0, c0)
+  for (int e = threadIdx.x; e < rows * kFwdUnits; e += blockDim.x) {
+    const int b = b0 + e / kFwdUnits, col = u0 + e % kFwdUnits;
+    const bool given = h0 != nullptr && b < row_end && col < hidden;
+    hst[e] = given ? h0[static_cast<size_t>(b) * hidden + col] : 0.f;
+    cst[e] = given ? c0[static_cast<size_t>(b) * hidden + col] : 0.f;
+  }
   // the row groups' arrival counters, after hbuf (atk_lstm_fwd_scratch)
   unsigned* arrivals = reinterpret_cast<unsigned*>(hbuf + 2 * static_cast<size_t>(batch) * hidden);
   const int row_group = blockIdx.x / ugroups;
@@ -271,12 +285,13 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ mask,
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
   const int lr = lane / 4, lv = lane % 4;  // the lane's cell in a task: row, unit
   const int tasks = 2 * ((rows + kFwdTaskRows - 1) / kFwdTaskRows);
-  // the cells this thread owns write the zero state into buffer 0
+  // the cells this thread owns write the first state into buffer 0
   for (int task = warp; task < tasks; task += warps) {
     const int b = b0 + kFwdTaskRows * (task / 2) + lr, col = u0 + 4 * (task % 2) + lv;
-    if (b < row_end && col < hidden) hbuf[b * hidden + col] = 0.f;
+    if (b < row_end && col < hidden)
+      hbuf[b * hidden + col] = h0 != nullptr ? h0[static_cast<size_t>(b) * hidden + col] : 0.f;
   }
-  grid.sync();  // w slice loaded, zero state visible to every block
+  grid.sync();  // w slice loaded, first state visible to every block
 
   const size_t plane = static_cast<size_t>(batch) * hidden;
   PhaseTimer timer;  // phases: 0 inputs, 1 h copy, 2 product, 3 sum, 4 cell, 5 barrier
@@ -385,24 +400,28 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ mask,
   }
   for (int task = warp; task < tasks; task += warps) {
     const int b = b0 + kFwdTaskRows * (task / 2) + lr, col = u0 + 4 * (task % 2) + lv;
-    if (b < row_end && col < hidden)
-      h_last[b * hidden + col] = hst[(b - b0) * kFwdUnits + (col - u0)];
+    if (b < row_end && col < hidden) {
+      const int cell = (b - b0) * kFwdUnits + (col - u0);
+      h_last[b * hidden + col] = hst[cell];
+      c_last[b * hidden + col] = cst[cell];
+    }
   }
   timer.store(0);
 }
 
 // One step's residuals for thread (b, unit col) of B4, at forward
 // processing position p (time t): the post-activation gates, the masked
-// cell carry c[t] and the carry that entered the step (zero at p == 0),
-// the upstream gradient dhs[t] and the mask.
+// cell carry c[t] and the carry that entered the step (c0, or zero, at
+// p == 0), the upstream gradient dhs[t] and the mask.
 struct Residuals {
   float i, f, g, o, c, c_prev, dh_out, m;
 };
 
 __device__ __forceinline__ Residuals load_residuals(
     const float* __restrict__ dhs, const float* __restrict__ gates,
-    const float* __restrict__ c_res, const float* __restrict__ mask, int p, int steps,
-    int batch, int hidden, int reverse, int b, int col) {
+    const float* __restrict__ c_res, const float* __restrict__ mask,
+    const float* __restrict__ c0, int p, int steps, int batch, int hidden, int reverse, int b,
+    int col) {
   const int t = reverse ? steps - 1 - p : p;
   const size_t row = static_cast<size_t>(t) * batch + b;
   const float* gr = gates + row * 4 * hidden + col;
@@ -414,7 +433,7 @@ __device__ __forceinline__ Residuals load_residuals(
   r.c = c_res[row * hidden + col];
   r.dh_out = dhs[row * hidden + col];
   r.m = mask[row];
-  r.c_prev = 0.f;
+  r.c_prev = c0 != nullptr ? c0[static_cast<size_t>(b) * hidden + col] : 0.f;
   if (p > 0) {
     const int tp = reverse ? steps - p : p - 1;
     r.c_prev = c_res[(static_cast<size_t>(tp) * batch + b) * hidden + col];
@@ -437,10 +456,12 @@ __device__ __forceinline__ Residuals load_residuals(
 template <int U, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last,
-                const float* __restrict__ gates, const float* __restrict__ c_res,
-                const float* __restrict__ mask, const float* __restrict__ w_hh,
-                int steps, int batch, int hidden, int reverse, int rows, int ntiles,
-                int ksplit, float* dgbuf, float* __restrict__ dxg) {
+                const float* __restrict__ dc_last, const float* __restrict__ gates,
+                const float* __restrict__ c_res, const float* __restrict__ mask,
+                const float* __restrict__ w_hh, const float* __restrict__ c0, int steps,
+                int batch, int hidden, int reverse, int rows, int ntiles, int ksplit,
+                float* dgbuf, float* __restrict__ dxg, float* __restrict__ dh0,
+                float* __restrict__ dc0) {
   constexpr int kQ = U / 4;                   // float4s of one k's U weights
   constexpr int kAcc = kTileRows * U;         // a product thread's outputs
   constexpr int kPer = kAcc / 32;             // of which a lane keeps, summed
@@ -471,11 +492,11 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
   const int b = b0 + cb, col = u0 + cu;
   const bool owner = cb < rows && b < batch && col < hidden;
   float dh = owner ? dh_last[b * hidden + col] : 0.f;
-  float dc = 0.f;
+  float dc = owner && dc_last != nullptr ? dc_last[b * hidden + col] : 0.f;
   Residuals res{};
   if (owner)
-    res = load_residuals(dhs, gates, c_res, mask, steps - 1, steps, batch, hidden, reverse, b,
-                         col);
+    res = load_residuals(dhs, gates, c_res, mask, c0, steps - 1, steps, batch, hidden, reverse,
+                         b, col);
   __syncthreads();  // ws loaded
 
   const size_t plane = static_cast<size_t>(batch) * g4;
@@ -517,13 +538,14 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
       d[3 * hidden] = go;
     }
     timer.mark(0);
-    if (s + 1 == steps) break;  // the same for every block: no dh after p == 0
+    // the same for every block: after p == 0 only dh0 needs the product
+    if (s + 1 == steps && dh0 == nullptr) break;
     grid.sync();  // this step's dgp plane visible to every block
     timer.mark(1);
     // the next step's residuals do not depend on the carries: load them now
-    if (owner)
-      res = load_residuals(dhs, gates, c_res, mask, p - 1, steps, batch, hidden, reverse, b,
-                           col);
+    if (owner && p > 0)
+      res = load_residuals(dhs, gates, c_res, mask, c0, p - 1, steps, batch, hidden, reverse,
+                           b, col);
     timer.mark(2);
     if (producer) {  // whole warps: ksplit is a multiple of 32
       float acc[kAcc];  // acc[r * U + u]: row row0 + r, unit u0 + u
@@ -573,6 +595,10 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ dh_last
     }
     timer.mark(5);
     // part is written again only after the next grid.sync
+  }
+  if (dh0 != nullptr && owner) {  // the gradients of the carries (h0, c0)
+    dh0[b * hidden + col] = dh;
+    dc0[b * hidden + col] = dc;
   }
   timer.store(1);
 }
@@ -834,14 +860,15 @@ ATK_EXPORT long atk_lstm_fwd_scratch(int batch, int hidden) {
   return 2L * batch * hidden + (batch + kFwdRows - 1) / kFwdRows;
 }
 
-// B3.  hbuf is scratch of atk_lstm_fwd_scratch floats; gates_res and
-// c_res are both null (no residuals) or both the (T, B, 4H) and (T, B, H)
-// outputs.
+// B3.  h0 and c0 are both null (the zero state) or both (B, H) carries;
+// hbuf is scratch of atk_lstm_fwd_scratch floats; gates_res and c_res are
+// both null (no residuals) or both the (T, B, 4H) and (T, B, H) outputs.
 ATK_EXPORT int atk_lstm_fwd(const float* xg, const float* mask, const float* w_hh,
-                            int steps, int batch, int hidden, int reverse, float* hbuf,
-                            float* hs, float* h_last, float* gates_res, float* c_res,
-                            void* stream) {
-  if (hidden % 4 || batch < 1 || batch > kMaxBatch || (gates_res == nullptr) != (c_res == nullptr))
+                            const float* h0, const float* c0, int steps, int batch,
+                            int hidden, int reverse, float* hbuf, float* hs, float* h_last,
+                            float* c_last, float* gates_res, float* c_res, void* stream) {
+  if (hidden % 4 || batch < 1 || batch > kMaxBatch || (gates_res == nullptr) != (c_res == nullptr) ||
+      (h0 == nullptr) != (c0 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (steps <= 0) return 0;
   int sms, coop;
@@ -850,8 +877,9 @@ ATK_EXPORT int atk_lstm_fwd(const float* xg, const float* mask, const float* w_h
   LstmShape sh(batch, hidden, sms);
   err = atk::allow_smem(lstm_fwd_kernel, sh.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&xg,      &mask,     &w_hh,    &steps, &batch,  &hidden,    &reverse,
-                  &sh.rows, &sh.chunk, &hbuf,    &hs,    &h_last, &gates_res, &c_res};
+  void* args[] = {&xg,      &mask,     &w_hh, &h0, &c0,     &steps,  &batch,
+                  &hidden,  &reverse,  &sh.rows, &sh.chunk, &hbuf, &hs, &h_last,
+                  &c_last,  &gates_res, &c_res};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_fwd_kernel), dim3(sh.blocks),
                                     dim3(sh.threads), args, sh.smem,
                                     static_cast<cudaStream_t>(stream));
@@ -880,19 +908,23 @@ struct DwShape {
 };
 
 // Floats of dw_hh's scratch at (steps, batch, hidden): one partial product
-// a slice, none when there is one slice; -1 on a CUDA error.
-ATK_EXPORT long atk_lstm_dw_scratch(int steps, int batch, int hidden) {
+// a slice, and one for the first step's h0 term when `head`; none when
+// there is one product; -1 on a CUDA error.
+ATK_EXPORT long atk_lstm_dw_scratch(int steps, int batch, int hidden, int head) {
   int sms, coop;
   if (device_sms(&sms, &coop) != cudaSuccess) return -1;
   const DwShape sh(steps, batch, hidden, sms);
-  return sh.slices > 1 ? static_cast<long>(sh.slices) * hidden * 4 * hidden : 0;
+  const int parts = sh.slices + (head ? 1 : 0);
+  return parts > 1 ? static_cast<long>(parts) * hidden * 4 * hidden : 0;
 }
 
-// B4's second kernel alone: dw_hh (H, 4H) = sum over processing positions
-// p >= 1 of h_prev(p)^T dgp(p), from hs (T, B, H) and dxg (T, B, 4H);
-// scratch holds atk_lstm_dw_scratch floats.
-ATK_EXPORT int atk_lstm_dw(const float* hs, const float* dxg, int steps, int batch, int hidden,
-                           int reverse, float* scratch, float* dw_hh, void* stream) {
+// B4's second kernel: dw_hh (H, 4H) = sum over processing positions p >= 1
+// of h_prev(p)^T dgp(p), from hs (T, B, H) and dxg (T, B, 4H), plus h0^T
+// dgp(0) when h0 (B, H) is given (the carry a chunk started from), added
+// after the slices; scratch holds atk_lstm_dw_scratch floats.
+ATK_EXPORT int atk_lstm_dw(const float* hs, const float* dxg, const float* h0, int steps,
+                           int batch, int hidden, int reverse, float* scratch, float* dw_hh,
+                           void* stream) {
   if (hidden % 4 || hidden < 1 || batch < 1 || steps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int sms, coop;
@@ -906,15 +938,25 @@ ATK_EXPORT int atk_lstm_dw(const float* hs, const float* dxg, int steps, int bat
   const float* a = hs + (reverse ? static_cast<size_t>(batch) * hidden : 0);
   const float* b = dxg + (reverse ? 0 : static_cast<size_t>(batch) * g4);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int parts = sh.slices + (h0 != nullptr ? 1 : 0);
   err = atk::allow_smem(lstm_dw_kernel, sh.smem());
   if (err != cudaSuccess) return static_cast<int>(err);
   lstm_dw_kernel<<<dim3(sh.tiles_n, sh.tiles_m, sh.slices), kDwThreads, sh.smem(), st>>>(
-      a, b, sh.kdim, hidden, g4, sh.kslice, sh.slices > 1 ? scratch : dw_hh);
+      a, b, sh.kdim, hidden, g4, sh.kslice, parts > 1 ? scratch : dw_hh);
   err = cudaGetLastError();
-  if (err != cudaSuccess || sh.slices == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  if (h0 != nullptr) {
+    // h0^T dgp(0): one more partial, K = B rows of processing position 0
+    const size_t t0 = reverse ? static_cast<size_t>(steps - 1) : 0;
+    const size_t part = static_cast<size_t>(hidden) * g4;
+    lstm_dw_kernel<<<dim3(sh.tiles_n, sh.tiles_m, 1), kDwThreads, sh.smem(), st>>>(
+        h0, dxg + t0 * batch * g4, batch, hidden, g4, batch, scratch + sh.slices * part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int count4 = hidden * g4 / 4;
   const int blocks = (count4 + 255) / 256 < 4 * sms ? (count4 + 255) / 256 : 4 * sms;
-  lstm_dw_sum_kernel<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(scratch), sh.slices,
+  lstm_dw_sum_kernel<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(scratch), parts,
                                              count4, reinterpret_cast<float4*>(dw_hh));
   return static_cast<int>(cudaGetLastError());
 }
@@ -933,15 +975,17 @@ ATK_EXPORT int atk_lstm_timers(int kernel, unsigned long long* host, int blocks)
 }
 #endif
 
-// B4: the recurrence, then dw_hh.  dgbuf is (2, B, 4H) scratch, dw_scratch
-// atk_lstm_dw_scratch floats; dxg (T, B, 4H) and dw_hh (H, 4H) are written
-// in full.
-ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float* gates,
-                            const float* c_res, const float* hs, const float* mask,
-                            const float* w_hh, int steps, int batch, int hidden, int reverse,
-                            float* dgbuf, float* dw_scratch, float* dxg, float* dw_hh,
-                            void* stream) {
-  if (hidden % 4 || batch < 1 || batch > kMaxBatch || steps <= 0)
+// B4's recurrence (atk_lstm_dw forms dw_hh after it).  dc_last is null
+// (zero) or (B, H); c0, dh0 and dc0 are all null or all (B, H): the forward's
+// c0 and the gradients of its (h0, c0).  dgbuf is (2, B, 4H) scratch; dxg
+// (T, B, 4H) is written in full.
+ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float* dc_last,
+                            const float* gates, const float* c_res, const float* mask,
+                            const float* w_hh, const float* c0, int steps, int batch,
+                            int hidden, int reverse, float* dgbuf, float* dxg, float* dh0,
+                            float* dc0, void* stream) {
+  if (hidden % 4 || batch < 1 || batch > kMaxBatch || steps <= 0 ||
+      (c0 == nullptr) != (dh0 == nullptr) || (dh0 == nullptr) != (dc0 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int sms, coop;
   cudaError_t err = device_sms(&sms, &coop);
@@ -951,11 +995,11 @@ ATK_EXPORT int atk_lstm_bwd(const float* dhs, const float* dh_last, const float*
   err = cudaFuncSetAttribute(sh.kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(sh.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&dhs,    &dh_last, &gates,   &c_res,   &mask,      &w_hh,
-                  &steps,  &batch,   &hidden,  &reverse, &sh.rows,   &sh.ntiles,
-                  &sh.ksplit, &dgbuf, &dxg};
+  void* args[] = {&dhs,     &dh_last, &dc_last, &gates,   &c_res,     &mask,
+                  &w_hh,    &c0,      &steps,   &batch,   &hidden,    &reverse,
+                  &sh.rows, &sh.ntiles, &sh.ksplit, &dgbuf, &dxg, &dh0, &dc0};
   err = cudaLaunchCooperativeKernel(sh.kernel(), dim3(sh.blocks), dim3(sh.threads), args,
                                     sh.smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return atk_lstm_dw(hs, dxg, steps, batch, hidden, reverse, dw_scratch, dw_hh, stream);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,7 @@ checkpoint transplants as a copy (``convert.py``): per direction ``w_ih``
 (E, 4H), ``w_hh`` (H, 4H) and one ``bias`` (4H,), gate order i, f, g, o.
 The input-gate product ``x @ w_ih + bias`` is one large matmul outside the
 recurrence (the JAX package leaves it to XLA as well); the recurrence is
-kernels B3 forward and B4 backward (``ops/cuda_lstm.py::LSTMSequence``).
+kernels B3 forward and B4 backward (``ops/cuda_lstm.py::lstm_sequence``).
 Built with ``use_kernels=False`` (a serving program without kernels), the
 recurrence is the plain step as one scan (``lstm_sequence_scan``), which
 ``torch.export`` keeps as one loop.
@@ -25,6 +25,15 @@ Variable lengths are masked carries, not packing: past a sequence's end the
 state passes through, so the final forward carry is the state at len-1 and
 the backward direction ignores the padding it starts in.  With
 ``lengths=None`` the mask is all ones (the reference's behavior).
+
+``remat_chunk > 0`` (``lstm_remat_chunk``, JAX ``LSTMLayer._remat_scan``)
+recomputes the recurrence in time chunks of that size where a gradient is
+taken: each chunk, its input-gate product included, runs under
+``torch.utils.checkpoint``, so the backward keeps only the layer's input and
+the (h, c) carries at chunk edges, and recomputes a chunk's forward (B3
+from the carries) just before its B4.  The reverse direction walks the
+chunks from the end; the last chunk is short.  The same arithmetic a step,
+so the same numbers up to the chunked input-gate product's summation.
 """
 
 from __future__ import annotations
@@ -34,8 +43,10 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence,
+                                                 lstm_sequence_carry,
                                                  lstm_sequence_scan)
 
 
@@ -48,10 +59,12 @@ class LSTMLayer(nn.Module):
     h_last (B, H))."""
 
     def __init__(self, input_dim: int, hidden_dim: int, reverse: bool,
-                 generator: torch.Generator, use_kernels: bool = True):
+                 generator: torch.Generator, use_kernels: bool = True,
+                 remat_chunk: int = 0):
         super().__init__()
         self.reverse = reverse
         self.use_kernels = use_kernels
+        self.remat_chunk = remat_chunk
         # torch nn.LSTM init: U(-1/sqrt(H), 1/sqrt(H)) for weights and bias
         bound = 1.0 / math.sqrt(hidden_dim)
         self.w_ih = nn.Parameter(
@@ -62,6 +75,8 @@ class LSTMLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.remat_chunk > 0 and torch.is_grad_enabled():
+            return self._remat(x, mask)
         xg = torch.matmul(x, self.w_ih) + self.bias  # (B, T, 4H)
         recurrence = lstm_sequence if self.use_kernels else lstm_sequence_scan
         hs, h_last = recurrence(
@@ -69,12 +84,39 @@ class LSTMLayer(nn.Module):
             self.w_hh.contiguous(), self.reverse)
         return hs.transpose(0, 1), h_last
 
+    def _chunk(self, x: torch.Tensor, mask: torch.Tensor,
+               h0: Optional[torch.Tensor], c0: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One time chunk from its carries: x (B, s, E), mask (s, B) ->
+        (hs (s, B, H), h_last, c_last)."""
+        xg = torch.matmul(x, self.w_ih) + self.bias
+        return lstm_sequence_carry(xg.transpose(0, 1).contiguous(), mask,
+                                   self.w_hh.contiguous(), self.reverse, h0,
+                                   c0)
+
+    def _remat(self, x: torch.Tensor, mask: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        t = x.shape[1]
+        s = min(self.remat_chunk, t)
+        m = mask.t().contiguous()
+        starts = range(0, t, s)
+        h = c = None  # the first chunk starts from the zero state
+        hs = {}
+        for t0 in (reversed(starts) if self.reverse else starts):
+            # the dropout generator is not drawn from here: no RNG state to
+            # keep for the recompute
+            hs[t0], h, c = checkpoint(
+                self._chunk, x[:, t0:t0 + s], m[t0:t0 + s], h, c,
+                use_reentrant=False, preserve_rng_state=False)
+        return torch.cat([hs[t0] for t0 in starts]).transpose(0, 1), h
+
 
 class SimpleLSTMTokenClassifier(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int, hidden_dim: int,
                  num_layers: int, num_classes: int, dropout: float = 0.0,
                  frame_dim: Optional[int] = None, *, device: torch.device,
-                 generator: torch.Generator, use_kernels: bool = True):
+                 generator: torch.Generator, use_kernels: bool = True,
+                 remat_chunk: int = 0):
         super().__init__()
         self.num_layers = num_layers
         if frame_dim is None:
@@ -88,9 +130,11 @@ class SimpleLSTMTokenClassifier(nn.Module):
         for layer in range(num_layers):
             in_dim = embed_dim if layer == 0 else 2 * hidden_dim
             self.add_module(f"lstm_l{layer}_fwd", LSTMLayer(
-                in_dim, hidden_dim, False, generator, use_kernels))
+                in_dim, hidden_dim, False, generator, use_kernels,
+                remat_chunk))
             self.add_module(f"lstm_l{layer}_bwd", LSTMLayer(
-                in_dim, hidden_dim, True, generator, use_kernels))
+                in_dim, hidden_dim, True, generator, use_kernels,
+                remat_chunk))
         self.dropout = dropout
         self.fc = nn.Linear(2 * hidden_dim, num_classes)
         bound = 1.0 / math.sqrt(2 * hidden_dim)

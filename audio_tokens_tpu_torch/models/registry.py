@@ -71,10 +71,6 @@ def get_model(config: AudioTokensConfig, device: torch.device,
     ``export.ServingProgram`` sets to the plain one when it runs no
     kernels."""
     if config.model_type == "lstm":
-        if config.lstm_remat_chunk > 0:
-            raise NotImplementedError(
-                "lstm_remat_chunk > 0 (chunked recompute of the recurrence) "
-                "is not ported yet: ROADMAP A7")
         return SimpleLSTMTokenClassifier(
             vocab_size=config.vocab_size,
             embed_dim=config.lstm_embed_dim,
@@ -87,12 +83,9 @@ def get_model(config: AudioTokensConfig, device: torch.device,
             device=device,
             generator=generator,
             use_kernels=use_kernels,
+            remat_chunk=config.lstm_remat_chunk,
         )
     if config.model_type == "bert":
-        if config.transformer_remat:
-            raise NotImplementedError(
-                "transformer_remat=True (recompute each encoder block in the "
-                "backward) is not ported yet: ROADMAP A7")
         return TransformerClassifier(
             vocab_size=config.vocab_size,
             num_layers=config.num_layers,
@@ -104,6 +97,7 @@ def get_model(config: AudioTokensConfig, device: torch.device,
             attention_impl=_resolve_transformer_attention(config),
             frame_dim=(config.n_mels if model_input_kind(config) == "spec"
                        else None),
+            remat=config.transformer_remat,
             device=device,
             generator=generator,
         )

@@ -24,6 +24,16 @@ the embeddings, ``frame_proj`` and the classifier run in float32.
 Parameters are ``nn.Linear`` weights (out, in); ``convert.bert_state_dict``
 maps a flax tree onto them.  Dropout draws from a ``torch.Generator`` the
 caller passes, as in ``models/lstm.py``.
+
+``remat=True`` (``transformer_remat``, JAX ``nn.remat`` of each block)
+runs each encoder block under ``torch.utils.checkpoint`` where a gradient
+is taken: the backward keeps the blocks' (B, T, H) inputs and recomputes
+each block, its (B, nh, T, T) attention weights included.  The
+checkpoint restores only the default generators' states, and the block's
+dropout draws from the caller's generator, so the block puts that
+generator's state back before its recompute and forward again after it:
+the recomputed keep-masks are the forward's, and the gradients those of
+the run without remat.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention
 
@@ -165,20 +176,45 @@ class EncoderBlock(nn.Module):
         return self.mlp_ln(x + h.float())
 
 
+def _remat_block(block: EncoderBlock, x: torch.Tensor,
+                 lengths: Optional[torch.Tensor],
+                 key_mask: Optional[torch.Tensor], flash: bool,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block`` under ``checkpoint``; its recompute replays ``generator``
+    from the state the forward started at, then hands the generator back
+    in the state it found it in."""
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(h):
+        if start is None or not calls:  # the forward
+            calls.append(1)
+            return block(h, lengths, key_mask, flash, generator)
+        found = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(h, lengths, key_mask, flash, generator)
+        finally:
+            generator.set_state(found)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerClassifier(nn.Module):
     """``attention_impl`` is ``"xla"`` or ``"flash"`` (flash in eval mode
     only).  ``frame_dim`` set: the model takes float frames (B, T,
     frame_dim) through ``frame_proj``; else int token ids through
-    ``tok_embed``."""
+    ``tok_embed``.  ``remat``: recompute each block in the backward."""
 
     def __init__(self, vocab_size: int, num_layers: int, num_classes: int,
                  hidden_size: int = 768, max_position: int = 512,
                  dropout: float = 0.1,
                  compute_dtype: torch.dtype = torch.float32,
                  attention_impl: str = "xla",
-                 frame_dim: Optional[int] = None, *,
+                 frame_dim: Optional[int] = None, remat: bool = False, *,
                  device: torch.device, generator: torch.Generator):
         super().__init__()
+        self.remat = remat
         if attention_impl not in ("xla", "flash"):
             raise ValueError(f"attention_impl must be 'xla' or 'flash', got "
                              f"'{attention_impl}'")
@@ -235,7 +271,12 @@ class TransformerClassifier(nn.Module):
             key_mask = (torch.arange(t, device=h.device)[None, :]
                         < torch.clamp(lengths, max=t)[:, None])
         flash = self.attention_impl == "flash" and deterministic
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            h = getattr(self, f"layer_{i}")(h, lengths, key_mask, flash,
-                                            generator)
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                h = _remat_block(block, h, lengths, key_mask, flash,
+                                 generator)
+            else:
+                h = block(h, lengths, key_mask, flash, generator)
         return self.classifier(h[:, 0, :])

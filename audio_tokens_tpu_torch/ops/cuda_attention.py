@@ -1,13 +1,14 @@
 """Kernel B5 (``csrc/attention.cu``): non-causal flash attention with segment
-ids, forward and backward, and the ``torch.autograd.Function`` that joins
-them.
+ids, forward and backward, as ``torch.library`` custom ops joined by an
+autograd registration.
 
 B5 replaces the library kernels that ``audio_tokens_tpu/models/
 transformer.py::FlashSelfAttention`` calls
 (``jax.experimental.pallas.ops.tpu.flash_attention``): the forward
 ``_flash_attention_kernel`` and the backward pair
 ``_flash_attention_dkv_kernel`` / ``_flash_attention_dq_kernel``, joined
-there by a ``custom_vjp`` and here by ``FlashAttention``.  Every function
+there by a ``custom_vjp`` and here by ``torch.library.register_autograd``
+on ``atk::flash_fwd``.  Every function
 takes the JAX layout: q, k, v (B, nh, T, dh) in float32 or bfloat16,
 segment ids (B, T) int32; a query attends to the keys of its own segment.
 The kernels take dh = 64 (the bert family's heads) and any T: they mask
@@ -34,13 +35,12 @@ TFLOP/s against plain FMA's 67; the block's own rows stay in shared memory
 and are split as they are read).  Every kernel needs 16-byte aligned q, k,
 v (and do) and refuses others.
 
-Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
-tensors it launches its kernel or raises.  The forward's wrapper does so
-through the custom op ``atk::flash_fwd``, so that ``torch.export`` records
-the kernel as one node: the op's CPU registration is the plain version, its
-CUDA registration launches the forward (and counts the launch), and its
-fake only allocates the outputs.  The backward pair stays direct calls
-(training only).
+Each kernel is a custom op (``atk::flash_fwd``, ``atk::flash_bwd_dkv``,
+``atk::flash_bwd_dq``), so that ``torch.export`` records it as one node:
+the op's CPU registration is the plain version, its CUDA registration
+launches the kernel (and counts the launch) or raises, and its fake only
+allocates the outputs.  The pair is the forward's backward
+(``torch.library.register_autograd``).
 """
 
 from __future__ import annotations
@@ -50,7 +50,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from audio_tokens_tpu_torch.ops import _build
 from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
@@ -218,15 +217,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, do, di,
-                            sm_scale: float
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B5 backward for dk and dv from the forward's inputs, its row
-    logsumexp ``lse``, the output gradient ``do`` and di = rowsum(o * do)
-    (f32)."""
-    if q.device.type == "cpu":
-        return flash_attention_dkv_plain(q, k, v, segment_ids, lse, do, di,
-                                         sm_scale)
+@torch.library.custom_op("atk::flash_bwd_dkv", mutates_args=(),
+                        device_types="cpu")
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  segment_ids: torch.Tensor, lse: torch.Tensor,
+                  do: torch.Tensor, di: torch.Tensor, sm_scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_dkv_plain(q, k, v, segment_ids, lse, do, di,
+                                     sm_scale)
+
+
+@_flash_dkv_op.register_kernel("cuda")
+def _flash_dkv_cuda(q, k, v, segment_ids, lse, do, di, sm_scale):
     _check(q, k, v, segment_ids, lse=lse, do=do, di=di)
     b, nh, t_len, dh = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -242,15 +244,23 @@ def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, do, di,
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+@_flash_dkv_op.register_fake
+def _flash_dkv_fake(q, k, v, segment_ids, lse, do, di, sm_scale):
+    return torch.empty_like(k), torch.empty_like(v)
 
 
-def flash_attention_bwd_dq(q, k, v, segment_ids, lse, do, di,
-                           sm_scale: float) -> torch.Tensor:
-    """B5 backward for dq, from the same inputs as the dk/dv kernel."""
-    if q.device.type == "cpu":
-        return flash_attention_dq_plain(q, k, v, segment_ids, lse, do, di,
-                                        sm_scale)
+@torch.library.custom_op("atk::flash_bwd_dq", mutates_args=(),
+                        device_types="cpu")
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 segment_ids: torch.Tensor, lse: torch.Tensor,
+                 do: torch.Tensor, di: torch.Tensor, sm_scale: float
+                 ) -> torch.Tensor:
+    return flash_attention_dq_plain(q, k, v, segment_ids, lse, do, di,
+                                    sm_scale)
+
+
+@_flash_dq_op.register_kernel("cuda")
+def _flash_dq_cuda(q, k, v, segment_ids, lse, do, di, sm_scale):
     _check(q, k, v, segment_ids, lse=lse, do=do, di=di)
     b, nh, t_len, dh = q.shape
     dq = torch.empty_like(q)
@@ -266,40 +276,68 @@ def flash_attention_bwd_dq(q, k, v, segment_ids, lse, do, di,
     return dq
 
 
+@_flash_dq_op.register_fake
+def _flash_dq_fake(q, k, v, segment_ids, lse, do, di, sm_scale):
+    return torch.empty_like(q)
+
+
+def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, do, di,
+                            sm_scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5 backward for dk and dv from the forward's inputs, its row
+    logsumexp ``lse``, the output gradient ``do`` and di = rowsum(o * do)
+    (f32)."""
+    return torch.ops.atk.flash_bwd_dkv(q, k, v, segment_ids, lse, do, di,
+                                       float(sm_scale))
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, segment_ids, lse, do, di,
+                           sm_scale: float) -> torch.Tensor:
+    """B5 backward for dq, from the same inputs as the dk/dv kernel."""
+    return torch.ops.atk.flash_bwd_dq(q, k, v, segment_ids, lse, do, di,
+                                      float(sm_scale))
+
+
 flash_attention_bwd_dq.launches = 0
 
 
-class FlashAttention(torch.autograd.Function):
-    """(q, k, v, segment_ids, sm_scale) -> o with the B5 forward and its two
-    backward kernels (their plain versions for CPU tensors); the counterpart
-    of the library's ``custom_vjp``, saving (q, k, v, seg, o, lse)."""
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, segment_ids, sm_scale, lse = inputs
+    o, row_lse = output
+    ctx.set_materialize_grads(False)
+    ctx.sm_scale, ctx.lse = sm_scale, lse
+    ctx.save_for_backward(q, k, v, segment_ids, o, row_lse)
 
-    @staticmethod
-    def forward(ctx, q, k, v, segment_ids, sm_scale):
-        o, lse = flash_attention_fwd(q, k, v, segment_ids, sm_scale, True)
-        ctx.sm_scale = sm_scale
-        ctx.save_for_backward(q, k, v, segment_ids, o, lse)
-        return o
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, do):
-        q, k, v, seg, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        di = (o.float() * do.float()).sum(-1)  # as the library, outside
-        dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, do, di,
-                                         ctx.sm_scale)
-        dq = flash_attention_bwd_dq(q, k, v, seg, lse, do, di, ctx.sm_scale)
-        return dq, dk, dv, None, None
+def _flash_fwd_backward(ctx, do, _dlse):
+    """The library's custom_vjp backward: di = rowsum(o * do) outside the
+    kernels, then the dk/dv and dq kernels."""
+    if do is None:
+        return None, None, None, None, None, None
+    if not ctx.lse:
+        raise RuntimeError("atk::flash_fwd ran with lse=False: its backward "
+                           "needs the row logsumexp")
+    q, k, v, seg, o, lse = ctx.saved_tensors
+    do = do.contiguous()
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, do, di, ctx.sm_scale)
+    dq = flash_attention_bwd_dq(q, k, v, seg, lse, do, di, ctx.sm_scale)
+    return dq, dk, dv, None, None, None
+
+
+torch.library.register_autograd("atk::flash_fwd", _flash_fwd_backward,
+                                setup_context=_flash_fwd_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     segment_ids: torch.Tensor, sm_scale: float
                     ) -> torch.Tensor:
     """softmax(q.k^T * sm_scale over each query's segment).v, (B, nh, T, dh),
-    differentiable in q, k and v through ``FlashAttention``.  Where autograd
-    will not need a gradient, B5 runs without its logsumexp store."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttention.apply(q, k, v, segment_ids, sm_scale)
-    return flash_attention_fwd(q, k, v, segment_ids, sm_scale)[0]
+    differentiable in q, k and v (B5's backward pair).  Where autograd will
+    not need a gradient, B5 runs without its logsumexp store."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    return flash_attention_fwd(q, k, v, segment_ids, sm_scale, grad)[0]

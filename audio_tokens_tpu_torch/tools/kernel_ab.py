@@ -45,9 +45,10 @@ kernels), on the shapes ``chip_smoke.py`` uses:
   ``ATK_LSTM_DW_STAGES``, ``ATK_LSTM_DW_SLICES``): the GEMM alone, both directions at T 1728, B 64, H 512, beside cuBLAS
   (``torch.matmul``, TF32 off) on the same time-shifted views; each
   variant's largest difference from the plain version over the largest
-  entry, and whether two launches give the same bits.  An earlier
-  ``lstm.cu`` without the split-K scratch is called through its own
-  signature;
+  entry, and whether two launches give the same bits.  An ``lstm.cu``
+  from before the chunk carries has another C interface: time it by
+  running this tool from that commit's package (``git archive``) in turns
+  with this one;
 - ``lstm-fwd`` (kernel B3, ``lstm.cu``): both directions at T 1728, B 64,
   H 512 as ``[B3 lstm]``, without and with the residual stores, and the
   largest difference from the plain version;
@@ -102,13 +103,16 @@ time that tree).
 
 A variant built with ``ATK_LSTM_TIMERS=1`` (``lstm`` and ``lstm-fwd``)
 also reports its per-phase cycle counters (``b3_unit4_timers.patch`` adds
-them to B3's earlier 4-unit design, for ``--source``): after the timing rounds one
+them to B3's earlier 4-unit design, timed from that commit's package):
+after the timing rounds one
 more call runs with the counters zeroed, and the script prints each
 phase's mean cycles a step (over blocks; thread 0 of each block marks the
 phases) and its share of the step.
 
 Per variant the script prints ptxas' registers and spills of the kernels
-it times, the median and the spread of each time over the rounds, and
+it times, the median and the spread of each time over the rounds, a
+sha256 of its outputs (the same inputs in every process: two runs of the
+tool, from two commits' packages, compare bit for bit by it), and
 whether its outputs equal the default build's bit for bit.  Every knob of
 B5 must keep them (the tile skip and the untested path on full tiles
 included: no B5 knob changes a sum's order or a value, and
@@ -124,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import statistics
 import subprocess
 import sys
@@ -821,20 +826,6 @@ def phase_split(lib, kernel: str, fn) -> str:
             + f"; total {total:.0f}")
 
 
-def _without_dw_scratch(lib) -> None:
-    """Let the wrappers call an earlier ``lstm.cu`` whose dw_hh GEMM takes
-    no split-K scratch: the same entry points without that pointer."""
-    P, I = _build.P, _build.I
-    dw, bwd = lib.atk_lstm_dw, lib.atk_lstm_bwd
-    dw.argtypes, dw.restype = [P, P, I, I, I, I, P, P], I
-    bwd.argtypes, bwd.restype = [P, P, P, P, P, P, P, I, I, I, I, P, P, P,
-                                 P], I
-    lib.atk_lstm_dw_scratch = lambda t, b, h: 0
-    lib.atk_lstm_dw = (lambda hs, dxg, t, b, h, r, scratch, out, stream:
-                       dw(hs, dxg, t, b, h, r, out, stream))
-    lib.atk_lstm_bwd = (lambda *a: bwd(*a[:12], *a[13:]))
-
-
 def main() -> int:
     import torch
 
@@ -870,12 +861,6 @@ def main() -> int:
         lib.atk_error_string.argtypes = [ctypes.c_int]
         lib.atk_error_string.restype = ctypes.c_char_p
         _build._loaded[src_name] = lib
-        if src_name == "lstm" and not hasattr(lib, "atk_lstm_fwd_scratch"):
-            # an earlier B3: its scratch is h's two planes
-            lib.atk_lstm_fwd_scratch = lambda b, h: 2 * b * h
-        if (src_name == "lstm" and hasattr(lib, "atk_lstm_dw")
-                and not hasattr(lib, "atk_lstm_dw_scratch")):
-            _without_dw_scratch(lib)
         try:
             ops._lib()
         except AttributeError:  # an earlier source lacks a newer entry point
@@ -915,6 +900,9 @@ def main() -> int:
                                                      outs["default"]))
         worst = max(float((a.float() - b.float()).abs().max())
                     for a, b in zip(outs[name], outs["default"]))
+        digest = hashlib.sha256(b"".join(
+            x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            for x in outs[name])).hexdigest()[:16]
         parts = []
         for label, ts in times[name].items():
             if ts:
@@ -923,6 +911,7 @@ def main() -> int:
         print(f"{name} ({' '.join(defines) or src.name}): "
               + "; ".join(parts)
               + f"; bit-equal to default: {same} (max abs diff {worst:.3e}); "
+              + f"outputs sha256 {digest}; "
               + (notes[name] + "; " if name in notes else "")
               + ptxas_summary(libs[name].with_suffix(".log"),
                               PTXAS_KERNELS[args.kernel]))

@@ -1,5 +1,5 @@
 """Training loop of the port (counterpart of
-``audio_tokens_tpu/train/trainer.py``, its streaming route).
+``audio_tokens_tpu/train/trainer.py``, single device).
 
 Behavioral equivalent of the reference's ModelTrainer (reference:
 processors/model_trainer.py:24-204): BCE-with-logits loss, AdamW (b1=0.9
@@ -8,26 +8,33 @@ predictions for macro mAP, best-val-mAP checkpointing, optional wandb,
 stdlib logging.  As in the JAX trainer:
 
   * the device is explicit (``Trainer(config, device)``), never guessed;
-  * batches are the copied fixed-shape ``BatchLoader``'s: final partial
+  * with ``device_corpus`` 'auto' (the default) or 'on', each split's
+    corpus goes to the device once and the epochs run there
+    (``train/device_epoch.py``: batches gathered on the device, the mAP
+    computed there, two scalars read an epoch), where the corpora fit
+    ``device_corpus_budget_mb``; 'off', or an over-budget corpus under
+    'auto', streams;
+  * streamed batches are the copied fixed-shape ``BatchLoader``'s: final partial
     batches are padded and masked via per-row weights, so the loss and the
     metrics match ragged-batch semantics;
   * the step loop never waits for the card: losses accumulate on the device
     and are read once per epoch, and predictions are stacked in windows of
     8 steps whose copy to the host runs on a collector thread;
   * checkpoints carry params, optimizer state, step, metric and epoch for
-    exact resume, and early stopping and ``max_train_steps`` are real.
+    exact resume, and early stopping and ``max_train_steps`` are real;
+  * ``diagnostics_every`` > 0 writes a gradient-flow report of one batch
+    every that many epochs (``utils/diagnostics.py``).
 
 On the card the lstm's recurrence runs kernels B3 (forward, with the
-residuals) and B4 (backward), through ``ops/cuda_lstm.LSTMSequence``.  The
+residuals) and B4 (backward), through ``ops/cuda_lstm.lstm_sequence``.  The
 bert classifier's training steps take the plain attention route, as the JAX
 model's do; its validation passes (eval mode, ``inference_mode``) run kernel
 B5 when ``transformer_attention="flash"``.  The simple, cnn and baseline
 classifiers train on tokens, ``RawSTFTDataset`` frames and
 ``RawSTFTFlatDataset`` rows; they have no kernel of their own (a gather,
-cuDNN convolutions, cuBLAS products).  Not
-ported yet, and refused with ``NotImplementedError`` naming ROADMAP A7:
-device-resident epochs (``device_corpus='on'``; ``'auto'`` streams),
-multi-device meshes and multi-process runs, ``diagnostics_every``.
+cuDNN convolutions, cuBLAS products).  Not ported yet, and refused with
+``NotImplementedError`` naming ROADMAP A7: multi-device meshes and
+multi-process runs.
 """
 
 from __future__ import annotations
@@ -48,7 +55,11 @@ from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.data.datasets import BatchLoader, DataLoaderCreator
 from audio_tokens_tpu_torch.models import get_model
 from audio_tokens_tpu_torch.train import checkpoint as ckpt
-from audio_tokens_tpu_torch.train.objective import weighted_bce
+from audio_tokens_tpu_torch.train.device_epoch import (DeviceEpochRunner,
+                                                       corpus_nbytes,
+                                                       should_materialize)
+from audio_tokens_tpu_torch.train.objective import (model_inputs,
+                                                    weighted_bce)
 from audio_tokens_tpu_torch.utils.metrics import ExactMAP, StreamingMAP
 from audio_tokens_tpu_torch.utils.seeding import (generator_for, set_seed,
                                                   stage_seed)
@@ -62,14 +73,10 @@ def _refuse_unported(config: AudioTokensConfig) -> None:
         raise ValueError(f"device_corpus must be 'auto', 'on' or 'off', "
                          f"got '{config.device_corpus}'")
     refused = {
-        "device_corpus='on' (device-resident epochs)":
-            config.device_corpus == "on",
         "model_parallel > 1": config.model_parallel > 1,
         "sequence_parallel > 1": config.sequence_parallel > 1,
         "data_parallel > 1": config.data_parallel > 1,
         "distributed=True (multi-process training)": config.distributed,
-        "diagnostics_every > 0 (gradient-flow diagnostics)":
-            config.diagnostics_every > 0,
     }
     for what, asked in refused.items():
         if asked:
@@ -158,9 +165,18 @@ class Trainer:
         train_loader, val_loader = DataLoaderCreator(cfg).get_dataloaders()
         if len(train_loader.ds) == 0:
             raise RuntimeError("no training data found — run the pipeline stages first")
-        if cfg.device_corpus == "auto":
-            logger.info("device_corpus='auto': streaming batches "
-                        "(device-resident epochs are ROADMAP A7)")
+        runner = self._maybe_device_runner(train_loader, val_loader)
+        if runner is not None:
+            def train_epoch(epoch, step):
+                return runner.train_epoch(epoch, step, cfg.max_train_steps)
+
+            eval_epoch = runner.eval_epoch
+        else:
+            def train_epoch(epoch, step):
+                return self._train_epoch(train_loader, epoch, step)
+
+            def eval_epoch():
+                return self._eval_epoch(val_loader)
 
         # seeded BELOW any real mAP so the first epoch always checkpoints
         best_metric = -1.0
@@ -188,9 +204,10 @@ class Trainer:
 
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.time()
-            step, train_loss, train_metrics = self._train_epoch(
-                train_loader, epoch, step)
-            val_loss, val_metrics = self._eval_epoch(val_loader)
+            step, train_loss, train_metrics = train_epoch(epoch, step)
+            val_loss, val_metrics = eval_epoch()
+            if cfg.diagnostics_every and epoch % cfg.diagnostics_every == 0:
+                self._run_diagnostics(train_loader, epoch)
             self._log_epoch_results(epoch, train_loss, train_metrics,
                                     val_loss, val_metrics, time.time() - t0)
 
@@ -218,7 +235,7 @@ class Trainer:
         if not math.isfinite(val_loss) and start_epoch >= cfg.epochs:
             # resumed with an exhausted epoch budget: report the restored
             # checkpoint's validation numbers instead of NaN
-            val_loss, val_metrics = self._eval_epoch(val_loader)
+            val_loss, val_metrics = eval_epoch()
         return val_loss, val_metrics
 
     # ------------------------------------------------------------------
@@ -233,11 +250,84 @@ class Trainer:
                     "with use_wandb=True each run gets a fresh name — pass the "
                     "training run's checkpoint name to evaluate() explicitly")
             checkpoint_name = f"{self.run_name}-best"
-        _, val_loader = DataLoaderCreator(cfg).get_dataloaders()
+        train_loader, val_loader = DataLoaderCreator(cfg).get_dataloaders()
         ckpt.load_params(cfg.checkpoint_dir, checkpoint_name, self.model)
-        val_loss, val_metrics = self._eval_epoch(val_loader)
+        runner = self._maybe_device_runner(train_loader, val_loader,
+                                           eval_only=True)
+        if runner is not None:
+            val_loss, val_metrics = runner.eval_epoch()
+        else:
+            val_loss, val_metrics = self._eval_epoch(val_loader)
         logger.info("Eval: loss %.4f, mAP %.4f", val_loss, val_metrics["mAP"])
         return val_loss, val_metrics
+
+    # ------------------------------------------------------------------
+    def _maybe_device_runner(self, train_loader: BatchLoader,
+                             val_loader: BatchLoader, eval_only: bool = False):
+        """The device-resident epoch runner (``train/device_epoch.py``)
+        when ``device_corpus`` asks for it and the corpora fit
+        ``device_corpus_budget_mb``; None to stream (``'off'``, an
+        over-budget corpus under ``'auto'``).  ``eval_only`` makes only the validation corpus resident
+        (``evaluate``)."""
+        cfg = self.config
+        if cfg.device_corpus == "off":
+            return None
+        wanted = ((val_loader, cfg.eval_batch_size),) if eval_only else (
+            (train_loader, cfg.training_batch_size),
+            (val_loader, cfg.eval_batch_size))
+        feat_itemsize = 2 if cfg.device_corpus_dtype == "bfloat16" else 4
+
+        def estimate(map_bins):
+            return sum(
+                corpus_nbytes(len(loader.ds), bs, cfg.max_seq_len,
+                              cfg.n_mels, loader.ds.kind, cfg.num_classes,
+                              cfg.vocab_size, feat_itemsize, map_bins)
+                for loader, bs in wanted)
+
+        est = estimate(cfg.device_map_bins)
+        budget = cfg.device_corpus_budget_mb * 2**20
+        if est > budget:
+            msg = ("device corpus %s: estimated %.0f MB exceeds "
+                   "device_corpus_budget_mb=%d")
+            if cfg.device_corpus == "on":  # forced: proceed, but say so
+                logger.warning(msg + " (forced on)", "over budget",
+                               est / 2**20, cfg.device_corpus_budget_mb)
+            else:
+                # map_bins=1: the corpus bytes alone; if THAT fits, the
+                # exact metric's prediction buffer blew the budget and the
+                # histogram metric is the fix
+                if cfg.device_map_bins == 0 and estimate(1) <= budget:
+                    logger.info(
+                        "device corpus disabled by the exact epoch-mAP "
+                        "buffer, not the corpus: set device_map_bins "
+                        "(e.g. 8192) to train device-resident")
+                logger.info(msg + "; streaming batches instead", "disabled",
+                            est / 2**20, cfg.device_corpus_budget_mb)
+                return None
+        # the epoch gather (train split only): one transient permuted copy
+        # of the training inputs; see config.device_epoch_gather
+        materialize = False
+        if not eval_only:
+            kind = train_loader.ds.kind
+            materialize, copy_bytes = should_materialize(
+                cfg, kind, len(train_loader.ds), feat_itemsize, est, budget)
+            if materialize and est + copy_bytes > budget:
+                logger.warning(
+                    "device_epoch_gather='epoch': permuted-corpus copy "
+                    "(%.0f MB) pushes the estimate over the budget "
+                    "(forced on)", copy_bytes / 2**20)
+            elif (not materialize and cfg.device_epoch_gather == "auto"
+                  and kind in ("spec", "flat")):
+                logger.info(
+                    "device epoch: permuted-corpus copy (%.0f MB) over "
+                    "budget; keeping per-step gathers", copy_bytes / 2**20)
+        runner = DeviceEpochRunner(self, materialize_train=materialize)
+        if not eval_only:
+            runner.set_corpus("train", train_loader.ds,
+                              cfg.training_batch_size, cfg.max_seq_len)
+        runner.set_corpus("validation", val_loader.ds, cfg.eval_batch_size,
+                          cfg.max_seq_len)
+        return runner
 
     # ------------------------------------------------------------------
     def _init_state(self) -> Tuple[torch.nn.Module, torch.optim.Optimizer]:
@@ -294,7 +384,8 @@ class Trainer:
             # its dropout key: a resumed run draws what a straight run does
             gen = self._dropout_gen.manual_seed(
                 stage_seed(self.config.random_seed, "dropout") + step)
-        return self.model(inputs, lengths if self.use_lengths else None,
+        return self.model(model_inputs(inputs),
+                          lengths if self.use_lengths else None,
                           generator=gen)
 
     def _train_step(self, inputs, lengths, labels, row_w, step: int):
@@ -355,6 +446,27 @@ class Trainer:
         finally:
             collector.join()
         return losses.result(), acc.result()
+
+    # ------------------------------------------------------------------
+    def _run_diagnostics(self, loader: BatchLoader, epoch: int) -> None:
+        """Gradient-flow report on the epoch's first batch, with a bar chart
+        ``{run_name}-gradflow-e{epoch}.png`` beside the checkpoints (the
+        reference wired this hook but left it disabled — reference:
+        processors/model_trainer.py:56-58)."""
+        from audio_tokens_tpu_torch.utils.diagnostics import (gradient_flow,
+                                                              make_batch_loss)
+
+        batches = loader.batches(epoch)
+        try:
+            batch = next(batches)
+        finally:
+            batches.close()  # reaps the producer
+        loss_fn = make_batch_loss(self.model, batch, self.use_lengths,
+                                  self.device)
+        plot = (Path(self.config.checkpoint_dir)
+                / f"{self.run_name}-gradflow-e{epoch}.png")
+        gradient_flow(loss_fn, dict(self.model.named_parameters()),
+                      plot_path=plot)
 
     # ------------------------------------------------------------------
     def _log_epoch_results(self, epoch, train_loss, train_metrics, val_loss,

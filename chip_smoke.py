@@ -71,7 +71,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    with 1 epoch: a temp workspace holds phase 6's ontology and segment CSV
    and 512 training plus 64 validation ten-second 16-bit wavs (every 6th
    stereo, one at 44.1 kHz so that the resampler runs); spectrograms,
-   centroids, tokens, 8 training steps of 64 and a validation pass follow.
+   centroids, tokens, 8 training steps of 64 and a validation pass follow
+   (a device-resident epoch: the default ``device_corpus="auto"`` puts the
+   token corpus on the card, so the training stage's seconds include its
+   packing).
    Each stage's seconds and the kernels' launches in it are printed: B2 in
    the clustering stage (the Lloyd assignment, ``normalize=False``) and in
    the tokenize stage (``normalize=True``), B3 and B4 in training; the B2
@@ -153,8 +156,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    program, median of 3.  Then the lstm exported portable on the CPU,
    loaded onto the card, 8 clips through it (no kernel launched), its
    tokens held to the kernel program's under the near-tie rule and its
-   probs within 1e-4.  ``torch.library.opcheck`` of the four custom ops on
-   small card tensors.  Last, ``tools/serve_bench`` in-process at its
+   probs within 1e-4.  ``torch.library.opcheck`` of the eight custom ops on
+   small card tensors (the forward ops also with inputs that require a
+   gradient, which runs B4's and B5's backward ops as their autograd).  Last, ``tools/serve_bench`` in-process at its
    default 512 ten-second clips (8 batches of 64): tokens, ``--classify
    lstm`` and ``--classify bert`` (window 1728, flash), each with
    ``--latency 200``; clips/s and the request percentiles and maximum
@@ -194,6 +198,29 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ``pipeline_native_*``); ``serve_bench`` for tokens and the lstm with
    the native decoder (``serve_bench_native_<branch>``) beside phase 11's
    python-decode numbers.
+
+13. device-resident epochs (``train/device_epoch.py``) and the training
+   options: the on-card exact mAP at 22,160 rows x 543 classes with tied
+   scores against the host's exact mAP (1e-6), and the binned metric at
+   8,192 bins against the host ``StreamingMAP`` (counts equal, 1e-6); then
+   a resident synthetic token corpus of 22,160 + 2,048 clips of 1728 ids
+   (uint16) and device epochs of the lstm (16 steps of 64 and its eval
+   epoch: B3, B4), simple (a whole epoch), bert (``bert_full``, 8 steps of
+   8 and an eval epoch of 256 clips through B5), and cnn on a bf16 spec
+   corpus with the epoch gather: each with ms a step (host clock over the
+   epoch), the card's busy ms a step under ``torch.profiler`` (the host
+   gap a CUDA graph could remove), peak memory, the scalars read a
+   epoch (2) and the launches, beside the family's streaming step of
+   phases 6, 7 and 10 (``launches_by_path`` ``device_epoch_lstm``,
+   ``device_eval_lstm``, ``device_eval_bert``); the full-width lstm with
+   dropout through ``Trainer.run()`` 3 epochs device-resident against
+   streaming (loss, mAP and weights within 1e-4); B3 at T 1728 in chunks
+   of 64 and 216 from carries, bit-equal to one launch, and timed;
+   ``lstm_remat_chunk`` 64 and 216 beside no remat at batch 64 (ms a step,
+   peak memory, gradients; ``remat_lstm_<chunk>``) and
+   ``transformer_remat`` at ``bert_full``'s widths, batch 8, dropout 0.1;
+   one ``diagnostics_every=1`` epoch, its gradient-flow report against the
+   CPU's.
 
 Phases 8-12 decode with ``audio_backend="auto"``: the native decoder
 (``data/native_loader.py``, built with g++ into ``build/native/``) where it
@@ -278,6 +305,27 @@ PORTABLE_CLIPS = 8  # the portable lstm on the card: a scan of 1728 steps
 # serve_bench's default corpus; 200 single requests, so that p99 is not
 # the largest of a handful
 SERVE_BENCH_CLIPS, SERVE_BENCH_LATENCY = 512, 200
+# phase 13: device-resident epochs at full width on a synthetic resident
+# corpus of the balanced train split's size (uint16 tokens: 76.6 MB) and a
+# validation split of 32 batches; the lstm and cnn run EPOCH_STEPS steps,
+# simple a whole epoch, bert BERT_STEPS at batch 8 and its eval epoch on
+# BERT_EVAL clips; cnn on a bf16 spec corpus of SPEC_TRAIN clips (the
+# epoch gather); then an epoch of twice the steps (the marginal step,
+# without the epoch's fixed costs) and PROFILE_STEPS under the profiler
+EPOCH_TRAIN, EPOCH_VAL = 22_160, 2_048
+EPOCH_STEPS, BERT_STEPS, BERT_EVAL, PROFILE_STEPS = 16, 8, 256, 16
+SPEC_TRAIN, SPEC_VAL = 2_048, 256
+MAP_BINS, MAP_QUANT = 8192, 64  # the binned metric; scores on a 1/64 grid
+# the device epoch against streaming at full width: 3 epochs of a corpus
+# whose splits both end in a partial batch of 64
+TRAJ_TRAIN, TRAJ_VAL, TRAJ_EPOCHS = 300, 70, 3
+TRAJ_LOSS_RTOL, TRAJ_MAP_ATOL, TRAJ_PARAM_RTOL, TRAJ_PARAM_ATOL = (
+    1e-4, 1e-4, 1e-4, 1e-6)
+REMAT_CHUNKS, REMAT_STEPS = (64, 216), 4
+DIAG_BATCH = 8  # the diagnostics batch, recomputed on the CPU at T 1728
+# each family's streaming step in this run (phases 6, 7 and 10: median of
+# steps 2..8, host clock, synchronized), beside phase 13's device epochs
+STREAM_STEP_MS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -314,9 +362,10 @@ def make_centroids(k: int = VOCAB, seed: int = 7, d: int = 64) -> np.ndarray:
     return cent / (np.linalg.norm(cent, axis=1, keepdims=True) + 1e-10)
 
 
-def write_labels(base: Path, rng) -> dict:
+def write_labels(base: Path, rng, n_train: int = TRAIN_CLIPS,
+                 n_val: int = VAL_CLIPS) -> dict:
     """The metadata of a synthetic corpus: ontology (543 classes), segment
-    CSV (1-3 labels a clip) and split file of TRAIN_CLIPS + VAL_CLIPS
+    CSV (1-3 labels a clip) and split file of ``n_train`` + ``n_val``
     clips; returns the split."""
     n_cls = MODEL["num_classes"]
     (base / "metadata").mkdir(parents=True)
@@ -324,7 +373,7 @@ def write_labels(base: Path, rng) -> dict:
     (base / "metadata" / "ontology.json").write_text(json.dumps([
         {"id": f"/m/c{i:03d}", "name": f"class {i}", "restrictions": []}
         for i in range(n_cls)]))
-    ytids = [f"clip{i:05d}" for i in range(TRAIN_CLIPS + VAL_CLIPS)]
+    ytids = [f"clip{i:05d}" for i in range(n_train + n_val)]
     lines = ["# synthetic", "# segments", "# YTID, start, end, labels"]
     for y in ytids:
         labs = rng.choice(n_cls, size=int(rng.integers(1, 4)), replace=False)
@@ -332,18 +381,20 @@ def write_labels(base: Path, rng) -> dict:
                      + ",".join(f"/m/c{j:03d}" for j in sorted(labs)) + '"')
     (base / "metadata" / "balanced_train_segments.csv").write_text(
         "\n".join(lines) + "\n")
-    split = {"train": ytids[:TRAIN_CLIPS], "validation": ytids[TRAIN_CLIPS:]}
+    split = {"train": ytids[:n_train], "validation": ytids[n_train:]}
     (base / "output" / "bal_train_data_split.json").write_text(
         json.dumps(split))
     return split
 
 
-def write_token_corpus(base: Path, seed: int = 11) -> None:
+def write_token_corpus(base: Path, seed: int = 11,
+                       n_train: int = TRAIN_CLIPS,
+                       n_val: int = VAL_CLIPS) -> None:
     """A seeded synthetic corpus in the layout the trainer reads:
     ``write_labels``' metadata and uint16 token ids per clip under
     tokenized_audio/{train,validation}/."""
     rng = np.random.default_rng(seed)
-    split = write_labels(base, rng)
+    split = write_labels(base, rng, n_train, n_val)
     for name, ids in split.items():
         out = base / "tokenized_audio" / name
         out.mkdir(parents=True)
@@ -951,7 +1002,9 @@ def pipeline_phase(records: list, dev, base: Path):
         + f" (host clock, synchronized); main() {run_s:.2f} s; train "
         f"corpus {frames} frames; val loss {val_loss:.6f}, val mAP "
         f"{val_metrics['mAP']:.6f}")
-    log("[pipeline] launches B1, B2, B3, B4, sums by stage: "
+    log("[pipeline] launches B1, B2, B3, B4, sums by stage (training: "
+        "a device-resident epoch, the default route, the corpus packing "
+        "in its seconds): "
         + "; ".join(f"{n} {launches[n]}" for n in names)
         + f"; whole run {total}")
     b2_cluster = launches["ClusterCreator"][1]
@@ -1672,6 +1725,7 @@ def families_phase(records: list, dev, base: Path, cfg,
          _) = timed_run(trainer, ())
         b_ms, b_by, flop = train_bound(fcfg, n_params)
         med = statistics.median(step_ms[1:])
+        STREAM_STEP_MS[tag] = med
         dtype = "float32" if tag == "simple" else fcfg.compute_dtype
         log(f"[train {tag}] {fam}, {fcfg.num_classes} classes, T "
             f"{fcfg.max_seq_len}, batch {B_LSTM}, {dtype}: {n_params} "
@@ -1744,11 +1798,17 @@ def median_ms(fn, n: int = 3) -> float:
 
 
 def opcheck_phase(dev) -> None:
-    """``torch.library.opcheck`` of the four custom ops on small card
-    tensors (schema, fake, autograd registration, dynamic-shape dispatch);
-    its launches fall outside every counted path."""
+    """``torch.library.opcheck`` of the eight custom ops on small card
+    tensors (schema, fake, autograd registration, dynamic-shape dispatch):
+    the four forward ops, B3 and B5's forward also with inputs that require
+    a gradient (their registered backward: B4's ops, B5's pair), and the
+    four backward ops (B4's with carries); its launches fall outside every
+    counted path."""
     import torch
 
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_plain)
+    from audio_tokens_tpu_torch.ops.cuda_lstm import lstm_sequence_fwd_plain
     from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
     from audio_tokens_tpu_torch.ops.mel import MelFrontend
 
@@ -1764,6 +1824,17 @@ def opcheck_phase(dev) -> None:
         dev, torch.bfloat16) for _ in range(3))
     seg = (torch.arange(37)[None, :] >= torch.tensor([[37], [20]])).to(
         dev, torch.int32)
+    mask = mask.to(dev)
+    h0, c0, dc_last, dh_last = (torch.randn((3, 16), generator=gen).to(dev)
+                                for _ in range(4))
+    hs, gates, c, _ = lstm_sequence_fwd_plain(xg, mask, w_hh, True, h0, c0)
+    dhs = torch.randn(hs.shape, generator=gen).to(dev)
+    dxg = torch.randn(gates.shape, generator=gen).to(dev)
+    o, lse = flash_attention_plain(q, k, v, seg, SM_SCALE, True)
+    do = torch.randn(q.shape, generator=gen).to(dev, torch.bfloat16)
+    di = (o.float() * do.float()).sum(-1)
+    leaves = [t.clone().requires_grad_() for t in (xg, w_hh, h0, c0)]
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
     cases = {
         "atk::vq_argmin": (torch.ops.atk.vq_argmin.default, (
             torch.randn((300, 64), generator=gen).to(dev),
@@ -1772,9 +1843,21 @@ def opcheck_phase(dev) -> None:
             padded, kern._kbasis, kern._kfbank, kern.centroids, kern.c2,
             kern.n_fft, kern.hop, kern.padded_len, kern.n_frames)),
         "atk::lstm_fwd": (torch.ops.atk.lstm_fwd.default, (
-            xg, mask.to(dev), w_hh, True, True)),
+            xg, mask, w_hh, True, True)),
         "atk::flash_fwd": (torch.ops.atk.flash_fwd.default, (
             q, k, v, seg, SM_SCALE, True)),
+        "atk::lstm_fwd (carries, autograd)": (
+            torch.ops.atk.lstm_fwd.default, (
+                leaves[0], mask, leaves[1], True, True, *leaves[2:])),
+        "atk::flash_fwd (autograd)": (torch.ops.atk.flash_fwd.default, (
+            *qkv, seg, SM_SCALE, True)),
+        "atk::lstm_bwd": (torch.ops.atk.lstm_bwd.default, (
+            dhs, dh_last, gates, c, mask, w_hh, True, dc_last, c0)),
+        "atk::lstm_dw": (torch.ops.atk.lstm_dw.default, (hs, dxg, True, h0)),
+        "atk::flash_bwd_dkv": (torch.ops.atk.flash_bwd_dkv.default, (
+            q, k, v, seg, lse, do, di, SM_SCALE)),
+        "atk::flash_bwd_dq": (torch.ops.atk.flash_bwd_dq.default, (
+            q, k, v, seg, lse, do, di, SM_SCALE)),
     }
     for name, (op, args) in cases.items():
         report = torch.library.opcheck(op, args)
@@ -2790,6 +2873,535 @@ def tiers_phase(records: list, dev, base: Path, cfg, cents,
     log(f"[tiers] phase 12 took {time.perf_counter() - t_phase:.1f} s "
         f"(host clock)")
 
+# -- phase 13: device-resident epochs, the on-card mAP, remat, diagnostics ---
+def resident_split(rng, n: int, batch: int, kind: str = "tokens"):
+    """A synthetic resident split as ``device_epoch.corpus_arrays`` packs
+    one -> (inputs, lengths, labels, n): rows padded to whole batches,
+    lengths between half and all of ``max_seq_len`` (zero past them), 1-3
+    labels of 543 a clip; uint16 tokens, or f32 (T, n_mels) spec rows."""
+    t, n_cls = MODEL["max_seq_len"], MODEL["num_classes"]
+    n_pad = -(-n // batch) * batch
+    lengths = np.zeros(n_pad, np.int32)
+    lengths[:n] = rng.integers(t // 2, t + 1, n)
+    labels = np.zeros((n_pad, n_cls), np.uint8)
+    for i in range(n):
+        labels[i, rng.choice(n_cls, int(rng.integers(1, 4)),
+                             replace=False)] = 1
+    live = np.arange(t)[None, :] < lengths[:, None]
+    if kind == "tokens":
+        inputs = (rng.integers(0, VOCAB, (n_pad, t)) * live).astype(np.uint16)
+    else:
+        inputs = rng.standard_normal((n_pad, t, 64), dtype=np.float32)
+        inputs *= live[:, :, None]
+    return inputs, lengths, labels, n
+
+
+def busy_ms(fn, steps: int):
+    """``fn`` under ``torch.profiler`` -> (the card's busy ms a step: the
+    device time of every kernel and copy the profiler saw, one stream; the
+    profiled wall ms a step), or (None, wall) where it saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("Activity"):
+            continue
+        busy += getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0))
+    return (busy / 1e3 / steps if busy > 0 else None), wall
+
+
+def device_map_check(dev) -> None:
+    """The on-card exact mAP at the balanced split's size (scores on a
+    1/MAP_QUANT grid: ties) against the host's exact mAP, and the binned
+    metric at MAP_BINS bins against the host ``StreamingMAP``."""
+    import torch
+
+    from audio_tokens_tpu_torch.utils.device_metrics import (
+        binned_map_init, binned_map_result, binned_map_update,
+        macro_map_device)
+    from audio_tokens_tpu_torch.utils.metrics import (
+        StreamingMAP, macro_mean_average_precision)
+
+    rng = np.random.default_rng(31)
+    _, _, labels, n = resident_split(rng, EPOCH_TRAIN, B_LSTM)
+    n_pad, n_cls = labels.shape
+    scores = (np.round(rng.random((n_pad, n_cls)) * MAP_QUANT)
+              / MAP_QUANT).astype(np.float32)
+    s, y = torch.from_numpy(scores).to(dev), torch.from_numpy(labels).to(dev)
+    valid = torch.arange(n_pad, device=dev) < n
+    got = float(macro_map_device(s, y, valid))
+    ms = cuda_ms(lambda: macro_map_device(s, y, valid), 3)
+    t0 = time.perf_counter()
+    want = macro_mean_average_precision(labels[:n], scores[:n])
+    host_s = time.perf_counter() - t0
+    err = abs(got - want)
+    hist = binned_map_init(n_cls, MAP_BINS, dev)
+    rows_w = valid.float()
+    for lo in range(0, n_pad, B_LSTM):
+        sl = slice(lo, lo + B_LSTM)
+        binned_map_update(hist, s[sl], y[sl], rows_w[sl])
+    binned = float(binned_map_result(hist))
+    host = StreamingMAP(n_cls, bins=MAP_BINS)
+    host.update(labels[:n], scores[:n])
+    counts_equal = (np.array_equal(hist[0].cpu().numpy(), host.pos)
+                    and np.array_equal(hist[1].cpu().numpy(), host.neg))
+    b_err = abs(binned - host.result()["mAP"])
+    log(f"[device map] macro_map_device at {n} rows ({n_pad} padded) x "
+        f"{n_cls} classes, scores on a 1/{MAP_QUANT} grid (ties): "
+        f"{got:.8f} vs the host's exact mAP {want:.8f}, |diff| {err:.3e} "
+        f"(bound 1e-6); {ms:.3f} ms on the card (CUDA events) against "
+        f"{host_s * 1e3:.1f} ms on the host; binned at {MAP_BINS} bins "
+        f"(updates of {B_LSTM} rows): {binned:.8f}, counts equal to "
+        f"StreamingMAP's: {counts_equal}, |diff| {b_err:.3e}")
+    if not (err <= 1e-6 and counts_equal and b_err <= 1e-6):
+        raise AssertionError("the on-card mAP disagrees with the host's")
+
+
+def device_epoch_family(records, dev, tag: str, cfg, splits: dict,
+                        steps: int, kernels: dict, materialize=False):
+    """One family's device-resident epochs on a resident corpus: a warm-up
+    of 2 steps, ``steps`` timed steps (0: the rest of a whole epoch) and the
+    eval epoch, each with its launches of ``kernels`` and its reads of the
+    card; an epoch of 2 x ``steps`` (the marginal ms of a step: the
+    difference over ``steps``); then PROFILE_STEPS steps under the profiler
+    for the card's busy time.  Returns {path: [launches]}."""
+    import torch
+
+    from audio_tokens_tpu_torch.train import device_epoch
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, dev)
+    runner = device_epoch.DeviceEpochRunner(trainer, materialize)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for split, arrays in splits.items():
+        runner.set_corpus_arrays(split, *arrays, cfg.training_batch_size)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    resident = sum(t.numel() * t.element_size()
+                   for c in runner.corpora.values()
+                   for t in (c.inputs, c.lengths, c.labels))
+    reads = []
+    read = device_epoch.read_scalars
+
+    def counted(*values):
+        reads.append(len(values))
+        return read(*values)
+
+    device_epoch.read_scalars = counted
+    try:
+        runner.train_epoch(0, 0, max_steps=2)  # warm-up
+        n_steps = steps or runner.corpora["train"].n_steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        reads.clear()
+        t0 = time.perf_counter()
+        step, loss, m = runner.train_epoch(1, 2, max_steps=2 + steps
+                                           if steps else 0)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {"train": [k.launches for k in kernels.values()]}
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        val_loss, val_m = runner.eval_epoch()
+        eval_s = time.perf_counter() - t0
+        launches["eval"] = [k.launches for k in kernels.values()]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        epoch_reads = list(reads)
+        marginal = None
+        if steps:
+            t0 = time.perf_counter()
+            step = runner.train_epoch(2, step, max_steps=step + 2 * steps)[0]
+            marginal = ((time.perf_counter() - t0) * 1e3 - wall) / steps
+        busy, prof_wall = busy_ms(lambda: runner.train_epoch(
+            3, step, max_steps=step + PROFILE_STEPS), PROFILE_STEPS)
+    finally:
+        device_epoch.read_scalars = read
+    ms = wall / n_steps
+    step_ms = marginal if marginal is not None else ms
+    stream = STREAM_STEP_MS.get(tag)
+    n_eval = runner.corpora["validation"].n_steps
+    log(f"[device epoch {tag}] {n_steps} steps of "
+        f"{cfg.training_batch_size} on a resident corpus of "
+        f"{runner.corpora['train'].n_real} + "
+        f"{runner.corpora['validation'].n_real} clips ({resident / 1e6:.1f} "
+        f"MB on the card, uploaded in {upload_s:.2f} s"
+        + (", the epoch gather" if materialize else "")
+        + f"): {ms:.3f} ms a step (host clock over the epoch, no sync "
+        f"inside; loss {loss:.6f}, mAP {m['mAP']:.6f})"
+        + (f", {marginal:.3f} ms marginal (an epoch of {2 * steps} steps "
+           f"less this one, over {steps})" if marginal is not None else "")
+        + "; the card busy "
+        + (f"{busy:.3f} ms" if busy is not None else "not measured")
+        + f" a step over {PROFILE_STEPS} profiled steps (profiled wall "
+        f"{prof_wall:.3f} ms a step"
+        + (f"; host gap of the unprofiled step "
+           f"{max(0.0, step_ms - busy):.3f} ms, idle "
+           f"{max(0.0, 1 - busy / step_ms):.1%}" if busy is not None
+           else "")
+        + "); streaming step in this run "
+        + (f"{stream:.2f} ms" if stream is not None else "not measured")
+        + f"; eval epoch {n_eval} steps {eval_s * 1e3:.1f} ms (val loss "
+        f"{val_loss:.6f}, mAP {val_m['mAP']:.6f}); peak device memory "
+        f"{peak:.2f} GiB; reads of the card: {epoch_reads} scalars an "
+        f"epoch; launches "
+        + (", ".join(f"{name} train {launches['train'][i]} eval "
+                     f"{launches['eval'][i]}"
+                     for i, name in enumerate(kernels))
+           or "none (no kernel of its own)"))
+    if epoch_reads != [2, 2] or not (np.isfinite(loss)
+                                     and np.isfinite(val_loss)):
+        raise AssertionError(f"{tag}: reads {epoch_reads}, loss {loss}, "
+                             f"val loss {val_loss}")
+    for name, i in ((n, j) for j, n in enumerate(kernels)):
+        if launches["train"][i] + launches["eval"][i] < 1:
+            raise AssertionError(f"{tag}: {name} never launched")
+    del trainer, runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def device_trajectory(dev, base: Path) -> None:
+    """The full-width lstm (dropout 0.1) through ``Trainer.run()``: the
+    device epoch against streaming over TRAJ_EPOCHS epochs of a corpus
+    whose splits end in a partial batch; per-epoch loss (rel), mAP (abs)
+    and the final weights (rtol + atol)."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    write_token_corpus(base, 13, TRAJ_TRAIN, TRAJ_VAL)
+    out = {}
+    for mode in ("off", "on"):
+        cfg = AudioTokensConfig(
+            base_dir=str(base), **MODEL, training_batch_size=B_LSTM,
+            epochs=TRAJ_EPOCHS, dropout=0.1, num_workers=2,
+            log_every_steps=0, device_corpus=mode,
+            save_best_checkpoint=False,
+            checkpoint_dir=str(base / f"ckpt_{mode}"))
+        trainer = Trainer(cfg, dev)
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        hist = [json.loads(x) for x in (
+            Path(cfg.checkpoint_dir) / "no-wandb-metrics.jsonl"
+        ).read_text().splitlines()]
+        out[mode] = (hist, {k: v.cpu() for k, v in
+                            trainer.model.state_dict().items()},
+                     time.perf_counter() - t0)
+        del trainer
+    (h_on, s_on, on_s), (h_off, s_off, off_s) = out["on"], out["off"]
+    loss_gap = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(h_on, h_off)
+                   for k in ("train_loss", "val_loss"))
+    map_gap = max(abs(a[k] - b[k]) for a, b in zip(h_on, h_off)
+                  for k in ("train_mAP", "val_mAP"))
+    over = max(float(((s_on[k] - s_off[k]).abs()
+                      - TRAJ_PARAM_RTOL * s_off[k].abs()).max())
+               for k in s_off)
+    param_gap = max(float((s_on[k] - s_off[k]).abs().max()) for k in s_off)
+    log(f"[device trajectory] lstm {MODEL['lstm_embed_dim']}/"
+        f"{MODEL['lstm_hidden_dim']}, dropout 0.1, {TRAJ_EPOCHS} epochs of "
+        f"{TRAJ_TRAIN} + {TRAJ_VAL} clips at batch {B_LSTM} (partial last "
+        f"batches), Trainer.run() device epoch ({on_s:.1f} s) vs streaming "
+        f"({off_s:.1f} s): largest loss gap {loss_gap:.3e} relative (bound "
+        f"{TRAJ_LOSS_RTOL}), mAP gap {map_gap:.3e} (bound {TRAJ_MAP_ATOL}), "
+        f"weights {param_gap:.3e} abs (bound {TRAJ_PARAM_ATOL} + "
+        f"{TRAJ_PARAM_RTOL} relative)")
+    if (len(h_on) != TRAJ_EPOCHS or loss_gap > TRAJ_LOSS_RTOL
+            or map_gap > TRAJ_MAP_ATOL or over > TRAJ_PARAM_ATOL):
+        raise AssertionError("the device epoch left the streaming "
+                             "trajectory")
+
+
+def remat_step(model, batch, gen=None):
+    """One training step (weighted BCE, backward, AdamW) closure."""
+    import torch
+
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    x, ln, y, w = batch
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        weighted_bce(model(x, ln, generator=gen), y, w).backward()
+        opt.step()
+
+    return step
+
+
+def remat_phase(records, dev) -> None:
+    """B3 in chunks from carries at the full shape (bit-equal to one
+    launch, and its time), then lstm_remat_chunk and transformer_remat
+    steps at full width beside the runs without them: ms a step, peak
+    memory, gradients against the run without remat."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_carry,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    gen = torch.Generator().manual_seed(41)
+    xg = torch.randn((T_LSTM, B_LSTM, 4 * H_LSTM), generator=gen).to(dev)
+    w_hh = ((torch.rand((H_LSTM, 4 * H_LSTM), generator=gen) * 2 - 1)
+            / H_LSTM ** 0.5).to(dev)
+    lens = torch.randint(1, T_LSTM + 1, (B_LSTM,), generator=gen)
+    mask = (torch.arange(T_LSTM)[:, None] < lens[None, :]).float().to(dev)
+
+    def chunked(s, reverse):
+        starts = range(0, T_LSTM, s)
+        h = c = None
+        hs = {}
+        for t0 in (reversed(starts) if reverse else starts):
+            hs[t0], h, c = lstm_sequence_carry(
+                xg[t0:t0 + s], mask[t0:t0 + s], w_hh, reverse, h, c)
+        return torch.cat([hs[t0] for t0 in starts]), h, c
+
+    with torch.no_grad():
+        whole = {r: lstm_sequence_carry(xg, mask, w_hh, r)
+                 for r in (False, True)}
+        equal = all(torch.equal(a, b) for s in REMAT_CHUNKS
+                    for r in (False, True)
+                    for a, b in zip(chunked(s, r), whole[r]))
+        whole_ms = cuda_ms(lambda: [lstm_sequence_carry(xg, mask, w_hh, r)
+                                    for r in (False, True)], 3)
+        chunk_ms = {s: cuda_ms(lambda s=s: [chunked(s, r)
+                                            for r in (False, True)], 3)
+                    for s in REMAT_CHUNKS}
+    log(f"[remat B3 chunks] T {T_LSTM} B {B_LSTM} H {H_LSTM}, both "
+        f"directions, each time chunk from the last one's (h_last, "
+        f"c_last): hs, h_last, c_last bit-equal to one launch at chunks of "
+        + " and ".join(map(str, REMAT_CHUNKS)) + f": {equal}; one launch "
+        f"{whole_ms:.3f} ms, chunked "
+        + ", ".join(f"{s}: {ms:.3f} ms ({-(-T_LSTM // s)} launches a "
+                    f"direction)" for s, ms in chunk_ms.items()))
+    if not equal:
+        raise AssertionError("chunked B3 is not bit-equal to one launch")
+    records[2]["chunked_ms"] = {str(s): ms for s, ms in chunk_ms.items()}
+    del xg, w_hh, mask, whole
+
+    # lstm_remat_chunk at batch 64 and T 1728, full width
+    t = MODEL["max_seq_len"]
+    x = torch.randint(0, VOCAB, (B_LSTM, t), generator=gen).to(dev)
+    ln = torch.randint(t // 2, t + 1, (B_LSTM,), generator=gen).to(dev)
+    y = (torch.rand((B_LSTM, MODEL["num_classes"]), generator=gen)
+         < 0.005).float().to(dev)
+    w = torch.ones(B_LSTM, device=dev)
+    ref = None
+    for chunk in (0, *REMAT_CHUNKS):
+        cfg = AudioTokensConfig(**MODEL, lstm_remat_chunk=chunk)
+        model = get_model(cfg, dev, torch.Generator().manual_seed(0))
+        lstm_sequence_fwd.launches = lstm_sequence_bwd.launches = 0
+        model.zero_grad(set_to_none=True)
+        weighted_bce(model(x, ln), y, w).backward()
+        launches = [lstm_sequence_fwd.launches, lstm_sequence_bwd.launches]
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        step = remat_step(model, (x, ln, y, w))
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(step, REMAT_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if ref is None:
+            ref = (grads, ms, peak)
+            worst = 0.0
+        else:
+            worst = max(float(((g - ref[0][n]).abs()
+                               - GRAD_RTOL * ref[0][n].abs()).max())
+                        for n, g in grads.items())
+            records[2]["launches_by_path"][f"remat_lstm_{chunk}"] = \
+                launches[0]
+            records[3]["launches_by_path"][f"remat_lstm_{chunk}"] = \
+                launches[1]
+        log(f"[remat lstm] lstm_remat_chunk {chunk} at batch {B_LSTM}, T "
+            f"{t}: {ms:.2f} ms a step (CUDA events, loss + backward + "
+            f"AdamW), peak device memory {peak:.2f} GiB"
+            + (f" (no remat {ref[1]:.2f} ms, {ref[2]:.2f} GiB); gradients "
+               f"vs no remat: largest excess over {GRAD_RTOL} relative "
+               f"{worst:.3e} (bound {GRAD_ATOL})" if chunk else "")
+            + f"; a loss + backward launched B3 {launches[0]}, B4 "
+            f"{launches[1]}")
+        if chunk and (worst > GRAD_ATOL or not peak < ref[2]):
+            raise AssertionError(f"remat chunk {chunk}: gradients off by "
+                                 f"{worst:.3e} or peak {peak:.2f} GiB")
+        del model, step, grads
+        torch.cuda.empty_cache()
+
+    # transformer_remat at bert_full's widths, batch 8: timed at the
+    # phase-7 configuration (dropout 0), gradients with dropout 0.1
+    bx = x[:B_BERT_TRAIN]
+    bt = (bx, ln[:B_BERT_TRAIN], y[:B_BERT_TRAIN], w[:B_BERT_TRAIN])
+    out = {}
+    for remat in (False, True):
+        timed = {}
+        for rate in (0.0, 0.1):
+            cfg = AudioTokensConfig(**{**BERT, "dropout": rate},
+                                    transformer_remat=remat)
+            model = get_model(cfg, dev, torch.Generator().manual_seed(0))
+            model.train()
+            dgen = torch.Generator(device=dev).manual_seed(5)
+            if rate:
+                model.zero_grad(set_to_none=True)
+                weighted_bce(model(bx, bt[1], generator=dgen), bt[2],
+                             bt[3]).backward()
+                timed["grads"] = {n: p.grad.detach().float().clone()
+                                  for n, p in model.named_parameters()}
+            else:
+                step = remat_step(model, bt, dgen)
+                step()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                timed["ms"] = cuda_ms(step, REMAT_STEPS)
+                timed["peak"] = torch.cuda.max_memory_allocated() / 2**30
+                del step
+            del model
+            torch.cuda.empty_cache()
+        out[remat] = timed
+    ref, got = out[False], out[True]
+    worst = max(float(((g - ref["grads"][n]).abs()
+                       - GRAD_RTOL * ref["grads"][n].abs()).max())
+                for n, g in got["grads"].items())
+    equal = all(torch.equal(g, ref["grads"][n])
+                for n, g in got["grads"].items())
+    stream = STREAM_STEP_MS.get("bert")
+    log(f"[remat bert] transformer_remat at hidden {BERT['hidden_size']} x "
+        f"{BERT['num_layers']} layers, window "
+        f"{BERT['transformer_max_position']}, bfloat16, batch "
+        f"{B_BERT_TRAIN}, dropout 0: {got['ms']:.2f} ms a step (CUDA events, "
+        f"loss + backward + AdamW), peak device memory {got['peak']:.2f} "
+        f"GiB; without remat {ref['ms']:.2f} ms, {ref['peak']:.2f} GiB "
+        f"(phase 7's streaming step "
+        + (f"{stream:.2f} ms" if stream is not None else "not measured")
+        + f"); gradients with dropout 0.1 (the same generator seed) "
+        f"bit-equal: {equal}, largest excess over {GRAD_RTOL} relative "
+        f"{worst:.3e} (bound {GRAD_ATOL})")
+    if worst > GRAD_ATOL or not got["peak"] < ref["peak"]:
+        raise AssertionError("transformer_remat: gradients or peak")
+
+
+def diagnostics_check(dev, base: Path) -> None:
+    """One ``diagnostics_every=1`` epoch on the card (device-resident, 2
+    steps of DIAG_BATCH) on the trajectory corpus: the hook's gradient-flow
+    report held to the CPU's on the same batch and weights (each mean and
+    max |grad| within 1e-3 relative)."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+    from audio_tokens_tpu_torch.utils import diagnostics
+
+    seen = {}
+    real_flow, real_loss = diagnostics.gradient_flow, diagnostics.make_batch_loss
+
+    def flow(loss_fn, params, plot_path=None):
+        seen["report"] = real_flow(loss_fn, params, plot_path)
+        seen["plot"] = plot_path
+        return seen["report"]
+
+    def batch_loss(model, batch, use_lengths, device):
+        seen["batch"] = batch
+        return real_loss(model, batch, use_lengths, device)
+
+    diagnostics.gradient_flow, diagnostics.make_batch_loss = flow, batch_loss
+    try:
+        cfg = AudioTokensConfig(
+            base_dir=str(base), **MODEL, training_batch_size=DIAG_BATCH,
+            epochs=1, max_train_steps=2, diagnostics_every=1, num_workers=2,
+            log_every_steps=0, save_best_checkpoint=False,
+            checkpoint_dir=str(base / "ckpt_diag"))
+        trainer = Trainer(cfg, dev)
+        t0 = time.perf_counter()
+        trainer.run()
+        run_s = time.perf_counter() - t0
+    finally:
+        diagnostics.gradient_flow = real_flow
+        diagnostics.make_batch_loss = real_loss
+    cpu = get_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         trainer.model.state_dict().items()})
+    want = real_flow(real_loss(cpu, seen["batch"], True, "cpu"),
+                     dict(cpu.named_parameters()))
+    got = seen["report"]
+    worst = max(abs(got[n][k] - want[n][k]) / max(abs(want[n][k]), 1e-30)
+                for n in want for k in ("mean_abs_grad", "max_abs_grad"))
+    log(f"[diagnostics] diagnostics_every=1 on the card ({run_s:.1f} s, a "
+        f"device-resident epoch of 2 steps): {len(got)} parameters' "
+        f"mean/max |grad| against the CPU's on the same batch and weights, "
+        f"largest relative gap {worst:.3e} (bound 1e-3); chart "
+        f"{Path(seen['plot']).name} written: "
+        f"{Path(seen['plot']).exists()} (needs matplotlib)")
+    if sorted(got) != sorted(want) or worst > 1e-3:
+        raise AssertionError(f"gradient-flow report differs: {worst:.3e}")
+    del trainer, cpu
+
+
+def device_phase(records: list, dev, base: Path) -> None:
+    """Phase 13: the on-card mAP, device-resident epochs of the lstm,
+    simple, bert and cnn at full width, the device epoch against streaming,
+    the remat options, one diagnostics epoch."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+
+    t_phase = time.perf_counter()
+    device_map_check(dev)
+    rng = np.random.default_rng(32)
+    tokens = {"train": resident_split(rng, EPOCH_TRAIN, B_LSTM),
+              "validation": resident_split(rng, EPOCH_VAL, B_LSTM)}
+    lstm_k = {"B3": lstm_sequence_fwd, "B4": lstm_sequence_bwd}
+    cfg = AudioTokensConfig(**MODEL, training_batch_size=B_LSTM,
+                            log_every_steps=0)
+    got = device_epoch_family(records, dev, "lstm", cfg, tokens,
+                              EPOCH_STEPS, lstm_k)
+    records[2]["launches_by_path"].update(
+        device_epoch_lstm=got["train"][0], device_eval_lstm=got["eval"][0])
+    records[3]["launches_by_path"]["device_epoch_lstm"] = got["train"][1]
+    device_epoch_family(records, dev, "simple", dataclasses.replace(
+        cfg, **FAMILIES["simple"]), tokens, 0, {})
+    bert_split = {
+        "train": tokens["train"],
+        "validation": tuple(a[:BERT_EVAL] for a in tokens["validation"][:3])
+        + (BERT_EVAL,)}
+    got = device_epoch_family(
+        records, dev, "bert", AudioTokensConfig(
+            **BERT, training_batch_size=B_BERT_TRAIN, log_every_steps=0),
+        bert_split, BERT_STEPS, {"B5": flash_attention_fwd})
+    records[4]["launches_by_path"]["device_eval_bert"] = got["eval"][0]
+    del tokens, bert_split
+    spec = {"train": resident_split(rng, SPEC_TRAIN, B_LSTM, "spec"),
+            "validation": resident_split(rng, SPEC_VAL, B_LSTM, "spec")}
+    device_epoch_family(records, dev, "cnn", dataclasses.replace(
+        cfg, **FAMILIES["cnn"], device_corpus_dtype="bfloat16"), spec,
+        EPOCH_STEPS, {}, materialize=True)
+    del spec
+    torch.cuda.empty_cache()
+    device_trajectory(dev, base)
+    remat_phase(records, dev)
+    diagnostics_check(dev, base)
+    log(f"[device] phase 13 took {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+
+
 
 def main() -> int:
     import torch
@@ -3284,6 +3896,7 @@ def main() -> int:
         (val_loss, val_metrics, step_ms, run_s, peak_gb,
          train_launches) = timed_run(trainer, (lstm_sequence_fwd,
                                                lstm_sequence_bwd))
+        STREAM_STEP_MS["lstm"] = statistics.median(step_ms[1:])
         ckpt_ok = (Path(tcfg.checkpoint_dir) / "no-wandb-best"
                    / "params.pt").exists()
         log(f"[train] lstm {tcfg.lstm_embed_dim}/{tcfg.lstm_hidden_dim} x "
@@ -3327,6 +3940,7 @@ def main() -> int:
               flash_attention_bwd_dq)
         (val_loss, val_metrics, step_ms, run_s, peak_gb,
          b5_launches) = timed_run(btrainer, b5)
+        STREAM_STEP_MS["bert"] = statistics.median(step_ms[1:])
         log(f"[train bert] hidden {bt_cfg.hidden_size} x {bt_cfg.num_layers} "
             f"layers, window {bt_cfg.transformer_max_position}, "
             f"{bt_cfg.compute_dtype}, batch {B_BERT_TRAIN}: {len(step_ms)} "
@@ -3415,6 +4029,9 @@ def main() -> int:
             # -- 12. the tiers, the conv front-end, the native decoder ---------
             tiers_phase(records, dev, pipe, staged_cfg, staged_cents,
                         python_bench, split_procs)
+        # -- 13. device-resident epochs, remat, diagnostics ---------------------
+        with tempfile.TemporaryDirectory() as tmp13:
+            device_phase(records, dev, Path(tmp13))
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

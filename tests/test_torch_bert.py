@@ -199,7 +199,7 @@ def test_gradients_match_jax_under_transplant(grad_setup, mode,
     is a training step (both take the plain attention route); ``eval_flash``
     differentiates an eval-mode forward with ``transformer_attention=
     "flash"``, JAX through the library kernel's backward (interpret mode),
-    the port through ``FlashAttention``'s backward."""
+    the port through ``flash_attention``'s backward."""
     params, toks, labels, row_w = grad_setup
     lens = np.array([256, 100, 0], np.int32)
     impl = "flash" if mode == "eval_flash" else "xla"
@@ -258,7 +258,7 @@ def _cfg(**kw):
 
 def test_route_resolution_and_refusals():
     """JAX's rules: 'auto' -> 'xla', 'flash' and 'xla' pass through, junk
-    raises; ``transformer_remat`` and an unknown compute dtype raise."""
+    raises; an unknown compute dtype raises."""
     resolve = registry._resolve_transformer_attention
     assert resolve(_cfg()) == "xla"
     assert resolve(_cfg(transformer_attention="xla")) == "xla"
@@ -269,8 +269,6 @@ def test_route_resolution_and_refusals():
     m = get_model(_cfg(transformer_attention="flash"), "cpu", gen)
     assert isinstance(m, TransformerClassifier)
     assert m.attention_impl == "flash" and m.max_position == 64
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        get_model(_cfg(transformer_remat=True), "cpu", gen)
     with pytest.raises(ValueError, match="compute_dtype"):
         get_model(_cfg(compute_dtype="float16"), "cpu", gen)
 

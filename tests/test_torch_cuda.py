@@ -657,6 +657,172 @@ def test_cuda_lstm_forward_is_bit_equal_between_launches(cuda_device, t, b,
         assert torch.equal(plain[3], first[3])
 
 
+# chunked recurrences: chunks of 7 (T not a multiple), 16, and one of T
+CARRY_CASES = [(100, 64, 512, 7), (100, 64, 512, 16), (37, 33, 36, 16),
+               (20, 256, 512, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,b,h,s", CARRY_CASES)
+def test_cuda_lstm_chunks_from_carries_are_bit_equal(cuda_device, reverse, t,
+                                                     b, h, s):
+    """B3 launched once a time chunk, each from the last chunk's (h_last,
+    c_last), gives the whole launch's hs, h_last and c_last bit for bit; the
+    chunks' B4 (dc_last in, dh0 and dc0 out) gives its dxg bit for bit and
+    its dw_hh within 1e-4 + 1e-3 relative (summed over chunks in another
+    order).  The reverse direction walks the chunks from the end."""
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_carry,
+                                                      lstm_sequence_fwd)
+
+    gen, xg, mask, w = _lstm_inputs(cuda_device, t, b, h)
+    dhs = torch.randn((t, b, h), generator=gen).to(cuda_device)
+    dh_last = torch.randn((b, h), generator=gen).to(cuda_device)
+    x_full, w_full = xg.clone().requires_grad_(), w.clone().requires_grad_()
+    hs, h_last, c_last = lstm_sequence_carry(x_full, mask, w_full, reverse)
+    torch.autograd.backward((hs, h_last), (dhs, dh_last))
+    x_ch, w_ch = xg.clone().requires_grad_(), w.clone().requires_grad_()
+    starts = list(range(0, t, s))
+    before = lstm_sequence_fwd.launches
+    h = c = None
+    outs = {}
+    for t0 in (reversed(starts) if reverse else starts):
+        outs[t0], h, c = lstm_sequence_carry(
+            x_ch[t0:t0 + s], mask[t0:t0 + s], w_ch, reverse, h, c)
+    assert lstm_sequence_fwd.launches == before + len(starts)
+    hs_ch = torch.cat([outs[t0] for t0 in starts])
+    assert torch.equal(hs_ch, hs)
+    assert torch.equal(h, h_last) and torch.equal(c, c_last)
+    torch.autograd.backward((hs_ch, h), (dhs, dh_last))
+    assert torch.equal(x_ch.grad, x_full.grad)
+    torch.testing.assert_close(w_ch.grad, w_full.grad, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,b,h", [(9, 64, 512), (1, 33, 36), (13, 7, 64)])
+def test_cuda_lstm_carries_match_plain(cuda_device, reverse, t, b, h):
+    """B3 from given carries and B4's carry outputs against the plain
+    versions: hs, h_last, c_last within 1e-5, dxg, dh0, dc0 within 1e-5,
+    dw_hh (with h0's term) within 1e-5 of its largest entry."""
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (
+        lstm_dw_hh_plain, lstm_recurrence_bwd_plain, lstm_sequence_fwd_plain)
+
+    gen, xg, mask, w = _lstm_inputs(cuda_device, t, b, h)
+    h0, c0, dh_last, dc_last = (torch.randn((b, h), generator=gen).to(
+        cuda_device) for _ in range(4))
+    dhs = torch.randn((t, b, h), generator=gen).to(cuda_device)
+    hs, h_last, gates, c, c_last = torch.ops.atk.lstm_fwd(
+        xg, mask, w, reverse, True, h0, c0)
+    ref = lstm_sequence_fwd_plain(xg, mask, w, reverse, h0, c0)
+    for got, want in ((hs, ref[0]), (gates, ref[1]), (c, ref[2]),
+                      (h_last, ref[3]), (c_last, ref[2][0 if reverse else -1])):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    dxg, dh0, dc0 = torch.ops.atk.lstm_bwd(dhs, dh_last, ref[1], ref[2], mask,
+                                           w, reverse, dc_last, c0)
+    want = lstm_recurrence_bwd_plain(dhs, dh_last, ref[1], ref[2], mask, w,
+                                     reverse, dc_last, c0)
+    for got, r in zip((dxg, dh0, dc0), want):
+        torch.testing.assert_close(got, r, atol=1e-5, rtol=1e-5)
+    dw = torch.ops.atk.lstm_dw(ref[0], want[0], reverse, h0)
+    dw_ref = lstm_dw_hh_plain(ref[0], want[0], reverse, h0)
+    assert float((dw - dw_ref).abs().max()) <= 1e-5 * float(
+        dw_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_cuda_lstm_remat_matches_no_remat(cuda_device, chunk):
+    """The classifier with ``lstm_remat_chunk`` on the card: logits within
+    1e-5 and gradients within 1e-4 + 1e-3 relative of the run without remat
+    (the chunks' input-gate products sum in another order), and B3 launched
+    again for each chunk's recompute."""
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+
+    gen = torch.Generator().manual_seed(4)
+    t = 150
+    toks = torch.randint(0, 50, (8, t), generator=gen).to(cuda_device)
+    lens = torch.randint(5, t + 1, (8,), generator=gen).to(cuda_device)
+    labels = (torch.rand((8, 7), generator=gen) < 0.3).float().to(cuda_device)
+    row_w = torch.ones(8, device=cuda_device)
+    out = {}
+    for remat in (0, chunk):
+        cfg = AudioTokensConfig(model_type="lstm", vocab_size=50,
+                                num_classes=7, lstm_embed_dim=32,
+                                lstm_hidden_dim=128, num_layers=2,
+                                lstm_remat_chunk=remat)
+        m = get_model(cfg, cuda_device, torch.Generator().manual_seed(0))
+        fwd, bwd = lstm_sequence_fwd.launches, lstm_sequence_bwd.launches
+        logits = m(toks, lens)
+        weighted_bce(logits, labels, row_w).backward()
+        n = 4 * (-(-t // remat)) if remat else 4
+        assert lstm_sequence_fwd.launches - fwd == (2 * n if remat else n)
+        assert lstm_sequence_bwd.launches - bwd == n
+        out[remat] = (logits.detach(),
+                      {k: p.grad for k, p in m.named_parameters()})
+    torch.testing.assert_close(out[chunk][0], out[0][0], atol=1e-5, rtol=0)
+    for k, g in out[0][1].items():
+        torch.testing.assert_close(out[chunk][1][k], g, atol=1e-4, rtol=1e-3,
+                                   msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_device_epoch_reads_two_scalars_and_never_syncs(cuda_device):
+    """A device-resident lstm epoch and its eval epoch on the card run under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in them reads the
+    card or waits for it but the one read of two scalars an epoch
+    (``read_scalars``, let through by the test), and B3 and B4 launch."""
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.train import device_epoch
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    cfg = AudioTokensConfig(model_type="lstm", vocab_size=50, num_classes=7,
+                            lstm_embed_dim=32, lstm_hidden_dim=128,
+                            num_layers=1, max_seq_len=40, dropout=0.1,
+                            training_batch_size=8, log_every_steps=0)
+    trainer = Trainer(cfg, cuda_device)
+    runner = device_epoch.DeviceEpochRunner(trainer)
+    rng = np.random.default_rng(7)
+    for split, n in (("train", 30), ("validation", 11)):
+        n_pad = -(-n // 8) * 8
+        toks = rng.integers(0, 50, (n_pad, 40)).astype(np.uint16)
+        lens = rng.integers(1, 41, n_pad).astype(np.int32)
+        labels = (rng.random((n_pad, 7)) < 0.3).astype(np.uint8)
+        runner.set_corpus_arrays(split, toks, lens, labels, n, 8)
+    read = device_epoch.read_scalars
+    reads = []
+
+    def let_through(*values):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            reads.append(read(*values))
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+        return reads[-1]
+
+    device_epoch.read_scalars = let_through
+    fwd, bwd = lstm_sequence_fwd.launches, lstm_sequence_bwd.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step, loss, m = runner.train_epoch(0, 0)
+        val_loss, val_m = runner.eval_epoch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        device_epoch.read_scalars = read
+    assert step == 4 and [len(r) for r in reads] == [2, 2]
+    assert np.isfinite(loss) and np.isfinite(val_loss)
+    assert 0.0 <= m["mAP"] <= 1.0 and 0.0 <= val_m["mAP"] <= 1.0
+    assert lstm_sequence_fwd.launches - fwd == 2 * 4 + 2 * 2
+    assert lstm_sequence_bwd.launches - bwd == 2 * 4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_lengths", [False, True])
 def test_cuda_classifier_backward_reaches_every_parameter(cuda_device,
@@ -982,8 +1148,8 @@ def test_cuda_flash_f32_backward_refuses_misaligned(cuda_device, which):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_autograd_runs_the_three_kernels(cuda_device, dtype):
-    """FlashAttention on the card: one forward, one dk/dv and one dq
-    launch, gradients equal to autograd through the plain forward (f32
+    """``flash_attention``'s autograd on the card: one forward, one dk/dv
+    and one dq launch, gradients equal to autograd through the plain forward (f32
     within 1e-4; bf16, where the kernels round P and dS and autograd does
     not, within 2e-2 of the largest entry)."""
     from audio_tokens_tpu_torch.ops.cuda_attention import (

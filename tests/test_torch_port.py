@@ -146,18 +146,6 @@ def test_unported_tokenizer_options_refused(override, match):
                     torch.from_numpy(ref), tier)
 
 
-@pytest.mark.parametrize("model_type,override", [
-    # every family is ported; bert's per-block recompute is not
-    pytest.param("bert", {"transformer_remat": True}, id="bert"),
-])
-def test_unported_families_refused(model_type, override):
-    from audio_tokens_tpu_torch.models import get_model
-
-    cfg = port_config.AudioTokensConfig(model_type=model_type, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg, "cpu", torch.Generator().manual_seed(0))
-
-
 def test_unported_serving_entry_points_refused():
     from audio_tokens_tpu_torch import export
     from audio_tokens_tpu_torch.tokenizer import FusedTokenizer

@@ -1,6 +1,7 @@
 """The training side of kernels B3 and B4 on the CPU: their plain versions
-against the JAX Pallas kernels in interpret mode, ``LSTMSequence`` under
-``gradcheck``, and the port classifier's gradients against ``jax.grad`` of
+against the JAX Pallas kernels in interpret mode, ``lstm_sequence``'s
+autograd (``atk::lstm_fwd`` joined to ``atk::lstm_bwd`` and ``atk::lstm_dw``)
+under ``gradcheck``, and the port classifier's gradients against ``jax.grad`` of
 the JAX classifier under a ``convert.py`` weight transplant.  Tolerances:
 atol 2e-5 / rtol 1e-4 for gradients (the ``tests/test_pallas_lstm.py``
 bound: f32 sums in another order through T steps), 1e-5 for forward
@@ -18,7 +19,7 @@ from audio_tokens_tpu.train.objective import make_loss_fn
 from audio_tokens_tpu_torch.convert import lstm_state_dict
 from audio_tokens_tpu_torch.models.lstm import SimpleLSTMTokenClassifier
 from audio_tokens_tpu_torch.ops.cuda_lstm import (
-    LSTMSequence, lstm_dw_hh, lstm_sequence, lstm_sequence_bwd,
+    lstm_dw_hh, lstm_sequence, lstm_sequence_bwd,
     lstm_sequence_bwd_plain, lstm_sequence_fwd, lstm_sequence_fwd_plain)
 from audio_tokens_tpu_torch.train.objective import weighted_bce
 
@@ -108,8 +109,9 @@ def test_dw_hh_of_one_step_is_zero(rng, reverse):
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_sequence_gradcheck_float64(reverse):
-    """LSTMSequence's hand-written backward against finite differences in
-    float64, with a ragged mask (pass-through steps in both directions)."""
+    """``lstm_sequence``'s hand-written backward against finite differences
+    in float64, with a ragged mask (pass-through steps in both
+    directions)."""
     gen = torch.Generator().manual_seed(1)
     t, b, h = 5, 2, 4
     xg = torch.randn((t, b, 4 * h), generator=gen, dtype=torch.float64,
@@ -119,7 +121,7 @@ def test_lstm_sequence_gradcheck_float64(reverse):
     mask = torch.tensor([[1, 1], [1, 1], [1, 1], [0, 1], [0, 1]],
                         dtype=torch.float64)
     assert torch.autograd.gradcheck(
-        lambda x, ww: LSTMSequence.apply(x, mask, ww, reverse), (xg, w))
+        lambda x, ww: lstm_sequence(x, mask, ww, reverse), (xg, w))
 
 
 def test_plain_backward_is_autograd_of_plain_forward(rng):
@@ -143,7 +145,8 @@ def test_plain_backward_is_autograd_of_plain_forward(rng):
 
 def test_no_grad_forward_skips_residuals_and_autograd(rng):
     """Serving (no gradient needed) takes the forward without residuals and
-    builds no graph; training goes through LSTMSequence."""
+    builds no graph; training goes through the autograd registered on
+    ``atk::lstm_fwd``."""
     xg, mask, w = (torch.from_numpy(a) for a in _inputs(rng, True))
     hs, gates, c, h_last = lstm_sequence_fwd(xg, mask, w)
     assert gates is None and c is None
@@ -153,7 +156,7 @@ def test_no_grad_forward_skips_residuals_and_autograd(rng):
     torch.testing.assert_close(hs_i, hs, atol=0, rtol=0)
     w.requires_grad_()
     hs_g, h_g = lstm_sequence(xg, mask, w)
-    assert type(hs_g.grad_fn).__name__ == "LSTMSequenceBackward"
+    assert "atk_lstm_fwd" in type(hs_g.grad_fn).__name__
     torch.testing.assert_close(h_g.detach(), h_last, atol=0, rtol=0)
 
 
@@ -173,8 +176,9 @@ def _pair(num_layers, seed):
 def test_classifier_gradients_match_jax_under_transplant(rng, num_layers,
                                                          with_lengths):
     """Loss and every parameter's gradient of the weighted BCE, the port
-    (LSTMSequence's plain backward) vs ``jax.value_and_grad`` of the JAX
-    classifier; one padded row (weight 0) as in a partial last batch."""
+    (the plain backward of ``lstm_sequence``'s autograd) vs
+    ``jax.value_and_grad`` of the JAX classifier; one padded row (weight 0)
+    as in a partial last batch."""
     jm, params, pm = _pair(num_layers, seed=10 + num_layers)
     toks = rng.integers(0, V, (B, T)).astype(np.int32)
     lens = rng.integers(3, T + 1, (B,)).astype(np.int32)
