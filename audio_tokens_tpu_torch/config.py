@@ -164,9 +164,10 @@ class AudioTokensConfig:
     # 'random' (FAISS-style sample of k points) or 'kmeans++'
     kmeans_init: str = "random"
     # Matmul precision of the Lloyd loop: 'highest' (f32, reproducibility
-    # default), 'high' (bf16x3), 'default' (bf16 — ~2x faster iterations on
-    # v5e; objective drift ~4e-5, boundary-point assignment churn only; see
-    # BASELINE.md).  Tokenization has its own tier: tokenizer_precision.
+    # default), 'high' (bf16x3), 'default' (bf16, the fastest; the
+    # objective drifts slightly, boundary points change cluster).  The
+    # card's times a tier are in PERF.md.  Tokenization has its own tier:
+    # tokenizer_precision.
     kmeans_precision: str = "highest"
     # Empty-cluster handling per Lloyd iteration: 'keep' retains the previous
     # centroid (round-1 default); 'split_largest' is a deterministic variant
@@ -201,9 +202,9 @@ class AudioTokensConfig:
     # no packing, no host link at all after the first pass.  Replay is
     # bit-identical to re-streaming (tested).  The balanced-AudioSet frame
     # corpus is ~8.7 GB f32 (~4.4 bf16 with kmeans_wire='bf16'), so the
-    # default fits it on one 16 GB v5e while leaving room for the Lloyd
-    # working set; oversized corpora drop the resident set and fall back to
-    # the host cache / re-stream path.  0 disables.
+    # default holds it on the card beside the Lloyd working set; oversized
+    # corpora drop the resident set and fall back to the host cache /
+    # re-stream path.  0 disables.
     kmeans_hbm_cache_mb: int = 10240
     # Streaming K-means host->device wire format: 'f32', or 'bf16' (frames
     # rounded once on the host, cast back to f32 on device — half the stream
@@ -227,40 +228,32 @@ class AudioTokensConfig:
     # Run gradient-flow diagnostics every N epochs (0 disables — the
     # reference's hook existed but was disabled; see utils/diagnostics.py).
     diagnostics_every: int = 0
-    # LSTM recurrence backend: 'auto' (Pallas sequence kernel on a single
-    # TPU chip; XLA scan elsewhere — pallas_call is not GSPMD-partitionable,
-    # so multi-chip DP training uses the scan), 'xla', or 'pallas'.
-    # Reproducibility note: on a DP mesh the Pallas backend runs shard_map
-    # steps that fold the device index into the dropout key (decorrelated
-    # per-device dropout), while the GSPMD scan path draws one key for the
-    # global batch — so 'auto' upgrading to 'pallas' changes the exact
-    # training RNG stream with mesh shape.  Pin lstm_backend='xla' when
-    # bit-identical trajectories across mesh shapes matter.
+    # LSTM recurrence backend of the JAX package: 'auto', 'xla' or
+    # 'pallas'.  The port accepts it and routes by device instead: CUDA
+    # tensors run kernels B3/B4 (ensembles too, through their member-axis
+    # rules), CPU tensors the plain recurrence.
     lstm_backend: str = "auto"
     # Rematerialize the LSTM recurrence in time chunks of this many steps
     # (0 = off).  The backward pass then stores only chunk-boundary (h, c)
     # carries instead of every step's gate activations and recomputes each
-    # chunk's forward during backprop (jax.checkpoint) — ~5x less residual
-    # HBM per member at default shapes for ~one extra forward of compute.
-    # Numerics are unchanged.  Forces the scan backend (the Pallas kernel
-    # saves exactly the residuals remat avoids).  Main use: stacking more
-    # vmapped ensemble members (train/ensemble.py) — K=4 lstm at defaults
-    # OOMs without it.  256 is a good chunk at T=1728.
+    # chunk's forward during backprop (B3 from the chunk's carries, then
+    # B4): one chunk's residuals at a time for ~one extra forward of
+    # compute, numerics unchanged up to summation order.  It runs inside
+    # ensembles (train/ensemble.py) too, where it lets more members share
+    # the card; PERF.md gives its memory and time on the H100.
     lstm_remat_chunk: int = 0
     # Transformer attention window (model_type='bert').  512 reproduces the
     # reference, which slices every clip to its first 512 tokens — ~3 s of a
-    # 10 s clip (reference: models/custom_bert_classifier.py:21-22).  On TPU
-    # full-clip attention is affordable (SURVEY.md §5): set this to
+    # 10 s clip (reference: models/custom_bert_classifier.py:21-22).  With
+    # flash attention the whole clip is affordable (SURVEY.md §5): set this to
     # max_seq_len (1728) to attend over the whole clip; position embeddings
     # size to this value.  Checkpoints are tied to the setting.
     transformer_max_position: int = 512
-    # Transformer attention implementation.  'auto' = XLA attention: the
-    # Pallas flash path ('flash', TPU-only, deterministic passes) avoids
-    # materializing the (B, h, T, T) scores and wins a standalone attention
-    # microbench, but measured SLOWER inside the full model (in-process
-    # A/B: 1.33x at B=8, 1.47x at B=32, full-clip window — BASELINE.md),
-    # so 'auto' never engages it; the knob remains for other
-    # shapes/hardware.
+    # Transformer attention implementation.  'auto' = the plain (XLA in the
+    # JAX package) attention; 'flash' runs the flash kernel (B5 in the port)
+    # in deterministic passes, which never materializes the (B, h, T, T)
+    # scores.  Which route 'auto' should take on the card is an open
+    # question (ROADMAP).
     transformer_attention: str = "auto"
     # Rematerialize each transformer encoder block (jax.checkpoint): the
     # backward keeps only (B, T, H) block boundaries and recomputes the
@@ -268,19 +261,18 @@ class AudioTokensConfig:
     # extra forward of compute.  The memory lever for big-batch training
     # at full-clip attention (transformer_max_position = max_seq_len),
     # where the (B, heads, T, T) score residuals otherwise bound batch
-    # size (measured: full-clip B=32 train step OOMs without it, trains
-    # with it — BASELINE.md).
+    # size.
     transformer_remat: bool = False
-    # Megakernel DFT/mel GEMM tier: 'highest' (f32, bit-exact tokens,
-    # ~18.5k clips/s on v5e), 'bf16x3' (~26k, 99.997% agreement),
-    # 'default' (bf16, ~34k, 99.3%).
+    # Megakernel DFT/mel GEMM tier: 'highest' (f32, bit-exact tokens),
+    # 'bf16x3' (bf16 products, three a product; near-ties apart), 'default'
+    # (bf16, faster again, ~1% of tokens apart).  The card's times and
+    # agreement a tier are in PERF.md.
     tokenizer_precision: str = "highest"
     # VQ distance GEMM tier (the argmin decision point), separately: at the
     # default 500-centroid vocabulary it is a small FLOP fraction and
     # 'highest' costs nothing, but at the 16k north-star vocabulary it is
-    # ~97% of the kernel FLOPs — 'bf16x3' is ~1.6-1.75x serving rate at
-    # ~100% token agreement, 'default' ~3.5x at ~99% (measured rates in
-    # BASELINE.md 16k row).
+    # ~97% of the kernel FLOPs, where the bf16 tiers pay most (PERF.md
+    # gives B1 a tier at 16,384 centroids on the H100).
     tokenizer_vq_precision: str = "highest"
     # Consolidated memory-mapped training-input cache: token sequences are
     # packed once into {split}.tokcache.bin (uint16) + offsets, so per-clip
@@ -299,8 +291,7 @@ class AudioTokensConfig:
     # path (staged spectrograms, fused tokenizer, all-device cluster feed,
     # serving): 'f32', or 'i16' PCM (half the transfer bytes; bit-exact for
     # mono 16-bit sources at common_sr, <=-96 dB quantization noise for
-    # resampled/downmixed clips — measured 2x transfer+tokenize on
-    # link-bound hosts, BASELINE.md serving section).  One decode rule
+    # resampled/downmixed clips).  One decode rule
     # (ops/mel.decode_wire, applied inside the frontend) covers all paths,
     # so pipeline routing decisions never change numerics.
     pcm_wire: str = "f32"
@@ -314,9 +305,8 @@ class AudioTokensConfig:
     device_corpus_budget_mb: int = 4096
     # HBM storage dtype for resident spec/flat corpora: 'float32' (exact) or
     # 'bfloat16' (half the residency — a 22k-clip spec corpus drops 9.8 ->
-    # 4.9 GB, doubling what fits the budget; step rate measured neutral,
-    # BASELINE.md; one round-to-nearest of the dB spectrogram inputs, ~3
-    # decimal digits preserved).  Token corpora always pack uint16 and
+    # 4.9 GB, doubling what fits the budget; one round-to-nearest of the
+    # dB spectrogram inputs, ~3 decimal digits preserved).  Token corpora always pack uint16 and
     # ignore this.
     device_corpus_dtype: str = "float32"
     # How the device-resident epoch composes shuffled batches:
@@ -363,7 +353,7 @@ class AudioTokensConfig:
     # Fused pipeline: stages read audio directly and compute mel frames on
     # device instead of round-tripping spectrogram ``.npy`` artifacts through
     # disk — clustering streams wav->frames and tokenization runs the fused
-    # wav->tokens program (the Pallas megakernel on TPU).  Token artifacts
+    # wav->tokens program (kernel B1 on the card).  Token artifacts
     # are byte-identical to the staged pipeline (tested); the spectrogram
     # stage is skipped entirely by run_pipeline.
     fused_pipeline: bool = False

@@ -39,6 +39,10 @@ The port's cnn flattens its activation in the JAX module's NHWC order, so
 ``fc1``'s rows need no permutation.  ``state_dict_for(model_type, params)``
 picks the map of a family.
 
+``ensemble_state_dicts(model_type, stacked)`` does the same for an
+ensemble's vmapped tree (a leading member axis on every leaf): the map a
+member, each name's K tensors stacked.
+
 ``conv_state_dict(jax_state)`` maps the JAX ``ConvFeatures.state_dict()``
 (``weight`` (K, 1, w), ``bias`` (K,) numpy arrays, the ``.conv.npz``
 layout) to the port's ``ConvFeatures`` buffers: the same layout, copied.
@@ -160,6 +164,25 @@ def state_dict_for(model_type: str, params: Mapping
     if model_type not in _STATE_DICTS:
         raise ValueError(f"Unknown model type: {model_type}")
     return _STATE_DICTS[model_type](params)
+
+
+def _member_tree(tree: Mapping, i: int) -> Dict:
+    return {k: _member_tree(v, i) if isinstance(v, Mapping)
+            else np.asarray(v)[i] for k, v in tree.items()}
+
+
+def ensemble_state_dicts(model_type: str, stacked_params: Mapping
+                         ) -> Dict[str, torch.Tensor]:
+    """The JAX ensemble's vmapped parameters (every leaf with a leading
+    member axis of K, as ``EnsembleTrainer.init_state`` makes them) -> the
+    port ensemble's stacked tensors: ``state_dict_for`` member by member,
+    each name's K tensors stacked along a new leading axis."""
+    flat = _flatten(stacked_params)
+    k = len(next(iter(flat.values())))
+    members = [state_dict_for(model_type, _member_tree(stacked_params, i))
+               for i in range(k)]
+    return {name: torch.stack([m[name] for m in members])
+            for name in members[0]}
 
 
 def conv_state_dict(jax_state: Mapping) -> Dict[str, torch.Tensor]:

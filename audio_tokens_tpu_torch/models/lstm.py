@@ -18,8 +18,9 @@ recurrence is the plain step as one scan (``lstm_sequence_scan``), which
 
 Dropout draws its keep-mask from a ``torch.Generator`` the caller passes
 (the trainer derives one per step from its seed, as the JAX trainer folds
-the step into its dropout key); training with dropout and no generator
-raises rather than touch a global random stream.
+the step into its dropout key), or from ``members.MemberGenerators`` under
+an ensemble's member axis; training with dropout and no generator raises
+rather than touch a global random stream.
 
 Variable lengths are masked carries, not packing: past a sequence's end the
 state passes through, so the final forward carry is the state at len-1 and
@@ -28,12 +29,15 @@ the backward direction ignores the padding it starts in.  With
 
 ``remat_chunk > 0`` (``lstm_remat_chunk``, JAX ``LSTMLayer._remat_scan``)
 recomputes the recurrence in time chunks of that size where a gradient is
-taken: each chunk, its input-gate product included, runs under
-``torch.utils.checkpoint``, so the backward keeps only the layer's input and
-the (h, c) carries at chunk edges, and recomputes a chunk's forward (B3
-from the carries) just before its B4.  The reverse direction walks the
-chunks from the end; the last chunk is short.  The same arithmetic a step,
-so the same numbers up to the chunked input-gate product's summation.
+taken: each chunk, its input-gate product included, runs under the
+recompute seam ``models/members.remat``, so the backward keeps only the
+layer's input and the (h, c) carries at chunk edges, and recomputes a
+chunk's forward (B3 from the carries, with its residuals) just before its
+B4.  The reverse direction walks the chunks from the end; the last chunk is
+short.  The same arithmetic a step, so the same numbers up to the chunked
+input-gate product's summation.  The seam also runs under an ensemble's
+member axis, where ``torch.utils.checkpoint`` does not; so does the dropout
+draw (``members.uniform``).
 """
 
 from __future__ import annotations
@@ -43,8 +47,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
+from audio_tokens_tpu_torch.models.members import remat, uniform
 from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence,
                                                  lstm_sequence_carry,
                                                  lstm_sequence_scan)
@@ -84,15 +88,17 @@ class LSTMLayer(nn.Module):
             self.w_hh.contiguous(), self.reverse)
         return hs.transpose(0, 1), h_last
 
-    def _chunk(self, x: torch.Tensor, mask: torch.Tensor,
-               h0: Optional[torch.Tensor], c0: Optional[torch.Tensor]
+    def _chunk(self, _generator, x: torch.Tensor, mask: torch.Tensor,
+               h0: Optional[torch.Tensor], c0: Optional[torch.Tensor],
+               w_ih: torch.Tensor, bias: torch.Tensor, w_hh: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """One time chunk from its carries: x (B, s, E), mask (s, B) ->
-        (hs (s, B, H), h_last, c_last)."""
-        xg = torch.matmul(x, self.w_ih) + self.bias
+        (hs (s, B, H), h_last, c_last).  The weights come in as arguments,
+        so that the recompute seam sees them (a member's, under the member
+        axis)."""
+        xg = torch.matmul(x, w_ih) + bias
         return lstm_sequence_carry(xg.transpose(0, 1).contiguous(), mask,
-                                   self.w_hh.contiguous(), self.reverse, h0,
-                                   c0)
+                                   w_hh.contiguous(), self.reverse, h0, c0)
 
     def _remat(self, x: torch.Tensor, mask: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -105,9 +111,8 @@ class LSTMLayer(nn.Module):
         for t0 in (reversed(starts) if self.reverse else starts):
             # the dropout generator is not drawn from here: no RNG state to
             # keep for the recompute
-            hs[t0], h, c = checkpoint(
-                self._chunk, x[:, t0:t0 + s], m[t0:t0 + s], h, c,
-                use_reentrant=False, preserve_rng_state=False)
+            hs[t0], h, c = remat(self._chunk, x[:, t0:t0 + s], m[t0:t0 + s],
+                                 h, c, self.w_ih, self.bias, self.w_hh)
         return torch.cat([hs[t0] for t0 in starts]).transpose(0, 1), h
 
 
@@ -174,8 +179,8 @@ class SimpleLSTMTokenClassifier(nn.Module):
         if self.training and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("dropout in training mode needs a generator")
-            keep = torch.rand(last.shape, generator=generator,
-                              device=last.device) >= self.dropout
+            keep = uniform(last.shape, generator,
+                           last.device) >= self.dropout
             last = torch.where(keep, last / (1.0 - self.dropout),
                                torch.zeros_like(last))
         return self.fc(last)

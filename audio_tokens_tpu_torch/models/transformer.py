@@ -26,14 +26,15 @@ maps a flax tree onto them.  Dropout draws from a ``torch.Generator`` the
 caller passes, as in ``models/lstm.py``.
 
 ``remat=True`` (``transformer_remat``, JAX ``nn.remat`` of each block)
-runs each encoder block under ``torch.utils.checkpoint`` where a gradient
-is taken: the backward keeps the blocks' (B, T, H) inputs and recomputes
-each block, its (B, nh, T, T) attention weights included.  The
-checkpoint restores only the default generators' states, and the block's
-dropout draws from the caller's generator, so the block puts that
-generator's state back before its recompute and forward again after it:
-the recomputed keep-masks are the forward's, and the gradients those of
-the run without remat.
+runs each encoder block under the recompute seam ``models/members.remat``
+where a gradient is taken: the backward keeps the blocks' (B, T, H) inputs
+and recomputes each block, its (B, nh, T, T) attention weights included.
+The block's dropout draws from the caller's generator, so the seam puts
+that generator's state back before its recompute and forward again after
+it: the recomputed keep-masks are the forward's, and the gradients those
+of the run without remat.  Dropout draws go through ``members.uniform``,
+and the seam runs under an ensemble's member axis too (one recompute a
+member, from the member's generator).
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.func import functional_call
 
+from audio_tokens_tpu_torch.models.members import remat, uniform
 from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention
 
 LN_EPS = 1e-12  # HF BertConfig layer_norm_eps, as the JAX module
@@ -73,8 +75,7 @@ def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
              shape=None) -> torch.Tensor:
     """Inverted dropout with a keep-mask of ``shape`` (default x's) drawn
     from ``generator``."""
-    keep = torch.rand(shape or x.shape, generator=generator,
-                      device=x.device) < 1.0 - rate
+    keep = uniform(shape or x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -179,25 +180,17 @@ class EncoderBlock(nn.Module):
 def _remat_block(block: EncoderBlock, x: torch.Tensor,
                  lengths: Optional[torch.Tensor],
                  key_mask: Optional[torch.Tensor], flash: bool,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``block`` under ``checkpoint``; its recompute replays ``generator``
-    from the state the forward started at, then hands the generator back
-    in the state it found it in."""
-    start = None if generator is None else generator.get_state()
-    calls = []
+                 generator) -> torch.Tensor:
+    """``block`` under the recompute seam, its parameters passed in (a
+    member's, under the member axis); the recompute replays ``generator``
+    from the state the forward started at."""
+    names, params = zip(*block.named_parameters())
 
-    def run(h):
-        if start is None or not calls:  # the forward
-            calls.append(1)
-            return block(h, lengths, key_mask, flash, generator)
-        found = generator.get_state()
-        generator.set_state(start)
-        try:
-            return block(h, lengths, key_mask, flash, generator)
-        finally:
-            generator.set_state(found)
+    def run(gen, h, lengths, key_mask, *ps):
+        return functional_call(block, dict(zip(names, ps)),
+                               (h, lengths, key_mask, flash, gen))
 
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    return remat(run, x, lengths, key_mask, *params, generator=generator)
 
 
 class TransformerClassifier(nn.Module):

@@ -41,6 +41,12 @@ the op's CPU registration is the plain version, its CUDA registration
 launches the kernel (and counts the launch) or raises, and its fake only
 allocates the outputs.  The pair is the forward's backward
 (``torch.library.register_autograd``).
+
+Under an ensemble's member axis (``train/ensemble.py``: ``torch.func.vmap``
+over K members) each op's ``register_vmap`` rule folds the members into
+the batch, (K, B, nh, T, dh) -> (K B, nh, T, dh), segment ids repeated for
+each member where they are shared: attention has no weights of its own,
+so one launch serves every member.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ import numpy as np
 import torch
 
 from audio_tokens_tpu_torch.ops import _build
-from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
+from audio_tokens_tpu_torch.ops.common import check_cuda_tensor, needs_grad
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # library DEFAULT_MASK_VALUE
 HEAD_DIM = 64  # csrc/attention.cu kD
@@ -330,6 +336,58 @@ def _flash_fwd_backward(ctx, do, _dlse):
 
 torch.library.register_autograd("atk::flash_fwd", _flash_fwd_backward,
                                 setup_context=_flash_fwd_setup)
+
+
+# -- the member axis: torch.func.vmap over an ensemble's members --------------
+def _fold(t, bdim, k: int):
+    """(K, B, ...) with the member axis at ``bdim`` -> (K B, ...) contiguous;
+    a shared tensor is repeated for each member."""
+    if bdim is None:
+        return t.unsqueeze(0).expand(k, *t.shape).reshape(k * t.shape[0],
+                                                          *t.shape[1:])
+    t = t.movedim(bdim, 0)
+    return t.reshape(k * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def _unfold(t, k: int):
+    return t.view(k, t.shape[0] // k, *t.shape[1:])
+
+
+@torch.library.register_vmap("atk::flash_fwd")
+def _flash_fwd_vmap(info, in_dims, q, k, v, segment_ids, sm_scale, lse):
+    """Attention has no weights of its own, so the members fold into the
+    batch: one B5 launch for all of them.  As for B3, whether autograd
+    needs the logsumexp is asked of the members' tensors; it is returned
+    only when the caller asked."""
+    n = info.batch_size
+    keep = lse or needs_grad(q, k, v)
+    o, row_lse = torch.ops.atk.flash_fwd(
+        *(_fold(t, d, n) for t, d in zip((q, k, v, segment_ids), in_dims)),
+        sm_scale, keep)
+    row_lse = _unfold(row_lse, n) if lse else row_lse.new_empty((n, 0))
+    return (_unfold(o, n), row_lse), (0, 0)
+
+
+@torch.library.register_vmap("atk::flash_bwd_dkv")
+def _flash_dkv_vmap(info, in_dims, q, k, v, segment_ids, lse, do, di,
+                    sm_scale):
+    """The dk/dv kernel once for all members, folded into the batch."""
+    n = info.batch_size
+    dk, dv = torch.ops.atk.flash_bwd_dkv(
+        *(_fold(t, d, n) for t, d in zip((q, k, v, segment_ids, lse, do, di),
+                                         in_dims)), sm_scale)
+    return (_unfold(dk, n), _unfold(dv, n)), (0, 0)
+
+
+@torch.library.register_vmap("atk::flash_bwd_dq")
+def _flash_dq_vmap(info, in_dims, q, k, v, segment_ids, lse, do, di,
+                   sm_scale):
+    """The dq kernel once for all members, folded into the batch."""
+    n = info.batch_size
+    dq = torch.ops.atk.flash_bwd_dq(
+        *(_fold(t, d, n) for t, d in zip((q, k, v, segment_ids, lse, do, di),
+                                         in_dims)), sm_scale)
+    return _unfold(dq, n), 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

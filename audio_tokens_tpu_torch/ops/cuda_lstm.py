@@ -41,6 +41,17 @@ one (check, launch and count, or raise) and a fake (allocates only):
 makes the second and third the first's backward, so ``torch.export``
 records the kernels as nodes and a traced training step records B4 too.
 
+Each op has a ``torch.library.register_vmap`` rule for an ensemble's
+member axis (``train/ensemble.py``: ``torch.func.vmap`` over K members'
+stacked parameters).  Every member has its own ``w_hh``, so a rule calls
+the op once a member on the member's slices (shared mask, h0 or c0 as
+they are) and stacks the outputs: on CUDA tensors, K launches of the
+kernel.  The wrappers cannot see through the member axis whether autograd
+will need B3's residuals, so the forward's rule asks the members' own
+tensors.  Autograd records each member's call with its registered
+backward, so in training B4 runs once a member from the graph; the
+backward ops' rules serve a vmapped backward.
+
 ``lstm_sequence_scan`` is the plain recurrence as one
 ``torch._higher_order_ops.scan`` over ``lstm_sequence_fwd_plain``'s step
 (``_lstm_step``, one definition for both), which ``torch.export`` keeps as
@@ -57,11 +68,10 @@ import torch
 from torch._higher_order_ops.scan import scan
 
 from audio_tokens_tpu_torch.ops import _build
-from audio_tokens_tpu_torch.ops.common import check_cuda_tensor
+from audio_tokens_tpu_torch.ops.common import (check_cuda_tensor, members,
+                                               needs_grad)
 
 MAX_BATCH = 256  # csrc/lstm.cu kMaxBatch
-
-
 
 
 def lstm_sequence_fwd_plain(xg: torch.Tensor, mask: torch.Tensor,
@@ -472,6 +482,61 @@ def _lstm_fwd_backward(ctx, dhs, dh_last, _dgates, _dc, dc_last):
 
 torch.library.register_autograd("atk::lstm_fwd", _lstm_fwd_backward,
                                 setup_context=_lstm_fwd_setup)
+
+
+# -- the member axis: torch.func.vmap over an ensemble's members --------------
+def _per_member(op, info, in_dims, args, n_out: int):
+    """Call ``op`` once a member on its slices (shared arguments as they
+    are) and stack each output along a new leading member axis."""
+    n = info.batch_size
+    outs = [op(*row) for row in zip(*(members(a, d, n)
+                                      for a, d in zip(args, in_dims)))]
+    return (tuple(torch.stack([o[j] for o in outs]) for j in range(n_out)),
+            (0,) * n_out)
+
+
+def _padded(in_dims, n: int) -> tuple:
+    """A rule's ``in_dims`` with None for the optional arguments the caller
+    left out."""
+    return tuple(in_dims) + (None,) * (n - len(in_dims))
+
+
+@torch.library.register_vmap("atk::lstm_fwd")
+def _lstm_fwd_vmap(info, in_dims, xg, mask, w_hh, reverse, residuals,
+                   h0=None, c0=None):
+    """B3 once a member (each member has its own ``w_hh``).  The wrapper
+    cannot see through the member axis whether autograd needs B4's
+    residuals, so the rule asks the members' tensors; it returns them only
+    when the caller asked, since autograd keeps each member's own."""
+    keep = residuals or needs_grad(xg, w_hh, h0, c0)
+    in_dims = _padded(in_dims, 7)  # h0, c0 left out: no member axis
+    (hs, h_last, gates, c, c_last), dims = _per_member(
+        lambda *a: torch.ops.atk.lstm_fwd(*a[:3], reverse, keep, *a[3:]), info,
+        in_dims[:3] + in_dims[5:], (xg, mask, w_hh, h0, c0), 5)
+    if not residuals:
+        gates = c = xg.new_empty((info.batch_size, 0))
+    return (hs, h_last, gates, c, c_last), dims
+
+
+@torch.library.register_vmap("atk::lstm_bwd")
+def _lstm_bwd_vmap(info, in_dims, dhs, dh_last, gates, c, mask, w_hh,
+                   reverse, dc_last=None, c0=None):
+    """B4's recurrence once a member."""
+    in_dims = _padded(in_dims, 9)
+    dims = in_dims[:6] + in_dims[7:]
+    return _per_member(
+        lambda *a: torch.ops.atk.lstm_bwd(*a[:6], reverse, *a[6:]), info,
+        dims, (dhs, dh_last, gates, c, mask, w_hh, dc_last, c0), 3)
+
+
+@torch.library.register_vmap("atk::lstm_dw")
+def _lstm_dw_vmap(info, in_dims, hs, dxg, reverse, h0=None):
+    """B4's ``dw_hh`` once a member."""
+    in_dims = _padded(in_dims, 4)
+    (dw,), dims = _per_member(
+        lambda h, d, h0_: (torch.ops.atk.lstm_dw(h, d, reverse, h0_),),
+        info, (in_dims[0], in_dims[1], in_dims[3]), (hs, dxg, h0), 1)
+    return dw, dims[0]
 
 
 # -- the wrappers --------------------------------------------------------------

@@ -32,11 +32,21 @@ def save_checkpoint(
     epoch: int = 0,
     extra: dict | None = None,
 ) -> Path:
-    """Write a checkpoint ATOMICALLY: build under a temp name, then rename
-    over the previous best.  Deleting first and saving in place would leave
-    no loadable checkpoint if the process dies mid-save; meta.json is
-    written inside the temp dir so a visible checkpoint always has complete
-    metadata."""
+    """``save_state`` of the model's and the optimizer's ``state_dict``."""
+    return save_state(directory, name, model.state_dict(),
+                      None if optimizer is None else optimizer.state_dict(),
+                      step, metric, epoch, extra)
+
+
+def save_state(directory: str | Path, name: str, params: dict,
+               opt_state: Optional[dict] = None, step: int = 0,
+               metric: float = 0.0, epoch: int = 0,
+               extra: dict | None = None) -> Path:
+    """Write a checkpoint of ``params`` (a state dict) and ``opt_state``
+    ATOMICALLY: build under a temp name, then rename over the previous
+    best.  Deleting first and saving in place would leave no loadable
+    checkpoint if the process dies mid-save; meta.json is written inside
+    the temp dir so a visible checkpoint always has complete metadata."""
     path = (Path(directory) / name).absolute()
     path.parent.mkdir(parents=True, exist_ok=True)
     # reap scratch dirs from ANY pid — a killed run leaves its
@@ -50,9 +60,9 @@ def save_checkpoint(
     tmp = path.parent / f"{name}.tmp.{os.getpid()}"
     try:
         tmp.mkdir()
-        torch.save(model.state_dict(), tmp / "params.pt")
-        if optimizer is not None:
-            torch.save(optimizer.state_dict(), tmp / "opt_state.pt")
+        torch.save(params, tmp / "params.pt")
+        if opt_state is not None:
+            torch.save(opt_state, tmp / "opt_state.pt")
         meta = {"step": step, "metric": metric, "epoch": epoch}
         if extra:
             meta.update(extra)
@@ -67,6 +77,19 @@ def save_checkpoint(
             shutil.rmtree(tmp, ignore_errors=True)
     logger.info("checkpoint saved: %s (step=%d metric=%.4f)", path, step, metric)
     return path
+
+
+def load_state(directory: str | Path, name: str
+               ) -> Tuple[dict, Optional[dict], dict]:
+    """(params, opt_state or None, meta) of a checkpoint, on the CPU."""
+    path = (Path(directory) / name).absolute()
+    params = torch.load(path / "params.pt", map_location="cpu",
+                        weights_only=True)
+    opt_state = None
+    if (path / "opt_state.pt").exists():
+        opt_state = torch.load(path / "opt_state.pt", map_location="cpu",
+                               weights_only=True)
+    return params, opt_state, load_meta(directory, name)
 
 
 def load_meta(directory: str | Path, name: str) -> dict:

@@ -150,6 +150,19 @@ def read_scalars(*values: torch.Tensor) -> List[float]:
     return torch.stack(values).tolist()
 
 
+def epoch_permutation(c: "_Corpus", seed: int, epoch: int,
+                      device: torch.device) -> torch.Tensor:
+    """The epoch's row order on ``device`` (``BatchLoader._index_batches``'s
+    RNG): the real rows shuffled by ``seed + epoch``, then the pad rows."""
+    order = np.arange(c.n_real, dtype=np.int64)
+    np.random.default_rng(seed + epoch).shuffle(order)
+    perm = torch.from_numpy(np.concatenate([order,
+                                            np.arange(c.n_real, c.n_pad)]))
+    if device.type == "cuda":  # an asynchronous copy: no sync
+        return perm.pin_memory().to(device, non_blocking=True)
+    return perm
+
+
 class _Corpus:
     def __init__(self, inputs: np.ndarray, lengths: np.ndarray,
                  labels: np.ndarray, n_real: int, batch_size: int,
@@ -205,16 +218,6 @@ class DeviceEpochRunner:
             sum(t.numel() * t.element_size()
                 for t in (c.inputs, c.lengths, c.labels)) / 2**20)
 
-    # -- the epoch's permutation (BatchLoader._index_batches's RNG) -------
-    def _perm(self, c: _Corpus, epoch: int) -> torch.Tensor:
-        order = np.arange(c.n_real, dtype=np.int64)
-        np.random.default_rng(self.config.random_seed + epoch).shuffle(order)
-        perm = torch.from_numpy(
-            np.concatenate([order, np.arange(c.n_real, c.n_pad)]))
-        if self.device.type == "cuda":  # an asynchronous copy: no sync
-            return perm.pin_memory().to(self.device, non_blocking=True)
-        return perm
-
     def _metric(self, n_rows: int):
         """-> (add(i, probs, labels, valid), result()) over an epoch of
         ``n_rows`` rows: the exact metric's prediction buffer, or the
@@ -246,7 +249,8 @@ class DeviceEpochRunner:
         if n_steps <= 0:
             return step, float("nan"), {"mAP": 0.0}
         b = c.batch_size
-        rows = self._perm(c, epoch)[:n_steps * b]
+        rows = epoch_permutation(c, self.config.random_seed, epoch,
+                                 self.device)[:n_steps * b]
         valid = rows < c.n_real
         if self.materialize_train:
             src = [t.index_select(0, rows)

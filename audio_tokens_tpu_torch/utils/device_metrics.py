@@ -22,14 +22,14 @@ from __future__ import annotations
 import torch
 
 
-def macro_map_device(scores: torch.Tensor, labels: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
-    """Macro mean average precision over the classes with a positive.
+def class_ap_device(scores: torch.Tensor, labels: torch.Tensor,
+                    valid: torch.Tensor):
+    """Average precision of each class -> (ap (C,), has_pos (C,) bool).
 
     scores (N, C) in [0, 1]; labels (N, C) {0, 1} of any dtype; valid (N,)
-    bool marks the real rows (padding rows are excluded exactly).  Returns
-    a 0-dim f32 tensor on the scores' device, 0 when no class has a
-    positive (as ``utils.metrics.macro_mean_average_precision``).
+    bool marks the real rows (padding rows are excluded exactly).  An
+    ensemble folds its members into the class axis, (N, K C), so one sort
+    serves them all.
     """
     n = scores.shape[0]
     keep = valid.bool()[:, None]
@@ -50,9 +50,26 @@ def macro_map_device(scores: torch.Tensor, labels: torch.Tensor,
     group_end = torch.cummin(cand.flip(1), dim=1).values.flip(1)
     prec_end = torch.gather(tps, 1, group_end) / (group_end.float() + 1.0)
     ap = (y_sorted * prec_end).sum(1) / torch.clamp(n_pos, min=1.0)
-    has_pos = n_pos > 0
-    mean = (ap * has_pos).sum() / torch.clamp(has_pos.sum(), min=1)
-    return torch.where(has_pos.any(), mean, torch.zeros_like(mean))
+    return ap, n_pos > 0
+
+
+def macro_of(ap: torch.Tensor, has_pos: torch.Tensor) -> torch.Tensor:
+    """The mean of ``ap`` over the classes with a positive, along the last
+    axis; 0 where no class has one."""
+    mean = (ap * has_pos).sum(-1) / torch.clamp(has_pos.sum(-1), min=1)
+    return torch.where(has_pos.any(-1), mean, torch.zeros_like(mean))
+
+
+def macro_map_device(scores: torch.Tensor, labels: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Macro mean average precision over the classes with a positive.
+
+    scores (N, C) in [0, 1]; labels (N, C) {0, 1} of any dtype; valid (N,)
+    bool marks the real rows (padding rows are excluded exactly).  Returns
+    a 0-dim f32 tensor on the scores' device, 0 when no class has a
+    positive (as ``utils.metrics.macro_mean_average_precision``).
+    """
+    return macro_of(*class_ap_device(scores, labels, valid))
 
 
 def binned_map_init(num_classes: int, bins: int,

@@ -221,6 +221,26 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ``transformer_remat`` at ``bert_full``'s widths, batch 8, dropout 0.1;
    one ``diagnostics_every=1`` epoch, its gradient-flow report against the
    CPU's.
+14. ensembles and LR sweeps (``train/ensemble.py``): ``python -m
+   audio_tokens_tpu_torch.train.ensemble`` (``ensemble.main``) with 4 lstm
+   members on a token workspace of 512 + 64 clips, one epoch, its B3 and
+   B4 launches (``ensemble_main_lstm``); then on
+   ``tools/bench_training.py``'s synthetic corpus (8 batches + 256
+   validation clips) K members against K 1, each with its epoch ms, the
+   cost a member t_K / (K t_1), peak memory and launches: the full-width
+   lstm with dropout 0.1 at K 4 (B3 and B4 launches K x the K 1 run's: the
+   rule launches the kernel once a member; member 0 against a single
+   ``DeviceEpochRunner`` of its seed within the phase-13 trajectory
+   bounds; its first epoch under ``torch.cuda.set_sync_debug_mode(
+   "error")`` but its one read of 2K + 1 scalars), the same with
+   ``lstm_remat_chunk`` 216 (peak memory below, trajectory within 1e-4),
+   simple at K 8 (the card's busy share under the profiler), bert
+   (``bert_full``, batch 8) at K 2 (the eval epoch's B5 launches equal the
+   K 1 run's: the members fold into B5's batch; one eval batch's
+   probabilities against each member's own model, bf16 bound 2e-2), cnn
+   at K 2 on a bf16 spec corpus (the conv batched by cuDNN); every line
+   with the card's name and power limit (``launches_by_path``
+   ``ensemble_*``).
 
 Phases 8-12 decode with ``audio_backend="auto"``: the native decoder
 (``data/native_loader.py``, built with g++ into ``build/native/``) where it
@@ -326,6 +346,13 @@ DIAG_BATCH = 8  # the diagnostics batch, recomputed on the CPU at T 1728
 # each family's streaming step in this run (phases 6, 7 and 10: median of
 # steps 2..8, host clock, synchronized), beside phase 13's device epochs
 STREAM_STEP_MS: dict = {}
+# phase 14: ensembles on tools/bench_training.py's synthetic corpus of
+# ENS_BATCHES batches + ENS_VAL validation clips (cnn: ENS_SPEC_BATCHES of
+# bf16 spec rows + a batch), K members a family against K 1; the lstm K 4
+# also with lstm_remat_chunk ENS_REMAT_CHUNK (trajectory within ENS_TOL)
+ENS_BATCHES, ENS_VAL, ENS_SPEC_BATCHES = 8, 256, 4
+ENS_K = {"lstm": 4, "simple": 8, "bert": 2, "cnn": 2}
+ENS_REMAT_CHUNK, ENS_TOL = 216, 1e-4
 
 
 def log(msg: str) -> None:
@@ -3403,6 +3430,339 @@ def device_phase(records: list, dev, base: Path) -> None:
 
 
 
+# -- phase 14: ensembles and LR sweeps (train/ensemble.py) ---------------------
+def ensemble_splits(cfg, batch: int, seed: int, n_batches: int = 0,
+                    n_val: int = 0) -> dict:
+    """``tools/bench_training.synthetic_corpus``'s corpus: ``n_batches``
+    (ENS_BATCHES) x ``batch`` training rows and ``n_val`` (ENS_VAL)
+    validation rows, seeded."""
+    from audio_tokens_tpu_torch.tools.bench_training import synthetic_corpus
+
+    rng = np.random.default_rng(seed)
+    n = (n_batches or ENS_BATCHES) * batch
+    n_val = n_val or ENS_VAL
+    return {"train": (*synthetic_corpus(cfg, batch, n, rng), n),
+            "validation": (*synthetic_corpus(cfg, batch, n_val, rng), n_val)}
+
+
+def ensemble_epochs(dev, cfg, k: int, splits: dict, kernels: dict,
+                    seeds=None, epochs: int = 2, sync_check: bool = False,
+                    profile: bool = False) -> dict:
+    """``EnsembleTrainer`` of ``k`` members on ``splits``: ``epochs``
+    training epochs (the first warms up; with ``sync_check`` it runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` but its one read), then
+    the eval epoch.  The last training epoch and the eval epoch are timed
+    on the host clock (each ends in its read of the card) with the launch
+    counters reset before and read after each; peak memory over both.
+    ``profile``: one more epoch under the profiler for the card's busy
+    time.  Returns the numbers, the trainer and its state."""
+    import torch
+
+    from audio_tokens_tpu_torch.train import device_epoch
+    from audio_tokens_tpu_torch.train.ensemble import EnsembleTrainer
+
+    ens = EnsembleTrainer(cfg, dev, n_models=k, seeds=seeds)
+    for split, arrays in splits.items():
+        ens.set_corpus_arrays(split, *arrays, cfg.training_batch_size)
+    params, opt_state = ens.init_state()
+    out = {"reads": [], "history": []}
+    read = device_epoch.read_scalars
+
+    def let_through(*values):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            out["reads"].append(len(values))
+            return read(*values)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    step = 0
+    for epoch in range(epochs):
+        last = epoch == epochs - 1
+        torch.cuda.synchronize()
+        if last:
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels.values():
+                kern.launches = 0
+        if sync_check and epoch == 0:
+            device_epoch.read_scalars = let_through
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            params, opt_state, step, *train = ens.train_epoch(
+                params, opt_state, epoch, step)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            device_epoch.read_scalars = read
+        out["history"].append(train)
+        if last:
+            out["train_ms"] = (time.perf_counter() - t0) * 1e3
+    out["train_launches"] = [kern.launches for kern in kernels.values()]
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    out["eval"] = ens.eval_epoch(params)
+    out["eval_ms"] = (time.perf_counter() - t0) * 1e3
+    out["eval_launches"] = [kern.launches for kern in kernels.values()]
+    out["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        n_steps = ens.corpora["train"].n_steps
+        busy, wall = busy_ms(lambda: ens.train_epoch(params, opt_state,
+                                                     epochs, step), n_steps)
+        out["busy"], out["prof_wall"] = busy, wall
+    out.update(trainer=ens, params=params)
+    return out
+
+
+def ensemble_line(tag: str, k: int, got: dict, one: dict, kernels: dict,
+                  card: str) -> str:
+    """One ``[ensemble <tag>]`` line: the K-member epoch beside the
+    1-member one."""
+    n_steps = got["trainer"].corpora["train"].n_steps
+    cost = got["train_ms"] / (k * one["train_ms"])
+    losses, per, ens_map = got["history"][-1]
+    val_loss, val_map, val_ens = got["eval"]
+    text = (f"[ensemble {tag}] K {k}: a training epoch of {n_steps} steps "
+            f"{got['train_ms']:.1f} ms ({got['train_ms'] / n_steps:.2f} ms a "
+            f"step) against K 1 {one['train_ms']:.1f} ms: cost a member "
+            f"t_K / (K t_1) {cost:.3f} (the JAX tool's speed-up "
+            f"{1 / cost:.2f}x); eval epoch {got['eval_ms']:.1f} ms (K 1 "
+            f"{one['eval_ms']:.1f}); peak device memory {got['peak']:.2f} "
+            f"GiB (K 1 {one['peak']:.2f}); train loss per member "
+            f"{np.round(losses, 6).tolist()}, mAP {np.round(per, 6).tolist()}"
+            f", ensemble mAP {ens_map:.6f}; val mAP per member "
+            f"{np.round(val_map, 6).tolist()}, ensemble {val_ens:.6f}")
+    if kernels:
+        text += "; launches " + ", ".join(
+            f"{name} train {got['train_launches'][i]} (K 1 "
+            f"{one['train_launches'][i]}) eval {got['eval_launches'][i]} "
+            f"(K 1 {one['eval_launches'][i]})"
+            for i, name in enumerate(kernels))
+    if got.get("busy") is not None:
+        step = got["train_ms"] / n_steps
+        text += (f"; the card busy {got['busy']:.3f} ms a step under the "
+                 f"profiler (profiled wall {got['prof_wall']:.3f}), idle "
+                 f"{max(0.0, 1 - got['busy'] / step):.1%} of the unprofiled "
+                 f"step")
+    elif "busy" in got:
+        text += "; the card's busy time not measured (no device time seen)"
+    return text + f"; {card}"
+
+
+def member_vs_single(dev, cfg, splits: dict, got: dict) -> tuple:
+    """Member 0 of ``got`` (seed ``cfg.random_seed``) against a single
+    ``DeviceEpochRunner`` of that seed over the same epochs -> (the largest
+    loss gap, relative; mAP gap; the weights' largest excess over
+    TRAJ_PARAM_RTOL relative)."""
+    from audio_tokens_tpu_torch.train.device_epoch import DeviceEpochRunner
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, dev)
+    runner = DeviceEpochRunner(trainer)
+    for split, arrays in splits.items():
+        runner.set_corpus_arrays(split, *arrays, cfg.training_batch_size)
+    step, loss_gap, map_gap = 0, [], []
+    for epoch, (losses, per, _) in enumerate(got["history"]):
+        step, loss, m = runner.train_epoch(epoch, step)
+        loss_gap.append(abs(losses[0] - loss) / abs(loss))
+        map_gap.append(abs(per[0] - m["mAP"]))
+    val_loss, val_m = runner.eval_epoch()
+    loss_gap.append(abs(got["eval"][0][0] - val_loss) / abs(val_loss))
+    map_gap.append(abs(got["eval"][1][0] - val_m["mAP"]))
+    member = got["trainer"].member_params(got["params"], 0)
+    over = max(float(((member[n] - p.detach()).abs()
+                      - TRAJ_PARAM_RTOL * p.detach().abs()).max())
+               for n, p in trainer.model.named_parameters())
+    del trainer, runner
+    return max(loss_gap), max(map_gap), over
+
+
+def ensemble_main(records, dev, base: Path, card: str) -> None:
+    """The slice's entry point as a user calls it: ``python -m
+    audio_tokens_tpu_torch.train.ensemble`` (``ensemble.main``) on a token
+    workspace, the default lstm, 4 members, one epoch, its launches."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.train import ensemble
+
+    write_token_corpus(base, 17, TRAIN_CLIPS, VAL_CLIPS)
+    lstm_sequence_fwd.launches = lstm_sequence_bwd.launches = 0
+    t0 = time.perf_counter()
+    report = ensemble.main([
+        "--device", str(dev), "--n_models", str(ENS_K["lstm"]),
+        "--base_dir", str(base), "--epochs", "1", "--dropout", "0.1",
+        "--training_batch_size", str(B_LSTM), "--num_workers", "2",
+        "--log_every_steps", "0", *(f"--{k}={v}" for k, v in MODEL.items())])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = [lstm_sequence_fwd.launches, lstm_sequence_bwd.launches]
+    records[2]["launches_by_path"]["ensemble_main_lstm"] = launches[0]
+    records[3]["launches_by_path"]["ensemble_main_lstm"] = launches[1]
+    log(f"[ensemble main] python -m audio_tokens_tpu_torch.train.ensemble "
+        f"--n_models {ENS_K['lstm']} on {TRAIN_CLIPS} + {VAL_CLIPS} token "
+        f"clips, lstm {MODEL['lstm_embed_dim']}/{MODEL['lstm_hidden_dim']}, "
+        f"dropout 0.1, 1 epoch: {run_s:.1f} s (host clock, corpus packing "
+        f"and checkpoints included); best member {report['best_member']} "
+        f"val mAP {report['best_member_val_mAP']:.6f}, ensemble "
+        f"{report['ensemble_val_mAP']:.6f}; launches B3 {launches[0]}, B4 "
+        f"{launches[1]}; {card}")
+    steps = -(-TRAIN_CLIPS // B_LSTM), -(-VAL_CLIPS // B_LSTM)
+    want = [ENS_K["lstm"] * 2 * sum(steps), ENS_K["lstm"] * 2 * steps[0]]
+    if launches != want or not 0.0 <= report["ensemble_val_mAP"] <= 1.0:
+        raise AssertionError(f"ensemble main: launches {launches} (want "
+                             f"{want}), ensemble mAP "
+                             f"{report['ensemble_val_mAP']}")
+
+
+def ensemble_phase(records: list, dev, base: Path) -> None:
+    """Phase 14: ensembles and LR sweeps at full width (see the module's
+    docstring)."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.models import get_model
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.train.objective import model_inputs
+
+    t_phase = time.perf_counter()
+    card = f"{card_line()} (nvidia-smi)"
+    ensemble_main(records, dev, base, card)
+
+    # the lstm at full width with dropout, K 1 and K 4
+    lstm_k = {"B3": lstm_sequence_fwd, "B4": lstm_sequence_bwd}
+    cfg = AudioTokensConfig(**MODEL, training_batch_size=B_LSTM, dropout=0.1,
+                            log_every_steps=0)
+    k = ENS_K["lstm"]
+    splits = ensemble_splits(cfg, B_LSTM, 41)
+    one = ensemble_epochs(dev, cfg, 1, splits, lstm_k)
+    del one["trainer"], one["params"]
+    got = ensemble_epochs(dev, cfg, k, splits, lstm_k, sync_check=True)
+    log(ensemble_line("lstm", k, got, one, lstm_k, card))
+    loss_gap, map_gap, over = member_vs_single(dev, cfg, splits, got)
+    log(f"[ensemble lstm] member 0 (seed {cfg.random_seed}) against a single "
+        f"DeviceEpochRunner of that seed over {len(got['history'])} epochs "
+        f"and the eval epoch, dropout 0.1: loss gap {loss_gap:.3e} relative "
+        f"(bound {TRAJ_LOSS_RTOL}), mAP gap {map_gap:.3e} (bound "
+        f"{TRAJ_MAP_ATOL}), weights' excess over {TRAJ_PARAM_RTOL} relative "
+        f"{over:.3e} (bound {TRAJ_PARAM_ATOL}); the first epoch under "
+        f"set_sync_debug_mode('error'): reads of the card {got['reads']} "
+        f"scalars (2K + 1 = {2 * k + 1})")
+    for path, i in (("train", 0), ("eval", 0), ("train", 1)):
+        if got[f"{path}_launches"][i] != k * one[f"{path}_launches"][i]:
+            raise AssertionError(f"ensemble lstm: {path} launches "
+                                 f"{got[f'{path}_launches']} against K x "
+                                 f"{one[f'{path}_launches']}")
+    if (loss_gap > TRAJ_LOSS_RTOL or map_gap > TRAJ_MAP_ATOL
+            or over > TRAJ_PARAM_ATOL or got["reads"] != [2 * k + 1]):
+        raise AssertionError(f"ensemble lstm: member 0 off the single run, "
+                             f"or reads {got['reads']}")
+    for rec, i in ((records[2], 0), (records[3], 1)):
+        rec["launches_by_path"][f"ensemble_lstm_k{k}"] = \
+            got["train_launches"][i]
+    records[2]["launches_by_path"][f"ensemble_eval_lstm_k{k}"] = \
+        got["eval_launches"][0]
+    plain_peak, plain_hist = got["peak"], got["history"]
+    del got
+    torch.cuda.empty_cache()
+
+    # the same K 4 ensemble with lstm_remat_chunk
+    rcfg = dataclasses.replace(cfg, lstm_remat_chunk=ENS_REMAT_CHUNK)
+    remat = ensemble_epochs(dev, rcfg, k, splits, lstm_k)
+    gap = max(max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                               / np.maximum(np.abs(np.asarray(b)), 1e-12)))
+                  for a, b in zip(ra, pa))
+              for ra, pa in zip(remat["history"], plain_hist))
+    log(f"[ensemble lstm remat] K {k}, lstm_remat_chunk {ENS_REMAT_CHUNK}: "
+        f"a training epoch {remat['train_ms']:.1f} ms, peak device memory "
+        f"{remat['peak']:.2f} GiB against {plain_peak:.2f} without remat; "
+        f"trajectory (losses, mAPs, ensemble mAP) within {gap:.3e} relative "
+        f"of the run without (bound {ENS_TOL}); launches B3 train "
+        f"{remat['train_launches'][0]} eval {remat['eval_launches'][0]}, B4 "
+        f"{remat['train_launches'][1]}; {card}")
+    if gap > ENS_TOL or not remat["peak"] < plain_peak:
+        raise AssertionError("ensemble remat: trajectory or peak memory")
+    records[2]["launches_by_path"][f"ensemble_remat_lstm_k{k}"] = \
+        remat["train_launches"][0]
+    records[3]["launches_by_path"][f"ensemble_remat_lstm_k{k}"] = \
+        remat["train_launches"][1]
+    del remat
+    torch.cuda.empty_cache()
+
+    # simple (hidden 768): K 1 and K 8, the card's busy share
+    scfg = dataclasses.replace(cfg, **FAMILIES["simple"], dropout=0.0)
+    k = ENS_K["simple"]
+    s_splits = ensemble_splits(scfg, B_LSTM, 42)
+    one = ensemble_epochs(dev, scfg, 1, s_splits, {}, profile=True)
+    log(ensemble_line("simple K 1", 1, one, one, {}, card))
+    got = ensemble_epochs(dev, scfg, k, s_splits, {}, profile=True)
+    log(ensemble_line("simple", k, got, one, {}, card))
+    del one, got
+    torch.cuda.empty_cache()
+
+    # bert_full at batch 8: the eval epoch's B5 launches (the fold)
+    bcfg = AudioTokensConfig(**BERT, training_batch_size=B_BERT_TRAIN,
+                             log_every_steps=0)
+    k = ENS_K["bert"]
+    b_splits = ensemble_splits(bcfg, B_BERT_TRAIN, 43)
+    b5 = {"B5": flash_attention_fwd}
+    one = ensemble_epochs(dev, bcfg, 1, b_splits, b5)
+    del one["trainer"], one["params"]
+    got = ensemble_epochs(dev, bcfg, k, b_splits, b5)
+    log(ensemble_line("bert", k, got, one, b5, card))
+    ens = got["trainer"]
+    c = ens.corpora["validation"]
+    x, ln = c.inputs[:B_BERT_TRAIN], c.lengths[:B_BERT_TRAIN]
+    ens._base.eval()
+    with torch.inference_mode():
+        flash_attention_fwd.launches = 0
+        logits = ens._forward(got["params"], x, ln, c.labels[:B_BERT_TRAIN],
+                              c.valid[:B_BERT_TRAIN].float(), None)[1]
+        folded = flash_attention_fwd.launches
+        probs = torch.sigmoid(logits)
+        err = 0.0
+        flash_attention_fwd.launches = 0
+        for i in range(k):
+            single = get_model(bcfg, dev, torch.Generator().manual_seed(0))
+            single.load_state_dict(ens.member_params(got["params"], i))
+            single.eval()
+            p = torch.sigmoid(single(model_inputs(x), ln))
+            err = max(err, float((probs[i] - p).abs().max()))
+            del single
+        per_member = flash_attention_fwd.launches
+    log(f"[ensemble bert] one eval batch of {B_BERT_TRAIN}: the K {k} "
+        f"members' probabilities against each member's own model (B5 per "
+        f"member): max abs err {err:.3e} (bf16 bound "
+        f"{ATT_TOL['bfloat16']}); B5 launches folded {folded}, per member "
+        f"{per_member}")
+    if (got["eval_launches"][0] != one["eval_launches"][0]
+            or folded * k != per_member or err > ATT_TOL["bfloat16"]):
+        raise AssertionError(f"ensemble bert: eval launches "
+                             f"{got['eval_launches']} vs K 1 "
+                             f"{one['eval_launches']}, folded {folded}, "
+                             f"per member {per_member}, err {err:.3e}")
+    records[4]["launches_by_path"][f"ensemble_eval_bert_k{k}"] = \
+        got["eval_launches"][0]
+    del got, one, ens
+    torch.cuda.empty_cache()
+
+    # cnn on a small bf16 spec corpus: the conv's batching rule (cuDNN)
+    ccfg = dataclasses.replace(cfg, **FAMILIES["cnn"], dropout=0.0,
+                               device_corpus_dtype="bfloat16")
+    k = ENS_K["cnn"]
+    c_splits = ensemble_splits(ccfg, B_LSTM, 44, ENS_SPEC_BATCHES, B_LSTM)
+    one = ensemble_epochs(dev, ccfg, 1, c_splits, {})
+    got = ensemble_epochs(dev, ccfg, k, c_splits, {})
+    log(ensemble_line("cnn", k, got, one, {}, card))
+    del one, got, s_splits, b_splits, c_splits, splits
+    torch.cuda.empty_cache()
+    log(f"[ensemble] phase 14 took {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+
+
 def main() -> int:
     import torch
 
@@ -4032,6 +4392,9 @@ def main() -> int:
         # -- 13. device-resident epochs, remat, diagnostics ---------------------
         with tempfile.TemporaryDirectory() as tmp13:
             device_phase(records, dev, Path(tmp13))
+        # -- 14. ensembles and LR sweeps ----------------------------------------
+        with tempfile.TemporaryDirectory() as tmp14:
+            ensemble_phase(records, dev, Path(tmp14))
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

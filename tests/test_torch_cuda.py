@@ -1538,3 +1538,214 @@ def test_cuda_serving_program_from_checkpoint_spec_and_flat(
     _, n_cpu, probs_cpu = progs["cpu"](x, ln)
     torch.testing.assert_close(n_valid.cpu(), n_cpu, atol=0, rtol=0)
     torch.testing.assert_close(probs.cpu(), probs_cpu, atol=1e-4, rtol=0)
+
+
+# -- the member axis (train/ensemble.py): the kernels' vmap rules -------------
+def _count_plain(monkeypatch):
+    """Count calls of the plain versions behind the ops' CPU
+    registrations: on CUDA tensors a rule must never reach them."""
+    from audio_tokens_tpu_torch.ops import cuda_attention, cuda_lstm
+
+    calls = []
+    for mod, name in ((cuda_lstm, "lstm_sequence_fwd_plain"),
+                      (cuda_lstm, "lstm_recurrence_bwd_plain"),
+                      (cuda_lstm, "lstm_dw_hh_plain"),
+                      (cuda_attention, "flash_attention_plain"),
+                      (cuda_attention, "flash_attention_dkv_plain"),
+                      (cuda_attention, "flash_attention_dq_plain")):
+        real = getattr(mod, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carries", [False, True])
+def test_cuda_lstm_rules_launch_a_member_and_equal_member_calls(
+        cuda_device, monkeypatch, carries):
+    """B3, B4's recurrence and ``dw_hh`` under ``torch.func.vmap``: one
+    launch a member, outputs bit-equal to the per-member kernel calls, no
+    plain version."""
+    from torch.func import vmap
+
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_dw_hh,
+                                                      lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+
+    calls = _count_plain(monkeypatch)
+    k, t, b, h = 3, 50, 16, 128
+    g = torch.Generator().manual_seed(11)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(cuda_device)
+
+    xg, w_hh = rnd(k, t, b, 4 * h), rnd(k, h, 4 * h, scale=0.1)
+    lens = torch.randint(1, t + 1, (b,), generator=g)
+    mask = (torch.arange(t)[:, None] < lens[None, :]).float().to(cuda_device)
+    h0 = rnd(k, b, h) if carries else None
+    c0 = rnd(k, b, h) if carries else None
+    cd = 0 if carries else None
+    fwd = (lstm_sequence_fwd.launches, lstm_sequence_bwd.launches,
+           lstm_dw_hh.launches)
+
+    def f(x, w, h_, c_):
+        return torch.ops.atk.lstm_fwd(x, mask, w, True, True, h_, c_)
+
+    got = vmap(f, in_dims=(0, 0, cd, cd))(xg, w_hh, h0, c0)
+    assert lstm_sequence_fwd.launches - fwd[0] == k
+    for i in range(k):
+        want = torch.ops.atk.lstm_fwd(xg[i], mask, w_hh[i], True, True,
+                                      None if h0 is None else h0[i],
+                                      None if c0 is None else c0[i])
+        for a, w in zip(got, want):
+            assert torch.equal(a[i], w)
+    hs, _, gates, c, _ = got
+    dhs, dh_last = rnd(k, t, b, h), rnd(k, b, h)
+    dc_last = rnd(k, b, h) if carries else None
+    base = lstm_sequence_bwd.launches
+
+    def bwd(a, b_, gg, cc, w, dcl, c0_):
+        return torch.ops.atk.lstm_bwd(a, b_, gg, cc, mask, w, True, dcl, c0_)
+
+    gb = vmap(bwd, in_dims=(0, 0, 0, 0, 0, cd, cd))(
+        dhs, dh_last, gates, c, w_hh, dc_last, c0)
+    assert lstm_sequence_bwd.launches - base == k
+    base = lstm_dw_hh.launches
+    dw = vmap(lambda hh, d, h_: torch.ops.atk.lstm_dw(hh, d, True, h_),
+              in_dims=(0, 0, cd))(hs, gb[0], h0)
+    assert lstm_dw_hh.launches - base == k
+    for i in range(k):
+        want = torch.ops.atk.lstm_bwd(
+            dhs[i], dh_last[i], gates[i], c[i], mask, w_hh[i], True,
+            None if dc_last is None else dc_last[i],
+            None if c0 is None else c0[i])
+        for a, w in zip(gb, want):
+            assert torch.equal(a[i], w)
+        assert torch.equal(dw[i], torch.ops.atk.lstm_dw(
+            hs[i], gb[0][i], True, None if h0 is None else h0[i]))
+    assert calls == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_rules_fold_the_members_into_one_launch(
+        cuda_device, monkeypatch, dtype):
+    """B5's forward, dk/dv and dq under ``torch.func.vmap``: one launch
+    for all members, bit-equal to the kernel on the members stacked into
+    the batch, no plain version."""
+    from torch.func import vmap
+
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+
+    calls = _count_plain(monkeypatch)
+    k, b, nh, t = 3, 2, 4, 200
+    g = torch.Generator().manual_seed(12)
+    q, kk, v, do = ((torch.randn((k, b, nh, t, 64), generator=g) * 0.5)
+                    .to(dtype).to(cuda_device) for _ in range(4))
+    lens = torch.tensor([0, 130])
+    seg = (torch.arange(t)[None, :] >= lens[:, None]).int().to(cuda_device)
+    before = flash_attention_fwd.launches
+    o, lse = vmap(lambda *a: torch.ops.atk.flash_fwd(*a, seg, 0.125, True))(
+        q, kk, v)
+    assert flash_attention_fwd.launches - before == 1
+    flat = [x.reshape(k * b, nh, t, 64) for x in (q, kk, v)]
+    want_o, want_lse = torch.ops.atk.flash_fwd(*flat, seg.repeat(k, 1),
+                                               0.125, True)
+    assert torch.equal(o.reshape(want_o.shape), want_o)
+    assert torch.equal(lse.reshape(want_lse.shape), want_lse)
+    di = (o.float() * do.float()).sum(-1)
+    before = (flash_attention_bwd_dkv.launches,
+              flash_attention_bwd_dq.launches)
+    dkv = vmap(lambda *a: torch.ops.atk.flash_bwd_dkv(
+        a[0], a[1], a[2], seg, *a[3:], 0.125))(q, kk, v, lse, do, di)
+    dq = vmap(lambda *a: torch.ops.atk.flash_bwd_dq(
+        a[0], a[1], a[2], seg, *a[3:], 0.125))(q, kk, v, lse, do, di)
+    assert (flash_attention_bwd_dkv.launches - before[0],
+            flash_attention_bwd_dq.launches - before[1]) == (1, 1)
+    rest = [x.reshape(k * b, *x.shape[2:]) for x in (lse, do, di)]
+    want_dk, want_dv = torch.ops.atk.flash_bwd_dkv(
+        *flat, seg.repeat(k, 1), *rest, 0.125)
+    assert torch.equal(dkv[0].reshape(want_dk.shape), want_dk)
+    assert torch.equal(dkv[1].reshape(want_dv.shape), want_dv)
+    assert torch.equal(dq.reshape(want_dk.shape), torch.ops.atk.flash_bwd_dq(
+        *flat, seg.repeat(k, 1), *rest, 0.125))
+    assert calls == []
+
+
+@pytest.mark.cuda
+def test_cuda_ensemble_epoch_runs_the_kernels_without_sync(cuda_device,
+                                                           monkeypatch):
+    """An lstm ensemble of K members with dropout on the card: its
+    training and eval epochs under ``torch.cuda.set_sync_debug_mode(
+    "error")`` but the one read of 2K + 1 scalars an epoch, B3 launched K
+    times a direction and step (and B4 in training) through the rule, no
+    plain version; member 0 within 1e-4 of the single device epoch."""
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.train import device_epoch
+    from audio_tokens_tpu_torch.train.ensemble import EnsembleTrainer
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    calls = _count_plain(monkeypatch)
+    k = 3
+    cfg = AudioTokensConfig(model_type="lstm", vocab_size=50, num_classes=7,
+                            lstm_embed_dim=32, lstm_hidden_dim=128,
+                            num_layers=1, max_seq_len=40, dropout=0.1,
+                            training_batch_size=8, log_every_steps=0)
+    rng = np.random.default_rng(8)
+    splits = {}
+    for split, n in (("train", 30), ("validation", 12)):
+        splits[split] = (rng.integers(0, 50, (32 if n == 30 else 16, 40))
+                         .astype(np.uint16),
+                         rng.integers(20, 41, 32 if n == 30 else 16)
+                         .astype(np.int32),
+                         (rng.random((32 if n == 30 else 16, 7)) < 0.3)
+                         .astype(np.uint8), n)
+    ens = EnsembleTrainer(cfg, cuda_device, seeds=[cfg.random_seed, 5, 6])
+    single = device_epoch.DeviceEpochRunner(Trainer(cfg, cuda_device))
+    for split, arrays in splits.items():
+        ens.set_corpus_arrays(split, *arrays, 8)
+        single.set_corpus_arrays(split, *arrays, 8)
+    params, opt_state = ens.init_state()
+    reads = []
+    read = device_epoch.read_scalars
+
+    def let_through(*values):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            reads.append(read(*values))
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+        return reads[-1]
+
+    monkeypatch.setattr(device_epoch, "read_scalars", let_through)
+    fwd, bwd = lstm_sequence_fwd.launches, lstm_sequence_bwd.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt_state, step, losses, per, em = ens.train_epoch(
+            params, opt_state, 0, 0)
+        va_loss, va_map, va_em = ens.eval_epoch(params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert step == 4 and [len(r) for r in reads] == [2 * k + 1] * 2
+    assert lstm_sequence_fwd.launches - fwd == k * (2 * 4 + 2 * 2)
+    assert lstm_sequence_bwd.launches - bwd == k * 2 * 4
+    assert calls == []
+    monkeypatch.setattr(device_epoch, "read_scalars", read)
+    _, sloss, smet = single.train_epoch(0, 0)
+    sv_loss, sv_met = single.eval_epoch()
+    assert losses[0] == pytest.approx(sloss, rel=1e-4)
+    assert va_loss[0] == pytest.approx(sv_loss, rel=1e-4)
+    assert per[0] == pytest.approx(smet["mAP"], abs=1e-4)
+    assert va_map[0] == pytest.approx(sv_met["mAP"], abs=1e-4)
+    member = ens.member_params(params, 0)
+    for name, p in single.trainer.model.named_parameters():
+        torch.testing.assert_close(member[name], p.detach(), rtol=1e-4,
+                                   atol=1e-6, msg=name)
