@@ -1,10 +1,10 @@
 """Host-side datasets + fixed-shape batching for training.
 
 A copy of ``audio_tokens_tpu/data/datasets.py`` (held equal by
-``tests/test_torch_train_data.py``: byte-equal batches in the same order),
-with one change: the port is a single process (multi-process training is
-ROADMAP A7), so the training-input cache is built without the coordinator
-check and the barrier that made other processes wait for it.
+``tests/test_torch_train_data.py``: byte-equal batches in the same order).
+Under multi-process runs (``parallel/distributed.py``) the training-input
+cache is built by the coordinator alone, and every rank waits at a barrier
+for it, also after a failed build.
 
 Equivalents of the reference's three torch Datasets + collate functions
 (reference: datasets/tokenized_spec_dataset.py, datasets/raw_stft_dataset.py,
@@ -35,6 +35,7 @@ import numpy as np
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.data.metadata import AudiosetMetadataProcessor
+from audio_tokens_tpu_torch.parallel import distributed
 
 logger = logging.getLogger(__name__)
 
@@ -137,7 +138,10 @@ class ClipDataset:
         # The STALE files are removed before building — a skipped or failed
         # build must leave nothing behind, or the open below would happily
         # memmap an outdated corpus.
-        if not valid():
+        # The build runs under try so that the barrier below is reached on
+        # every path: a coordinator failure must not leave the other ranks
+        # waiting in it.
+        if distributed.is_coordinator() and not valid():
             for p in (bin_f, idx_f):
                 try:
                     p.unlink()
@@ -147,11 +151,12 @@ class ClipDataset:
                 self._build_cache(bin_f, idx_f)
             except Exception as e:
                 logger.warning("training-input cache build failed: %s", e)
-                for p in (bin_f, idx_f):  # no partial artifacts
+                for p in (bin_f, idx_f):  # no partial artifacts for others
                     try:
                         p.unlink()
                     except OSError:
                         pass
+        distributed.barrier(f"{self.kind}cache-{self.split}")
         if not (bin_f.exists() and idx_f.exists()):
             logger.info("%s/%s: no training-input cache; using per-file loads",
                         type(self).__name__, self.split)

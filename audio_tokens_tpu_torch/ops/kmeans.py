@@ -53,7 +53,15 @@ The objective is the tier's assignment score, from those sums: ``n_k
 ||c_k||^2 - 2 c_k.S_k`` with the tier's product (``hi(c).(S_hi + S_lo) +
 lo(c).S_hi`` at ``high``), plus ``sum ||x||^2`` of the f32 rows.
 
-Not ported: meshes, multi-process fits and the wire meter (ROADMAP A7).
+Multi-process: ``kmeans_fit_streaming(group=...)`` fits one corpus whose
+streams are split over the ranks of a ``parallel/mesh.DataGroup`` (each
+rank feeds its shard): rank 0 draws the init from its first super-batch and
+broadcasts it, each rank adds its feeds' statistics into its own f64 sums
+and int64 counts, and those are all-reduced once an iteration, so every
+rank updates the same centroids; the point count is an exact int64 sum.
+No collective runs inside the feed loop, so the ranks' feed counts need
+not agree.  Meshes of devices within one process and the wire meter are
+not ported.
 """
 
 from __future__ import annotations
@@ -615,6 +623,7 @@ def kmeans_fit_streaming(
     start_iter: int = 0,
     checkpoint_fn=None,
     device: Optional[torch.device | str] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, float, int]:
     """Lloyd over a stream of frames too large for host or device memory
     -> (centroids (k, d) f32 on ``device``, final objective, points seen).
@@ -652,7 +661,17 @@ def kmeans_fit_streaming(
     centroids as ``init_centroids`` resumes the fit bit-equal to an
     uninterrupted one (the ``sum ||x||^2`` term is collected again on the
     first resumed pass).  ``precision`` is the Lloyd tier, as in
-    ``kmeans_fit``; meshes and multi-process fits are ROADMAP A7.
+    ``kmeans_fit``.
+
+    ``group`` (a ``parallel/mesh.DataGroup``): each rank's ``batches_fn``
+    streams its shard of one corpus.  Without ``init_centroids`` rank 0
+    draws the init from its first super-batch and broadcasts it (refused
+    where it holds fewer than k points); each iteration's f64 sums, int64
+    counts and ``sum ||x||^2`` are all-reduced once, so every rank returns
+    the same centroids, objective and global point count.  Every rank
+    must pass ``init_centroids`` and ``start_iter`` alike; caches and
+    spill files are each rank's own (give each rank its own
+    ``cache_spill_path``).
     """
     tier = precision_from_str(precision)
     if empty_policy not in EMPTY_POLICIES:
@@ -684,6 +703,25 @@ def kmeans_fit_streaming(
         raise ValueError(f"start_iter {start_iter} >= niter {niter}")
 
     def init_from(buf, fill) -> torch.Tensor:
+        if group is not None:
+            return init_shared(buf, fill)
+        return init_local(buf, fill)
+
+    def init_shared(buf, fill) -> torch.Tensor:
+        """Rank 0's init (from ``buf``, its first super-batch) on every
+        rank; a rank whose stream is empty passes ``buf=None``."""
+        n0 = int(group.all_reduce_(torch.tensor(
+            [fill if group.rank == 0 else 0], dtype=torch.int64,
+            device=device)))
+        if n0 < k:
+            raise ValueError(
+                f"process 0's first super-batch has {n0} points < k={k}")
+        c0 = (init_local(buf, fill) if group.rank == 0
+              else torch.empty((k, d), dtype=torch.float32, device=device))
+        group.broadcast_([c0])
+        return c0
+
+    def init_local(buf, fill) -> torch.Tensor:
         if fill < k:
             raise ValueError(f"first super-batch has {fill} points < k={k}")
         sample = (buf[:fill] if isinstance(buf, torch.Tensor)
@@ -812,8 +850,13 @@ def kmeans_fit_streaming(
             finally:
                 if hasattr(source, "close"):
                     source.close()
+            if centroids is None and group is not None:
+                centroids = init_from(None, 0)  # this rank's shard is empty
             if first_pass:
                 n_total = n_seen
+                if group is not None:
+                    n_total = int(group.all_reduce_(torch.tensor(
+                        n_seen, dtype=torch.int64, device=device)))
                 if n_total == 0:
                     raise ValueError("empty stream")
                 if hbm is not None:
@@ -839,6 +882,10 @@ def kmeans_fit_streaming(
                         "stream cache sealed on disk: %d super-batches, %.0f "
                         "MB at %s", len(spill.meta),
                         spill.nbytes() / (1 << 20), spill.path)
+            if group is not None:  # the one exchange of the iteration
+                for t in acc:
+                    if t is not None:
+                        group.all_reduce_(t)
             parts64, counts64, x2 = acc
             if x2 is not None:
                 x2_total = float(x2)

@@ -42,8 +42,18 @@ saved beside the centroids as ``<centroids>.conv.npz`` for the tokenize
 stage and serving.
 ``kmeans_precision`` is the Lloyd tier (``ops/kmeans.precision_from_str``).
 
-Not ported, and refused with ``NotImplementedError``: multi-process runs and
-stage traces (ROADMAP A7).
+Multi-process runs (``parallel/distributed.py``) take ``kmeans_mode='full'``
+(``batch_warm_start`` is sequential by nature and refused with
+``ValueError``), always through the streaming fit: each rank streams its
+strided shard of the sorted train files (or, fused, of the sorted train
+clips; the device feed is declined), the Lloyd statistics are all-reduced
+once an iteration, and each rank spills to a file of its own
+(``kmeans_stream_spill.p<rank>.bin``).  Rank 0 draws the init from the
+seeded sample of the whole train list and broadcasts it, writes the
+centroids, the conv weights, the plot and the mid-fit checkpoint; a resume
+needs every rank to see the same checkpoint.  Every rank waits for the
+centroids before it returns.  Not ported, and refused with
+``NotImplementedError``: stage traces (ROADMAP A7.6).
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import io
 import json
 import logging
 import zipfile
+import zlib
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -71,9 +82,10 @@ from audio_tokens_tpu_torch.ops.kmeans import (
 )
 from audio_tokens_tpu_torch.ops.mel import MelFrontend, num_frames
 from audio_tokens_tpu_torch.ops.vq import l2_normalize
+from audio_tokens_tpu_torch.parallel import distributed
+from audio_tokens_tpu_torch.parallel.mesh import data_group
 from audio_tokens_tpu_torch.processors.spectrogram_generator import (
     SpectrogramGenerator,
-    refuse_multiprocess,
 )
 from audio_tokens_tpu_torch.utils.npy_io import atomic_save_bytes
 from audio_tokens_tpu_torch.utils.seeding import set_seed
@@ -95,11 +107,17 @@ def make_conv_features(config: AudioTokensConfig,
 class ClusterCreator:
     def __init__(self, config: AudioTokensConfig,
                  device: Optional[torch.device | str] = None):
-        refuse_multiprocess(config)
         precision_from_str(config.kmeans_precision)
         self.config = config
-        self.device = torch.device("cuda", 0) if device is None else \
-            torch.device(device)
+        self.multiprocess = distributed.maybe_initialize(config)
+        self.device = (distributed.default_device() if device is None
+                       else torch.device(device))
+        if self.multiprocess and config.kmeans_mode != "full":
+            raise ValueError(
+                "multi-process clustering requires kmeans_mode='full' (the "
+                "streaming Lloyd fit sums the ranks' shards); the "
+                "reference's batch_warm_start schedule is sequential and "
+                "single-process")
         self.conv = make_conv_features(config, self.device)
         self._stream_sig: Optional[str] = None
         self._gen: Optional[SpectrogramGenerator] = None
@@ -113,9 +131,10 @@ class ClusterCreator:
         # the fused device feed goes first: it fits the device budget even
         # where the host budget would stream
         self.used_device_feed = (cfg.kmeans_mode == "full"
+                                 and not self.multiprocess
                                  and self._use_fused_device_feed())
         if (cfg.kmeans_mode == "full" and not self.used_device_feed
-                and self._should_stream()):
+                and (self.multiprocess or self._should_stream())):
             centroids = self._fit_streaming()
         elif cfg.kmeans_mode == "full":
             n_valid = None
@@ -162,14 +181,17 @@ class ClusterCreator:
 
         centroids = l2_normalize(torch.as_tensor(centroids)).cpu().numpy()
         logger.info("Centroids shape: %s", centroids.shape)
-        out_path = Path(cfg.centroids_path)
-        out_path.parent.mkdir(parents=True, exist_ok=True)
-        np.save(out_path, centroids)
-        if self.conv is not None:
-            self.conv.save_npz(out_path.with_suffix(".conv.npz"))
-        # the artifact exists: the streaming fit's checkpoint has served
-        self._kmeans_ckpt_path().unlink(missing_ok=True)
-        self.visualize_centroids(centroids)
+        if distributed.is_coordinator():  # single-writer artifacts
+            out_path = Path(cfg.centroids_path)
+            out_path.parent.mkdir(parents=True, exist_ok=True)
+            np.save(out_path, centroids)
+            if self.conv is not None:
+                self.conv.save_npz(out_path.with_suffix(".conv.npz"))
+            # the artifact exists: the streaming fit's checkpoint has served
+            self._kmeans_ckpt_path().unlink(missing_ok=True)
+            self.visualize_centroids(centroids)
+        # every rank sees centroids.npy before the tokenize stage
+        distributed.barrier("centroids-saved")
         return centroids
 
     @property
@@ -218,11 +240,12 @@ class ClusterCreator:
     def _file_frames(self, batch_size: int) -> Iterator[np.ndarray]:
         """(frames, n_mels) f32 matrices, per ``batch_size`` files in
         sorted order — the reference's frame pipeline (:83-102); under the
-        fused mode the same frames from the audio."""
+        fused mode the same frames from the audio.  Multi-process: this
+        rank's strided shard of the files."""
         if self.config.fused_pipeline:
             yield from self._fused_file_frames(batch_size)
             return
-        files = self._train_files()
+        files = distributed.process_shard(self._train_files())
         for i in range(0, len(files), batch_size):
             yield np.concatenate(
                 [np.load(f).T for f in files[i : i + batch_size]],
@@ -237,7 +260,8 @@ class ClusterCreator:
         gen = self._spec_gen()
         specs: list = []
         produced = False
-        for _, spec in gen.iter_specs(sorted(gen.data_split["train"])):
+        ytids = distributed.process_shard(sorted(gen.data_split["train"]))
+        for _, spec in gen.iter_specs(ytids):
             specs.append(spec.T)
             if len(specs) == batch_size:
                 produced = True
@@ -246,7 +270,9 @@ class ClusterCreator:
         if specs:
             produced = True
             yield np.concatenate(specs, axis=0).astype(np.float32)
-        if not produced:
+        if not produced and not self.multiprocess:
+            # a rank's shard may be empty; the fit's global point count
+            # catches an empty corpus
             raise FileNotFoundError("no decodable training audio under "
                                     f"{self.config.audio_source_path}")
 
@@ -413,8 +439,8 @@ class ClusterCreator:
             return init_c
         spill_path = None
         if cfg.kmeans_stream_spill_mb > 0:
-            spill_path = (Path(cfg.base_dir) / "output"
-                          / "kmeans_stream_spill.p0.bin")
+            spill_path = (Path(cfg.base_dir) / "output" / "kmeans_stream_"
+                          f"spill.p{distributed.process_index()}.bin")
         centroids, obj, n = kmeans_fit_streaming(
             lambda: self._host_batches(cfg.clustering_batch_size),
             cfg.vocab_size,
@@ -434,6 +460,7 @@ class ClusterCreator:
             hbm_cache_mb=cfg.kmeans_hbm_cache_mb,
             wire_dtype=wire,
             device=self.device,
+            group=data_group(),
         )
         logger.info("streaming kmeans over %d frames: obj=%.2f", n, obj)
         return centroids
@@ -460,6 +487,8 @@ class ClusterCreator:
 
     def _save_kmeans_checkpoint(self, completed: int, centroids,
                                 obj: float) -> None:
+        if not distributed.is_coordinator():
+            return
         buf = io.BytesIO()
         np.savez(buf,
                  centroids=torch.as_tensor(centroids).cpu().numpy().astype(
@@ -471,12 +500,32 @@ class ClusterCreator:
     def _load_kmeans_checkpoint(self):
         """(start_iter, init centroids): (0, None) unless ``incremental``
         finds a resumable fit of this exact stream; without
-        ``incremental`` a checkpoint is deleted (destructive rerun)."""
+        ``incremental`` a checkpoint is deleted (destructive rerun).
+
+        Multi-process: every rank must enter the fit with the same start
+        and centroids, or their collectives would not match.  Rank 0 alone
+        writes the checkpoint, which another host may not see, so the
+        ranks compare (iteration, CRC of the centroids) and all restart
+        from iteration 0 unless every rank read the same."""
+        start, c = self._load_kmeans_checkpoint_local()
+        if not self.multiprocess:
+            return start, c
+        crc = 0 if c is None else zlib.crc32(np.ascontiguousarray(c))
+        seen = distributed.all_gather_hosts(np.array([start, crc], np.int64))
+        if not (seen == seen[0]).all():
+            if start:
+                logger.info("kmeans checkpoint not the same on every rank; "
+                            "restarting the fit from iteration 0")
+            return 0, None
+        return start, c
+
+    def _load_kmeans_checkpoint_local(self):
         path = self._kmeans_ckpt_path()
         if not path.exists():
             return 0, None
         if not self.config.incremental:
-            path.unlink(missing_ok=True)
+            if distributed.is_coordinator():
+                path.unlink(missing_ok=True)
             return 0, None
         try:
             z = np.load(path, allow_pickle=False)
@@ -499,7 +548,18 @@ class ClusterCreator:
         """The streaming fit's init, from a seeded sample of the whole
         sorted train list (``_global_init_sample``) rather than the first
         super-batch: ``random`` draws the JAX stage's rows,
-        ``kmeans++`` runs the port's draw on the stage's device."""
+        ``kmeans++`` runs the port's draw on the stage's device.  The same
+        for any number of ranks: rank 0 draws it and broadcasts it."""
+        if self.multiprocess:
+            c0 = np.zeros((self.config.vocab_size, self.feature_dim),
+                          np.float32)
+            if distributed.is_coordinator():
+                c0 = np.ascontiguousarray(torch.as_tensor(
+                    self._draw_init_centroids()).cpu().numpy(), np.float32)
+            return distributed.broadcast_host(c0)
+        return self._draw_init_centroids()
+
+    def _draw_init_centroids(self):
         cfg = self.config
         k = cfg.vocab_size
         sample = self._global_init_sample()
@@ -606,6 +666,8 @@ if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda:0")
+    parser.add_argument("--device", default=None,
+                        help="default: this rank's card (cuda:0 in one "
+                        "process)")
     ns, rest = parser.parse_known_args()
     ClusterCreator(AudioTokensConfig.from_args(rest), ns.device).run()

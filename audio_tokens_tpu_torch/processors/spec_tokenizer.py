@@ -29,8 +29,13 @@ mode decodes with the native decoder where ``audio_backend`` takes it
 kernel's padded layout (int16 under ``pcm_wire="i16"``), else with the
 python decode.
 
-Not ported, and refused with ``NotImplementedError``: multi-process runs and
-stage traces (ROADMAP A7).
+Multi-process runs (``parallel/distributed.py``): each rank tokenizes its
+strided shard of each split (B1 or B2 on its own card, no collective in
+the work), rank 0 alone makes or wipes the output dirs, with barriers
+around, the ranks' token counts are summed before rank 0 writes the
+ledger and the plots, and every rank returns the same statistics.  Not
+ported, and refused with ``NotImplementedError``: stage traces (ROADMAP
+A7.6).
 """
 
 from __future__ import annotations
@@ -52,11 +57,9 @@ from audio_tokens_tpu_torch.data import native_loader
 from audio_tokens_tpu_torch.data.audio_io import decode_clip, find_audio_file
 from audio_tokens_tpu_torch.ops.mel import num_frames
 from audio_tokens_tpu_torch.ops.vq import vq_assign_fused
+from audio_tokens_tpu_torch.parallel import distributed
 from audio_tokens_tpu_torch.processors.cluster_creator import (
     make_conv_features,
-)
-from audio_tokens_tpu_torch.processors.spectrogram_generator import (
-    refuse_multiprocess,
 )
 from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 from audio_tokens_tpu_torch.utils.npy_io import (atomic_save_bytes,
@@ -169,11 +172,11 @@ class SpecTokenizer:
         the device feed's L2-normalized train frames (a view on the
         stage's device) and ``{ytid: (row, frames)}``; the fused mode
         assigns the clips it covers from it."""
-        refuse_multiprocess(config)
         self.config = config
         self.resident = resident_frames
-        self.device = torch.device("cuda", 0) if device is None else \
-            torch.device(device)
+        distributed.maybe_initialize(config)
+        self.device = (distributed.default_device() if device is None
+                       else torch.device(device))
         set_seed(config.random_seed)
         self.source_path = Path(config.source_spec_path)
         self.dest_tokenized_path = Path(config.dest_tokenized_path)
@@ -196,11 +199,7 @@ class SpecTokenizer:
         for split in ["train", "validation"]:
             source_dir = self.source_path / split
             tokenized_dir = self.dest_tokenized_path / split
-            if self.config.incremental:
-                tokenized_dir.mkdir(parents=True, exist_ok=True)
-            else:  # reference semantics: destructive restart
-                shutil.rmtree(tokenized_dir, ignore_errors=True)
-                tokenized_dir.mkdir(parents=True)
+            self._prepare_dir(tokenized_dir, f"tok-{split}")
             logger.info("Tokenizing %s: %s --> %s", split, source_dir,
                         tokenized_dir)
             ledger = self._make_ledger(split, tokenized_dir)
@@ -211,9 +210,20 @@ class SpecTokenizer:
                 # only frames tokenized THIS run count toward the stage's
                 # throughput; ledger catch-up bincounts are cheap host reads
                 timer.count("frames", fresh_frames)
+            distributed.barrier(f"tok-done-{split}")
             if split == "train":
                 stats[split] = self._finish_train_stats(counts, ledger)
         return stats
+
+    def _prepare_dir(self, tokenized_dir: Path, name: str) -> None:
+        """The split's output dir, kept (incremental) or wiped (the
+        reference's destructive restart), by rank 0 before any rank
+        writes."""
+        if distributed.is_coordinator():
+            if not self.config.incremental:
+                shutil.rmtree(tokenized_dir, ignore_errors=True)
+            tokenized_dir.mkdir(parents=True, exist_ok=True)
+        distributed.barrier(f"{name}-ready")
 
     def _make_ledger(self, split: str, tokenized_dir: Path):
         """Ledger for the train split's whole-corpus statistics (prior counts
@@ -225,14 +235,16 @@ class SpecTokenizer:
                             load_prior=self.config.incremental)
 
     def _finish_train_stats(self, counts: np.ndarray, ledger) -> dict:
-        """Whole-corpus counts -> stats + plots + persisted ledger."""
-        counts = counts + ledger.prior
+        """Whole-corpus counts (summed over the ranks) -> stats + plots +
+        persisted ledger (rank 0's)."""
+        counts = distributed.all_sum_hosts(counts) + ledger.prior
         if counts.sum() == 0:
             logger.info("no tokens on record; skipping statistics/plots")
             return {"total_tokens": 0, "unique_tokens": 0}
         stats = self.analyze_token_counts(counts)
-        ledger.save(counts)
-        self.plot_token_counts(counts)
+        if distributed.is_coordinator():
+            ledger.save(counts)
+            self.plot_token_counts(counts)
         return stats
 
     def tokenize_directory(self, source_dir: Path, tokenized_dir: Path,
@@ -242,7 +254,7 @@ class SpecTokenizer:
         the caught-up already-tokenized clips (see _CountLedger); the frame
         count covers only freshly tokenized clips."""
         counts = np.zeros(self.vocab, np.int64)
-        spec_files = sorted(source_dir.glob("*.npy"))
+        spec_files = distributed.process_shard(sorted(source_dir.glob("*.npy")))
         if self.config.incremental:
             by_stem = {f.stem: f for f in spec_files}
             spec_files = [by_stem[s] for s in self._incremental_todo(
@@ -318,12 +330,9 @@ class SpecTokenizer:
         stats: Dict[str, dict] = {}
         for split in ["train", "validation"]:
             tokenized_dir = self.dest_tokenized_path / split
-            if cfg.incremental:
-                tokenized_dir.mkdir(parents=True, exist_ok=True)
-            else:  # reference semantics: destructive restart
-                shutil.rmtree(tokenized_dir, ignore_errors=True)
-                tokenized_dir.mkdir(parents=True)
-            ytids = sorted(split_map[split])  # the staged glob's order
+            self._prepare_dir(tokenized_dir, f"ftok-{split}")
+            # the staged glob's order; each rank takes its strided slice
+            ytids = distributed.process_shard(sorted(split_map[split]))
             ledger = self._make_ledger(split, tokenized_dir)
             counts = np.zeros(self.vocab, np.int64)
             if cfg.incremental:
@@ -365,6 +374,7 @@ class SpecTokenizer:
                     n_clips += 1
                 timer.count("clips", n_clips)
                 timer.count("frames", n_frames)
+            distributed.barrier(f"ftok-done-{split}")
             logger.info("%s: %d/%d clips tokenized (fused)", split, n_clips,
                         n_todo)
             if split == "train":
@@ -572,6 +582,8 @@ if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda:0")
+    parser.add_argument("--device", default=None,
+                        help="default: this rank's card (cuda:0 in one "
+                        "process)")
     ns, rest = parser.parse_known_args()
     SpecTokenizer(AudioTokensConfig.from_args(rest), ns.device).run()

@@ -26,8 +26,11 @@ decode through ``iter_specs`` (specs without files) and
 ``iter_wave_batches`` (padded waveform batches, no DSP: the clustering
 stage's device feed).
 
-Not ported: stage traces (``profile_dir``) and multi-process runs (ROADMAP
-A7).
+Multi-process runs (``parallel/distributed.py``): every rank reads the same
+split file and renders its strided shard of each split; rank 0 alone makes,
+wipes or re-renders the output dirs and writes the signature, with barriers
+around, and every rank waits for every shard before it goes on.  Not
+ported: stage traces (``profile_dir``, ROADMAP A7.6).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.data import native_loader
 from audio_tokens_tpu_torch.data.audio_io import decode_clip, find_audio_file
 from audio_tokens_tpu_torch.ops.mel import MelFrontend, num_frames
+from audio_tokens_tpu_torch.parallel import distributed
 from audio_tokens_tpu_torch.utils.npy_io import atomic_save_npy
 from audio_tokens_tpu_torch.utils.profiling import StageTimer, maybe_trace
 
@@ -58,21 +62,13 @@ logger = logging.getLogger(__name__)
 AMPLITUDE_LIMIT = 1e8
 
 
-def refuse_multiprocess(config: AudioTokensConfig) -> None:
-    """The stages run in one process on one device."""
-    if config.distributed:
-        raise NotImplementedError(
-            "distributed=True (multi-process stages) is not ported yet: "
-            "ROADMAP A7")
-
-
 class SpectrogramGenerator:
     def __init__(self, config: AudioTokensConfig,
                  device: Optional[torch.device | str] = None):
-        refuse_multiprocess(config)
         self.config = config
-        self.device = torch.device("cuda", 0) if device is None else \
-            torch.device(device)
+        distributed.maybe_initialize(config)
+        self.device = (distributed.default_device() if device is None
+                       else torch.device(device))
         self.frontend = MelFrontend(
             self.device,
             sample_rate=config.common_sr,
@@ -114,8 +110,11 @@ class SpectrogramGenerator:
             logger.info("Creating %s spectrograms", split)
             output_dir = Path(self.config.dest_spec_path) / split
             ytids = self.data_split[split]
+            coordinator = distributed.is_coordinator()
             if self.config.incremental:
-                output_dir.mkdir(parents=True, exist_ok=True)
+                if coordinator:
+                    output_dir.mkdir(parents=True, exist_ok=True)
+                distributed.barrier(f"spec-mkdir-{split}")
                 sig_path = output_dir / self.SIGNATURE_NAME
                 try:
                     stored = json.loads(sig_path.read_text())
@@ -127,31 +126,45 @@ class SpectrogramGenerator:
                     # artifacts without a signature predate it: adopt them
                     # under the current config; only a RECORDED mismatching
                     # signature proves staleness
-                    if stored != self._signature():
+                    if coordinator and stored != self._signature():
                         self._write_signature(output_dir)
                     before = len(ytids)
                     ytids = [y for y in ytids
                              if not (output_dir / f"{y}.npy").exists()]
                     logger.info("incremental: %d/%d clips already done",
                                 before - len(ytids), before)
+                    # no rank writes before every rank has listed what is
+                    # left, or the ranks would shard different lists
+                    distributed.barrier(f"spec-todo-{split}")
                 else:
+                    # every rank read the same file after the barrier, so
+                    # every rank decides alike
                     logger.info(
                         "incremental: signal-chain signature changed "
                         "(%s -> %s); re-rendering the whole %s split",
                         stored, self._signature(), split)
+                    if coordinator:
+                        shutil.rmtree(output_dir, ignore_errors=True)
+                        output_dir.mkdir(parents=True)
+                        self._write_signature(output_dir)
+                    distributed.barrier(f"spec-rerender-{split}")
+            else:  # reference semantics: destructive restart (by rank 0)
+                if coordinator:
                     shutil.rmtree(output_dir, ignore_errors=True)
                     output_dir.mkdir(parents=True)
                     self._write_signature(output_dir)
-            else:  # reference semantics: destructive restart
-                shutil.rmtree(output_dir, ignore_errors=True)
-                output_dir.mkdir(parents=True)
-                self._write_signature(output_dir)
+                distributed.barrier(f"spec-wipe-{split}")
+            local_ytids = distributed.process_shard(ytids)
             with maybe_trace(self.config.profile_dir), \
                     StageTimer(f"spectrograms/{split}") as timer:
-                n_ok = self.populate_specs(ytids, output_dir)
+                n_ok = self.populate_specs(local_ytids, output_dir)
                 timer.count("clips", n_ok)
-            logger.info("%s: %d/%d spectrograms saved to %s",
-                        split.capitalize(), n_ok, len(ytids), output_dir)
+            distributed.barrier(f"spec-done-{split}")
+            logger.info(
+                "%s: %d/%d spectrograms saved to %s%s", split.capitalize(),
+                n_ok, len(local_ytids), output_dir,
+                f" (rank {distributed.process_index()}'s shard of "
+                f"{len(ytids)})" if distributed.is_multiprocess() else "")
 
     # ------------------------------------------------------------------
     def populate_specs(self, ytids: List[str], output_dir: Path) -> int:
@@ -361,6 +374,8 @@ if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda:0")
+    parser.add_argument("--device", default=None,
+                        help="default: this rank's card (cuda:0 in one "
+                        "process)")
     ns, rest = parser.parse_known_args()
     SpectrogramGenerator(AudioTokensConfig.from_args(rest), ns.device).run()

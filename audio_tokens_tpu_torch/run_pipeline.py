@@ -1,10 +1,14 @@
-"""The four pipeline stages in one run, on one device (counterpart of the
-repository's ``run_pipeline.py``).
+"""The four pipeline stages in one run (counterpart of the repository's
+``run_pipeline.py``).
 
 Spectrograms -> centroids -> tokens -> a trained classifier, under one
 shared config and one device (``cuda:0`` unless the caller passes another;
-without a card it fails rather than run somewhere else).  The split
-manifest must exist first:
+without a card it fails rather than run somewhere else).  Under
+``--distributed true`` with torchrun, or with the ``AUDIO_TOKENS_*``
+variables, N processes run the pipeline together, one card each
+(``parallel/distributed.py``): the stages shard the clips, the clustering
+is one streaming ``full`` fit over every rank's frames and the training is
+data parallel.  The split manifest must exist first:
 
     python -m audio_tokens_tpu_torch.data.splitter --base_dir WS
     python -m audio_tokens_tpu_torch.run_pipeline [--device cpu] \\
@@ -28,6 +32,7 @@ import torch
 
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.ops.common import exact_f32
+from audio_tokens_tpu_torch.parallel import distributed
 from audio_tokens_tpu_torch.processors import (
     ClusterCreator,
     ModelTrainer,
@@ -42,7 +47,9 @@ def main(config: Optional[AudioTokensConfig] = None,
          device: Optional[torch.device | str] = None):
     """Run the stages in order; returns (val_loss, val_metrics)."""
     config = config or AudioTokensConfig.from_args()
-    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    distributed.maybe_initialize(config)
+    device = (distributed.default_device() if device is None
+              else torch.device(device))
     if config.fused_pipeline and (
             config.dataset_type != "TokenizedSpecDataset"
             or config.use_precomputed_embeddings):
@@ -77,6 +84,8 @@ if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda:0")
+    parser.add_argument("--device", default=None,
+                        help="default: this rank's card (cuda:0 in one "
+                        "process)")
     ns, rest = parser.parse_known_args()
     main(AudioTokensConfig.from_args(rest), ns.device)

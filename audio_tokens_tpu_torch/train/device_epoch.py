@@ -1,5 +1,5 @@
 """Device-resident training epochs (counterpart of
-``audio_tokens_tpu/train/device_epoch.py``, its single-device part).
+``audio_tokens_tpu/train/device_epoch.py``).
 
 The streaming Trainer ships every batch over the host link each epoch and
 copies every batch's sigmoids back for mAP.  A balanced-corpus token epoch
@@ -24,8 +24,23 @@ Batch composition, shuffle order (the seeded permutation of
 generator are the streaming path's, so the trajectories agree
 (``tests/test_torch_device_epoch.py``).  Residency is gated by
 ``device_corpus_budget_mb`` with the JAX package's estimate
-(``corpus_nbytes``), so ``'auto'`` decides as it does.  Data-parallel
-epochs (the JAX ``shard_map`` branch) are ROADMAP A7.4.
+(``corpus_nbytes``), so ``'auto'`` decides as it does.
+
+Data parallel (the JAX ``shard_map`` branch; the trainer's ``dp`` group):
+every rank holds the whole corpus and the same permutation (never seeded
+by rank), and row ``r`` of step ``i`` on rank ``k`` is ``perm[i*b +
+k*b_local + r]``.  Each rank's loss is its rows' share of the step's
+global weighted mean, its denominator from the whole batch's row weights;
+the gradients are summed in one all-reduce a step (``Trainer._train_step``).
+After the epoch the loss sums are all-reduced, the binned histogram is
+summed, or the exact metric's predictions are gathered step-major and
+rank-minor (the single-process row order) for the single-device mAP.
+Under NCCL no collective reads the host inside the epoch.  Under gloo
+(ranks sharing a card) every all-reduce of a card tensor goes through the
+host, which synchronizes each step.  Dropout draws from the step's
+generator, the same on every rank, as the JAX epoch folds the step into
+one key that every rank shares: rank ``k`` draws the masks of rows
+``0..b_local-1``, not those its rows have in one process.
 """
 
 from __future__ import annotations
@@ -218,24 +233,63 @@ class DeviceEpochRunner:
             sum(t.numel() * t.element_size()
                 for t in (c.inputs, c.lengths, c.labels)) / 2**20)
 
-    def _metric(self, n_rows: int):
-        """-> (add(i, probs, labels, valid), result()) over an epoch of
-        ``n_rows`` rows: the exact metric's prediction buffer, or the
-        histogram when ``device_map_bins`` > 0."""
+    def _metric(self, n_steps: int, b_local: int):
+        """-> (add(i, probs, labels, valid), result(labels, valid)) over an
+        epoch of ``n_steps`` steps of ``b_local`` rows on this rank: the
+        exact metric's prediction buffer, or the histogram when
+        ``device_map_bins`` > 0.  ``result`` takes the whole epoch's rows
+        in the single-process order; under data parallelism it sums the
+        ranks' histograms, or gathers their predictions, first."""
         cfg = self.config
+        dp = self.trainer.dp
         if cfg.device_map_bins > 0:
             hist = binned_map_init(cfg.num_classes, cfg.device_map_bins,
                                    self.device)
+
+            def binned(y, v):
+                if dp is not None:
+                    dp.all_reduce_(hist)
+                return binned_map_result(hist)
+
             return (lambda i, p, y, v: binned_map_update(hist, p, y, v),
-                    lambda y, v: binned_map_result(hist))
-        preds = torch.empty((n_rows, cfg.num_classes), dtype=torch.float32,
-                            device=self.device)
+                    binned)
+        preds = torch.empty((n_steps * b_local, cfg.num_classes),
+                            dtype=torch.float32, device=self.device)
 
         def add(i, p, y, v):
-            b = p.shape[0]
-            preds[i * b:(i + 1) * b] = p
+            preds[i * b_local:(i + 1) * b_local] = p
 
-        return add, lambda y, v: macro_map_device(preds, y, v)
+        def exact(y, v):
+            p = preds
+            if dp is not None:  # step-major, rank-minor
+                p = dp.all_gather(preds.view(n_steps, b_local, -1),
+                                  dim=1).reshape(-1, cfg.num_classes)
+            return macro_map_device(p, y, v)
+
+        return add, exact
+
+    def _local_rows(self, order: torch.Tensor, n_steps: int,
+                    b: int) -> Tuple[torch.Tensor, int]:
+        """(this rank's rows of the epoch's row ``order``, step after step,
+        and ``b_local``): row ``r`` of step ``i`` on rank ``k`` is
+        ``order[i*b + k*b_local + r]``; all of them in one process."""
+        dp = self.trainer.dp
+        if dp is None:
+            return order, b
+        b_local = b // dp.size
+        pos = (torch.arange(n_steps, device=self.device)[:, None] * b
+               + dp.rank * b_local
+               + torch.arange(b_local, device=self.device)[None, :])
+        return order[pos.reshape(-1)], b_local
+
+    def _denominators(self, valid: torch.Tensor, n_steps: int,
+                      b: int) -> Optional[torch.Tensor]:
+        """Each step's global loss denominator under data parallelism (as
+        ``weighted_bce`` forms it from the whole batch), else None."""
+        if self.trainer.dp is None:
+            return None
+        return torch.clamp(valid.view(n_steps, b).float().sum(1)
+                           * self.config.num_classes, min=1.0)
 
     # -- the epochs ---------------------------------------------------------
     def train_epoch(self, epoch: int, step: int, max_steps: int = 0
@@ -249,20 +303,20 @@ class DeviceEpochRunner:
         if n_steps <= 0:
             return step, float("nan"), {"mAP": 0.0}
         b = c.batch_size
-        rows = epoch_permutation(c, self.config.random_seed, epoch,
-                                 self.device)[:n_steps * b]
-        valid = rows < c.n_real
+        order = epoch_permutation(c, self.config.random_seed, epoch,
+                                  self.device)[:n_steps * b]
+        rows, bl = self._local_rows(order, n_steps, b)
+        valid_all = order < c.n_real
+        valid = valid_all if rows is order else rows < c.n_real
+        denoms = self._denominators(valid_all, n_steps, b)
         if self.materialize_train:
             src = [t.index_select(0, rows)
                    for t in (c.inputs, c.lengths, c.labels)]
-            labels = src[2]
-        else:
-            labels = c.labels.index_select(0, rows)
-        add, result = self._metric(n_steps * b)
+        add, result = self._metric(n_steps, bl)
         self.trainer.model.train()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(n_steps):
-            sl = slice(i * b, (i + 1) * b)
+            sl = slice(i * bl, (i + 1) * bl)
             if self.materialize_train:
                 inputs, lengths, y = (t[sl] for t in src)
             else:
@@ -270,11 +324,16 @@ class DeviceEpochRunner:
                 inputs, lengths, y = (t.index_select(0, idx) for t in (
                     c.inputs, c.lengths, c.labels))
             row_w = valid[sl].float()
-            loss, probs = self.trainer._train_step(inputs, lengths, y, row_w,
-                                                   step + i)
+            loss, probs = self.trainer._train_step(
+                inputs, lengths, y, row_w, step + i,
+                None if denoms is None else denoms[i])
             loss_sum += loss
             add(i, probs, y, row_w)
-        loss, m = read_scalars(loss_sum / n_steps, result(labels, valid))
+        if self.trainer.dp is not None:
+            self.trainer.dp.all_reduce_(loss_sum)
+        labels = (src[2] if self.materialize_train and self.trainer.dp is None
+                  else c.labels.index_select(0, order))
+        loss, m = read_scalars(loss_sum / n_steps, result(labels, valid_all))
         return step + n_steps, loss, {"mAP": m}
 
     def eval_epoch(self) -> Tuple[float, Dict[str, float]]:
@@ -284,17 +343,24 @@ class DeviceEpochRunner:
         if c.n_real == 0:
             return float("nan"), {"mAP": 0.0}
         b = c.batch_size
-        add, result = self._metric(c.n_pad)
+        dp = self.trainer.dp
+        bl = b if dp is None else b // dp.size
+        lo = 0 if dp is None else dp.rank * bl
+        add, result = self._metric(c.n_steps, bl)
         self.trainer.model.eval()
         with torch.inference_mode():  # B3 skips its residual stores
+            denoms = self._denominators(c.valid, c.n_steps, b)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=self.device)
             for i in range(c.n_steps):
-                sl = slice(i * b, (i + 1) * b)
+                sl = slice(i * b + lo, i * b + lo + bl)
                 y, row_w = c.labels[sl], c.valid[sl].float()
                 logits = self.trainer._logits(c.inputs[sl], c.lengths[sl])
-                loss_sum += weighted_bce(logits, y, row_w)
+                loss_sum += weighted_bce(logits, y, row_w,
+                                         None if denoms is None else denoms[i])
                 add(i, torch.sigmoid(logits), y, row_w)
+            if dp is not None:
+                dp.all_reduce_(loss_sum)
             loss, m = read_scalars(loss_sum / c.n_steps,
                                    result(c.labels, c.valid))
         return loss, {"mAP": m}

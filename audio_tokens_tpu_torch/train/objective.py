@@ -26,12 +26,15 @@ def model_inputs(inputs: torch.Tensor) -> torch.Tensor:
 
 
 def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
-                 row_w: torch.Tensor) -> torch.Tensor:
+                 row_w: torch.Tensor, denom=None) -> torch.Tensor:
     """(bce * row_w).sum() / max(row_w.sum() * C, 1) for logits and labels
-    (B, C) (labels of any dtype, 0/1) and row weights (B,)."""
+    (B, C) (labels of any dtype, 0/1) and row weights (B,).  A data-parallel
+    rank passes the global batch's ``denom``: its loss is then its rows'
+    share of the global mean."""
     if not labels.is_floating_point():
         labels = labels.float()  # uint8 corpus labels
     bce = F.binary_cross_entropy_with_logits(logits, labels,
                                              reduction="none")
-    denom = torch.clamp(row_w.sum() * labels.shape[1], min=1.0)
+    if denom is None:
+        denom = torch.clamp(row_w.sum() * labels.shape[1], min=1.0)
     return (bce * row_w[:, None]).sum() / denom

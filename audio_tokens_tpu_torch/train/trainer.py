@@ -1,5 +1,5 @@
 """Training loop of the port (counterpart of
-``audio_tokens_tpu/train/trainer.py``, single device).
+``audio_tokens_tpu/train/trainer.py``).
 
 Behavioral equivalent of the reference's ModelTrainer (reference:
 processors/model_trainer.py:24-204): BCE-with-logits loss, AdamW (b1=0.9
@@ -23,7 +23,17 @@ stdlib logging.  As in the JAX trainer:
   * checkpoints carry params, optimizer state, step, metric and epoch for
     exact resume, and early stopping and ``max_train_steps`` are real;
   * ``diagnostics_every`` > 0 writes a gradient-flow report of one batch
-    every that many epochs (``utils/diagnostics.py``).
+    every that many epochs (``utils/diagnostics.py``);
+  * data parallel across processes (``parallel/``, one card a process)
+    when the data group has 2 ranks or more (``data_parallel`` -1, the
+    default, takes every rank): the ranks start from rank 0's weights,
+    every rank builds the same global batch and keeps its contiguous rows,
+    each rank's loss is its rows' share of the global weighted mean (the
+    denominator is the global batch's, so a padded last batch weighs as
+    in one process), the gradients are summed in one flat all-reduce a
+    step, and the predictions are gathered in rank order, so every rank
+    computes the same mAP and stops early at the same epoch.  Only rank 0
+    writes checkpoints, the metrics history, wandb and diagnostics.
 
 On the card the lstm's recurrence runs kernels B3 (forward, with the
 residuals) and B4 (backward), through ``ops/cuda_lstm.lstm_sequence``.  The
@@ -33,8 +43,8 @@ B5 when ``transformer_attention="flash"``.  The simple, cnn and baseline
 classifiers train on tokens, ``RawSTFTDataset`` frames and
 ``RawSTFTFlatDataset`` rows; they have no kernel of their own (a gather,
 cuDNN convolutions, cuBLAS products).  Not ported yet, and refused with
-``NotImplementedError`` naming ROADMAP A7: multi-device meshes and
-multi-process runs.
+``NotImplementedError`` naming ROADMAP A7.5: tensor and sequence
+parallelism (``model_parallel``, ``sequence_parallel``).
 """
 
 from __future__ import annotations
@@ -54,6 +64,8 @@ import torch
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.data.datasets import BatchLoader, DataLoaderCreator
 from audio_tokens_tpu_torch.models import get_model
+from audio_tokens_tpu_torch.parallel import distributed
+from audio_tokens_tpu_torch.parallel.mesh import DataGroup, data_group
 from audio_tokens_tpu_torch.train import checkpoint as ckpt
 from audio_tokens_tpu_torch.train.device_epoch import (DeviceEpochRunner,
                                                        corpus_nbytes,
@@ -75,13 +87,11 @@ def _refuse_unported(config: AudioTokensConfig) -> None:
     refused = {
         "model_parallel > 1": config.model_parallel > 1,
         "sequence_parallel > 1": config.sequence_parallel > 1,
-        "data_parallel > 1": config.data_parallel > 1,
-        "distributed=True (multi-process training)": config.distributed,
     }
     for what, asked in refused.items():
         if asked:
             raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP A7")
+                f"{what} is not ported yet: ROADMAP A7.5")
 
 
 class _AsyncCollector:
@@ -134,9 +144,13 @@ class _LossMean:
         self._sum = loss if self._sum is None else self._sum + loss
         self._n += 1
 
-    def result(self) -> float:
+    def result(self, dp: Optional[DataGroup] = None) -> float:
+        """The mean; under data parallelism each rank holds its rows'
+        share of every step's loss, summed over the ranks here."""
         if self._n == 0:
             return float("nan")
+        if dp is not None:
+            dp.all_reduce_(self._sum)
         return float(self._sum) / self._n
 
 
@@ -144,17 +158,24 @@ class Trainer:
     _PENDING_FLUSH = 8  # prediction windows: one stack + copy per 8 steps
 
     def __init__(self, config: AudioTokensConfig,
-                 device: torch.device | str):
+                 device: Optional[torch.device | str] = None):
+        """``device`` None: this rank's card under ``distributed``, else
+        ``cuda:0`` (``parallel/distributed.default_device``)."""
         self.config = config
-        self.device = torch.device(device)
+        _refuse_unported(config)
+        distributed.maybe_initialize(config)
+        self.device = (distributed.default_device() if device is None
+                       else torch.device(device))
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} asked for, but torch "
                                "sees no CUDA device")
-        _refuse_unported(config)
         set_seed(config.random_seed)
         self.use_lengths = not config.reference_compat
         self.run_name = self._initialize_wandb()
         self.model, self.optimizer = self._init_state()
+        self.dp = self._data_group()
+        if self.dp is not None:  # every rank starts from rank 0's weights
+            self.dp.broadcast_(self.model.state_dict().values())
         self._dropout_gen = (generator_for(config.random_seed, "dropout",
                                            self.device)
                              if config.dropout > 0 else None)
@@ -184,6 +205,7 @@ class Trainer:
         step = 0
         start_epoch = 0
         if cfg.resume_from:
+            distributed.barrier("resume")  # every rank reads rank 0's file
             has_opt, step, best_metric, start_epoch = ckpt.load_checkpoint(
                 cfg.checkpoint_dir, cfg.resume_from, self.model,
                 self.optimizer)
@@ -206,7 +228,8 @@ class Trainer:
             t0 = time.time()
             step, train_loss, train_metrics = train_epoch(epoch, step)
             val_loss, val_metrics = eval_epoch()
-            if cfg.diagnostics_every and epoch % cfg.diagnostics_every == 0:
+            if (cfg.diagnostics_every and epoch % cfg.diagnostics_every == 0
+                    and distributed.is_coordinator()):
                 self._run_diagnostics(train_loader, epoch)
             self._log_epoch_results(epoch, train_loss, train_metrics,
                                     val_loss, val_metrics, time.time() - t0)
@@ -216,7 +239,7 @@ class Trainer:
                             val_metrics["mAP"], best_metric)
                 best_metric = val_metrics["mAP"]
                 epochs_since_best = 0
-                if cfg.save_best_checkpoint:
+                if cfg.save_best_checkpoint and distributed.is_coordinator():
                     ckpt.save_checkpoint(
                         cfg.checkpoint_dir, f"{self.run_name}-best",
                         self.model, self.optimizer, step, best_metric,
@@ -342,15 +365,41 @@ class Trainer:
                                       weight_decay=0.01)
         return model, optimizer
 
+    def _data_group(self) -> Optional[DataGroup]:
+        """The data group (``parallel/mesh.data_group``), or None where
+        the batch sizes do not split evenly over it (then every rank
+        trains on whole batches, as the JAX trainer falls back to one
+        device)."""
+        cfg = self.config
+        dp = data_group(cfg)
+        if dp is not None and (cfg.training_batch_size % dp.size
+                               or cfg.eval_batch_size % dp.size):
+            logger.warning(
+                "batch sizes %d/%d not divisible by %d ranks; training "
+                "without data parallelism", cfg.training_batch_size,
+                cfg.eval_batch_size, dp.size)
+            return None
+        if dp is not None:
+            logger.info("data parallel over %d ranks (this rank %d), "
+                        "%d rows a rank a step", dp.size, dp.rank,
+                        cfg.training_batch_size // dp.size)
+        return dp
+
     def _put_batch(self, batch) -> Tuple[torch.Tensor, ...]:
-        """The batch on the device: inputs, lengths, labels (shipped as
-        uint8, multi-hot 0/1, exact) and row weights.  On a card the host
+        """This rank's rows of the batch on the device: inputs, lengths,
+        labels (shipped as uint8, multi-hot 0/1, exact) and row weights
+        (all rows without data parallelism), and the loss's denominator:
+        None in one process, under data parallelism the whole batch's, from
+        its row weights as ``weighted_bce`` forms it.  On a card the host
         arrays are pinned first, so the copies are asynchronous and the
         step loop does not wait for the previous step."""
         row_w = (np.arange(len(batch["lengths"])) < batch["n_valid"]).astype(
             np.float32)
         host = (batch["inputs"], batch["lengths"],
                 np.asarray(batch["labels"], np.uint8), row_w)
+        lo, hi = (0, len(row_w)) if self.dp is None else \
+            self.dp.row_bounds(len(row_w))
+        host = tuple(a[lo:hi] for a in host[:3]) + (row_w,)
         out = []
         for arr in host:
             t = torch.from_numpy(arr)
@@ -358,7 +407,11 @@ class Trainer:
                 t = t.pin_memory()
             out.append(t.to(self.device, non_blocking=True))
         inputs, lengths, labels, row_w = out
-        return inputs, lengths, labels.float(), row_w
+        denom = None
+        if self.dp is not None:
+            denom = torch.clamp(row_w.sum() * self.config.num_classes,
+                                min=1.0)
+        return inputs, lengths, labels.float(), row_w[lo:hi], denom
 
     def _metric_accumulator(self):
         """Exact mAP by default (reference semantics); constant-memory
@@ -368,11 +421,12 @@ class Trainer:
                                 bins=self.config.streaming_map_bins)
         return ExactMAP()
 
-    @staticmethod
-    def _flush_pending(pending, collector):
+    def _flush_pending(self, pending, collector):
         if not pending:
             return
         stacked = torch.stack([p for _, p, _ in pending])
+        if self.dp is not None:  # the whole batches' rows, in rank order
+            stacked = self.dp.all_gather(stacked, dim=1)
         metas = [(labels, n) for labels, _, n in pending]
         pending.clear()
         collector.submit(stacked, metas)
@@ -388,11 +442,18 @@ class Trainer:
                           lengths if self.use_lengths else None,
                           generator=gen)
 
-    def _train_step(self, inputs, lengths, labels, row_w, step: int):
+    def _train_step(self, inputs, lengths, labels, row_w, step: int,
+                    denom=None):
+        """One AdamW step -> (loss, probabilities).  Under data
+        parallelism ``denom`` is the global batch's denominator: the loss
+        is this rank's share of the global mean, and the gradients are
+        summed over the ranks before the update."""
         logits = self._logits(inputs, lengths, step)
-        loss = weighted_bce(logits, labels, row_w)
+        loss = weighted_bce(logits, labels, row_w, denom)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.dp is not None:
+            self.dp.all_reduce_grads(self.model.parameters())
         self.optimizer.step()
         return loss.detach(), torch.sigmoid(logits.detach())
 
@@ -409,7 +470,8 @@ class Trainer:
                 # saved exactly at the cap must not train one extra step
                 if cfg.max_train_steps and step >= cfg.max_train_steps:
                     break
-                loss, p = self._train_step(*self._put_batch(batch), step)
+                *rows, denom = self._put_batch(batch)
+                loss, p = self._train_step(*rows, step, denom)
                 losses.add(loss)  # device-resident running sum
                 pending.append((batch["labels"], p, batch["n_valid"]))
                 if len(pending) >= self._PENDING_FLUSH:
@@ -424,7 +486,7 @@ class Trainer:
             self._flush_pending(pending, collector)
         finally:
             collector.join()
-        return step, losses.result(), acc.result()
+        return step, losses.result(self.dp), acc.result()
 
     def _eval_epoch(self, loader: BatchLoader):
         self.model.eval()
@@ -435,9 +497,10 @@ class Trainer:
         try:
             with torch.inference_mode():  # B3 skips its residual stores
                 for batch in loader.batches(0):
-                    inputs, lengths, labels, row_w = self._put_batch(batch)
+                    inputs, lengths, labels, row_w, denom = \
+                        self._put_batch(batch)
                     logits = self._logits(inputs, lengths)
-                    losses.add(weighted_bce(logits, labels, row_w))
+                    losses.add(weighted_bce(logits, labels, row_w, denom))
                     pending.append((batch["labels"], torch.sigmoid(logits),
                                     batch["n_valid"]))
                     if len(pending) >= self._PENDING_FLUSH:
@@ -445,7 +508,7 @@ class Trainer:
                 self._flush_pending(pending, collector)
         finally:
             collector.join()
-        return losses.result(), acc.result()
+        return losses.result(self.dp), acc.result()
 
     # ------------------------------------------------------------------
     def _run_diagnostics(self, loader: BatchLoader, epoch: int) -> None:
@@ -476,6 +539,8 @@ class Trainer:
                     train_metrics["mAP"])
         logger.info("Val Loss: %.4f, Val mAP: %.4f", val_loss,
                     val_metrics["mAP"])
+        if not distributed.is_coordinator():
+            return  # the history and wandb are single-writer artifacts
         record = {
             "epoch": epoch,
             "train_loss": train_loss,
@@ -498,7 +563,7 @@ class Trainer:
 
     def _initialize_wandb(self) -> str:
         self._wandb = None
-        if self.config.use_wandb:
+        if self.config.use_wandb and distributed.is_coordinator():
             try:
                 import wandb
 

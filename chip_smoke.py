@@ -241,6 +241,29 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    at K 2 on a bf16 spec corpus (the conv batched by cuDNN); every line
    with the card's name and power limit (``launches_by_path``
    ``ensemble_*``).
+15. multi-process and data parallel (``parallel/``), on phase 8's
+   workspace: (a) two ranks of this script (``chip_smoke.py --dp-rank
+   R 2 PORT DIR``, subprocesses sharing ``cuda:0`` over gloo, their output
+   to files, both killed past a wait timeout) run the full-width lstm data
+   parallel at global batch 64 (32 a rank) on ``tools/bench_training.py``'s
+   synthetic corpus with dropout 0, 8 device-epoch steps and 4 streaming
+   steps, then the staged pipeline on phase 8's audio (spectrograms, the
+   tokenize stage with phase 8's centroids, the fused one (B1), a ``full``
+   streaming fit, training); (b) one rank on NCCL (a world of one) takes
+   one lstm step through the data-parallel path and a 2-step device epoch
+   under ``torch.cuda.set_sync_debug_mode("error")`` but its one read;
+   (c) with TF32 off the ranks' step losses and weights are held to one
+   process on the card (1e-4 relative), each other (equal), their
+   spectrograms and tokens to phase 8's files and their fused tokens to
+   one process's (bit-equal, clip by clip), their centroids to one
+   process's ``full`` fit (at most 1 ulp; the count apart printed), their
+   training to one process's (1e-4, mAP 1e-3), (b)'s step to the plain
+   step (1e-6). ``[dp lstm 2 ranks shared card]``, ``[dp pipeline 2
+   ranks]``, ``[dp kmeans 2 ranks]``, ``[dp nccl 1 rank]`` give the ms a
+   step (two ranks on one card: not a speed figure), the gradient
+   all-reduce's bytes and ms, each stage's seconds and each rank's
+   launches (``launches_by_path`` ``dp_*``: a rank's B3/B4 equal one
+   process's at the same steps).
 
 Phases 8-12 decode with ``audio_backend="auto"``: the native decoder
 (``data/native_loader.py``, built with g++ into ``build/native/``) where it
@@ -353,6 +376,16 @@ STREAM_STEP_MS: dict = {}
 ENS_BATCHES, ENS_VAL, ENS_SPEC_BATCHES = 8, 256, 4
 ENS_K = {"lstm": 4, "simple": 8, "bert": 2, "cnn": 2}
 ENS_REMAT_CHUNK, ENS_TOL = 216, 1e-4
+# phase 15: data parallel over DP_WORLD ranks sharing cuda:0 (gloo), each a
+# subprocess of this script killed past DP_WAIT_S: the full-width lstm at
+# global batch 64 (32 a rank), DP_EPOCH_STEPS device-epoch steps then
+# DP_STREAM_STEPS streaming steps on tools/bench_training.py's synthetic
+# corpus (seed DP_SEED), dropout 0, held to one process on the same card
+# within DP_RTOL (the gradient summed in another grouping); one NCCL rank's
+# step within DP_NCCL_RTOL of the plain step
+DP_WORLD, DP_EPOCH_STEPS, DP_STREAM_STEPS, DP_SEED = 2, 8, 4, 20
+DP_WAIT_S, DP_GROUP_TIMEOUT_S, DP_ALLREDUCE_REPS = 900, 600, 5
+DP_RTOL, DP_NCCL_RTOL, DP_MAP_ATOL = 1e-4, 1e-6, 1e-3
 
 
 def log(msg: str) -> None:
@@ -963,6 +996,16 @@ def kmeans_rows(cfg, dev):
     return x
 
 
+def stage_config(base: Path, **over):
+    """Phase 8's configuration for the workspace ``base`` (the package
+    defaults, the full-width lstm, batch 64, 1 epoch): made anew for each
+    workspace, since a config derives its paths from ``base_dir`` once."""
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+
+    return AudioTokensConfig(base_dir=str(base), **MODEL,
+                             training_batch_size=B_LSTM, epochs=1, **over)
+
+
 def pipeline_phase(records: list, dev, base: Path):
     """Phase 8: ``run_pipeline.main`` on a wav workspace written to
     ``base`` at the package defaults, its results against the CPU, then
@@ -970,7 +1013,6 @@ def pipeline_phase(records: list, dev, base: Path):
     import torch
 
     from audio_tokens_tpu_torch import run_pipeline
-    from audio_tokens_tpu_torch.config import AudioTokensConfig
     from audio_tokens_tpu_torch.ops import kmeans as km
     from audio_tokens_tpu_torch.ops.cuda_kmeans import (tier_sums64,
                                                         tier_sums64_plain)
@@ -998,8 +1040,7 @@ def pipeline_phase(records: list, dev, base: Path):
     t0 = time.perf_counter()
     split = write_audio_corpus(base)
     write_s = time.perf_counter() - t0
-    cfg = AudioTokensConfig(base_dir=str(base), **MODEL,
-                            training_batch_size=B_LSTM, epochs=1)
+    cfg = stage_config(base)
     seconds, launches = {}, {}
     restore = clock_stages(stages, kernels, seconds, launches)
     for k in kernels:
@@ -2553,7 +2594,7 @@ def tiers_pipelines(records: list, dev, base: Path, cfg, cents) -> None:
                 ("native", dict(audio_backend="native", pcm_wire="i16")))
     for tag, over in variants:
         ws = shared_workspace(base, f"tiers_{tag}")
-        vcfg = dataclasses.replace(cfg, base_dir=str(ws), **over)
+        vcfg = stage_config(ws, **over)
         seconds, launches = {}, {}
         restore = clock_stages(stages, kernels, seconds, launches)
         t0 = time.perf_counter()
@@ -3763,6 +3804,499 @@ def ensemble_phase(records: list, dev, base: Path) -> None:
         f"(host clock)")
 
 
+# -- 15. multi-process and data parallel -------------------------------------
+
+def dp_lstm_config():
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+
+    return AudioTokensConfig(**MODEL, training_batch_size=B_LSTM,
+                             dropout=0.0, save_best_checkpoint=False,
+                             log_every_steps=0, num_workers=2)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b| over flat arrays."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def dp_lstm_run(dev, out: Path, tag: str) -> dict:
+    """Phase 15's lstm on ``dev``: DP_EPOCH_STEPS steps of a device-resident
+    epoch, then DP_STREAM_STEPS steps of the streaming loop, one ``Trainer``
+    (data parallel where this process is a rank of a group of 2 or more).
+    -> each step's loss (a rank's share of the global mean), each epoch's
+    loss, mAP, ms a step (host clock, synchronized) and B3/B4 launches, the
+    gradient all-reduce's bytes and ms (ranks); the weights go to
+    ``out/<tag>_weights.npy``."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.tools.bench_training import (
+        _MemLoader, synthetic_corpus)
+    from audio_tokens_tpu_torch.train.device_epoch import DeviceEpochRunner
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    cfg = dp_lstm_config()
+    trainer = Trainer(cfg, dev)
+    rng = np.random.default_rng(DP_SEED)
+    n = DP_EPOCH_STEPS * B_LSTM
+    runner = DeviceEpochRunner(trainer)
+    runner.set_corpus_arrays("train", *synthetic_corpus(cfg, B_LSTM, n, rng),
+                             n, B_LSTM)
+    batches = []
+    for _ in range(DP_STREAM_STEPS):
+        x, ln, y = synthetic_corpus(cfg, B_LSTM, B_LSTM, rng)
+        batches.append({"inputs": x.astype(np.int32), "lengths": ln,
+                        "labels": y.astype(np.float32), "n_valid": B_LSTM})
+    losses = []
+    step_fn = trainer._train_step
+
+    def recorded(*args):
+        got = step_fn(*args)
+        losses.append(got[0])
+        return got
+
+    trainer._train_step = recorded
+    kernels = (lstm_sequence_fwd, lstm_sequence_bwd)
+    res, step = {}, 0
+    for path, run in (
+            ("epoch", lambda s: runner.train_epoch(0, s)),
+            ("stream", lambda s: trainer._train_epoch(_MemLoader(batches), 1,
+                                                      s))):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        after, loss, metrics = run(step)
+        torch.cuda.synchronize()
+        res[path] = dict(loss=loss, mAP=metrics["mAP"],
+                         ms=(time.perf_counter() - t0) * 1e3 / (after - step),
+                         launches=[k.launches for k in kernels])
+        step = after
+    res["step_losses"] = torch.stack(losses).tolist()
+    np.save(out / f"{tag}_weights.npy", torch.cat(
+        [v.reshape(-1).float() for v in
+         trainer.model.state_dict().values()]).cpu().numpy())
+    if trainer.dp is not None:
+        params = [p for p in trainer.model.parameters() if p.grad is not None]
+        res["allreduce_bytes"] = sum(p.grad.numel() * p.grad.element_size()
+                                     for p in params)
+        res["allreduce_ms"] = median_ms(
+            lambda: trainer.dp.all_reduce_grads(params), DP_ALLREDUCE_REPS)
+    return res
+
+
+def dp_pipeline_run(dev, ws: Path) -> dict:
+    """A rank's share of phase 15's pipeline on ``ws`` (phase 8's audio,
+    split and centroids): the spectrogram stage, the staged tokenize stage
+    with phase 8's centroids, the fused one (B1) into ``fused_tokens/``,
+    the ``full`` streaming fit into ``output/full_centroids.npy`` and
+    training on the staged tokens -> each stage's seconds and launches
+    (B1, B2, B3, B4, sums), the validation loss and mAP."""
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.processors import (ClusterCreator,
+                                                   ModelTrainer,
+                                                   SpecTokenizer,
+                                                   SpectrogramGenerator)
+
+    kernels = (TokenizerKernel, vq_argmin, lstm_sequence_fwd,
+               lstm_sequence_bwd, tier_sums64)
+    stages = (SpectrogramGenerator, ClusterCreator, SpecTokenizer,
+              ModelTrainer)
+    seconds, launches = {}, {}
+    restore = clock_stages(stages, kernels, seconds, launches)
+    try:
+        SpectrogramGenerator(stage_config(ws), dev).run()
+        SpecTokenizer(stage_config(ws), dev).run()
+        seconds["staged"] = seconds.pop("SpecTokenizer")
+        launches["staged"] = launches.pop("SpecTokenizer")
+        SpecTokenizer(dp_fused_config(ws, "fused_tokens"), dev).run()
+        ClusterCreator(dp_full_config(ws, "full_centroids.npy"), dev).run()
+        val_loss, val_metrics = ModelTrainer(stage_config(ws), dev).run()
+    finally:
+        restore()
+    return dict(seconds=seconds, launches=launches, val_loss=val_loss,
+                val_mAP=val_metrics["mAP"])
+
+
+def dp_fused_config(ws: Path, tokens: str):
+    return stage_config(ws, fused_pipeline=True,
+                        dest_tokenized_path=str(ws / tokens))
+
+
+def dp_full_config(ws: Path, name: str):
+    return stage_config(ws, kmeans_mode="full", kmeans_streaming="always",
+                        kmeans_superbatch_rows=STAGE_SUPERBATCH,
+                        centroids_path=ws / "output" / name)
+
+
+def dp_nccl_run(dev, out: Path) -> dict:
+    """Phase 15 (b), one rank of a world of 1 over NCCL: one lstm step of
+    a Trainer whose data group is that rank (the data-parallel step: the
+    whole batch's denominator, the flat gradient all-reduce) against the
+    plain step from the same weights; the all-reduce timed; then a
+    2-step device epoch of that Trainer under ``set_sync_debug_mode(
+    "error")`` but its one read of the two scalars."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.parallel import distributed
+    from audio_tokens_tpu_torch.parallel.mesh import DataGroup
+    from audio_tokens_tpu_torch.tools.bench_training import synthetic_corpus
+    from audio_tokens_tpu_torch.train import device_epoch
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    cfg = dp_lstm_config()
+    rng = np.random.default_rng(DP_SEED + 1)
+    x, ln, y = synthetic_corpus(cfg, B_LSTM, B_LSTM, rng)
+    batch = {"inputs": x.astype(np.int32), "lengths": ln,
+             "labels": y.astype(np.float32), "n_valid": B_LSTM}
+    plain, again, ranked = (Trainer(cfg, dev) for _ in range(3))
+    ranked.dp = DataGroup()  # a world of one rank
+    if distributed.backend() != "nccl":
+        raise AssertionError(f"no NCCL group: {distributed.backend()}")
+    kernels = (lstm_sequence_fwd, lstm_sequence_bwd)
+    res = {}
+    for tag, t in (("plain", plain), ("again", again), ("nccl", ranked)):
+        for k in kernels:
+            k.launches = 0
+        *rows, denom = t._put_batch(batch)
+        t.model.train()
+        res[f"{tag}_loss"] = float(t._train_step(*rows, 0, denom)[0])
+        res[f"{tag}_launches"] = [k.launches for k in kernels]
+    flat = [torch.cat([v.reshape(-1) for v in t.model.state_dict().values()]
+                      ).cpu().numpy() for t in (ranked, again, plain)]
+    res["weights_rel"] = rel_err(flat[0], flat[2])
+    # the plain step against itself: what run-to-run order leaves
+    res["plain_again_rel"] = rel_err(flat[1], flat[2])
+    params = [p for p in ranked.model.parameters() if p.grad is not None]
+    res["allreduce_bytes"] = sum(p.grad.numel() * p.grad.element_size()
+                                 for p in params)
+    res["allreduce_ms"] = median_ms(lambda: ranked.dp.all_reduce_grads(params),
+                                    DP_ALLREDUCE_REPS)
+    # no host sync inside a data-parallel device epoch under NCCL
+    n = 2 * B_LSTM
+    runner = device_epoch.DeviceEpochRunner(ranked)
+    runner.set_corpus_arrays("train", *synthetic_corpus(cfg, B_LSTM, n, rng),
+                             n, B_LSTM)
+    reads = []
+    read = device_epoch.read_scalars
+
+    def let_through(*values):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            reads.append(len(values))
+            return read(*values)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize()
+    device_epoch.read_scalars = let_through
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, loss, metrics = runner.train_epoch(0, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        device_epoch.read_scalars = read
+    res.update(epoch_reads=reads, epoch_loss=loss, epoch_mAP=metrics["mAP"])
+    return res
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of phase 15: ``chip_smoke.py --dp-rank RANK WORLD PORT DIR``
+    joins the group through the ``AUDIO_TOKENS_*`` variables, runs
+    ``DIR/plan.json``'s case on its card and writes ``DIR/rank<RANK>.json``.
+    """
+    import os
+    from datetime import timedelta
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), argv[2], Path(argv[3])
+    os.environ.update(AUDIO_TOKENS_COORDINATOR=f"localhost:{port}",
+                      AUDIO_TOKENS_NUM_PROCESSES=str(world),
+                      AUDIO_TOKENS_PROCESS_ID=str(rank))
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank {rank} %(name)s %(message)s")
+    import torch
+
+    from audio_tokens_tpu_torch.ops.common import exact_f32
+    from audio_tokens_tpu_torch.parallel import distributed
+
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: no CUDA device", file=sys.stderr)
+        return 1
+    exact_f32()
+    distributed.maybe_initialize(
+        None, timeout=timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    dev = distributed.local_device()
+    plan = json.loads((out / "plan.json").read_text())
+    res = {"backend": distributed.backend(), "device": str(dev)}
+    if plan["case"] == "shared":
+        res["lstm"] = dp_lstm_run(dev, out, f"rank{rank}")
+        res["pipeline"] = dp_pipeline_run(dev, Path(plan["ws"]))
+    else:
+        res["nccl"] = dp_nccl_run(dev, out)
+    distributed.barrier("phase 15")
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def run_ranks(out: Path, world: int, plan: dict) -> list:
+    """``world`` ranks of this script (``dp_rank_main``) on ``plan``, their
+    output to ``out/rank<r>.log``; every rank is killed past DP_WAIT_S and
+    any rank's failure fails the phase -> their results, rank by rank."""
+    import socket
+
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "plan.json").write_text(json.dumps(plan))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        with open(out / f"rank{r}.log", "w") as log_f:  # Popen dups the fd
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                 str(r), str(world), str(port), str(out)],
+                cwd=Path(__file__).resolve().parent, stdout=log_f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_WAIT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (out / f"rank{r}.log").read_text()[-4000:]
+            raise AssertionError(f"phase 15 rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{tail}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def dp_lstm_check(records, dev, out: Path, ranks: list, card: str) -> None:
+    """(a)'s lstm against one process on the same card."""
+    one = dp_lstm_run(dev, out, "single")
+    got = [r["lstm"] for r in ranks]
+    weights = [np.load(out / f"rank{r}_weights.npy")
+               for r in range(DP_WORLD)]
+    single_w = np.load(out / "single_weights.npy")
+    if not all(np.array_equal(w, weights[0]) for w in weights):
+        raise AssertionError("the ranks' weights differ")
+    for path in ("epoch", "stream"):
+        if len({(g[path]["loss"], g[path]["mAP"]) for g in got}) != 1:
+            raise AssertionError(f"the ranks' {path} loss/mAP differ: "
+                                 f"{[g[path] for g in got]}")
+    steps = np.sum([g["step_losses"] for g in got], axis=0)
+    loss_err = float(np.max(np.abs(steps - one["step_losses"])
+                            / np.abs(one["step_losses"])))
+    w_err = rel_err(weights[0], single_w)
+    map_err = max(abs(got[0][p]["mAP"] - one[p]["mAP"])
+                  for p in ("epoch", "stream"))
+    launches = {p: [g[p]["launches"] for g in got] for p in ("epoch",
+                                                             "stream")}
+    for r in range(DP_WORLD):
+        for p in ("epoch", "stream"):
+            records[2]["launches_by_path"][f"dp_lstm_{p}_r{r}"] = \
+                launches[p][r][0]
+            records[3]["launches_by_path"][f"dp_lstm_{p}_r{r}"] = \
+                launches[p][r][1]
+    log(f"[dp lstm 2 ranks shared card] lstm {MODEL['lstm_embed_dim']}/"
+        f"{MODEL['lstm_hidden_dim']}, T {T_LSTM}, global batch {B_LSTM} "
+        f"({B_LSTM // DP_WORLD} a rank), gloo on one card, dropout 0: "
+        f"{DP_EPOCH_STEPS} device-epoch + {DP_STREAM_STEPS} streaming "
+        f"steps; ms a step (two ranks on one card, not a speed figure; host "
+        f"clock, the epoch's first step included) epoch "
+        f"{[round(g['epoch']['ms'], 2) for g in got]}, stream "
+        f"{[round(g['stream']['ms'], 2) for g in got]}, one process "
+        f"{one['epoch']['ms']:.2f} / {one['stream']['ms']:.2f}; gradient "
+        f"all-reduce a step {got[0]['allreduce_bytes']} bytes, "
+        f"{[round(g['allreduce_ms'], 3) for g in got]} ms (median of "
+        f"{DP_ALLREDUCE_REPS}, through the host); against one process: "
+        f"step losses {loss_err:.3e}, weights {w_err:.3e} relative (bound "
+        f"{DP_RTOL}), mAP {map_err:.3e} (bound {DP_MAP_ATOL}); the ranks "
+        f"equal; launches B3/B4 per rank {launches}, one process "
+        f"{one['epoch']['launches']} / {one['stream']['launches']}; {card}")
+    want = [[one[p]["launches"]] * DP_WORLD for p in ("epoch", "stream")]
+    if (not loss_err <= DP_RTOL or not w_err <= DP_RTOL
+            or not map_err <= DP_MAP_ATOL
+            or [launches["epoch"], launches["stream"]] != want
+            or min(one["epoch"]["launches"]) < 1):
+        raise AssertionError(f"dp lstm: step losses {loss_err}, weights "
+                             f"{w_err}, mAP {map_err}, launches {launches} "
+                             f"(want {want})")
+
+
+def same_files(a: Path, b: Path, split: dict) -> int:
+    """Every clip's ``.npy`` of ``split`` under ``a`` bit-equal to ``b``'s
+    (the same set of files) -> the count compared."""
+    n = 0
+    for name in split:
+        got = sorted(p.name for p in (a / name).glob("*.npy"))
+        ref = sorted(p.name for p in (b / name).glob("*.npy"))
+        if got != ref or not got:
+            raise AssertionError(f"{a / name}: {len(got)} files, {b / name}: "
+                                 f"{len(ref)}")
+        for f in got:
+            x, y = np.load(a / name / f), np.load(b / name / f)
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"{a / name / f} differs from "
+                                     f"{b / name / f}")
+            n += 1
+    return n
+
+
+def dp_pipeline_check(records, dev, pipe: Path, ws: Path, ranks: list,
+                      card: str) -> None:
+    """(a)'s pipeline: the ranks' spectrograms and tokens against phase 8's
+    files, their fused tokens and full fit against one process's on the
+    same card, their training against one process's."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.processors import (ClusterCreator,
+                                                   ModelTrainer,
+                                                   SpecTokenizer)
+
+    split = json.loads((pipe / "output" / "bal_train_data_split.json")
+                       .read_text())
+    got = [r["pipeline"] for r in ranks]
+    n_spec = same_files(ws / "spectrograms", pipe / "spectrograms", split)
+    n_tok = same_files(ws / "tokenized_audio", pipe / "tokenized_audio",
+                       split)
+    t0 = time.perf_counter()
+    SpecTokenizer(dp_fused_config(ws, "fused_single"), dev).run()
+    fused_s = time.perf_counter() - t0
+    n_fused = same_files(ws / "fused_tokens", ws / "fused_single", split)
+    vq_argmin.launches = tier_sums64.launches = 0
+    t0 = time.perf_counter()
+    ClusterCreator(dp_full_config(ws, "single_centroids.npy"), dev).run()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    one_launches = [vq_argmin.launches, tier_sums64.launches]
+    cents = np.load(ws / "output" / "full_centroids.npy")
+    one = np.load(ws / "output" / "single_centroids.npy")
+    apart = int((cents != one).sum())
+    ulps = int(np.max(np.abs(cents.view(np.int32).astype(np.int64)
+                             - one.view(np.int32).astype(np.int64))))
+    one_val = ModelTrainer(stage_config(
+        ws, checkpoint_dir=str(ws / "single_checkpoints")), dev).run()
+    val_err = abs(got[0]["val_loss"] - one_val[0]) / abs(one_val[0])
+    map_err = abs(got[0]["val_mAP"] - one_val[1]["mAP"])
+    names = ("B1", "B2", "B3", "B4", "sums")
+    for r, g in enumerate(got):
+        lc = g["launches"]
+        records[0]["launches_by_path"][f"dp_fused_tokenize_r{r}"] = \
+            lc["SpecTokenizer"][0]
+        records[1]["launches_by_path"].update({
+            f"dp_tokenize_r{r}": lc["staged"][1],
+            f"dp_cluster_r{r}": lc["ClusterCreator"][1]})
+        sums_record(records)["launches_by_path"][f"dp_cluster_r{r}"] = \
+            lc["ClusterCreator"][4]
+        records[2]["launches_by_path"][f"dp_train_r{r}"] = \
+            lc["ModelTrainer"][2]
+        records[3]["launches_by_path"][f"dp_train_r{r}"] = \
+            lc["ModelTrainer"][3]
+    stage_names = ("SpectrogramGenerator", "staged", "SpecTokenizer",
+                   "ClusterCreator", "ModelTrainer")
+    log(f"[dp pipeline 2 ranks] phase 8's audio, clips sharded over 2 ranks "
+        f"on one card (gloo): seconds a stage a rank "
+        + "; ".join(f"{n} {[round(g['seconds'][n], 2) for g in got]}"
+                    for n in stage_names)
+        + f" (SpecTokenizer: fused, B1; staged: phase 8's centroids, B2); "
+        f"launches {'/'.join(names)} a stage a rank "
+        + "; ".join(f"{n} {[g['launches'][n] for g in got]}"
+                    for n in stage_names)
+        + f"; spectrograms {n_spec} and tokens {n_tok} files bit-equal to "
+        f"phase 8's; fused tokens {n_fused} files bit-equal to one process's "
+        f"({fused_s:.2f} s); training val loss {got[0]['val_loss']:.6f} "
+        f"({val_err:.3e} from one process, bound {DP_RTOL}), mAP "
+        f"{got[0]['val_mAP']:.6f} ({map_err:.3e}, bound {DP_MAP_ATOL}); "
+        f"{card}")
+    log(f"[dp kmeans 2 ranks] kmeans_mode=full streaming, "
+        f"{STAGE_SUPERBATCH}-row super-batches, each rank its shard of the "
+        f"files, f64 sums all-reduced once an iteration: "
+        f"{[round(g['seconds']['ClusterCreator'], 2) for g in got]} s a "
+        f"rank, one process {full_s:.2f} s; B2/sums launches a rank "
+        f"{[[g['launches']['ClusterCreator'][i] for i in (1, 4)] for g in got]}"
+        f", one process {one_launches}; centroids against one process's "
+        f"full fit: {apart} of {one.size} values apart, at most {ulps} ulp "
+        f"(bound 1); {card}")
+    if (len({(g["val_loss"], g["val_mAP"]) for g in got}) != 1
+            or not val_err <= DP_RTOL or not map_err <= DP_MAP_ATOL
+            or ulps > 1):
+        raise AssertionError(f"dp pipeline: val {[g['val_loss'] for g in got]}"
+                             f" vs {one_val}, centroids {ulps} ulp apart")
+    for g in got:
+        lc = g["launches"]
+        if (lc["SpecTokenizer"][0] < 1 or lc["staged"][1] < 1
+                or lc["ClusterCreator"][1] < 1 or lc["ClusterCreator"][4] < 1
+                or min(lc["ModelTrainer"][2:4]) < 1):
+            raise AssertionError(f"dp pipeline: a kernel did not launch: "
+                                 f"{lc}")
+
+
+def dp_nccl_check(records, out: Path, card: str) -> None:
+    """(b): one NCCL rank's data-parallel step against the plain step."""
+    got = run_ranks(out, 1, {"case": "nccl"})[0]
+    res = got["nccl"]
+    loss_rel = abs(res["nccl_loss"] - res["plain_loss"]) / abs(
+        res["plain_loss"])
+    records[2]["launches_by_path"]["dp_nccl_step"] = res["nccl_launches"][0]
+    records[3]["launches_by_path"]["dp_nccl_step"] = res["nccl_launches"][1]
+    log(f"[dp nccl 1 rank] backend {got['backend']} on {got['device']}: one "
+        f"lstm step through the data-parallel path (the whole batch's "
+        f"denominator, the flat all-reduce) against the plain step: loss "
+        f"{loss_rel:.3e}, weights {res['weights_rel']:.3e} relative (bound "
+        f"{DP_NCCL_RTOL}; the plain step run twice: "
+        f"{res['plain_again_rel']:.3e}); all-reduce {res['allreduce_bytes']} bytes, "
+        f"{res['allreduce_ms']:.3f} ms (median of {DP_ALLREDUCE_REPS}); "
+        f"launches B3/B4 {res['nccl_launches']} (plain "
+        f"{res['plain_launches']}); a 2-step device epoch under "
+        f"set_sync_debug_mode('error') read {res['epoch_reads']} scalars, "
+        f"loss {res['epoch_loss']:.6f}; {card}")
+    if (got["backend"] != "nccl" or not loss_rel <= DP_NCCL_RTOL
+            or not res["weights_rel"] <= DP_NCCL_RTOL
+            or res["nccl_launches"] != res["plain_launches"]
+            or res["epoch_reads"] != [2]
+            or not np.isfinite(res["epoch_loss"])):
+        raise AssertionError(f"dp nccl: {got}")
+
+
+def dp_phase(records: list, dev, pipe: Path) -> None:
+    """Phase 15: multi-process and data parallel (see the module's
+    docstring) on phase 8's workspace ``pipe``."""
+    import shutil
+
+    card = card_line()
+    ws = shared_workspace(pipe, "dp")
+    shutil.copy(pipe / "output" / "centroids.npy",
+                ws / "output" / "centroids.npy")
+    out = ws / "ranks"
+    t0 = time.perf_counter()
+    ranks = run_ranks(out, DP_WORLD, {"case": "shared", "ws": str(ws)})
+    ranks_s = time.perf_counter() - t0
+    if [r["backend"] for r in ranks] != ["gloo"] * DP_WORLD:
+        raise AssertionError(f"ranks sharing one card: {ranks}")
+    log(f"[dp ranks] {DP_WORLD} ranks of this script sharing "
+        f"{ranks[0]['device']} over gloo: {ranks_s:.1f} s from start to "
+        "exit (process start, kernels loaded, lstm, pipeline)")
+    dp_lstm_check(records, dev, out, ranks, card)
+    dp_pipeline_check(records, dev, pipe, ws, ranks, card)
+    dp_nccl_check(records, ws / "nccl", card)
+
+
+
 def main() -> int:
     import torch
 
@@ -4389,12 +4923,14 @@ def main() -> int:
             # -- 12. the tiers, the conv front-end, the native decoder ---------
             tiers_phase(records, dev, pipe, staged_cfg, staged_cents,
                         python_bench, split_procs)
-        # -- 13. device-resident epochs, remat, diagnostics ---------------------
-        with tempfile.TemporaryDirectory() as tmp13:
-            device_phase(records, dev, Path(tmp13))
-        # -- 14. ensembles and LR sweeps ----------------------------------------
-        with tempfile.TemporaryDirectory() as tmp14:
-            ensemble_phase(records, dev, Path(tmp14))
+            # -- 13. device-resident epochs, remat, diagnostics -----------------
+            with tempfile.TemporaryDirectory() as tmp13:
+                device_phase(records, dev, Path(tmp13))
+            # -- 14. ensembles and LR sweeps ------------------------------------
+            with tempfile.TemporaryDirectory() as tmp14:
+                ensemble_phase(records, dev, Path(tmp14))
+            # -- 15. multi-process and data parallel, on phase 8's workspace ----
+            dp_phase(records, dev, pipe)
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -4407,4 +4943,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

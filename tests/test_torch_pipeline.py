@@ -370,7 +370,6 @@ A6_CHECKS = {
 @pytest.mark.parametrize("stage,override,match", [
     ("spec", {"audio_backend": "native"}, None),
     ("spec", {"profile_dir": "trace"}, "ROADMAP A7"),
-    ("spec", {"distributed": True}, "ROADMAP A7"),
     ("cluster_conv", {"use_convolution": True}, None),
     ("cluster_tier", {"kmeans_precision": "default"}, None),
     ("tokenize", {"use_convolution": True}, None),

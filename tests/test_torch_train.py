@@ -3,7 +3,8 @@ tokenized fixture corpus, under a weight transplant: per-step losses within
 5e-5, then val loss within 5e-5 and val mAP within 1e-3 (f32 through a
 short AdamW trajectory, sums in another order).  Also exact checkpoint
 resume, the step and patience limits, the metrics history, the stage CLI,
-and the options the port refuses (multi-device and multi-process runs).
+and the options the port refuses (tensor and sequence parallelism; data
+parallelism is held in ``tests/test_torch_multiprocess.py``).
 These runs stream (``device_corpus="off"``); the device-resident epochs
 are held to them in ``tests/test_torch_device_epoch.py``."""
 
@@ -156,12 +157,10 @@ def test_dropout_is_seeded_per_step(corpus, tmp_path):
 @pytest.mark.parametrize("override", [
     {"model_parallel": 2},
     {"sequence_parallel": 2},
-    {"data_parallel": 2},
-    {"distributed": True},
 ])
 def test_unported_training_options_refused(tmp_path, override):
     cfg = token_corpus.port_config(tmp_path, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7.5"):
         port_trainer.Trainer(cfg, "cpu")
 
 
