@@ -8,17 +8,23 @@
 // _flash_attention_dq_kernel (backward).
 //
 // q, k, v, o, do (B, nh, T, 64) in float32 or bfloat16, seg (B, T) int32,
-// lse and di (B, nh, T) float32.  The numerics are the library's: scores
-// q.k^T accumulated in f32, times sm_scale, plus the finite mask value
-// -0.7 * FLT_MAX where the query's and key's segments differ; an online
-// softmax with running max m and sum l; P rounded to v's dtype before P.v,
-// accumulation in f32, the output cast to the input dtype.  The backward
-// recomputes P = exp(s - lse) from the saved row logsumexp, with
-// dP = dO.V^T, dS = (dP - di) * P * sm_scale and di = rowsum(O * dO)
-// (computed by the wrapper, as the library computes it outside its kernels);
-// P and dS are rounded to the input dtype before the products that consume
-// them.  Keys past T do not exist: the kernels mask their own ragged edge
-// instead of padding T to a tile multiple.
+// lse and di (B, nh, T) float32.  The forward also takes a query block
+// shorter than the keys, as the library's SegmentIds(q=, kv=) does: q, o
+// (B, nh, T, 64) and their segment ids (B, T) against k, v (B, nh, T_kv,
+// 64) and theirs (B, T_kv) (a sequence-parallel rank's query rows against
+// the gathered keys); the backward kernels take T_kv = T.
+//
+// The numerics are the library's: scores q.k^T accumulated in f32, times
+// sm_scale, plus the finite mask value -0.7 * FLT_MAX where the query's and
+// key's segments differ; an online softmax with running max m and sum l;
+// P rounded to v's dtype before P.v, accumulation in f32, the output cast
+// to the input dtype.  The backward recomputes P = exp(s - lse) from the
+// saved row logsumexp, with dP = dO.V^T, dS = (dP - di) * P * sm_scale
+// and di = rowsum(O * dO) (computed by the wrapper, as the library
+// computes it outside its kernels); P and dS are rounded to the input dtype
+// before the products that consume them.  Keys past T do not exist: the
+// kernels mask their own ragged edge instead of padding T to a tile
+// multiple.
 //
 // What bounds it on the H100: at the serving shape (B 64, nh 12, T 1728,
 // dh 64) the forward is 587 GFLOP against 680 MB of q, k, v, o in bf16, so
@@ -288,15 +294,18 @@ __device__ __forceinline__ void warp_range(int& lo, int& hi) {
   }
 }
 
-// The 64-row tiles of the batch row's T positions that the block must walk,
-// ascending, into `tiles`; returns their number.  A tile is walked unless
-// the [min, max] of its segment ids is disjoint from that of the block's own
-// rows [r0, r0 + 16 WARPS): then every pair of the two has P = 0.  An entry
-// is 2 * tile + 1 where the tile needs its mask, 2 * tile where it is full
-// and it and the block's rows carry one and the same id.
+// The 64-row tiles of the other side's tw positions (segment ids sgw) that
+// the block must walk, ascending, into `tiles`; returns their number.  A
+// tile is walked unless the [min, max] of its segment ids is disjoint from
+// that of the block's own rows [r0, r0 + 16 WARPS) of t (segment ids sg):
+// then every pair of the two has P = 0.  An entry is 2 * tile + 1 where the
+// tile needs its mask, 2 * tile where it is full and it and the block's rows
+// carry one and the same id.  The backward kernels walk the side they own
+// (sgw = sg, tw = t); the forward walks keys that may be more than its
+// queries (a sequence-parallel query block against the gathered keys).
 template <int WARPS>
 __device__ __forceinline__ int tiles_to_walk(int* tiles, const int* __restrict__ sg, int r0,
-                                             int t) {
+                                             int t, const int* __restrict__ sgw, int tw) {
   __shared__ int count;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   int lo = INT_MAX, hi = INT_MIN;
@@ -305,16 +314,16 @@ __device__ __forceinline__ int tiles_to_walk(int* tiles, const int* __restrict__
     hi = max(hi, sg[r]);
   }
   warp_range(lo, hi);
-  const int ntiles = (t + kTile - 1) / kTile;
+  const int ntiles = (tw + kTile - 1) / kTile;
   for (int tile = warp; tile < ntiles; tile += WARPS) {
     int tlo = INT_MAX, thi = INT_MIN;
-    for (int r = tile * kTile + lane; r < min((tile + 1) * kTile, t); r += 32) {
-      tlo = min(tlo, sg[r]);
-      thi = max(thi, sg[r]);
+    for (int r = tile * kTile + lane; r < min((tile + 1) * kTile, tw); r += 32) {
+      tlo = min(tlo, sgw[r]);
+      thi = max(thi, sgw[r]);
     }
     warp_range(tlo, thi);
     const bool walk = !kTileSkip || (tlo <= hi && thi >= lo);
-    const bool plain = kPlainTiles && (tile + 1) * kTile <= t && tlo == thi && lo == hi &&
+    const bool plain = kPlainTiles && (tile + 1) * kTile <= tw && tlo == thi && lo == hi &&
                        tlo == lo;
     if (lane == 0) tiles[tile] = walk ? (plain ? 2 : 1) : 0;  // 0: not walked
   }
@@ -336,22 +345,23 @@ __device__ __forceinline__ int tiles_to_walk(int* tiles, const int* __restrict__
 
 // The block's own 16 WARPS rows of head a and, if kB, of head b staged
 // through the ring's first stages and read into this warp's A fragments,
-// while `tiles` is filled; returns the number of tiles to walk.  The ring is
-// free on return.
+// while `tiles` is filled (the other side's tw rows, segment ids sgw);
+// returns the number of tiles to walk.  The ring is free on return.
 template <int WARPS, bool kB = true>
 __device__ __forceinline__ int load_resident(Stage* stages, int* tiles,
                                              uint32_t (&fa)[kD / 16][4],
                                              uint32_t (&fb)[kD / 16][4],
                                              const __nv_bfloat16* __restrict__ a,
                                              const __nv_bfloat16* __restrict__ b,
-                                             const int* __restrict__ sg, int r0, int t) {
+                                             const int* __restrict__ sg, int r0, int t,
+                                             const int* __restrict__ sgw, int tw) {
   constexpr int kOwnTiles = (16 * WARPS + kTile - 1) / kTile;
   static_assert(kOwnTiles <= kStages, "the block's own rows fit the ring");
 #pragma unroll
   for (int i = 0; i < kOwnTiles; ++i)
     stream_tile<32 * WARPS, kB>(stages[i], a, b, sg, nullptr, nullptr, r0 + i * kTile, t);
   cp_async_commit();
-  const int n = tiles_to_walk<WARPS>(tiles, sg, r0, t);
+  const int n = tiles_to_walk<WARPS>(tiles, sg, r0, t, sgw, tw);
   cp_async_wait<0>();
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -443,7 +453,8 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const float* di_h = di + (size_t)bh * t;
   const float scale_log2 = scale * kLog2e;
   uint32_t ka[kD / 16][4], va[kD / 16][4];
-  const int n = load_resident<kDkvWarps>(stages, tiles, ka, va, k + head, v + head, sg, k0, t);
+  const int n =
+      load_resident<kDkvWarps>(stages, tiles, ka, va, k + head, v + head, sg, k0, t, sg, t);
   int segk[2];  // of this thread's two key rows
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -538,7 +549,8 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int* sg = seg + (size_t)b * t;
   const float scale_log2 = scale * kLog2e;
   uint32_t qa[kD / 16][4], doa[kD / 16][4];
-  const int n = load_resident<kDqWarps>(stages, tiles, qa, doa, q + head, dout + head, sg, q0, t);
+  const int n = load_resident<kDqWarps>(stages, tiles, qa, doa, q + head, dout + head, sg, q0,
+                                        t, sg, t);
   int segq[2];            // of this thread's two query rows,
   float nlse[2], dir[2];  // their -lse log2(e) and their di
 #pragma unroll
@@ -652,9 +664,9 @@ __device__ __forceinline__ void fwd_tile(float (&acc)[kD / 8][4], float (&m)[2],
 
 __global__ void __launch_bounds__(32 * kFwdWarps, kFwdBlocks)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg, int heads,
-                     int t, float scale, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse) {
+                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                     const int* __restrict__ seg_kv, int heads, int t, int t_kv, float scale,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Stage* stages = reinterpret_cast<Stage*>(smem_raw);
   int* tiles = reinterpret_cast<int*>(stages + kStages);
@@ -663,12 +675,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int g = lane >> 2, tg = lane & 3;
   const int bh = blockIdx.y, b = bh / heads;
   const int q0 = blockIdx.x * 16 * kFwdWarps;
-  const size_t head = (size_t)bh * t * kD;
+  const size_t head = (size_t)bh * t * kD, kv_head = (size_t)bh * t_kv * kD;
   const int* sg = seg + (size_t)b * t;
+  const int* sgk = seg_kv + (size_t)b * t_kv;
   const float scale_log2 = scale * kLog2e;
   uint32_t qa[kD / 16][4], unused[kD / 16][4];
-  const int n =
-      load_resident<kFwdWarps, false>(stages, tiles, qa, unused, q + head, nullptr, sg, q0, t);
+  const int n = load_resident<kFwdWarps, false>(stages, tiles, qa, unused, q + head, nullptr, sg,
+                                                q0, t, sgk, t_kv);
   int segq[2];  // of this thread's two query rows,
   float m[2], l[2];  // their running max and sum
 #pragma unroll
@@ -687,8 +700,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n)
-      stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
-                        (tiles[s] >> 1) * kTile, t);
+      stream_tile<kThr>(stages[s], k + kv_head, v + kv_head, sgk, nullptr, nullptr,
+                        (tiles[s] >> 1) * kTile, t_kv);
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
@@ -696,11 +709,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     __syncthreads();  // so has everyone's, and tile i - 1 is consumed
     const int nx = i + kStages - 1;
     if (nx < n)
-      stream_tile<kThr>(stages[nx % kStages], k + head, v + head, sg, nullptr, nullptr,
-                        (tiles[nx] >> 1) * kTile, t);
+      stream_tile<kThr>(stages[nx % kStages], k + kv_head, v + kv_head, sgk, nullptr, nullptr,
+                        (tiles[nx] >> 1) * kTile, t_kv);
     cp_async_commit();
     const Stage& st = stages[i % kStages];
-    const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
+    const int left = t_kv - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
     if (tiles[i] & 1)
       fwd_tile<true>(acc, m, l, qa, st, segq, left, scale_log2, lane);
     else
@@ -709,7 +722,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int row = q0 + 16 * warp + g;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float inv = 1.f / l[h];  // l > 0 below T: a row meets its own key
+    const float inv = 1.f / l[h];  // l > 0 below T: a row meets a key of its segment
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
       acc[j][2 * h] *= inv;
@@ -976,15 +989,16 @@ __device__ __forceinline__ void store_rows_f32(float* __restrict__ out,
 }
 
 // The block's own 64 rows of head a and, if kB, of head b into `own` while
-// `tiles` is filled; returns the number of tiles to walk.
+// `tiles` is filled (the other side's tw rows, segment ids sgw); returns the
+// number of tiles to walk.
 template <bool kB = true>
 __device__ __forceinline__ int load_own(StageF& own, int* tiles, const float* __restrict__ a,
                                         const float* __restrict__ b, const int* __restrict__ sg,
-                                        int r0, int t) {
+                                        int r0, int t, const int* __restrict__ sgw, int tw) {
   static_assert(16 * kF32Warps == kTile, "the block's own rows are one stage");
   stream_tile<32 * kF32Warps, kB>(own, a, b, sg, nullptr, nullptr, r0, t);
   cp_async_commit();
-  const int n = tiles_to_walk<kF32Warps>(tiles, sg, r0, t);
+  const int n = tiles_to_walk<kF32Warps>(tiles, sg, r0, t, sgw, tw);
   cp_async_wait<0>();
   __syncthreads();
   return n;
@@ -1010,7 +1024,7 @@ flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* lse_h = lse + (size_t)bh * t;
   const float* di_h = di + (size_t)bh * t;
   const float scale_log2 = scale * kLog2e;
-  const int n = load_own(own, tiles, k + head, v + head, sg, k0, t);
+  const int n = load_own(own, tiles, k + head, v + head, sg, k0, t, sg, t);
   const float* ks = own.a + 16 * warp * kLdf;
   const float* vs = own.b + 16 * warp * kLdf;
   int segk[2];  // of this thread's two key rows
@@ -1092,7 +1106,7 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t head = (size_t)bh * t * kD;
   const int* sg = seg + (size_t)b * t;
   const float scale_log2 = scale * kLog2e;
-  const int n = load_own(own, tiles, q + head, dout + head, sg, q0, t);
+  const int n = load_own(own, tiles, q + head, dout + head, sg, q0, t, sg, t);
   const float* qs = own.a + 16 * warp * kLdf;
   const float* dos = own.b + 16 * warp * kLdf;
   int segq[2];            // of this thread's two query rows,
@@ -1243,8 +1257,9 @@ __device__ __forceinline__ void fwd_tile_f32(float (&acc)[kD / 8][4], float (&m)
 
 __global__ void __launch_bounds__(32 * kF32Warps, kF32Blocks)
 flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const int* __restrict__ seg, int heads, int t,
-                      float scale, float* __restrict__ o, float* __restrict__ lse) {
+                      const float* __restrict__ v, const int* __restrict__ seg,
+                      const int* __restrict__ seg_kv, int heads, int t, int t_kv, float scale,
+                      float* __restrict__ o, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   StageF* stages = reinterpret_cast<StageF*>(smem_raw);
   int* tiles = reinterpret_cast<int*>(stages + kStages);
@@ -1253,10 +1268,11 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, tg = lane & 3;
   const int bh = blockIdx.y, b = bh / heads;
   const int q0 = blockIdx.x * kTile;
-  const size_t head = (size_t)bh * t * kD;
+  const size_t head = (size_t)bh * t * kD, kv_head = (size_t)bh * t_kv * kD;
   const int* sg = seg + (size_t)b * t;
+  const int* sgk = seg_kv + (size_t)b * t_kv;
   const float scale_log2 = scale * kLog2e;
-  const int n = load_own<false>(stages[0], tiles, q + head, nullptr, sg, q0, t);
+  const int n = load_own<false>(stages[0], tiles, q + head, nullptr, sg, q0, t, sgk, t_kv);
   int segq[2];       // of this thread's two query rows,
   float m[2], l[2];  // their running max and sum
 #pragma unroll
@@ -1279,8 +1295,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n)
-      stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
-                        (tiles[s] >> 1) * kTile, t);
+      stream_tile<kThr>(stages[s], k + kv_head, v + kv_head, sgk, nullptr, nullptr,
+                        (tiles[s] >> 1) * kTile, t_kv);
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
@@ -1288,17 +1304,17 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // so has everyone's, and tile i - 1 is consumed
     const int nx = i + kStages - 1;
     if (nx < n)
-      stream_tile<kThr>(stages[nx % kStages], k + head, v + head, sg, nullptr, nullptr,
-                        (tiles[nx] >> 1) * kTile, t);
+      stream_tile<kThr>(stages[nx % kStages], k + kv_head, v + kv_head, sgk, nullptr, nullptr,
+                        (tiles[nx] >> 1) * kTile, t_kv);
     cp_async_commit();
     const StageF& st = stages[i % kStages];
-    const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
+    const int left = t_kv - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
     fwd_tile_f32(acc, m, l, qf, st, segq, left, tiles[i] & 1, scale_log2, lane);
   }
   const int row = q0 + 16 * warp + g;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float inv = 1.f / l[h];  // l > 0 below T: a row meets its own key
+    const float inv = 1.f / l[h];  // l > 0 below T: a row meets a key of its segment
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
       acc[j][2 * h] *= inv;
@@ -1325,13 +1341,16 @@ int launch(K kernel, int tiles, int batch, int heads, int threads, size_t smem, 
 // ring (and own rows) and the list of tiles to walk in dynamic shared
 // memory.  cp.async copies 16 bytes at a time, so the heads (q, k, v and,
 // unless null, dout) must be 16-byte aligned: a misaligned one is refused.
+// A block owns rows of t and walks the tiles of tw rows (tw = t but in the
+// forward of a query block shorter than its keys).
 template <typename T, typename K, typename... Args>
-int launch_rows(K kernel, int warps, size_t stages, int batch, int heads, int t, void* stream,
-                const void* q, const void* k, const void* v, const void* dout, Args... args) {
+int launch_rows(K kernel, int warps, size_t stages, int batch, int heads, int t, int tw,
+                void* stream, const void* q, const void* k, const void* v, const void* dout,
+                Args... args) {
   for (const void* p : {q, k, v, dout})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
-  const size_t smem = stages + sizeof(int) * ((t + kTile - 1) / kTile);
+  const size_t smem = stages + sizeof(int) * ((tw + kTile - 1) / kTile);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   return launch(kernel, (t + 16 * warps - 1) / (16 * warps), batch, heads, 32 * warps, smem,
                 stream, static_cast<const T*>(q), static_cast<const T*>(k),
@@ -1349,22 +1368,25 @@ int launch_tf32(K kernel, int own, Args... args) {
   return launch_rows<float>(kernel, kF32Warps, (kStages + own) * sizeof(StageF), args...);
 }
 
-bool bad_shape(int batch, int heads, int t, int dh) {
-  return batch <= 0 || heads <= 0 || t <= 0 || dh != kD || batch * heads > 65535;
+bool bad_shape(int batch, int heads, int t, int dh, int t_kv) {
+  return batch <= 0 || heads <= 0 || t <= 0 || t_kv <= 0 || dh != kD || batch * heads > 65535;
 }
 
 }  // namespace
 
-// B5 forward.  lse is null (no residual) or the (B, nh, T) row logsumexp.
+// B5 forward: t query rows (segment ids seg, (B, t)) against t_kv keys
+// (seg_kv, (B, t_kv)); o (B, nh, t, 64).  lse is null (no residual) or the
+// (B, nh, t) row logsumexp.  Every query's segment must occur among the keys.
 ATK_EXPORT int atk_flash_fwd(const void* q, const void* k, const void* v, const int* seg,
-                             int batch, int heads, int t, int dh, float scale, int bf16,
-                             void* o, float* lse, void* stream) {
-  if (bad_shape(batch, heads, t, dh)) return static_cast<int>(cudaErrorInvalidValue);
+                             const int* seg_kv, int batch, int heads, int t, int t_kv, int dh,
+                             float scale, int bf16, void* o, float* lse, void* stream) {
+  if (bad_shape(batch, heads, t, dh, t_kv)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
-    return launch_mma(flash_fwd_mma_kernel, kFwdWarps, batch, heads, t, stream, q, k, v, nullptr,
-                      seg, heads, t, scale, static_cast<__nv_bfloat16*>(o), lse);
-  return launch_tf32(flash_fwd_tf32_kernel, 0, batch, heads, t, stream, q, k, v, nullptr, seg,
-                     heads, t, scale, static_cast<float*>(o), lse);
+    return launch_mma(flash_fwd_mma_kernel, kFwdWarps, batch, heads, t, t_kv, stream, q, k, v,
+                      nullptr, seg, seg_kv, heads, t, t_kv, scale,
+                      static_cast<__nv_bfloat16*>(o), lse);
+  return launch_tf32(flash_fwd_tf32_kernel, 0, batch, heads, t, t_kv, stream, q, k, v, nullptr,
+                     seg, seg_kv, heads, t, t_kv, scale, static_cast<float*>(o), lse);
 }
 
 // B5 backward, dk and dv.
@@ -1372,15 +1394,15 @@ ATK_EXPORT int atk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  const float* lse, const void* dout, const float* di,
                                  int batch, int heads, int t, int dh, float scale, int bf16,
                                  void* dk, void* dv, void* stream) {
-  if (bad_shape(batch, heads, t, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(batch, heads, t, dh, t)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch_mma(flash_dkv_mma_kernel, kDkvWarps, batch, heads, t, stream, q, k, v, dout,
+    return launch_mma(flash_dkv_mma_kernel, kDkvWarps, batch, heads, t, t, stream, q, k, v, dout,
                       seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
                       static_cast<T*>(dk), static_cast<T*>(dv));
   }
   using T = float;
-  return launch_tf32(flash_dkv_tf32_kernel, 1, batch, heads, t, stream, q, k, v, dout, seg, lse,
+  return launch_tf32(flash_dkv_tf32_kernel, 1, batch, heads, t, t, stream, q, k, v, dout, seg, lse,
                      static_cast<const T*>(dout), di, heads, t, scale, static_cast<T*>(dk),
                      static_cast<T*>(dv));
 }
@@ -1390,14 +1412,14 @@ ATK_EXPORT int atk_flash_bwd_dq(const void* q, const void* k, const void* v, con
                                 const float* lse, const void* dout, const float* di,
                                 int batch, int heads, int t, int dh, float scale, int bf16,
                                 void* dq, void* stream) {
-  if (bad_shape(batch, heads, t, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(batch, heads, t, dh, t)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch_mma(flash_dq_mma_kernel, kDqWarps, batch, heads, t, stream, q, k, v, dout,
+    return launch_mma(flash_dq_mma_kernel, kDqWarps, batch, heads, t, t, stream, q, k, v, dout,
                       seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
                       static_cast<T*>(dq));
   }
   using T = float;
-  return launch_tf32(flash_dq_tf32_kernel, 1, batch, heads, t, stream, q, k, v, dout, seg, lse,
+  return launch_tf32(flash_dq_tf32_kernel, 1, batch, heads, t, t, stream, q, k, v, dout, seg, lse,
                      static_cast<const T*>(dout), di, heads, t, scale, static_cast<T*>(dq));
 }

@@ -41,7 +41,8 @@ returns the callable program and the manifest.  From a shell:
         [--checkpoint no-wandb-best] [--portable true] [--device cuda:0]
         <config flags>
 
-Not ported (ROADMAP A7): ``serve_sharded``.
+``ServingProgram.serve_sharded`` splits a batch over the ranks of a mesh
+(one process a card) and gathers the answers.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from torch.export.passes import move_to_device_pass
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.models import get_model, model_input_kind
 from audio_tokens_tpu_torch.ops.mel import decode_wire
+from audio_tokens_tpu_torch.parallel.mesh import data_axis
 from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 from audio_tokens_tpu_torch.train.checkpoint import load_params
 
@@ -192,10 +194,26 @@ class ServingProgram:
     def __call__(self, padded_batch, lengths):
         return self.serve(padded_batch, lengths)
 
-    def serve_sharded(self, padded_batch, lengths, mesh):
-        raise NotImplementedError(
-            "serve_sharded (the batch split over several devices) is not "
-            "ported yet: ROADMAP A7")
+    @torch.inference_mode()
+    def serve_sharded(self, padded_batch: torch.Tensor, lengths: torch.Tensor,
+                      mesh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``serve`` with the batch split over the ranks of ``mesh``
+        (``parallel/mesh``'s ``Mesh``, its data axis, or a ``DataGroup``:
+        one process a card, so the mesh is the process group).  Every rank
+        passes the whole batch, serves its contiguous rows (the kernels of
+        ``serve``, no collective in the compute) and gathers the three
+        outputs in rank order: every rank returns the whole batch's
+        (tokens, n_valid, probs), equal to ``serve`` in one process.  A
+        mesh of one rank is ``serve``."""
+        group = data_axis(mesh)
+        b = padded_batch.shape[0]
+        if b % group.size:
+            raise ValueError(f"batch {b} not divisible by data={group.size}")
+        if group.size == 1:
+            return self.serve(padded_batch, lengths)
+        lo, hi = group.row_bounds(b)
+        out = self.serve(padded_batch[lo:hi], lengths[lo:hi])
+        return tuple(group.all_gather(t, 0) for t in out)
 
     def predict_waveforms(self, waves) -> Tuple[list, np.ndarray]:
         """Host convenience: trimmed per-clip tokens + probs (numpy)."""

@@ -11,6 +11,13 @@ there by a ``custom_vjp`` and here by ``torch.library.register_autograd``
 on ``atk::flash_fwd``.  Every function
 takes the JAX layout: q, k, v (B, nh, T, dh) in float32 or bfloat16,
 segment ids (B, T) int32; a query attends to the keys of its own segment.
+The forward also takes the library's ``SegmentIds(q=, kv=)`` of two
+lengths: a query block of T rows against T_kv keys (``kv_segment_ids``
+(B, T_kv), k and v (B, nh, T_kv, dh)), as a sequence-parallel rank runs
+its own query rows against the gathered keys (``models/transformer.py``);
+every query's segment must occur among the keys.  The backward kernels
+take T_kv = T only: a gradient through a forward given
+``kv_segment_ids`` raises.
 The kernels take dh = 64 (the bert family's heads) and any T: they mask
 their own ragged edge, where the JAX module pads T to a multiple of 256 for
 the TPU's tiles.
@@ -71,22 +78,28 @@ def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, seg: torch.Tensor,
-            sm_scale: float) -> torch.Tensor:
-    """(B, nh, T, T) f32 scores q.k^T * sm_scale + the segment mask."""
+            sm_scale: float, kv_seg: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """(B, nh, T, T_kv) f32 scores q.k^T * sm_scale + the segment mask
+    (the keys' segment ids ``kv_seg``, default the queries')."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    same = seg[:, None, :, None] == seg[:, None, None, :]
+    kv_seg = seg if kv_seg is None else kv_seg
+    same = seg[:, None, :, None] == kv_seg[:, None, None, :]
     return s + torch.where(same, 0.0, MASK_VALUE)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           segment_ids: torch.Tensor, sm_scale: float,
-                          return_lse: bool = False):
+                          return_lse: bool = False,
+                          kv_segment_ids: Optional[torch.Tensor] = None):
     """B5's forward materialized: softmax over each query's own segment,
     unnormalized P (relative to the row max) rounded to v's dtype before
     P.v, then divided by the row sum.  Returns o (B, nh, T, dh) in q's
     dtype, and with ``return_lse`` also the (B, nh, T) f32 logsumexp.
-    Out of place, so that autograd can differentiate it."""
-    s = _logits(q, k, segment_ids, sm_scale)
+    ``kv_segment_ids`` (B, T_kv): the keys' segment ids where k and v have
+    T_kv rows of their own (default: ``segment_ids``, T_kv = T).  Out of
+    place, so that autograd can differentiate it."""
+    s = _logits(q, k, segment_ids, sm_scale, kv_segment_ids)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -128,7 +141,8 @@ def _lib():
     lib = _build.load("attention")
     if lib.atk_flash_fwd.argtypes is None:
         P, I, F = _build.P, _build.I, ctypes.c_float
-        lib.atk_flash_fwd.argtypes = [P, P, P, P, I, I, I, I, F, I, P, P, P]
+        lib.atk_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P,
+                                      P, P]
         lib.atk_flash_fwd.restype = I
         lib.atk_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, I, I, I, I, F,
                                           I, P, P, P]
@@ -140,22 +154,30 @@ def _lib():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           seg: torch.Tensor, **more: torch.Tensor) -> None:
-    """Raise unless the tensors are what the kernels take."""
+           seg: torch.Tensor, kv_seg: Optional[torch.Tensor] = None,
+           **more: torch.Tensor) -> None:
+    """Raise unless the tensors are what the kernels take: k and v of q's
+    shape, or with ``kv_seg`` of their own length T_kv."""
     if q.dtype not in DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    b, nh, t_len, dh = q.shape
+    t_kv = t_len if kv_seg is None else k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_tensor(name, t, q.dtype, 4)
-        if t.shape != q.shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, q "
-                             f"{tuple(q.shape)}")
-    b, nh, t_len, dh = q.shape
+        want = (b, nh, t_len if name == "q" else t_kv, dh)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{want}")
     if dh != HEAD_DIM:
         raise ValueError(f"kernel takes head dim {HEAD_DIM}, got {dh}")
-    check_cuda_tensor("segment_ids", seg, torch.int32, 2)
-    if tuple(seg.shape) != (b, t_len):
-        raise ValueError(f"segment_ids has shape {tuple(seg.shape)}, "
-                         f"expected {(b, t_len)}")
+    for name, t, n in (("segment_ids", seg, t_len),
+                       ("kv_segment_ids", kv_seg, t_kv)):
+        if t is None:
+            continue
+        check_cuda_tensor(name, t, torch.int32, 2)
+        if tuple(t.shape) != (b, n):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {(b, n)}")
     for name, t in more.items():
         if name == "do":
             check_cuda_tensor(name, t, q.dtype, 4)
@@ -166,27 +188,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
-    if len({t.device for t in (q, k, v, seg, *more.values())}) != 1:
+    if len({t.device for t in (q, k, v, seg, kv_seg, *more.values())
+            if t is not None}) != 1:
         raise ValueError("the attention tensors must share one device")
 
 
 @torch.library.custom_op("atk::flash_fwd", mutates_args=(),
                         device_types="cpu")
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  segment_ids: torch.Tensor, sm_scale: float, lse: bool
+                  segment_ids: torch.Tensor, sm_scale: float, lse: bool,
+                  kv_segment_ids: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (o, the row logsumexp); the logsumexp is an empty f32 tensor
     unless ``lse``."""
     if lse:
-        return flash_attention_plain(q, k, v, segment_ids, sm_scale, True)
-    return (flash_attention_plain(q, k, v, segment_ids, sm_scale),
+        return flash_attention_plain(q, k, v, segment_ids, sm_scale, True,
+                                     kv_segment_ids)
+    return (flash_attention_plain(q, k, v, segment_ids, sm_scale,
+                                  kv_segment_ids=kv_segment_ids),
             q.new_empty(0, dtype=torch.float32))
 
 
 @_flash_fwd_op.register_kernel("cuda")
-def _flash_fwd_cuda(q, k, v, segment_ids, sm_scale, lse):
-    _check(q, k, v, segment_ids)
+def _flash_fwd_cuda(q, k, v, segment_ids, sm_scale, lse, kv_segment_ids=None):
+    _check(q, k, v, segment_ids, kv_segment_ids)
     b, nh, t_len, dh = q.shape
+    kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
     o = torch.empty_like(q)
     row_lse = torch.empty((b, nh, t_len) if lse else (0,),
                           dtype=torch.float32, device=q.device)
@@ -194,8 +221,9 @@ def _flash_fwd_cuda(q, k, v, segment_ids, sm_scale, lse):
     with torch.cuda.device(q.device):
         rc = lib.atk_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-            b, nh, t_len, dh, sm_scale, int(q.dtype == torch.bfloat16),
-            o.data_ptr(), row_lse.data_ptr() if lse else None,
+            kv_seg.data_ptr(), b, nh, t_len, k.shape[2], dh, sm_scale,
+            int(q.dtype == torch.bfloat16), o.data_ptr(),
+            row_lse.data_ptr() if lse else None,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "flash_fwd")
     flash_attention_fwd.launches += 1
@@ -203,7 +231,7 @@ def _flash_fwd_cuda(q, k, v, segment_ids, sm_scale, lse):
 
 
 @_flash_fwd_op.register_fake
-def _flash_fwd_fake(q, k, v, segment_ids, sm_scale, lse):
+def _flash_fwd_fake(q, k, v, segment_ids, sm_scale, lse, kv_segment_ids=None):
     b, nh, t_len, _ = q.shape
     return torch.empty_like(q), q.new_empty(
         (b, nh, t_len) if lse else (0,), dtype=torch.float32)
@@ -211,12 +239,15 @@ def _flash_fwd_fake(q, k, v, segment_ids, sm_scale, lse):
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         segment_ids: torch.Tensor, sm_scale: float,
-                        lse: bool = False
+                        lse: bool = False,
+                        kv_segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """B5 forward -> (o (B, nh, T, dh) in q's dtype, the (B, nh, T) f32 row
-    logsumexp when ``lse``, else None)."""
+    logsumexp when ``lse``, else None).  ``kv_segment_ids`` (B, T_kv): k
+    and v hold T_kv rows of their own (a query block against more keys)."""
     o, row_lse = torch.ops.atk.flash_fwd(q, k, v, segment_ids,
-                                         float(sm_scale), lse)
+                                         float(sm_scale), lse,
+                                         kv_segment_ids)
     return o, (row_lse if lse else None)
 
 
@@ -311,18 +342,27 @@ flash_attention_bwd_dq.launches = 0
 
 
 def _flash_fwd_setup(ctx, inputs, output):
-    q, k, v, segment_ids, sm_scale, lse = inputs
+    q, k, v, segment_ids, sm_scale, lse, kv_segment_ids = inputs
     o, row_lse = output
     ctx.set_materialize_grads(False)
     ctx.sm_scale, ctx.lse = sm_scale, lse
+    ctx.query_block = kv_segment_ids is not None
     ctx.save_for_backward(q, k, v, segment_ids, o, row_lse)
+
+
+KV_SEGMENTS_NO_GRAD = (
+    "B5's backward takes one set of segment ids (T_kv = T): a gradient "
+    "through a forward given kv_segment_ids (a query block against more "
+    "keys) is not ported: ROADMAP A7.5")
 
 
 def _flash_fwd_backward(ctx, do, _dlse):
     """The library's custom_vjp backward: di = rowsum(o * do) outside the
     kernels, then the dk/dv and dq kernels."""
     if do is None:
-        return None, None, None, None, None, None
+        return None, None, None, None, None, None, None
+    if ctx.query_block:
+        raise ValueError(KV_SEGMENTS_NO_GRAD)
     if not ctx.lse:
         raise RuntimeError("atk::flash_fwd ran with lse=False: its backward "
                            "needs the row logsumexp")
@@ -331,7 +371,7 @@ def _flash_fwd_backward(ctx, do, _dlse):
     di = (o.float() * do.float()).sum(-1)
     dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, do, di, ctx.sm_scale)
     dq = flash_attention_bwd_dq(q, k, v, seg, lse, do, di, ctx.sm_scale)
-    return dq, dk, dv, None, None, None
+    return dq, dk, dv, None, None, None, None
 
 
 torch.library.register_autograd("atk::flash_fwd", _flash_fwd_backward,
@@ -354,16 +394,19 @@ def _unfold(t, k: int):
 
 
 @torch.library.register_vmap("atk::flash_fwd")
-def _flash_fwd_vmap(info, in_dims, q, k, v, segment_ids, sm_scale, lse):
+def _flash_fwd_vmap(info, in_dims, q, k, v, segment_ids, sm_scale, lse,
+                    kv_segment_ids=None):
     """Attention has no weights of its own, so the members fold into the
     batch: one B5 launch for all of them.  As for B3, whether autograd
     needs the logsumexp is asked of the members' tensors; it is returned
     only when the caller asked."""
     n = info.batch_size
     keep = lse or needs_grad(q, k, v)
+    kv_seg = (None if kv_segment_ids is None
+              else _fold(kv_segment_ids, in_dims[6], n))
     o, row_lse = torch.ops.atk.flash_fwd(
         *(_fold(t, d, n) for t, d in zip((q, k, v, segment_ids), in_dims)),
-        sm_scale, keep)
+        sm_scale, keep, kv_seg)
     row_lse = _unfold(row_lse, n) if lse else row_lse.new_empty((n, 0))
     return (_unfold(o, n), row_lse), (0, 0)
 
@@ -391,11 +434,17 @@ def _flash_dq_vmap(info, in_dims, q, k, v, segment_ids, lse, do, di,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    segment_ids: torch.Tensor, sm_scale: float
+                    segment_ids: torch.Tensor, sm_scale: float,
+                    kv_segment_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """softmax(q.k^T * sm_scale over each query's segment).v, (B, nh, T, dh),
     differentiable in q, k and v (B5's backward pair).  Where autograd will
-    not need a gradient, B5 runs without its logsumexp store."""
+    not need a gradient, B5 runs without its logsumexp store.
+    ``kv_segment_ids`` (B, T_kv): a query block against T_kv keys, forward
+    only (a gradient there raises)."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    return flash_attention_fwd(q, k, v, segment_ids, sm_scale, grad)[0]
+    if grad and kv_segment_ids is not None:
+        raise ValueError(KV_SEGMENTS_NO_GRAD)
+    return flash_attention_fwd(q, k, v, segment_ids, sm_scale, grad,
+                               kv_segment_ids)[0]

@@ -18,7 +18,9 @@ Entry points:
   * ``is_coordinator()``: True on rank 0, which alone writes the
     single-writer artifacts (checkpoints, metrics history, plots, stats).
   * ``all_reduce_``, ``broadcast_``, ``all_gather``: the tensor
-    collectives (``_staged`` alone decides where a tensor goes for one),
+    collectives, over every rank or over the ``group`` of a mesh axis
+    (``parallel/mesh.make_mesh``; ``_staged`` alone decides where a tensor
+    goes for one),
     and their host-array adapters ``all_sum_hosts``, ``broadcast_host``,
     ``all_gather_hosts``; ``barrier`` at stage boundaries.
   * ``local_device()``: this rank's card, its index among its host's ranks
@@ -247,30 +249,33 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t.cpu()
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place; returns ``t``."""
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group`` (default: every rank), in
+    place; returns ``t``."""
     s = _staged(t)
-    dist.all_reduce(s)
+    dist.all_reduce(s, group=group)
     if s is not t:
         t.copy_(s)
     return t
 
 
-def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s ``t`` on every rank, in place; returns ``t``."""
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """The ``t`` of ``group``'s rank ``src`` (its place in the group) on
+    every rank of ``group``, in place; returns ``t``."""
     s = _staged(t)
-    dist.broadcast(s, src)
+    dist.broadcast(s, src if group is None
+                   else dist.get_global_rank(group, src), group=group)
     if s is not t:
         t.copy_(s)
     return t
 
 
-def all_gather(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in rank order, on
-    ``t``'s device (the list form, which both backends have)."""
+def all_gather(t: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated along ``dim`` in rank
+    order, on ``t``'s device (the list form, which both backends have)."""
     s = _staged(t.contiguous())
-    out = [torch.empty_like(s) for _ in range(process_count())]
-    dist.all_gather(out, s)
+    out = [torch.empty_like(s) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, s, group=group)
     return torch.cat(out, dim).to(t.device)
 
 

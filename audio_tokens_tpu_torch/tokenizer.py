@@ -24,7 +24,8 @@ what the kernel form does.
 
 ``FusedTokenizer`` is an ``nn.Module``: its centroids, the frontend's and
 the kernel's tensors are buffers, so that a traced serving program owns
-them.
+them.  ``tokens_sharded`` splits a batch over the ranks of a mesh (one
+process a card) and gathers the tokens.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin_plain
 from audio_tokens_tpu_torch.ops.mel import MelFrontend, decode_wire, num_frames
 from audio_tokens_tpu_torch.ops.tiers import check_tier
 from audio_tokens_tpu_torch.ops.vq import vq_assign_fused
+from audio_tokens_tpu_torch.parallel.mesh import data_axis
 
 
 class FusedTokenizer(nn.Module):
@@ -95,6 +97,32 @@ class FusedTokenizer(nn.Module):
         if self.config.normalize and lengths is None:
             raise ValueError("config.normalize=True requires lengths")
         return self._tokens_dispatch(decode_wire(padded_batch), lengths)
+
+    def tokens_sharded(self, padded_batch: torch.Tensor, mesh,
+                       lengths: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """``tokens_from_padded`` with the batch split over the ranks of
+        ``mesh`` (``parallel/mesh``'s ``Mesh``, its data axis, or a
+        ``DataGroup``: one process a card, so the mesh is the process
+        group).  Every rank passes the whole batch, takes its contiguous
+        rows, tokenizes them (B1, or the mel frontend and B2) and gathers
+        the ranks' tokens in rank order: every rank returns the whole
+        batch's, equal to one process's.  The int16 wire is decoded before
+        any compute."""
+        group = data_axis(mesh)
+        b = padded_batch.shape[0]
+        if b % group.size:
+            raise ValueError(f"batch {b} not divisible by data={group.size}")
+        padded_batch = decode_wire(padded_batch)
+        if self.config.normalize and lengths is None:
+            raise ValueError("config.normalize=True requires lengths")
+        lo, hi = group.row_bounds(b)
+        rows = padded_batch[lo:hi].to(self.device)
+        if self.config.normalize:
+            tokens = self._tokens_impl(rows, lengths[lo:hi].to(self.device))
+        else:
+            tokens = self._tokens_dispatch(rows)
+        return group.all_gather(tokens, 0)
 
     def _tokens_dispatch(self, padded_batch: torch.Tensor,
                          lengths: Optional[torch.Tensor] = None

@@ -38,8 +38,16 @@ one sort (``utils/device_metrics.class_ap_device`` over (N, (K + 1) C)),
 and one read of 2K + 1 scalars (``device_epoch.read_scalars``); nothing
 inside the epoch waits for the card.  ``lstm_remat_chunk`` and
 ``transformer_remat`` run under the member axis too (the recompute seam,
-``models/members.remat``).  Sharding the members over several cards (the
-JAX ``mesh`` argument) is ROADMAP A7.5 and refused.
+``models/members.remat``).
+
+``mesh`` (a ``parallel/mesh.DataGroup``, or a ``Mesh`` of data ranks
+only; one process a card) shards the members over its ranks, as the JAX
+``mesh`` argument does: rank r trains members [r K / n, (r + 1) K / n)
+by the same member-axis rules, over the same corpus, and every epoch
+gathers the members' losses and predictions in member order (the only
+collectives: members are independent), so every rank computes the
+ensemble's and each member's mAP as one process does.  The checkpoints
+hold all K members (gathered; rank 0 writes them).
 
     python -m audio_tokens_tpu_torch.train.ensemble [--device cpu] \\
         --n_models 4 [--seeds 1,2,3,4] [--lrs 1e-4,3e-4,1e-3,3e-3] <config flags>
@@ -60,6 +68,8 @@ from torch.func import functional_call, stack_module_state, vmap
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.models import get_model
 from audio_tokens_tpu_torch.models.members import MemberGenerators
+from audio_tokens_tpu_torch.parallel import distributed
+from audio_tokens_tpu_torch.parallel.mesh import DataGroup, Mesh, data_axis
 from audio_tokens_tpu_torch.train import checkpoint as ckpt
 from audio_tokens_tpu_torch.train import device_epoch
 from audio_tokens_tpu_torch.train.device_epoch import (_Corpus,
@@ -67,7 +77,7 @@ from audio_tokens_tpu_torch.train.device_epoch import (_Corpus,
                                                        corpus_arrays,
                                                        epoch_permutation)
 from audio_tokens_tpu_torch.train.objective import model_inputs, weighted_bce
-from audio_tokens_tpu_torch.train.trainer import _refuse_unported
+from audio_tokens_tpu_torch.train.trainer import check_options
 from audio_tokens_tpu_torch.utils.device_metrics import (class_ap_device,
                                                          macro_of)
 from audio_tokens_tpu_torch.utils.seeding import (generator_for, set_seed,
@@ -77,6 +87,18 @@ logger = logging.getLogger(__name__)
 
 # the Trainer's AdamW (torch defaults but the weight decay; trainer.py)
 BETAS, EPS, WEIGHT_DECAY = (0.9, 0.999), 1e-8, 0.01
+
+
+def _member_group(mesh) -> Optional[DataGroup]:
+    """The ranks the members shard over: a ``DataGroup``, or a ``Mesh``'s
+    data axis (its only axis); None without a mesh."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, Mesh) and mesh.size != mesh.data.size:
+        raise ValueError(
+            "ensembles assume single-device members (model_parallel = "
+            "sequence_parallel = 1); the member axis is the parallel axis")
+    return data_axis(mesh)
 
 
 class EnsembleTrainer:
@@ -106,16 +128,17 @@ class EnsembleTrainer:
             n_models = len(learning_rates)
         if n_models < 1:
             raise ValueError("n_models must be >= 1")
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding an ensemble's members over several devices is not "
-                "ported yet: ROADMAP A7.5")
         if config.model_parallel > 1 or config.sequence_parallel > 1:
             raise ValueError(
                 "ensembles assume single-device members (model_parallel = "
                 "sequence_parallel = 1); the member axis is the parallel "
                 "axis")
-        _refuse_unported(config)
+        check_options(config)
+        self.group = _member_group(mesh)
+        if self.group is not None and n_models % self.group.size:
+            raise ValueError(
+                f"n_models={n_models} must divide over the "
+                f"{self.group.size}-device mesh")
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -132,18 +155,24 @@ class EnsembleTrainer:
         self.use_lengths = not config.reference_compat
         self.corpora: Dict[str, _Corpus] = {}
         self._base: Optional[torch.nn.Module] = None
-        # the member axis's index (position k is member k) and, with
+        # this rank's members: all of them, or its share of the mesh's
+        self.n_local = n_models // (1 if self.group is None
+                                    else self.group.size)
+        self._lo = 0 if self.group is None else self.group.rank * self.n_local
+        self._seeds = self.seeds[self._lo:self._lo + self.n_local]
+        self._lrs = self.learning_rates[self._lo:self._lo + self.n_local]
+        # the member axis's index (position k is local member k) and, with
         # dropout, one generator a member on the device
-        self._index = torch.arange(n_models)
+        self._index = torch.arange(self.n_local)
         self._dropout_gens = (
-            [generator_for(s, "dropout", self.device) for s in self.seeds]
+            [generator_for(s, "dropout", self.device) for s in self._seeds]
             if config.dropout > 0 else None)
         # AdamW's per-member factors: 1 - lr wd and lr, as the torch
         # formula forms them (in double, rounded to f32 where applied)
         self._decay = torch.tensor(
-            [1 - lr * WEIGHT_DECAY for lr in self.learning_rates],
+            [1 - lr * WEIGHT_DECAY for lr in self._lrs],
             dtype=torch.float32, device=self.device)
-        self._lr = torch.tensor(self.learning_rates, dtype=torch.float64,
+        self._lr = torch.tensor(self._lrs, dtype=torch.float64,
                                 device=self.device)
 
     # -- data ------------------------------------------------------------
@@ -180,11 +209,12 @@ class EnsembleTrainer:
         """(stacked params, opt_state): member i initialized from
         ``generator_for(seeds[i], 'model_init')``, as a single Trainer with
         ``random_seed=seeds[i]`` (``Trainer._init_state``).  params maps
-        each parameter's name to one (K, ...) leaf; opt_state holds AdamW's
-        step count and its two moments, stacked alike."""
+        each parameter's name to one (K, ...) leaf (this rank's members
+        under a mesh); opt_state holds AdamW's step count and its two
+        moments, stacked alike."""
         models = [get_model(self.config, self.device,
                             generator_for(s, "model_init"))
-                  for s in self.seeds]
+                  for s in self._seeds]
         params, buffers = stack_module_state(models)
         if buffers:
             raise ValueError(f"members with buffers are not supported: "
@@ -263,7 +293,7 @@ class EnsembleTrainer:
         per-step seed, member by member), or None without dropout."""
         if self._dropout_gens is None:
             return None
-        for g, s in zip(self._dropout_gens, self.seeds):
+        for g, s in zip(self._dropout_gens, self._seeds):
             g.manual_seed(stage_seed(s, "dropout") + step)
         return self._dropout_gens
 
@@ -278,6 +308,24 @@ class EnsembleTrainer:
             labels.repeat(1, k + 1), valid)
         maps = macro_of(ap.view(k + 1, c), has_pos.view(k + 1, c))
         return maps[:k], maps[k]
+
+    def _members(self, *stacked):
+        """Every member's rows of (K_local, ...) tensors, in member order
+        (gathered over the mesh; as they are in one process)."""
+        if self.group is None:
+            return stacked
+        return tuple(self.group.all_gather(t, 0) for t in stacked)
+
+    def _all_members(self, params, opt_state):
+        """(params, opt_state) of all K members: this rank's, or every
+        rank's gathered in member order (a collective)."""
+        if self.group is None:
+            return params, opt_state
+        gather = lambda tree: {k: self.group.all_gather(v.detach(), 0)
+                               for k, v in tree.items()}
+        return gather(params), {"step": opt_state["step"],
+                                "exp_avg": gather(opt_state["exp_avg"]),
+                                "exp_avg_sq": gather(opt_state["exp_avg_sq"])}
 
     def _read(self, losses, per, ens):
         vals = device_epoch.read_scalars(*losses.unbind(), *per.unbind(), ens)
@@ -295,10 +343,10 @@ class EnsembleTrainer:
         rows = epoch_permutation(c, self.config.random_seed, epoch,
                                  self.device)
         valid = rows < c.n_real
-        preds = torch.empty((self.n_models, n_steps * b,
+        preds = torch.empty((self.n_local, n_steps * b,
                              self.config.num_classes), dtype=torch.float32,
                             device=self.device)
-        loss_sum = torch.zeros(self.n_models, device=self.device)
+        loss_sum = torch.zeros(self.n_local, device=self.device)
         self._base.train()
         for i in range(n_steps):
             sl = slice(i * b, (i + 1) * b)
@@ -312,8 +360,9 @@ class EnsembleTrainer:
             self._adamw(params, opt_state)
             loss_sum += losses.detach()
             preds[:, sl] = torch.sigmoid(logits.detach())
+        losses, preds = self._members(loss_sum / n_steps, preds)
         per, ens = self._maps(preds, c.labels.index_select(0, rows), valid)
-        losses, per, ens = self._read(loss_sum / n_steps, per, ens)
+        losses, per, ens = self._read(losses, per, ens)
         return params, opt_state, step + n_steps, losses, per, ens
 
     def eval_epoch(self, params):
@@ -322,9 +371,9 @@ class EnsembleTrainer:
         if self._base is None:
             raise RuntimeError("init_state() first")
         c = self.corpora["validation"]
-        k, b = self.n_models, c.batch_size
+        k, b = self.n_local, c.batch_size
         if c.n_real == 0:
-            return np.full(k, np.nan), np.zeros(k), 0.0
+            return np.full(self.n_models, np.nan), np.zeros(self.n_models), 0.0
         self._base.eval()
         with torch.inference_mode():  # B3 skips its residual stores
             preds = torch.empty((k, c.n_pad, self.config.num_classes),
@@ -337,8 +386,9 @@ class EnsembleTrainer:
                     c.valid[sl].float(), None)
                 loss_sum += losses
                 preds[:, sl] = torch.sigmoid(logits)
+            losses, preds = self._members(loss_sum / c.n_steps, preds)
             per, ens = self._maps(preds, c.labels, c.valid)
-            return self._read(loss_sum / c.n_steps, per, ens)
+            return self._read(losses, per, ens)
 
     # -- checkpoints ---------------------------------------------------------
     def _member_opt_state(self, opt_state, i: int) -> dict:
@@ -360,7 +410,11 @@ class EnsembleTrainer:
                      best_per, best_ens: float, history) -> None:
         """The stacked params and opt_state and the run's state, atomically:
         a K-member sweep that dies at epoch N-1 resumes exactly instead of
-        restarting from zero."""
+        restarting from zero.  Every member's (gathered under a mesh); rank
+        0 writes."""
+        params, opt_state = self._all_members(params, opt_state)
+        if not distributed.is_coordinator():
+            return
         ckpt.save_state(
             self.config.checkpoint_dir, self.RESUME_NAME,
             {k: p.detach() for k, p in params.items()}, opt_state,
@@ -390,11 +444,12 @@ class EnsembleTrainer:
                 f"checkpoint '{name}' has no stacked optimizer state; "
                 f"ensemble resume requires the full stacked state (use the "
                 f"'{self.RESUME_NAME}' checkpoint, not a best-member export)")
+        mine = slice(self._lo, self._lo + self.n_local)
         with torch.no_grad():
             for k, p in params.items():
-                p.copy_(saved_p[k])
+                p.copy_(saved_p[k][mine])
                 for moment in ("exp_avg", "exp_avg_sq"):
-                    opt_state[moment][k].copy_(saved_o[moment][k])
+                    opt_state[moment][k].copy_(saved_o[moment][k][mine])
         opt_state["step"] = int(saved_o["step"])
         logger.info("ensemble resumed from %s at epoch %d, step %d", name,
                     meta["epoch"], meta["step"])
@@ -443,13 +498,15 @@ class EnsembleTrainer:
                 i = int(np.argmax(va_map))
                 if float(va_map[i]) > best_saved:
                     best_saved = float(va_map[i])
-                    ckpt.save_state(
-                        cfg.checkpoint_dir, "ensemble-best",
-                        self.member_params(params, i),
-                        self._member_opt_state(opt_state, i), step=step,
-                        metric=best_saved, epoch=epoch + 1,
-                        extra=dict(seed=self.seeds[i],
-                                   learning_rate=self.learning_rates[i]))
+                    all_p, all_o = self._all_members(params, opt_state)
+                    if distributed.is_coordinator():
+                        ckpt.save_state(
+                            cfg.checkpoint_dir, "ensemble-best",
+                            self.member_params(all_p, i),
+                            self._member_opt_state(all_o, i), step=step,
+                            metric=best_saved, epoch=epoch + 1,
+                            extra=dict(seed=self.seeds[i],
+                                       learning_rate=self.learning_rates[i]))
                     logger.info("best member %d (seed %d, lr %g) saved as "
                                 "'ensemble-best'", i, self.seeds[i],
                                 self.learning_rates[i])

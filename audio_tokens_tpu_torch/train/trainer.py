@@ -42,9 +42,25 @@ model's do; its validation passes (eval mode, ``inference_mode``) run kernel
 B5 when ``transformer_attention="flash"``.  The simple, cnn and baseline
 classifiers train on tokens, ``RawSTFTDataset`` frames and
 ``RawSTFTFlatDataset`` rows; they have no kernel of their own (a gather,
-cuDNN convolutions, cuBLAS products).  Not ported yet, and refused with
-``NotImplementedError`` naming ROADMAP A7.5: tensor and sequence
-parallelism (``model_parallel``, ``sequence_parallel``).
+cuDNN convolutions, cuBLAS products).
+
+Tensor and sequence parallelism (``model_parallel`` > 1,
+``sequence_parallel`` > 1; bert only) lay the ranks out on a mesh
+(``parallel/mesh.make_mesh(data_parallel, model_parallel,
+sequence_parallel)``, ``model`` innermost): every rank builds the model
+from one seed, takes rank 0's weights and keeps its slices
+(``TransformerClassifier.shard_``); the batch's rows split over the
+``data`` axis, the ranks of one data place run the same rows; the
+gradients are summed once a step over the mesh's ``replica`` group (data
+x sequence, see ``models/transformer.py`` for why that is one process's
+gradient); the predictions and losses gather over ``data``.  Epochs
+stream (``device_corpus='auto'`` resolves to it, ``'on'`` is refused),
+and checkpoints hold one process's layout (the model ranks' slices and
+AdamW moments joined), so that one card serves them.  The JAX trainer's
+checks stay, with its messages: sequence parallelism is bert's, its
+window divides over the sequence ranks, tensor parallelism is bert's (the
+lstm's kernels take no model axis, as the JAX Pallas backend), the batch
+sizes divide over the data axis.
 """
 
 from __future__ import annotations
@@ -65,7 +81,8 @@ from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.data.datasets import BatchLoader, DataLoaderCreator
 from audio_tokens_tpu_torch.models import get_model
 from audio_tokens_tpu_torch.parallel import distributed
-from audio_tokens_tpu_torch.parallel.mesh import DataGroup, data_group
+from audio_tokens_tpu_torch.parallel.mesh import (DataGroup, Mesh,
+                                                  data_group, make_mesh)
 from audio_tokens_tpu_torch.train import checkpoint as ckpt
 from audio_tokens_tpu_torch.train.device_epoch import (DeviceEpochRunner,
                                                        corpus_nbytes,
@@ -79,19 +96,67 @@ from audio_tokens_tpu_torch.utils.seeding import (generator_for, set_seed,
 logger = logging.getLogger(__name__)
 
 
-def _refuse_unported(config: AudioTokensConfig) -> None:
-    """Raise for the training options the port has not ported yet."""
+def check_options(config: AudioTokensConfig) -> None:
+    """Raise for training options that cannot run together (the JAX
+    trainer's checks, with its messages)."""
     if config.device_corpus not in ("auto", "on", "off"):
         raise ValueError(f"device_corpus must be 'auto', 'on' or 'off', "
                          f"got '{config.device_corpus}'")
-    refused = {
-        "model_parallel > 1": config.model_parallel > 1,
-        "sequence_parallel > 1": config.sequence_parallel > 1,
-    }
-    for what, asked in refused.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP A7.5")
+    if config.model_parallel > 1 and config.model_type == "lstm":
+        raise ValueError(
+            "the lstm's kernels (B3, B4; lstm_backend='pallas' in the JAX "
+            "package) require a DP-only mesh: set model_parallel=1 (TP "
+            "applies to model_type='bert' only)")
+    if config.sequence_parallel > 1:
+        if config.model_type != "bert":
+            raise ValueError(
+                "sequence_parallel > 1 applies to the transformer only "
+                "(model_type='bert')")
+        if config.transformer_max_position % config.sequence_parallel:
+            raise ValueError(
+                f"transformer_max_position "
+                f"({config.transformer_max_position}) must be divisible "
+                f"by sequence_parallel ({config.sequence_parallel})")
+    if config.model_parallel > 1 and config.model_type != "bert":
+        raise ValueError(
+            "model_parallel > 1 is only meaningful for the transformer "
+            "(model_type='bert')")
+    if _tensor_or_sequence(config):
+        if config.device_corpus == "on":
+            raise ValueError(
+                "device_corpus='on' is incompatible with model_parallel "
+                "or sequence_parallel > 1 (the epoch programs assume a "
+                "DP-only mesh); set device_corpus='off' or a DP-only mesh")
+        if config.diagnostics_every:
+            raise ValueError(
+                "diagnostics_every > 0 with model_parallel or "
+                "sequence_parallel > 1 is not ported (the report takes "
+                "one process's gradients): ROADMAP A7.6")
+
+
+def _tensor_or_sequence(config: AudioTokensConfig) -> bool:
+    return config.model_parallel > 1 or config.sequence_parallel > 1
+
+
+def mesh_for(config: AudioTokensConfig) -> Optional[Mesh]:
+    """The (data, sequence, model) mesh of a tensor- or sequence-parallel
+    run (the JAX ``Trainer._init_state``'s), None otherwise; the batch
+    sizes must divide over its data axis."""
+    if not _tensor_or_sequence(config):
+        return None
+    mesh = make_mesh(data=config.data_parallel, model=config.model_parallel,
+                     seq=config.sequence_parallel)
+    n = mesh.data.size
+    if config.training_batch_size % n or config.eval_batch_size % n:
+        # the user explicitly asked for TP/SP; silently dropping it
+        # would change memory/placement intent — fail loudly instead
+        raise ValueError(
+            f"batch sizes ({config.training_batch_size} train / "
+            f"{config.eval_batch_size} eval) must be divisible by the "
+            f"data axis ({n}) when model_parallel="
+            f"{config.model_parallel} / sequence_parallel="
+            f"{config.sequence_parallel} is requested")
+    return mesh
 
 
 class _AsyncCollector:
@@ -146,7 +211,7 @@ class _LossMean:
 
     def result(self, dp: Optional[DataGroup] = None) -> float:
         """The mean; under data parallelism each rank holds its rows'
-        share of every step's loss, summed over the ranks here."""
+        share of every step's loss, summed over the data ranks here."""
         if self._n == 0:
             return float("nan")
         if dp is not None:
@@ -162,7 +227,7 @@ class Trainer:
         """``device`` None: this rank's card under ``distributed``, else
         ``cuda:0`` (``parallel/distributed.default_device``)."""
         self.config = config
-        _refuse_unported(config)
+        check_options(config)
         distributed.maybe_initialize(config)
         self.device = (distributed.default_device() if device is None
                        else torch.device(device))
@@ -172,10 +237,14 @@ class Trainer:
         set_seed(config.random_seed)
         self.use_lengths = not config.reference_compat
         self.run_name = self._initialize_wandb()
+        self.mesh = mesh_for(config)
         self.model, self.optimizer = self._init_state()
-        self.dp = self._data_group()
-        if self.dp is not None:  # every rank starts from rank 0's weights
-            self.dp.broadcast_(self.model.state_dict().values())
+        if self.mesh is not None:
+            self.dp, self.grad_group = self.mesh.data, self.mesh.replica
+        else:
+            self.dp = self.grad_group = self._data_group()
+            if self.dp is not None:  # every rank starts from rank 0's weights
+                self.dp.broadcast_(self.model.state_dict().values())
         self._dropout_gen = (generator_for(config.random_seed, "dropout",
                                            self.device)
                              if config.dropout > 0 else None)
@@ -206,9 +275,8 @@ class Trainer:
         start_epoch = 0
         if cfg.resume_from:
             distributed.barrier("resume")  # every rank reads rank 0's file
-            has_opt, step, best_metric, start_epoch = ckpt.load_checkpoint(
-                cfg.checkpoint_dir, cfg.resume_from, self.model,
-                self.optimizer)
+            has_opt, step, best_metric, start_epoch = self._load(
+                cfg.resume_from)
             if not has_opt:
                 logger.warning(
                     "checkpoint %s has no optimizer state; starting the "
@@ -239,11 +307,9 @@ class Trainer:
                             val_metrics["mAP"], best_metric)
                 best_metric = val_metrics["mAP"]
                 epochs_since_best = 0
-                if cfg.save_best_checkpoint and distributed.is_coordinator():
-                    ckpt.save_checkpoint(
-                        cfg.checkpoint_dir, f"{self.run_name}-best",
-                        self.model, self.optimizer, step, best_metric,
-                        epoch=epoch + 1)  # resume continues AFTER this epoch
+                if cfg.save_best_checkpoint:
+                    self._save(f"{self.run_name}-best", step, best_metric,
+                               epoch + 1)  # resume continues AFTER this epoch
             else:
                 epochs_since_best += 1
 
@@ -274,7 +340,8 @@ class Trainer:
                     "training run's checkpoint name to evaluate() explicitly")
             checkpoint_name = f"{self.run_name}-best"
         train_loader, val_loader = DataLoaderCreator(cfg).get_dataloaders()
-        ckpt.load_params(cfg.checkpoint_dir, checkpoint_name, self.model)
+        params, _, _ = ckpt.load_state(cfg.checkpoint_dir, checkpoint_name)
+        self._load_params(params)
         runner = self._maybe_device_runner(train_loader, val_loader,
                                            eval_only=True)
         if runner is not None:
@@ -293,8 +360,8 @@ class Trainer:
         over-budget corpus under ``'auto'``).  ``eval_only`` makes only the validation corpus resident
         (``evaluate``)."""
         cfg = self.config
-        if cfg.device_corpus == "off":
-            return None
+        if cfg.device_corpus == "off" or self.mesh is not None:
+            return None  # a tensor- or sequence-parallel run streams
         wanted = ((val_loader, cfg.eval_batch_size),) if eval_only else (
             (train_loader, cfg.training_batch_size),
             (val_loader, cfg.eval_batch_size))
@@ -354,12 +421,22 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _init_state(self) -> Tuple[torch.nn.Module, torch.optim.Optimizer]:
+        """The model and its AdamW; on a mesh, rank 0's weights on every
+        rank, sharded (the optimizer holds this rank's slices)."""
         cfg = self.config
         model = get_model(cfg, self.device,
                           generator_for(cfg.random_seed, "model_init"))
         n_params = sum(p.numel() for p in model.parameters())
         logger.info("model %s: %.2fM params on %s", cfg.model_type,
                     n_params / 1e6, self.device)
+        if self.mesh is not None:
+            DataGroup().broadcast_(model.state_dict().values())
+            model.shard_(self.mesh)
+            logger.info(
+                "mesh %s (this rank data %d, sequence %d, model %d): %.2fM "
+                "params on this rank", self.mesh.shape, self.mesh.data.rank,
+                self.mesh.sequence.rank, self.mesh.model.rank,
+                sum(p.numel() for p in model.parameters()) / 1e6)
         optimizer = torch.optim.AdamW(model.parameters(), lr=cfg.learning_rate,
                                       betas=(0.9, 0.999), eps=1e-8,
                                       weight_decay=0.01)
@@ -413,6 +490,59 @@ class Trainer:
                                 min=1.0)
         return inputs, lengths, labels.float(), row_w[lo:hi], denom
 
+    def _save(self, name: str, step: int, metric: float, epoch: int) -> None:
+        """Rank 0 writes the checkpoint ``name`` in one process's layout;
+        under tensor parallelism every rank first joins its slices of the
+        weights and the AdamW moments (a collective)."""
+        params, opt_state = self.model.state_dict(), self.optimizer.state_dict()
+        if self._tensor_parallel:
+            params = self.model.full_state_dict()
+            opt_state = self._moments(opt_state, join=True)
+        if distributed.is_coordinator():
+            ckpt.save_state(self.config.checkpoint_dir, name, params,
+                            opt_state, step, metric, epoch)
+
+    @property
+    def _tensor_parallel(self) -> bool:
+        return self.mesh is not None and self.mesh.model.size > 1
+
+    def _load_params(self, params: dict) -> None:
+        if self.mesh is None:
+            self.model.load_state_dict(params)
+        else:
+            self.model.load_full_state_dict(params)
+
+    def _load(self, name: str) -> Tuple[bool, int, float, int]:
+        """Restore checkpoint ``name`` (one process's layout) into this
+        rank's model and optimizer -> (whether it had optimizer state,
+        step, metric, epoch)."""
+        params, opt_state, meta = ckpt.load_state(self.config.checkpoint_dir,
+                                                  name)
+        self._load_params(params)
+        if opt_state is not None:
+            if self._tensor_parallel:
+                opt_state = self._moments(opt_state, join=False)
+            self.optimizer.load_state_dict(opt_state)
+        return (opt_state is not None, meta["step"], meta["metric"],
+                int(meta.get("epoch", 0)))
+
+    def _moments(self, state: dict, join: bool) -> dict:
+        """An AdamW ``state_dict`` with the moments of the tensor-parallel
+        parameters joined over the model ranks (``join``, a collective) or
+        cut to this rank's slices, along the parameter's dimension."""
+        axis = self.mesh.model
+        names = [n for n, _ in self.model.named_parameters()]
+        out = {"param_groups": state["param_groups"], "state": {}}
+        for i, moments in state["state"].items():
+            dim = self.model.tp_specs[names[int(i)]]
+            if dim is not None:
+                moments = {k: v if k == "step"
+                           else axis.all_gather(v, dim) if join
+                           else v.chunk(axis.size, dim)[axis.rank].clone()
+                           for k, v in moments.items()}
+            out["state"][i] = moments
+        return out
+
     def _metric_accumulator(self):
         """Exact mAP by default (reference semantics); constant-memory
         histogram mAP when config.streaming_map_bins > 0 (corpus scale)."""
@@ -452,8 +582,8 @@ class Trainer:
         loss = weighted_bce(logits, labels, row_w, denom)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if self.dp is not None:
-            self.dp.all_reduce_grads(self.model.parameters())
+        if self.grad_group is not None:
+            self.grad_group.all_reduce_grads(self.model.parameters())
         self.optimizer.step()
         return loss.detach(), torch.sigmoid(logits.detach())
 

@@ -264,6 +264,30 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    all-reduce's bytes and ms, each stage's seconds and each rank's
    launches (``launches_by_path`` ``dp_*``: a rank's B3/B4 equal one
    process's at the same steps).
+16. tensor and sequence parallelism and the batch-split entry points
+   (``parallel/mesh.make_mesh``, ``models/transformer.py``), two ranks of
+   this script sharing ``cuda:0`` over gloo (``--dp-rank``; their ms are
+   of a time-sliced card, not speed figures): (a) bert at BERT's widths on
+   TP 2 (6 heads a rank) and (b) on SP 2 (864 rows a rank), batch 8 with
+   random lengths (the first 0): an eval pass (B5: the full window on 6
+   heads; the query block against the gathered keys, f32 and bf16) and,
+   in f32, one training step, each against one process on the card
+   (logits 1e-4 f32 / 5e-2 bf16; the loss 1e-5 relative; each gradient
+   at JAX's rtol 1e-4, atol 1e-6; the weights after AdamW within 2 lr /
+   max |w|, what a gradient's sign apart moves, or C9's floor); C9: two
+   one-process ``Trainer``s of phase 15's lstm and of (a)'s bert, their
+   weights before a step, the first parameter whose gradient differs and
+   the weights after, by default and under
+   ``torch.use_deterministic_algorithms(True)`` in a process with
+   ``CUBLAS_WORKSPACE_CONFIG``; B5's forward on the query block (rows 864..
+   of 1728, batch 64, prefix lengths with a 0) against its plain version
+   and the full window's rows, timed beside ``scaled_dot_product_attention``
+   with the boolean mask (two records of its own); (c) ``serve_sharded``
+   (lstm, f32 bert) and ``tokens_sharded`` on 8 clips against one process
+   (tokens equal, probs 1e-6); (d) the full-width lstm ensemble K 2 over
+   the 2 ranks against the unsharded one (phase 15's bounds, beside the
+   JAX test's CPU tolerances).
+   ``[mp ...]`` and ``[c9 ...]`` lines, ``launches_by_path`` ``mp_*``.
 
 Phases 8-12 decode with ``audio_backend="auto"``: the native decoder
 (``data/native_loader.py``, built with g++ into ``build/native/``) where it
@@ -386,6 +410,34 @@ ENS_REMAT_CHUNK, ENS_TOL = 216, 1e-4
 DP_WORLD, DP_EPOCH_STEPS, DP_STREAM_STEPS, DP_SEED = 2, 8, 4, 20
 DP_WAIT_S, DP_GROUP_TIMEOUT_S, DP_ALLREDUCE_REPS = 900, 600, 5
 DP_RTOL, DP_NCCL_RTOL, DP_MAP_ATOL = 1e-4, 1e-6, 1e-3
+# phase 16: tensor and sequence parallelism over MP_WORLD ranks sharing
+# cuda:0 (gloo): bert at BERT's widths, batch MP_BATCH of seed MP_SEED with
+# random lengths (the first 0), reference_compat off so the lengths mask;
+# the training steps in f32 (TF32 off: the tolerances below are f32's,
+# another grouping of the same sums), the eval passes in f32 and bf16
+MP_WORLD, MP_BATCH, MP_SEED, MP_SERVE_CLIPS = 2, 8, 30, 8
+MP_LOSS_RTOL = 1e-5
+MP_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # JAX's gradient tolerances
+MP_LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 5e-2}
+MP_PROBS_ATOL = 1e-6
+# the weights after the TP and SP steps, relative to one process's: about
+# ten times the largest reading (2.9e-6), a tenth of what one AdamW step
+# of lr moves them by
+MP_WEIGHT_RTOL = 3e-5
+# the sharded ensemble: the full-width lstm, dropout 0.1, K 2 over the 2
+# ranks on MP_ENS_BATCHES batches of 64 + MP_ENS_VAL validation clips,
+# against the unsharded K 2 within MP_ENS_LOSS_RTOL / MP_ENS_MAP_ATOL,
+# about ten times the readings (losses 0 apart, mAP 1.6e-6 to 1.7e-6);
+# printed beside the JAX test's CPU tolerances (tests/test_ensemble.py:99),
+# which the mAP meets only at about 1.0.  Beside it, where the difference
+# comes from: a second unsharded K 2 (the run-to-run floor) and one
+# process's K 1 of each member's seed (what a rank runs)
+MP_ENS_BATCHES, MP_ENS_VAL = 4, 128
+MP_ENS_LOSS_RTOL, MP_ENS_MAP_ATOL = 1e-5, 2e-5
+MP_ENS_JAX_TOL = dict(rtol=1e-5, atol=1e-6)
+# B5's forward on a sequence rank's query block: the second half of the
+# window against all of it
+MP_T_Q = 864
 
 
 def log(msg: str) -> None:
@@ -4039,17 +4091,23 @@ def dp_rank_main(argv) -> int:
     if plan["case"] == "shared":
         res["lstm"] = dp_lstm_run(dev, out, f"rank{rank}")
         res["pipeline"] = dp_pipeline_run(dev, Path(plan["ws"]))
+    elif plan["case"] == "mp16":
+        torch.save(mp_rank(dev), out / f"rank{rank}.pt")
+    elif plan["case"] == "c9det":
+        torch.save(c9_deterministic(dev), out / f"rank{rank}.pt")
     else:
         res["nccl"] = dp_nccl_run(dev, out)
-    distributed.barrier("phase 15")
+    distributed.barrier(plan["case"])
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     return 0
 
 
-def run_ranks(out: Path, world: int, plan: dict) -> list:
+def run_ranks(out: Path, world: int, plan: dict, env=None) -> list:
     """``world`` ranks of this script (``dp_rank_main``) on ``plan``, their
-    output to ``out/rank<r>.log``; every rank is killed past DP_WAIT_S and
-    any rank's failure fails the phase -> their results, rank by rank."""
+    output to ``out/rank<r>.log`` (``env``: more environment variables);
+    every rank is killed past DP_WAIT_S and any rank's failure fails the
+    phase -> their results, rank by rank."""
+    import os
     import socket
 
     out.mkdir(parents=True, exist_ok=True)
@@ -4064,7 +4122,8 @@ def run_ranks(out: Path, world: int, plan: dict) -> list:
                 [sys.executable, str(Path(__file__).resolve()), "--dp-rank",
                  str(r), str(world), str(port), str(out)],
                 cwd=Path(__file__).resolve().parent, stdout=log_f,
-                stderr=subprocess.STDOUT))
+                stderr=subprocess.STDOUT,
+                env=None if env is None else {**os.environ, **env}))
     deadline = time.monotonic() + DP_WAIT_S
     try:
         for p in procs:
@@ -4077,8 +4136,8 @@ def run_ranks(out: Path, world: int, plan: dict) -> list:
     for r, p in enumerate(procs):
         if p.returncode != 0:
             tail = (out / f"rank{r}.log").read_text()[-4000:]
-            raise AssertionError(f"phase 15 rank {r} of {world} exited "
-                                 f"{p.returncode}:\n{tail}")
+            raise AssertionError(f"{plan['case']} rank {r} of {world} "
+                                 f"exited {p.returncode}:\n{tail}")
     return [json.loads((out / f"rank{r}.json").read_text())
             for r in range(world)]
 
@@ -4295,6 +4354,537 @@ def dp_phase(records: list, dev, pipe: Path) -> None:
     dp_pipeline_check(records, dev, pipe, ws, ranks, card)
     dp_nccl_check(records, ws / "nccl", card)
 
+
+
+# -- 16. tensor and sequence parallelism, the batch-split entry points --------
+
+def mp_bert_config(dtype: str, **over):
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+
+    return AudioTokensConfig(**{
+        **BERT, "compute_dtype": dtype, "training_batch_size": MP_BATCH,
+        "reference_compat": False, "save_best_checkpoint": False,
+        "log_every_steps": 0, **over})
+
+
+def mp_bert_batch(cfg) -> dict:
+    """The phase's bert batch: tools/bench_training's synthetic tokens,
+    random lengths with a 0."""
+    from audio_tokens_tpu_torch.tools.bench_training import synthetic_corpus
+
+    rng = np.random.default_rng(MP_SEED)
+    x, _, y = synthetic_corpus(cfg, MP_BATCH, MP_BATCH, rng)
+    lengths = rng.integers(1, cfg.max_seq_len + 1, MP_BATCH).astype(np.int32)
+    lengths[0] = 0
+    return {"inputs": x.astype(np.int32), "lengths": lengths,
+            "labels": y.astype(np.float32), "n_valid": MP_BATCH}
+
+
+def mp_bert_run(dev, dtype: str, train: bool, **over) -> dict:
+    """One bert ``Trainer`` (``over``: model_parallel or sequence_parallel,
+    or none: one process) on the phase's batch: an eval pass (B5's
+    forward), then with ``train`` one training step (the plain attention
+    route) -> the logits, the step's loss, the gradients and the weights
+    after it (one process's layout, joined over the model ranks), B5's
+    launches and the ms of each (host clock, synchronized)."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+    from audio_tokens_tpu_torch.parallel.mesh import tp_gather
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(mp_bert_config(dtype, **over), dev)
+    *rows, denom = t._put_batch(mp_bert_batch(t.config))
+    t.model.eval()
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = t._logits(rows[0], rows[1])
+    torch.cuda.synchronize()
+    res = dict(eval_ms=(time.perf_counter() - t0) * 1e3,
+               eval_launches=flash_attention_fwd.launches,
+               logits=logits.float().cpu())
+    if not train:
+        return res
+    full = (t.model.state_dict if t.mesh is None
+            else t.model.full_state_dict)
+    before = {n: w.detach().clone() for n, w in full().items()}
+    t.model.train()
+    t0 = time.perf_counter()
+    loss = float(t._train_step(*rows, 0, denom)[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    grads = {n: p.grad for n, p in t.model.named_parameters()}
+    if t.mesh is not None:
+        grads = tp_gather(t.mesh, grads, t.model.tp_specs)
+    weights = full()
+    res.update(step_ms=step_ms, loss=loss,
+               grads={n: g.float().cpu() for n, g in grads.items()},
+               weights={n: w.float().cpu() for n, w in weights.items()},
+               moved={n: float((w.float() - before[n].float()).abs().max())
+                      for n, w in weights.items()},
+               lr=t.config.learning_rate)
+    return res
+
+
+def mp_serve(dev, mesh) -> dict:
+    """The batch-split entry points on ``mesh`` (None: ``serve`` and
+    ``tokens_from_padded`` in one process): the lstm and bert (f32, B5)
+    programs and the tokenizer on MP_SERVE_CLIPS ten-second clips ->
+    their outputs and B1/B3/B5 launches."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.export import ServingProgram
+    from audio_tokens_tpu_torch.ops.cuda_attention import flash_attention_fwd
+    from audio_tokens_tpu_torch.ops.cuda_lstm import lstm_sequence_fwd
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
+
+    kernels = (TokenizerKernel, lstm_sequence_fwd, flash_attention_fwd)
+    cents = make_centroids()
+    cfgs = {"lstm": AudioTokensConfig(clip_seconds=CLIP_SECONDS, **MODEL),
+            "bert": AudioTokensConfig(clip_seconds=CLIP_SECONDS, **{
+                **BERT, "compute_dtype": "float32"})}
+    tok = FusedTokenizer(cfgs["lstm"], cents, dev)
+    batch, lengths = tok.frontend.prepare_batch(make_clips(MP_SERVE_CLIPS))
+    x, ln = torch.from_numpy(batch).to(dev), torch.from_numpy(lengths).to(dev)
+    res = {}
+
+    def counted(tag, fn):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        res[f"{tag}_launches"] = [k.launches for k in kernels]
+        return out
+
+    res["tokens"] = counted("tokens", lambda: (
+        tok.tokens_from_padded(x) if mesh is None
+        else tok.tokens_sharded(x, mesh))).cpu()
+    for name, cfg in cfgs.items():
+        prog = ServingProgram.from_components(
+            cfg, FusedTokenizer(cfg, cents, dev), device=dev,
+            generator=torch.Generator().manual_seed(MP_SEED))
+        out = counted(name, lambda: (prog.serve(x, ln) if mesh is None
+                                     else prog.serve_sharded(x, ln, mesh)))
+        res[name] = [t.cpu() for t in out]
+    return res
+
+
+def mp_ensemble(dev, mesh, seeds=None) -> dict:
+    """The full-width lstm ensemble, K 2 (over ``mesh``'s ranks, or in one
+    process; ``seeds``: those members in one process): a training epoch and
+    the eval epoch -> their numbers and B3/B4 launches."""
+    import torch
+
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.train.ensemble import EnsembleTrainer
+
+    cfg = AudioTokensConfig(**MODEL, training_batch_size=B_LSTM,
+                            dropout=0.1, save_best_checkpoint=False)
+    ens = EnsembleTrainer(cfg, dev, n_models=2, seeds=seeds, mesh=mesh)
+    for split, arrays in ensemble_splits(cfg, B_LSTM, MP_SEED,
+                                         MP_ENS_BATCHES, MP_ENS_VAL).items():
+        ens.set_corpus_arrays(split, *arrays, B_LSTM)
+    params, opt_state = ens.init_state()
+    kernels = (lstm_sequence_fwd, lstm_sequence_bwd)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    _, _, _, loss, per, ens_map = ens.train_epoch(params, opt_state, 0, 0)
+    v_loss, v_per, v_ens = ens.eval_epoch(params)
+    return dict(loss=loss, per=per, ens=ens_map, v_loss=v_loss, v_per=v_per,
+                v_ens=v_ens, launches=[k.launches for k in kernels],
+                local=ens.n_local, seeds=ens.seeds,
+                ms=(time.perf_counter() - t0) * 1e3)
+
+
+def ens_apart(a: dict, b: dict, members=slice(None)) -> tuple:
+    """Two ensemble runs' (losses relative, mAP absolute) apart: per member
+    (``members`` of ``b``'s), and the ensemble's mAP where both have all
+    the members."""
+    losses = max(float(np.max(np.abs(np.asarray(a[key])
+                                     - np.asarray(b[key])[members])
+                              / np.abs(np.asarray(b[key])[members])))
+                 for key in ("loss", "v_loss"))
+    maps = max(float(np.max(np.abs(np.asarray(a[key])
+                                   - np.asarray(b[key])[members])))
+               for key in ("per", "v_per"))
+    if members == slice(None):
+        maps = max(maps, abs(a["ens"] - b["ens"]), abs(a["v_ens"] - b["v_ens"]))
+    return losses, maps
+
+
+def mp_rank(dev) -> dict:
+    """A rank of phase 16 (``dp_rank_main``'s ``mp16`` case)."""
+    from audio_tokens_tpu_torch.parallel import distributed
+    from audio_tokens_tpu_torch.parallel.mesh import DataGroup, make_mesh
+
+    res = {"tp_f32": mp_bert_run(dev, "float32", True, model_parallel=2),
+           "sp_f32": mp_bert_run(dev, "float32", True, sequence_parallel=2),
+           "sp_bf16": mp_bert_run(dev, "bfloat16", False,
+                                  sequence_parallel=2),
+           "serve": mp_serve(dev, make_mesh()),
+           "ensemble": mp_ensemble(dev, DataGroup())}
+    if not distributed.is_coordinator():  # the joined tensors: rank 0's
+        for case in ("tp_f32", "sp_f32"):
+            del res[case]["grads"], res[case]["weights"]
+    return res
+
+
+def c9_steps(dev, cfg, batch) -> dict:
+    """C9: two one-process ``Trainer``s of ``cfg`` -> their weights apart
+    before a step on ``batch``, the first parameter whose gradient differs
+    after it (max |a - b| / max |b|) and the worst, the weights apart after
+    it (max |a - b| / max |b| over all)."""
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    pair = [Trainer(cfg, dev) for _ in range(2)]
+    flat = lambda t: torch_cat(t.model.state_dict().values())
+    before = rel_err(flat(pair[0]), flat(pair[1]))
+    for t in pair:
+        *rows, denom = t._put_batch(batch)
+        t.model.train()
+        t._train_step(*rows, 0, denom)
+    first, worst = None, ("", 0.0)
+    params = [dict(t.model.named_parameters()) for t in pair]
+    for name, p in params[1].items():
+        a, b = params[0][name].grad, p.grad
+        err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        if err > 0 and first is None:
+            first = (name, err)
+        if err > worst[1]:
+            worst = (name, err)
+    return dict(before=before, first=first, worst=worst,
+                after=rel_err(flat(pair[0]), flat(pair[1])))
+
+
+def torch_cat(tensors) -> np.ndarray:
+    import torch
+
+    return torch.cat([t.reshape(-1).float() for t in tensors]).cpu().numpy()
+
+
+def c9_cases(dev) -> dict:
+    """C9's two steps for phase 15's lstm and phase 16's f32 bert."""
+    from audio_tokens_tpu_torch.tools.bench_training import synthetic_corpus
+
+    lstm = dp_lstm_config()
+    x, ln, y = synthetic_corpus(lstm, B_LSTM, B_LSTM,
+                                np.random.default_rng(DP_SEED + 1))
+    bert = mp_bert_config("float32")
+    return {"lstm": c9_steps(dev, lstm, {
+                "inputs": x.astype(np.int32), "lengths": ln,
+                "labels": y.astype(np.float32), "n_valid": B_LSTM}),
+            "bert": c9_steps(dev, bert, mp_bert_batch(bert))}
+
+
+def c9_deterministic(dev) -> dict:
+    """C9 under ``torch.use_deterministic_algorithms(True, warn_only=
+    True)``, in a process started with ``CUBLAS_WORKSPACE_CONFIG``; the
+    warnings of ops without a deterministic implementation kept."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        res = c9_cases(dev)
+    res["warnings"] = sorted({str(w.message).split("\n")[0][:160]
+                              for w in seen})
+    return res
+
+
+def c9_line(mode: str, res: dict, card: str) -> str:
+    parts = []
+    for model in ("lstm", "bert"):
+        r = res[model]
+        first = ("none" if r["first"] is None
+                 else f"{r['first'][0]} {r['first'][1]:.3e}")
+        parts.append(
+            f"{model}: weights before the step {r['before']:.3e}, first "
+            f"gradient apart {first}, worst {r['worst'][0]} "
+            f"{r['worst'][1]:.3e}, weights after {r['after']:.3e}")
+    return f"[c9 {mode}] two one-process Trainers, one step each; " + \
+        "; ".join(parts) + f" (max |a - b| / max |b|); {card}"
+
+
+def mp_compare(tag: str, got: dict, one: dict, floor: float, card: str
+               ) -> dict:
+    """A rank-0 case of (a)/(b) against one process: logits, loss, each
+    gradient (elementwise, JAX's rtol/atol), the weights after the step
+    (relative, MP_WEIGHT_RTOL or C9's floor, the larger) and the step
+    itself: every tensor that one process's AdamW step moved by half an lr
+    or more moved so on the ranks too, so a step that left the sharded
+    weights where they were fails."""
+    err = {"logits": float((got["logits"] - one["logits"]).abs().max())}
+    if "loss" in got:
+        err["loss"] = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+        excess, name = 0.0, ""
+        for n, g in got["grads"].items():
+            ref = one["grads"][n]
+            e = float(((g - ref).abs() / (MP_GRAD_TOL["atol"]
+                                          + MP_GRAD_TOL["rtol"] * ref.abs())
+                       ).max())
+            if e > excess:
+                excess, name = e, n
+        err["grad_excess"], err["grad_worst"] = excess, name
+        w_got = torch_cat(got["weights"][n] for n in one["weights"])
+        w_one = torch_cat(one["weights"].values())
+        err["weights"] = rel_err(w_got, w_one)
+        err["weights_bound"] = max(floor, MP_WEIGHT_RTOL)
+        half = 0.5 * one["lr"]
+        moved = [n for n, m in one["moved"].items() if m >= half]
+        err["moved"] = len(moved)
+        err["unmoved"] = [n for n in moved if not got["moved"][n] >= half]
+        err["step_lr"] = min(got["moved"][n] for n in moved) / one["lr"]
+    return err
+
+
+def b5_query_block(records: list, launches: dict) -> None:
+    """B5's forward on a query block (rows MP_T_Q.. of the window against
+    all of it; prefix lengths with a 0) in bf16 and f32: against its plain
+    version and against those rows of the full-window B5 output, timed
+    beside ``scaled_dot_product_attention`` with the boolean segment mask;
+    the bound from the work these lengths need.  Appends the two records,
+    with ``launches`` (each dtype's phase-16 path counts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_fwd, flash_attention_plain)
+
+    card = card_line()
+    for name, dtype, kind in (("bfloat16", torch.bfloat16, "bf16"),
+                              ("float32", torch.float32, "f32, 3xTF32")):
+        q, k, v, _, seg, _, _ = attention_inputs(BATCH, dtype, 7)
+        lo = MP_T_Q
+        qb, seg_q = q[:, :, lo:].contiguous(), seg[:, lo:].contiguous()
+        got = flash_attention_fwd(qb, k, v, seg_q, SM_SCALE,
+                                  kv_segment_ids=seg)[0]
+        ref = flash_attention_plain(qb, k, v, seg_q, SM_SCALE,
+                                    kv_segment_ids=seg)
+        full = flash_attention_fwd(q, k, v, seg, SM_SCALE)[0][:, :, lo:]
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        rows_err = float((got.float() - full.float()).abs().max())
+        del ref, full
+        if not max(err, rows_err) <= ATT_TOL[name]:
+            raise AssertionError(f"B5 query block {name}: {err:.3e} vs its "
+                                 f"plain version, {rows_err:.3e} vs the "
+                                 f"full window's rows > {ATT_TOL[name]}")
+        ms = cuda_ms(lambda: flash_attention_fwd(
+            qb, k, v, seg_q, SM_SCALE, kv_segment_ids=seg), 5)
+        full_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, seg,
+                                                      SM_SCALE), 5)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(
+            qb, k, v, seg_q, SM_SCALE, kv_segment_ids=seg), 2)
+        mask = seg_q[:, None, :, None] == seg[:, None, None, :]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, k, v, attn_mask=mask, scale=SM_SCALE), 5)
+        # the work these lengths need: each query row against its segment
+        same = (seg_q[:, :, None] == seg[:, None, :]).sum()
+        pairs = int(same) * HEADS
+        flop = 4 * HEAD_DIM * pairs
+        el = q.element_size()
+        nbytes = (2 * qb.numel() + 2 * k.numel()) * el + (
+            seg_q.numel() + seg.numel()) * 4
+        peak = "tf32x3" if name == "float32" else name
+        b_ms, b_by = bound_of(flop, nbytes, peak)
+        log(f"[B5 query block] {name} q {tuple(qb.shape)} (rows {lo}..) "
+            f"against k, v {tuple(k.shape)}, prefix lengths with a 0: max "
+            f"abs err {err:.3e} vs its plain version, {rows_err:.3e} vs "
+            f"those rows of the full window's B5 (atol {ATT_TOL[name]}); "
+            f"kernel {ms:.3f} ms ({ms / full_ms:.3f} of the full window's "
+            f"{full_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+            f"scaled_dot_product_attention {lib_ms:.3f} ms; bound "
+            f"{b_ms:.3f} ms ({b_by}, {b_ms / ms:.0%}); "
+            f"{flop / ms / 1e9:.1f} TFLOP/s of {flop / 1e9:.1f} GFLOP; "
+            f"{card}")
+        records.append(dict(
+            name=f"B5 flash attention forward, query block against the "
+                 f"gathered keys ({kind})", route="cuda",
+            source="audio_tokens_tpu_torch/csrc/attention.cu",
+            replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:331 "
+                     "(SegmentIds(q=, kv=); called at audio_tokens_tpu/"
+                     "models/transformer.py:133)",
+            max_abs_err=max(err, rows_err), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            full_window_ms=full_ms, launches_by_path=launches[name]))
+        del q, k, v, qb, seg, seg_q, got, mask
+        torch.cuda.empty_cache()
+
+
+def mp_phase(records: list, dev, base: Path) -> None:
+    """Phase 16: tensor and sequence parallelism and the batch-split entry
+    points (see the module's docstring)."""
+    import torch
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    out = base / "mp16"
+    t0 = time.perf_counter()
+    run_ranks(out, MP_WORLD, {"case": "mp16"})
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(out / f"rank{r}.pt", weights_only=False)
+           for r in range(MP_WORLD)]
+    log(f"[mp ranks] {MP_WORLD} ranks of this script sharing {dev} over "
+        f"gloo: {ranks_s:.1f} s from start to exit (TP 2 and SP 2 bert, the "
+        "sharded entry points, the sharded ensemble); the ms below are of "
+        "a card the ranks time-slice, not speed figures")
+    # C9, the card's noise floor: two one-process Trainers, default and
+    # deterministic algorithms
+    c9 = c9_cases(dev)
+    log(c9_line("default", c9, card))
+    run_ranks(out / "c9det", 1, {"case": "c9det"},
+              env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    c9_det = torch.load(out / "c9det" / "rank0.pt", weights_only=False)
+    log(c9_line("deterministic", c9_det, card)
+        + f"; warnings {c9_det['warnings']}")
+    floor = c9["bert"]["after"]
+    # (a) TP 2 and (b) SP 2 against one process
+    one = {"f32": mp_bert_run(dev, "float32", True),
+           "bf16": mp_bert_run(dev, "bfloat16", False)}
+    launches = {"float32": {}, "bfloat16": {}}
+    for case, ref, tol in (("tp_f32", one["f32"], "float32"),
+                           ("sp_f32", one["f32"], "float32"),
+                           ("sp_bf16", one["bf16"], "bfloat16")):
+        err = mp_compare(case, got[0][case], ref, floor, card)
+        for r in range(MP_WORLD):
+            g = got[r][case]
+            key = f"mp_{case[:2]}_eval_r{r}"
+            if case == "tp_f32":  # full-window B5 on 6 heads a rank
+                records[5]["launches_by_path"][key] = g["eval_launches"]
+            else:
+                launches[tol][key] = g["eval_launches"]
+            err["logits"] = max(err["logits"], float(
+                (g["logits"] - ref["logits"]).abs().max()))
+        ranks_eq = len({g[case].get("loss") for g in got}) == 1
+        train = ""
+        if "loss" in err:
+            train = (f"; one training step: loss {got[0][case]['loss']:.7f} "
+                     f"vs {ref['loss']:.7f} ({err['loss']:.3e} relative, "
+                     f"bound {MP_LOSS_RTOL}), gradients at "
+                     f"{err['grad_excess']:.3f} of JAX's tolerance (rtol "
+                     f"{MP_GRAD_TOL['rtol']}, atol {MP_GRAD_TOL['atol']}; "
+                     f"worst {err['grad_worst']}), weights after AdamW "
+                     f"{err['weights']:.3e} relative (bound "
+                     f"{err['weights_bound']:.3e}: {MP_WEIGHT_RTOL}, or C9's "
+                     f"floor {floor:.3e}), the step moved {err['moved']} "
+                     f"tensors by lr / 2 or more in one process, each of "
+                     f"them on the ranks by at least {err['step_lr']:.3f} "
+                     f"lr (unmoved: {err['unmoved']}); step ms "
+                     f"{[round(g[case]['step_ms'], 2) for g in got]}, one "
+                     f"process {ref['step_ms']:.2f}")
+        heads = BERT["hidden_size"] // HEAD_DIM
+        split = (f"{heads // MP_WORLD} heads a rank" if case == "tp_f32"
+                 else f"{BERT['max_seq_len'] // MP_WORLD} rows a rank")
+        log(f"[mp {case[:2]} {MP_WORLD} ranks {tol}] bert hidden "
+            f"{BERT['hidden_size']}, {heads} heads ({split}), "
+            f"{BERT['num_layers']} layers, window {BERT['max_seq_len']}, "
+            f"batch {MP_BATCH}, random lengths with a 0: eval pass (B5) "
+            f"logits {err['logits']:.3e} max abs apart from one process "
+            f"(bound {MP_LOGIT_ATOL[tol]}), B5 launches per rank "
+            f"{[g[case]['eval_launches'] for g in got]} (one process "
+            f"{ref['eval_launches']}), eval ms "
+            f"{[round(g[case]['eval_ms'], 2) for g in got]}, one process "
+            f"{ref['eval_ms']:.2f}{train}; the ranks agree: {ranks_eq}; "
+            f"{card}")
+        bad = (not err["logits"] <= MP_LOGIT_ATOL[tol] or not ranks_eq
+               or min(g[case]["eval_launches"] for g in got) < 1)
+        if "loss" in err:
+            bad = bad or not (err["loss"] <= MP_LOSS_RTOL
+                              and err["grad_excess"] <= 1.0
+                              and err["weights"] <= err["weights_bound"]
+                              and err["moved"] > 0 and not err["unmoved"])
+        if bad:
+            raise AssertionError(f"phase 16 {case}: {err}")
+    del one
+    b5_query_block(records, launches)
+    # (c) the batch-split entry points against one process
+    ref = mp_serve(dev, None)
+    for r, g in enumerate(got):
+        s = g["serve"]
+        lines = []
+        for what in ("tokens", "lstm", "bert"):
+            if what == "tokens":
+                apart = int((s["tokens"] != ref["tokens"]).sum())
+                probs = 0.0
+            else:
+                apart = int((s[what][0] != ref[what][0]).sum()
+                            + (s[what][1] != ref[what][1]).sum())
+                probs = float((s[what][2] - ref[what][2]).abs().max())
+            lines.append(f"{what} {apart} tokens apart, probs {probs:.3e}")
+            if apart or not probs <= MP_PROBS_ATOL:
+                raise AssertionError(f"phase 16 serve rank {r} {what}: "
+                                     f"{apart} tokens apart, probs {probs}")
+        records[0]["launches_by_path"][f"mp_serve_r{r}"] = sum(
+            s[f"{w}_launches"][0] for w in ("tokens", "lstm", "bert"))
+        records[2]["launches_by_path"][f"mp_serve_lstm_r{r}"] = \
+            s["lstm_launches"][1]
+        records[5]["launches_by_path"][f"mp_serve_bert_r{r}"] = \
+            s["bert_launches"][2]
+        log(f"[mp serve rank {r}] serve_sharded (lstm; bert f32 on B5) and "
+            f"tokens_sharded, {MP_SERVE_CLIPS} clips over {MP_WORLD} ranks, "
+            f"against one process: {'; '.join(lines)} (bound "
+            f"{MP_PROBS_ATOL}); launches B1/B3/B5 tokens "
+            f"{s['tokens_launches']}, lstm {s['lstm_launches']}, bert "
+            f"{s['bert_launches']}, one process {ref['tokens_launches']}, "
+            f"{ref['lstm_launches']}, {ref['bert_launches']}; {card}")
+    # (d) the sharded ensemble against the unsharded one; beside it a
+    # second unsharded run and one process's K 1 of each member's seed
+    ref, again = mp_ensemble(dev, None), mp_ensemble(dev, None)
+    solo = [mp_ensemble(dev, None, seeds=[s]) for s in ref["seeds"]]
+    floor_apart = ens_apart(again, ref)
+    log(f"[mp ensemble cause] one process, the same card: a second K 2 "
+        f"against the first: losses {floor_apart[0]:.3e} relative, mAP "
+        f"{floor_apart[1]:.3e} apart; K 1 of member i's seed against member "
+        f"i of K 2: " + ", ".join(
+            "losses {:.3e}, mAP {:.3e}".format(*ens_apart(o, ref, slice(i,
+                                                                         i + 1)))
+            for i, o in enumerate(solo)) + f"; {card}")
+    for r, g in enumerate(got):
+        e = g["ensemble"]
+        apart = {key: np.abs(np.asarray(e[key]) - ref[key])
+                 for key in ("loss", "v_loss", "per", "v_per")}
+        jax_share = max(float(np.max(d / (MP_ENS_JAX_TOL["atol"]
+                                          + MP_ENS_JAX_TOL["rtol"]
+                                          * np.abs(ref[key]))))
+                        for key, d in apart.items())
+        losses, maps = ens_apart(e, ref)
+        mine = slice(r * e["local"], (r + 1) * e["local"])
+        vs_solo = ens_apart({k: np.asarray(e[k])[mine]
+                             for k in ("loss", "v_loss", "per", "v_per")},
+                            solo[r], members=slice(None, 1)) \
+            if e["local"] == 1 else (float("nan"),) * 2
+        records[2]["launches_by_path"][f"mp_ensemble_r{r}"] = e["launches"][0]
+        records[3]["launches_by_path"][f"mp_ensemble_r{r}"] = e["launches"][1]
+        log(f"[mp ensemble rank {r}] lstm K 2 over {MP_WORLD} ranks ({e['local']} a "
+            f"rank), dropout 0.1, {MP_ENS_BATCHES} batches of {B_LSTM} + "
+            f"{MP_ENS_VAL} validation clips, a training and the eval epoch "
+            f"against the unsharded K 2: losses {losses:.3e} relative "
+            f"(bound {MP_ENS_LOSS_RTOL}), member and ensemble mAP "
+            f"{maps:.3e} apart (bound {MP_ENS_MAP_ATOL}); at "
+            f"{jax_share:.3f} of the JAX test's CPU tolerance (rtol "
+            f"{MP_ENS_JAX_TOL['rtol']}, atol {MP_ENS_JAX_TOL['atol']}); its "
+            f"member against one process's K 1 of its seed: losses "
+            f"{vs_solo[0]:.3e}, mAP {vs_solo[1]:.3e}; B3/B4 "
+            f"launches {e['launches']}, unsharded {ref['launches']}; ms "
+            f"{e['ms']:.1f}, unsharded {ref['ms']:.1f}; {card}")
+        if not (losses <= MP_ENS_LOSS_RTOL and maps <= MP_ENS_MAP_ATOL) or min(
+                e["launches"]) < 1:
+            raise AssertionError(f"phase 16 ensemble rank {r}: losses "
+                                 f"{losses}, mAP {maps}, {e['launches']}")
+    torch.cuda.empty_cache()
+    log(f"[mp] phase 16 took {time.perf_counter() - t_phase:.1f} s (host "
+        "clock)")
 
 
 def main() -> int:
@@ -4931,6 +5521,8 @@ def main() -> int:
                 ensemble_phase(records, dev, Path(tmp14))
             # -- 15. multi-process and data parallel, on phase 8's workspace ----
             dp_phase(records, dev, pipe)
+            # -- 16. tensor and sequence parallelism, the sharded entry points -
+            mp_phase(records, dev, pipe)
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

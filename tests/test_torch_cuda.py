@@ -949,6 +949,37 @@ def test_cuda_flash_forward_matches_plain(cuda_device, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["whole-tiles-masked", "three-segments-long",
+                                  "35-tiles-prefix"])
+@pytest.mark.parametrize("rows", [(0, 64), (70, 131), (1, 2)])
+def test_cuda_flash_forward_query_block_matches_plain(cuda_device, dtype,
+                                                      case, rows):
+    """B5 forward on a query block (a sequence rank's rows against every
+    key, ``kv_segment_ids``): its plain version, and the full window's
+    output rows; ragged blocks, one row."""
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention, flash_attention_fwd, flash_attention_plain)
+
+    b, nh, t, seg = FLASH_BWD_CASES[case]
+    q, k, v, _, prefix = _flash_inputs(cuda_device, b, nh, t, dtype)
+    seg = prefix if seg is None else seg.to(cuda_device)
+    lo, hi = rows
+    qb, seg_q = q[:, :, lo:hi].contiguous(), seg[:, lo:hi].contiguous()
+    ref_o, ref_lse = flash_attention_plain(qb, k, v, seg_q, 0.125, True,
+                                           kv_segment_ids=seg)
+    o, lse = flash_attention_fwd(qb, k, v, seg_q, 0.125, True,
+                                 kv_segment_ids=seg)
+    torch.testing.assert_close(o.float(), ref_o.float(), **FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    full = flash_attention_fwd(q, k, v, seg, 0.125)[0][:, :, lo:hi]
+    assert torch.equal(o, full)
+    with pytest.raises(ValueError, match="ROADMAP A7.5"):
+        flash_attention(qb.requires_grad_(), k, v, seg_q, 0.125,
+                        kv_segment_ids=seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_forward_is_bit_equal_between_launches(cuda_device,
                                                           dtype):
     """A fixed walk and no atomics: two launches of the forward on the same

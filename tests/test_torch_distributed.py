@@ -176,9 +176,54 @@ def test_plan_topology_takes_torchrun_local_rank():
 
 
 def test_tensor_parallel_helpers_refused():
-    for fn in (mesh.tp_param_specs, mesh.tp_shardings):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7.5"):
-            fn({}, [])
+    """``tp_param_specs`` splits the parameters the JAX ``TP_RULES`` split
+    (the port's in whole heads, on (out, in) weights), and
+    ``tp_shardings`` / ``tp_gather``'s slices join into the whole."""
+    import jax
+    import jax.numpy as jnp
+
+    from audio_tokens_tpu.models.transformer import (
+        TP_RULES as JAX_RULES, TransformerClassifier as JaxBert)
+    from audio_tokens_tpu.parallel.mesh import (
+        tp_param_specs as jax_tp_param_specs)
+    from audio_tokens_tpu_torch.convert import bert_state_dict
+    from audio_tokens_tpu_torch.models.transformer import (
+        TransformerClassifier)
+
+    jmodel = JaxBert(vocab_size=16, num_layers=1, num_classes=3,
+                     hidden_size=128, max_position=8)
+    params = jmodel.init(jax.random.PRNGKey(0),
+                         jnp.zeros((1, 8), jnp.int32))["params"]
+    jspecs = jax_tp_param_specs(params, JAX_RULES)
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    spec_leaves = jax.tree_util.tree_leaves(
+        jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    split = jax.tree_util.tree_unflatten(tree, [
+        np.full(p.shape, float("model" in tuple(sp)))
+        for p, sp in zip(leaves, spec_leaves)])
+    jax_split = {k for k, v in bert_state_dict(split).items()
+                 if v.reshape(-1)[0] == 1.0}
+    model = TransformerClassifier(16, 1, 3, hidden_size=128, max_position=8,
+                                  device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+    specs = mesh.tp_param_specs(model)
+    assert {k for k, d in specs.items() if d is not None} == jax_split
+    full = dict(model.named_parameters())
+    for name, dim in specs.items():
+        if dim is not None:  # out-features of column layers, in of rows
+            assert dim == (1 if "out.weight" in name else 0), name
+    pieces = []
+    for r in range(2):  # each rank of a model axis of 2, in turn
+        two = mesh.make_mesh()
+        two = mesh.Mesh(two.data, two.sequence, mesh.DataGroup(), two.replica)
+        two.model.size, two.model.rank = 2, r
+        pieces.append(mesh.tp_shardings(two, model))
+    for name, dim in specs.items():
+        joined = (full[name] if dim is None
+                  else torch.cat([p[name] for p in pieces], dim))
+        torch.testing.assert_close(joined, full[name], rtol=0, atol=0)
+        if dim is not None:  # whole heads: query rows [r 64, (r + 1) 64)
+            assert pieces[1][name].shape[dim] == full[name].shape[dim] // 2
 
 
 # -- the options that once refused, in a world of one ----------------------

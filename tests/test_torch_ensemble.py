@@ -257,8 +257,19 @@ def test_arg_validation(tmp_path):
         EnsembleTrainer(cfg, "cpu", n_models=0)
     with pytest.raises(ValueError, match="single-device"):
         EnsembleTrainer(dataclasses.replace(cfg, model_parallel=2), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        EnsembleTrainer(cfg, "cpu", n_models=2, mesh=object())
+    # members that do not divide over the mesh: JAX's refusal and message
+    from jax.sharding import Mesh as JaxMesh
+
+    from audio_tokens_tpu_torch.parallel.mesh import DataGroup
+
+    want = "n_models=3 must divide over the 2-device mesh"
+    with pytest.raises(ValueError, match=want):
+        JaxEnsemble(JaxConfig(**_kw(tmp_path)), n_models=3,
+                    mesh=JaxMesh(np.array(jax.devices()[:2]), ("data",)))
+    two_ranks = DataGroup()
+    two_ranks.size = 2  # a stand-in group of 2 ranks
+    with pytest.raises(ValueError, match=want):
+        EnsembleTrainer(cfg, "cpu", n_models=3, mesh=two_ranks)
     # lstm_backend is accepted as it is: the device picks the kernel
     ens = EnsembleTrainer(_cfg(tmp_path, **LSTM, lstm_backend="pallas"),
                           "cpu", n_models=2)

@@ -147,15 +147,39 @@ def test_unported_tokenizer_options_refused(override, match):
 
 
 def test_unported_serving_entry_points_refused():
+    """``serve_sharded`` on a mesh of one process is ``serve``, and a batch
+    that does not split over the data axis is refused with the JAX
+    message."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    from audio_tokens_tpu.tokenizer import FusedTokenizer as JaxTokenizer
     from audio_tokens_tpu_torch import export
+    from audio_tokens_tpu_torch.parallel.mesh import DataGroup, make_mesh
     from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 
-    cfg = port_config.AudioTokensConfig(model_type="simple", hidden_size=8)
+    kw = dict(clip_seconds=1.0, n_mels=32, n_fft=256, hop_length=128)
+    cfg = port_config.AudioTokensConfig(model_type="simple", hidden_size=8,
+                                        **kw)
+    cents = np.random.default_rng(0).standard_normal(
+        (4, cfg.n_mels)).astype(np.float32)
     prog = export.ServingProgram.from_components(
-        cfg, FusedTokenizer(cfg, np.ones((4, cfg.n_mels), np.float32), "cpu"),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        prog.serve_sharded(None, None, None)
+        cfg, FusedTokenizer(cfg, cents, "cpu"), device="cpu")
+    batch, lengths = prog.tokenizer.frontend.prepare_batch(
+        [np.sin(np.arange(n) / 7.0).astype(np.float32)
+         for n in (22050, 9000, 15000)])
+    x, ln = torch.from_numpy(batch), torch.from_numpy(lengths)
+    for got, want in zip(prog.serve_sharded(x, ln, make_mesh()),
+                         prog.serve(x, ln)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    jtok = JaxTokenizer(jax_config.AudioTokensConfig(**kw), cents)
+    with pytest.raises(ValueError) as jax_err:
+        jtok.tokens_sharded(batch, JaxMesh(np.array(jax.devices()[:2]),
+                                           ("data",)))
+    two = DataGroup()
+    two.size = 2  # a stand-in data axis of 2 ranks
+    with pytest.raises(ValueError, match=str(jax_err.value)):
+        prog.serve_sharded(x, ln, two)
 
 
 def test_build_command_targets_hopper_without_fast_math():

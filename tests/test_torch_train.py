@@ -155,12 +155,19 @@ def test_dropout_is_seeded_per_step(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"model_parallel": 2},
+    {"model_parallel": 2, "lstm_backend": "pallas"},
     {"sequence_parallel": 2},
 ])
 def test_unported_training_options_refused(tmp_path, override):
+    """The lstm under tensor or sequence parallelism: refused by the port
+    as by the JAX trainer (the port's lstm always runs its kernels, as the
+    JAX Pallas backend, which takes no model axis)."""
+    match = ("DP-only mesh" if "model_parallel" in override
+             else "applies to the transformer only")
+    with pytest.raises(ValueError, match=match):
+        jax_trainer.Trainer(token_corpus.config(tmp_path, **override))
     cfg = token_corpus.port_config(tmp_path, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.5"):
+    with pytest.raises(ValueError, match=match):
         port_trainer.Trainer(cfg, "cpu")
 
 
