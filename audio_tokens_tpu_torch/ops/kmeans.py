@@ -60,8 +60,13 @@ broadcasts it, each rank adds its feeds' statistics into its own f64 sums
 and int64 counts, and those are all-reduced once an iteration, so every
 rank updates the same centroids; the point count is an exact int64 sum.
 No collective runs inside the feed loop, so the ranks' feed counts need
-not agree.  Meshes of devices within one process and the wire meter are
-not ported.
+not agree.  Meshes of devices within one process are not ported.
+
+The wire meter (``utils/profiling.WIRE``) counts each host super-batch
+whole, its padding included (the buffer the JAX feed puts), on the feed's
+producer thread as its copy is queued; an iteration replayed from the
+device cache counts as device time, from its start to the objective's host
+read.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ import torch
 from audio_tokens_tpu_torch.ops.cuda_kmeans import SEGMENT_BLOCK, tier_sums64
 from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
 from audio_tokens_tpu_torch.ops.tiers import tier_operands
+from audio_tokens_tpu_torch.utils.profiling import WIRE
 
 logger = logging.getLogger(__name__)
 
@@ -546,6 +552,7 @@ def _FeedPipeline(feeder, source, ring: _PinnedRing, depth: int = 2):
             if isinstance(buf, torch.Tensor):  # device-resident feed
                 yield buf, fill, buf, None
             else:
+                WIRE.h2d(buf)  # the whole super-batch, as the JAX feed's
                 x, event = ring.to_device(buf, fill)
                 yield x, fill, buf, event
 
@@ -892,6 +899,8 @@ def kmeans_fit_streaming(
             sums = parts64.sum(0).to(torch.float32)
             counts = counts64.to(torch.float32)
             obj = float(_score(centroids, parts64, counts, tier) + x2_total)
+            if from_hbm:  # no feed, no wire: the iteration is device work
+                WIRE.device_add(time.perf_counter() - t_iter)
             centroids = _update(centroids, sums, counts, empty_policy)
             logger.info(
                 "streaming kmeans iter %d/%d: %d pts, obj=%.4f (%.2fs, "

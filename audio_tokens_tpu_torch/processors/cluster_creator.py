@@ -52,12 +52,17 @@ once an iteration, and each rank spills to a file of its own
 seeded sample of the whole train list and broadcasts it, writes the
 centroids, the conv weights, the plot and the mid-fit checkpoint; a resume
 needs every rank to see the same checkpoint.  Every rank waits for the
-centroids before it returns.  Not ported, and refused with
-``NotImplementedError``: stage traces (ROADMAP A7.6).
+centroids before it returns.
+
+The wire meter (``utils/profiling.WIRE``): the device feed counts its
+waveform batches and frame indices up, and the fit on its buffer is a
+device section; the streaming fit counts its super-batches
+(``ops/kmeans.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import logging
@@ -88,6 +93,7 @@ from audio_tokens_tpu_torch.processors.spectrogram_generator import (
     SpectrogramGenerator,
 )
 from audio_tokens_tpu_torch.utils.npy_io import atomic_save_bytes
+from audio_tokens_tpu_torch.utils.profiling import WIRE
 from audio_tokens_tpu_torch.utils.seeding import set_seed
 
 logger = logging.getLogger(__name__)
@@ -138,22 +144,25 @@ class ClusterCreator:
             centroids = self._fit_streaming()
         elif cfg.kmeans_mode == "full":
             n_valid = None
+            section = contextlib.nullcontext()
             if self.used_device_feed:  # the fit reads the buffer in place
                 frames, n_valid = self._fused_frames_device()
+                section = WIRE.device()  # ends with the objective's read
             else:
                 frames = torch.cat(list(self._batch_generator(
                     cfg.clustering_batch_size)))
-            centroids, obj = kmeans_fit(
-                frames,
-                cfg.vocab_size,
-                cfg.niter,
-                seed=cfg.random_seed,
-                max_points_per_centroid=cfg.max_points_per_centroid,
-                init=cfg.kmeans_init,
-                empty_policy=cfg.kmeans_empty_policy,
-                precision=cfg.kmeans_precision,
-                n_valid=n_valid,
-            )
+            with section:
+                centroids, obj = kmeans_fit(
+                    frames,
+                    cfg.vocab_size,
+                    cfg.niter,
+                    seed=cfg.random_seed,
+                    max_points_per_centroid=cfg.max_points_per_centroid,
+                    init=cfg.kmeans_init,
+                    empty_policy=cfg.kmeans_empty_policy,
+                    precision=cfg.kmeans_precision,
+                    n_valid=n_valid,
+                )
             logger.info("full kmeans over %d frames: obj=%.2f",
                         n_valid or frames.shape[0], obj)
             del frames
@@ -367,7 +376,9 @@ class ClusterCreator:
             fill += nv
         if not fill:
             return offset
-        rows = torch.from_numpy(np.concatenate(idx)).to(self.device)
+        rows = np.concatenate(idx)
+        WIRE.h2d(batch, rows)  # waveforms: the feed's only wire traffic
+        rows = torch.from_numpy(rows).to(self.device)
         x = torch.from_numpy(batch).to(self.device)
         frames = frontend.mel_frames(x).reshape(-1, cfg.n_mels)
         if self.conv is not None:

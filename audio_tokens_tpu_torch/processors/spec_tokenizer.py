@@ -33,9 +33,13 @@ Multi-process runs (``parallel/distributed.py``): each rank tokenizes its
 strided shard of each split (B1 or B2 on its own card, no collective in
 the work), rank 0 alone makes or wipes the output dirs, with barriers
 around, the ranks' token counts are summed before rank 0 writes the
-ledger and the plots, and every rank returns the same statistics.  Not
-ported, and refused with ``NotImplementedError``: stage traces (ROADMAP
-A7.6).
+ledger and the plots, and every rank returns the same statistics.
+
+The wire meter (``utils/profiling.WIRE``) counts the staged mode's frames
+up and tokens down, the native fused mode's waveforms up and tokens down,
+and times the resident assignment as a device section; with a
+``profile_dir`` each split's tokenizing is traced
+(``utils/profiling.maybe_trace``).
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ from audio_tokens_tpu_torch.processors.cluster_creator import (
 from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 from audio_tokens_tpu_torch.utils.npy_io import (atomic_save_bytes,
                                                  atomic_save_npy)
-from audio_tokens_tpu_torch.utils.profiling import StageTimer, maybe_trace
+from audio_tokens_tpu_torch.utils.profiling import (WIRE, StageTimer,
+                                                    maybe_trace)
 from audio_tokens_tpu_torch.utils.seeding import set_seed
 
 logger = logging.getLogger(__name__)
@@ -203,7 +208,7 @@ class SpecTokenizer:
             logger.info("Tokenizing %s: %s --> %s", split, source_dir,
                         tokenized_dir)
             ledger = self._make_ledger(split, tokenized_dir)
-            with maybe_trace(self.config.profile_dir), \
+            with maybe_trace(self.config.profile_dir, self.device), \
                     StageTimer(f"tokenize/{split}") as timer:
                 counts, fresh_frames = self.tokenize_directory(
                     source_dir, tokenized_dir, ledger)
@@ -295,12 +300,14 @@ class SpecTokenizer:
     def process_batch(self, batch_files: List[Path],
                       tokenized_dir: Path) -> np.ndarray:
         batch_specs = [np.load(f).T for f in batch_files]  # (T_i, n_mels) each
-        frames = torch.from_numpy(np.concatenate(
-            batch_specs, axis=0).astype(np.float32)).to(self.device)
+        frames = np.concatenate(batch_specs, axis=0).astype(np.float32)
+        WIRE.h2d(frames)  # staged mode: mel frames up, tokens down
+        frames = torch.from_numpy(frames).to(self.device)
         if self.conv is not None:
             frames = self.conv(frames)
         tokens = vq_assign_fused(frames, self.centroids, normalize=True,
                                  ).cpu().numpy().astype(np.int64)
+        WIRE.d2h(tokens)
 
         start = 0
         for spec_file, spec in zip(batch_files, batch_specs):
@@ -355,7 +362,7 @@ class SpecTokenizer:
                      if (p := find_audio_file(cfg, y)) is not None]
             n_clips = n_frames = 0
             bs = cfg.device_batch_size
-            with maybe_trace(cfg.profile_dir), \
+            with maybe_trace(cfg.profile_dir, self.device), \
                     StageTimer(f"tokenize-fused/{split}") as timer:
                 resident_tokens: Dict[str, np.ndarray] = {}
                 if resident_work is not None:
@@ -395,8 +402,10 @@ class SpecTokenizer:
             frames = frames.index_select(0, rows.to(frames.device))
             starts = np.cumsum([0] + [n for _, _, n in spans[:-1]])
             spans = [(y, int(s), n) for (y, _, n), s in zip(spans, starts)]
-        tokens = vq_assign_fused(frames, self.centroids, normalize=False)
-        tokens = tokens.cpu().numpy().astype(np.int64)
+        with WIRE.device():  # resident frames: the assignment is device work
+            tokens = vq_assign_fused(frames, self.centroids, normalize=False)
+            tokens = tokens.cpu().numpy().astype(np.int64)
+        WIRE.d2h(tokens)
         return {y: tokens[off : off + n] for y, off, n in spans}
 
     def _fused_tokens_native(self, ft: FusedTokenizer, chunk: list):
@@ -415,10 +424,12 @@ class SpecTokenizer:
             batch = np.pad(batch, ((0, pad_rows), (0, 0)))
             lengths = np.concatenate([lengths,
                                       np.full(pad_rows, -1, np.int32)])
+        WIRE.h2d(batch)  # waveforms up, int32 tokens down
         tokens = ft.tokens_from_padded(
             torch.from_numpy(batch).to(self.device),
             torch.from_numpy(np.maximum(lengths, 0)).to(self.device)
             if cfg.normalize else None).cpu().numpy()
+        WIRE.d2h(tokens)
         out = []
         for row, (ytid, path) in enumerate(chunk):
             if lengths[row] < 0:

@@ -29,8 +29,11 @@ stage's device feed).
 Multi-process runs (``parallel/distributed.py``): every rank reads the same
 split file and renders its strided shard of each split; rank 0 alone makes,
 wipes or re-renders the output dirs and writes the signature, with barriers
-around, and every rank waits for every shard before it goes on.  Not
-ported: stage traces (``profile_dir``, ROADMAP A7.6).
+around, and every rank waits for every shard before it goes on.
+
+Each batch counts its waveforms up and its spectrograms down on the wire
+meter (``utils/profiling.WIRE``); with a ``profile_dir`` each split's
+rendering is traced (``utils/profiling.maybe_trace``).
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ from audio_tokens_tpu_torch.data.audio_io import decode_clip, find_audio_file
 from audio_tokens_tpu_torch.ops.mel import MelFrontend, num_frames
 from audio_tokens_tpu_torch.parallel import distributed
 from audio_tokens_tpu_torch.utils.npy_io import atomic_save_npy
-from audio_tokens_tpu_torch.utils.profiling import StageTimer, maybe_trace
+from audio_tokens_tpu_torch.utils.profiling import (WIRE, StageTimer,
+                                                    maybe_trace)
 
 logger = logging.getLogger(__name__)
 
@@ -155,7 +159,7 @@ class SpectrogramGenerator:
                     self._write_signature(output_dir)
                 distributed.barrier(f"spec-wipe-{split}")
             local_ytids = distributed.process_shard(ytids)
-            with maybe_trace(self.config.profile_dir), \
+            with maybe_trace(self.config.profile_dir, self.device), \
                     StageTimer(f"spectrograms/{split}") as timer:
                 n_ok = self.populate_specs(local_ytids, output_dir)
                 timer.count("clips", n_ok)
@@ -309,6 +313,8 @@ class SpectrogramGenerator:
                 else:
                     specs = self.frontend(x)
                 specs = specs.cpu().numpy()
+            WIRE.h2d(batch)  # wave batch up / mel batch down: the staged
+            WIRE.d2h(specs)  # stage's wire (the fused mode has no d2h)
             for row, (ytid, _) in enumerate(chunk):
                 if lengths[row] < 0:  # failed or screened, logged
                     continue
@@ -352,6 +358,8 @@ class SpectrogramGenerator:
             else:
                 specs = self.frontend(x)
             specs = specs.cpu().numpy()
+        WIRE.h2d(batch)
+        WIRE.d2h(specs)
 
         for i, (ytid, wave) in enumerate(items):
             n_valid = num_frames(min(len(wave), self.config.clip_samples),

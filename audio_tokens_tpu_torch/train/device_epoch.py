@@ -41,6 +41,10 @@ host, which synchronizes each step.  Dropout draws from the step's
 generator, the same on every rank, as the JAX epoch folds the step into
 one key that every rank shares: rank ``k`` draws the masks of rows
 ``0..b_local-1``, not those its rows have in one process.
+
+The wire meter (``utils/profiling.WIRE``) counts the corpus upload and
+each epoch's permutation, and times each epoch, from its first step to the
+read of its two scalars, as a device section.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from audio_tokens_tpu_torch.data.datasets import pack_features_row
 from audio_tokens_tpu_torch.train.objective import weighted_bce
 from audio_tokens_tpu_torch.utils.device_metrics import (
     binned_map_init, binned_map_result, binned_map_update, macro_map_device)
+from audio_tokens_tpu_torch.utils.profiling import WIRE
 
 logger = logging.getLogger(__name__)
 
@@ -173,6 +178,7 @@ def epoch_permutation(c: "_Corpus", seed: int, epoch: int,
     np.random.default_rng(seed + epoch).shuffle(order)
     perm = torch.from_numpy(np.concatenate([order,
                                             np.arange(c.n_real, c.n_pad)]))
+    WIRE.h2d(perm)  # the epoch's one host-to-card copy
     if device.type == "cuda":  # an asynchronous copy: no sync
         return perm.pin_memory().to(device, non_blocking=True)
     return perm
@@ -185,6 +191,7 @@ class _Corpus:
         x = torch.from_numpy(inputs)
         if x.is_floating_point():
             x = x.to(feature_dtype)  # rounded on the host: half the copy
+        WIRE.h2d(x, lengths, labels)  # the one-time corpus upload
         self.inputs = x.to(device)
         self.lengths = torch.from_numpy(lengths).to(device)
         self.labels = torch.from_numpy(labels).to(device)
@@ -309,31 +316,35 @@ class DeviceEpochRunner:
         valid_all = order < c.n_real
         valid = valid_all if rows is order else rows < c.n_real
         denoms = self._denominators(valid_all, n_steps, b)
-        if self.materialize_train:
-            src = [t.index_select(0, rows)
-                   for t in (c.inputs, c.lengths, c.labels)]
         add, result = self._metric(n_steps, bl)
         self.trainer.model.train()
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i in range(n_steps):
-            sl = slice(i * bl, (i + 1) * bl)
+        with WIRE.device():  # the epoch's steps + the two-scalar read
             if self.materialize_train:
-                inputs, lengths, y = (t[sl] for t in src)
-            else:
-                idx = rows[sl]
-                inputs, lengths, y = (t.index_select(0, idx) for t in (
-                    c.inputs, c.lengths, c.labels))
-            row_w = valid[sl].float()
-            loss, probs = self.trainer._train_step(
-                inputs, lengths, y, row_w, step + i,
-                None if denoms is None else denoms[i])
-            loss_sum += loss
-            add(i, probs, y, row_w)
-        if self.trainer.dp is not None:
-            self.trainer.dp.all_reduce_(loss_sum)
-        labels = (src[2] if self.materialize_train and self.trainer.dp is None
-                  else c.labels.index_select(0, order))
-        loss, m = read_scalars(loss_sum / n_steps, result(labels, valid_all))
+                src = [t.index_select(0, rows)
+                       for t in (c.inputs, c.lengths, c.labels)]
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            for i in range(n_steps):
+                sl = slice(i * bl, (i + 1) * bl)
+                if self.materialize_train:
+                    inputs, lengths, y = (t[sl] for t in src)
+                else:
+                    idx = rows[sl]
+                    inputs, lengths, y = (t.index_select(0, idx) for t in (
+                        c.inputs, c.lengths, c.labels))
+                row_w = valid[sl].float()
+                loss, probs = self.trainer._train_step(
+                    inputs, lengths, y, row_w, step + i,
+                    None if denoms is None else denoms[i])
+                loss_sum += loss
+                add(i, probs, y, row_w)
+            if self.trainer.dp is not None:
+                self.trainer.dp.all_reduce_(loss_sum)
+            labels = (src[2] if self.materialize_train
+                      and self.trainer.dp is None
+                      else c.labels.index_select(0, order))
+            loss, m = read_scalars(loss_sum / n_steps,
+                                   result(labels, valid_all))
         return step + n_steps, loss, {"mAP": m}
 
     def eval_epoch(self) -> Tuple[float, Dict[str, float]]:
@@ -348,7 +359,8 @@ class DeviceEpochRunner:
         lo = 0 if dp is None else dp.rank * bl
         add, result = self._metric(c.n_steps, bl)
         self.trainer.model.eval()
-        with torch.inference_mode():  # B3 skips its residual stores
+        # B3 skips its residual stores; the section ends with the read
+        with torch.inference_mode(), WIRE.device():
             denoms = self._denominators(c.valid, c.n_steps, b)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=self.device)

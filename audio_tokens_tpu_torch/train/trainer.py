@@ -23,7 +23,11 @@ stdlib logging.  As in the JAX trainer:
   * checkpoints carry params, optimizer state, step, metric and epoch for
     exact resume, and early stopping and ``max_train_steps`` are real;
   * ``diagnostics_every`` > 0 writes a gradient-flow report of one batch
-    every that many epochs (``utils/diagnostics.py``);
+    every that many epochs (``utils/diagnostics.py``), under tensor or
+    sequence parallelism of the joined weights on one unsharded model
+    (``gradient_report``);
+  * streamed batches count on the wire meter (``utils/profiling.WIRE``):
+    each rank's rows up, the stacked sigmoids down;
   * data parallel across processes (``parallel/``, one card a process)
     when the data group has 2 ranks or more (``data_parallel`` -1, the
     default, takes every rank): the ranks start from rank 0's weights,
@@ -90,6 +94,7 @@ from audio_tokens_tpu_torch.train.device_epoch import (DeviceEpochRunner,
 from audio_tokens_tpu_torch.train.objective import (model_inputs,
                                                     weighted_bce)
 from audio_tokens_tpu_torch.utils.metrics import ExactMAP, StreamingMAP
+from audio_tokens_tpu_torch.utils.profiling import WIRE
 from audio_tokens_tpu_torch.utils.seeding import (generator_for, set_seed,
                                                   stage_seed)
 
@@ -127,11 +132,6 @@ def check_options(config: AudioTokensConfig) -> None:
                 "device_corpus='on' is incompatible with model_parallel "
                 "or sequence_parallel > 1 (the epoch programs assume a "
                 "DP-only mesh); set device_corpus='off' or a DP-only mesh")
-        if config.diagnostics_every:
-            raise ValueError(
-                "diagnostics_every > 0 with model_parallel or "
-                "sequence_parallel > 1 is not ported (the report takes "
-                "one process's gradients): ROADMAP A7.6")
 
 
 def _tensor_or_sequence(config: AudioTokensConfig) -> bool:
@@ -296,8 +296,10 @@ class Trainer:
             t0 = time.time()
             step, train_loss, train_metrics = train_epoch(epoch, step)
             val_loss, val_metrics = eval_epoch()
+            # on a mesh every rank joins the weights; else the coordinator
             if (cfg.diagnostics_every and epoch % cfg.diagnostics_every == 0
-                    and distributed.is_coordinator()):
+                    and (self.mesh is not None
+                         or distributed.is_coordinator())):
                 self._run_diagnostics(train_loader, epoch)
             self._log_epoch_results(epoch, train_loss, train_metrics,
                                     val_loss, val_metrics, time.time() - t0)
@@ -477,6 +479,7 @@ class Trainer:
         lo, hi = (0, len(row_w)) if self.dp is None else \
             self.dp.row_bounds(len(row_w))
         host = tuple(a[lo:hi] for a in host[:3]) + (row_w,)
+        WIRE.h2d(*host)  # this rank's rows (and the whole row weights)
         out = []
         for arr in host:
             t = torch.from_numpy(arr)
@@ -557,6 +560,7 @@ class Trainer:
         stacked = torch.stack([p for _, p, _ in pending])
         if self.dp is not None:  # the whole batches' rows, in rank order
             stacked = self.dp.all_gather(stacked, dim=1)
+        WIRE.d2h(stacked)  # per-batch sigmoids: the streaming loop's d2h
         metas = [(labels, n) for labels, _, n in pending]
         pending.clear()
         collector.submit(stacked, metas)
@@ -641,25 +645,44 @@ class Trainer:
         return losses.result(self.dp), acc.result()
 
     # ------------------------------------------------------------------
-    def _run_diagnostics(self, loader: BatchLoader, epoch: int) -> None:
+    def _run_diagnostics(self, loader: BatchLoader, epoch: int
+                         ) -> Optional[dict]:
         """Gradient-flow report on the epoch's first batch, with a bar chart
         ``{run_name}-gradflow-e{epoch}.png`` beside the checkpoints (the
         reference wired this hook but left it disabled — reference:
-        processors/model_trainer.py:56-58)."""
-        from audio_tokens_tpu_torch.utils.diagnostics import (gradient_flow,
-                                                              make_batch_loss)
-
+        processors/model_trainer.py:56-58) -> the report (None on a rank
+        other than the coordinator)."""
         batches = loader.batches(epoch)
         try:
             batch = next(batches)
         finally:
             batches.close()  # reaps the producer
-        loss_fn = make_batch_loss(self.model, batch, self.use_lengths,
-                                  self.device)
         plot = (Path(self.config.checkpoint_dir)
                 / f"{self.run_name}-gradflow-e{epoch}.png")
-        gradient_flow(loss_fn, dict(self.model.named_parameters()),
-                      plot_path=plot)
+        return self.gradient_report(batch, plot)
+
+    def gradient_report(self, batch: dict, plot_path: Optional[Path] = None
+                        ) -> Optional[dict]:
+        """``utils/diagnostics.gradient_flow`` of the model on ``batch``.
+        On a tensor- or sequence-parallel mesh every rank joins the weights
+        (``full_state_dict``, a collective: every rank calls this) and the
+        coordinator reports on one unsharded model over the whole window,
+        as a one-host JAX mesh does; the other ranks return None."""
+        from audio_tokens_tpu_torch.utils.diagnostics import (gradient_flow,
+                                                              make_batch_loss)
+
+        model = self.model
+        if self.mesh is not None:
+            state = model.full_state_dict()
+            if not distributed.is_coordinator():
+                return None
+            model = get_model(self.config, self.device,
+                              generator_for(self.config.random_seed,
+                                            "model_init"))
+            model.load_state_dict(state)
+        loss_fn = make_batch_loss(model, batch, self.use_lengths, self.device)
+        return gradient_flow(loss_fn, dict(model.named_parameters()),
+                             plot_path=plot_path)
 
     # ------------------------------------------------------------------
     def _log_epoch_results(self, epoch, train_loss, train_metrics, val_loss,

@@ -286,8 +286,32 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    (lstm, f32 bert) and ``tokens_sharded`` on 8 clips against one process
    (tokens equal, probs 1e-6); (d) the full-width lstm ensemble K 2 over
    the 2 ranks against the unsharded one (phase 15's bounds, beside the
-   JAX test's CPU tolerances).
+   JAX test's CPU tolerances); (e) the gradient-flow report
+   (``Trainer.gradient_report``) of the f32 bert on TP 2 and on SP 2
+   (every rank joins the weights, rank 0 reports on one unsharded model)
+   against one process's report on the same weights and batch: the
+   largest relative gap of each statistic within MP_REPORT_RTOL.
    ``[mp ...]`` and ``[c9 ...]`` lines, ``launches_by_path`` ``mp_*``.
+17. the tools (``audio_tokens_tpu_torch/tools``): ``smoke_run`` (staged,
+   the lstm, 1 epoch, 100 clips it writes; inference through
+   ``ManualTester``: B1, B2, the sums, B3 and B4 must launch) and
+   ``scale_run`` (fused, ``kmeans_mode="full"`` on the device feed,
+   ``pcm_wire="i16"``, niter 5, 1 epoch, 1,024 clips: B1, B2 and the sums
+   must launch); each stage's ``WIRE`` bytes equal the arithmetic of the
+   arrays it moves, from the run's own counts, and where the stage has a
+   device section its seconds are > 0 and at most the stage's wall time;
+   the clustering rate scale_run measured (point-iterations a second over
+   its device seconds); stage traces (``profile_dir``) of a staged
+   spectrogram and tokenize run on 8 clips in this long-lived process,
+   where the profiler drops a session's first kernel records: each trace
+   with CUDA kernel events and a record of every launch of its stage, the
+   tokenize trace naming B2's kernel; ``bench_spill --gb 1`` in the
+   checkout's ``build/``, its cold leg called cold only where the cache
+   advice drops a probe file's pages there, and ``bench_loader --n_clips
+   2000``; the phase's own time.  The wav corpora are deleted after the
+   phase.  ``[tools ...]`` lines, ``launches_by_path`` ``tools_*``.
+
+A ``[time]`` line after each phase gives the script's clock.
 
 Phases 8-12 decode with ``audio_backend="auto"``: the native decoder
 (``data/native_loader.py``, built with g++ into ``build/native/``) where it
@@ -305,6 +329,7 @@ import atexit
 import dataclasses
 import json
 import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -435,6 +460,13 @@ MP_WEIGHT_RTOL = 3e-5
 MP_ENS_BATCHES, MP_ENS_VAL = 4, 128
 MP_ENS_LOSS_RTOL, MP_ENS_MAP_ATOL = 1e-5, 2e-5
 MP_ENS_JAX_TOL = dict(rtol=1e-5, atol=1e-6)
+# the gradient-flow report on TP 2 / SP 2 against one process: each
+# statistic's relative gap (the CPU test's bound against JAX, rel 1e-4;
+# below MP_REPORT_FLOOR the gap is taken over the floor)
+MP_REPORT_RTOL, MP_REPORT_FLOOR = 1e-4, 1e-9
+# phase 17: the tools at their own sizes
+TOOLS_SMOKE_CLIPS, TOOLS_SCALE_CLIPS, TOOLS_SCALE_NITER = 100, 1024, 5
+TOOLS_TRACE_CLIPS = 8
 # B5's forward on a sequence rank's query block: the second half of the
 # window against all of it
 MP_T_Q = 864
@@ -442,6 +474,15 @@ MP_T_Q = 864
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase_done(n: int) -> None:
+    """One line a phase: when it ended on the script's clock."""
+    log(f"[time] phase {n} ended {time.perf_counter() - T_START:.1f} s into "
+        "the script (host clock)")
 
 
 def card_line() -> str:
@@ -4521,6 +4562,37 @@ def ens_apart(a: dict, b: dict, members=slice(None)) -> tuple:
     return losses, maps
 
 
+def mp_report(dev, **over):
+    """The gradient-flow report of the f32 bert ``Trainer`` (``over``:
+    model_parallel or sequence_parallel, or none: one process) on the
+    phase's batch -> (the report, or None on a rank other than 0; ms, host
+    clock, synchronized)."""
+    import torch
+
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(mp_bert_config("float32", **over), dev)
+    batch = mp_bert_batch(t.config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = t.gradient_report(batch)
+    torch.cuda.synchronize()
+    return report, (time.perf_counter() - t0) * 1e3
+
+
+def report_gap(got: dict, ref: dict) -> dict:
+    """The largest relative gap of each statistic of ``got`` from
+    ``ref`` over the parameters, and where it sits."""
+    out = {}
+    for key in ("mean_abs_grad", "max_abs_grad"):
+        gaps = {n: abs(got[n][key] - r[key]) / max(abs(r[key]),
+                                                   MP_REPORT_FLOOR)
+                for n, r in ref.items()}
+        worst = max(gaps, key=gaps.get)
+        out[key] = (gaps[worst], worst)
+    return out
+
+
 def mp_rank(dev) -> dict:
     """A rank of phase 16 (``dp_rank_main``'s ``mp16`` case)."""
     from audio_tokens_tpu_torch.parallel import distributed
@@ -4531,7 +4603,9 @@ def mp_rank(dev) -> dict:
            "sp_bf16": mp_bert_run(dev, "bfloat16", False,
                                   sequence_parallel=2),
            "serve": mp_serve(dev, make_mesh()),
-           "ensemble": mp_ensemble(dev, DataGroup())}
+           "ensemble": mp_ensemble(dev, DataGroup()),
+           "tp_report": mp_report(dev, model_parallel=2),
+           "sp_report": mp_report(dev, sequence_parallel=2)}
     if not distributed.is_coordinator():  # the joined tensors: rank 0's
         for case in ("tp_f32", "sp_f32"):
             del res[case]["grads"], res[case]["weights"]
@@ -4722,6 +4796,32 @@ def b5_query_block(records: list, launches: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def mp_report_check(dev, got: list, card: str) -> None:
+    """(e): rank 0's reports on TP 2 and SP 2 (``got``, the ranks'
+    results) against one process's on the same weights and batch."""
+    one_report, one_ms = mp_report(dev)
+    for case in ("tp_report", "sp_report"):
+        report, ms = got[0][case]
+        if sorted(report) != sorted(one_report) or any(
+                g[case][0] is not None for g in got[1:]):
+            raise AssertionError(f"phase 16 {case}: parameters "
+                                 f"{sorted(report)} vs {sorted(one_report)}")
+        gap = report_gap(report, one_report)
+        log(f"[mp {case[:2]} report {MP_WORLD} ranks float32] gradient-flow "
+            f"report of bert hidden {BERT['hidden_size']} x "
+            f"{BERT['num_layers']} layers, window {BERT['max_seq_len']}, "
+            f"batch {MP_BATCH}, {len(report)} parameters, rank 0 over the "
+            f"joined weights: largest relative gap from one process's "
+            f"report on the same weights and batch, mean |grad| "
+            f"{gap['mean_abs_grad'][0]:.3e} ({gap['mean_abs_grad'][1]}), "
+            f"max |grad| {gap['max_abs_grad'][0]:.3e} "
+            f"({gap['max_abs_grad'][1]}) (bound {MP_REPORT_RTOL}); ms "
+            f"{[round(g[case][1], 1) for g in got]}, one process "
+            f"{one_ms:.1f}; {card}")
+        if not max(v[0] for v in gap.values()) <= MP_REPORT_RTOL:
+            raise AssertionError(f"phase 16 {case}: {gap}")
+
+
 def mp_phase(records: list, dev, base: Path) -> None:
     """Phase 16: tensor and sequence parallelism and the batch-split entry
     points (see the module's docstring)."""
@@ -4882,9 +4982,311 @@ def mp_phase(records: list, dev, base: Path) -> None:
                 e["launches"]) < 1:
             raise AssertionError(f"phase 16 ensemble rank {r}: losses "
                                  f"{losses}, mAP {maps}, {e['launches']}")
+    # (e) the gradient-flow report on TP 2 and SP 2 against one process
+    mp_report_check(dev, got, card)
     torch.cuda.empty_cache()
     log(f"[mp] phase 16 took {time.perf_counter() - t_phase:.1f} s (host "
         "clock)")
+
+
+def n_padded(n: int, b: int) -> int:
+    return -(-n // b) * b
+
+
+def token_frames(cfg, split: str) -> int:
+    """Frames the tokenize stage wrote for ``split`` (its token files)."""
+    return sum(len(np.load(f, mmap_mode="r")) for f in
+               (Path(cfg.dest_tokenized_path) / split).glob("*.npy"))
+
+
+def corpus_wire(cfg, n_train: int, n_val: int) -> int:
+    """Host-to-card bytes of the training stage's device-resident token
+    corpora (``train/device_epoch.py``): each split's padded rows (uint16
+    tokens, int32 lengths, uint8 labels) once, and each epoch's int64
+    permutation of the padded training rows."""
+    tok = 2 if cfg.vocab_size <= 0xFFFF else 4
+    row = cfg.max_seq_len * tok + 4 + cfg.num_classes
+    pad_train = n_padded(n_train, cfg.training_batch_size)
+    pad_val = n_padded(n_val, cfg.eval_batch_size or cfg.training_batch_size)
+    return (pad_train + pad_val) * row + cfg.epochs * pad_train * 8
+
+
+def tools_wire(cfg, fused: bool, native: bool) -> dict:
+    """Each stage's expected (h2d, d2h) bytes, from the run's split and
+    token files and the config's shapes."""
+    from audio_tokens_tpu_torch.ops.mel import num_frames
+
+    split = json.loads(Path(cfg.split_file).read_text())
+    n_train, n_val = len(split["train"]), len(split["validation"])
+    bs = cfg.device_batch_size
+    row = cfg.clip_samples + 2 * (cfg.n_fft // 2)  # pad + clip + pad
+    frames_max = num_frames(cfg.clip_samples, cfg.hop_length)
+    i16 = native and cfg.pcm_wire == "i16"
+    wave = 2 if i16 else 4
+    rows = {s: n_padded(n, bs) for s, n in (("train", n_train),
+                                             ("validation", n_val))}
+    frames = {s: token_frames(cfg, s) for s in rows}
+    out = {"training": (corpus_wire(cfg, n_train, n_val), 0)}
+    if fused:  # the device feed, then the resident frames and B1
+        out["clustering"] = (rows["train"] * row * wave
+                             + frames["train"] * 8, 0)
+        out["tokenization"] = (
+            rows["validation"] * row * wave if native else 0,
+            frames["train"] * 8
+            + (rows["validation"] * frames_max * 4 if native else 0))
+    else:
+        out["spectrograms"] = ((rows["train"] + rows["validation"]) * row
+                               * wave, (rows["train"] + rows["validation"])
+                               * cfg.n_mels * frames_max * 4)
+        out["clustering"] = (0, 0)  # batch_warm_start: no metered site
+        n = frames["train"] + frames["validation"]
+        out["tokenization"] = (n * cfg.n_mels * 4, n * 8)
+    return out
+
+
+def check_tools_wire(tag: str, res: dict, want: dict, sections: tuple,
+                     card: str) -> None:
+    """Hold each stage's metered bytes to ``want`` exactly and its device
+    seconds to (0, wall] where it has a section (``sections``)."""
+    for stage, (h2d, d2h) in want.items():
+        w, wall = res["wire"][stage], res["timings"][stage]
+        got = (round(w["h2d_mb"] * 2**20), round(w["d2h_mb"] * 2**20))
+        ok = got == (h2d, d2h)
+        if stage in sections:
+            ok = ok and 0 < w["device_s"] <= wall
+        log(f"[tools {tag} wire] {stage}: h2d {got[0]} B, d2h {got[1]} B "
+            f"(the arrays' arithmetic: {h2d}, {d2h}), device "
+            f"{w['device_s']:.3f} s of {wall:.3f} s wall"
+            f"{' (a device section)' if stage in sections else ''}; {card}")
+        if not ok:
+            raise AssertionError(f"phase 17 {tag} {stage}: wire {w}, wall "
+                                 f"{wall}, expected {(h2d, d2h)}")
+
+
+def trace_kernels(path: Path) -> list:
+    """Names of the CUDA kernel events in a Chrome trace."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def trace_config(base: Path, **over):
+    from audio_tokens_tpu_torch.config import AudioTokensConfig
+
+    return AudioTokensConfig(base_dir=str(base), dataset_ratio=1.0,
+                             validation_ratio=0.25, num_classes=10, **over)
+
+
+def tools_traces(dev, base: Path, cents_path: Path, card: str) -> None:
+    """A staged spectrogram and tokenize run of TOOLS_TRACE_CLIPS clips
+    with ``profile_dir``, in this long-lived process, where the profiler
+    drops the first kernel records of every session (``maybe_trace``'s
+    warm-up launches take them): each trace holds CUDA kernel events and
+    a record of every launch of its stage, the tokenize trace B2's
+    kernel; the records the warm-up lost are printed."""
+    import shutil
+
+    from audio_tokens_tpu_torch.data.metadata import AudiosetMetadataProcessor
+    from audio_tokens_tpu_torch.data.splitter import DatasetSplitter
+    from audio_tokens_tpu_torch.processors import (SpecTokenizer,
+                                                   SpectrogramGenerator)
+    from audio_tokens_tpu_torch.tools.smoke_run import make_corpus
+    from audio_tokens_tpu_torch.utils import profiling
+
+    make_corpus(base, TOOLS_TRACE_CLIPS)
+    cfg = trace_config(base)
+    DatasetSplitter(cfg).create_split_file(AudiosetMetadataProcessor(cfg))
+    Path(cfg.centroids_path).parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(cents_path, cfg.centroids_path)
+    stages = (("spec", "spectrogram_generator", SpectrogramGenerator),
+              ("tokenize", "spec_tokenizer", SpecTokenizer))
+    for stage, module, stage_cls in stages:
+        out = base / f"traces_{stage}"
+        t0 = time.perf_counter()
+        stage_cls(trace_config(base, profile_dir=str(out)), dev).run()
+        secs = time.perf_counter() - t0
+        files = sorted(out.glob("trace_r0_*.json"))
+        names = [trace_kernels(f) for f in files]
+        counts = [profiling._launch_records(f) for f in files]
+        b2 = [n for ks in names for n in ks if "vq_" in n]
+        log(f"[tools trace {stage}] processors/{module}.py in this process, "
+            f"{secs:.1f} s: {len(files)} traces (one a split), CUDA kernel "
+            f"events {[len(k) for k in names]}, the stage's launches without "
+            f"a record {[c[3] for c in counts]} of {[c[2] for c in counts]}, "
+            f"the warm-up's {[c[1] for c in counts]} of "
+            f"{[c[0] for c in counts]}; {sum(f.stat().st_size for f in files)}"
+            f" bytes; B2 kernel events {len(b2)} ({sorted(set(b2))[:2]}); "
+            f"{card}")
+        if (len(files) != 2 or min(len(k) for k in names) < 1
+                or any(c[3] for c in counts)
+                or (stage == "tokenize" and not b2)):
+            raise AssertionError(f"phase 17 traces of {stage}: {files}, "
+                                 f"{[len(k) for k in names]}, {counts}, "
+                                 f"B2 {len(b2)}")
+
+
+def mount_type(path: Path) -> str:
+    """The file system type of the mount that holds ``path``."""
+    best, kind, target = "", "unknown", str(path.resolve())
+    for line in Path("/proc/self/mounts").read_text().splitlines():
+        mnt, typ = line.split()[1:3]
+        mnt = mnt.replace("\\040", " ")
+        inside = target == mnt or target.startswith(mnt.rstrip("/") + "/")
+        if inside and len(mnt) > len(best):
+            best, kind = mnt, typ
+    return kind
+
+
+def resident_after_advice(directory: Path, mb: int = 64) -> float:
+    """Write and fsync an ``mb`` MiB file in ``directory``, advise the
+    kernel to drop it (``POSIX_FADV_DONTNEED``, as ``bench_spill`` does
+    before its cold read) and return the share of its pages still in the
+    page cache (``mincore``)."""
+    import ctypes
+    import mmap
+
+    path, size = directory / "advice_probe.bin", mb << 20
+    with open(path, "wb") as f:
+        f.write(np.ones(size, np.uint8).tobytes())
+        f.flush()
+        os.fsync(f.fileno())
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_long]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.c_void_p]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, fd, 0)
+        if addr in (None, ctypes.c_void_p(-1).value):
+            raise OSError(ctypes.get_errno(), "mmap")
+        pages = -(-size // mmap.PAGESIZE)
+        vec = (ctypes.c_ubyte * pages)()
+        rc = libc.mincore(addr, size, vec)
+        libc.munmap(addr, size)
+        if rc:
+            raise OSError(ctypes.get_errno(), "mincore")
+        return sum(v & 1 for v in vec) / pages
+    finally:
+        os.close(fd)
+        path.unlink()
+
+
+def tools_spill(card: str) -> None:
+    """``bench_spill --gb 1`` in a directory of the checkout (``build/``),
+    whose file system can honour the cache advice, unlike a tmpfs
+    ``TMPDIR``; the cold leg is called cold only where the advice drops a
+    fsynced probe file's pages there."""
+    import shutil
+
+    from audio_tokens_tpu_torch.tools import bench_spill
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    spill_dir = Path(tempfile.mkdtemp(prefix="spill_", dir=root))
+    try:
+        kind, left = mount_type(spill_dir), resident_after_advice(spill_dir)
+        spill = bench_spill.main(["--gb", "1", "--path", str(spill_dir)])
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    if left < 0.01:
+        leg = (f"a cold read: the advice dropped {1 - left:.1%} of a fsynced "
+               f"64 MiB probe file's pages on this {kind} file system")
+    else:
+        leg = (f"a warm read in effect: the advice left {left:.1%} of a "
+               f"fsynced 64 MiB probe file's pages cached on this {kind} "
+               f"file system, so 'cold_replay_mb_s' is a page-cache rate")
+    log(f"[tools bench_spill] {json.dumps(spill)} (the cold leg was {leg}; "
+        f"{card})")
+
+
+def tools_phase(records: list, dev, base: Path) -> None:
+    """Phase 17: the tools (see the module's docstring)."""
+    import shutil
+
+    import torch
+
+    from audio_tokens_tpu_torch.data import native_loader
+    from audio_tokens_tpu_torch.ops.cuda_kmeans import tier_sums64
+    from audio_tokens_tpu_torch.ops.cuda_lstm import (lstm_sequence_bwd,
+                                                      lstm_sequence_fwd)
+    from audio_tokens_tpu_torch.ops.cuda_tokenizer import TokenizerKernel
+    from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
+    from audio_tokens_tpu_torch.tools import bench_loader, scale_run, smoke_run
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    kernels = {"B1": TokenizerKernel, "B2": vq_argmin, "sums": tier_sums64,
+               "B3": lstm_sequence_fwd, "B4": lstm_sequence_bwd}
+    rec = {"B1": records[0], "B2": records[1], "sums": sums_record(records),
+           "B3": records[2], "B4": records[3]}
+    dev_arg = str(dev)
+
+    def counted(tag: str, must: tuple, fn):
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        for n in must:
+            rec[n]["launches_by_path"][f"tools_{tag}"] = launches[n]
+        log(f"[tools {tag}] {secs:.1f} s (host clock, corpus writing "
+            f"included); launches {launches}; {card}")
+        if min(launches[n] for n in must) < 1:
+            raise AssertionError(f"phase 17 {tag}: a kernel of {must} never "
+                                 f"launched: {launches}")
+        return res
+
+    smoke_ws, scale_ws = base / "smoke", base / "scale"
+    res = counted("smoke_run", ("B1", "B2", "sums", "B3", "B4"),
+                  lambda: smoke_run.main([
+                      "--workspace", str(smoke_ws), "--n_clips",
+                      str(TOOLS_SMOKE_CLIPS), "--epochs", "1",
+                      "--model_type", "lstm", "--device", dev_arg]))
+    cfg = res["config"]
+    log(f"[tools smoke_run] stages {({k: round(v, 2) for k, v in res['timings'].items()})} s, "
+        f"val mAP {res['val_metrics']['mAP']:.4f}; top rows "
+        f"{[(r['name'], round(r['score'], 4)) for r in res['rows'][:2]]}")
+    check_tools_wire("smoke_run", res, tools_wire(
+        cfg, False, native_loader.select_backend(cfg)), ("training",), card)
+
+    res = counted("scale_run", ("B1", "B2", "sums"), lambda: scale_run.main([
+        "--workspace", str(scale_ws), "--n_clips", str(TOOLS_SCALE_CLIPS),
+        "--niter", str(TOOLS_SCALE_NITER), "--epochs", "1", "--device",
+        dev_arg]))
+    cfg = res["config"]
+    if not (cfg.fused_pipeline and cfg.kmeans_mode == "full"
+            and cfg.pcm_wire == "i16"):
+        raise AssertionError(f"phase 17 scale_run config {cfg}")
+    check_tools_wire("scale_run", res, tools_wire(
+        cfg, True, native_loader.select_backend(cfg)),
+        ("clustering", "tokenization", "training"), card)
+    saved = json.loads((scale_ws / "output" / "scale_run_timings.json")
+                       .read_text())
+    log(f"[tools scale_run] {TOOLS_SCALE_CLIPS} clips, fused, device feed, "
+        f"niter {TOOLS_SCALE_NITER}: the clustering stage's measured rate "
+        f"{res['point_iters_per_s']:.6e} point-iterations/s (train frames x "
+        f"niter over its {saved['wire']['clustering']['device_s']:.3f} "
+        f"device s); stage wall s {({k: round(v, 3) for k, v in saved['timings'].items()})}; "
+        f"val mAP {saved['val_mAP']:.4f}; JSON keys {sorted(saved)}; {card}")
+
+    tools_traces(dev, base / "traces", smoke_ws / "output" / "centroids.npy",
+                 card)
+
+    tools_spill(card)
+    rates = bench_loader.main(["--n_clips", "2000"])
+    log("[tools bench_loader] 2000 clips of 1728 tokens, batch 64: " + ", ".join(
+        f"workers {w}: {b:.1f} batches/s, {c:.0f} clips/s"
+        for w, (b, c) in rates.items()) + f"; {card}")
+    for ws in (smoke_ws, scale_ws, base / "traces"):
+        shutil.rmtree(ws / "audioset", ignore_errors=True)
+    log(f"[tools] phase 17 took {time.perf_counter() - t_phase:.1f} s (host "
+        "clock); the wav corpora deleted")
 
 
 def main() -> int:
@@ -4920,6 +5322,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
     exact_f32()
+    phase_done(1)
 
     # -- 2. build ---------------------------------------------------------
     secs = _build.build()
@@ -4928,6 +5331,7 @@ def main() -> int:
         for kernel, usage in ptxas_usage(_build.BUILD_DIR / f"lib{name}.log"):
             log(f"[build] {name} {kernel}: {usage}")
     split_procs = start_split_builds()  # phase 12's, built meanwhile
+    phase_done(2)
 
     # -- 3. kernels vs plain on the card ------------------------------------
     cfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS, **MODEL)
@@ -5166,6 +5570,7 @@ def main() -> int:
     del fwd, bwd_args, dhs, dh_last, xg
     attention_phases(records)
     records.extend(b2[1:])
+    phase_done(3)
 
     # -- 4. the slice answers requests ---------------------------------------
     prog = ServingProgram.from_components(
@@ -5290,6 +5695,7 @@ def main() -> int:
     log(f"[reference] 2 clips on the CPU: tokens {frac:.2e} disagree (gap "
         f"{gap:.3e}); probs max abs err {perr:.3e} (atol {PROBS_ATOL})")
     del prog, prog_n, outs, out_n
+    phase_done(4)
 
     # -- 5. bert answers requests --------------------------------------------
     bcfg = AudioTokensConfig(clip_seconds=CLIP_SECONDS, **BERT)
@@ -5367,6 +5773,7 @@ def main() -> int:
         f"launches B5 f32 forward {f32_serve_launches}")
     del bprog, xprog, fprog, outs, out_x, batches, weights, cpu_bert
     torch.cuda.empty_cache()
+    phase_done(5)
 
     # -- 6. the lstm trains ---------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -5412,6 +5819,7 @@ def main() -> int:
                           *first_val_rows(tcfg, 4), train=True)
         del trainer, cpu_model
         torch.cuda.empty_cache()
+        phase_done(6)
 
         # -- 7. bert trains ----------------------------------------------------
         bt_cfg = AudioTokensConfig(
@@ -5497,32 +5905,46 @@ def main() -> int:
             f"(plain attention) bf16 {plain_bf16:.3f} ms")
         del btrainer, card_bert, cpu_bert, state
         torch.cuda.empty_cache()
+        phase_done(7)
 
         # -- 8. the pipeline, wav files to a trained checkpoint --------------
         with tempfile.TemporaryDirectory() as tmp8:
             pipe = Path(tmp8)
             staged_cfg, staged_cents = pipeline_phase(records, dev, pipe)
+            phase_done(8)
             # -- 9. the fused pipeline on phase 8's workspace -----------------
             fused_phase(records, dev, pipe, staged_cfg, staged_cents)
+            phase_done(9)
             # -- 10. every family trains and serves from its checkpoint -------
             families_phase(records, dev, pipe, staged_cfg,
                            Path(bt_cfg.checkpoint_dir))
+            phase_done(10)
             # -- 11. the serving export and serve_bench -----------------------
             python_bench = export_phase(records, dev, pipe, staged_cfg,
                                         Path(bt_cfg.checkpoint_dir))
+            phase_done(11)
             # -- 12. the tiers, the conv front-end, the native decoder ---------
             tiers_phase(records, dev, pipe, staged_cfg, staged_cents,
                         python_bench, split_procs)
+            phase_done(12)
             # -- 13. device-resident epochs, remat, diagnostics -----------------
             with tempfile.TemporaryDirectory() as tmp13:
                 device_phase(records, dev, Path(tmp13))
+            phase_done(13)
             # -- 14. ensembles and LR sweeps ------------------------------------
             with tempfile.TemporaryDirectory() as tmp14:
                 ensemble_phase(records, dev, Path(tmp14))
+            phase_done(14)
             # -- 15. multi-process and data parallel, on phase 8's workspace ----
             dp_phase(records, dev, pipe)
+            phase_done(15)
             # -- 16. tensor and sequence parallelism, the sharded entry points -
             mp_phase(records, dev, pipe)
+            phase_done(16)
+            # -- 17. the tools, the wire meter, stage traces ----------------------
+            with tempfile.TemporaryDirectory() as tmp17:
+                tools_phase(records, dev, Path(tmp17))
+            phase_done(17)
 
     for rec in records:
         rec["launches"] = sum(rec["launches_by_path"].values())

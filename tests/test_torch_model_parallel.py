@@ -25,7 +25,14 @@ and against one process of the port, on the same inputs:
      probabilities within 1e-6, and back into a sharded ``Trainer`` as each
      rank's own slices of the weights and the AdamW moments;
   D. a batch that does not split over the data axis, refused with the JAX
-     message.
+     message;
+  E. the gradient-flow report (``Trainer.gradient_report``) of C's model
+     (plain attention) on the TP 2 x SP 2 mesh, from the JAX init of that
+     model: rank 0's report, over one unsharded model of the joined
+     weights, against the JAX ``gradient_flow`` on the same weights and
+     first batch in one process (each statistic within rel 1e-4 / abs
+     1e-9, as ``tests/test_torch_diagnostics.py``); the other ranks join
+     the weights and report nothing.
 
 The ranks run this file as a script (``tests/torch_ranks.py``):
 
@@ -101,6 +108,8 @@ def _trainer_config(out: Path, name: str):
         kw.update(hidden_size=128, model_parallel=2, sequence_parallel=2,
                   dropout=0.1, transformer_attention="flash",
                   device_corpus="auto", save_best_checkpoint=True)
+    if name == "e":  # E's report: C's model on the plain attention route
+        kw.update(transformer_attention="xla", save_best_checkpoint=False)
     return token_corpus.config(out / "tokens", **kw)
 
 
@@ -116,6 +125,17 @@ def _recorded_run(trainer):
 
     trainer._train_step = recorded
     return trainer.run(), losses
+
+
+def _first_batch(cfg) -> dict:
+    """The first training batch of epoch 0 (the seeded loader's)."""
+    from audio_tokens_tpu_torch.data.datasets import DataLoaderCreator
+
+    batches = DataLoaderCreator(cfg).get_dataloaders()[0].batches(0)
+    try:
+        return next(batches)
+    finally:
+        batches.close()
 
 
 def _val_batch(cfg):
@@ -192,6 +212,10 @@ def _rank_main(port: str, rank: int, world: int, out: Path) -> None:
         mesh_for(cfgs["d"])
     except ValueError as e:
         res["d_refused"] = str(e)
+    # E. the gradient-flow report on TP 2 x SP 2, from the JAX init
+    reporter = Trainer(cfgs["e"], "cpu")
+    reporter._load_params(torch.load(out / "report_state.pt"))
+    res["e_report"] = reporter.gradient_report(_first_batch(cfgs["e"]))
     torch.save(res, out / f"result_{rank}.pt")
 
 
@@ -251,6 +275,38 @@ def _jax_references(inputs: dict) -> dict:
                 grads=bert_state_dict(jax.device_get(grads)))
 
 
+def _jax_report_inputs(out: Path, cfg) -> dict:
+    """E's JAX model, its init on the first training batch (carried into
+    ``report_state.pt`` for the ranks) and that batch."""
+    import jax
+
+    from audio_tokens_tpu.data.datasets import DataLoaderCreator as Loaders
+    from audio_tokens_tpu.models import get_model as jax_model
+    from audio_tokens_tpu.utils.seeding import key_for
+    from audio_tokens_tpu_torch.convert import state_dict_for
+
+    batch = next(iter(Loaders(cfg).get_dataloaders()[0].batches(0)))
+    model = jax_model(cfg)
+    params = model.init(key_for(0, "model_init"), batch["inputs"],
+                        lengths=batch["lengths"])["params"]
+    torch.save(state_dict_for("bert", jax.device_get(params)),
+               out / "report_state.pt")
+    return dict(model=model, params=params, batch=batch)
+
+
+def _jax_report(cfg, inputs: dict) -> dict:
+    """The JAX ``gradient_flow`` of E's weights on its batch, keyed by the
+    port's parameter names."""
+    from audio_tokens_tpu.utils import diagnostics
+    from tests.test_torch_diagnostics import _port_names
+
+    report = diagnostics.gradient_flow(diagnostics.make_batch_loss(
+        inputs["model"], inputs["batch"], not cfg.reference_compat),
+        inputs["params"])
+    names = _port_names("bert", inputs["params"])
+    return {names[k]: v for k, v in report.items()}
+
+
 def _port_references(out: Path, cfgs: dict) -> dict:
     """One process of the port: the dropout step, B's and C's runs."""
     from audio_tokens_tpu_torch.config import AudioTokensConfig
@@ -281,7 +337,8 @@ def mp(tmp_path_factory):
     t0 = time.perf_counter()
     inputs = _jax_inputs(out)
     token_corpus.make_token_corpus(out / "tokens")
-    cfgs = {name: _trainer_config(out, name) for name in ("b", "c")}
+    cfgs = {name: _trainer_config(out, name) for name in ("b", "c", "e")}
+    report_inputs = _jax_report_inputs(out, cfgs["e"])
     cfgs["d"] = token_corpus.config(
         out / "tokens", model_type="bert", hidden_size=64, num_layers=1,
         transformer_max_position=64, data_parallel=2, sequence_parallel=2,
@@ -291,6 +348,7 @@ def mp(tmp_path_factory):
     procs = torch_ranks.start(Path(__file__).resolve(), WORLD, out)
     try:
         jax_refs = _jax_references(inputs)
+        jax_refs["report"] = _jax_report(cfgs["e"], report_inputs)
         refs = _port_references(out, cfgs)
     finally:
         torch_ranks.finish(procs, out)
@@ -420,6 +478,19 @@ def test_batch_not_divisible_by_the_data_axis_refused(mp):
             "batch sizes (5 train / 5 eval) must be divisible by the data "
             "axis (2) when model_parallel=1 / sequence_parallel=2 is "
             "requested")
+
+
+def test_tp_sp_gradient_report_matches_jax(mp):
+    """E: rank 0's report over the joined weights is the JAX report of
+    those weights on that batch; the other ranks report nothing."""
+    want = mp["jax"]["report"]
+    got = mp["got"][0]["e_report"]
+    assert sorted(got) == sorted(want)
+    for name, stats in want.items():
+        for key in ("mean_abs_grad", "max_abs_grad"):
+            assert got[name][key] == pytest.approx(
+                stats[key], rel=1e-4, abs=1e-9), (name, key)
+    assert all(g["e_report"] is None for g in mp["got"][1:])
 
 
 # -- the JAX trainer's refusals, in one process --------------------------------

@@ -6,7 +6,13 @@ the JAX package's stages on copies of one synthetic workspace
 Tolerances: spectrograms atol 5e-3 dB + rtol 1e-4 (the two frontends sum
 the DFT in other orders, as in test_torch_mel.py); centroids 1e-5 (the two
 Lloyd loops sum in other orders); tokens equal except at near-ties
-(``ops/vq.check_near_ties``) against the JAX centroids."""
+(``ops/vq.check_near_ties``) against the JAX centroids.
+
+The wire meters (``utils/profiling.WIRE`` of each package) are read around
+every stage the fixture runs, staged and fused (both K-means modes, native
+decode on both sides): each stage's host-to-card and card-to-host bytes
+equal the JAX stage's exactly, but for the one difference by design
+(ROADMAP C10: the device feed's frame index)."""
 
 import json
 import shutil
@@ -27,6 +33,7 @@ from audio_tokens_tpu.processors.spec_tokenizer import (
 from audio_tokens_tpu.processors.spectrogram_generator import (
     SpectrogramGenerator as JaxSpectrogramGenerator,
 )
+from audio_tokens_tpu.utils.profiling import WIRE as JAX_WIRE
 from audio_tokens_tpu_torch import run_pipeline
 from audio_tokens_tpu_torch.config import AudioTokensConfig
 from audio_tokens_tpu_torch.ops.vq import check_near_ties, l2_normalize
@@ -35,9 +42,11 @@ from audio_tokens_tpu_torch.processors import (
     SpecTokenizer,
     SpectrogramGenerator,
 )
+from audio_tokens_tpu_torch.utils.profiling import WIRE
 from tests import fixtures
 
 SPLITS = ("train", "validation")
+KMEANS_MODES = ("batch_warm_start", "full")
 
 
 def port_config(base: Path, **overrides) -> AudioTokensConfig:
@@ -52,17 +61,60 @@ def port_config(base: Path, **overrides) -> AudioTokensConfig:
     return AudioTokensConfig(base_dir=str(base), **kw)
 
 
-def _run_port_stages(cfg):
-    SpectrogramGenerator(cfg, "cpu").run()
-    ClusterCreator(cfg, "cpu").run()
-    return SpecTokenizer(cfg, "cpu").run()
+class _Metered:
+    """Each stage run under ``stage(name, fn)`` -> fn's result, with the
+    meter's delta recorded as ``wire[name]``."""
+
+    def __init__(self, meter):
+        self.meter = meter
+        self.wire = {}
+
+    def stage(self, name, fn):
+        snap = self.meter.snapshot()
+        out = fn()
+        self.wire[name] = self.meter.delta(snap)
+        return out
+
+
+def _run_port_stages(cfg, meter=None):
+    meter = meter or _Metered(WIRE)
+    meter.stage("spectrograms", SpectrogramGenerator(cfg, "cpu").run)
+    meter.stage("clustering", ClusterCreator(cfg, "cpu").run)
+    return meter.stage("tokenization", SpecTokenizer(cfg, "cpu").run)
+
+
+def _fused_wire(fresh: Path, root: Path, mode: str) -> dict:
+    """The fused clustering and tokenize stages of each package on copies
+    of ``fresh`` (native decode), metered -> {"jax", "port": {stage:
+    delta}, "port_cfg"}."""
+    out = {}
+    for side in ("jax", "port"):
+        base = root / f"fused_{side}_{mode}"
+        shutil.copytree(fresh, base)
+        kw = dict(kmeans_mode=mode, fused_pipeline=True,
+                  audio_backend="native")
+        if side == "jax":
+            meter, cfg = _Metered(JAX_WIRE), fixtures.test_config(base, **kw)
+            cluster = JaxClusterCreator(cfg)
+            tok = lambda rf: JaxSpecTokenizer(cfg, resident_frames=rf)
+        else:
+            meter, cfg = _Metered(WIRE), port_config(base, **kw)
+            cluster = ClusterCreator(cfg, "cpu")
+            tok = lambda rf: SpecTokenizer(cfg, "cpu", resident_frames=rf)
+            out["port_cfg"] = cfg
+        meter.stage("clustering", cluster.run)
+        meter.stage("tokenization",
+                    tok(cluster.take_resident_frames()).run)
+        out[side] = meter.wire
+    return out
 
 
 @pytest.fixture(scope="module")
 def workspaces(tmp_path_factory):
     """One split workspace, copied before any stage ran (``fresh``), then
-    the JAX stages on one copy and the port's on another.  The JAX side
-    decodes in python, the port's only decode."""
+    the JAX stages on one copy and the port's on another, each stage
+    metered.  The JAX side decodes in python, the port's only decode.
+    Then the fused stages of both, metered (``_fused_wire``)."""
     root = tmp_path_factory.mktemp("torch_pipeline")
     fresh = root / "fresh"
     fixtures.make_workspace(fresh)
@@ -72,13 +124,17 @@ def workspaces(tmp_path_factory):
     shutil.copytree(fresh, jax_ws)
     shutil.copytree(fresh, port_ws)
     jcfg = fixtures.test_config(jax_ws, audio_backend="python")
-    JaxSpectrogramGenerator(jcfg).run()
-    JaxClusterCreator(jcfg).run()
-    jax_stats = JaxSpecTokenizer(jcfg).run()
+    jax_meter, port_meter = _Metered(JAX_WIRE), _Metered(WIRE)
+    jax_meter.stage("spectrograms", JaxSpectrogramGenerator(jcfg).run)
+    jax_meter.stage("clustering", JaxClusterCreator(jcfg).run)
+    jax_stats = jax_meter.stage("tokenization", JaxSpecTokenizer(jcfg).run)
     pcfg = port_config(port_ws)
-    port_stats = _run_port_stages(pcfg)
+    port_stats = _run_port_stages(pcfg, port_meter)
+    wire = {"staged": {"jax": jax_meter.wire, "port": port_meter.wire}}
+    for mode in KMEANS_MODES:
+        wire[f"fused_{mode}"] = _fused_wire(fresh, root, mode)
     return dict(fresh=fresh, jcfg=jcfg, pcfg=pcfg, jax_stats=jax_stats,
-                port_stats=port_stats)
+                port_stats=port_stats, wire=wire)
 
 
 def _files(cfg, kind, split):
@@ -172,6 +228,39 @@ def test_token_stats_match_jax(workspaces):
         "total_tokens"]
     if _disagreements(workspaces) == 0:
         assert got == workspaces["jax_stats"]["train"]
+
+
+@pytest.mark.parametrize("run", ["staged"] + [f"fused_{m}"
+                                             for m in KMEANS_MODES])
+def test_wire_meter_matches_jax(workspaces, run):
+    """Each stage's bytes on the port's meter equal the JAX stage's on
+    the same workspace and config, exactly.  The one difference by design
+    (ROADMAP C10): the fused device feed (``kmeans_mode='full'``) ships the
+    int64 rows of each batch's valid frames where the JAX feed ships an
+    int32 index of every row's ``frames_max`` frames, so its clustering
+    h2d is JAX's less that index plus those rows; where a stage runs a
+    device section (the feed's fit, the resident assignment) its seconds
+    are > 0."""
+    got, ref = (workspaces["wire"][run][side] for side in ("port", "jax"))
+    assert got.keys() == ref.keys()
+    fix = dict.fromkeys(got, 0)
+    if run == "fused_full":
+        cfg = workspaces["wire"][run]["port_cfg"]
+        gen = SpectrogramGenerator(cfg, "cpu")
+        n_train = len(gen.data_split["train"])
+        batches = -(-n_train // cfg.device_batch_size)
+        frames = sum(len(t) for t in map(np.load, _files(cfg, "tok",
+                                                         "train")))
+        fix["clustering"] = (frames * 8 - batches * cfg.device_batch_size
+                             * gen.frontend.frames_max * 4)
+        assert fix["clustering"] != 0
+        for stage in got:
+            assert got[stage]["device_s"] > 0, stage
+    for stage in got:
+        assert got[stage]["h2d_mb"] * 2**20 == (ref[stage]["h2d_mb"] * 2**20
+                                               + fix[stage]), stage
+        assert got[stage]["d2h_mb"] == ref[stage]["d2h_mb"], stage
+    assert sum(d["h2d_mb"] for d in got.values()) > 0
 
 
 def test_rerun_is_destructive_and_bit_deterministic(workspaces):
@@ -358,8 +447,26 @@ def _fused_native_matches_staged(workspaces, base, cfg):
                     torch.cat(got), torch.cat(ref))
 
 
+def _spec_traced_is_unchanged(workspaces, base, cfg):
+    """``profile_dir``: each split's rendering traced (one Chrome trace a
+    split), the spectrograms bit-equal to the untraced run's."""
+    cfg = port_config(base, profile_dir=str(base / cfg.profile_dir))
+    SpectrogramGenerator(cfg, "cpu").run()
+    traces = sorted(Path(cfg.profile_dir).glob("trace_r0_*.json"))
+    assert len(traces) == len(SPLITS)
+    for t in traces:
+        assert json.loads(t.read_text())["traceEvents"]
+    pcfg = workspaces["pcfg"]
+    for s in SPLITS:
+        pf, got = _files(pcfg, "spec", s), _files(cfg, "spec", s)
+        assert [f.name for f in got] == [f.name for f in pf] and got
+        for a, b in zip(pf, got):
+            np.testing.assert_array_equal(np.load(b), np.load(a))
+
+
 A6_CHECKS = {
     "spec": _spec_native_matches_jax_native,
+    "spec_trace": _spec_traced_is_unchanged,
     "cluster_conv": _cluster_conv_matches_jax,
     "cluster_tier": _cluster_default_tier_matches_numpy,
     "tokenize": _tokenize_conv_matches_jax,
@@ -367,33 +474,20 @@ A6_CHECKS = {
 }
 
 
-@pytest.mark.parametrize("stage,override,match", [
-    ("spec", {"audio_backend": "native"}, None),
-    ("spec", {"profile_dir": "trace"}, "ROADMAP A7"),
-    ("cluster_conv", {"use_convolution": True}, None),
-    ("cluster_tier", {"kmeans_precision": "default"}, None),
-    ("tokenize", {"use_convolution": True}, None),
-    ("pipeline", {"fused_pipeline": True, "audio_backend": "native"}, None),
+@pytest.mark.parametrize("stage,override", [
+    ("spec", {"audio_backend": "native"}),
+    ("spec_trace", {"profile_dir": "trace"}),
+    ("cluster_conv", {"use_convolution": True}),
+    ("cluster_tier", {"kmeans_precision": "default"}),
+    ("tokenize", {"use_convolution": True}),
+    ("pipeline", {"fused_pipeline": True, "audio_backend": "native"}),
 ])
-def test_unported_options_refused(workspaces, tmp_path, stage, override,
-                                  match):
-    """The A7 options are refused; the A6 options, once refused, run and
-    agree with their references (``A6_CHECKS``)."""
+def test_unported_options_refused(workspaces, tmp_path, stage, override):
+    """The options once refused (ROADMAP A6, and A7.6's stage traces) run
+    and agree with their references (``A6_CHECKS``)."""
     base = tmp_path / "ws"
     shutil.copytree(workspaces["fresh"], base)
-    cfg = port_config(base, **override)
-    if match is None:
-        A6_CHECKS[stage](workspaces, base, cfg)
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        if stage == "spec":
-            SpectrogramGenerator(cfg, "cpu").run()
-        elif stage == "cluster":
-            ClusterCreator(cfg, "cpu").run()
-        elif stage == "tokenize":
-            SpecTokenizer(cfg, "cpu").run()
-        else:
-            run_pipeline.main(cfg, "cpu")
+    A6_CHECKS[stage](workspaces, base, port_config(base, **override))
 
 
 def test_run_pipeline_trains_end_to_end(workspaces, tmp_path):
