@@ -8,11 +8,12 @@
 // _flash_attention_dq_kernel (backward).
 //
 // q, k, v, o, do (B, nh, T, 64) in float32 or bfloat16, seg (B, T) int32,
-// lse and di (B, nh, T) float32.  The forward also takes a query block
-// shorter than the keys, as the library's SegmentIds(q=, kv=) does: q, o
-// (B, nh, T, 64) and their segment ids (B, T) against k, v (B, nh, T_kv,
-// 64) and theirs (B, T_kv) (a sequence-parallel rank's query rows against
-// the gathered keys); the backward kernels take T_kv = T.
+// lse and di (B, nh, T) float32.  Every kernel also takes a query block
+// shorter than the keys, as the library's SegmentIds(q=, kv=) does: q, o,
+// do (B, nh, T, 64), lse, di (B, nh, T) and the queries' segment ids (B, T)
+// against k, v (B, nh, T_kv, 64) and the keys' (B, T_kv) (a
+// sequence-parallel rank's query rows against the gathered keys); dk and
+// dv are then (B, nh, T_kv, 64), dq (B, nh, T, 64).
 //
 // The numerics are the library's: scores q.k^T accumulated in f32, times
 // sm_scale, plus the finite mask value -0.7 * FLT_MAX where the query's and
@@ -300,9 +301,9 @@ __device__ __forceinline__ void warp_range(int& lo, int& hi) {
 // that of the block's own rows [r0, r0 + 16 WARPS) of t (segment ids sg):
 // then every pair of the two has P = 0.  An entry is 2 * tile + 1 where the
 // tile needs its mask, 2 * tile where it is full and it and the block's rows
-// carry one and the same id.  The backward kernels walk the side they own
-// (sgw = sg, tw = t); the forward walks keys that may be more than its
-// queries (a sequence-parallel query block against the gathered keys).
+// carry one and the same id.  The forward and dq walk the keys (sgw the
+// keys' ids, tw = T_kv), dk/dv the queries (sgw the queries' ids, tw = T),
+// for a query block shorter than its keys as for the whole window.
 template <int WARPS>
 __device__ __forceinline__ int tiles_to_walk(int* tiles, const int* __restrict__ sg, int r0,
                                              int t, const int* __restrict__ sgw, int tw) {
@@ -436,9 +437,10 @@ __device__ __forceinline__ void dkv_tile(float (&dka)[kD / 8][4], float (&dva)[k
 __global__ void __launch_bounds__(32 * kDkvWarps, kDkvBlocks)
 flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                     const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ di, int heads, int t, float scale,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+                     const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ di,
+                     int heads, int t, int t_kv, float scale, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Stage* stages = reinterpret_cast<Stage*>(smem_raw);
   int* tiles = reinterpret_cast<int*>(stages + kStages);
@@ -447,19 +449,20 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int g = lane >> 2, tg = lane & 3;
   const int bh = blockIdx.y, b = bh / heads;
   const int k0 = blockIdx.x * 16 * kDkvWarps;
-  const size_t head = (size_t)bh * t * kD;
+  const size_t head = (size_t)bh * t * kD, kv_head = (size_t)bh * t_kv * kD;
   const int* sg = seg + (size_t)b * t;
+  const int* sgk = seg_kv + (size_t)b * t_kv;
   const float* lse_h = lse + (size_t)bh * t;
   const float* di_h = di + (size_t)bh * t;
   const float scale_log2 = scale * kLog2e;
   uint32_t ka[kD / 16][4], va[kD / 16][4];
-  const int n =
-      load_resident<kDkvWarps>(stages, tiles, ka, va, k + head, v + head, sg, k0, t, sg, t);
+  const int n = load_resident<kDkvWarps>(stages, tiles, ka, va, k + kv_head, v + kv_head, sgk,
+                                         k0, t_kv, sg, t);
   int segk[2];  // of this thread's two key rows
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = k0 + 16 * warp + g + 8 * h;
-    segk[h] = row < t ? sg[row] : 0;
+    segk[h] = row < t_kv ? sgk[row] : 0;
   }
   float dka[kD / 8][4], dva[kD / 8][4];
 #pragma unroll
@@ -489,8 +492,8 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     else
       dkv_tile<false>(dka, dva, ka, va, st, segk, left, scale, scale_log2, lane);
   }
-  store_rows(dk + head, dka, k0 + 16 * warp + g, t, tg);
-  store_rows(dv + head, dva, k0 + 16 * warp + g, t, tg);
+  store_rows(dk + kv_head, dka, k0 + 16 * warp + g, t_kv, tg);
+  store_rows(dv + kv_head, dva, k0 + 16 * warp + g, t_kv, tg);
 }
 
 // One staged tile of 64 keys into a warp's dq accumulator; `left` and
@@ -534,9 +537,9 @@ __device__ __forceinline__ void dq_tile(float (&acc)[kD / 8][4],
 __global__ void __launch_bounds__(32 * kDqWarps, kDqBlocks)
 flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ di, int heads, int t, float scale,
-                    __nv_bfloat16* __restrict__ dq) {
+                    const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ di,
+                    int heads, int t, int t_kv, float scale, __nv_bfloat16* __restrict__ dq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Stage* stages = reinterpret_cast<Stage*>(smem_raw);
   int* tiles = reinterpret_cast<int*>(stages + kStages);
@@ -545,12 +548,13 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int g = lane >> 2, tg = lane & 3;
   const int bh = blockIdx.y, b = bh / heads;
   const int q0 = blockIdx.x * 16 * kDqWarps;
-  const size_t head = (size_t)bh * t * kD;
+  const size_t head = (size_t)bh * t * kD, kv_head = (size_t)bh * t_kv * kD;
   const int* sg = seg + (size_t)b * t;
+  const int* sgk = seg_kv + (size_t)b * t_kv;
   const float scale_log2 = scale * kLog2e;
   uint32_t qa[kD / 16][4], doa[kD / 16][4];
   const int n = load_resident<kDqWarps>(stages, tiles, qa, doa, q + head, dout + head, sg, q0,
-                                        t, sg, t);
+                                        t, sgk, t_kv);
   int segq[2];            // of this thread's two query rows,
   float nlse[2], dir[2];  // their -lse log2(e) and their di
 #pragma unroll
@@ -570,8 +574,8 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n)
-      stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
-                        (tiles[s] >> 1) * kTile, t);
+      stream_tile<kThr>(stages[s], k + kv_head, v + kv_head, sgk, nullptr, nullptr,
+                        (tiles[s] >> 1) * kTile, t_kv);
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
@@ -579,11 +583,11 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     __syncthreads();  // so has everyone's, and tile i - 1 is consumed
     const int nx = i + kStages - 1;
     if (nx < n)
-      stream_tile<kThr>(stages[nx % kStages], k + head, v + head, sg, nullptr, nullptr,
-                        (tiles[nx] >> 1) * kTile, t);
+      stream_tile<kThr>(stages[nx % kStages], k + kv_head, v + kv_head, sgk, nullptr, nullptr,
+                        (tiles[nx] >> 1) * kTile, t_kv);
     cp_async_commit();
     const Stage& st = stages[i % kStages];
-    const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
+    const int left = t_kv - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
     if (tiles[i] & 1)
       dq_tile<true>(acc, qa, doa, st, segq, nlse, dir, left, scale, scale_log2, lane);
     else
@@ -1007,9 +1011,10 @@ __device__ __forceinline__ int load_own(StageF& own, int* tiles, const float* __
 __global__ void __launch_bounds__(32 * kF32Warps, kF32Blocks)
 flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int* __restrict__ seg,
-                      const float* __restrict__ lse, const float* __restrict__ dout,
-                      const float* __restrict__ di, int heads, int t, float scale,
-                      float* __restrict__ dk, float* __restrict__ dv) {
+                      const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                      const float* __restrict__ dout, const float* __restrict__ di, int heads,
+                      int t, int t_kv, float scale, float* __restrict__ dk,
+                      float* __restrict__ dv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   StageF* stages = reinterpret_cast<StageF*>(smem_raw);
   StageF& own = stages[kStages];
@@ -1019,12 +1024,13 @@ flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, tg = lane & 3;
   const int bh = blockIdx.y, b = bh / heads;
   const int k0 = blockIdx.x * kTile;
-  const size_t head = (size_t)bh * t * kD;
+  const size_t head = (size_t)bh * t * kD, kv_head = (size_t)bh * t_kv * kD;
   const int* sg = seg + (size_t)b * t;
+  const int* sgk = seg_kv + (size_t)b * t_kv;
   const float* lse_h = lse + (size_t)bh * t;
   const float* di_h = di + (size_t)bh * t;
   const float scale_log2 = scale * kLog2e;
-  const int n = load_own(own, tiles, k + head, v + head, sg, k0, t, sg, t);
+  const int n = load_own(own, tiles, k + kv_head, v + kv_head, sgk, k0, t_kv, sg, t);
   const float* ks = own.a + 16 * warp * kLdf;
   const float* vs = own.b + 16 * warp * kLdf;
   int segk[2];  // of this thread's two key rows
@@ -1055,8 +1061,8 @@ flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int left = t - (tiles[i] >> 1) * kTile;  // queries of this tile that exist
     dkv_tile_f32(dka, dva, ks, vs, st, segk, left, tiles[i] & 1, scale, scale_log2, lane);
   }
-  store_rows_f32(dk + head, dka, k0 + 16 * warp + g, t, tg);
-  store_rows_f32(dv + head, dva, k0 + 16 * warp + g, t, tg);
+  store_rows_f32(dk + kv_head, dka, k0 + 16 * warp + g, t_kv, tg);
+  store_rows_f32(dv + kv_head, dva, k0 + 16 * warp + g, t_kv, tg);
 }
 
 // One staged tile of 64 keys into a warp's dq accumulator, from its 16
@@ -1091,9 +1097,9 @@ __device__ __forceinline__ void dq_tile_f32(float (&acc)[kD / 8][4], const float
 __global__ void __launch_bounds__(32 * kF32Warps, kF32Blocks)
 flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ seg,
-                     const float* __restrict__ lse, const float* __restrict__ dout,
-                     const float* __restrict__ di, int heads, int t, float scale,
-                     float* __restrict__ dq) {
+                     const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                     const float* __restrict__ dout, const float* __restrict__ di, int heads,
+                     int t, int t_kv, float scale, float* __restrict__ dq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   StageF* stages = reinterpret_cast<StageF*>(smem_raw);
   StageF& own = stages[kStages];
@@ -1103,10 +1109,11 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, tg = lane & 3;
   const int bh = blockIdx.y, b = bh / heads;
   const int q0 = blockIdx.x * kTile;
-  const size_t head = (size_t)bh * t * kD;
+  const size_t head = (size_t)bh * t * kD, kv_head = (size_t)bh * t_kv * kD;
   const int* sg = seg + (size_t)b * t;
+  const int* sgk = seg_kv + (size_t)b * t_kv;
   const float scale_log2 = scale * kLog2e;
-  const int n = load_own(own, tiles, q + head, dout + head, sg, q0, t, sg, t);
+  const int n = load_own(own, tiles, q + head, dout + head, sg, q0, t, sgk, t_kv);
   const float* qs = own.a + 16 * warp * kLdf;
   const float* dos = own.b + 16 * warp * kLdf;
   int segq[2];            // of this thread's two query rows,
@@ -1128,8 +1135,8 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n)
-      stream_tile<kThr>(stages[s], k + head, v + head, sg, nullptr, nullptr,
-                        (tiles[s] >> 1) * kTile, t);
+      stream_tile<kThr>(stages[s], k + kv_head, v + kv_head, sgk, nullptr, nullptr,
+                        (tiles[s] >> 1) * kTile, t_kv);
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
@@ -1137,11 +1144,11 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // so has everyone's, and tile i - 1 is consumed
     const int nx = i + kStages - 1;
     if (nx < n)
-      stream_tile<kThr>(stages[nx % kStages], k + head, v + head, sg, nullptr, nullptr,
-                        (tiles[nx] >> 1) * kTile, t);
+      stream_tile<kThr>(stages[nx % kStages], k + kv_head, v + kv_head, sgk, nullptr, nullptr,
+                        (tiles[nx] >> 1) * kTile, t_kv);
     cp_async_commit();
     const StageF& st = stages[i % kStages];
-    const int left = t - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
+    const int left = t_kv - (tiles[i] >> 1) * kTile;  // keys of this tile that exist
     dq_tile_f32(acc, qs, dos, st, segq, nlse, dir, left, tiles[i] & 1, scale, scale_log2, lane);
   }
   store_rows_f32(dq + head, acc, q0 + 16 * warp + g, t, tg);
@@ -1341,8 +1348,8 @@ int launch(K kernel, int tiles, int batch, int heads, int threads, size_t smem, 
 // ring (and own rows) and the list of tiles to walk in dynamic shared
 // memory.  cp.async copies 16 bytes at a time, so the heads (q, k, v and,
 // unless null, dout) must be 16-byte aligned: a misaligned one is refused.
-// A block owns rows of t and walks the tiles of tw rows (tw = t but in the
-// forward of a query block shorter than its keys).
+// A block owns rows of t and walks the tiles of tw rows: t queries and tw
+// keys for the forward and dq, t keys and tw queries for dk/dv.
 template <typename T, typename K, typename... Args>
 int launch_rows(K kernel, int warps, size_t stages, int batch, int heads, int t, int tw,
                 void* stream, const void* q, const void* k, const void* v, const void* dout,
@@ -1389,37 +1396,43 @@ ATK_EXPORT int atk_flash_fwd(const void* q, const void* k, const void* v, const 
                      seg, seg_kv, heads, t, t_kv, scale, static_cast<float*>(o), lse);
 }
 
-// B5 backward, dk and dv.
+// B5 backward, dk and dv: q, dout (B, nh, t, 64), lse and di (B, nh, t)
+// and the queries' segment ids seg (B, t) against k, v (B, nh, t_kv, 64)
+// and the keys' seg_kv (B, t_kv) (t_kv = t, seg_kv = seg for the whole
+// window); dk, dv (B, nh, t_kv, 64).  A block owns 16 x warps keys and
+// walks the query tiles.
 ATK_EXPORT int atk_flash_bwd_dkv(const void* q, const void* k, const void* v, const int* seg,
-                                 const float* lse, const void* dout, const float* di,
-                                 int batch, int heads, int t, int dh, float scale, int bf16,
-                                 void* dk, void* dv, void* stream) {
-  if (bad_shape(batch, heads, t, dh, t)) return static_cast<int>(cudaErrorInvalidValue);
+                                 const int* seg_kv, const float* lse, const void* dout,
+                                 const float* di, int batch, int heads, int t, int t_kv, int dh,
+                                 float scale, int bf16, void* dk, void* dv, void* stream) {
+  if (bad_shape(batch, heads, t, dh, t_kv)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch_mma(flash_dkv_mma_kernel, kDkvWarps, batch, heads, t, t, stream, q, k, v, dout,
-                      seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
-                      static_cast<T*>(dk), static_cast<T*>(dv));
+    return launch_mma(flash_dkv_mma_kernel, kDkvWarps, batch, heads, t_kv, t, stream, q, k, v,
+                      dout, seg, seg_kv, lse, static_cast<const T*>(dout), di, heads, t, t_kv,
+                      scale, static_cast<T*>(dk), static_cast<T*>(dv));
   }
   using T = float;
-  return launch_tf32(flash_dkv_tf32_kernel, 1, batch, heads, t, t, stream, q, k, v, dout, seg, lse,
-                     static_cast<const T*>(dout), di, heads, t, scale, static_cast<T*>(dk),
-                     static_cast<T*>(dv));
+  return launch_tf32(flash_dkv_tf32_kernel, 1, batch, heads, t_kv, t, stream, q, k, v, dout, seg,
+                     seg_kv, lse, static_cast<const T*>(dout), di, heads, t, t_kv, scale,
+                     static_cast<T*>(dk), static_cast<T*>(dv));
 }
 
-// B5 backward, dq.
+// B5 backward, dq: the same inputs; dq (B, nh, t, 64).  A block owns 16 x
+// warps queries and walks the key tiles.
 ATK_EXPORT int atk_flash_bwd_dq(const void* q, const void* k, const void* v, const int* seg,
-                                const float* lse, const void* dout, const float* di,
-                                int batch, int heads, int t, int dh, float scale, int bf16,
-                                void* dq, void* stream) {
-  if (bad_shape(batch, heads, t, dh, t)) return static_cast<int>(cudaErrorInvalidValue);
+                                const int* seg_kv, const float* lse, const void* dout,
+                                const float* di, int batch, int heads, int t, int t_kv, int dh,
+                                float scale, int bf16, void* dq, void* stream) {
+  if (bad_shape(batch, heads, t, dh, t_kv)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch_mma(flash_dq_mma_kernel, kDqWarps, batch, heads, t, t, stream, q, k, v, dout,
-                      seg, lse, static_cast<const T*>(dout), di, heads, t, scale,
+    return launch_mma(flash_dq_mma_kernel, kDqWarps, batch, heads, t, t_kv, stream, q, k, v, dout,
+                      seg, seg_kv, lse, static_cast<const T*>(dout), di, heads, t, t_kv, scale,
                       static_cast<T*>(dq));
   }
   using T = float;
-  return launch_tf32(flash_dq_tf32_kernel, 1, batch, heads, t, t, stream, q, k, v, dout, seg, lse,
-                     static_cast<const T*>(dout), di, heads, t, scale, static_cast<T*>(dq));
+  return launch_tf32(flash_dq_tf32_kernel, 1, batch, heads, t, t_kv, stream, q, k, v, dout, seg,
+                     seg_kv, lse, static_cast<const T*>(dout), di, heads, t, t_kv, scale,
+                     static_cast<T*>(dq));
 }

@@ -59,7 +59,8 @@ the embedding and after every block): the result is one process's.
     over the sequence ranks (``_GatherSequence``: its backward is an
     all-reduce and a slice), masks keys by global position and runs its
     query rows against every key: on the plain route, or on B5 with
-    ``kv_segment_ids`` (forward only: training takes the plain route).
+    ``kv_segment_ids`` (eval mode; its backward gives the rank's dq and
+    its share of dk and dv, which the gather's backward sums).
     Position 0 lives on sequence rank 0; ``_FromFirst`` gives its row to
     every sequence rank.
   * Gradient accounting.  Each sequence rank computes the same loss and

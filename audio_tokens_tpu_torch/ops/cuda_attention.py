@@ -11,13 +11,13 @@ there by a ``custom_vjp`` and here by ``torch.library.register_autograd``
 on ``atk::flash_fwd``.  Every function
 takes the JAX layout: q, k, v (B, nh, T, dh) in float32 or bfloat16,
 segment ids (B, T) int32; a query attends to the keys of its own segment.
-The forward also takes the library's ``SegmentIds(q=, kv=)`` of two
+Every op also takes the library's ``SegmentIds(q=, kv=)`` of two
 lengths: a query block of T rows against T_kv keys (``kv_segment_ids``
 (B, T_kv), k and v (B, nh, T_kv, dh)), as a sequence-parallel rank runs
 its own query rows against the gathered keys (``models/transformer.py``);
-every query's segment must occur among the keys.  The backward kernels
-take T_kv = T only: a gradient through a forward given
-``kv_segment_ids`` raises.
+every query's segment must occur among the keys.  The backward pair then
+gives dq (B, nh, T, dh) and dk, dv (B, nh, T_kv, dh): the block's share of
+the keys' gradients, which the gather's backward sums over the ranks.
 The kernels take dh = 64 (the bert family's heads) and any T: they mask
 their own ragged edge, where the JAX module pads T to a multiple of 256 for
 the TPU's tiles.
@@ -109,20 +109,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-def _probs_and_ds(q, k, v, seg, lse, do, di, sm_scale):
+def _probs_and_ds(q, k, v, seg, lse, do, di, sm_scale, kv_seg=None):
     """The backward's P = exp(s - lse) and dS = (dO.V^T - di) * P * scale,
-    both f32 (B, nh, T, T)."""
-    p = _logits(q, k, seg, sm_scale).sub_(lse[..., None]).exp_()
+    both f32 (B, nh, T, T_kv); ``kv_seg`` as in ``_logits``."""
+    p = _logits(q, k, seg, sm_scale, kv_seg).sub_(lse[..., None]).exp_()
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     return p, dp.sub_(di[..., None]).mul_(p).mul_(sm_scale)
 
 
 def flash_attention_dkv_plain(q, k, v, segment_ids, lse, do, di,
-                              sm_scale: float
+                              sm_scale: float,
+                              kv_segment_ids: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk = dS^T.Q and dv = P^T.dO, P and dS rounded to the input dtype
-    first (as ``_flash_attention_dkv_kernel``); outputs in q's dtype."""
-    p, ds = _probs_and_ds(q, k, v, segment_ids, lse, do, di, sm_scale)
+    first (as ``_flash_attention_dkv_kernel``); outputs in q's dtype, of
+    k's shape.  ``kv_segment_ids`` as in ``flash_attention_plain``."""
+    p, ds = _probs_and_ds(q, k, v, segment_ids, lse, do, di, sm_scale,
+                          kv_segment_ids)
     dt = q.dtype
     dv = torch.matmul(_round(p, dt).transpose(-1, -2), do.float())
     dk = torch.matmul(_round(ds, dt).transpose(-1, -2), q.float())
@@ -130,10 +133,13 @@ def flash_attention_dkv_plain(q, k, v, segment_ids, lse, do, di,
 
 
 def flash_attention_dq_plain(q, k, v, segment_ids, lse, do, di,
-                             sm_scale: float) -> torch.Tensor:
+                             sm_scale: float,
+                             kv_segment_ids: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """dq = dS.K, dS rounded to the input dtype first (as
     ``_flash_attention_dq_kernel``); output in q's dtype."""
-    _, ds = _probs_and_ds(q, k, v, segment_ids, lse, do, di, sm_scale)
+    _, ds = _probs_and_ds(q, k, v, segment_ids, lse, do, di, sm_scale,
+                          kv_segment_ids)
     return torch.matmul(_round(ds, q.dtype), k.float()).to(q.dtype)
 
 
@@ -144,11 +150,11 @@ def _lib():
         lib.atk_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P,
                                       P, P]
         lib.atk_flash_fwd.restype = I
-        lib.atk_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, I, I, I, I, F,
-                                          I, P, P, P]
+        lib.atk_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
+                                          I, I, F, I, P, P, P]
         lib.atk_flash_bwd_dkv.restype = I
-        lib.atk_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, I, I, I, I, F,
-                                         I, P, P]
+        lib.atk_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I,
+                                         I, F, I, P, P]
         lib.atk_flash_bwd_dq.restype = I
     return lib
 
@@ -258,31 +264,43 @@ flash_attention_fwd.launches = 0
                         device_types="cpu")
 def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   segment_ids: torch.Tensor, lse: torch.Tensor,
-                  do: torch.Tensor, di: torch.Tensor, sm_scale: float
+                  do: torch.Tensor, di: torch.Tensor, sm_scale: float,
+                  kv_segment_ids: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     return flash_attention_dkv_plain(q, k, v, segment_ids, lse, do, di,
-                                     sm_scale)
+                                     sm_scale, kv_segment_ids)
+
+
+def _bwd_launch(fn, name: str, q, k, v, segment_ids, lse, do, di, sm_scale,
+                kv_segment_ids, *outs) -> None:
+    """Check the inputs and launch one of the backward pair on ``outs``."""
+    _check(q, k, v, segment_ids, kv_segment_ids, lse=lse, do=do, di=di)
+    b, nh, t_len, dh = q.shape
+    kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, f"atk_{name}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
+            kv_seg.data_ptr(), lse.data_ptr(), do.data_ptr(), di.data_ptr(),
+            b, nh, t_len, k.shape[2], dh, sm_scale,
+            int(q.dtype == torch.bfloat16), *(t.data_ptr() for t in outs),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, name)
+    fn.launches += 1
 
 
 @_flash_dkv_op.register_kernel("cuda")
-def _flash_dkv_cuda(q, k, v, segment_ids, lse, do, di, sm_scale):
-    _check(q, k, v, segment_ids, lse=lse, do=do, di=di)
-    b, nh, t_len, dh = q.shape
+def _flash_dkv_cuda(q, k, v, segment_ids, lse, do, di, sm_scale,
+                    kv_segment_ids=None):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = lib.atk_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), di.data_ptr(), b, nh, t_len, dh,
-            sm_scale, int(q.dtype == torch.bfloat16), dk.data_ptr(),
-            dv.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, rc, "flash_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _bwd_launch(flash_attention_bwd_dkv, "flash_bwd_dkv", q, k, v,
+                segment_ids, lse, do, di, sm_scale, kv_segment_ids, dk, dv)
     return dk, dv
 
 
 @_flash_dkv_op.register_fake
-def _flash_dkv_fake(q, k, v, segment_ids, lse, do, di, sm_scale):
+def _flash_dkv_fake(q, k, v, segment_ids, lse, do, di, sm_scale,
+                    kv_segment_ids=None):
     return torch.empty_like(k), torch.empty_like(v)
 
 
@@ -290,52 +308,50 @@ def _flash_dkv_fake(q, k, v, segment_ids, lse, do, di, sm_scale):
                         device_types="cpu")
 def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  segment_ids: torch.Tensor, lse: torch.Tensor,
-                 do: torch.Tensor, di: torch.Tensor, sm_scale: float
+                 do: torch.Tensor, di: torch.Tensor, sm_scale: float,
+                 kv_segment_ids: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     return flash_attention_dq_plain(q, k, v, segment_ids, lse, do, di,
-                                    sm_scale)
+                                    sm_scale, kv_segment_ids)
 
 
 @_flash_dq_op.register_kernel("cuda")
-def _flash_dq_cuda(q, k, v, segment_ids, lse, do, di, sm_scale):
-    _check(q, k, v, segment_ids, lse=lse, do=do, di=di)
-    b, nh, t_len, dh = q.shape
+def _flash_dq_cuda(q, k, v, segment_ids, lse, do, di, sm_scale,
+                   kv_segment_ids=None):
     dq = torch.empty_like(q)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = lib.atk_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), di.data_ptr(), b, nh, t_len, dh,
-            sm_scale, int(q.dtype == torch.bfloat16), dq.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, rc, "flash_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _bwd_launch(flash_attention_bwd_dq, "flash_bwd_dq", q, k, v, segment_ids,
+                lse, do, di, sm_scale, kv_segment_ids, dq)
     return dq
 
 
 @_flash_dq_op.register_fake
-def _flash_dq_fake(q, k, v, segment_ids, lse, do, di, sm_scale):
+def _flash_dq_fake(q, k, v, segment_ids, lse, do, di, sm_scale,
+                   kv_segment_ids=None):
     return torch.empty_like(q)
 
 
 def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, do, di,
-                            sm_scale: float
+                            sm_scale: float,
+                            kv_segment_ids: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B5 backward for dk and dv from the forward's inputs, its row
     logsumexp ``lse``, the output gradient ``do`` and di = rowsum(o * do)
-    (f32)."""
+    (f32); ``kv_segment_ids`` as in ``flash_attention_fwd`` (dk and dv of
+    k's T_kv rows)."""
     return torch.ops.atk.flash_bwd_dkv(q, k, v, segment_ids, lse, do, di,
-                                       float(sm_scale))
+                                       float(sm_scale), kv_segment_ids)
 
 
 flash_attention_bwd_dkv.launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, segment_ids, lse, do, di,
-                           sm_scale: float) -> torch.Tensor:
+                           sm_scale: float,
+                           kv_segment_ids: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """B5 backward for dq, from the same inputs as the dk/dv kernel."""
     return torch.ops.atk.flash_bwd_dq(q, k, v, segment_ids, lse, do, di,
-                                      float(sm_scale))
+                                      float(sm_scale), kv_segment_ids)
 
 
 flash_attention_bwd_dq.launches = 0
@@ -346,14 +362,7 @@ def _flash_fwd_setup(ctx, inputs, output):
     o, row_lse = output
     ctx.set_materialize_grads(False)
     ctx.sm_scale, ctx.lse = sm_scale, lse
-    ctx.query_block = kv_segment_ids is not None
-    ctx.save_for_backward(q, k, v, segment_ids, o, row_lse)
-
-
-KV_SEGMENTS_NO_GRAD = (
-    "B5's backward takes one set of segment ids (T_kv = T): a gradient "
-    "through a forward given kv_segment_ids (a query block against more "
-    "keys) is not ported: ROADMAP A7.5")
+    ctx.save_for_backward(q, k, v, segment_ids, kv_segment_ids, o, row_lse)
 
 
 def _flash_fwd_backward(ctx, do, _dlse):
@@ -361,16 +370,15 @@ def _flash_fwd_backward(ctx, do, _dlse):
     kernels, then the dk/dv and dq kernels."""
     if do is None:
         return None, None, None, None, None, None, None
-    if ctx.query_block:
-        raise ValueError(KV_SEGMENTS_NO_GRAD)
     if not ctx.lse:
         raise RuntimeError("atk::flash_fwd ran with lse=False: its backward "
                            "needs the row logsumexp")
-    q, k, v, seg, o, lse = ctx.saved_tensors
+    q, k, v, seg, kv_seg, o, lse = ctx.saved_tensors
     do = do.contiguous()
     di = (o.float() * do.float()).sum(-1)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, do, di, ctx.sm_scale)
-    dq = flash_attention_bwd_dq(q, k, v, seg, lse, do, di, ctx.sm_scale)
+    args = (q, k, v, seg, lse, do, di, ctx.sm_scale, kv_seg)
+    dk, dv = flash_attention_bwd_dkv(*args)
+    dq = flash_attention_bwd_dq(*args)
     return dq, dk, dv, None, None, None, None
 
 
@@ -411,25 +419,35 @@ def _flash_fwd_vmap(info, in_dims, q, k, v, segment_ids, sm_scale, lse,
     return (_unfold(o, n), row_lse), (0, 0)
 
 
+def _bwd_folded(info, in_dims, inputs, sm_scale, kv_segment_ids):
+    """The backward pair's arguments with the members folded into the
+    batch (``kv_segment_ids`` as ``_flash_fwd_vmap`` folds it)."""
+    n = info.batch_size
+    kv_seg = (None if kv_segment_ids is None
+              else _fold(kv_segment_ids, in_dims[8], n))
+    return (*(_fold(t, d, n) for t, d in zip(inputs, in_dims)), sm_scale,
+            kv_seg)
+
+
 @torch.library.register_vmap("atk::flash_bwd_dkv")
 def _flash_dkv_vmap(info, in_dims, q, k, v, segment_ids, lse, do, di,
-                    sm_scale):
+                    sm_scale, kv_segment_ids=None):
     """The dk/dv kernel once for all members, folded into the batch."""
     n = info.batch_size
-    dk, dv = torch.ops.atk.flash_bwd_dkv(
-        *(_fold(t, d, n) for t, d in zip((q, k, v, segment_ids, lse, do, di),
-                                         in_dims)), sm_scale)
+    dk, dv = torch.ops.atk.flash_bwd_dkv(*_bwd_folded(
+        info, in_dims, (q, k, v, segment_ids, lse, do, di), sm_scale,
+        kv_segment_ids))
     return (_unfold(dk, n), _unfold(dv, n)), (0, 0)
 
 
 @torch.library.register_vmap("atk::flash_bwd_dq")
 def _flash_dq_vmap(info, in_dims, q, k, v, segment_ids, lse, do, di,
-                   sm_scale):
+                   sm_scale, kv_segment_ids=None):
     """The dq kernel once for all members, folded into the batch."""
     n = info.batch_size
-    dq = torch.ops.atk.flash_bwd_dq(
-        *(_fold(t, d, n) for t, d in zip((q, k, v, segment_ids, lse, do, di),
-                                         in_dims)), sm_scale)
+    dq = torch.ops.atk.flash_bwd_dq(*_bwd_folded(
+        info, in_dims, (q, k, v, segment_ids, lse, do, di), sm_scale,
+        kv_segment_ids))
     return _unfold(dq, n), 0
 
 
@@ -440,11 +458,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q.k^T * sm_scale over each query's segment).v, (B, nh, T, dh),
     differentiable in q, k and v (B5's backward pair).  Where autograd will
     not need a gradient, B5 runs without its logsumexp store.
-    ``kv_segment_ids`` (B, T_kv): a query block against T_kv keys, forward
-    only (a gradient there raises)."""
+    ``kv_segment_ids`` (B, T_kv): a query block against T_kv keys (dk and
+    dv of their T_kv rows)."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    if grad and kv_segment_ids is not None:
-        raise ValueError(KV_SEGMENTS_NO_GRAD)
     return flash_attention_fwd(q, k, v, segment_ids, sm_scale, grad,
                                kv_segment_ids)[0]

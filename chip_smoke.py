@@ -197,7 +197,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    stage's seconds and launches (``pipeline_conv_*``,
    ``pipeline_native_*``); ``serve_bench`` for tokens and the lstm with
    the native decoder (``serve_bench_native_<branch>``) beside phase 11's
-   python-decode numbers.
+   python-decode numbers; ``[mirror]``: the reference pipeline's torch-CPU
+   mirror (``tools/torch_mirror.py``, 16 threads on the host) on 4 of the
+   clips at K 500, best of 3, beside B1's clips/s at ``highest``, its
+   tokens held to B1's at ``highest`` on clip 0 (99% or more).
 
 13. device-resident epochs (``train/device_epoch.py``) and the training
    options: the on-card exact mAP at 22,160 rows x 543 classes with tied
@@ -282,7 +285,15 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ``CUBLAS_WORKSPACE_CONFIG``; B5's forward on the query block (rows 864..
    of 1728, batch 64, prefix lengths with a 0) against its plain version
    and the full window's rows, timed beside ``scaled_dot_product_attention``
-   with the boolean mask (two records of its own); (c) ``serve_sharded``
+   with the boolean mask (two records of its own); B5's backward pair on
+   the query blocks (the two halves of the window, batch 8): the kernels
+   against their plain versions, each block's dq against those rows of
+   the full window's and the halves' dk and dv summed against the full
+   window's, the second half timed beside the plain versions and sdpa's
+   backward (four records); an eval-mode loss + backward of the bert on
+   the B5 route on SP 2 (the query block's backward on each rank), f32
+   against one process (the gradients' gap bounded as (b)'s weights) and
+   bf16 (not bound); (c) ``serve_sharded``
    (lstm, f32 bert) and ``tokens_sharded`` on 8 clips against one process
    (tokens equal, probs 1e-6); (d) the full-width lstm ensemble K 2 over
    the 2 ranks against the unsharded one (phase 15's bounds, beside the
@@ -470,6 +481,9 @@ TOOLS_TRACE_CLIPS = 8
 # B5's forward on a sequence rank's query block: the second half of the
 # window against all of it
 MP_T_Q = 864
+# phase 12: the reference pipeline's torch-CPU mirror on 4 clips, its
+# tokens held to B1's at highest on clip 0
+MIRROR_CLIPS, MIRROR_AGREE = 4, 0.99
 
 
 def log(msg: str) -> None:
@@ -1963,8 +1977,9 @@ def opcheck_phase(dev) -> None:
     tensors (schema, fake, autograd registration, dynamic-shape dispatch):
     the four forward ops, B3 and B5's forward also with inputs that require
     a gradient (their registered backward: B4's ops, B5's pair), and the
-    four backward ops (B4's with carries); its launches fall outside every
-    counted path."""
+    four backward ops (B4's with carries); B5's forward with a gradient and
+    its pair also on a query block (``kv_segment_ids``: 20 query rows
+    against 37 keys); its launches fall outside every counted path."""
     import torch
 
     from audio_tokens_tpu_torch.ops.cuda_attention import (
@@ -1996,6 +2011,12 @@ def opcheck_phase(dev) -> None:
     di = (o.float() * do.float()).sum(-1)
     leaves = [t.clone().requires_grad_() for t in (xg, w_hh, h0, c0)]
     qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    qb, dob = (t[:, :, 17:].contiguous() for t in (q, do))
+    seg_q = seg[:, 17:].contiguous()
+    ob, lseb = flash_attention_plain(qb, k, v, seg_q, SM_SCALE, True,
+                                     kv_segment_ids=seg)
+    block = (qb, k, v, seg_q, lseb, dob, (ob.float() * dob.float()).sum(-1),
+             SM_SCALE, seg)
     cases = {
         "atk::vq_argmin": (torch.ops.atk.vq_argmin.default, (
             torch.randn((300, 64), generator=gen).to(dev),
@@ -2019,6 +2040,14 @@ def opcheck_phase(dev) -> None:
             q, k, v, seg, lse, do, di, SM_SCALE)),
         "atk::flash_bwd_dq": (torch.ops.atk.flash_bwd_dq.default, (
             q, k, v, seg, lse, do, di, SM_SCALE)),
+        "atk::flash_fwd (query block, autograd)": (
+            torch.ops.atk.flash_fwd.default, (
+                qkv[0][:, :, 17:].detach().clone().requires_grad_(),
+                *qkv[1:], seg_q, SM_SCALE, True, seg)),
+        "atk::flash_bwd_dkv (query block)": (
+            torch.ops.atk.flash_bwd_dkv.default, block),
+        "atk::flash_bwd_dq (query block)": (
+            torch.ops.atk.flash_bwd_dq.default, block),
     }
     for name, (op, args) in cases.items():
         report = torch.library.opcheck(op, args)
@@ -2415,6 +2444,61 @@ def coarse_tier(*tiers) -> str:
     return "highest"
 
 
+def host_cpu(cpuinfo: str = "/proc/cpuinfo") -> str:
+    """The host CPU as /proc/cpuinfo names it: its ``model name`` with the
+    vendor, family and model numbers beside it (a virtual machine may
+    report the name as ``unknown``)."""
+    fields = {}
+    try:
+        for line in Path(cpuinfo).read_text().splitlines():
+            if not line.strip():
+                break  # the first processor's block
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name, vendor = fields.get("model name", "unknown"), fields.get(
+        "vendor_id", "?")
+    return (f"{name} ({vendor}, family {fields.get('cpu family', '?')}, "
+            f"model {fields.get('model', '?')})")
+
+
+def tiers_mirror(cfg, clips, cents, exact0, b1_ms: float) -> None:
+    """``[mirror]``: the reference pipeline's torch-CPU mirror
+    (``tools/bench_tokenizer_tiers.mirror_row``: 16 threads, best of 3 on
+    MIRROR_CLIPS clips) at ``cents``, beside B1 at ``highest`` (``b1_ms`` a
+    batch of BATCH); its tokens held to B1's (``exact0``, clip 0) at
+    MIRROR_AGREE or more, on B1's signal chain (``cfg``).  The thread
+    count is restored."""
+    import torch
+
+    from audio_tokens_tpu_torch.tools.bench_tokenizer_tiers import (
+        HOP, N_FFT, N_MELS, SR as BENCH_SR, mirror_row)
+
+    if (BENCH_SR, N_MELS, N_FFT, HOP) != (cfg.common_sr, cfg.n_mels,
+                                          cfg.n_fft, cfg.hop_length):
+        raise AssertionError("the mirror's signal chain is not B1's")
+    threads = torch.get_num_threads()
+    row = mirror_row(clips[:MIRROR_CLIPS], cents, exact0)
+    if torch.get_num_threads() != threads:
+        raise AssertionError("the mirror left torch's thread count changed")
+    b1_cps = BATCH / b1_ms * 1e3
+    log(f"[mirror] reference pipeline's torch-CPU mirror (torch.stft, mel, "
+        f"cdist argmin) at K {len(cents)}: {row['clips_per_s']:.2f} clips/s "
+        f"({row['ms']:.1f} ms a clip, best of 3 on {MIRROR_CLIPS} clips) on "
+        f"{host_cpu()}, {row['threads']} threads ({os.cpu_count()} cores "
+        f"seen); B1 at highest {b1_cps:.1f} clips/s ({b1_ms:.3f} ms a batch "
+        f"of {BATCH}) on {card_line()}: {b1_cps / row['clips_per_s']:.1f}x; "
+        f"the mirror's tokens of clip 0 agree with B1's at highest on "
+        f"{row['agreement'] * 100:.2f}% of frames (bound "
+        f"{MIRROR_AGREE * 100:.0f}%), frames apart "
+        f"{row['frames_apart'][:20]}")
+    if not row["agreement"] >= MIRROR_AGREE:
+        raise AssertionError(f"the mirror agrees with B1 at highest on "
+                             f"{row['agreement']:.4f} of clip 0's frames, "
+                             f"frames apart {row['frames_apart']}")
+
+
 def tiers_b1(records: list, dev) -> None:
     """B1 at each combo of ``tools/bench_tokenizer_tiers`` at K 500 and
     16,384 on 64 ten-second clips, driven through ``FusedTokenizer`` with
@@ -2465,8 +2549,12 @@ def tiers_b1(records: list, dev) -> None:
                 raise AssertionError(f"B1 {tier}/{vq}: {launches} launches")
             if exact is None:  # the all-highest kernel: the baseline
                 exact = got
-                log(f"[tiers B1 highest/highest K {k}] kernel "
-                    f"{cuda_ms(lambda: kern(x), 10):.3f} ms")
+                b1_ms = cuda_ms(lambda: kern(x), 10)
+                log(f"[tiers B1 highest/highest K {k}] kernel {b1_ms:.3f} "
+                    f"ms")
+                if k == VOCAB:
+                    tiers_mirror(base_cfg, clips, cents,
+                                 exact[0].cpu().numpy(), b1_ms)
                 continue
             ref = kern.plain(x)
             coarse = coarse_tier(tier, vq)
@@ -4469,6 +4557,109 @@ def mp_bert_run(dev, dtype: str, train: bool, **over) -> dict:
     return res
 
 
+def mp_flash_grad(dev, dtype: str, **over) -> dict:
+    """An eval-mode loss + backward of the bert on the B5 route (``over``:
+    sequence_parallel, or none: one process) on the phase's batch: B5's
+    forward and backward pair, on a sequence rank its query block against
+    the gathered keys -> the loss, the gradients summed over the mesh's
+    replica group and joined (one process's layout), B5's launches
+    (forward, dk/dv, dq) and the ms (host clock, synchronized)."""
+    import torch
+
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from audio_tokens_tpu_torch.parallel.mesh import tp_gather
+    from audio_tokens_tpu_torch.train.objective import weighted_bce
+    from audio_tokens_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(mp_bert_config(dtype, **over), dev)
+    inputs, lengths, labels, row_w, denom = t._put_batch(
+        mp_bert_batch(t.config))
+    t.model.eval()
+    kernels = (flash_attention_fwd, flash_attention_bwd_dkv,
+               flash_attention_bwd_dq)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    t.model.zero_grad(set_to_none=True)
+    loss = weighted_bce(t._logits(inputs, lengths), labels, row_w, denom)
+    loss.backward()
+    if t.grad_group is not None:
+        t.grad_group.all_reduce_grads(t.model.parameters())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = [k.launches for k in kernels]
+    grads = {n: p.grad for n, p in t.model.named_parameters()}
+    if t.mesh is not None:
+        grads = tp_gather(t.mesh, grads, t.model.tp_specs)
+    return dict(loss=float(loss.detach()), ms=ms, launches=launches,
+                grads={n: g.float().cpu() for n, g in grads.items()})
+
+
+def mp_flash_grad_check(records: list, dev, got: list, floor: float,
+                        card: str, launches: dict, bwd_launches: dict
+                        ) -> None:
+    """The eval-mode B5-route gradient on SP 2 (``got``, the ranks'
+    results) against one process on the card: f32 within MP_WEIGHT_RTOL
+    or C9's floor (the larger; max |a - b| / max |b| over every gradient)
+    and the loss within MP_LOSS_RTOL; bf16 printed, not bound (each block's
+    dk and dv are rounded to 8 bits before the gather's backward sums
+    them).  Every rank must launch B5's forward, dk/dv and dq.  The ranks'
+    launches go to ``launches`` (the query-block forward's records) and
+    ``bwd_launches`` (its backward pair's), one process's to the full
+    window's records (B5's forward, dk/dv and dq: records 5, 8, 9 in f32,
+    4, 6, 7 in bf16)."""
+    for dtype, tag, full in (("float32", "f32", (5, 8, 9)),
+                             ("bfloat16", "bf16", (4, 6, 7))):
+        one = mp_flash_grad(dev, dtype)
+        case = f"sp_flash_grad_{tag}"
+        mine = got[0][case]
+        names = sorted(one["grads"])
+        if sorted(mine["grads"]) != names:
+            raise AssertionError(f"phase 16 {case}: parameters "
+                                 f"{sorted(mine['grads'])} vs {names}")
+        apart = rel_err(torch_cat(mine["grads"][n] for n in names),
+                        torch_cat(one["grads"][n] for n in names))
+        worst = max(names, key=lambda n: rel_err(
+            mine["grads"][n].numpy(), one["grads"][n].numpy()))
+        loss_err = abs(mine["loss"] - one["loss"]) / abs(one["loss"])
+        finite = all(bool(np.isfinite(g.numpy()).all())
+                     for g in mine["grads"].values())
+        bound = max(floor, MP_WEIGHT_RTOL)
+        ranks = [g[case]["launches"] for g in got]
+        for r, (fwd, dkv, dq) in enumerate(ranks):
+            launches[dtype][f"mp_sp_eval_grad_r{r}"] = fwd
+            bwd_launches[dtype]["dkv"][f"mp_sp_eval_grad_r{r}"] = dkv
+            bwd_launches[dtype]["dq"][f"mp_sp_eval_grad_r{r}"] = dq
+        log(f"[mp sp flash grad {MP_WORLD} ranks {dtype}] eval-mode loss + "
+            f"backward of bert hidden {BERT['hidden_size']} x "
+            f"{BERT['num_layers']} layers on the B5 route, window "
+            f"{BERT['max_seq_len']} ({BERT['max_seq_len'] // MP_WORLD} query "
+            f"rows a rank against the gathered keys), batch {MP_BATCH}, "
+            f"random lengths with a 0: loss {mine['loss']:.7f} vs one "
+            f"process {one['loss']:.7f} ({loss_err:.3e} relative), the "
+            f"gradients summed over the ranks {apart:.3e} (max |a - b| / max "
+            f"|b|, worst {worst}) from one process's"
+            + (f" (bound {bound:.3e}: {MP_WEIGHT_RTOL}, or C9's floor "
+               f"{floor:.3e}; loss {MP_LOSS_RTOL})" if tag == "f32" else
+               " (bf16: each block's dk, dv rounded to 8 bits before the "
+               "sum; not bound)")
+            + f"; B5 forward, dk/dv, dq launches per rank {ranks} (one "
+            f"process {one['launches']}); ms "
+            f"{[round(g[case]['ms'], 1) for g in got]}, one process "
+            f"{one['ms']:.1f}; {card}")
+        if not finite or min(min(x) for x in ranks) < 1 or min(
+                one["launches"]) < 1:
+            raise AssertionError(f"phase 16 {case}: finite {finite}, "
+                                 f"launches {ranks}, {one['launches']}")
+        if tag == "f32" and not (apart <= bound and loss_err <= MP_LOSS_RTOL):
+            raise AssertionError(f"phase 16 {case}: gradients {apart:.3e} "
+                                 f"(bound {bound:.3e}), loss {loss_err:.3e}")
+        for i, n in zip(full, one["launches"]):
+            records[i]["launches_by_path"]["mp_one_eval_grad"] = n
+
+
 def mp_serve(dev, mesh) -> dict:
     """The batch-split entry points on ``mesh`` (None: ``serve`` and
     ``tokens_from_padded`` in one process): the lstm and bert (f32, B5)
@@ -4602,6 +4793,10 @@ def mp_rank(dev) -> dict:
            "sp_f32": mp_bert_run(dev, "float32", True, sequence_parallel=2),
            "sp_bf16": mp_bert_run(dev, "bfloat16", False,
                                   sequence_parallel=2),
+           "sp_flash_grad_f32": mp_flash_grad(dev, "float32",
+                                              sequence_parallel=2),
+           "sp_flash_grad_bf16": mp_flash_grad(dev, "bfloat16",
+                                               sequence_parallel=2),
            "serve": mp_serve(dev, make_mesh()),
            "ensemble": mp_ensemble(dev, DataGroup()),
            "tp_report": mp_report(dev, model_parallel=2),
@@ -4609,6 +4804,8 @@ def mp_rank(dev) -> dict:
     if not distributed.is_coordinator():  # the joined tensors: rank 0's
         for case in ("tp_f32", "sp_f32"):
             del res[case]["grads"], res[case]["weights"]
+        for case in ("sp_flash_grad_f32", "sp_flash_grad_bf16"):
+            del res[case]["grads"]
     return res
 
 
@@ -4796,6 +4993,145 @@ def b5_query_block(records: list, launches: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def b5_query_block_bwd(records: list, launches: dict) -> None:
+    """B5's backward pair on the two query blocks of the window (rows
+    ..MP_T_Q and MP_T_Q.. against every key; batch B_ATT_BWD, prefix
+    lengths with a 0) in bf16 and f32, each block on its own B5 forward's
+    logsumexp: the kernels against their plain versions (ATT_TOL), each
+    block's dq against those rows of the full window's and the blocks' dk
+    and dv summed against the full window's (ATT_BWD_RTOL of the largest
+    entry); the second block (sequence rank 1's) timed beside the full
+    window's kernels, the plain versions and ``scaled_dot_product_attention``'s
+    backward with the boolean mask on the same views; the bounds from the
+    work these lengths need.  Appends four records with ``launches`` (each
+    dtype's and kernel's phase-16 path counts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_tokens_tpu_torch.ops.cuda_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_dkv_plain, flash_attention_dq_plain,
+        flash_attention_fwd)
+
+    card = card_line()
+    for name, dtype, kind in (("bfloat16", torch.bfloat16, "bf16"),
+                              ("float32", torch.float32, "f32, 3xTF32")):
+        q, k, v, do, seg, _, _ = attention_inputs(B_ATT_BWD, dtype, 8)
+        t = q.shape[2]
+        o, lse = flash_attention_fwd(q, k, v, seg, SM_SCALE, True)
+        di = (o.float() * do.float()).sum(-1)
+        full_args = (q, k, v, seg, lse, do, di, SM_SCALE)
+        full = (*flash_attention_bwd_dkv(*full_args),
+                flash_attention_bwd_dq(*full_args))
+
+        def block(lo, hi):
+            qb, dob = (a[:, :, lo:hi].contiguous() for a in (q, do))
+            seg_q = seg[:, lo:hi].contiguous()
+            ob, lseb = flash_attention_fwd(qb, k, v, seg_q, SM_SCALE, True,
+                                           kv_segment_ids=seg)
+            dib = (ob.float() * dob.float()).sum(-1)
+            return qb, k, v, seg_q, lseb, dob, dib, SM_SCALE, seg
+
+        grads = ("dk", "dv", "dq")
+        plain_err = dict.fromkeys(grads, 0.0)
+        dq_rows = 0.0
+        sums = [torch.zeros(k.shape, device=k.device) for _ in range(2)]
+        for lo, hi in ((0, MP_T_Q), (MP_T_Q, t)):
+            args = block(lo, hi)
+            got = (*flash_attention_bwd_dkv(*args),
+                   flash_attention_bwd_dq(*args))
+            ref = (*flash_attention_dkv_plain(*args),
+                   flash_attention_dq_plain(*args))
+            for g, a, b in zip(grads, got, ref):
+                plain_err[g] = max(plain_err[g], float(
+                    (a.float() - b.float()).abs().max()))
+            dq_rows = max(dq_rows, float(
+                (got[2].float() - full[2][:, :, lo:hi].float()).abs().max()))
+            sums[0] += got[0].float()
+            sums[1] += got[1].float()
+            del got, ref
+        top = {g: float(x.float().abs().max()) for g, x in zip(grads, full)}
+        rel = {"dq rows": dq_rows / top["dq"],
+               "dk summed": float((sums[0] - full[0].float()).abs().max())
+               / top["dk"],
+               "dv summed": float((sums[1] - full[1].float()).abs().max())
+               / top["dv"]}
+        torch.cuda.synchronize()
+        del sums
+        if not (max(plain_err.values()) <= ATT_TOL[name]
+                and max(rel.values()) <= ATT_BWD_RTOL[name]):
+            raise AssertionError(f"B5 query block backward {name}: "
+                                 f"{plain_err} vs the plain versions "
+                                 f"(atol {ATT_TOL[name]}), {rel} vs the "
+                                 f"full window ({ATT_BWD_RTOL[name]} of the "
+                                 f"largest entry)")
+        args = block(MP_T_Q, t)
+        qb, _, _, seg_q, lseb, dob = args[:6]
+        dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(*args), 5)
+        dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(*args), 5)
+        full_ms = (cuda_ms(lambda: flash_attention_bwd_dkv(*full_args), 5),
+                   cuda_ms(lambda: flash_attention_bwd_dq(*full_args), 5))
+        dkv_plain = cuda_ms(lambda: flash_attention_dkv_plain(*args), 2)
+        dq_plain = cuda_ms(lambda: flash_attention_dq_plain(*args), 2)
+        leaves = [a.detach().requires_grad_() for a in (qb, k, v)]
+        mask = seg_q[:, None, :, None] == seg[:, None, None, :]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             scale=SM_SCALE)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, dob, retain_graph=True), 5)
+        # the work these lengths need: each query row of the block against
+        # the keys of its segment
+        pairs = int((seg_q[:, :, None] == seg[:, None, :]).sum()) * HEADS
+        el = q.element_size()
+        rows = 2 * lseb.numel() * 4 + (seg_q.numel() + seg.numel()) * 4
+        dkv_io = (2 * qb.numel() + 4 * k.numel()) * el + rows
+        dq_io = (3 * qb.numel() + 2 * k.numel()) * el + rows
+        peak = "tf32x3" if name == "float32" else name
+        dkv_b = bound_of(8 * HEAD_DIM * pairs, dkv_io, peak)
+        dq_b = bound_of(6 * HEAD_DIM * pairs, dq_io, peak)
+        fma = (bound_of(8 * HEAD_DIM * pairs, dkv_io, name)[0],
+               bound_of(6 * HEAD_DIM * pairs, dq_io, name)[0])
+        log(f"[B5 query block backward] {name} q, do {tuple(qb.shape)} (rows "
+            f"{MP_T_Q}..; and rows ..{MP_T_Q}) against k, v {tuple(k.shape)}, "
+            f"prefix lengths with a 0: max abs err vs the plain versions "
+            + ", ".join(f"{g} {e:.3e}" for g, e in plain_err.items())
+            + f" (atol {ATT_TOL[name]}); against the full window's pair, "
+            "max |a - b| / max |full| "
+            + ", ".join(f"{g} {e:.3e}" for g, e in rel.items())
+            + f" (bound {ATT_BWD_RTOL[name]}); dk/dv kernel {dkv_ms:.3f} ms "
+            f"({dkv_ms / full_ms[0]:.3f} of the full window's "
+            f"{full_ms[0]:.3f}; plain {dkv_plain:.3f}, bound {dkv_b[0]:.3f} "
+            f"{dkv_b[1]}, {dkv_b[0] / dkv_ms:.0%}), dq kernel {dq_ms:.3f} ms "
+            f"({dq_ms / full_ms[1]:.3f} of {full_ms[1]:.3f}; plain "
+            f"{dq_plain:.3f}, bound {dq_b[0]:.3f} {dq_b[1]}, "
+            f"{dq_b[0] / dq_ms:.0%}); the pair {dkv_ms + dq_ms:.3f} ms vs "
+            f"scaled_dot_product_attention backward (dq, dk, dv together, "
+            f"boolean mask) {lib_ms:.3f} ms; {8 * HEAD_DIM * pairs / 1e9:.1f} "
+            f"/ {6 * HEAD_DIM * pairs / 1e9:.1f} GFLOP; {card}")
+        for i, (key, label, line, err, ms, plain_ms, (b_ms, b_by)) in \
+                enumerate((("dkv", "dk/dv", 796,
+                            max(plain_err["dk"], plain_err["dv"]), dkv_ms,
+                            dkv_plain, dkv_b),
+                           ("dq", "dq", 1146, plain_err["dq"], dq_ms,
+                            dq_plain, dq_b))):
+            rec = dict(
+                name=f"B5 flash attention backward {label}, query block "
+                     f"against the gathered keys ({kind})", route="cuda",
+                source="audio_tokens_tpu_torch/csrc/attention.cu",
+                replaces=f"jax/experimental/pallas/ops/tpu/"
+                         f"flash_attention.py:{line} (SegmentIds(q=, kv=) "
+                         f"of two lengths)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, full_window_ms=full_ms[i],
+                launches_by_path=launches[name][key])
+            if name == "float32":
+                rec["fma_bound_ms"] = fma[i]
+            records.append(rec)
+        del q, k, v, do, seg, o, lse, di, full, full_args, args, qb, dob
+        del leaves, out, mask
+        torch.cuda.empty_cache()
+
+
 def mp_report_check(dev, got: list, card: str) -> None:
     """(e): rank 0's reports on TP 2 and SP 2 (``got``, the ranks'
     results) against one process's on the same weights and batch."""
@@ -4907,7 +5243,11 @@ def mp_phase(records: list, dev, base: Path) -> None:
         if bad:
             raise AssertionError(f"phase 16 {case}: {err}")
     del one
+    bwd_launches = {d: {"dkv": {}, "dq": {}} for d in launches}
+    mp_flash_grad_check(records, dev, got, floor, card, launches,
+                        bwd_launches)
     b5_query_block(records, launches)
+    b5_query_block_bwd(records, bwd_launches)
     # (c) the batch-split entry points against one process
     ref = mp_serve(dev, None)
     for r, g in enumerate(got):

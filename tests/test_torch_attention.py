@@ -211,6 +211,93 @@ def test_plain_dkv_dq_match_library_kernels_on_three_segments(rng, layout):
                                    rtol=1e-5, err_msg=name)
 
 
+# a query block of T_Q rows (two JAX blocks' worth of keys: T_KV), rows
+# [lo, lo + T_Q) of the window, as a sequence rank holds them
+T_Q, T_KV = BLOCK, 2 * BLOCK
+
+
+@pytest.mark.parametrize("lo", [0, 128, 256])
+def test_plain_query_block_dkv_dq_match_library_kernels(rng, lo):
+    """``flash_attention_dkv_plain`` / ``flash_attention_dq_plain`` on a
+    query block (``kv_segment_ids``: T_Q query rows against T_KV keys) vs
+    the library's dk/dv and dq kernels called directly with
+    ``SegmentIds(q=seg[:, lo:lo + T_Q], kv=seg)``, 256-wide blocks (the
+    dk/dv kernel walks one query block for each of two key blocks, dq two
+    key blocks for its one query block); prefix lengths with a 0, one of
+    them inside the block.  f32, atol 1e-5."""
+    b, nh = 3, 2
+    q, k, v, do, seg = _inputs(rng, b, nh, T_KV, [T_KV, lo + 70, 0])
+    hi = lo + T_Q
+    q, do, seg_q = q[:, :, lo:hi], do[:, :, lo:hi], seg[:, lo:hi]
+    tq, tk, tv, tdo, tseg, tseg_q = (torch.from_numpy(np.ascontiguousarray(
+        a)) for a in (q, k, v, do, seg, seg_q))
+    same = tseg_q[:, None, :, None] == tseg[:, None, None, :]
+    s = (tq @ tk.transpose(-1, -2)) * SCALE + torch.where(
+        same, 0.0, DEFAULT_MASK_VALUE)
+    m = s.amax(-1)
+    l = torch.exp(s - m[..., None]).sum(-1)
+    o, lse = flash_attention_plain(tq, tk, tv, tseg_q, SCALE, True,
+                                   kv_segment_ids=tseg)
+    di = (o * tdo).sum(-1)
+    args = (tq, tk, tv, tseg_q, lse, tdo, di, SCALE, tseg)
+    got_dk, got_dv = flash_attention_dkv_plain(*args)
+    got_dq = flash_attention_dq_plain(*args)
+    assert got_dk.shape == got_dv.shape == tk.shape
+    assert got_dq.shape == tq.shape
+
+    segj = SegmentIds(q=jnp.asarray(seg_q), kv=jnp.asarray(seg))
+    common = dict(block_k_major=BLOCK, block_k=BLOCK, sm_scale=SCALE,
+                  causal=False, mask_value=DEFAULT_MASK_VALUE, debug=False)
+
+    def library(q, k, v, l, m, do, di):
+        dk, dv = _flash_attention_bwd_dkv(
+            q, k, v, None, segj, l, m, do, di, block_q_major=T_Q,
+            block_q=T_Q, **common)
+        dq, _ = _flash_attention_bwd_dq(
+            q, k, v, None, segj, l, m, do, di, block_q_major=T_Q, **common)
+        return dq, dk, dv
+
+    with interpret():
+        ref = jax.jit(library)(*(jnp.asarray(a.numpy()) for a in
+                                 (tq, tk, tv, l, m, tdo, di)))
+    for name, g, r in zip(("dq", "dk", "dv"), (got_dq, got_dk, got_dv), ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("split", [96, 128, 1], ids=["ragged", "tile", "row"])
+@pytest.mark.parametrize("layout", ["prefix", "thirds"])
+def test_query_blocks_gradients_sum_to_the_full_window(rng, split, layout):
+    """Autograd through ``flash_attention(..., kv_segment_ids=seg)`` on two
+    query blocks that cover the window (as two sequence ranks run it): each
+    block's dq is those rows of the full window's dq, and the blocks' dk
+    and dv summed are the full window's (the sum the keys' gather takes in
+    its backward).  f32, within 1e-6."""
+    b, nh, t = 3, 2, 200
+    q, k, v, do, seg = _inputs(rng, b, nh, t, [t, 64, 0])
+    if layout == "thirds":
+        seg = _three_segments(layout, b, t)
+    q, k, v, do, seg = (torch.from_numpy(a) for a in (q, k, v, do, seg))
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    full = torch.autograd.grad(flash_attention(*leaves, seg, SCALE), leaves,
+                               do)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for lo, hi in ((0, split), (split, t)):
+        leaves = [q[:, :, lo:hi].clone().requires_grad_(),
+                  k.clone().requires_grad_(), v.clone().requires_grad_()]
+        out = flash_attention(*leaves, seg[:, lo:hi].contiguous(), SCALE,
+                              kv_segment_ids=seg)
+        dq_b, dk_b, dv_b = torch.autograd.grad(out, leaves,
+                                               do[:, :, lo:hi])
+        assert dk_b.shape == k.shape and dq_b.shape == (b, nh, hi - lo, 64)
+        torch.testing.assert_close(dq_b, full[0][:, :, lo:hi], atol=1e-6,
+                                   rtol=1e-6)
+        dk += dk_b
+        dv += dv_b
+    torch.testing.assert_close(dk, full[1], atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(dv, full[2], atol=1e-6, rtol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["interleaved", "thirds"])
 def test_plain_forward_matches_library_kernel_on_three_segments(rng, layout,

@@ -954,17 +954,23 @@ def test_cuda_flash_forward_matches_plain(cuda_device, dtype, case):
 @pytest.mark.parametrize("rows", [(0, 64), (70, 131), (1, 2)])
 def test_cuda_flash_forward_query_block_matches_plain(cuda_device, dtype,
                                                       case, rows):
-    """B5 forward on a query block (a sequence rank's rows against every
-    key, ``kv_segment_ids``): its plain version, and the full window's
-    output rows; ragged blocks, one row."""
+    """B5 on a query block (a sequence rank's rows against every key,
+    ``kv_segment_ids``; ragged blocks, one row): the forward against its
+    plain version and the full window's output rows; the dk/dv and dq
+    kernels (dk, dv of every key, dq of the block's rows) against the
+    plain backward; autograd through ``flash_attention`` launching each
+    once, against the plain backward too."""
     from audio_tokens_tpu_torch.ops.cuda_attention import (
-        flash_attention, flash_attention_fwd, flash_attention_plain)
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_dkv_plain, flash_attention_dq_plain,
+        flash_attention_fwd, flash_attention_plain)
 
     b, nh, t, seg = FLASH_BWD_CASES[case]
-    q, k, v, _, prefix = _flash_inputs(cuda_device, b, nh, t, dtype)
+    q, k, v, do, prefix = _flash_inputs(cuda_device, b, nh, t, dtype)
     seg = prefix if seg is None else seg.to(cuda_device)
     lo, hi = rows
     qb, seg_q = q[:, :, lo:hi].contiguous(), seg[:, lo:hi].contiguous()
+    do = do[:, :, lo:hi].contiguous()
     ref_o, ref_lse = flash_attention_plain(qb, k, v, seg_q, 0.125, True,
                                            kv_segment_ids=seg)
     o, lse = flash_attention_fwd(qb, k, v, seg_q, 0.125, True,
@@ -973,9 +979,27 @@ def test_cuda_flash_forward_query_block_matches_plain(cuda_device, dtype,
     torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
     full = flash_attention_fwd(q, k, v, seg, 0.125)[0][:, :, lo:hi]
     assert torch.equal(o, full)
-    with pytest.raises(ValueError, match="ROADMAP A7.5"):
-        flash_attention(qb.requires_grad_(), k, v, seg_q, 0.125,
-                        kv_segment_ids=seg)
+    di = (ref_o.float() * do.float()).sum(-1)
+    args = (qb, k, v, seg_q, ref_lse, do, di, 0.125, seg)
+    got = (*flash_attention_bwd_dkv(*args), flash_attention_bwd_dq(*args))
+    want = (*flash_attention_dkv_plain(*args),
+            flash_attention_dq_plain(*args))
+    for name, g, r in zip(("dk", "dv", "dq"), got, want):
+        assert g.shape == r.shape and g.dtype == dtype, name
+        torch.testing.assert_close(g.float(), r.float(), **FLASH_TOL[dtype],
+                                   msg=name)
+    leaves = [a.clone().requires_grad_() for a in (qb, k, v)]
+    launches = (flash_attention_bwd_dkv.launches,
+                flash_attention_bwd_dq.launches)
+    grads = torch.autograd.grad(flash_attention(
+        *leaves, seg_q, 0.125, kv_segment_ids=seg), leaves, do)
+    assert (flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches) == (launches[0] + 1,
+                                                 launches[1] + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), grads,
+                          (want[2], want[0], want[1])):
+        torch.testing.assert_close(g.float(), r.float(), **FLASH_TOL[dtype],
+                                   msg=name)
 
 
 @pytest.mark.cuda

@@ -159,6 +159,35 @@ def test_flash_rules_equal_member_loop(dtype, shared_seg):
         _equal(vmap(bwd, in_dims=dims)(*args), _loop(bwd, args, dims))
 
 
+@pytest.mark.parametrize("shared_seg", [False, True])
+def test_flash_query_block_rules_equal_member_loop(shared_seg):
+    """The same on a query block (``kv_segment_ids``: the last rows of the
+    window against every key, as a sequence rank runs it): the forward
+    and the backward pair, the keys' segment ids folded as the queries'."""
+    q, k, v, seg = _flash_inputs(torch.float32, 70)
+    lo = T_ATT // 2
+    qb, seg_q = q[..., lo:, :].contiguous(), seg[..., lo:].contiguous()
+    sd = 0
+    if shared_seg:
+        seg, seg_q, sd = seg[1], seg_q[1], None
+
+    def fwd(q_, k_, v_, s_, kv_):
+        return torch.ops.atk.flash_fwd(q_, k_, v_, s_, 0.125, True, kv_)
+
+    args, dims = (qb, k, v, seg_q, seg), (0, 0, 0, sd, sd)
+    _equal(vmap(fwd, in_dims=dims)(*args), _loop(fwd, args, dims))
+    _, lse = vmap(fwd, in_dims=dims)(*args)
+    do = _rand(K, B, NH, T_ATT - lo, DH, seed=42)
+    di = _rand(K, B, NH, T_ATT - lo, seed=43)
+    args = (qb, k, v, seg_q, lse, do, di, seg)
+    dims = (0, 0, 0, sd, 0, 0, 0, sd)
+    for op in (torch.ops.atk.flash_bwd_dkv, torch.ops.atk.flash_bwd_dq):
+        def bwd(*a, op=op):
+            return op(*a[:7], 0.125, a[7])
+
+        _equal(vmap(bwd, in_dims=dims)(*args), _loop(bwd, args, dims))
+
+
 def _lstm_members(seed_base=0):
     cfg = AudioTokensConfig(model_type="lstm", vocab_size=13, num_classes=5,
                             lstm_embed_dim=6, lstm_hidden_dim=H,

@@ -8,9 +8,13 @@ and against one process of the port, on the same inputs:
      gathered keys) against the unsharded JAX ``TransformerClassifier``
      (1e-5, JAX ``tests/test_sequence_parallel.py:135-156``), the loss's
      gradients, summed over the mesh's replica group and joined over the
-     model ranks, against JAX's (rtol 1e-4, atol 1e-6, ``:91-133``); with
-     dropout 0.1 in training mode, logits and gradients against one
-     process of the port (the same masks); under ``remat`` (each block
+     model ranks, against JAX's (rtol 1e-4, atol 1e-6, ``:91-133``); the
+     same on B5's route in eval mode (the query block's backward: dq of
+     the rank's rows, its share of dk and dv summed by the gather's
+     backward), with and without lengths and under ``remat``, against
+     JAX's deterministic gradients; with dropout 0.1 in training mode,
+     logits and gradients against one process of the port (the same
+     masks); under ``remat`` (each block
      recomputed in the backward, its collectives replayed there), without
      dropout against JAX and with dropout 0.1 against one process, each
      also against the sharded run without remat;
@@ -182,6 +186,16 @@ def _rank_main(port: str, rank: int, world: int, out: Path) -> None:
             mesh.replica.all_reduce_(g)
         res[tag] = dict(logits=logits, grads=tp_gather(mesh, grads,
                                                        m.tp_specs))
+    # the B5 route's gradient in eval mode (its plain version on the CPU)
+    for tag, remat, ln in (("a_flash_grads", False, None),
+                           ("a_flash_grads_lengths", False, lengths),
+                           ("a_flash_remat", True, None)):
+        m = _port_model(inp["state"], "flash", remat=remat).shard_(mesh)
+        logits, grads = _step(m.eval(), x, ln, labels)
+        for g in grads.values():
+            mesh.replica.all_reduce_(g)
+        res[tag] = dict(logits=logits, grads=tp_gather(mesh, grads,
+                                                       m.tp_specs))
     cfgs = {k: AudioTokensConfig(**v) for k, v in json.loads(
         (out / "configs.json").read_text()).items()}
     # B. ModelTrainer, data 2 x sequence 2
@@ -250,8 +264,8 @@ def _jax_inputs(out: Path) -> dict:
 
 
 def _jax_references(inputs: dict) -> dict:
-    """The JAX module's logits (with and without lengths) and the loss's
-    gradients, unsharded."""
+    """The JAX module's logits and the loss's gradients, with and without
+    lengths, unsharded."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -262,17 +276,19 @@ def _jax_references(inputs: dict) -> dict:
     params, x = inputs["params"], jnp.asarray(inputs["tokens"])
 
     @jax.jit
-    def loss_fn(p, y):
-        logits = model.apply({"params": p}, x, deterministic=True)
+    def loss_fn(p, y, ln):
+        logits = model.apply({"params": p}, x, lengths=ln, deterministic=True)
         return optax.sigmoid_binary_cross_entropy(logits, y).mean()
 
     apply = jax.jit(lambda ln: model.apply({"params": params}, x, lengths=ln,
                                            deterministic=True))
-    grads = jax.jit(jax.grad(loss_fn))(params, jnp.asarray(inputs["labels"]))
+    grad = jax.jit(jax.grad(loss_fn))
+    y, ln = jnp.asarray(inputs["labels"]), jnp.asarray(inputs["lengths"])
     return dict(logits=np.asarray(apply(None)),
-                logits_lengths=np.asarray(apply(jnp.asarray(
-                    inputs["lengths"]))),
-                grads=bert_state_dict(jax.device_get(grads)))
+                logits_lengths=np.asarray(apply(ln)),
+                grads=bert_state_dict(jax.device_get(grad(params, y, None))),
+                grads_lengths=bert_state_dict(jax.device_get(
+                    grad(params, y, ln))))
 
 
 def _jax_report_inputs(out: Path, cfg) -> dict:
@@ -378,6 +394,26 @@ def test_tp_sp_gradients_match_the_jax_module(mp):
     want = mp["jax"]["grads"]
     for r, got in enumerate(mp["got"]):
         grads = got["a_grads"]["grads"]
+        assert set(grads) == set(want)
+        for name, g in grads.items():
+            _close(g, want[name], f"rank {r} {name}", GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", ["a_flash_grads", "a_flash_grads_lengths",
+                                  "a_flash_remat"])
+def test_tp_sp_flash_route_gradients_match_the_jax_module(mp, case):
+    """Eval mode on B5's route: each sequence rank's query block against
+    the gathered keys, B5's backward on that block (dq of its rows, its
+    share of dk and dv, summed over the sequence ranks by the gather's
+    backward); with lengths, and each block recomputed under ``remat``.
+    Logits and the joined gradients against JAX's deterministic ones."""
+    lengths = case.endswith("lengths")
+    want = mp["jax"]["grads_lengths" if lengths else "grads"]
+    want_logits = mp["jax"]["logits_lengths" if lengths else "logits"]
+    for r, got in enumerate(mp["got"]):
+        _close(got[case]["logits"], want_logits, f"rank {r} logits",
+               LOGIT_TOL)
+        grads = got[case]["grads"]
         assert set(grads) == set(want)
         for name, g in grads.items():
             _close(g, want[name], f"rank {r} {name}", GRAD_TOL)
