@@ -340,8 +340,9 @@ class AudioTokensConfig:
     # falling back to the pure-python reader.
     audio_backend: str = "auto"
 
-    # Observability: when set, stages run under jax.profiler.trace writing
-    # TensorBoard/Perfetto timelines to this directory.
+    # Observability: when set, stages run under torch.profiler
+    # (utils/profiling.maybe_trace), one Chrome/Perfetto trace a call in this
+    # directory, carrying the layers' atk/ spans.
     profile_dir: str = ""
 
     # Stage resumability: the reference wipes stage output dirs on every run

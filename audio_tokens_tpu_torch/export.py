@@ -65,6 +65,7 @@ from audio_tokens_tpu_torch.ops.mel import decode_wire
 from audio_tokens_tpu_torch.parallel.mesh import data_axis
 from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 from audio_tokens_tpu_torch.train.checkpoint import load_params
+from audio_tokens_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -96,39 +97,45 @@ class ServingModule(nn.Module):
     def forward(self, padded_batch: torch.Tensor, lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         cfg = self.config
-        padded_batch = decode_wire(padded_batch)
-        # clamp before any consumer: normalized()'s valid-frame mask would
-        # otherwise count padding frames for clips longer than the window
-        lengths = torch.clamp(lengths.to(torch.int32), max=cfg.clip_samples)
-        norm_lengths = lengths if cfg.normalize else None
-        tokens = self.tokenizer._tokens_dispatch(padded_batch, norm_lengths)
-        n_valid = self.tokenizer.frontend.frame_counts(lengths)
-        T = cfg.max_seq_len
-        seq_lens = torch.clamp(n_valid, max=T)
-        if self.input_kind == "tokens":
-            frames_max = tokens.shape[1]
-            if frames_max >= T:
-                x = tokens[:, :T]
+        with span("serve.tokenize"):
+            padded_batch = decode_wire(padded_batch)
+            # clamp before any consumer: normalized()'s valid-frame mask
+            # would otherwise count padding frames for clips longer than the
+            # window
+            lengths = torch.clamp(lengths.to(torch.int32),
+                                  max=cfg.clip_samples)
+            norm_lengths = lengths if cfg.normalize else None
+            tokens = self.tokenizer._tokens_dispatch(padded_batch,
+                                                     norm_lengths)
+            n_valid = self.tokenizer.frontend.frame_counts(lengths)
+        with span("serve.classify"):
+            T = cfg.max_seq_len
+            seq_lens = torch.clamp(n_valid, max=T)
+            if self.input_kind == "tokens":
+                frames_max = tokens.shape[1]
+                if frames_max >= T:
+                    x = tokens[:, :T]
+                else:
+                    x = F.pad(tokens, (0, T - frames_max))
+                # zero (= pad token, reference compat) past each clip's frames
+                pos = torch.arange(T, device=tokens.device)[None, :]
+                x = torch.where(pos < seq_lens[:, None], x, 0)
             else:
-                x = F.pad(tokens, (0, T - frames_max))
-            # zero (= pad token, reference compat) beyond each clip's frames
-            pos = torch.arange(T, device=tokens.device)[None, :]
-            x = torch.where(pos < seq_lens[:, None], x, 0)
-        else:
-            frontend = self.tokenizer.frontend
-            if cfg.normalize:
-                mel = frontend.normalized(padded_batch, lengths).transpose(1, 2)
-            else:
-                mel = frontend.mel_frames(padded_batch)  # (B, T', M)
-            b, t, m = mel.shape
-            # every frame of the window, valid or not, as Predictor copies
-            # them; zero frames past the window's end
-            x = mel[:, :T] if t >= T else F.pad(mel, (0, 0, 0, T - t))
-            if self.input_kind == "flat":
-                x = x.reshape(b, T * m)
-        logits = self.model(
-            x, lengths=None if cfg.reference_compat else seq_lens)
-        return tokens, n_valid, torch.sigmoid(logits)
+                frontend = self.tokenizer.frontend
+                if cfg.normalize:
+                    mel = frontend.normalized(padded_batch,
+                                              lengths).transpose(1, 2)
+                else:
+                    mel = frontend.mel_frames(padded_batch)  # (B, T', M)
+                b, t, m = mel.shape
+                # every frame of the window, valid or not, as Predictor copies
+                # them; zero frames past the window's end
+                x = mel[:, :T] if t >= T else F.pad(mel, (0, 0, 0, T - t))
+                if self.input_kind == "flat":
+                    x = x.reshape(b, T * m)
+            logits = self.model(
+                x, lengths=None if cfg.reference_compat else seq_lens)
+            return tokens, n_valid, torch.sigmoid(logits)
 
 
 class ServingProgram:
@@ -188,8 +195,10 @@ class ServingProgram:
     @torch.inference_mode()
     def serve(self, padded_batch: torch.Tensor, lengths: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return self.module(padded_batch.to(self.device),
-                           lengths.to(self.device))
+        with span("serve.h2d"):
+            padded_batch = padded_batch.to(self.device)
+            lengths = lengths.to(self.device)
+        return self.module(padded_batch, lengths)
 
     def __call__(self, padded_batch, lengths):
         return self.serve(padded_batch, lengths)
@@ -226,15 +235,17 @@ class ServingProgram:
         return out, probs.cpu().numpy()
 
 
-def _graph_ops(program: torch.export.ExportedProgram) -> list:
-    """Sorted names of the ``atk::`` custom ops anywhere in the program's
-    graphs (a scan's body included)."""
+def _graph_ops(program: torch.export.ExportedProgram,
+               namespace: str = "atk::") -> list:
+    """Sorted names of the ops of ``namespace`` (the ``atk::`` custom ops,
+    or the ``profiler::`` ops a traced span would leave) anywhere in the
+    program's graphs (a scan's body included)."""
     names = set()
     for module in program.graph_module.modules():
         if isinstance(module, torch.fx.GraphModule):
             for node in module.graph.nodes:
                 schema = getattr(node.target, "_schema", None)
-                if schema is not None and schema.name.startswith("atk::"):
+                if schema is not None and schema.name.startswith(namespace):
                     names.add(schema.name)
     return sorted(names)
 
@@ -265,6 +276,9 @@ def export_serving(config: AudioTokensConfig, out_dir, batch_size: int = 64,
     custom_ops = _graph_ops(program)
     if portable and custom_ops:
         raise AssertionError(f"a portable program holds {custom_ops}")
+    if _graph_ops(program, "profiler::"):  # spans stay out of the program
+        raise AssertionError(f"the program holds "
+                             f"{_graph_ops(program, 'profiler::')}")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.export.save(program, out_dir / PROGRAM_NAME)

@@ -82,7 +82,7 @@ import torch
 from audio_tokens_tpu_torch.ops.cuda_kmeans import SEGMENT_BLOCK, tier_sums64
 from audio_tokens_tpu_torch.ops.cuda_vq import vq_argmin
 from audio_tokens_tpu_torch.ops.tiers import tier_operands
-from audio_tokens_tpu_torch.utils.profiling import WIRE
+from audio_tokens_tpu_torch.utils.profiling import WIRE, span
 
 logger = logging.getLogger(__name__)
 
@@ -160,11 +160,13 @@ def _lloyd_stats(x: torch.Tensor, centroids: torch.Tensor,
     and the assignment's summed score ``sum_i ||c_a(i)||^2 - 2
     x_i.c_a(i)`` (f64; the ``||x||^2`` term is added once by the caller)."""
     k = centroids.shape[0]
-    ids = assign(x, centroids, tier)
-    parts = tier_sums64(x, ids, k, tier)
-    counts = torch.bincount(ids, minlength=k).to(torch.float32)
-    return (parts.sum(0).to(torch.float32), counts,
-            _score(centroids, parts, counts, tier))
+    with span("lloyd.assign"):
+        ids = assign(x, centroids, tier)
+    with span("lloyd.sums"):
+        parts = tier_sums64(x, ids, k, tier)
+        counts = torch.bincount(ids, minlength=k).to(torch.float32)
+        return (parts.sum(0).to(torch.float32), counts,
+                _score(centroids, parts, counts, tier))
 
 
 def _sum_squares(x: torch.Tensor, chunk: int = SUM_CHUNK) -> torch.Tensor:
@@ -206,12 +208,17 @@ def _lloyd_loop(x: torch.Tensor, centroids: torch.Tensor, niter: int,
                 ) -> Tuple[torch.Tensor, float]:
     """niter Lloyd iterations at the tier -> (centroids, the last
     assignment's objective; 0.0 for niter 0)."""
-    x2 = _sum_squares(x)
+    with span("kmeans.objective"):
+        x2 = _sum_squares(x)
     obj = None
     for _ in range(niter):
-        sums, counts, score = _lloyd_stats(x, centroids, tier)
-        centroids, obj = _update(centroids, sums, counts, empty_policy), score
-    return centroids, 0.0 if obj is None else float(obj + x2)
+        sums, counts, obj = _lloyd_stats(x, centroids, tier)
+        with span("lloyd.update"):
+            centroids = _update(centroids, sums, counts, empty_policy)
+    if obj is None:
+        return centroids, 0.0
+    with span("kmeans.objective"):
+        return centroids, float(obj + x2)
 
 
 def _update(centroids: torch.Tensor, sums: torch.Tensor, counts: torch.Tensor,
@@ -411,11 +418,14 @@ def _stats_accum(x: torch.Tensor, fill: int, centroids: torch.Tensor,
     if x.dtype != torch.float32:
         x = x.float()
     sums, counts, x2 = acc
-    ids = assign(x, centroids, tier)
-    sums += tier_sums64(x, ids, centroids.shape[0], tier)
-    counts += torch.bincount(ids, minlength=centroids.shape[0])
+    with span("lloyd.assign"):
+        ids = assign(x, centroids, tier)
+    with span("lloyd.sums"):
+        sums += tier_sums64(x, ids, centroids.shape[0], tier)
+        counts += torch.bincount(ids, minlength=centroids.shape[0])
     if x2 is not None:
-        x2 += _sum_squares(x)
+        with span("kmeans.objective"):
+            x2 += _sum_squares(x)
 
 
 class _SuperbatchFeeder:
@@ -894,14 +904,17 @@ def kmeans_fit_streaming(
                     if t is not None:
                         group.all_reduce_(t)
             parts64, counts64, x2 = acc
-            if x2 is not None:
-                x2_total = float(x2)
             sums = parts64.sum(0).to(torch.float32)
             counts = counts64.to(torch.float32)
-            obj = float(_score(centroids, parts64, counts, tier) + x2_total)
+            with span("kmeans.objective"):
+                if x2 is not None:
+                    x2_total = float(x2)
+                obj = float(_score(centroids, parts64, counts, tier)
+                            + x2_total)
             if from_hbm:  # no feed, no wire: the iteration is device work
                 WIRE.device_add(time.perf_counter() - t_iter)
-            centroids = _update(centroids, sums, counts, empty_policy)
+            with span("lloyd.update"):
+                centroids = _update(centroids, sums, counts, empty_policy)
             logger.info(
                 "streaming kmeans iter %d/%d: %d pts, obj=%.4f (%.2fs, "
                 "waiting on stream %.3fs%s)", it + 1, niter, n_total, obj,

@@ -60,7 +60,7 @@ from audio_tokens_tpu_torch.data.datasets import pack_features_row
 from audio_tokens_tpu_torch.train.objective import weighted_bce
 from audio_tokens_tpu_torch.utils.device_metrics import (
     binned_map_init, binned_map_result, binned_map_update, macro_map_device)
-from audio_tokens_tpu_torch.utils.profiling import WIRE
+from audio_tokens_tpu_torch.utils.profiling import WIRE, span
 
 logger = logging.getLogger(__name__)
 
@@ -310,18 +310,20 @@ class DeviceEpochRunner:
         if n_steps <= 0:
             return step, float("nan"), {"mAP": 0.0}
         b = c.batch_size
-        order = epoch_permutation(c, self.config.random_seed, epoch,
-                                  self.device)[:n_steps * b]
-        rows, bl = self._local_rows(order, n_steps, b)
-        valid_all = order < c.n_real
-        valid = valid_all if rows is order else rows < c.n_real
-        denoms = self._denominators(valid_all, n_steps, b)
-        add, result = self._metric(n_steps, bl)
+        with span("epoch.order"):
+            order = epoch_permutation(c, self.config.random_seed, epoch,
+                                      self.device)[:n_steps * b]
+            rows, bl = self._local_rows(order, n_steps, b)
+            valid_all = order < c.n_real
+            valid = valid_all if rows is order else rows < c.n_real
+            denoms = self._denominators(valid_all, n_steps, b)
+            add, result = self._metric(n_steps, bl)
         self.trainer.model.train()
         with WIRE.device():  # the epoch's steps + the two-scalar read
             if self.materialize_train:
-                src = [t.index_select(0, rows)
-                       for t in (c.inputs, c.lengths, c.labels)]
+                with span("epoch.order"):
+                    src = [t.index_select(0, rows)
+                           for t in (c.inputs, c.lengths, c.labels)]
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=self.device)
             for i in range(n_steps):
@@ -338,13 +340,14 @@ class DeviceEpochRunner:
                     None if denoms is None else denoms[i])
                 loss_sum += loss
                 add(i, probs, y, row_w)
-            if self.trainer.dp is not None:
-                self.trainer.dp.all_reduce_(loss_sum)
-            labels = (src[2] if self.materialize_train
-                      and self.trainer.dp is None
-                      else c.labels.index_select(0, order))
-            loss, m = read_scalars(loss_sum / n_steps,
-                                   result(labels, valid_all))
+            with span("epoch.read"):
+                if self.trainer.dp is not None:
+                    self.trainer.dp.all_reduce_(loss_sum)
+                labels = (src[2] if self.materialize_train
+                          and self.trainer.dp is None
+                          else c.labels.index_select(0, order))
+                loss, m = read_scalars(loss_sum / n_steps,
+                                       result(labels, valid_all))
         return step + n_steps, loss, {"mAP": m}
 
     def eval_epoch(self) -> Tuple[float, Dict[str, float]]:

@@ -80,6 +80,7 @@ from audio_tokens_tpu_torch.train.objective import model_inputs, weighted_bce
 from audio_tokens_tpu_torch.train.trainer import check_options
 from audio_tokens_tpu_torch.utils.device_metrics import (class_ap_device,
                                                          macro_of)
+from audio_tokens_tpu_torch.utils.profiling import span
 from audio_tokens_tpu_torch.utils.seeding import (generator_for, set_seed,
                                                   stage_seed)
 
@@ -353,11 +354,14 @@ class EnsembleTrainer:
             idx = rows[sl]
             inputs, lengths, y = (t.index_select(0, idx) for t in (
                 c.inputs, c.lengths, c.labels))
-            losses, logits = self._forward(params, inputs, lengths, y,
-                                           valid[sl].float(),
-                                           self._step_generators(step + i))
-            losses.sum().backward()
-            self._adamw(params, opt_state)
+            with span("train.forward"):
+                losses, logits = self._forward(
+                    params, inputs, lengths, y, valid[sl].float(),
+                    self._step_generators(step + i))
+            with span("train.backward"):
+                losses.sum().backward()
+            with span("train.optimizer"):
+                self._adamw(params, opt_state)
             loss_sum += losses.detach()
             preds[:, sl] = torch.sigmoid(logits.detach())
         losses, preds = self._members(loss_sum / n_steps, preds)

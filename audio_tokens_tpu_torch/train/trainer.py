@@ -94,7 +94,7 @@ from audio_tokens_tpu_torch.train.device_epoch import (DeviceEpochRunner,
 from audio_tokens_tpu_torch.train.objective import (model_inputs,
                                                     weighted_bce)
 from audio_tokens_tpu_torch.utils.metrics import ExactMAP, StreamingMAP
-from audio_tokens_tpu_torch.utils.profiling import WIRE
+from audio_tokens_tpu_torch.utils.profiling import WIRE, span
 from audio_tokens_tpu_torch.utils.seeding import (generator_for, set_seed,
                                                   stage_seed)
 
@@ -582,13 +582,16 @@ class Trainer:
         parallelism ``denom`` is the global batch's denominator: the loss
         is this rank's share of the global mean, and the gradients are
         summed over the ranks before the update."""
-        logits = self._logits(inputs, lengths, step)
-        loss = weighted_bce(logits, labels, row_w, denom)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.grad_group is not None:
-            self.grad_group.all_reduce_grads(self.model.parameters())
-        self.optimizer.step()
+        with span("train.forward"):
+            logits = self._logits(inputs, lengths, step)
+            loss = weighted_bce(logits, labels, row_w, denom)
+        with span("train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if self.grad_group is not None:
+                self.grad_group.all_reduce_grads(self.model.parameters())
+        with span("train.optimizer"):
+            self.optimizer.step()
         return loss.detach(), torch.sigmoid(logits.detach())
 
     def _train_epoch(self, loader: BatchLoader, epoch: int, step: int):

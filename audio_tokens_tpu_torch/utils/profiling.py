@@ -8,7 +8,10 @@ Counterpart of ``audio_tokens_tpu/utils/profiling.py``:
     host<->card link and the seconds of its device-resident sections,
     which ``tools/scale_run.py`` reads around each stage;
   * ``maybe_trace``: with a ``profile_dir``, the stage under
-    ``torch.profiler.profile``, one Chrome/Perfetto trace a call.
+    ``torch.profiler.profile``, one Chrome/Perfetto trace a call;
+  * ``span``: a ``record_function`` range ``atk/<name>`` around one layer
+    of a hot path (serving, the training step, the Lloyd iteration) while
+    a profiler session is active, nothing otherwise.
 """
 
 from __future__ import annotations
@@ -26,6 +29,25 @@ from typing import Iterator, Optional
 import torch
 
 logger = logging.getLogger(__name__)
+
+
+SPAN_PREFIX = "atk/"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The range ``atk/<name>`` (``torch.profiler.record_function``) while a
+    ``torch.profiler`` session is active in the process, else one shared
+    ``nullcontext``: with no profiler a span costs a flag's read, where a
+    ``record_function`` costs ~14 us on the CPU.  Under ``torch.export`` or
+    ``torch.compile`` it is the ``nullcontext`` too, so no profiler op
+    enters a traced graph.  A session's trace (``maybe_trace``, the
+    benchmark's traced runs) carries the spans beside the device records
+    they launched; ``tools/span_report.py`` charges those to them."""
+    if (not torch.autograd.profiler._is_profiler_enabled
+            or torch.compiler.is_compiling()):
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 class StageTimer:

@@ -171,6 +171,25 @@ def test_round_trip_equals_live_program(workspace, family, portable,
 
 
 @pytest.mark.parametrize("portable", [False, True])
+def test_export_under_a_profiler_holds_no_span(workspace, tmp_path,
+                                               portable):
+    """Exported while a profiler session records: no span opens while
+    ``torch.export`` traces, the program holds no ``profiler::`` op
+    (``export_serving`` refuses one) and the same ops as without it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    configs, artifact = workspace
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = export_serving(configs["lstm"][1], tmp_path / "traced",
+                             batch_size=BATCH, portable=portable,
+                             device="cpu")
+    assert not [e.name for e in prof.events() if e.name.startswith("atk/")]
+    program = torch.export.load(out / export.PROGRAM_NAME)
+    assert export._graph_ops(program, "profiler::") == []
+    assert _atk_nodes(out) == _atk_nodes(artifact("lstm", portable))
+
+
+@pytest.mark.parametrize("portable", [False, True])
 def test_tiered_program_round_trips(workspace, tmp_path, portable):
     """A program at the bf16 tiers (``tokenizer_precision`` bf16x3,
     ``tokenizer_vq_precision`` default): in kernel form the tiers and the
