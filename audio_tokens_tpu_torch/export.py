@@ -42,7 +42,9 @@ returns the callable program and the manifest.  From a shell:
         <config flags>
 
 ``ServingProgram.serve_sharded`` splits a batch over the ranks of a mesh
-(one process a card) and gathers the answers.
+(one process a card) and gathers the answers.  ``serve`` moves a client's
+host rows to the card through ``utils/staging.HostStager``; its counts are
+``ServingProgram.h2d_stats``.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from audio_tokens_tpu_torch.parallel.mesh import data_axis
 from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
 from audio_tokens_tpu_torch.train.checkpoint import load_params
 from audio_tokens_tpu_torch.utils.profiling import span
+from audio_tokens_tpu_torch.utils.staging import HostStager
 
 logger = logging.getLogger(__name__)
 
@@ -191,14 +194,28 @@ class ServingProgram:
         self.model = get_model(config, device, generator,
                                tokenizer.use_kernels).eval()
         self.module = ServingModule(config, tokenizer, self.model).eval()
+        self._stager = HostStager(device)
+
+    @property
+    def h2d_stats(self):
+        """The input copy's counts (``utils/staging.H2DStats``): batches
+        staged, direct and bypassed, chunks and bytes staged, slot waits."""
+        return self._stager.stats
 
     @torch.inference_mode()
     def serve(self, padded_batch: torch.Tensor, lengths: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """A pageable batch reaches a CUDA program through
+        ``utils/staging``'s pinned slots, filled by host threads while the
+        filled chunks go to the card; a pinned one by one copy.  The
+        client's tensor has been read when ``serve`` returns."""
         with span("serve.h2d"):
-            padded_batch = padded_batch.to(self.device)
+            padded_batch, read = self._stager.to_device(padded_batch)
             lengths = lengths.to(self.device)
-        return self.module(padded_batch, lengths)
+        out = self.module(padded_batch, lengths)
+        if read is not None:
+            read.synchronize()
+        return out
 
     def __call__(self, padded_batch, lengths):
         return self.serve(padded_batch, lengths)

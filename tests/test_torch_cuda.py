@@ -7,6 +7,8 @@ card and no jax it runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1804,3 +1806,124 @@ def test_cuda_ensemble_epoch_runs_the_kernels_without_sync(cuda_device,
     for name, p in single.trainer.model.named_parameters():
         torch.testing.assert_close(member[name], p.detach(), rtol=1e-4,
                                    atol=1e-6, msg=name)
+
+
+# -- the serving program's input copy (utils/staging) ------------------------
+SERVE_CFG = dict(vocab_size=500, n_mels=64, n_fft=512, hop_length=128,
+                 clip_seconds=10.0, max_seq_len=1728, num_classes=7,
+                 compute_dtype="float32")
+SERVE_FAMILIES = {
+    "lstm": dict(model_type="lstm", lstm_embed_dim=32, lstm_hidden_dim=64),
+    "bert": dict(model_type="bert", hidden_size=128, num_layers=1,
+                 transformer_max_position=512,
+                 transformer_attention="flash")}
+_SERVING = {}
+
+
+def _serving(family, device):
+    """A program at the serving cells' clip length (a batch of 64 is 56.6
+    MB of f32 rows, several chunks), small classifier widths."""
+    if family not in _SERVING:
+        from audio_tokens_tpu_torch.config import AudioTokensConfig
+        from audio_tokens_tpu_torch.export import ServingProgram
+        from audio_tokens_tpu_torch.tokenizer import FusedTokenizer
+
+        cfg = AudioTokensConfig(**SERVE_CFG, **SERVE_FAMILIES[family])
+        _SERVING[family] = ServingProgram.from_components(
+            cfg, FusedTokenizer(cfg, _unit_rows(500, 64, 3).numpy(), device),
+            device=device)
+    return _SERVING[family]
+
+
+def _serve_rows(prog, batch, seed, wire="f32"):
+    """(batch, padded_len) waveform rows, some clips short, and lengths."""
+    cfg = prog.config
+    gen = torch.Generator().manual_seed(seed)
+    x = 0.3 * torch.randn((batch, prog.tokenizer.frontend.padded_len),
+                          generator=gen)
+    lengths = torch.full((batch,), cfg.clip_samples, dtype=torch.int32)
+    lengths[::3] = torch.randint(cfg.clip_samples // 5, cfg.clip_samples,
+                                 lengths[::3].shape, generator=gen,
+                                 dtype=torch.int32)
+    if wire == "i16":
+        x = (x * 20000).clamp(-32768, 32767).to(torch.int16)
+    return x, lengths
+
+
+def _served_equal(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rows", "row_view", "pinned"])
+@pytest.mark.parametrize("wire", ["f32", "i16"])
+@pytest.mark.parametrize("batch", [1, 64])
+@pytest.mark.parametrize("family", ["lstm", "bert"])
+def test_cuda_serve_is_bit_equal_to_the_plain_copy(cuda_device, family, batch,
+                                                   wire, layout):
+    """``serve``'s tokens, n_valid and probs are bit-equal to the module on
+    ``padded.to(device)``: a pageable batch through the pinned ring (whole,
+    or every other row of a larger one: a non-contiguous view), a pinned
+    one by its one copy."""
+    from audio_tokens_tpu_torch.utils.staging import stage_plan
+
+    prog = _serving(family, cuda_device)
+    x, lengths = _serve_rows(prog, 2 * batch if layout == "row_view"
+                             else batch, batch, wire)
+    if layout == "row_view":
+        x, lengths = x[::2], lengths[::2]
+        assert batch == 1 or not x.is_contiguous()
+    if layout == "pinned":
+        x = x.pin_memory()
+    with torch.inference_mode():
+        want = prog.module(x.to(cuda_device), lengths.to(cuda_device))
+    before = dataclasses.replace(prog.h2d_stats)
+    got = prog.serve(x, lengths)
+    assert _served_equal(got, want)
+    stats = prog.h2d_stats
+    if layout == "pinned":
+        assert (stats.direct, stats.staged) == (before.direct + 1,
+                                                before.staged)
+    else:
+        st, row_bytes = prog._stager, x[0].numel() * x.element_size()
+        lo = stage_plan(batch, row_bytes, st.chunk_bytes, st.threads,
+                        st.slots)[0]
+        assert (stats.staged, stats.chunks, stats.bytes) == (
+            before.staged + 1, before.chunks + len(lo),
+            before.bytes + batch * row_bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["lstm", "bert"])
+def test_cuda_serve_has_read_the_client_rows_when_it_returns(cuda_device,
+                                                             family):
+    """The client overwrites its rows with noise the moment ``serve``
+    returns, before anything waits on the card: the outputs are still the
+    original rows'."""
+    prog = _serving(family, cuda_device)
+    x, lengths = _serve_rows(prog, 64, 7)
+    with torch.inference_mode():
+        want = prog.module(x.to(cuda_device), lengths.to(cuda_device))
+    for pinned in (False, True):
+        rows = x.pin_memory() if pinned else x.clone()
+        got = prog.serve(rows, lengths)
+        rows.normal_()
+        assert _served_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_back_to_back_rewrites_no_slot_under_a_copy(cuda_device):
+    """50 calls with no read in between, on two alternating buffers: every
+    answer is its buffer's, so no slot was refilled under a copy in
+    flight."""
+    prog = _serving("lstm", cuda_device)
+    pairs = [_serve_rows(prog, 64, s) for s in (11, 12)]
+    with torch.inference_mode():
+        want = [prog.module(x.to(cuda_device), n.to(cuda_device))
+                for x, n in pairs]
+    torch.cuda.synchronize()
+    before = dataclasses.replace(prog.h2d_stats)
+    outs = [prog.serve(*pairs[i % 2]) for i in range(50)]
+    for i, got in enumerate(outs):
+        assert _served_equal(got, want[i % 2]), i
+    assert prog.h2d_stats.staged == before.staged + 50
